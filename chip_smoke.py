@@ -11,22 +11,32 @@ Phases (each prints its elapsed seconds; any failure exits non-zero before
 the last line):
 
 1. device — the card's name and power limit (nvidia-smi) and the nvcc build
-   of every kernel under ``gdr_tpu_torch/csrc``;
+   of every kernel under ``gdr_tpu_torch/csrc`` (one nvcc per source, all
+   at once);
 2. kernel vs plain — each kernel against its plain PyTorch version on the
-   card, at the row counts the main path gives it (32, 992 and 3,200 rows
-   of t5-base: 32 queries × widths 1, 31, 100), in bf16 and f32, and the
-   packed scorer at the operating point; then its device time (CUDA-graph
-   replay) beside the plain version's and a cuBLAS/gather yardstick at
-   3,200 rows in bf16;
+   card: the decoder sublayers at the row counts the main path gives them
+   (32, 992 and 3,200 rows of t5-base: 32 queries × widths 1, 31, 100) in
+   bf16 and f32; the three re-rank scorers at 32 and 3,200 beams over
+   stores of the operating point's size (the packed bf16 / f32 store, the
+   int8 packed store with the query in bf16 and f32, the plain bf16 / f32
+   store with candidates from the bench trie's padded cluster table); then
+   each kernel's device time (CUDA-graph replay) beside the plain
+   version's and a library yardstick at 3,200 rows, and its bound;
 3. whole path, small — a small f32 model retrieves on the CPU (plain
-   versions) and on the card (kernels) from the same seeded weights: valid
-   doc ids equal, fused scores within 1e-4;
+   versions) and on the card (kernels) from the same seeded weights, on
+   the four store layouts (plain, packed, plain int8, packed int8): valid
+   doc ids equal, fused scores within 1e-4, int8 stores bit-equal,
+   ``evaluate`` metrics equal;
 4. whole path, full width — ``Evaluator.retrieve`` with t5-base in bf16
    (seeded random weights), beam 100, top-R 100, 32 queries × 40 tokens,
-   over a 334,314-doc packed store: launch counts (24 per decoder kernel,
-   1 scorer per retrieve), valid beams and doc ids, then timed retrieves;
-5. one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-   main path, max |Δ|, kernel / plain / library ms and its bound.
+   over a 334,314-doc store in three layouts (packed bf16, plain bf16,
+   packed int8): per layout the exact launch counts of one retrieve (24 per
+   decoder kernel, 1 of the layout's scorer, 0 of the others), valid beams
+   and doc ids, then timed retrieves; plain bf16 must return packed bf16's
+   top documents, and packed int8's store size and top-1 agreement with
+   packed bf16 are printed;
+5. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
+   layout's main path, max |Δ|, kernel / plain / library ms and its bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and gdr_tpu_torch only.
@@ -49,6 +59,9 @@ TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-5)}   # atol, rtol
 D, H, DKV, DFF, S, B = 768, 12, 64, 3072, 40, 32
 WIDTHS = (1, 31, 100)
 CAP = 32
+N_DOCS = 334_314             # the bench's NQ-scale corpus
+PACKED_ROWS = 356_632        # its packed layout (8-aligned blocks, cap 32)
+PACKED_ROWS_INT8 = 356_640   # its int8 packed layout (32-aligned blocks)
 
 
 def log(msg: str) -> None:
@@ -100,9 +113,7 @@ def _loop_ms(fn, n: int = 5) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def _bound_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
-    import torch
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+def _bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -120,11 +131,12 @@ def _close(name, got, want, dtype_name) -> float:
 
 # ------------------------------------------------------------ phase 2
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, trie) -> dict:
     import torch
 
     from gdr_tpu_torch.kernels import decode as KD
     from gdr_tpu_torch.kernels import rerank as KR
+    from gdr_tpu_torch.ops.quantize import quantize_store
 
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -187,6 +199,7 @@ def phase_kernels(dev) -> dict:
                     + lmax * H * 4 + D * 4
                 stats["self_attn_sublayer"] = dict(
                     err=e_self, flops=qkv_flops + core_flops, bytes=self_bytes,
+                    peak=H100_BF16_FLOPS,
                     ms=_time_ms(lambda: KD.self_attn_sublayer(
                         x, pos, scale, wqkv, wo, bias_row, ck, cv, heads=H,
                         d_kv=DKV)),
@@ -200,6 +213,7 @@ def phase_kernels(dev) -> dict:
                     + 2 * B * H * S * DKV * el + B * H * S * 4 + D * 4
                 stats["cross_attn_sublayer"] = dict(
                     err=e_cross, flops=cross_flops, bytes=cross_bytes,
+                    peak=H100_BF16_FLOPS,
                     ms=_time_ms(lambda: KD.cross_attn_sublayer(
                         x, scale, wcq, wco, cross_k, cross_v, cbias, w,
                         heads=H, d_kv=DKV)),
@@ -212,14 +226,17 @@ def phase_kernels(dev) -> dict:
                 stats["ffn_sublayer"] = dict(
                     err=e_ffn, flops=2 * 2 * r * D * DFF,
                     bytes=(2 * r * D + 2 * D * DFF) * el + D * 4,
+                    peak=H100_BF16_FLOPS,
                     ms=_time_ms(lambda: KD.ffn_sublayer(x, scale, wi, wo2)),
                     plain_ms=_time_ms(lambda: KD.ffn_sublayer_plain(
                         x, scale, wi, wo2)),
                     library_ms=_time_ms(lambda: (x @ wi.t(), hid @ wo2.t())))
 
-    # packed scorer at the operating point: 3,200 beams over the packed
-    # layout of a 334,314-doc store (356,632 rows incl. padding), cap 32
-    m = 356_632
+    # the scorers compute in f32 outside the tensor cores; each reads its
+    # rows once.  Packed scorer at the operating point: 3,200 beams over
+    # the packed layout of a 334,314-doc store (356,632 rows incl.
+    # padding), cap 32
+    m = PACKED_ROWS
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
         rows = rn(m, D, dtype=dtype)
@@ -242,15 +259,94 @@ def phase_kernels(dev) -> dict:
                 err=err, flops=2 * rows_main * CAP * D,
                 bytes=rows_main * CAP * D * rows.element_size()
                 + rows_main * D * 4 + rows_main * 4 + rows_main * CAP * 4,
+                peak=H100_F32_FLOPS,
                 ms=_time_ms(lambda: KR.packed_scores(rows, starts, q, CAP)),
                 plain_ms=_time_ms(lambda: KR.packed_scores_plain(
                     rows, starts, q, CAP), n=5),
                 library_ms=_time_ms(library, n=5))
         del rows
+
+    # int8 packed scorer (raw dots): the int8 packed layout of the same
+    # store (356,640 rows, 32-aligned starts), the query in the model dtype
+    m = PACKED_ROWS_INT8
+    values = quantize_store(rn(m, D)).values
+    for r in (B, rows_main):
+        starts = (torch.randint(0, (m - CAP) // 32 + 1, (r,), generator=g,
+                                device=dev) * 32).to(torch.int32)
+        errs = []
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            q = rn(r, D, std=0.05, dtype=dtype)
+            got = KR.packed_scores_int8(values, starts, q, CAP)
+            want = KR.packed_scores_int8_plain(values, starts, q, CAP)
+            err = _close(f"packed_scores_int8 q {dn} R={r}", got, want,
+                         "float32")
+            errs.append(err)
+            log(f"  {dn:8s} R={r:5d}  max|d| packed_scores_int8 {err:.3g}  "
+                f"(tol {TOL['float32'][0]} + {TOL['float32'][1]}·|plain|)")
+        if r == rows_main:
+            q = q.float()                  # timed without the wrapper's cast
+            idx = starts.long()[:, None] + torch.arange(CAP, device=dev)
+
+            def library():
+                return torch.bmm(values[idx].float(), q[:, :, None])
+
+            stats["packed_scores_int8"] = dict(
+                err=max(errs), flops=2 * r * CAP * D,
+                bytes=r * CAP * D + r * D * 4 + r * 4 + r * CAP * 4,
+                peak=H100_F32_FLOPS,
+                ms=_time_ms(lambda: KR.packed_scores_int8(values, starts, q,
+                                                          CAP)),
+                plain_ms=_time_ms(lambda: KR.packed_scores_int8_plain(
+                    values, starts, q, CAP), n=5),
+                library_ms=_time_ms(library, n=5))
+    del values
+
+    # gather scorer over the plain store: candidates from the bench trie's
+    # padded cluster table (cap 64) at random clusters; a masked slot is
+    # not read, so the bytes count the real documents of these clusters
+    c_docs = torch.as_tensor(trie.cluster_docs, device=dev)
+    c_mask = torch.as_tensor(trie.cluster_doc_mask, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        store = rn(N_DOCS, D, dtype=dtype)
+        for r in (B, rows_main):
+            cl = torch.randint(0, c_docs.shape[0], (r,), generator=g,
+                               device=dev)
+            docs, mask = c_docs[cl].contiguous(), c_mask[cl].contiguous()
+            q = rn(r, D, std=0.05)
+            got = KR.rerank_scores(store, docs, q, mask)
+            want = KR.rerank_scores_plain(store, docs, q, mask)
+            err = _close(f"rerank_scores {dn} R={r}", got, want, "float32")
+            log(f"  {dn:8s} R={r:5d}  max|d| rerank_scores {err:.3g}  "
+                f"(tol {TOL['float32'][0]} + {TOL['float32'][1]}·|plain|)")
+            if dtype == torch.bfloat16 and r == rows_main:
+                real = int(mask.sum())
+                cap = docs.shape[1]
+                docs_l, unmasked = docs.long(), ~mask
+                qb = q.to(dtype)[:, :, None]
+
+                def library():
+                    return torch.tanh(torch.bmm(store[docs_l], qb)
+                                      )[..., 0].masked_fill(unmasked, -1e9)
+
+                log(f"  rerank_scores: {real} real of {r * cap} candidate "
+                    f"rows ({real / r:.1f} per beam, cap {cap})")
+                stats["rerank_scores"] = dict(
+                    err=err, flops=2 * real * D,
+                    bytes=real * D * store.element_size() + r * cap * 4
+                    + r * cap + r * D * 4 + r * cap * 4,
+                    peak=H100_F32_FLOPS,
+                    ms=_time_ms(lambda: KR.rerank_scores(store, docs, q,
+                                                         mask)),
+                    plain_ms=_time_ms(lambda: KR.rerank_scores_plain(
+                        store, docs, q, mask), n=5),
+                    library_ms=_time_ms(library, n=5))
+        del store
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = _bound_ms(st["flops"], st["bytes"],
-                                                   torch.bfloat16)
-        log(f"  {name:20s} bf16 R=3200: kernel {st['ms']:.4f} ms, plain "
+                                                   st["peak"])
+        log(f"  {name:20s} R=3200: kernel {st['ms']:.4f} ms, plain "
             f"{st['plain_ms']:.4f} ms, library {st['library_ms']:.4f} ms, "
             f"bound {st['bound_ms']:.4f} ms ({st['bound_by']})")
     return stats
@@ -258,10 +354,18 @@ def phase_kernels(dev) -> dict:
 
 # ------------------------------------------------------------ phase 3
 
+# the store layouts of Evaluator: name → its keyword arguments
+SMALL_LAYOUTS = {"plain": {}, "packed": dict(packed=True),
+                 "plain int8": dict(quantize=True),
+                 "packed int8": dict(packed=True, quantize=True)}
+TIMER_KEYS = ("_total_s", "_mean_ms")
+
+
 def _small_world(seed: int):
     import numpy as np
 
     from gdr_tpu_torch.config import ModelConfig
+    from gdr_tpu_torch.eval.evaluator import EvalData
     from gdr_tpu_torch.ops.trie import build_trie
 
     cfg = ModelConfig(kary=4, max_output_length=5, d_model=64, d_kv=16,
@@ -281,7 +385,12 @@ def _small_world(seed: int):
     ids = rng.integers(2, 512, size=(3, 10)).astype(np.int32)
     mask = np.ones_like(ids)
     mask[1, 7:] = 0
-    return cfg, trie, store, ids, mask
+    cid_of = {d: cid for cid, docs in cid_to_docs.items() for d in docs}
+    gt = [rng.choice(doc, size=12, replace=False) for _ in ids]
+    data = EvalData(input_ids=ids, attn_mask=mask,
+                    gt_docs=[[str(d) for d in g] for g in gt],
+                    gt_cids=[sorted({cid_of[int(d)] for d in g}) for g in gt])
+    return cfg, trie, store, ids, mask, data
 
 
 def phase_small(dev) -> None:
@@ -291,7 +400,7 @@ def phase_small(dev) -> None:
     from gdr_tpu_torch.eval.evaluator import Evaluator
     from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
 
-    cfg, trie, store, ids, mask = _small_world(0)
+    cfg, trie, store, ids, mask, data = _small_world(0)
     ev_cfg = EvalConfig(num_beams=12, num_return_sequences=20,
                         max_output_length=cfg.max_output_length)
     cpu_model = init_weights(GenerativeRetriever(cfg),
@@ -299,28 +408,46 @@ def phase_small(dev) -> None:
     gpu_model = GenerativeRetriever(cfg)
     gpu_model.load_state_dict(cpu_model.state_dict())
     gpu_model = gpu_model.to(dev).eval()
-    out = {}
-    for name, model in (("cpu", cpu_model), ("gpu", gpu_model)):
-        ev = Evaluator(model, trie, store, ev_cfg, packed=True)
-        res, rr = ev.retrieve(ids, mask)
-        out[name] = (res, rr)
-    (res_c, rr_c), (res_g, rr_g) = out["cpu"], out["gpu"]
-    valid = res_c.valid.cpu()
-    if not torch.equal(valid, res_g.valid.cpu()):
-        raise Failed("small path: beam validity differs between cpu and gpu")
-    if not torch.equal(res_c.nodes.cpu()[valid], res_g.nodes.cpu()[valid]):
-        raise Failed("small path: beam nodes differ between cpu and gpu")
-    dv = rr_c.doc_valid.cpu()
-    if not torch.equal(dv, rr_g.doc_valid.cpu()):
-        raise Failed("small path: doc validity differs between cpu and gpu")
-    if not torch.equal(rr_c.doc_ids.cpu()[dv], rr_g.doc_ids.cpu()[dv]):
-        raise Failed("small path: doc ids differ between cpu and gpu")
-    err = (rr_c.scores.cpu()[dv] - rr_g.scores.cpu()[dv]).abs().max().item()
-    if not err <= 1e-4:
-        raise Failed(f"small path: fused scores differ by {err:.3g} > 1e-4")
-    log(f"  f32 d=64: {int(valid.sum())} valid beams, {int(dv.sum())} valid "
-        f"docs equal on cpu and gpu; max |d| fused score {err:.3g} "
-        f"(tol 1e-4)")
+    for layout, kw in SMALL_LAYOUTS.items():
+        ev_c = Evaluator(cpu_model, trie, store, ev_cfg, **kw)
+        ev_g = Evaluator(gpu_model, trie, store, ev_cfg, **kw)
+        if kw.get("quantize"):
+            for part in ("values", "scales"):
+                if not torch.equal(getattr(ev_c.store, part),
+                                   getattr(ev_g.store, part).cpu()):
+                    raise Failed(f"small {layout}: int8 store {part} differ "
+                                 f"between cpu and gpu")
+        res_c, rr_c = ev_c.retrieve(ids, mask)
+        res_g, rr_g = ev_g.retrieve(ids, mask)
+        valid = res_c.valid.cpu()
+        if not torch.equal(valid, res_g.valid.cpu()):
+            raise Failed(f"small {layout}: beam validity differs between cpu "
+                         f"and gpu")
+        if not torch.equal(res_c.nodes.cpu()[valid],
+                           res_g.nodes.cpu()[valid]):
+            raise Failed(f"small {layout}: beam nodes differ between cpu and "
+                         f"gpu")
+        dv = rr_c.doc_valid.cpu()
+        if not torch.equal(dv, rr_g.doc_valid.cpu()):
+            raise Failed(f"small {layout}: doc validity differs between cpu "
+                         f"and gpu")
+        if not torch.equal(rr_c.doc_ids.cpu()[dv], rr_g.doc_ids.cpu()[dv]):
+            raise Failed(f"small {layout}: doc ids differ between cpu and gpu")
+        err = (rr_c.scores.cpu()[dv] - rr_g.scores.cpu()[dv]).abs().max().item()
+        if not err <= 1e-4:
+            raise Failed(f"small {layout}: fused scores differ by {err:.3g} "
+                         f"> 1e-4")
+        m_c = ev_c.evaluate(data, batch_size=2)
+        m_g = ev_g.evaluate(data, batch_size=2)
+        drop = lambda m: {k: v for k, v in m.items()
+                          if not k.endswith(TIMER_KEYS)}
+        if set(m_c) != set(m_g) or drop(m_c) != drop(m_g):
+            raise Failed(f"small {layout}: evaluate metrics differ between "
+                         f"cpu and gpu")
+        log(f"  f32 d=64 {layout:11s}: {int(valid.sum())} valid beams, "
+            f"{int(dv.sum())} valid docs equal on cpu and gpu; max |d| fused "
+            f"score {err:.3g} (tol 1e-4); {len(drop(m_c))} evaluate metrics "
+            f"equal (recall100_1.0 {m_c['recall100_1.0']:.3f})")
 
 
 # ------------------------------------------------------------ phase 4
@@ -345,7 +472,23 @@ def build_nq_scale_trie(n_docs: int, kary: int, leaf_cap: int,
                       max_docs_per_cluster=max_docs_per_cluster)
 
 
-def phase_full(dev, card: str, timed: int = 3, profile: bool = False
+# the full-width layouts: name, Evaluator keyword arguments, the scorer
+# each retrieve launches once
+FULL_LAYOUTS = [("packed bf16", dict(packed=True), "packed_scores"),
+                ("plain bf16", dict(packed=False), "rerank_scores"),
+                ("packed int8", dict(packed=True, quantize=True),
+                 "packed_scores_int8")]
+SCORERS = ("packed_scores", "packed_scores_int8", "rerank_scores")
+
+
+def _store_bytes(store) -> int:
+    import torch
+    parts = (store,) if isinstance(store, torch.Tensor) \
+        else (store.values, store.scales)
+    return sum(t.numel() * t.element_size() for t in parts)
+
+
+def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
                ) -> dict:
     import numpy as np
     import torch
@@ -354,93 +497,115 @@ def phase_full(dev, card: str, timed: int = 3, profile: bool = False
     from gdr_tpu_torch.config import EvalConfig, ModelConfig
     from gdr_tpu_torch.eval.evaluator import Evaluator
     from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
-    from gdr_tpu_torch.ops.rerank import rerank_packed
 
-    n_docs, beams, seq_len, qbatch = 334_314, 100, 40, 32
+    beams, seq_len, qbatch = 100, 40, 32
     cfg = ModelConfig().scaled("base")
-    t = time.perf_counter()
-    trie = build_nq_scale_trie(n_docs, cfg.kary, 30, 64)
-    log(f"  trie: {trie.num_nodes} nodes, {trie.num_clusters} clusters, "
-        f"depth {int(trie.depth.max())} ({time.perf_counter() - t:.2f} s)")
     g = torch.Generator(device=dev).manual_seed(7)
-    store = torch.randn(n_docs, cfg.encoder_d_model, generator=g, device=dev)
+    store = torch.randn(N_DOCS, cfg.encoder_d_model, generator=g, device=dev)
     store = (store / store.norm(dim=1, keepdim=True)).to(torch.bfloat16)
     with torch.device(dev):
         model = GenerativeRetriever(cfg)
     model = init_weights(model.to(torch.bfloat16),
                          torch.Generator(device=dev).manual_seed(0)).eval()
     n_params = sum(p.numel() for p in model.parameters())
-    ev = Evaluator(model, trie, store, EvalConfig(
-        num_beams=beams, num_return_sequences=beams,
-        max_output_length=cfg.max_output_length, length_penalty=0.8),
-        packed=True)
+    ev_cfg = EvalConfig(num_beams=beams, num_return_sequences=beams,
+                        max_output_length=cfg.max_output_length,
+                        length_penalty=0.8)
+    evs = {name: Evaluator(model, trie, store, ev_cfg, **kw)
+           for name, kw, _ in FULL_LAYOUTS}
     del store
     rng = np.random.default_rng(0)
     ids = rng.integers(2, cfg.vocab_size, size=(qbatch, seq_len)).astype(np.int32)
     mask = np.ones_like(ids)
-    log(f"  t5-base bf16, {n_params / 1e6:.1f}M params; packed store "
-        f"{tuple(ev.store.shape)}; {qbatch} queries x {seq_len} tokens, "
-        f"beam {beams}")
-
-    t = time.perf_counter()
-    ev.retrieve(ids, mask)                               # warm: U table, build
-    torch.cuda.synchronize()
-    log(f"  warm retrieve {time.perf_counter() - t:.3f} s")
-
-    # the counted run of the main path
-    kernels.reset_launch_counts()
-    res, rr = ev.retrieve(ids, mask)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    log(f"  launches in one retrieve: {launches}")
-    want = {"self_attn_sublayer": 24, "cross_attn_sublayer": 24,
-            "ffn_sublayer": 24, "packed_scores": 1}
-    if launches != want:
-        raise Failed(f"launch counts {launches} != {want}")
-    valid = res.valid.cpu()
-    if int(valid.sum()) != qbatch * beams:
-        raise Failed(f"{int(valid.sum())} valid beams, want {qbatch * beams}")
-    dv = rr.doc_valid.cpu()
-    docs = rr.doc_ids.cpu()[dv]
-    if dv.sum(-1).min().item() < beams or docs.min() < 0 \
-            or docs.max() >= n_docs:
-        raise Failed("re-rank returned fewer than top-R valid docs or ids "
-                     "outside the store")
-    if not bool(rr.scores[rr.doc_valid].isfinite().all()):
-        raise Failed("non-finite fused scores")
-
-    # timed retrieves: host clock around synchronised calls; encode and
-    # re-rank separately (host dispatch included), decode = total - both
-    torch.cuda.reset_peak_memory_stats()
+    log(f"  t5-base bf16, {n_params / 1e6:.1f}M params; {qbatch} queries x "
+        f"{seq_len} tokens, beam {beams}; stores "
+        + ", ".join(f"{n} {tuple(ev.store.shape)} "
+                    f"{_store_bytes(ev.store) / 1e6:.1f} MB"
+                    for n, ev in evs.items()))
     tid = torch.as_tensor(ids, device=dev)
     tmask = torch.as_tensor(mask, device=dev)
-    totals = []
-    for _ in range(timed):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ev.retrieve(ids, mask)
-        torch.cuda.synchronize()
-        totals.append((time.perf_counter() - t) * 1e3)
     with torch.no_grad():
         enc_ms = _loop_ms(lambda: model.query_embedding(
             model.encode(tid, tmask)))
         q_emb = model.query_embedding(model.encode(tid, tmask))
-        rr_ms = _loop_ms(lambda: rerank_packed(
-            ev.store, ev._p_starts, ev._p_counts, ev._p_row_to_doc, ev._p_cap,
-            q_emb, res.nodes, res.scores, res.valid, ev._cluster_of_node,
-            ev._alphas, top_r=beams))
-    if profile:
-        _profile(lambda: ev.retrieve(ids, mask))
-    total = sum(totals) / len(totals)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    out = dict(retrieve_ms=total, retrieve_ms_each=totals, encode_ms=enc_ms,
-               rerank_ms=rr_ms, decode_ms=total - enc_ms - rr_ms,
-               queries_per_s=qbatch / (total / 1e3), peak_gib=peak,
-               launches=launches)
-    log(f"  retrieve {total:.2f} ms ({', '.join(f'{x:.2f}' for x in totals)}):"
-        f" encode {enc_ms:.2f} ms, decode {total - enc_ms - rr_ms:.2f} ms, "
-        f"re-rank {rr_ms:.2f} ms; {out['queries_per_s']:.1f} queries/s; "
-        f"peak {peak:.2f} GiB; {card}")
+
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {"launches": {}, "layouts": {}}
+    top_docs = {}
+    for name, _, scorer in FULL_LAYOUTS:
+        ev = evs[name]
+        t = time.perf_counter()
+        ev.retrieve(ids, mask)                           # warm: U table, build
+        torch.cuda.synchronize()
+        log(f"  {name}: warm retrieve {time.perf_counter() - t:.3f} s")
+
+        # the counted run of this layout's main path
+        kernels.reset_launch_counts()
+        res, rr = ev.retrieve(ids, mask)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        want = {"self_attn_sublayer": 24, "cross_attn_sublayer": 24,
+                "ffn_sublayer": 24, **dict.fromkeys(SCORERS, 0), scorer: 1}
+        log(f"  {name}: launches in one retrieve: {launches}")
+        if launches != want:
+            raise Failed(f"{name}: launch counts {launches} != {want}")
+        for k, v in launches.items():
+            if v:
+                out["launches"].setdefault(k, v)
+        valid = res.valid.cpu()
+        if int(valid.sum()) != qbatch * beams:
+            raise Failed(f"{name}: {int(valid.sum())} valid beams, want "
+                         f"{qbatch * beams}")
+        dv = rr.doc_valid.cpu()
+        docs = rr.doc_ids.cpu()[dv]
+        if dv.sum(-1).min().item() < beams or docs.min() < 0 \
+                or docs.max() >= N_DOCS:
+            raise Failed(f"{name}: re-rank returned fewer than top-R valid "
+                         f"docs or ids outside the store")
+        if not bool(rr.scores[rr.doc_valid].isfinite().all()):
+            raise Failed(f"{name}: non-finite fused scores")
+        top_docs[name] = rr.doc_ids[:, :, 0].cpu()       # [A, B] top-1
+
+        # timed retrieves: host clock around synchronised calls; re-rank
+        # separately (host dispatch included), decode = total - both
+        totals = []
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ev.retrieve(ids, mask)
+            torch.cuda.synchronize()
+            totals.append((time.perf_counter() - t) * 1e3)
+        rr_ms = _loop_ms(lambda: ev.rerank(q_emb, res))
+        if profile and name == FULL_LAYOUTS[0][0]:
+            _profile(lambda: ev.retrieve(ids, mask))
+        total = sum(totals) / len(totals)
+        lay = dict(retrieve_ms=total, retrieve_ms_each=totals,
+                   encode_ms=enc_ms, rerank_ms=rr_ms,
+                   decode_ms=total - enc_ms - rr_ms,
+                   queries_per_s=qbatch / (total / 1e3),
+                   store_bytes=_store_bytes(ev.store))
+        log(f"  {name}: retrieve {total:.2f} ms "
+            f"({', '.join(f'{x:.2f}' for x in totals)}): encode "
+            f"{enc_ms:.2f} ms, decode {total - enc_ms - rr_ms:.2f} ms, "
+            f"re-rank {rr_ms:.2f} ms; {lay['queries_per_s']:.1f} queries/s; "
+            f"{card}")
+        out["layouts"][name] = lay
+
+    ref = top_docs["packed bf16"]
+    if not torch.equal(top_docs["plain bf16"], ref):
+        raise Failed("plain bf16 and packed bf16 return different top "
+                     "documents over the same store")
+    agree = (top_docs["packed int8"] == ref).float()
+    lay = out["layouts"]["packed int8"]
+    lay["top1_agreement"] = agree.mean().item()
+    lay["top1_agreement_alpha0"] = agree[0].mean().item()
+    log(f"  packed int8: store {lay['store_bytes'] / 1e6:.1f} MB vs "
+        f"{out['layouts']['packed bf16']['store_bytes'] / 1e6:.1f} MB bf16; "
+        f"top-1 doc agreement with packed bf16 {lay['top1_agreement']:.4f} "
+        f"over {agree.numel()} (alpha, query) pairs, "
+        f"{lay['top1_agreement_alpha0']:.4f} at alpha 0")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  peak {out['peak_gib']:.2f} GiB over the timed retrieves")
     return out
 
 
@@ -484,7 +649,30 @@ KERNELS = [
     ("packed_scores", "gdr_tpu_torch/csrc/rerank_packed.cu",
      "gdr_tpu/ops/pallas/rerank_kernel.py:104",
      "gather + torch.bmm over the [R, cap, d] blocks + tanh"),
+    ("packed_scores_int8", "gdr_tpu_torch/csrc/rerank_packed.cu",
+     "gdr_tpu/ops/pallas/rerank_kernel.py:167",
+     "gather of the int8 [R, cap, d] blocks + f32 torch.bmm"),
+    ("rerank_scores", "gdr_tpu_torch/csrc/rerank_gather.cu",
+     "gdr_tpu/ops/pallas/rerank_kernel.py:207",
+     "store[docs] + torch.bmm + tanh + masked_fill"),
 ]
+
+
+def kernel_rows(stats: dict, full: dict) -> list[dict]:
+    """The ``{"kernels": [...]}`` rows: each kernel's launches on its
+    layout's main path (phase 4) and its phase-2 numbers at 3,200 rows."""
+    rows = []
+    for name, source, replaces, library in KERNELS:
+        st = stats[name]
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=full["launches"][name], max_abs_err=st["err"],
+            ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by=st["bound_by"], library_ms=st["library_ms"],
+            library=library, flops=st["flops"], bytes=st["bytes"],
+            rows=B * WIDTHS[-1],
+            dtype="int8" if name == "packed_scores_int8" else "bfloat16"))
+    return rows
 
 
 def main(argv: list[str]) -> int:
@@ -526,36 +714,36 @@ def main(argv: list[str]) -> int:
             log(f"    {name}: {spills}")
     log(f"[1] {time.perf_counter() - t0:.1f} s")
 
+    from gdr_tpu_torch.config import ModelConfig
+
+    t = time.perf_counter()
+    trie = build_nq_scale_trie(N_DOCS, ModelConfig().scaled("base").kary, 30,
+                               64)
+    log(f"    bench trie: {trie.num_nodes} nodes, {trie.num_clusters} "
+        f"clusters, depth {int(trie.depth.max())} "
+        f"({time.perf_counter() - t:.2f} s)")
     try:
         t = time.perf_counter()
         log("[2] kernel vs plain on the card")
-        stats = phase_kernels(dev)
+        stats = phase_kernels(dev, trie)
         log(f"[2] {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        log("[3] whole path, small f32 model: cpu (plain) vs gpu (kernels)")
+        log("[3] whole path, small f32 model, four store layouts: cpu "
+            "(plain) vs gpu (kernels)")
         phase_small(dev)
         log(f"[3] {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        log("[4] whole path, full width: t5-base bf16 retrieve")
-        full = phase_full(dev, smi, profile="profile" in argv)
+        log("[4] whole path, full width: t5-base bf16 retrieve, three store "
+            "layouts")
+        full = phase_full(dev, smi, trie, profile="profile" in argv)
         log(f"[4] {time.perf_counter() - t:.1f} s")
     except Failed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
 
-    rows = []
-    for name, source, replaces, library in KERNELS:
-        st = stats[name]
-        rows.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=full["launches"][name], max_abs_err=st["err"],
-            ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
-            bound_by=st["bound_by"], library_ms=st["library_ms"],
-            library=library, flops=st["flops"], bytes=st["bytes"],
-            rows=B * WIDTHS[-1], dtype="bfloat16"))
-    print(json.dumps({"retrieve": {k: v for k, v in full.items()
-                                   if k != "launches"}}), flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"retrieve": full["layouts"],
+                      "peak_gib": full["peak_gib"]}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(stats, full)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,28 @@
-"""Command-line interface of the PyTorch port: ``retrieve`` (serving).
+"""Command-line interface of the PyTorch port: ``retrieve`` (serving),
+``eval`` (a dev set's metrics) and ``calculate`` (metrics of a result TSV).
 
     python -m gdr_tpu_torch.cli retrieve --index index.npz --workdir run \\
-        --packed --query "who wrote hamlet" [--device cuda]
+        --packed --query "who wrote hamlet" [--int8-store] [--device cuda]
+    python -m gdr_tpu_torch.cli eval --index index.npz --dev dev.tsv \\
+        --workdir run --packed [--int8-store] --result-tsv res1.tsv
+    python -m gdr_tpu_torch.cli calculate --result res1.tsv [--ref-compat]
 
-Mirrors ``gdr_tpu/cli.py`` ``retrieve``: free-text queries from ``--query``
-(repeatable), ``--queries-file`` or stdin → beam decode → trie expansion →
-dense re-rank → the top ``--top-k`` documents per query, as TSV
-(query_idx, rank, doc_id, score, cid) or JSON lines.
+Mirrors ``gdr_tpu/cli.py``.  ``retrieve``: free-text queries from
+``--query`` (repeatable), ``--queries-file`` or stdin → beam decode → trie
+expansion → dense re-rank → the top ``--top-k`` documents per query, as
+TSV (query_idx, rank, doc_id, score, cid) or JSON lines.  ``eval``: a dev
+TSV (query \\t docid[,docid...]) → the metric suite and phase times as
+JSON, and with ``--result-tsv`` the reference-compatible result file that
+``calculate`` scores.
 
 Differences from the reference CLI:
 
 - ``--device`` (default ``cuda``) picks where everything runs; on ``cuda``
-  the decoder sublayers and the packed re-rank run as the port's CUDA
+  the decoder sublayers and the re-rank scorers run as the port's CUDA
   kernels, on ``cpu`` as their plain versions.  There is no ``--pallas`` or
-  ``--fused-decode``: the device decides.  ``--int8-store`` and ``--mesh``
-  are later slices.
+  ``--fused-decode``: the device decides.  ``eval --mesh`` (other than
+  ``none``), ``--gen-method sample|top_k`` and ``--ensemble`` are later
+  slices and are refused; ``retrieve`` has no ``--mesh``.
 - Weights come from ``<workdir>/params.npz``, written from a reference
   checkpoint (or its seeded init) by ``tools/export_gdr_tpu_params.py``.
   Without that file the model gets seeded random weights (``--seed``), as
@@ -64,6 +72,33 @@ def _device(name: str):
     return dev
 
 
+def _check_query_length(device, max_input_length: int, mcfg) -> None:
+    """On cuda, refuse queries longer than the cross-attention kernel
+    serves."""
+    if device.type != "cuda":
+        return
+    from gdr_tpu_torch.kernels.decode import cross_attn_max_len
+    limit = cross_attn_max_len(mcfg.d_kv)
+    if max_input_length > limit:
+        raise SystemExit(
+            f"--max-input-length {max_input_length}: the CUDA "
+            f"cross-attention kernel serves at most {limit} query tokens at "
+            f"d_kv {mcfg.d_kv}; pass --device cpu for longer queries")
+
+
+def _read_query_tsv(path: str) -> tuple[list[str], list[list[int]]]:
+    """TSV rows: query \\t docid[,docid...]."""
+    import csv
+    queries, positives = [], []
+    with open(path, newline="") as fh:
+        for row in csv.reader(fh, delimiter="\t"):
+            if len(row) < 2:
+                continue
+            queries.append(row[0])
+            positives.append([int(d) for d in row[1].split(",")])
+    return queries, positives
+
+
 def load_model(cfg, workdir: str, device, seed: int = 42):
     """The retriever with ``<workdir>/params.npz`` weights, or seeded
     random ones when the file is absent."""
@@ -104,14 +139,7 @@ def cmd_retrieve(args) -> None:
 
     index = load_index(args.index)
     mcfg = _model_config(args, store_dim=index.store.shape[1])
-    if device.type == "cuda":
-        from gdr_tpu_torch.kernels.decode import cross_attn_max_len
-        if args.max_input_length > cross_attn_max_len(mcfg.d_kv):
-            raise SystemExit(
-                f"--max-input-length {args.max_input_length}: the CUDA "
-                f"cross-attention kernel serves at most "
-                f"{cross_attn_max_len(mcfg.d_kv)} query tokens at d_kv "
-                f"{mcfg.d_kv}; pass --device cpu for longer queries")
+    _check_query_length(device, args.max_input_length, mcfg)
     tok = load_tokenizer(args.tokenizer, vocab_size=mcfg.vocab_size)
     if tok.vocab_size != mcfg.vocab_size:
         mcfg = dataclasses.replace(mcfg, vocab_size=tok.vocab_size)
@@ -122,7 +150,7 @@ def cmd_retrieve(args) -> None:
                         max_output_length=mcfg.max_output_length,
                         score_rates=(args.alpha,))
     evaluator = Evaluator(model, index.trie, index.store, ev_cfg,
-                          packed=args.packed)
+                          packed=args.packed, quantize=args.int8_store)
 
     bs = min(args.batch_size, len(queries))
     if not args.json:
@@ -148,6 +176,59 @@ def cmd_retrieve(args) -> None:
                 for r, (d, sc) in enumerate(hits):
                     print(f"{s + b}\t{r + 1}\t{d}\t{sc:.6f}"
                           f"\t{index.cid_of_doc[d]}")
+
+
+def cmd_eval(args) -> None:
+    if args.gen_method in ("sample", "top_k"):
+        raise SystemExit(f"--gen-method {args.gen_method}: sampled decoding "
+                         f"is not ported yet (ROADMAP.md queue 1, item 2)")
+    if args.ensemble > 1:
+        raise SystemExit("--ensemble: the N-decoder ensemble is not ported "
+                         "yet (ROADMAP.md queue 1, item 6)")
+    if args.mesh != "none":
+        raise SystemExit(f"--mesh {args.mesh}: the sharded store is not "
+                         f"ported yet (ROADMAP.md queue 1, item 7)")
+
+    from gdr_tpu_torch.config import EvalConfig
+    from gdr_tpu_torch.data.dataset import build_eval_data
+    from gdr_tpu_torch.data.tokenize import load_tokenizer
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.index.io import load_index
+
+    device = _device(args.device)
+    index = load_index(args.index)
+    mcfg = _model_config(args, store_dim=index.store.shape[1])
+    _check_query_length(device, args.max_input_length, mcfg)
+    tok = load_tokenizer(args.tokenizer, vocab_size=mcfg.vocab_size)
+    if tok.vocab_size != mcfg.vocab_size:
+        mcfg = dataclasses.replace(mcfg, vocab_size=tok.vocab_size)
+    model = load_model(mcfg, args.workdir, device, args.seed)
+
+    dev_q, dev_pos = _read_query_tsv(args.dev)
+    dev = build_eval_data(dev_q, dev_pos, index.cid_of_doc, tok,
+                          args.max_input_length)
+    ev_cfg = EvalConfig(num_beams=args.beam, num_return_sequences=args.beam,
+                        max_output_length=mcfg.max_output_length,
+                        gen_method=args.gen_method)
+    evaluator = Evaluator(model, index.trie, index.store, ev_cfg,
+                          packed=args.packed, quantize=args.int8_store)
+    out = evaluator.evaluate(dev, batch_size=args.eval_batch_size,
+                             result_tsv=args.result_tsv)
+    if args.result_tsv:
+        print(f"wrote result TSV → {args.result_tsv}")
+    print(json.dumps(out, indent=2, sort_keys=True))
+
+
+def cmd_calculate(args) -> None:
+    from gdr_tpu_torch.eval.offline import calculate
+    print(json.dumps(calculate(args.result, ref_compat=args.ref_compat),
+                     indent=2, sort_keys=True))
+
+
+def _add_device_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (kernels) or cpu (plain "
+                        "PyTorch)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -181,13 +262,56 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--packed", action="store_true",
                     help="cluster-packed store (one contiguous block per "
                          "beam, scored by the packed re-rank kernel)")
-    pr.add_argument("--device", default="cuda",
-                    help="torch device: cuda (kernels) or cpu (plain "
-                         "PyTorch)")
+    pr.add_argument("--int8-store", action="store_true",
+                    help="int8 doc-embedding store (4x smaller; with "
+                         "--packed scored by the int8 packed kernel)")
+    _add_device_flag(pr)
     pr.add_argument("--seed", type=int, default=42,
                     help="seed of the random weights used when the workdir "
                          "has no params.npz")
     pr.set_defaults(fn=cmd_retrieve)
+
+    pe = sub.add_parser("eval", help="standalone evaluation of a dev set")
+    _add_common_model_flags(pe)
+    pe.add_argument("--index", required=True)
+    pe.add_argument("--dev", required=True,
+                    help="dev TSV: query \\t docid[,docid...]")
+    pe.add_argument("--workdir", required=True,
+                    help="run dir holding params.npz")
+    pe.add_argument("--tokenizer", default=None)
+    pe.add_argument("--max-input-length", type=int, default=40)
+    pe.add_argument("--beam", type=int, default=100)
+    pe.add_argument("--eval-batch-size", type=int, default=8)
+    pe.add_argument("--gen-method", default="beam",
+                    choices=["beam", "greedy", "sample", "top_k"],
+                    help="decode mode; greedy is beam search, as in the "
+                         "reference (sample and top_k are not ported yet)")
+    pe.add_argument("--packed", action="store_true",
+                    help="cluster-packed store (one contiguous block per "
+                         "beam, scored by the packed re-rank kernel)")
+    pe.add_argument("--int8-store", action="store_true",
+                    help="int8 doc-embedding store (4x smaller; with "
+                         "--packed scored by the int8 packed kernel)")
+    pe.add_argument("--result-tsv", default=None,
+                    help="also write the reference-compatible result TSV "
+                         "(query, preds, gts, rank) that `calculate` reads")
+    pe.add_argument("--mesh", default="none",
+                    help="only 'none' (the sharded store is not ported yet)")
+    pe.add_argument("--ensemble", type=int, default=1,
+                    help="only 1 (the ensemble is not ported yet)")
+    _add_device_flag(pe)
+    pe.add_argument("--seed", type=int, default=42,
+                    help="seed of the random weights used when the workdir "
+                         "has no params.npz")
+    pe.set_defaults(fn=cmd_eval)
+
+    pc = sub.add_parser("calculate", help="offline metrics from result TSV")
+    pc.add_argument("--result", required=True)
+    pc.add_argument("--ref-compat", action="store_true",
+                    help="score with the reference's exact semantics "
+                         "(hits@k over row-accumulated gt, per-row MRR100); "
+                         "default is per-query fraction-recall")
+    pc.set_defaults(fn=cmd_calculate)
     return p
 
 

@@ -78,7 +78,7 @@ def load_tokenizer(name_or_path: str | None, vocab_size: int = 32128):
         if name_or_path.endswith(".json") and os.path.isfile(name_or_path):
             raise NotImplementedError(
                 "subword tokenizers (.json) are not ported yet "
-                "(ROADMAP.md queue 1, item 10)")
+                "(ROADMAP.md queue 1, item 8)")
         try:
             return HFTokenizer(name_or_path)
         except (ImportError, OSError, ValueError):   # no transformers/files

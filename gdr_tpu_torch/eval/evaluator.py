@@ -3,27 +3,31 @@ metrics, mirroring ``gdr_tpu/eval/evaluator.py``.
 
 The model holds its weights (an ``nn.Module``), so ``retrieve`` takes only
 the token arrays.  Everything runs on the model's device: on a CUDA device
-the decoder sublayers and the packed re-rank scorer run as the port's
-hand-written kernels, on the CPU as their plain versions.  The per-position
-U candidate table is built once per weight set and reused by every
-retrieve.  The sharded-store (``mesh=``) and int8 (``quantize=``) layouts
-are later slices.
+the decoder sublayers and the re-rank scorers run as the port's
+hand-written kernels, on the CPU as their plain versions.  The store has
+four layouts: plain, cluster-packed (``packed``), and each of them as
+per-row int8 (``quantize``).  The per-position U candidate table is built
+once per weight set and reused by every retrieve.  The sharded-store
+(``mesh=``) layouts are a later slice.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
 from gdr_tpu_torch.config import EvalConfig
 from gdr_tpu_torch.eval import metrics as M
+from gdr_tpu_torch.eval.offline import write_result_tsv
 from gdr_tpu_torch.ops.beam import BeamResult, generate_cids
 from gdr_tpu_torch.ops.codec import decode_token_batch
 from gdr_tpu_torch.ops.packed_store import pack_layout, pack_rows
+from gdr_tpu_torch.ops.quantize import pack_quantized_rows, quantize_store
 from gdr_tpu_torch.ops.rerank import RerankResult, rerank, rerank_packed
 from gdr_tpu_torch.ops.trie import TrieTensors
+from gdr_tpu_torch.utils.timing import PhaseTimer
 
 
 @dataclass
@@ -39,19 +43,17 @@ class EvalData:
 class Evaluator:
     """Retrieval evaluator on the device of ``model``.  ``packed``: lay the
     store out cluster-contiguously so the re-rank reads one contiguous block
-    per beam (ops/packed_store.py) through the packed scorer kernel."""
+    per beam (ops/packed_store.py) through the packed scorer kernel.
+    ``quantize``: hold the store as per-row absmax int8 (ops/quantize.py,
+    4× smaller) and score with the dequantising dot."""
 
     def __init__(self, model, trie: TrieTensors, store, cfg: EvalConfig,
                  mesh=None, packed: bool = False, quantize: bool = False):
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded-store evaluator (mesh=) is not ported yet "
-                "(ROADMAP.md queue 1, item 9: multi-GPU)")
-        if quantize:
-            raise NotImplementedError(
-                "the int8 store (quantize=) is not ported yet (ROADMAP.md "
-                "queue 1, item 5, with packed_scores_pallas_int8)")
-        if cfg.gen_method != "beam":
+                "(ROADMAP.md queue 1, item 7: multi-GPU)")
+        if cfg.gen_method in ("sample", "top_k"):   # "greedy" is beam search
             raise NotImplementedError(
                 f"gen_method={cfg.gen_method!r}: sampled decoding is not "
                 "ported yet (ROADMAP.md queue 1, item 2)")
@@ -64,10 +66,14 @@ class Evaluator:
         self.trie = trie
         self.cfg = cfg
         self.packed = packed
+        self.quantize = quantize
         dev = model.device
         self.device = dev
         if packed:
-            starts, counts, row_to_doc, cap = pack_layout(trie)
+            # the reference's int8 layout aligns blocks to 32 rows (a TPU
+            # int8 tiling rule); kept so that starts equal the reference's
+            starts, counts, row_to_doc, cap = pack_layout(
+                trie, align=32 if quantize else 8)
             self._p_starts = torch.as_tensor(starts, device=dev)
             self._p_counts = torch.as_tensor(counts, device=dev)
             self._p_row_to_doc = torch.as_tensor(row_to_doc, device=dev)
@@ -90,10 +96,15 @@ class Evaluator:
 
     def set_store(self, store) -> None:
         """Replace the doc-embedding store [N, d], applying this evaluator's
-        layout (cluster packing) on the model's device."""
+        layout (cluster packing, int8 quantization) on the model's
+        device."""
         store = torch.as_tensor(store).to(self.device)
-        if self.packed:
+        if self.packed and self.quantize:
+            self.store = pack_quantized_rows(store, self._p_row_to_doc)
+        elif self.packed:
             self.store = pack_rows(store, self._p_row_to_doc)
+        elif self.quantize:
+            self.store = quantize_store(store)
         else:
             self.store = store
 
@@ -123,27 +134,53 @@ class Evaluator:
         res, q_emb, _ = generate_cids(
             self.model, ids, msk, self._children, self._eos, cfg.num_beams,
             self._max_len, cfg.length_penalty, u_table=self._u_table())
-        if self.packed:
-            rr = rerank_packed(self.store, self._p_starts, self._p_counts,
-                               self._p_row_to_doc, self._p_cap, q_emb,
-                               res.nodes, res.scores, res.valid,
-                               self._cluster_of_node, self._alphas,
-                               top_r=cfg.num_return_sequences)
-        else:
-            rr = rerank(self.store, q_emb, res.nodes, res.scores, res.valid,
-                        self._cluster_of_node, self._cluster_docs,
-                        self._cluster_doc_mask, self._alphas,
-                        top_r=cfg.num_return_sequences)
-        return res, rr
+        return res, self.rerank(q_emb, res)
 
-    def evaluate(self, data: EvalData, batch_size: int = 8
-                 ) -> dict[str, float]:
+    @torch.no_grad()
+    def rerank(self, q_emb, res: BeamResult) -> RerankResult:
+        """Stage 2 of ``retrieve`` on this evaluator's store layout: the
+        beams' clusters expanded, scored against ``q_emb`` and fused."""
+        top_r = self.cfg.num_return_sequences
+        if self.packed:
+            return rerank_packed(self.store, self._p_starts, self._p_counts,
+                                 self._p_row_to_doc, self._p_cap, q_emb,
+                                 res.nodes, res.scores, res.valid,
+                                 self._cluster_of_node, self._alphas,
+                                 top_r=top_r)
+        return rerank(self.store, q_emb, res.nodes, res.scores, res.valid,
+                      self._cluster_of_node, self._cluster_docs,
+                      self._cluster_doc_mask, self._alphas, top_r=top_r)
+
+    def retrieve_many(self, input_ids, attn_mask
+                      ) -> tuple[BeamResult, RerankResult]:
+        """Retrieval of G batches: token arrays [G, B, S] → (BeamResult,
+        RerankResult) whose fields carry a leading G axis.  The reference
+        maps the batches inside one compiled program; here it is a loop of
+        ``retrieve`` on the model's device, stacked."""
+        ids, msk = np.asarray(input_ids), np.asarray(attn_mask)
+        outs = [self.retrieve(ids[g], msk[g]) for g in range(len(ids))]
+
+        def stack(cls, parts):
+            return cls(**{f.name: torch.stack([getattr(p, f.name)
+                                               for p in parts])
+                          for f in fields(cls)})
+        return (stack(BeamResult, [o[0] for o in outs]),
+                stack(RerankResult, [o[1] for o in outs]))
+
+    def evaluate(self, data: EvalData, batch_size: int = 8,
+                 kary: int | None = None,
+                 result_tsv: str | None = None) -> dict[str, float]:
         """Full-set evaluation: cluster-level metrics over the generated
-        CIDs and doc-level metrics per fusion weight α."""
-        kary = self.trie.kary
+        CIDs, doc-level metrics per fusion weight α, and the wall time of
+        the ``retrieve`` and ``decode_host`` phases (``*_total_s``,
+        ``*_mean_ms``).  ``result_tsv``: also write the reference-compatible
+        result file (query, preds at the first α, gts, rank) that the
+        ``calculate`` subcommand reads."""
+        kary = kary or self.trie.kary
         nq = len(data.input_ids)
         cluster_preds: dict[int, list[str]] = {}
         doc_preds: dict[int, dict[float, list[str]]] = {}
+        timer = PhaseTimer()
         for start in range(0, nq, batch_size):
             end = min(start + batch_size, nq)
             pad = batch_size - (end - start)
@@ -153,21 +190,30 @@ class Evaluator:
             msk = np.concatenate(
                 [data.attn_mask[start:end]]
                 + ([data.attn_mask[start:start + 1]] * pad if pad else []))
-            res, rr = self.retrieve(ids, msk)
-            seqs = res.sequences.cpu().numpy()
-            valid = res.valid.cpu().numpy()
-            doc_ids = rr.doc_ids.cpu().numpy()
-            doc_valid = rr.doc_valid.cpu().numpy()
-            nb, k = end - start, seqs.shape[1]
-            cids_flat = decode_token_batch(seqs[:nb].reshape(nb * k, -1), kary)
-            doc_str = doc_ids[:, :nb].astype(str)
-            for b in range(nb):
-                q = start + b
-                cluster_preds[q] = [cids_flat[b * k + j]
-                                    for j in np.flatnonzero(valid[b])]
-                doc_preds[q] = {
-                    alpha: doc_str[a, b][doc_valid[a, b]].tolist()
-                    for a, alpha in enumerate(self.cfg.score_rates)}
+            with timer.phase("retrieve"):
+                res, rr = self.retrieve(ids, msk)
+                seqs = res.sequences.cpu().numpy()
+                valid = res.valid.cpu().numpy()
+                doc_ids = rr.doc_ids.cpu().numpy()
+                doc_valid = rr.doc_valid.cpu().numpy()
+            with timer.phase("decode_host"):
+                nb, k = end - start, seqs.shape[1]
+                cids_flat = decode_token_batch(seqs[:nb].reshape(nb * k, -1),
+                                               kary)
+                doc_str = doc_ids[:, :nb].astype(str)
+                for b in range(nb):
+                    q = start + b
+                    cluster_preds[q] = [cids_flat[b * k + j]
+                                        for j in np.flatnonzero(valid[b])]
+                    doc_preds[q] = {
+                        alpha: doc_str[a, b][doc_valid[a, b]].tolist()
+                        for a, alpha in enumerate(self.cfg.score_rates)}
+
+        if result_tsv is not None:
+            alpha0 = self.cfg.score_rates[0]
+            write_result_tsv(result_tsv, [
+                (str(q), doc_preds[q][alpha0], data.gt_docs[q], 1)
+                for q in sorted(doc_preds)])
 
         out: dict[str, float] = {}
         gt_cids = {q: data.gt_cids[q] for q in cluster_preds}
@@ -187,4 +233,5 @@ class Evaluator:
                 out[f"{k}_{alpha}"] = v
             if alpha == 0:
                 out["recall1"] = suite["recall1"]
+        out.update(timer.summary())
         return out

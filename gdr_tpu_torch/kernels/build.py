@@ -24,8 +24,10 @@ from pathlib import Path
 
 import torch
 
-# the element-type codes of the C interface (csrc/common.cuh, enum DType)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the element-type codes of the C interface (csrc/common.cuh, enum DType);
+# int8 is only the int8 document store's rows
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
 CSRC =Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

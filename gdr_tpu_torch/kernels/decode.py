@@ -159,7 +159,7 @@ def _check_cuda(name: str, dtype: torch.dtype, *tensors, bias) -> int:
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev}, expected cpu or cuda")
-    if dtype not in build.DTYPES:
+    if dtype not in build.FLOAT_DTYPES:
         raise TypeError(f"{name}: model dtype {dtype} not supported "
                         f"(float32 or bfloat16)")
     for t in (*tensors, *(() if bias is None else (bias,))):

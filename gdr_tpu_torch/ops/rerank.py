@@ -1,17 +1,23 @@
 """Stage 2: dense re-rank of in-cluster documents + score fusion, mirroring
-``gdr_tpu/ops/rerank.py`` (without the int8 stores).
+``gdr_tpu/ops/rerank.py``.
 
 Each beam's cluster expands to its documents; every candidate is scored
 ``tanh(q·d)``; the fused score per weight α adds ``α · softmax(beam
 scores)[beam]``; the top ``top_r`` documents are kept per α.  Documents
-belong to one cluster and beams are distinct clusters, so no dedup.
+belong to one cluster and beams are distinct clusters, so no dedup.  The
+query is one row per query ``[B, d]`` or one per beam ``[B, K, d]``.
 
-- :func:`rerank` gathers candidates through the padded cluster table and
-  scores them with a plain gather and einsum (as the reference package's
-  evaluator does, with XLA);
+- :func:`rerank` gathers candidates through the padded cluster table.  A
+  plain store is scored by ``kernels/rerank.py::rerank_scores``, which
+  streams the candidate rows; a :class:`QuantizedStore` by
+  :func:`quantized_dot` in plain PyTorch (the reference leaves it to XLA);
 - :func:`rerank_packed` reads each beam's one contiguous ``[cap, d]`` block
-  of the cluster-packed store through ``kernels/rerank.py::packed_scores``
-  — the hand-written kernel on a CUDA device, its plain version on the CPU.
+  of the cluster-packed store through ``packed_scores``, or, for a
+  :class:`PackedQuantizedStore`, the raw int8 dots through
+  ``packed_scores_int8`` and then the per-row scale and the tanh.
+
+Each scorer is the hand-written kernel on a CUDA device and its plain
+version on the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +26,10 @@ from dataclasses import dataclass
 
 import torch
 
-from gdr_tpu_torch.kernels.rerank import packed_scores
+from gdr_tpu_torch.kernels.rerank import (packed_scores, packed_scores_int8,
+                                           rerank_scores)
+from gdr_tpu_torch.ops.quantize import (PackedQuantizedStore, QuantizedStore,
+                                        quantized_dot)
 
 NEG_INF = -1.0e9
 
@@ -62,6 +71,9 @@ def _beam_probs(beam_scores, valid):
 
 
 def _per_beam(query_emb: torch.Tensor, b: int, k: int) -> torch.Tensor:
+    """Per-beam query rows [B, K, d] from [B, d] or [B, K, d]."""
+    if query_emb.dim() == 3:
+        return query_emb
     return query_emb[:, None, :].expand(b, k, query_emb.shape[-1])
 
 
@@ -77,17 +89,21 @@ def _fuse_top(sim, mask, probs, payload, alphas, top_r):
 def rerank(doc_store, query_emb, nodes, beam_scores, valid, cluster_of_node,
            cluster_docs, cluster_doc_mask, alphas, top_r: int
            ) -> RerankResult:
-    """Fused dense re-rank + α-sweep over the plain store [N, d].
-    query_emb: [B, d]; nodes/beam_scores/valid: [B, K]."""
+    """Fused dense re-rank + α-sweep over the plain store: a [N, d] tensor
+    or a :class:`QuantizedStore`.  query_emb: [B, d] or [B, K, d];
+    nodes/beam_scores/valid: [B, K]."""
     docs, mask = expand_candidates(nodes, valid, cluster_of_node,
                                    cluster_docs, cluster_doc_mask)
     b, k, cap = docs.shape
     probs = _beam_probs(beam_scores, valid)
     q_bk = _per_beam(query_emb, b, k)
-    cand = doc_store[docs.reshape(b, -1).long()].reshape(b, k, cap, -1)
-    sim = torch.tanh(torch.einsum("bkd,bkcd->bkc", q_bk.float(),
-                                  cand.float()))
-    sim = torch.where(mask, sim, torch.full_like(sim, NEG_INF))
+    if isinstance(doc_store, QuantizedStore):
+        sim = torch.tanh(quantized_dot(q_bk, doc_store, docs))
+        sim = torch.where(mask, sim, torch.full_like(sim, NEG_INF))
+    else:
+        sim = rerank_scores(doc_store, docs.reshape(b * k, cap).to(torch.int32),
+                            q_bk.reshape(b * k, -1),
+                            mask.reshape(b * k, cap)).reshape(b, k, cap)
     top_scores, top_docs = _fuse_top(sim, mask, probs, docs, alphas, top_r)
     return RerankResult(doc_ids=top_docs.to(torch.int32), scores=top_scores,
                         doc_valid=top_scores > NEG_INF / 2,
@@ -97,8 +113,9 @@ def rerank(doc_store, query_emb, nodes, beam_scores, valid, cluster_of_node,
 def rerank_packed(packed_rows, packed_starts, packed_counts, row_to_doc,
                   cap: int, query_emb, nodes, beam_scores, valid,
                   cluster_of_node, alphas, top_r: int) -> RerankResult:
-    """Re-rank over the cluster-packed store (ops/packed_store.py); results
-    in original doc ids via ``row_to_doc``."""
+    """Re-rank over the cluster-packed store (ops/packed_store.py): a
+    [M, d] tensor or a :class:`PackedQuantizedStore`.  Results in original
+    doc ids via ``row_to_doc``."""
     b, k = nodes.shape
     rows = cluster_of_node[nodes.long()]
     ok = valid & (rows >= 0)
@@ -109,11 +126,17 @@ def rerank_packed(packed_rows, packed_starts, packed_counts, row_to_doc,
     mask = (offs[None, None, :] < count[..., None]) & ok[..., None]
     probs = _beam_probs(beam_scores, valid)
     q_bk = _per_beam(query_emb, b, k)
-    sim = packed_scores(packed_rows, start.reshape(-1).contiguous(),
-                        q_bk.reshape(b * k, -1).contiguous(), cap)
-    sim = sim.reshape(b, k, cap)
-    sim = torch.where(mask, sim, torch.full_like(sim, NEG_INF))
     flat_rows = start[..., None].long() + offs                # [B, K, cap]
+    starts, q_rows = start.reshape(-1).contiguous(), q_bk.reshape(b * k, -1)
+    if isinstance(packed_rows, PackedQuantizedStore):
+        # raw int8 dots, then the per-row dequantising scale and the tanh
+        raw = packed_scores_int8(packed_rows.values, starts, q_rows, cap)
+        sim = torch.tanh(raw.reshape(b, k, cap)
+                         * packed_rows.scales[flat_rows])
+    else:
+        sim = packed_scores(packed_rows, starts, q_rows,
+                            cap).reshape(b, k, cap)
+    sim = torch.where(mask, sim, torch.full_like(sim, NEG_INF))
     top_scores, top_rows = _fuse_top(sim, mask, probs, flat_rows, alphas,
                                      top_r)
     top_docs = row_to_doc[top_rows]

@@ -1,9 +1,12 @@
-"""``python -m gdr_tpu_torch.cli retrieve --device cpu`` against the JAX
-package's ``retrieve`` CLI: the same index file (written by the JAX
+"""``python -m gdr_tpu_torch.cli retrieve|eval|calculate --device cpu``
+against the JAX package's CLI: the same index file (written by the JAX
 package's ``save_index``), the same weights (the reference CLI's seeded init,
-exported by tools/export_gdr_tpu_params.py), the same ranked documents."""
+exported by tools/export_gdr_tpu_params.py), the same ranked documents,
+metrics and result TSV."""
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -18,6 +21,7 @@ from gdr_tpu.index.builder import Index as JaxIndex
 from gdr_tpu.index.io import load_index as jax_load_index
 from gdr_tpu.index.io import save_index as jax_save_index
 from gdr_tpu.ops.trie import build_trie as jax_build_trie
+from gdr_tpu_torch import cli as port_cli
 from gdr_tpu_torch.index.io import Index, load_index, save_index
 from torch_port_helpers import small_cid_map
 
@@ -25,6 +29,10 @@ ROOT = Path(__file__).resolve().parents[1]
 MODEL_FLAGS = ["--model-size", "tiny", "--kary", "4", "--max-output-length",
                "5", "--adaptor-layers", "1"]
 QUERIES = ["alpha beta gamma", "what is the delta of epsilon", "zeta eta"]
+DEV = [("alpha beta gamma", "3"), ("what is the delta of epsilon", "10,11"),
+       ("zeta eta", "40"), ("theta iota kappa", "72"), ("lambda mu", "0,5")]
+TIMER_KEYS = {"retrieve_total_s", "retrieve_mean_ms", "decode_host_total_s",
+              "decode_host_mean_ms"}
 
 
 @pytest.fixture(scope="module")
@@ -66,17 +74,7 @@ def _results(text: str):
                           for h in r["results"]]) for r in rows]
 
 
-def test_cli_retrieve_matches_jax_cli(index_path, tmp_path, capsys):
-    workdir = tmp_path / "run"
-    common = ["--index", index_path, "--workdir", str(workdir), *MODEL_FLAGS,
-              "--beam", "8", "--top-k", "6", "--batch-size", "2", "--packed",
-              "--json", "--max-input-length", "12"]
-    for q in QUERIES:
-        common += ["--query", q]
-    args = jax_cli.build_parser().parse_args(["retrieve", *common])
-    args.fn(args)                                  # no checkpoint → seed 42
-    want = _results(capsys.readouterr().out)
-
+def _export(workdir, index_path) -> None:
     spec = importlib.util.spec_from_file_location(
         "export_gdr_tpu_params", ROOT / "tools" / "export_gdr_tpu_params.py")
     tool = importlib.util.module_from_spec(spec)
@@ -85,12 +83,35 @@ def test_cli_retrieve_matches_jax_cli(index_path, tmp_path, capsys):
                *MODEL_FLAGS])
     assert (workdir / "params.npz").exists()
 
+
+def _jax_cli(argv) -> str:
+    """Run the JAX CLI in this process; returns its standard output."""
+    args = jax_cli.build_parser().parse_args(argv)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        args.fn(args)                              # no checkpoint → seed 42
+    return buf.getvalue()
+
+
+def _port_cli(argv) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
     out = subprocess.run(
-        [sys.executable, "-m", "gdr_tpu_torch.cli", "retrieve", *common,
-         "--device", "cpu"], cwd=ROOT, env=env, capture_output=True,
-        text=True, timeout=300)
+        [sys.executable, "-m", "gdr_tpu_torch.cli", *argv], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+    return out
+
+
+def _retrieve_matches(index_path, workdir, store_flags) -> None:
+    """``retrieve --json`` gives the same hits through both CLIs."""
+    common = ["--index", index_path, "--workdir", str(workdir), *MODEL_FLAGS,
+              "--beam", "8", "--top-k", "6", "--batch-size", "2",
+              *store_flags, "--json", "--max-input-length", "12"]
+    for q in QUERIES:
+        common += ["--query", q]
+    want = _results(_jax_cli(["retrieve", *common]))
+    _export(workdir, index_path)
+    out = _port_cli(["retrieve", *common, "--device", "cpu"])
     assert "loaded" in out.stderr
     got = _results(out.stdout)
     assert [q for q, _ in got] == QUERIES == [q for q, _ in want]
@@ -99,6 +120,70 @@ def test_cli_retrieve_matches_jax_cli(index_path, tmp_path, capsys):
         assert [(d, c) for d, _, c in hits_t] == [(d, c) for d, _, c in hits_j]
         np.testing.assert_allclose([s for _, s, _ in hits_t],
                                    [s for _, s, _ in hits_j], atol=2e-6)
+
+
+def test_cli_retrieve_matches_jax_cli(index_path, tmp_path):
+    _retrieve_matches(index_path, tmp_path / "run", ["--packed"])
+
+
+def test_cli_retrieve_int8_store_matches_jax_cli(index_path, tmp_path):
+    _retrieve_matches(index_path, tmp_path / "run", ["--int8-store"])
+
+
+@pytest.fixture(scope="module")
+def eval_runs(index_path, tmp_path_factory):
+    """``eval --packed --int8-store --result-tsv`` through both CLIs."""
+    tmp = tmp_path_factory.mktemp("torch_cli_eval")
+    dev = tmp / "dev.tsv"
+    dev.write_text("".join(f"{q}\t{d}\n" for q, d in DEV))
+    workdir = tmp / "run"
+    common = ["--index", index_path, "--dev", str(dev), "--workdir",
+              str(workdir), *MODEL_FLAGS, "--beam", "8", "--eval-batch-size",
+              "2", "--max-input-length", "12", "--packed", "--int8-store"]
+    jax_tsv, port_tsv = tmp / "jax.tsv", tmp / "port.tsv"
+    jax_out = _jax_cli(["eval", *common, "--result-tsv", str(jax_tsv)])
+    _export(workdir, index_path)
+    port = _port_cli(["eval", *common, "--result-tsv", str(port_tsv),
+                      "--device", "cpu"])
+    return dict(jax_out=jax_out, port_out=port.stdout, jax_tsv=jax_tsv,
+                port_tsv=port_tsv)
+
+
+def _metrics(stdout: str) -> dict:
+    return json.loads(stdout[stdout.index("{"):])
+
+
+def test_cli_eval_matches_jax_cli(eval_runs):
+    got, want = _metrics(eval_runs["port_out"]), _metrics(eval_runs["jax_out"])
+    assert set(got) == set(want) and TIMER_KEYS <= set(got)
+    assert want["recall100_1.0"] > 0
+    for k, v in got.items():
+        if k not in TIMER_KEYS:
+            assert v == pytest.approx(want[k], abs=1e-9), k
+    assert eval_runs["port_tsv"].read_bytes() == \
+        eval_runs["jax_tsv"].read_bytes()
+    assert len(eval_runs["port_tsv"].read_text().splitlines()) == len(DEV)
+
+
+@pytest.mark.parametrize("flags", [[], ["--ref-compat"]],
+                         ids=["default", "ref_compat"])
+def test_cli_calculate_matches_jax_cli(eval_runs, flags):
+    want = _jax_cli(["calculate", "--result", str(eval_runs["jax_tsv"]),
+                     *flags])
+    got = _port_cli(["calculate", "--result", str(eval_runs["port_tsv"]),
+                     *flags]).stdout
+    assert got == want and json.loads(got)
+
+
+@pytest.mark.parametrize("flags", [["--gen-method", "sample"],
+                                   ["--ensemble", "2"], ["--mesh", "auto"]],
+                         ids=["sample", "ensemble", "mesh"])
+def test_cli_eval_refuses_unported_modes(flags, tmp_path):
+    args = port_cli.build_parser().parse_args(
+        ["eval", "--index", str(tmp_path / "none.npz"), "--dev",
+         str(tmp_path / "none.tsv"), "--workdir", str(tmp_path), *flags])
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        args.fn(args)
 
 
 def test_cli_refuses_cuda_without_a_card(index_path, tmp_path):

@@ -8,10 +8,11 @@ tests/conftest.py):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Shapes are small and deliberately ragged (row counts that are not
-multiples of any tile, one and 31 beams per query, a scorer width of 40
-that is not a multiple of 32 chunks).  Tolerances: f32 atol 1e-4 + rtol 1e-5 (f32
-sums in another order); bf16 atol 2e-2 + rtol 1e-2 (one bf16 ulp of an
-output whose f32 value sits near a rounding edge).
+multiples of any tile, one and 31 beams per query, scorer widths of 40 and
+48 that are not multiples of 32 chunks, 37 beams, cap 5).  Tolerances: f32
+atol 1e-4 + rtol 1e-5 (f32 sums in another order); bf16 atol 2e-2 + rtol
+1e-2 (one bf16 ulp of an output whose f32 value sits near a rounding
+edge).  The scorers' outputs are f32 sums, held at the f32 tolerance.
 """
 
 import pytest
@@ -162,3 +163,116 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         kd.cross_attn_sublayer(x, scale, wqkv[:INNER], wo_a, kv, kv,
                                rn(2, HEADS, s_long), 4, heads=HEADS, d_kv=DKV)
     assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,cap", [(768, 64), (48, 5)], ids=["d768", "d48"])
+def test_packed_scores_int8_match_plain(dev, q_dtype, d, cap):
+    rn = _rand(dev, d + cap + 1)
+    m, r = 32 * 12 + cap, 37
+    values = (rn(m, d) * 50).clamp(-127, 127).round().to(torch.int8)
+    starts = (torch.randint(0, (m - cap) // 32 + 1, (r,), device=dev)
+              * 32).to(torch.int32)
+    q = rn(r, d, std=0.05, dtype=q_dtype)
+    kernels.reset_launch_counts()
+    got = kr.packed_scores_int8(values, starts, q, cap)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**dict.fromkeys(
+        kernels.launch_counts(), 0), "packed_scores_int8": 1}
+    assert got.shape == (r, cap) and got.dtype == torch.float32
+    _close(got, kr.packed_scores_int8_plain(values, starts, q, cap),
+           torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,cap", [(768, 64), (48, 5)], ids=["d768", "d48"])
+def test_rerank_scores_match_plain(dev, dtype, d, cap):
+    rn = _rand(dev, d + cap + 2)
+    n, r = 300, 37
+    store = rn(n, d, std=d ** -0.5, dtype=dtype)
+    docs = torch.randint(0, n, (r, cap), device=dev, dtype=torch.int32)
+    mask = torch.rand(r, cap, device=dev) < 0.7
+    mask[3] = False                                  # a fully masked beam
+    docs[~mask] = n + 5        # masked slots are not read: out of range is fine
+    q = rn(r, d)
+    kernels.reset_launch_counts()
+    got = kr.rerank_scores(store, docs, q, mask)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**dict.fromkeys(
+        kernels.launch_counts(), 0), "rerank_scores": 1}
+    assert got.shape == (r, cap) and got.dtype == torch.float32
+    assert bool((got[~mask] == -1e9).all())
+    _close(got, kr.rerank_scores_plain(store, docs, q, mask), torch.float32)
+
+
+def test_int8_and_gather_scorers_nan_cases(dev):
+    rn = _rand(dev, 4)
+    m, d, cap = 96, 32, 8
+    values = (rn(m, d) * 40).round().clamp(-127, 127).to(torch.int8)
+    starts = torch.tensor([0, m - cap, m - cap + 1, -32], dtype=torch.int32,
+                          device=dev)
+    got = kr.packed_scores_int8(values, starts, rn(4, d), cap)
+    assert bool(got[:2].isfinite().all()) and bool(got[2:].isnan().all())
+    store = rn(10, d, dtype=torch.bfloat16)
+    docs = torch.tensor([[0, 9, 10, -1], [10, -1, 3, 3]], dtype=torch.int32,
+                        device=dev)
+    mask = torch.tensor([[True, True, True, True],
+                         [False, False, True, False]], device=dev)
+    got = kr.rerank_scores(store, docs, rn(2, d), mask)
+    assert bool(got[0, :2].isfinite().all()) and bool(got[0, 2:].isnan().all())
+    assert got[1].tolist()[:2] == [-1e9, -1e9] and got[1, 3].item() == -1e9
+    assert bool(got[1, 2].isfinite())
+
+
+def test_scorer_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rn = _rand(dev, 5)
+    kernels.reset_launch_counts()
+    starts = torch.zeros(4, dtype=torch.int32, device=dev)
+    int8_rows = torch.zeros(64, 48, dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError, match="int8"):
+        kr.packed_scores_int8(rn(64, 48, dtype=torch.bfloat16), starts,
+                              rn(4, 48), 8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kr.packed_scores(int8_rows, starts, rn(4, 48), 8)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kr.packed_scores_int8(torch.zeros(64, 40, dtype=torch.int8,
+                                          device=dev), starts, rn(4, 40), 8)
+    with pytest.raises(TypeError, match="int32"):
+        kr.packed_scores_int8(int8_rows, starts.long(), rn(4, 48), 8)
+    with pytest.raises(ValueError, match="cpu"):
+        kr.packed_scores_int8(int8_rows, starts, rn(4, 48).cpu(), 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        kr.packed_scores_int8(int8_rows.view(-1)[8:8 + 63 * 48].view(63, 48),
+                              starts, rn(4, 48), 8)
+    store = rn(20, 48)
+    docs = torch.zeros(4, 6, dtype=torch.int32, device=dev)
+    mask = torch.ones(4, 6, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        kr.rerank_scores(store, docs.long(), rn(4, 48), mask)
+    with pytest.raises(TypeError, match="bool"):
+        kr.rerank_scores(store, docs, rn(4, 48), mask.int())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kr.rerank_scores(store.to(torch.int8), docs, rn(4, 48), mask)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kr.rerank_scores(rn(20, 36, dtype=torch.bfloat16), docs, rn(4, 36),
+                         mask)
+    with pytest.raises(ValueError, match="non-contiguous"):
+        kr.rerank_scores(store, docs.t().contiguous().t(), rn(4, 48), mask)
+    with pytest.raises(ValueError, match="cpu"):
+        kr.rerank_scores(store, docs, rn(4, 48), mask.cpu())
+    with pytest.raises(ValueError, match="mask"):
+        kr.rerank_scores(store, docs, rn(4, 48), mask[:, :5].contiguous())
+    assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_quantize_store_on_the_card_equals_cpu(dev, dtype):
+    from gdr_tpu_torch.ops.quantize import quantize_store
+    rn = _rand(dev, 6)
+    x = rn(257, 96, dtype=dtype) * (1 + rn(257, 1).abs() * 100).to(dtype)
+    got, want = quantize_store(x), quantize_store(x.cpu())
+    assert torch.equal(got.values.cpu(), want.values)
+    assert torch.equal(got.scales.cpu(), want.scales)
