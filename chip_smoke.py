@@ -15,13 +15,16 @@ the last line):
    at once);
 2. kernel vs plain — each kernel against its plain PyTorch version on the
    card: the decoder sublayers at the row counts the main path gives them
-   (32, 992 and 3,200 rows of t5-base: 32 queries × widths 1, 31, 100) in
-   bf16 and f32; the three re-rank scorers at 32 and 3,200 beams over
-   stores of the operating point's size (the packed bf16 / f32 store, the
-   int8 packed store with the query in bf16 and f32, the plain bf16 / f32
-   store with candidates from the bench trie's padded cluster table); then
-   each kernel's device time (CUDA-graph replay) beside the plain
-   version's and a library yardstick at 3,200 rows, and its bound;
+   (32, 992 and 3,200 rows of t5-base: 32 queries × widths 1, 31, 100, at
+   positions 0, 1 and 3) in bf16 and f32; the three re-rank scorers at 32
+   and 3,200 beams over stores of the operating point's size (the packed
+   bf16 / f32 store, the int8 packed store with the query in bf16 and f32,
+   the plain bf16 / f32 store with candidates from the bench trie's padded
+   cluster table).  Device times (CUDA-graph replay) beside the plain
+   version's, a library yardstick and the bound: the decoder sublayers at
+   each row count and summed per retrieve (6·t32 + 6·t992 + 12·t3200), their
+   bf16 GEMM alone at its four (N, K) shapes at each row count against
+   torch.matmul, and the scorers at 3,200 rows;
 3. whole path, small — a small f32 model retrieves on the CPU (plain
    versions) and on the card (kernels) from the same seeded weights, on
    the four store layouts (plain, packed, plain int8, packed int8): valid
@@ -36,7 +39,8 @@ the last line):
    top documents, and packed int8's store size and top-1 agreement with
    packed bf16 are printed;
 5. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
-   layout's main path, max |Δ|, kernel / plain / library ms and its bound.
+   layout's main path, max |Δ|, kernel / plain / library ms and its bound
+   (the decoder rows also by row count, per retrieve and per GEMM shape).
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and gdr_tpu_torch only.
@@ -62,6 +66,18 @@ CAP = 32
 N_DOCS = 334_314             # the bench's NQ-scale corpus
 PACKED_ROWS = 356_632        # its packed layout (8-aligned blocks, cap 32)
 PACKED_ROWS_INT8 = 356_640   # its int8 packed layout (32-aligned blocks)
+# the decode steps of one retrieve: width → the step's position, and how
+# many sublayer calls of each kind run at that width (6 decoder layers; the
+# width-100 step runs twice, at positions 2 and 3)
+POS_OF_WIDTH = {1: 0, 31: 1, 100: 3}
+RETRIEVE_WEIGHT = {1: 6, 31: 6, 100: 12}
+DECODER = ("self_attn_sublayer", "cross_attn_sublayer", "ffn_sublayer")
+# the GEMM's (N, K) shapes on the main path, with the epilogue each gets
+GEMM_SHAPES = ((3 * D, D, "round"), (D, D, "residual"), (DFF, D, "relu"),
+               (D, DFF, "residual"))
+DECODER_GEMMS = {"self_attn_sublayer": {(3 * D, D), (D, D)},
+                 "cross_attn_sublayer": {(D, D)},
+                 "ffn_sublayer": {(DFF, D), (D, DFF)}}
 
 
 def log(msg: str) -> None:
@@ -118,6 +134,41 @@ def _bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def decoder_cost(name: str, r: int, pos: int, lmax: int, el: int
+                 ) -> tuple[float, float]:
+    """FLOPs and the bytes a decoder sublayer must move at r rows: each
+    input read once (x, weights, the cache rows at positions < pos, the
+    query's encoder K/V, biases, norm scale) and each output written once
+    (x', the new K/V row)."""
+    inner = H * DKV
+    if name == "self_attn_sublayer":
+        flops = 2 * r * D * 3 * inner + 2 * r * inner * D \
+            + 2 * 2 * r * H * (pos + 1) * DKV
+        nbytes = (2 * r * D + 4 * inner * D) * el + 2 * pos * r * inner * el \
+            + 2 * r * inner * el + lmax * H * 4 + D * 4
+    elif name == "cross_attn_sublayer":
+        flops = 2 * 2 * r * D * inner + 2 * 2 * r * H * S * DKV
+        nbytes = (2 * r * D + 2 * inner * D) * el + 2 * B * H * S * DKV * el \
+            + B * H * S * 4 + D * 4
+    else:
+        flops = 2 * 2 * r * D * DFF
+        nbytes = (2 * r * D + 2 * D * DFF) * el + D * 4
+    return flops, nbytes
+
+
+def core_bytes(name: str, r: int, pos: int, el: int) -> float:
+    """The bytes an attention core alone must move at r rows: the
+    self-attention core reads q/k/v and the cache rows at positions < pos
+    and writes the attention output and the new K/V row; the
+    cross-attention core reads q and the queries' encoder K/V and bias and
+    writes its output."""
+    inner = H * DKV
+    if name == "self_attn_sublayer":
+        return (3 * r * inner + 2 * pos * r * inner + 3 * r * inner) * el \
+            + 4 * H * 4
+    return (2 * r * inner + 2 * B * H * S * DKV) * el + B * H * S * 4
+
+
 def _close(name, got, want, dtype_name) -> float:
     atol, rtol = TOL[dtype_name]
     diff = (got.float() - want.float()).abs()
@@ -143,13 +194,21 @@ def phase_kernels(dev, trie) -> dict:
     def rn(*shape, std=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
 
-    lmax, pos = 4, 3          # the last full-width step attends over 4 rows
+    lmax = 4                  # max_len of the bench trie: depth 3 + 1
     rows_main = B * WIDTHS[-1]
-    stats: dict = {}
+    # bring the card to its working clocks before the first timed call
+    warm = rn(4096, 4096, dtype=torch.bfloat16)
+    t_end = time.perf_counter() + 0.5
+    while time.perf_counter() < t_end:
+        warm @ warm
+        torch.cuda.synchronize()
+    del warm
+    stats: dict = {name: dict(rows={}) for name in DECODER}
+    gemm_rows: list = []
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
         for w in WIDTHS:
-            r = B * w
+            r, pos = B * w, POS_OF_WIDTH[w]
             x = rn(r, D, dtype=dtype)
             scale = (1 + rn(D, std=0.1)).to(dtype)
             wqkv = rn(3 * D, D, std=0.02, dtype=dtype)
@@ -187,50 +246,95 @@ def phase_kernels(dev, trie) -> dict:
             atol, rtol = TOL[dn]
             log(f"  {dn:8s} R={r:5d}  max|d| self {e_self:.3g}  cross "
                 f"{e_cross:.3g}  ffn {e_ffn:.3g}  (tol {atol} + {rtol}·|plain|)")
+            errs = {"self_attn_sublayer": e_self,
+                    "cross_attn_sublayer": e_cross, "ffn_sublayer": e_ffn}
+            for name, e in errs.items():
+                stats[name]["err"] = max(stats[name].get("err", 0.0), e)
+            if dtype != torch.bfloat16:
+                continue
 
-            if dtype == torch.bfloat16 and r == rows_main:
-                el = x.element_size()
-                inner = H * DKV
-                attn_in = torch.empty(r, inner, dtype=dtype, device=dev)
-                qkv_flops = 2 * r * D * 3 * inner + 2 * r * inner * D
-                core_flops = 2 * 2 * r * H * (pos + 1) * DKV
-                self_bytes = (2 * r * D + 4 * inner * D) * el \
-                    + 2 * pos * r * inner * el + 2 * r * inner * el \
-                    + lmax * H * 4 + D * 4
-                stats["self_attn_sublayer"] = dict(
-                    err=e_self, flops=qkv_flops + core_flops, bytes=self_bytes,
-                    peak=H100_BF16_FLOPS,
-                    ms=_time_ms(lambda: KD.self_attn_sublayer(
+            # device times at this row count: kernel, plain, library (the
+            # sublayer's two GEMMs through torch.matmul, no attention core)
+            attn_in = torch.empty(r, D, dtype=dtype, device=dev)
+            hid = torch.empty(r, DFF, dtype=dtype, device=dev)
+            calls = {
+                "self_attn_sublayer": (
+                    lambda: KD.self_attn_sublayer(
                         x, pos, scale, wqkv, wo, bias_row, ck, cv, heads=H,
-                        d_kv=DKV)),
-                    plain_ms=_time_ms(lambda: KD.self_attn_sublayer_plain(
+                        d_kv=DKV),
+                    lambda: KD.self_attn_sublayer_plain(
                         x, pos, scale, wqkv, wo, bias_row, ck2, cv2, heads=H,
-                        d_kv=DKV)),
-                    library_ms=_time_ms(lambda: (x @ wqkv.t(),
-                                                 attn_in @ wo.t())))
-                cross_flops = 2 * 2 * r * D * inner + 2 * 2 * r * H * S * DKV
-                cross_bytes = (2 * r * D + 2 * inner * D) * el \
-                    + 2 * B * H * S * DKV * el + B * H * S * 4 + D * 4
-                stats["cross_attn_sublayer"] = dict(
-                    err=e_cross, flops=cross_flops, bytes=cross_bytes,
-                    peak=H100_BF16_FLOPS,
-                    ms=_time_ms(lambda: KD.cross_attn_sublayer(
+                        d_kv=DKV),
+                    lambda: (x @ wqkv.t(), attn_in @ wo.t())),
+                "cross_attn_sublayer": (
+                    lambda: KD.cross_attn_sublayer(
                         x, scale, wcq, wco, cross_k, cross_v, cbias, w,
-                        heads=H, d_kv=DKV)),
-                    plain_ms=_time_ms(lambda: KD.cross_attn_sublayer_plain(
+                        heads=H, d_kv=DKV),
+                    lambda: KD.cross_attn_sublayer_plain(
                         x, scale, wcq, wco, cross_k, cross_v, cbias, w,
-                        heads=H, d_kv=DKV)),
-                    library_ms=_time_ms(lambda: (x @ wcq.t(),
-                                                 attn_in @ wco.t())))
-                hid = torch.empty(r, DFF, dtype=dtype, device=dev)
-                stats["ffn_sublayer"] = dict(
-                    err=e_ffn, flops=2 * 2 * r * D * DFF,
-                    bytes=(2 * r * D + 2 * D * DFF) * el + D * 4,
-                    peak=H100_BF16_FLOPS,
-                    ms=_time_ms(lambda: KD.ffn_sublayer(x, scale, wi, wo2)),
-                    plain_ms=_time_ms(lambda: KD.ffn_sublayer_plain(
-                        x, scale, wi, wo2)),
-                    library_ms=_time_ms(lambda: (x @ wi.t(), hid @ wo2.t())))
+                        heads=H, d_kv=DKV),
+                    lambda: (x @ wcq.t(), attn_in @ wco.t())),
+                "ffn_sublayer": (
+                    lambda: KD.ffn_sublayer(x, scale, wi, wo2),
+                    lambda: KD.ffn_sublayer_plain(x, scale, wi, wo2),
+                    lambda: (x @ wi.t(), hid @ wo2.t())),
+            }
+            for name, (kern, plain, lib) in calls.items():
+                flops, nbytes = decoder_cost(name, r, pos, lmax,
+                                             x.element_size())
+                bound, by = _bound_ms(flops, nbytes, H100_BF16_FLOPS)
+                stats[name]["rows"][r] = dict(
+                    ms=_time_ms(kern), plain_ms=_time_ms(plain),
+                    library_ms=_time_ms(lib), bound_ms=bound, bound_by=by,
+                    flops=flops, bytes=nbytes, pos=pos)
+                if name != "ffn_sublayer":             # its attention core alone
+                    stats[name]["rows"][r]["core_bound_ms"] = core_bytes(
+                        name, r, pos, x.element_size()) / H100_BYTES * 1e3
+
+            # the GEMM alone at its four main-path shapes, each with the
+            # epilogue the path gives it, against one torch.matmul
+            for n, k, epi in GEMM_SHAPES:
+                a = rn(r, k, dtype=dtype)
+                wt = rn(n, k, std=k ** -0.5, dtype=dtype)
+                kw = (dict(resid=rn(r, n, dtype=dtype)) if epi == "residual"
+                      else dict(scale=scale))          # norm GEMMs read x [r, D]
+                err = _close(f"gemm {epi} M={r} N={n} K={k}",
+                             KD.gemm(a, wt, epi, **kw),
+                             KD.gemm_plain(a, wt, epi, **kw), dn)
+                nbytes = (r * k + n * k + r * n * (2 if epi == "residual"
+                                                   else 1)) * 2
+                bound, by = _bound_ms(2 * r * n * k, nbytes, H100_BF16_FLOPS)
+                gemm_rows.append(dict(
+                    m=r, n=n, k=k, epi=epi, max_abs_err=err,
+                    ms=_time_ms(lambda: KD.gemm(a, wt, epi, **kw)),
+                    matmul_ms=_time_ms(lambda: a @ wt.t()), bound_ms=bound,
+                    bound_by=by))
+                g_ = gemm_rows[-1]
+                log(f"  gemm {epi:8s} M={r:5d} N={n:5d} K={k:5d}: "
+                    f"{g_['ms']:.4f} ms, torch.matmul {g_['matmul_ms']:.4f} "
+                    f"ms, bound {bound:.4f} ms ({by})")
+
+    for name in DECODER:
+        st = stats[name]
+        for r, row in sorted(st["rows"].items()):
+            log(f"  {name:20s} R={r:5d}: kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+                f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        st.update({k: v for k, v in st["rows"][rows_main].items()
+                   if k != "pos"})
+        st["per_retrieve"] = {
+            key: sum(RETRIEVE_WEIGHT[w] * st["rows"][B * w][key]
+                     for w in WIDTHS)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "core_bound_ms") if key in st["rows"][rows_main]}
+        st["gemms"] = [g_ for g_ in gemm_rows
+                       if (g_["n"], g_["k"]) in DECODER_GEMMS[name]]
+        pr = st["per_retrieve"]
+        log(f"  {name:20s} per retrieve (6·t32 + 6·t992 + 12·t3200): kernel "
+            f"{pr['ms']:.4f} ms, plain {pr['plain_ms']:.4f} ms, library "
+            f"{pr['library_ms']:.4f} ms, bound {pr['bound_ms']:.4f} ms"
+            + (f"; its attention core's bytes bound {pr['core_bound_ms']:.4f}"
+               f" ms" if "core_bound_ms" in pr else ""))
 
     # the scorers compute in f32 outside the tensor cores; each reads its
     # rows once.  Packed scorer at the operating point: 3,200 beams over
@@ -343,7 +447,8 @@ def phase_kernels(dev, trie) -> dict:
                         store, docs, q, mask), n=5),
                     library_ms=_time_ms(library, n=5))
         del store
-    for name, st in stats.items():
+    for name in SCORERS:
+        st = stats[name]
         st["bound_ms"], st["bound_by"] = _bound_ms(st["flops"], st["bytes"],
                                                    st["peak"])
         log(f"  {name:20s} R=3200: kernel {st['ms']:.4f} ms, plain "
@@ -630,6 +735,18 @@ def _profile(fn) -> None:
                  and not getattr(e, "is_user_annotation", False))
     log(f"  profile: wall {wall:.2f} ms, device busy {dev_us / 1e3:.2f} ms "
         f"({100 * dev_us / 1e3 / wall:.1f}%)")
+    families: dict = {}                 # the port's kernels by name, the rest
+    for e in events:
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        name = (e.key.split("gdr::")[1].split("<")[0].split("(")[0]
+                if "gdr::" in e.key else "PyTorch and cuBLAS kernels")
+        us, n = families.get(name, (0.0, 0))
+        families[name] = (us + e.self_device_time_total, n + e.count)
+    log("  profile by kernel family: " + "; ".join(
+        f"{k} {us / 1e3:.3f} ms ({n} launches)" for k, (us, n) in
+        sorted(families.items(), key=lambda kv: -kv[1][0])))
     log(events.table(sort_by="self_device_time_total", row_limit=25,
                      max_name_column_width=60))
 
@@ -660,18 +777,25 @@ KERNELS = [
 
 def kernel_rows(stats: dict, full: dict) -> list[dict]:
     """The ``{"kernels": [...]}`` rows: each kernel's launches on its
-    layout's main path (phase 4) and its phase-2 numbers at 3,200 rows."""
+    layout's main path (phase 4) and its phase-2 numbers at 3,200 rows; the
+    decoder rows add their numbers at each row count (``by_rows``), the
+    per-retrieve sums (``per_retrieve``) and their GEMM shapes alone
+    against torch.matmul (``gemms``)."""
     rows = []
     for name, source, replaces, library in KERNELS:
         st = stats[name]
-        rows.append(dict(
+        row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=full["launches"][name], max_abs_err=st["err"],
             ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by=st["bound_by"], library_ms=st["library_ms"],
             library=library, flops=st["flops"], bytes=st["bytes"],
             rows=B * WIDTHS[-1],
-            dtype="int8" if name == "packed_scores_int8" else "bfloat16"))
+            dtype="int8" if name == "packed_scores_int8" else "bfloat16")
+        if name in DECODER:
+            row.update(by_rows=st["rows"], per_retrieve=st["per_retrieve"],
+                       gemms=st["gemms"])
+        rows.append(row)
     return rows
 
 

@@ -74,11 +74,13 @@ def _device(name: str):
 
 def _check_query_length(device, max_input_length: int, mcfg) -> None:
     """On cuda, refuse queries longer than the cross-attention kernel
-    serves."""
+    serves to the CLI's f32 model."""
     if device.type != "cuda":
         return
+    import torch
+
     from gdr_tpu_torch.kernels.decode import cross_attn_max_len
-    limit = cross_attn_max_len(mcfg.d_kv)
+    limit = cross_attn_max_len(mcfg.d_kv, torch.float32)
     if max_input_length > limit:
         raise SystemExit(
             f"--max-input-length {max_input_length}: the CUDA "

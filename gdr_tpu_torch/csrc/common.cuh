@@ -43,8 +43,20 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
-// 16 bytes of a store row as f32: the re-rank scorers read rows in these
-// chunks, one per lane, whatever the element type
+// 8 f32 -> 8 bf16 in one 16-byte word, rounded (the inverse of unpack8)
+__device__ __forceinline__ uint4 pack8(const float* f) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// 16 bytes of a row as f32 and back: the re-rank scorers read store rows in
+// these chunks, one per lane, whatever the element type; the self-attention
+// core reads and writes its cache rows in them
 template <typename T> struct Chunk;
 template <> struct Chunk<float> {
   static constexpr int n = 4;
@@ -54,10 +66,15 @@ template <> struct Chunk<float> {
     f[2] = __uint_as_float(u.z);
     f[3] = __uint_as_float(u.w);
   }
+  __device__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
 };
 template <> struct Chunk<__nv_bfloat16> {
   static constexpr int n = 8;
   __device__ static void unpack(const uint4& u, float* f) { unpack8(u, f); }
+  __device__ static uint4 pack(const float* f) { return pack8(f); }
 };
 template <> struct Chunk<int8_t> {
   static constexpr int n = 16;

@@ -18,32 +18,47 @@
 // Products accumulate in f32; scores and softmax are f32.
 //
 // Bounds on the H100 at R = 3,200 rows of t5-base: the GEMMs (QKV, Wo, wi,
-// wo) are above the bf16 ridge and bound by tensor-core operations; the
-// attention cores are bound by bytes (the K/V caches and the per-query
-// encoder K/V).  Weights stream through shared memory, since a block's
-// 227 KB cannot hold them as the TPU's VMEM did.  The GEMM has an RMSNorm
-// prologue (the block computes its rows' inverse RMS once and normalises
-// the A tile on its way into shared memory, rounding it to the model
-// dtype) and a round / ReLU / residual epilogue:
+// wo) are above the bf16 ridge and bound by tensor-core operations; at
+// R = 32 they are bound by the weight bytes.  The attention cores are bound
+// by bytes (the K/V caches, the per-query encoder K/V, q and the outputs).
 //
-// - bf16: 128x64x32 tiles, 4 warps of 64x32 on WMMA tensor-core fragments
-//   with f32 accumulators; 16-byte global loads staged through registers,
-//   so the next K tile is in flight while the current one multiplies
-//   (two shared buffers); the epilogue goes through a per-warp 16x16 patch
-//   and leaves as 16-byte stores.  No TMA or wgmma yet.
-// - f32: 64x64x32 tiles on the FMA units, 8x4 outputs a thread.
+// bf16 GEMM (gemm_wgmma): C = epi(A · Wᵀ) with A [M, K] and W [N, K] both
+// K-major, the layout wgmma takes without a transpose.  One producer warp
+// keeps a ring of 4 tiles in flight by TMA (128-byte swizzle, BK = 64 = one
+// swizzle row) on full/empty mbarriers; one or two consumer warpgroups of
+// 64 rows each issue wgmma m64nBNk16 on the tiles with f32 accumulators in
+// registers and release a stage, warp by warp, once its MMAs retire.
+// Ragged M, N and K edges arrive as TMA zeros.  The epilogue (round / ReLU /
+// residual) stages the tile in the idle ring so that global memory sees
+// 16-byte row chunks, and masks the ragged edge.  The tile (64 or 128 rows ×
+// 8 to 256 columns) is chosen per call by a cost model (choose_tile) so
+// that every main-path shape fills the card: narrow N tiles stream the
+// weights from ~100 SMs at R = 32, 128×192 tiles make one wave of 100
+// blocks at R = 3,200, N = 768.  At these shapes the mainloop is bound by
+// the operand bytes each SM pulls from L2, so larger tiles win where they
+// still fill the card.
+// The RMSNorm: the TPU kernel rounds norm(x) to the model dtype before the
+// product, so a row kernel (rms_norm_bf16) writes norm(x) once, [R, d] in
+// bf16, and the GEMM reads it by TMA.  That costs one launch and ~10 MB at
+// R = 3,200 (a few µs), gives the GEMM exactly the TPU kernel's rounded
+// input, and keeps the mainloop pure TMA → wgmma (normalising A in
+// registers would need the register-A form of wgmma and a second pass over
+// every A tile).
 //
-// Weights are in nn.Linear layout W[N, K] (C = A · Wᵀ).  The wrapper
-// guarantees K and N are multiples of 8 (16-byte rows in bf16).
+// f32 GEMM: 64x64x32 tiles on the FMA units, 8x4 outputs a thread, RMSNorm
+// prologue (the block computes its rows' inverse RMS once).
+//
+// Weights are in nn.Linear layout W[N, K].  The wrapper guarantees K and N
+// are multiples of 8 and 16-byte aligned tensors (TMA's requirements).
 
-#include <mma.h>
+#include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace gdr {
 
 enum Epi { kRound = 0, kRelu = 1, kResidual = 2 };
-constexpr int kMaxL = 16;   // cache positions kept in registers (L <= 16)
 
 // the output before its final rounding to T: ReLU'd, or the residual plus
 // the product rounded to T (the TPU kernel's x + y.astype(dtype))
@@ -54,32 +69,62 @@ __device__ __forceinline__ float epilogue(float acc, float resid) {
   return acc;
 }
 
-// 8 f32 -> 8 bf16 in one 16-byte word (the inverse of unpack8)
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  unsigned w[4];
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 ld16(const T* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+template <typename T>
+__device__ __forceinline__ void st16(T* p, const uint4& v) {
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// ------------------------------------------------------------- RMSNorm
+
+// y = round(x · rsqrt(mean(x²) + eps) · scale), one warp a row of K (a
+// multiple of 8) in 16-byte chunks; f32 mean of squares as _rms
+__global__ void __launch_bounds__(256)
+rms_norm_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ scale,
+              __nv_bfloat16* __restrict__ y, int M, int K, float eps) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;                            // whole warps leave
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * K);
+  const uint4* sr = reinterpret_cast<const uint4*>(scale);
+  uint4* yr = reinterpret_cast<uint4*>(y + (size_t)row * K);
+  const int chunks = K / 8;
+  float ss = 0.f;
+  for (int c = lane; c < chunks; c += 32) {
+    float f[8];
+    unpack8(xr[c], f);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    w[i] = *reinterpret_cast<const unsigned*>(&h);
+    for (int t = 0; t < 8; ++t) ss += f[t] * f[t];
   }
-  return make_uint4(w[0], w[1], w[2], w[3]);
+  const float ir = rsqrtf(warp_sum(ss) / (float)K + eps);
+  for (int c = lane; c < chunks; c += 32) {
+    float f[8], s[8];
+    unpack8(xr[c], f);
+    unpack8(sr[c], s);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) f[t] = (f[t] * ir) * s[t];
+    yr[c] = pack8(f);
+  }
 }
 
 // inverse RMS of rows m0 .. m0+rows-1 of A [M, K] into inv_rms, one warp a
-// row: f32 mean of squares, as the TPU kernel's _rms
-template <typename T>
-__device__ void row_inv_rms(const T* __restrict__ A, int M, int K, int m0,
-                            int rows, float eps, float* inv_rms) {
+// row: f32 mean of squares, as the TPU kernel's _rms (the f32 GEMM's prologue)
+__device__ void row_inv_rms(const float* __restrict__ A, int M, int K, int m0, int rows,
+                            float eps, float* inv_rms) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < rows; r += blockDim.x >> 5) {
     const int gr = m0 + r;
     float ss = 0.f;
     if (gr < M) {
-      const T* row = A + (size_t)gr * K;
-      for (int k = lane; k < K; k += 32) {
-        const float v = to_f<T>(row[k]);
-        ss += v * v;
-      }
+      const float* row = A + (size_t)gr * K;
+      for (int k = lane; k < K; k += 32) ss += row[k] * row[k];
     }
     ss = warp_sum(ss);
     if (lane == 0) inv_rms[r] = rsqrtf(ss / (float)K + eps);
@@ -87,133 +132,124 @@ __device__ void row_inv_rms(const T* __restrict__ A, int M, int K, int m0,
   __syncthreads();
 }
 
-namespace tc {   // the bf16 tensor-core GEMM
-constexpr int BM = 128, BN = 64, BK = 32, kThreads = 128;
-constexpr int LD = BK + 8;                        // 80-byte rows: WMMA ldm % 8
-constexpr int kAChunks = BM * BK / 8 / kThreads;  // 16-byte chunks a thread
-constexpr int kBChunks = BN * BK / 8 / kThreads;
-constexpr int kPatchLd = 20;
-}  // namespace tc
+// ------------------------------------------------------------- bf16 GEMM
 
-// C[M, N] = epi(norm(A)[M, K] · W[N, K]ᵀ); norm(A) = round(A·rsqrt(ms+eps)·scale),
-// with the norm scale in the model dtype, multiplied in f32
-template <bool NORM, int EPI>
-__global__ void __launch_bounds__(tc::kThreads)
-gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
-                 const __nv_bfloat16* __restrict__ scale,
-                 const __nv_bfloat16* __restrict__ W,
-                 const __nv_bfloat16* __restrict__ resid,
-                 __nv_bfloat16* __restrict__ C, int M, int N, int K, float eps) {
-  using namespace nvcuda;
-  using namespace tc;
-  __shared__ __align__(128) __nv_bfloat16 As[2][BM * LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[2][BN * LD];
-  __shared__ __align__(32) float patch[kThreads / 32][16 * kPatchLd];
-  __shared__ float inv_rms[BM];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+constexpr int BK = 64;        // one 128-byte swizzle row of bf16
+
+template <int WG, int BN, int ST>
+struct GemmShape {
+  static constexpr int BM = 64 * WG;
+  static constexpr int kThreads = WG * 128 + 32;           // + the producer warp
+  static constexpr int kABytes = BM * BK * 2, kBBytes = BN * BK * 2;
+  static constexpr int kStage = kABytes + kBBytes;         // a multiple of 1,024
+  static constexpr int kCLd = BN + 8;                      // staged C row, bf16
+  // the ring, its barriers, and slack to align the ring to 1,024 bytes
+  static constexpr int kSmem = ST * kStage + 2 * ST * 8 + 1024;
+  static_assert(BM * kCLd * 2 <= ST * kStage, "the C tile is staged in the ring");
+};
+
+template <int WG, int BN, int ST, int EPI>
+__global__ void __launch_bounds__(GemmShape<WG, BN, ST>::kThreads)
+gemm_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+           const __nv_bfloat16* __restrict__ resid, __nv_bfloat16* __restrict__ C, int M,
+           int N, int K) {
+  using S = GemmShape<WG, BN, ST>;
+  constexpr int BM = S::BM;
+  extern __shared__ __align__(16) uint8_t gemm_smem[];
+  uint8_t* smem = gemm_smem + ((1024 - (smem_u32(gemm_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * S::kStage);
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = warp >> 1, wn = warp & 1;          // warp tile 64 x 32
-  if (NORM) row_inv_rms(A, M, K, m0, BM, eps, inv_rms);
-
-  uint4 ra[kAChunks], rb[kBChunks];
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  auto load = [&](int k0) {        // global -> registers
-#pragma unroll
-    for (int i = 0; i < kAChunks; ++i) {
-      const int c = tid + i * kThreads, r = c >> 2, gk = k0 + (c & 3) * 8;
-      ra[i] = (m0 + r < M && gk < K)
-                  ? *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * K + gk)
-                  : zero;
-    }
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int c = tid + i * kThreads, n = c >> 2, gk = k0 + (c & 3) * 8;
-      rb[i] = (n0 + n < N && gk < K)
-                  ? *reinterpret_cast<const uint4*>(W + (size_t)(n0 + n) * K + gk)
-                  : zero;
-    }
-  };
-  auto store = [&](int buf, int k0) {   // registers -> shared, normalising A
-#pragma unroll
-    for (int i = 0; i < kAChunks; ++i) {
-      const int c = tid + i * kThreads, r = c >> 2, kc = (c & 3) * 8;
-      uint4 v = ra[i];
-      if (NORM && k0 + kc < K) {
-        float f[8];
-        unpack8(v, f);
-        const float ir = inv_rms[r];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) f[t] = (f[t] * ir) * to_f(scale[k0 + kc + t]);
-        v = pack8(f);                   // the normalised input, in bf16
-      }
-      *reinterpret_cast<uint4*>(&As[buf][r * LD + kc]) = v;
-    }
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int c = tid + i * kThreads, n = c >> 2, kc = (c & 3) * 8;
-      *reinterpret_cast<uint4*>(&Bs[buf][n * LD + kc]) = rb[i];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
   const int ktiles = (K + BK - 1) / BK;
-  load(0);
-  store(0, 0);
-  __syncthreads();
-  for (int t = 0; t < ktiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < ktiles) load((t + 1) * BK);     // in flight during the MMAs
+  if (tid == 0) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], &As[buf][(wm * 64 + i * 16) * LD + kk], LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)   // element (k, n) of Wᵀ sits at Bs[n*LD + k]
-        wmma::load_matrix_sync(fb[j], &Bs[buf][(wn * 32 + j * 16) * LD + kk], LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG * 4);                // every consumer warp
     }
-    if (t + 1 < ktiles) store(buf ^ 1, (t + 1) * BK);
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  // epilogue: one 16x16 fragment at a time through this warp's patch; each
-  // lane finishes 8 consecutive outputs of one row
-  float* p = patch[warp];
-  const int pr = lane >> 1, pc = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(p, acc[i][j], kPatchLd, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + wm * 64 + i * 16 + pr;
-      const int gc = n0 + wn * 32 + j * 16 + pc;
-      if (gr < M && gc < N) {
-        const size_t idx = (size_t)gr * N + gc;
-        float rf[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, out[8];
-        if (EPI == kResidual) unpack8(*reinterpret_cast<const uint4*>(resid + idx), rf);
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          out[t] = epilogue<EPI, __nv_bfloat16>(p[pr * kPatchLd + pc + t], rf[t]);
-        *reinterpret_cast<uint4*>(C + idx) = pack8(out);   // rounds to bf16
+  if (wg == WG) {                                  // the producer warp
+    if (tid == WG * 128) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % ST;
+        if (kt >= ST) mbar_wait(&empty[s], ((kt / ST) - 1) & 1);
+        uint8_t* a = smem + s * S::kStage;
+        mbar_expect_tx(&full[s], S::kStage);      // zero-filled bytes count too
+        tma_load_2d(a, &ta, &full[s], kt * BK, m0);
+        tma_load_2d(a + S::kABytes, &tw, &full[s], kt * BK, n0);
       }
-      __syncwarp();
+    }
+  } else {
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % ST;
+      mbar_wait(&full[s], (kt / ST) & 1);
+      const uint8_t* a = smem + s * S::kStage;
+      const uint64_t da = sw128_desc(a + wg * 64 * BK * 2), db = sw128_desc(a + S::kABytes);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks)
+        Wgmma<BN>::mma(acc, da + 2 * ks, db + 2 * ks, 1);
+      wgmma_commit();
+      fence_regs(acc);
+      wgmma_wait<1>();                             // this warp's previous tile is done
+      if (kt > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(kt - 1) % ST]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // epilogue, staged through the (now idle) ring so that global memory
+    // sees 16-byte row chunks: lane l of warp w holds rows 16w + l/4 (+8),
+    // column pairs 8j + 2(l%4) of its warpgroup's 64 x BN tile
+    named_sync(1, WG * 128);                       // every warpgroup is off the ring
+    __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(smem) + wg * 64 * S::kCLd;
+    const int warp = (tid & 127) >> 5;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + (lane >> 2) + 8 * h, c = 8 * j + 2 * (lane & 3);
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        // the residual adds the rounded product below; the others finish here
+        *reinterpret_cast<uint32_t*>(cs + r * S::kCLd + c) =
+            EPI == kResidual ? pack2(v0, v1)
+                             : pack2(epilogue<EPI, __nv_bfloat16>(v0, 0.f),
+                                     epilogue<EPI, __nv_bfloat16>(v1, 0.f));
+      }
+    }
+    named_sync(2 + wg, 128);
+    for (int i = tid & 127; i < 64 * (BN / 8); i += 128) {
+      const int r = i / (BN / 8), c = (i - r * (BN / 8)) * 8;
+      const int row = m0 + wg * 64 + r, col = n0 + c;
+      if (row >= M || col >= N) continue;          // N is a multiple of 8
+      uint4 v = ld16(cs + r * S::kCLd + c);
+      const size_t idx = (size_t)row * N + col;
+      if (EPI == kResidual) {
+        float p[8], x[8];
+        unpack8(v, p);
+        unpack8(ld16(resid + idx), x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) p[e] += x[e];
+        v = pack8(p);
+      }
+      st16(C + idx, v);
     }
   }
 }
 
-// the f32 GEMM on the FMA units: thread (tr, tc) owns rows tr+8i, columns tc+16j
+// ------------------------------------------------------------- f32 GEMM
+
+// thread (tr, tc) owns rows tr+8i, columns tc+16j
 template <bool NORM, int EPI>
 __global__ void __launch_bounds__(128)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ scale,
@@ -276,103 +312,273 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ scale,
   }
 }
 
-// One warp per (row r, head h).  qkv: [R, 3·inner] (q | k | v, rounded);
+// ------------------------------------------------------------- self-attention core
+
+// One group of G = d_kv / Chunk<T>::n lanes per (row r, head h), one 16-byte
+// chunk of the head a lane (G a power of two <= 32, so groups never straddle
+// a warp); consecutive groups are consecutive heads of a row, so a warp
+// reads contiguous cache bytes.  qkv: [R, 3·inner] (q | k | v, rounded);
 // ck/cv: [L, R, inner], time-major; bias: [L, H] f32; attn: [R, inner].
-// The fresh K/V row enters the scores from qkv, never from the stale cache
-// row, and is written into ck/cv at pos in place.  In-place is safe: the
-// caches are the tensors the beam reorder produced for this step, and each
-// warp reads and writes only its own (row, head) slice.
-template <typename T>
+// Each lane issues its loads of q, the fresh k/v and every cache row at
+// positions < pos (LB >= L, unrolled) before any reduction; a score is a
+// chunk dot reduced in log2(G) shuffles.  The fresh K/V row enters the
+// scores from qkv, never from the stale cache row, and is written into
+// ck/cv at pos in place.  In-place is safe: the caches are the tensors the
+// beam reorder produced for this step, and each group reads and writes only
+// its own (row, head) slice.
+template <typename T, int LB>
 __global__ void __launch_bounds__(128)
 self_attn_core(const T* __restrict__ qkv, T* __restrict__ ck, T* __restrict__ cv,
-               const float* __restrict__ bias, T* __restrict__ attn,
-               int R, int L, int H, int dkv, int pos) {
-  const int lane = threadIdx.x & 31;
-  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (w >= R * H) return;
-  const int r = w / H, h = w - r * H;
-  const int inner = H * dkv;
-  const T* q = qkv + (size_t)r * 3 * inner + h * dkv;
-  const T* kn = q + inner;
-  const T* vn = q + 2 * inner;
-  const size_t slice = (size_t)r * inner + h * dkv;   // within one position
-  const size_t step = (size_t)R * inner;              // one position
+               const float* __restrict__ bias, T* __restrict__ attn, int R, int H, int G,
+               int pos) {
+  constexpr int CH = Chunk<T>::n;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int gi = t / G, sub = t & (G - 1);
+  if (gi >= R * H) return;                         // whole groups leave
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned mask = (G == 32) ? 0xffffffffu : ((1u << G) - 1) << (lane & ~(G - 1));
+  const int r = gi / H, h = gi - r * H;
+  const int dkv = G * CH, inner = H * dkv;
+  const T* qp = qkv + (size_t)r * 3 * inner + h * dkv + sub * CH;
+  const size_t slice = (size_t)r * inner + h * dkv + sub * CH;   // within one position
+  const size_t step = (size_t)R * inner;                         // one position
 
-  for (int d = lane; d < dkv; d += 32) {
-    ck[pos * step + slice + d] = kn[d];
-    cv[pos * step + slice + d] = vn[d];
+  const uint4 qc = ld16(qp), kc = ld16(qp + inner), vc = ld16(qp + 2 * inner);
+  uint4 kr[LB], vr[LB];
+#pragma unroll
+  for (int l = 0; l < LB; ++l) {
+    if (l < pos) {
+      kr[l] = ld16(ck + l * step + slice);
+      vr[l] = ld16(cv + l * step + slice);
+    }
   }
+  st16(ck + pos * step + slice, kc);
+  st16(cv + pos * step + slice, vc);
 
-  float s[kMaxL];
+  float q[CH];
+  Chunk<T>::unpack(qc, q);
+  float s[LB];
   float m = -INFINITY;
 #pragma unroll
-  for (int l = 0; l < kMaxL; ++l) {
-    if (l < L) {
-      float v = kNegInf;                   // causal mask: positions > pos
-      if (l <= pos) {
-        const T* kl = (l == pos) ? kn : ck + l * step + slice;
-        float part = 0.f;
-        for (int d = lane; d < dkv; d += 32) part += to_f<T>(q[d]) * to_f<T>(kl[d]);
-        v = warp_sum(part) + bias[l * H + h];   // T5: no 1/sqrt(d_kv)
-      }
-      s[l] = v;
-      m = fmaxf(m, v);
+  for (int l = 0; l < LB; ++l) {
+    if (l <= pos) {                                // causal: positions > pos get p = 0
+      float k[CH];
+      Chunk<T>::unpack(l == pos ? kc : kr[l], k);
+      float part = 0.f;
+#pragma unroll
+      for (int e = 0; e < CH; ++e) part += q[e] * k[e];
+      for (int o = G >> 1; o > 0; o >>= 1) part += __shfl_xor_sync(mask, part, o);
+      s[l] = part + bias[l * H + h];               // T5: no 1/sqrt(d_kv)
+      m = fmaxf(m, s[l]);
     }
   }
   float denom = 0.f;
 #pragma unroll
-  for (int l = 0; l < kMaxL; ++l) {
-    if (l < L) {
+  for (int l = 0; l < LB; ++l) {
+    if (l <= pos) {
       s[l] = expf(s[l] - m);
       denom += s[l];
     }
   }
+  float acc[CH];
 #pragma unroll
-  for (int l = 0; l < kMaxL; ++l)   // probabilities rounded to the model dtype
-    if (l < L) s[l] = round_to<T>(s[l] / denom);
+  for (int e = 0; e < CH; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int l = 0; l < LB; ++l) {
+    if (l <= pos) {
+      const float p = round_to<T>(s[l] / denom);   // probabilities in the model dtype
+      float v[CH];
+      Chunk<T>::unpack(l == pos ? vc : vr[l], v);
+#pragma unroll
+      for (int e = 0; e < CH; ++e) acc[e] += p * v[e];
+    }
+  }
+  st16(attn + slice, Chunk<T>::pack(acc));         // rounds to T
+}
 
-  for (int d = lane; d < dkv; d += 32) {
-    float acc = 0.f;
+// ------------------------------------------------------------- cross-attention core
+
+// bf16, on the tensor cores.  One block per (query b, head h): the query's
+// encoder K and V [S, DKV] are copied once into shared memory in bf16
+// (16-byte cp.async, all in flight at once; rows padded to 16 keys with
+// zeros, row stride DKV + 8 so fragment reads meet no bank twice) with the
+// bias row (−inf past S).  Warp w takes the 16-row tiles w, w + nw, ... of
+// the query's K beam rows; q enters mma.sync fragments straight from
+// global memory, the first tile's while the K/V copies are in flight.  Per
+// tile, S = Q·Kᵀ + bias runs on mma.sync m16n8k16 over 48-key chunks, and
+// three passes take the row max, then Σ exp(s − max), then
+// P = round_bf16(exp(s − max) / Σ), fed from the score registers as the A
+// operand of P·V (V fragments by ldmatrix.trans).  With one chunk (S <= 48,
+// the main path's 40) the scores stay in registers across the passes;
+// longer S recomputes them a chunk at a time (2·16·48·DKV flops, cheap), so
+// the softmax is exactly the plain version's for any S that fits shared
+// memory.  The core is latency-bound (a K/V copy, then dependent MMA and
+// shuffle chains): at most 4 warps a block and <= 128 registers a thread
+// keep 4 blocks, and so every (query, head) block of the main path, on the
+// card at once.
+// Key columns past S carry −inf and get probability exactly 0.
+// q/out: [B·K, inner] (rows b·K … b·K+K-1 belong to query b);
+// ck/cv: [B, H, S, DKV]; bias: [B, H, S] f32 (rel-bias row + −1e9 at pads).
+constexpr int kKeyChunk = 48;   // 6 n-tiles of scores, 3 P·V k-steps
+
+template <int DKV>
+__global__ void __launch_bounds__(128, 4)
+cross_attn_core_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ ck,
+                     const __nv_bfloat16* __restrict__ cv, const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, int K, int H, int S) {
+  constexpr int LD = DKV + 8, NKS = DKV / 16, NOT = DKV / 8, NT = kKeyChunk / 8;
+  extern __shared__ __align__(16) uint8_t cross_smem[];
+  const int sp = (S + 15) & ~15;                   // keys padded to the P·V k-step
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(cross_smem);
+  __nv_bfloat16* vs = ks + sp * LD;
+  float* bs = reinterpret_cast<float*>(vs + sp * LD);
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const size_t kv = ((size_t)b * H + h) * S * DKV;
+  for (int i = threadIdx.x; i < sp * (DKV / 8); i += blockDim.x) {   // all in flight
+    const int j = i / (DKV / 8), c = (i - j * (DKV / 8)) * 8;
+    const size_t src = j < S ? kv + (size_t)j * DKV + c : kv;
+    const int bytes = j < S ? 16 : 0;              // pad rows: zeros
+    cp_async16(ks + j * LD + c, ck + src, bytes);
+    cp_async16(vs + j * LD + c, cv + src, bytes);
+  }
+  const float* brow = bias + ((size_t)b * H + h) * S;
+  for (int j = threadIdx.x; j < sp; j += blockDim.x) bs[j] = j < S ? brow[j] : -INFINITY;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int inner = H * DKV;
+  // q of rows r, r+8 as A fragments of the k-steps, straight from global
+  uint32_t qa[NKS][4];
+  auto load_q = [&](int rt) {
+    const int r0 = rt * 16 + g, r1 = r0 + 8;
+    const __nv_bfloat16* q0 = q + ((size_t)b * K + r0) * inner + h * DKV + c2;
+    const __nv_bfloat16* q1 = q0 + 8 * (size_t)inner;
 #pragma unroll
-    for (int l = 0; l < kMaxL; ++l) {
-      if (l < L && l <= pos) {   // masked positions carry probability 0
-        const float v = to_f<T>((l == pos) ? vn[d] : cv[l * step + slice + d]);
-        acc += s[l] * v;
+    for (int kk = 0; kk < NKS; ++kk) {
+      qa[kk][0] = r0 < K ? *reinterpret_cast<const uint32_t*>(q0 + 16 * kk) : 0u;
+      qa[kk][1] = r1 < K ? *reinterpret_cast<const uint32_t*>(q1 + 16 * kk) : 0u;
+      qa[kk][2] = r0 < K ? *reinterpret_cast<const uint32_t*>(q0 + 16 * kk + 8) : 0u;
+      qa[kk][3] = r1 < K ? *reinterpret_cast<const uint32_t*>(q1 + 16 * kk + 8) : 0u;
+    }
+  };
+  load_q(warp);                                    // in flight with the K/V copies
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int rt = warp; rt * 16 < K; rt += nw) {     // warp-uniform
+    if (rt != warp) load_q(rt);
+    const int r0 = rt * 16 + g, r1 = r0 + 8;
+    // sc[nt]: rows g, g+8 × keys c0 + 8nt + c2, +1 of this chunk
+    float sc[NT][4];
+    auto scores = [&](int c0) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int j0 = c0 + 8 * nt;
+        if (j0 < sp) {
+          sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+          const __nv_bfloat16* kr = ks + (j0 + g) * LD + c2;
+#pragma unroll
+          for (int kk = 0; kk < NKS; ++kk)
+            mma_16816(sc[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kr + 16 * kk),
+                      *reinterpret_cast<const uint32_t*>(kr + 16 * kk + 8));
+          const float2 bb = *reinterpret_cast<const float2*>(bs + j0 + c2);
+          sc[nt][0] += bb.x;
+          sc[nt][1] += bb.y;
+          sc[nt][2] += bb.x;
+          sc[nt][3] += bb.y;
+        } else {
+          sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = -INFINITY;
+        }
+      }
+    };
+    float m0 = -INFINITY, m1 = -INFINITY;          // rows g and g+8
+    for (int c0 = 0; c0 < sp; c0 += kKeyChunk) {
+      scores(c0);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        m0 = fmaxf(m0, fmaxf(sc[nt][0], sc[nt][1]));
+        m1 = fmaxf(m1, fmaxf(sc[nt][2], sc[nt][3]));
       }
     }
-    attn[slice + d] = from_f<T>(acc);
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {              // the 4 lanes of a row
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+    float d0 = 0.f, d1 = 0.f;
+    for (int c0 = 0; c0 < sp; c0 += kKeyChunk) {
+      if (sp > kKeyChunk) scores(c0);              // one chunk: still in sc
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        d0 += expf(sc[nt][0] - m0) + expf(sc[nt][1] - m0);
+        d1 += expf(sc[nt][2] - m1) + expf(sc[nt][3] - m1);
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      d0 += __shfl_xor_sync(0xffffffffu, d0, o);
+      d1 += __shfl_xor_sync(0xffffffffu, d1, o);
+    }
+    float acc[NOT][4];
+#pragma unroll
+    for (int nt = 0; nt < NOT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    for (int c0 = 0; c0 < sp; c0 += kKeyChunk) {
+      if (sp > kKeyChunk) scores(c0);
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {        // 16 keys a k-step
+        if (c0 + 16 * kk >= sp) break;
+        const int lo = 2 * kk, hi = 2 * kk + 1;
+        const uint32_t pa[4] = {                   // probabilities rounded to bf16
+            pack2(expf(sc[lo][0] - m0) / d0, expf(sc[lo][1] - m0) / d0),
+            pack2(expf(sc[lo][2] - m1) / d1, expf(sc[lo][3] - m1) / d1),
+            pack2(expf(sc[hi][0] - m0) / d0, expf(sc[hi][1] - m0) / d0),
+            pack2(expf(sc[hi][2] - m1) / d1, expf(sc[hi][3] - m1) / d1)};
+        const __nv_bfloat16* vrow = vs + (c0 + 16 * kk + (lane & 15)) * LD;
+#pragma unroll
+        for (int nt = 0; nt < NOT; ++nt) {
+          uint32_t b0, b1;
+          ldmatrix_x2_trans(b0, b1, vrow + 8 * nt);
+          mma_16816(acc[nt], pa, b0, b1);
+        }
+      }
+    }
+    __nv_bfloat16* o0 = out + ((size_t)b * K + r0) * inner + h * DKV + c2;
+    __nv_bfloat16* o1 = o0 + 8 * (size_t)inner;
+#pragma unroll
+    for (int nt = 0; nt < NOT; ++nt) {             // the attention output, rounded
+      if (r0 < K) *reinterpret_cast<uint32_t*>(o0 + 8 * nt) = pack2(acc[nt][0], acc[nt][1]);
+      if (r1 < K) *reinterpret_cast<uint32_t*>(o1 + 8 * nt) = pack2(acc[nt][2], acc[nt][3]);
+    }
   }
 }
 
-// One block per (query b, head h): that query's encoder K/V [S, d_kv] are
-// loaded into shared memory once and serve its K beam rows, one warp per
-// row.  q/out: [B·K, inner] (rows b·K … b·K+K-1 belong to query b);
-// ck/cv: [B, H, S, d_kv]; bias: [B, H, S] f32 (rel-bias row + −1e9 at pads).
-template <typename T>
+// f32 on the FMA units: the query's K/V in f32 shared memory (odd stride:
+// conflict-free reads), one warp per beam row, lane-per-key scores and
+// lane-per-d P·V.
 __global__ void __launch_bounds__(128)
-cross_attn_core(const T* __restrict__ q, const T* __restrict__ ck,
-                const T* __restrict__ cv, const float* __restrict__ bias,
-                T* __restrict__ out, int K, int H, int S, int dkv) {
-  extern __shared__ float smem[];
+cross_attn_core_f32(const float* __restrict__ q, const float* __restrict__ ck,
+                    const float* __restrict__ cv, const float* __restrict__ bias,
+                    float* __restrict__ out, int K, int H, int S, int dkv) {
+  extern __shared__ float f32_smem[];
   const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const int ld = dkv + 1, inner = H * dkv;   // odd stride: conflict-free reads
-  float* ks = smem;
+  const int ld = dkv + 1, inner = H * dkv;
+  float* ks = f32_smem;
   float* vs = ks + S * ld;
   float* qw = vs + S * ld + warp * dkv;
   float* pw = vs + S * ld + nw * dkv + warp * S;
   const size_t kv = ((size_t)b * H + h) * S * dkv;
   for (int i = threadIdx.x; i < S * dkv; i += blockDim.x) {
     const int j = i / dkv, d = i - j * dkv;
-    ks[j * ld + d] = to_f<T>(ck[kv + i]);
-    vs[j * ld + d] = to_f<T>(cv[kv + i]);
+    ks[j * ld + d] = ck[kv + i];
+    vs[j * ld + d] = cv[kv + i];
   }
   __syncthreads();
   const float* bb = bias + ((size_t)b * H + h) * S;
   for (int k = warp; k < K; k += nw) {
     const size_t row = (size_t)b * K + k;
-    const T* qr = q + row * inner + h * dkv;
-    for (int d = lane; d < dkv; d += 32) qw[d] = to_f<T>(qr[d]);
+    const float* qr = q + row * inner + h * dkv;
+    for (int d = lane; d < dkv; d += 32) qw[d] = qr[d];
     __syncwarp();
     float mloc = -INFINITY;
     for (int j = lane; j < S; j += 32) {
@@ -390,52 +596,192 @@ cross_attn_core(const T* __restrict__ q, const T* __restrict__ ck,
       dloc += e;
     }
     const float denom = warp_sum(dloc);
-    for (int j = lane; j < S; j += 32) pw[j] = round_to<T>(pw[j] / denom);
+    for (int j = lane; j < S; j += 32) pw[j] = pw[j] / denom;
     __syncwarp();
     for (int d = lane; d < dkv; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < S; ++j) acc += pw[j] * vs[j * ld + d];
-      out[row * inner + h * dkv + d] = from_f<T>(acc);
+      out[row * inner + h * dkv + d] = acc;
     }
     __syncwarp();
   }
 }
 
-template <bool NORM, int EPI>
-static void gemm_launch(int dtype, const void* a, const void* scale, const void* w,
-                        const void* resid, void* c, int m, int n, int k, float eps,
-                        cudaStream_t s) {
-  if (dtype == kBF16) {
-    const dim3 grid((n + tc::BN - 1) / tc::BN, (m + tc::BM - 1) / tc::BM);
-    gemm_bf16_kernel<NORM, EPI><<<grid, tc::kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(scale),
-        static_cast<const __nv_bfloat16*>(w), static_cast<const __nv_bfloat16*>(resid),
-        static_cast<__nv_bfloat16*>(c), m, n, k, eps);
-  } else {
-    const dim3 grid((n + 63) / 64, (m + 63) / 64);
-    gemm_f32_kernel<NORM, EPI><<<grid, 128, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(scale),
-        static_cast<const float*>(w), static_cast<const float*>(resid),
-        static_cast<float*>(c), m, n, k, eps);
+// ------------------------------------------------------------- launchers
+
+// cuTensorMapEncodeTiled from the driver, fetched once through the runtime
+// (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
 }
 
-// K/V in shared memory bound S: 431 positions at d_kv 64 in 227 KB (the
-// wrapper refuses more, kernels/decode.py::cross_attn_max_len)
-template <typename T>
-static cudaError_t launch_cross(const void* q, const void* ck, const void* cv,
-                                const void* bias, void* out, int B, int K, int H,
-                                int S, int dkv, cudaStream_t s) {
+// the [rows, cols] bf16 row-major matrix at ptr, read in boxes of
+// box_rows x 64 with the 128-byte swizzle
+static bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Tile {
+  int wg, bn, stages;   // 64·wg rows x bn columns, a ring of `stages` tiles
+};
+
+// every instantiated tile, largest first
+#define GDR_GEMM_TILES(X)                                                                \
+  X(2, 256, 4) X(2, 192, 4) X(2, 128, 4) X(2, 64, 4) X(1, 128, 4) X(1, 64, 4) X(1, 32, 4) \
+  X(1, 16, 4) X(1, 8, 4)
+
+// The tile with the least modelled time: rounds of blocks over the SMs
+// times a block's time per k, the larger of its tensor-core work (989
+// TFLOP/s over 132 SMs) and its operand bytes (~110 GB/s of L2 an SM; rows
+// past M arrive as TMA zeros and cost no bytes).  Ties go to the larger tile.
+static Tile choose_tile(int m, int n) {
+#define GDR_TILE_ENTRY(wg, bn, st) {wg, bn, st},
+  static const Tile kTiles[] = {GDR_GEMM_TILES(GDR_TILE_ENTRY)};
+#undef GDR_TILE_ENTRY
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  Tile best = kTiles[0];
+  double best_t = 1e30;
+  for (const Tile& t : kTiles) {
+    const int bm = 64 * t.wg;
+    const long blocks = (long)((m + bm - 1) / bm) * ((n + t.bn - 1) / t.bn);
+    const long rounds = (blocks + sms - 1) / sms;
+    const double ops = 2.0 * bm * t.bn / 7.49e12;
+    const double bytes = 2.0 * ((m < bm ? m : bm) + t.bn) / 110e9;
+    const double time = rounds * (ops > bytes ? ops : bytes);
+    if (time < best_t * (1 - 1e-9)) {
+      best_t = time;
+      best = t;
+    }
+  }
+  return best;
+}
+
+template <int WG, int BN, int ST, int EPI>
+static cudaError_t launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tw,
+                                const void* resid, void* c, int m, int n, int k,
+                                cudaStream_t s) {
+  using S = GemmShape<WG, BN, ST>;
+  auto kernel = gemm_wgmma<WG, BN, ST, EPI>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + BN - 1) / BN, (m + S::BM - 1) / S::BM);
+  kernel<<<grid, S::kThreads, S::kSmem, s>>>(ta, tw, static_cast<const __nv_bfloat16*>(resid),
+                                             static_cast<__nv_bfloat16*>(c), m, n, k);
+  return cudaGetLastError();
+}
+
+template <int WG, int BN, int ST>
+static cudaError_t launch_epi(int epi, const CUtensorMap& ta, const CUtensorMap& tw,
+                              const void* resid, void* c, int m, int n, int k,
+                              cudaStream_t s) {
+  if (epi == kRound) return launch_wgmma<WG, BN, ST, kRound>(ta, tw, resid, c, m, n, k, s);
+  if (epi == kRelu) return launch_wgmma<WG, BN, ST, kRelu>(ta, tw, resid, c, m, n, k, s);
+  return launch_wgmma<WG, BN, ST, kResidual>(ta, tw, resid, c, m, n, k, s);
+}
+
+static cudaError_t gemm_bf16(const void* a, const void* scale, void* normed, const void* w,
+                             const void* resid, void* c, int m, int n, int k, bool norm,
+                             int epi, float eps, cudaStream_t s) {
+  if (norm) {
+    rms_norm_bf16<<<(m + 7) / 8, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(scale),
+        static_cast<__nv_bfloat16*>(normed), m, k, eps);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    a = normed;
+  }
+  const Tile t = choose_tile(m, n);
+  CUtensorMap ta, tw;
+  if (!tensor_map(&ta, a, m, k, 64 * t.wg) || !tensor_map(&tw, w, n, k, t.bn))
+    return cudaErrorInvalidValue;
+#define GDR_TILE_LAUNCH(wg_, bn_, st_)                    \
+  if (t.wg == wg_ && t.bn == bn_ && t.stages == st_) \
+    return launch_epi<wg_, bn_, st_>(epi, ta, tw, resid, c, m, n, k, s);
+  GDR_GEMM_TILES(GDR_TILE_LAUNCH)
+#undef GDR_TILE_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+template <bool NORM, int EPI>
+static cudaError_t gemm_f32(const void* a, const void* scale, const void* w,
+                            const void* resid, void* c, int m, int n, int k, float eps,
+                            cudaStream_t s) {
+  const dim3 grid((n + 63) / 64, (m + 63) / 64);
+  gemm_f32_kernel<NORM, EPI><<<grid, 128, 0, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(scale),
+      static_cast<const float*>(w), static_cast<const float*>(resid), static_cast<float*>(c),
+      m, n, k, eps);
+  return cudaGetLastError();
+}
+
+static cudaError_t set_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// K/V in shared memory bound S (kernels/decode.py::cross_attn_max_len
+// mirrors both formulas, and the wrapper refuses more than they fit)
+template <int DKV>
+static cudaError_t launch_cross_bf16(const void* q, const void* ck, const void* cv,
+                                     const void* bias, void* out, int B, int K, int H, int S,
+                                     cudaStream_t s) {
+  const int sp = (S + 15) & ~15;
+  const size_t smem = (size_t)2 * sp * (DKV + 8) * 2 + (size_t)sp * 4;
+  const cudaError_t e = set_smem((const void*)cross_attn_core_bf16<DKV>, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = (K + 15) / 16, warps = tiles < 4 ? tiles : 4;
+  cross_attn_core_bf16<DKV><<<B * H, 32 * warps, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(ck),
+      static_cast<const __nv_bfloat16*>(cv), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), K, H, S);
+  return cudaGetLastError();
+}
+
+static cudaError_t launch_cross_f32(const void* q, const void* ck, const void* cv,
+                                    const void* bias, void* out, int B, int K, int H, int S,
+                                    int dkv, cudaStream_t s) {
   const int threads = 128, nw = threads / 32;
   const size_t smem = (size_t)(2 * S * (dkv + 1) + nw * dkv + nw * S) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cross_attn_core<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  cross_attn_core<T><<<B * H, threads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ck), static_cast<const T*>(cv),
-      static_cast<const float*>(bias), static_cast<T*>(out), K, H, S, dkv);
+  const cudaError_t e = set_smem((const void*)cross_attn_core_f32, smem);
+  if (e != cudaSuccess) return e;
+  cross_attn_core_f32<<<B * H, threads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(ck), static_cast<const float*>(cv),
+      static_cast<const float*>(bias), static_cast<float*>(out), K, H, S, dkv);
   return cudaGetLastError();
 }
 
@@ -443,11 +789,21 @@ template <typename T>
 static cudaError_t launch_self(const void* qkv, void* ck, void* cv, const void* bias,
                                void* attn, int R, int L, int H, int dkv, int pos,
                                cudaStream_t s) {
-  if (L > kMaxL || pos < 0 || pos >= L) return cudaErrorInvalidValue;
-  const int threads = 128, warps = R * H;
-  self_attn_core<T><<<(warps + 3) / 4, threads, 0, s>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(ck), static_cast<T*>(cv),
-      static_cast<const float*>(bias), static_cast<T*>(attn), R, L, H, dkv, pos);
+  const int G = dkv / Chunk<T>::n;
+  if (L > 16 || pos < 0 || pos >= L || dkv % Chunk<T>::n || G > 32 || (G & (G - 1)))
+    return cudaErrorInvalidValue;
+  const int threads = 128;
+  const long groups = (long)R * H;
+  const int blocks = (int)((groups * G + threads - 1) / threads);
+  const T* q = static_cast<const T*>(qkv);
+  T *k = static_cast<T*>(ck), *v = static_cast<T*>(cv), *o = static_cast<T*>(attn);
+  const float* b = static_cast<const float*>(bias);
+  if (L <= 4)
+    self_attn_core<T, 4><<<blocks, threads, 0, s>>>(q, k, v, b, o, R, H, G, pos);
+  else if (L <= 8)
+    self_attn_core<T, 8><<<blocks, threads, 0, s>>>(q, k, v, b, o, R, H, G, pos);
+  else
+    self_attn_core<T, 16><<<blocks, threads, 0, s>>>(q, k, v, b, o, R, H, G, pos);
   return cudaGetLastError();
 }
 
@@ -455,38 +811,47 @@ static cudaError_t launch_self(const void* qkv, void* ck, void* cv, const void* 
 
 using gdr::kBF16;
 
-extern "C" int gdr_gemm(int dtype, const void* a, const void* scale, const void* w,
-                        const void* resid, void* c, int m, int n, int k, int norm,
-                        int epi, float eps, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0)
-    return cudaErrorInvalidValue;
+// C[M, N] = epi(norm?(A) · Wᵀ).  normed: [M, K] scratch in the model dtype
+// for the bf16 normalised input (may be null for f32 or without norm).
+extern "C" int gdr_gemm(int dtype, const void* a, const void* scale, void* normed,
+                        const void* w, const void* resid, void* c, int m, int n, int k,
+                        int norm, int epi, float eps, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0) return cudaErrorInvalidValue;
+  const bool ok = (norm && (epi == gdr::kRound || epi == gdr::kRelu)) ||
+                  (!norm && epi == gdr::kResidual);
+  if (!ok || (dtype == kBF16 && norm && normed == nullptr)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (norm && epi == gdr::kRound)
-    gdr::gemm_launch<true, gdr::kRound>(dtype, a, scale, w, resid, c, m, n, k, eps, s);
-  else if (norm && epi == gdr::kRelu)
-    gdr::gemm_launch<true, gdr::kRelu>(dtype, a, scale, w, resid, c, m, n, k, eps, s);
-  else if (!norm && epi == gdr::kResidual)
-    gdr::gemm_launch<false, gdr::kResidual>(dtype, a, scale, w, resid, c, m, n, k, eps, s);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  if (dtype == kBF16)
+    return gdr::gemm_bf16(a, scale, normed, w, resid, c, m, n, k, norm, epi, eps, s);
+  if (epi == gdr::kRound)
+    return gdr::gemm_f32<true, gdr::kRound>(a, scale, w, resid, c, m, n, k, eps, s);
+  if (epi == gdr::kRelu)
+    return gdr::gemm_f32<true, gdr::kRelu>(a, scale, w, resid, c, m, n, k, eps, s);
+  return gdr::gemm_f32<false, gdr::kResidual>(a, scale, w, resid, c, m, n, k, eps, s);
 }
 
 extern "C" int gdr_self_attn_core(int dtype, const void* qkv, void* ck, void* cv,
-                                  const void* bias, void* attn, int rows, int L,
-                                  int heads, int dkv, int pos, void* stream) {
+                                  const void* bias, void* attn, int rows, int L, int heads,
+                                  int dkv, int pos, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == kBF16
-             ? gdr::launch_self<__nv_bfloat16>(qkv, ck, cv, bias, attn, rows, L, heads, dkv, pos, s)
+             ? gdr::launch_self<__nv_bfloat16>(qkv, ck, cv, bias, attn, rows, L, heads, dkv,
+                                               pos, s)
              : gdr::launch_self<float>(qkv, ck, cv, bias, attn, rows, L, heads, dkv, pos, s);
 }
 
-extern "C" int gdr_cross_attn_core(int dtype, const void* q, const void* ck,
-                                   const void* cv, const void* bias, void* out,
-                                   int batch, int beams, int heads, int S, int dkv,
-                                   void* stream) {
+extern "C" int gdr_cross_attn_core(int dtype, const void* q, const void* ck, const void* cv,
+                                   const void* bias, void* out, int batch, int beams,
+                                   int heads, int S, int dkv, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == kBF16
-             ? gdr::launch_cross<__nv_bfloat16>(q, ck, cv, bias, out, batch, beams, heads, S, dkv, s)
-             : gdr::launch_cross<float>(q, ck, cv, bias, out, batch, beams, heads, S, dkv, s);
+  if (dtype != kBF16)
+    return gdr::launch_cross_f32(q, ck, cv, bias, out, batch, beams, heads, S, dkv, s);
+  switch (dkv) {
+    case 16: return gdr::launch_cross_bf16<16>(q, ck, cv, bias, out, batch, beams, heads, S, s);
+    case 32: return gdr::launch_cross_bf16<32>(q, ck, cv, bias, out, batch, beams, heads, S, s);
+    case 64: return gdr::launch_cross_bf16<64>(q, ck, cv, bias, out, batch, beams, heads, S, s);
+    case 128:
+      return gdr::launch_cross_bf16<128>(q, ck, cv, bias, out, batch, beams, heads, S, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

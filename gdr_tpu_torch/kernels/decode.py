@@ -29,18 +29,21 @@ product accumulates in f32; scores and softmax are f32.
 **What bounds them on the H100, and the design.**  At the full-width step
 (R = 3,200 rows of t5-base) the FFN does 30.2 GFLOP on 19.3 MB and the
 attention projections 15.1 + 7.9 GFLOP: above the card's ~295 bf16
-FLOP/byte ridge, so the tensor cores bound them.  On the TPU each sublayer
-was one program with all weights in 16 MB VMEM; a Hopper block has 227 KB,
-so weights stream through shared memory and a sublayer is up to three
-launches of one shared tiled GEMM (RMSNorm prologue; round / ReLU /
-residual epilogue; bf16 on tensor cores via WMMA with f32 accumulation,
-f32 on FMA units) and, for the attention sublayers, one attention core
-between two GEMMs.  Each intermediate is written once in the model dtype,
-exactly where the TPU kernel rounds it.  The attention cores are bound by
-bytes: the self-attention core reads the [L, R, inner] caches once (one
-warp per row and head, scores for L ≤ 16 positions in registers); the
-cross-attention core loads one query's [S, d_kv] K/V into shared memory
-once per (query, head) block and serves all of that query's beam rows.
+FLOP/byte ridge, so the tensor cores bound them; at R = 32 the weight bytes
+do.  On the TPU each sublayer was one program with all weights in 16 MB
+VMEM; a Hopper block has 227 KB, so weights stream through shared memory
+and a sublayer is up to three launches of one shared GEMM (:func:`gemm`:
+bf16 on ``wgmma`` with TMA-fed shared-memory rings and a per-shape tile,
+after a row kernel that writes the RMSNorm output once; f32 on the FMA
+units with an RMSNorm prologue; round / ReLU / residual epilogue) and, for
+the attention sublayers, one attention core between two GEMMs.  Each
+intermediate is written once in the model dtype, exactly where the TPU
+kernel rounds it.  The attention cores are bound by bytes: the
+self-attention core reads the [L, R, inner] caches once with 16-byte loads
+(d_kv / 8 lanes per row and head in bf16, all cache rows in flight before
+the reductions); the cross-attention core stages one query's [S, d_kv]
+K/V in shared memory once per (query, head) block and, in bf16, runs
+Q·Kᵀ and P·V of all that query's beam rows on ``mma.sync`` tensor cores.
 
 Weights are passed in ``nn.Linear`` layout ``[out, in]`` (the transpose of
 the TPU kernel's ``[in, out]``): ``wqkv [3·inner, d]``, ``wo [d, inner]``,
@@ -63,25 +66,34 @@ LAUNCHES = {"self_attn_sublayer": 0, "cross_attn_sublayer": 0,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
-    # dtype, a, scale, w, resid, c, m, n, k, norm, epi, eps, stream
-    "gdr_gemm": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # dtype, a, scale, normed, w, resid, c, m, n, k, norm, epi, eps, stream
+    "gdr_gemm": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # dtype, qkv, ck, cv, bias, attn, rows, L, heads, d_kv, pos, stream
     "gdr_self_attn_core": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, q, ck, cv, bias, out, batch, beams, heads, S, d_kv, stream
     "gdr_cross_attn_core": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 EPI_ROUND, EPI_RELU, EPI_RESIDUAL = 0, 1, 2
-# shared memory a Hopper block may opt into; the cross-attention core's
-# 128 threads (4 warps) hold one query's f32 K and V for one head in it
+_EPIS = {"round": EPI_ROUND, "relu": EPI_RELU, "residual": EPI_RESIDUAL}
+# shared memory a Hopper block may opt into
 _SMEM_OPTIN = 227 * 1024
-_CROSS_WARPS = 4
+_CROSS_F32_WARPS = 4
+# head widths of the bf16 cross-attention core (one instantiation each)
+_CROSS_BF16_DKV = (16, 32, 64, 128)
 
 
-def cross_attn_max_len(d_kv: int) -> int:
-    """The longest encoder sequence the CUDA cross-attention core serves:
-    431 tokens at d_kv 64.  The plain version (CPU) has no such limit."""
-    per_key = 2 * (d_kv + 1) + _CROSS_WARPS        # K and V rows + scores
-    return (_SMEM_OPTIN // 4 - _CROSS_WARPS * d_kv) // per_key
+def cross_attn_max_len(d_kv: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The longest encoder sequence the CUDA cross-attention core serves in
+    ``dtype``.  bf16: the query's K and V rows (d_kv + 8 bf16 each, keys
+    padded to 16) and its f32 bias row fit 227 KB of shared memory, 784
+    tokens at d_kv 64.  f32: K and V rows (d_kv + 1 floats) and four warps'
+    query and score rows, 431 tokens at d_kv 64.  The plain version (CPU)
+    has no such limit."""
+    if dtype == torch.bfloat16:
+        per_key = 2 * (d_kv + 8) * 2 + 4
+        return _SMEM_OPTIN // per_key // 16 * 16
+    per_key = 2 * (d_kv + 1) + _CROSS_F32_WARPS
+    return (_SMEM_OPTIN // 4 - _CROSS_F32_WARPS * d_kv) // per_key
 
 
 # ------------------------------------------------------------ plain versions
@@ -146,6 +158,15 @@ def ffn_sublayer_plain(x, ln_scale, wi, wo, *, eps: float = 1e-6):
     return x + _mm(h, wo).to(x.dtype)
 
 
+def gemm_plain(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6):
+    """The sublayers' GEMM step: ``round(norm(a) · wᵀ)``, ``round(relu(...))``
+    or ``resid + round(a · wᵀ)``, in the model dtype."""
+    if epi == "residual":
+        return resid + _mm(a, w).to(a.dtype)
+    y = _mm(_rms(a, scale, eps), w)
+    return (torch.relu(y) if epi == "relu" else y).to(a.dtype)
+
+
 # --------------------------------------------------------------- wrappers
 
 def _lib():
@@ -183,19 +204,65 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _gemm(lib, code, a, scale, w, resid, c, norm, epi, eps, stream, what):
+def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what):
+    """One launch of ``gdr_gemm``: RMSNorm + round / ReLU, or residual."""
     m, k = a.shape
     n = w.shape[0]
-    # the GEMM moves rows in 16-byte chunks
-    if n % 8 or k % 8 or any(t.data_ptr() % 16 for t in (a, w, c)
-                             if t is not None) or (
-            resid is not None and resid.data_ptr() % 16):
+    norm = epi != EPI_RESIDUAL
+    # TMA and the 16-byte row chunks need widths that are multiples of 8
+    # and 16-byte aligned tensors
+    if n % 8 or k % 8 or any(t.data_ptr() % 16 for t in (a, scale, w, resid, c)
+                             if t is not None):
         raise ValueError(f"{what}: needs widths that are multiples of 8 and "
                          f"16-byte aligned tensors (m={m}, n={n}, k={k})")
+    normed = (torch.empty_like(a) if norm and a.dtype == torch.bfloat16
+              else None)
     build.check(lib, lib.gdr_gemm(
-        code, a.data_ptr(), scale.data_ptr() if scale is not None else None,
-        w.data_ptr(), resid.data_ptr() if resid is not None else None,
-        c.data_ptr(), m, n, k, int(norm), epi, eps, stream), what)
+        code, a.data_ptr(), scale.data_ptr() if norm else None,
+        normed.data_ptr() if normed is not None else None, w.data_ptr(),
+        resid.data_ptr() if resid is not None else None, c.data_ptr(), m, n,
+        k, int(norm), epi, eps, stream), what)
+
+
+def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6):
+    """The decoder sublayers' GEMM on its own: a [M, K], w [N, K];
+    ``epi`` "round" or "relu" (RMSNorm of ``a`` with ``scale`` first) or
+    "residual" (``resid`` [M, N] + the rounded product).  The sublayer
+    wrappers count their launches; this entry point, for tests and
+    per-shape timing, counts none."""
+    if epi not in _EPIS or (epi == "residual") != (scale is None) or (
+            epi == "residual") != (resid is not None):
+        raise ValueError(f"gemm: epi {epi!r} takes scale for round/relu and "
+                         f"resid for residual")
+    if a.device.type == "cpu":
+        return gemm_plain(a, w, epi, scale=scale, resid=resid, eps=eps)
+    code = _check_cuda("gemm", a.dtype, *(t for t in (a, w, scale, resid)
+                                          if t is not None), bias=None)
+    if a.dim() != 2 or w.dim() != 2 or w.shape[1] != a.shape[1]:
+        raise ValueError(f"gemm: a {tuple(a.shape)}, w {tuple(w.shape)}")
+    c = torch.empty((a.shape[0], w.shape[0]), dtype=a.dtype, device=a.device)
+    if resid is not None:
+        _shape("gemm resid", resid, tuple(c.shape))
+    if scale is not None:
+        _shape("gemm scale", scale, (a.shape[1],))
+    _gemm(_lib(), code, a, scale, w, resid, c, _EPIS[epi], eps, _stream(a),
+          "gemm")
+    return c
+
+
+def _check_heads(name: str, dtype: torch.dtype, d_kv: int, cross: bool):
+    """The head widths the attention cores take: one of _CROSS_BF16_DKV for
+    the bf16 cross-attention core (any for its f32 core), and a
+    power-of-two number of 16-byte chunks, at most 32, for the
+    self-attention core (one lane a chunk)."""
+    if cross:
+        ok = dtype != torch.bfloat16 or d_kv in _CROSS_BF16_DKV
+    else:
+        chunks, rem = divmod(d_kv * torch.finfo(dtype).bits // 8, 16)
+        ok = rem == 0 and 0 < chunks <= 32 and chunks & (chunks - 1) == 0
+    if not ok:
+        raise ValueError(f"{name}: d_kv {d_kv} not served by the CUDA core in "
+                         f"{dtype}")
 
 
 def self_attn_sublayer(x, pos: int, ln_scale, wqkv, wo, bias_row, ck, cv,
@@ -221,20 +288,21 @@ def self_attn_sublayer(x, pos: int, ln_scale, wqkv, wo, bias_row, ck, cv,
     if not 0 <= pos < lmax or lmax > MAX_L:
         raise ValueError(f"self_attn_sublayer: pos {pos} / L {lmax} outside "
                          f"0 <= pos < L <= {MAX_L}")
+    _check_heads("self_attn_sublayer", x.dtype, d_kv, cross=False)
     lib = _lib()
     stream = _stream(x)
     bias = bias_row.to(torch.float32).contiguous()
     qkv = torch.empty((r, 3 * inner), dtype=x.dtype, device=x.device)
     attn = torch.empty((r, inner), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    _gemm(lib, code, x, ln_scale, wqkv, None, qkv, True, EPI_ROUND, eps, stream,
+    _gemm(lib, code, x, ln_scale, wqkv, None, qkv, EPI_ROUND, eps, stream,
           "self_attn_sublayer qkv")
     build.check(lib, lib.gdr_self_attn_core(
         code, qkv.data_ptr(), ck.data_ptr(), cv.data_ptr(), bias.data_ptr(),
         attn.data_ptr(), r, lmax, heads, d_kv, pos, stream),
         "self_attn_sublayer core")
-    _gemm(lib, code, attn, None, wo, x, out, False, EPI_RESIDUAL, eps,
-          stream, "self_attn_sublayer wo")
+    _gemm(lib, code, attn, None, wo, x, out, EPI_RESIDUAL, eps, stream,
+          "self_attn_sublayer wo")
     LAUNCHES["self_attn_sublayer"] += 1
     return out, ck, cv
 
@@ -257,10 +325,12 @@ def cross_attn_sublayer(x, ln_scale, wcq, wco, cross_k, cross_v, bias,
     if r != b * num_beams or h_ != heads or dk != d_kv:
         raise ValueError(f"cross_attn_sublayer: x {tuple(x.shape)}, cross_k "
                          f"{tuple(cross_k.shape)}, beams {num_beams}")
-    if s_ > cross_attn_max_len(d_kv):
+    _check_heads("cross_attn_sublayer", x.dtype, d_kv, cross=True)
+    if s_ > cross_attn_max_len(d_kv, x.dtype):
         raise ValueError(f"cross_attn_sublayer: {s_} encoder positions; the "
                          f"CUDA kernel serves at most "
-                         f"{cross_attn_max_len(d_kv)} at d_kv {d_kv}")
+                         f"{cross_attn_max_len(d_kv, x.dtype)} at d_kv {d_kv} "
+                         f"in {x.dtype}")
     _shape("cross_attn_sublayer wcq", wcq, (inner, d))
     _shape("cross_attn_sublayer wco", wco, (d, inner))
     _shape("cross_attn_sublayer cross_v", cross_v, (b, heads, s_, d_kv))
@@ -271,13 +341,13 @@ def cross_attn_sublayer(x, ln_scale, wcq, wco, cross_k, cross_v, bias,
     q = torch.empty((r, inner), dtype=x.dtype, device=x.device)
     o = torch.empty((r, inner), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    _gemm(lib, code, x, ln_scale, wcq, None, q, True, EPI_ROUND, eps, stream,
+    _gemm(lib, code, x, ln_scale, wcq, None, q, EPI_ROUND, eps, stream,
           "cross_attn_sublayer q")
     build.check(lib, lib.gdr_cross_attn_core(
         code, q.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
         bias.data_ptr(), o.data_ptr(), b, num_beams, heads, s_, d_kv, stream),
         "cross_attn_sublayer core")
-    _gemm(lib, code, o, None, wco, x, out, False, EPI_RESIDUAL, eps, stream,
+    _gemm(lib, code, o, None, wco, x, out, EPI_RESIDUAL, eps, stream,
           "cross_attn_sublayer wo")
     LAUNCHES["cross_attn_sublayer"] += 1
     return out
@@ -298,9 +368,9 @@ def ffn_sublayer(x, ln_scale, wi, wo, *, eps: float = 1e-6):
     stream = _stream(x)
     h = torch.empty((r, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    _gemm(lib, code, x, ln_scale, wi, None, h, True, EPI_RELU, eps, stream,
+    _gemm(lib, code, x, ln_scale, wi, None, h, EPI_RELU, eps, stream,
           "ffn_sublayer wi")
-    _gemm(lib, code, h, None, wo, x, out, False, EPI_RESIDUAL, eps, stream,
+    _gemm(lib, code, h, None, wo, x, out, EPI_RESIDUAL, eps, stream,
           "ffn_sublayer wo")
     LAUNCHES["ffn_sublayer"] += 1
     return out

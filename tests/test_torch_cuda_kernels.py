@@ -9,7 +9,10 @@ tests/conftest.py):
 
 Shapes are small and deliberately ragged (row counts that are not
 multiples of any tile, one and 31 beams per query, scorer widths of 40 and
-48 that are not multiples of 32 chunks, 37 beams, cap 5).  Tolerances: f32
+48 that are not multiples of 32 chunks, 37 beams, cap 5); the decoder's
+GEMM and attention cores are also held at the main path's widths (K up to
+3,072, N up to 2,304, d_kv 64, L 16, encoder lengths up to the
+shared-memory limit).  Tolerances: f32
 atol 1e-4 + rtol 1e-5 (f32 sums in another order); bf16 atol 2e-2 + rtol
 1e-2 (one bf16 ulp of an output whose f32 value sits near a rounding
 edge).  The scorers' outputs are f32 sums, held at the f32 tolerance.
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from gdr_tpu_torch import kernels
+from gdr_tpu_torch.kernels import build
 from gdr_tpu_torch.kernels import decode as kd
 from gdr_tpu_torch.kernels import rerank as kr
 
@@ -103,6 +107,108 @@ def test_decoder_sublayers_match_plain(dev, dtype, batch, beams, pos):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 31, 65, 300])
+@pytest.mark.parametrize("n,k", [(64, 64), (192, 64), (2304, 64),
+                                 (64, 3072), (192, 3072), (2304, 3072),
+                                 (64, 40), (192, 200)])
+def test_gemm_matches_plain(dev, dtype, m, n, k):
+    # ragged M and K edges arrive as TMA zeros (K = 40 is under one 64-wide
+    # k-tile, 200 ends in a partial one) and M is masked on store; the tile
+    # (64 or 128 rows x 8 to 256 columns) follows the shape
+    rn = _rand(dev, m + n + k)
+    a = rn(m, k, dtype=dtype)
+    w = rn(n, k, std=k ** -0.5, dtype=dtype)
+    scale = (1 + rn(k, std=0.1)).to(dtype)
+    resid = rn(m, n, dtype=dtype)
+    for epi, kw in (("round", dict(scale=scale)), ("relu", dict(scale=scale)),
+                    ("residual", dict(resid=resid))):
+        got = kd.gemm(a, w, epi, **kw)
+        assert got.shape == (m, n) and got.dtype == dtype
+        _close(got, kd.gemm_plain(a, w, epi, **kw), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gemm_writes_only_its_output(dev, dtype):
+    # the rows around C hold NaN canaries: the masked epilogue of a ragged
+    # tile must leave them alone
+    m, n, k = 65, 200, 96
+    rn = _rand(dev, 11)
+    a, w = rn(m, k, dtype=dtype), rn(n, k, std=k ** -0.5, dtype=dtype)
+    scale, resid = (1 + rn(k, std=0.1)).to(dtype), rn(m, n, dtype=dtype)
+    buf = torch.full((m + 2, n), float("nan"), dtype=dtype, device=dev)
+    out = buf[1:m + 1]
+    lib, code = kd._lib(), build.DTYPES[dtype]
+    stream = torch.cuda.current_stream().cuda_stream
+    for epi, sc, rs, want in (
+            (kd.EPI_ROUND, scale, None, kd.gemm_plain(a, w, "round", scale=scale)),
+            (kd.EPI_RESIDUAL, None, resid,
+             kd.gemm_plain(a, w, "residual", resid=resid))):
+        kd._gemm(lib, code, a, sc, w, rs, out, epi, 1e-6, stream, "gemm")
+        torch.cuda.synchronize()
+        assert bool(buf[0].isnan().all()) and bool(buf[m + 1].isnan().all())
+        _close(out, want, dtype)
+
+
+HEADS_W, DKV_W = 2, 64           # the main path's head width
+INNER_W = HEADS_W * DKV_W
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("pos", [0, 7, 15])
+def test_self_attn_core_at_l16_dkv64(dev, dtype, pos):
+    lmax, r = 16, 37
+    rn = _rand(dev, 100 + pos)
+    x = rn(r, D, dtype=dtype)
+    scale = (1 + rn(D, std=0.1)).to(dtype)
+    wqkv = rn(3 * INNER_W, D, std=0.1, dtype=dtype)
+    wo = rn(D, INNER_W, std=0.1, dtype=dtype)
+    bias_row = rn(lmax, HEADS_W, std=0.5)
+    ck, cv = rn(lmax, r, INNER_W, dtype=dtype), rn(lmax, r, INNER_W,
+                                                   dtype=dtype)
+    ck_p, cv_p, before = ck.clone(), cv.clone(), ck.clone()
+    got, _, _ = kd.self_attn_sublayer(x, pos, scale, wqkv, wo, bias_row, ck,
+                                      cv, heads=HEADS_W, d_kv=DKV_W)
+    want, _, _ = kd.self_attn_sublayer_plain(x, pos, scale, wqkv, wo,
+                                             bias_row, ck_p, cv_p,
+                                             heads=HEADS_W, d_kv=DKV_W)
+    _close(got, want, dtype)
+    _close(ck, ck_p, dtype)
+    _close(cv, cv_p, dtype)
+    others = [l for l in range(lmax) if l != pos]
+    assert torch.equal(ck[others], before[others])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s_len", ["1", "23", "max"])
+@pytest.mark.parametrize("beams", [1, 100])
+def test_cross_attn_core_lengths(dev, dtype, s_len, beams):
+    # keys padded to the MMA width past S must get probability exactly 0
+    s_ = kd.cross_attn_max_len(DKV_W, dtype) if s_len == "max" else int(s_len)
+    batch = 2
+    rn = _rand(dev, s_ + beams)
+    x = rn(batch * beams, D, dtype=dtype)
+    scale = (1 + rn(D, std=0.1)).to(dtype)
+    wcq = rn(INNER_W, D, std=0.1, dtype=dtype)
+    wco = rn(D, INNER_W, std=0.1, dtype=dtype)
+    cross_k = rn(batch, HEADS_W, s_, DKV_W, std=0.3, dtype=dtype)
+    cross_v = rn(batch, HEADS_W, s_, DKV_W, dtype=dtype)
+    cbias = rn(batch, HEADS_W, s_, std=0.5)
+    if s_ > 2:
+        cbias[:, :, s_ - 2:] += -1e9                  # padded key positions
+    got = kd.cross_attn_sublayer(x, scale, wcq, wco, cross_k, cross_v, cbias,
+                                 beams, heads=HEADS_W, d_kv=DKV_W)
+    want = kd.cross_attn_sublayer_plain(x, scale, wcq, wco, cross_k, cross_v,
+                                        cbias, beams, heads=HEADS_W,
+                                        d_kv=DKV_W)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("d,cap", [(768, 32), (40, 5)],
                          ids=["d768", "d40"])
 def test_packed_scores_match_plain(dev, dtype, d, cap):
@@ -153,7 +259,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="cpu"):
         kd.self_attn_sublayer(x, 0, scale, wqkv, wo_a, rn(LMAX, HEADS).cpu(),
                               ck, cv, heads=HEADS, d_kv=DKV)
-    s_long = kd.cross_attn_max_len(DKV) + 1
+    s_long = kd.cross_attn_max_len(DKV, torch.float32) + 1
     kv, kv_s = rn(2, HEADS, s_long, DKV), rn(2, HEADS, S, DKV)
     with pytest.raises(ValueError, match="cpu"):
         kd.cross_attn_sublayer(x, scale, wqkv[:INNER], wo_a, kv_s, kv_s,
@@ -162,6 +268,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="at most"):
         kd.cross_attn_sublayer(x, scale, wqkv[:INNER], wo_a, kv, kv,
                                rn(2, HEADS, s_long), 4, heads=HEADS, d_kv=DKV)
+    with pytest.raises(ValueError, match="16-byte"):     # TMA alignment
+        kd.gemm(x.view(-1)[2:2 + 7 * D].view(7, D), wi, "round", scale=scale)
+    with pytest.raises(ValueError, match="d_kv 24"):
+        kd.self_attn_sublayer(x, 0, scale, rn(3 * 48, D), rn(D, 48),
+                              rn(LMAX, 2), rn(LMAX, 8, 48), rn(LMAX, 8, 48),
+                              heads=2, d_kv=24)
     assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0)
 
 

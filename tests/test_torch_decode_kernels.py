@@ -171,11 +171,31 @@ def test_cpu_calls_launch_nothing():
 
 
 
-def test_cross_attn_max_len_fits_shared_memory():
-    # the CUDA core's f32 K/V, query and score rows for 4 warps (csrc)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cross_attn_max_len_fits_shared_memory(dtype):
+    # the CUDA cores' shared memory (csrc/decode_sublayers.cu): bf16 K and V
+    # rows of d_kv + 8 with keys padded to 16, and the f32 bias row; f32 K
+    # and V rows of d_kv + 1, and 4 warps' query and score rows
     def smem(s, d_kv):
+        if dtype == torch.bfloat16:
+            sp = -(-s // 16) * 16
+            return 2 * sp * (d_kv + 8) * 2 + sp * 4
         return (2 * s * (d_kv + 1) + 4 * d_kv + 4 * s) * 4
     for d_kv in (16, 64, 128):
-        n = kd.cross_attn_max_len(d_kv)
+        n = kd.cross_attn_max_len(d_kv, dtype)
         assert smem(n, d_kv) <= 227 * 1024 < smem(n + 1, d_kv)
-    assert kd.cross_attn_max_len(64) == 431
+    assert kd.cross_attn_max_len(64, dtype) == (
+        784 if dtype == torch.bfloat16 else 431)
+
+
+def test_gemm_plain_is_the_sublayers_gemm_step():
+    """gemm_plain composes the FFN sublayer's two steps exactly."""
+    p = _inputs(8, "bfloat16")
+    x, scale = _t(p["x"], "bfloat16"), _t(p["scale"], "bfloat16")
+    wi, wo = _t(p["wi"].T, "bfloat16"), _t(p["wo2"].T, "bfloat16")
+    h = kd.gemm(x, wi, "relu", scale=scale)
+    assert torch.equal(kd.gemm(h, wo, "residual", resid=x),
+                       kd.ffn_sublayer(x, scale, wi, wo))
+    with pytest.raises(ValueError, match="resid for residual"):
+        kd.gemm(x, wi, "residual", scale=scale)
