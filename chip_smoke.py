@@ -12,7 +12,8 @@ the last line):
 
 1. device — the card's name and power limit (nvidia-smi) and the nvcc build
    of every kernel under ``gdr_tpu_torch/csrc`` (one nvcc per source, all
-   at once);
+   at once), naming each function that ptxas gives a stack frame or
+   spills;
 2. kernel vs plain — each kernel against its plain PyTorch version on the
    card: the decoder sublayers at the row counts the main path gives them
    (32, 992 and 3,200 rows of t5-base: 32 queries × widths 1, 31, 100, at
@@ -24,7 +25,9 @@ the last line):
    version's, a library yardstick and the bound: the decoder sublayers at
    each row count and summed per retrieve (6·t32 + 6·t992 + 12·t3200), their
    bf16 GEMM alone at its four (N, K) shapes at each row count against
-   torch.matmul, and the scorers at 3,200 rows;
+   torch.matmul, and the scorers at 3,200 rows.  The GEMM shapes and the
+   FFN rows print the plan the cost model gave them (tile, ring stages,
+   splits, units and blocks);
 3. whole path, small — a small f32 model retrieves on the CPU (plain
    versions) and on the card (kernels) from the same seeded weights, on
    the four store layouts (plain, packed, plain int8, packed int8): valid
@@ -169,6 +172,13 @@ def core_bytes(name: str, r: int, pos: int, el: int) -> float:
     return (2 * r * inner + 2 * B * H * S * DKV) * el + B * H * S * 4
 
 
+def plan_text(plan) -> str:
+    """A bf16 GEMM plan as phase 2 prints it: tile, ring, splits, blocks."""
+    return (f"{64 * plan.wg}x{plan.bn} tile, {plan.stages} stages, "
+            f"{plan.splits} split{'s' if plan.splits > 1 else ''}, "
+            f"{plan.units} units on {plan.blocks} blocks")
+
+
 def _close(name, got, want, dtype_name) -> float:
     atol, rtol = TOL[dtype_name]
     diff = (got.float() - want.float()).abs()
@@ -290,6 +300,10 @@ def phase_kernels(dev, trie) -> dict:
                 if name != "ffn_sublayer":             # its attention core alone
                     stats[name]["rows"][r]["core_bound_ms"] = core_bytes(
                         name, r, pos, x.element_size()) / H100_BYTES * 1e3
+                else:                                  # its two GEMMs' plans
+                    stats[name]["rows"][r]["plans"] = {
+                        f"{n_}x{k_}": plan_text(KD.gemm_plan(r, n_, k_, dev))
+                        for n_, k_ in ((DFF, D), (D, DFF))}
 
             # the GEMM alone at its four main-path shapes, each with the
             # epilogue the path gives it, against one torch.matmul
@@ -304,22 +318,25 @@ def phase_kernels(dev, trie) -> dict:
                 nbytes = (r * k + n * k + r * n * (2 if epi == "residual"
                                                    else 1)) * 2
                 bound, by = _bound_ms(2 * r * n * k, nbytes, H100_BF16_FLOPS)
+                plan = plan_text(KD.gemm_plan(r, n, k, dev))
                 gemm_rows.append(dict(
                     m=r, n=n, k=k, epi=epi, max_abs_err=err,
                     ms=_time_ms(lambda: KD.gemm(a, wt, epi, **kw)),
                     matmul_ms=_time_ms(lambda: a @ wt.t()), bound_ms=bound,
-                    bound_by=by))
+                    bound_by=by, plan=plan))
                 g_ = gemm_rows[-1]
                 log(f"  gemm {epi:8s} M={r:5d} N={n:5d} K={k:5d}: "
                     f"{g_['ms']:.4f} ms, torch.matmul {g_['matmul_ms']:.4f} "
-                    f"ms, bound {bound:.4f} ms ({by})")
+                    f"ms, bound {bound:.4f} ms ({by}); plan {plan}")
 
     for name in DECODER:
         st = stats[name]
         for r, row in sorted(st["rows"].items()):
             log(f"  {name:20s} R={r:5d}: kernel {row['ms']:.4f} ms, plain "
                 f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
-                f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+                + "".join(f"; {nk} plan {p}"
+                          for nk, p in row.get("plans", {}).items()))
         st.update({k: v for k, v in st["rows"][rows_main].items()
                    if k != "pos"})
         st["per_retrieve"] = {
@@ -753,6 +770,27 @@ def _profile(fn) -> None:
 
 # ------------------------------------------------------------ main
 
+def spilling_functions(ptxas_log: str) -> list[tuple[str, str]]:
+    """(function, its stack and spill line) for each kernel or function in
+    a ``-Xptxas -v`` report that has a stack frame or spills, demangled by
+    c++filt where the machine has it."""
+    import shutil
+    found, fn = [], None
+    for ln in ptxas_log.splitlines():
+        if "Function properties for " in ln:
+            fn = ln.split("Function properties for ", 1)[1].strip()
+        elif "spill" in ln and fn is not None:
+            props = ln.strip()
+            if not props.startswith("0 bytes stack frame, 0 bytes spill"):
+                found.append((fn, props))
+            fn = None
+    if found and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(f for f, _ in found),
+                               capture_output=True, text=True).stdout.split("\n")
+        found = [(n or f, p) for (f, p), n in zip(found, names)]
+    return found
+
+
 KERNELS = [
     ("self_attn_sublayer", "gdr_tpu_torch/csrc/decode_sublayers.cu",
      "gdr_tpu/ops/pallas/decode_kernel.py:230",
@@ -832,10 +870,8 @@ def main(argv: list[str]) -> int:
     secs = build.build_all()
     log(f"    nvcc build of {build.sources()}: {secs:.1f} s")
     for name, text in build.build_logs.items():
-        spills = [ln.strip() for ln in text.splitlines()
-                  if "spill" in ln and not ln.strip().startswith("0 bytes")]
-        if spills:
-            log(f"    {name}: {spills}")
+        for fn, props in spilling_functions(text):
+            log(f"    {name}: {fn}: {props}")
     log(f"[1] {time.perf_counter() - t0:.1f} s")
 
     from gdr_tpu_torch.config import ModelConfig

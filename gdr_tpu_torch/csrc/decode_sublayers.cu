@@ -23,20 +23,34 @@
 // by bytes (the K/V caches, the per-query encoder K/V, q and the outputs).
 //
 // bf16 GEMM (gemm_wgmma): C = epi(A · Wᵀ) with A [M, K] and W [N, K] both
-// K-major, the layout wgmma takes without a transpose.  One producer warp
-// keeps a ring of 4 tiles in flight by TMA (128-byte swizzle, BK = 64 = one
-// swizzle row) on full/empty mbarriers; one or two consumer warpgroups of
-// 64 rows each issue wgmma m64nBNk16 on the tiles with f32 accumulators in
-// registers and release a stage, warp by warp, once its MMAs retire.
-// Ragged M, N and K edges arrive as TMA zeros.  The epilogue (round / ReLU /
-// residual) stages the tile in the idle ring so that global memory sees
-// 16-byte row chunks, and masks the ragged edge.  The tile (64 or 128 rows ×
-// 8 to 256 columns) is chosen per call by a cost model (choose_tile) so
-// that every main-path shape fills the card: narrow N tiles stream the
-// weights from ~100 SMs at R = 32, 128×192 tiles make one wave of 100
-// blocks at R = 3,200, N = 768.  At these shapes the mainloop is bound by
-// the operand bytes each SM pulls from L2, so larger tiles win where they
-// still fill the card.
+// K-major, the layout wgmma takes without a transpose.  The launch is
+// persistent: at most one block per SM, each walking the work units
+// blockIdx.x, blockIdx.x + gridDim.x, ... in a static order.  A work unit
+// is an output tile (64 or 128 rows × 8 to 192 columns) and one of its
+// `splits` ranges of k-tiles.  One producer warp keeps a ring of 3 to 8
+// tiles in flight by TMA (128-byte swizzle, BK = 64 = one swizzle row) on
+// full/empty mbarriers whose phases follow the block's running k-tile
+// count, so it loads the next unit's tiles while the consumers finish the
+// last one; one or two consumer warpgroups of 64 rows each issue wgmma
+// m64nBNk16 with f32 accumulators in registers and release a stage, warp by
+// warp, once its MMAs retire.  Ragged M, N and K edges arrive as TMA zeros.
+// Split-K: each split writes its f32 partial to a workspace and arrives on
+// the tile's counter (an atomic after a __threadfence); the last to arrive
+// sums the partials in split order (so the result is the same on every
+// call), resets the counter for the next launch and runs the epilogue.
+// ReLU and rounding act only on the full sum.  The epilogue (round / ReLU /
+// residual) stages the tile in shared memory of its own, apart from the
+// ring the producer is refilling, so that global memory sees 16-byte row
+// chunks, and masks the ragged edge.  The plan (tile, splits, blocks) is
+// chosen per shape by a cost model (choose_plan, fitted to
+// tools/gemm_plan_sweep.py): at R = 32 the K = 3,072 product splits its 48
+// k-tiles 4 ways over 96 blocks that each read a slice of W once; at
+// R = 992 and 3,200 the tile is sized so that the units fill >= 90% of the
+// SMs in one wave (128×160: 125 tiles of N = 768 at 3,200 rows) or walk
+// several waves.  Splits pay for their f32 partials, so only small row
+// counts take them.  The mainloop is bound by the operand bytes the SMs
+// pull from L2 (~8-9 TB/s at 3,200 rows) or, for narrow tiles, by the
+// ring's depth against the load latency.
 // The RMSNorm: the TPU kernel rounds norm(x) to the model dtype before the
 // product, so a row kernel (rms_norm_bf16) writes norm(x) once, [R, d] in
 // bf16, and the GEMM reads it by TMA.  That costs one launch and ~10 MB at
@@ -135,32 +149,63 @@ __device__ void row_inv_rms(const float* __restrict__ A, int M, int K, int m0, i
 // ------------------------------------------------------------- bf16 GEMM
 
 constexpr int BK = 64;        // one 128-byte swizzle row of bf16
+constexpr int kMaxSplits = 32;
 
 template <int WG, int BN, int ST>
 struct GemmShape {
   static constexpr int BM = 64 * WG;
-  static constexpr int kThreads = WG * 128 + 32;           // + the producer warp
+  static constexpr int kConsumers = WG * 128;
+  static constexpr int kThreads = kConsumers + 32;         // + the producer warp
   static constexpr int kABytes = BM * BK * 2, kBBytes = BN * BK * 2;
   static constexpr int kStage = kABytes + kBBytes;         // a multiple of 1,024
   static constexpr int kCLd = BN + 8;                      // staged C row, bf16
-  // the ring, its barriers, and slack to align the ring to 1,024 bytes
-  static constexpr int kSmem = ST * kStage + 2 * ST * 8 + 1024;
-  static_assert(BM * kCLd * 2 <= ST * kStage, "the C tile is staged in the ring");
+  static constexpr int kCBytes = BM * kCLd * 2;            // a multiple of 16
+  static constexpr int kPart = BM * BN / 4;                // a split's partial, float4s
+  // the ring, the staged C tile, the barriers and the last-split flag, and
+  // slack to align the ring to 1,024 bytes
+  static constexpr int kSmem = ST * kStage + kCBytes + 2 * ST * 8 + 16 + 1024;
+  static_assert(kSmem <= 232448, "a Hopper block opts into at most 227 KB");
 };
 
+// work unit u of a launch: output tile u / splits (row-major over tiles_n
+// column tiles) and its k-tiles [kb, ke), split u % splits of ktiles in
+// near-equal ranges (splits <= ktiles, so none is empty)
+struct Unit {
+  int tile, split, m0, n0, kb, ke;
+};
+
+template <int BM, int BN>
+__device__ __forceinline__ Unit unit_at(int u, int splits, int tiles_n, int ktiles) {
+  Unit w;
+  w.tile = u / splits;
+  w.split = u - w.tile * splits;
+  const int tm = w.tile / tiles_n;
+  w.m0 = tm * BM;
+  w.n0 = (w.tile - tm * tiles_n) * BN;
+  w.kb = w.split * ktiles / splits;
+  w.ke = (w.split + 1) * ktiles / splits;
+  return w;
+}
+
+// ws: splits x [BM x BN] f32 partials per tile (null when splits == 1);
+// counters: one int per tile, zero between launches
 template <int WG, int BN, int ST, int EPI>
 __global__ void __launch_bounds__(GemmShape<WG, BN, ST>::kThreads)
 gemm_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
-           const __nv_bfloat16* __restrict__ resid, __nv_bfloat16* __restrict__ C, int M,
-           int N, int K) {
+           const __nv_bfloat16* __restrict__ resid, __nv_bfloat16* __restrict__ C,
+           float4* __restrict__ ws, int* __restrict__ counters, int M, int N, int K,
+           int splits) {
   using S = GemmShape<WG, BN, ST>;
-  constexpr int BM = S::BM;
+  constexpr int BM = S::BM, NT = S::kConsumers;
   extern __shared__ __align__(16) uint8_t gemm_smem[];
   uint8_t* smem = gemm_smem + ((1024 - (smem_u32(gemm_smem) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * S::kStage);
+  __nv_bfloat16* cstage = reinterpret_cast<__nv_bfloat16*>(smem + ST * S::kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * S::kStage + S::kCBytes);
   uint64_t* empty = full + ST;
+  volatile int* last_split = reinterpret_cast<volatile int*>(empty + ST);
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int units = (M + BM - 1) / BM * tiles_n * splits;
   const int ktiles = (K + BK - 1) / BK;
   if (tid == 0) {
 #pragma unroll
@@ -172,24 +217,38 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUten
   }
   __syncthreads();
 
+  // ring slot s of round r: full[s] completes its phase r once the tiles
+  // land, empty[s] once every consumer warp is done with them; ph = r & 1
   if (wg == WG) {                                  // the producer warp
-    if (tid == WG * 128) {
-      for (int kt = 0; kt < ktiles; ++kt) {
-        const int s = kt % ST;
-        if (kt >= ST) mbar_wait(&empty[s], ((kt / ST) - 1) & 1);
-        uint8_t* a = smem + s * S::kStage;
-        mbar_expect_tx(&full[s], S::kStage);      // zero-filled bytes count too
-        tma_load_2d(a, &ta, &full[s], kt * BK, m0);
-        tma_load_2d(a + S::kABytes, &tw, &full[s], kt * BK, n0);
+    if (tid == NT) {
+      int s = 0, ph = 0, it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_at<BM, BN>(u, splits, tiles_n, ktiles);
+        for (int kt = w.kb; kt < w.ke; ++kt, ++it) {
+          if (it >= ST) mbar_wait(&empty[s], ph ^ 1);
+          uint8_t* a = smem + s * S::kStage;
+          mbar_expect_tx(&full[s], S::kStage);    // zero-filled bytes count too
+          tma_load_2d(a, &ta, &full[s], kt * BK, w.m0);
+          tma_load_2d(a + S::kABytes, &tw, &full[s], kt * BK, w.n0);
+          if (++s == ST) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
       }
     }
-  } else {
+    return;
+  }
+
+  const int warp = tid >> 5;                       // rows 16·warp .. of the tile
+  int s = 0, ph = 0, prev = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit w = unit_at<BM, BN>(u, splits, tiles_n, ktiles);
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    for (int kt = 0; kt < ktiles; ++kt) {
-      const int s = kt % ST;
-      mbar_wait(&full[s], (kt / ST) & 1);
+    for (int kt = w.kb; kt < w.ke; ++kt) {
+      mbar_wait(&full[s], ph);
       const uint8_t* a = smem + s * S::kStage;
       const uint64_t da = sw128_desc(a + wg * 64 * BK * 2), db = sw128_desc(a + S::kABytes);
       fence_regs(acc);
@@ -200,25 +259,71 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUten
       wgmma_commit();
       fence_regs(acc);
       wgmma_wait<1>();                             // this warp's previous tile is done
-      if (kt > 0) {
+      if (kt > w.kb) {
         __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[(kt - 1) % ST]);
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = s;
+      if (++s == ST) {
+        s = 0;
+        ph ^= 1;
       }
     }
     wgmma_wait<0>();
     fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[prev]);      // the unit's last tile
 
-    // epilogue, staged through the (now idle) ring so that global memory
-    // sees 16-byte row chunks: lane l of warp w holds rows 16w + l/4 (+8),
-    // column pairs 8j + 2(l%4) of its warpgroup's 64 x BN tile
-    named_sync(1, WG * 128);                       // every warpgroup is off the ring
-    __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(smem) + wg * 64 * S::kCLd;
-    const int warp = (tid & 127) >> 5;
+    if (splits > 1) {
+      // this split's partial in fragment order (thread t writes float4 j at
+      // j·NT + t: each warp instruction stores 512 contiguous bytes); warps
+      // whose 16 rows all lie past M neither write nor read theirs
+      const bool live = w.m0 + warp * 16 < M;
+      float4* part = ws + (size_t)w.tile * splits * S::kPart + tid;
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          __stcg(part + (size_t)w.split * S::kPart + j * NT,
+                 make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]));
+      }
+      __threadfence();
+      named_sync(1, NT);
+      if (tid == 0) {
+        const int last = atomicAdd(&counters[w.tile], 1) == splits - 1;
+        if (last) atomicExch(&counters[w.tile], 0);   // zero again for the next launch
+        __threadfence();
+        *last_split = last;
+      }
+      named_sync(1, NT);
+      if (!*last_split) continue;
+      __threadfence();
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+        for (int p = 0; p < splits; ++p) {         // in split order: deterministic
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const float4 v = __ldcg(part + (size_t)p * S::kPart + j * NT);
+            acc[4 * j] += v.x;
+            acc[4 * j + 1] += v.y;
+            acc[4 * j + 2] += v.z;
+            acc[4 * j + 3] += v.w;
+          }
+        }
+      }
+    }
+
+    // epilogue, staged in shared memory so that global memory sees 16-byte
+    // row chunks: lane l of warp w holds rows 16w + l/4 (+8), column pairs
+    // 8j + 2(l%4) of its warpgroup's 64 x BN tile
+    named_sync(2 + wg, 128);                       // the last unit's reads are done
+    __nv_bfloat16* cs = cstage + wg * 64 * S::kCLd;
+    const int wq = warp & 3;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = warp * 16 + (lane >> 2) + 8 * h, c = 8 * j + 2 * (lane & 3);
+        const int r = wq * 16 + (lane >> 2) + 8 * h, c = 8 * j + 2 * (lane & 3);
         const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
         // the residual adds the rounded product below; the others finish here
         *reinterpret_cast<uint32_t*>(cs + r * S::kCLd + c) =
@@ -230,7 +335,7 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUten
     named_sync(2 + wg, 128);
     for (int i = tid & 127; i < 64 * (BN / 8); i += 128) {
       const int r = i / (BN / 8), c = (i - r * (BN / 8)) * 8;
-      const int row = m0 + wg * 64 + r, col = n0 + c;
+      const int row = w.m0 + wg * 64 + r, col = w.n0 + c;
       if (row >= M || col >= N) continue;          // N is a multiple of 8
       uint4 v = ld16(cs + r * S::kCLd + c);
       const size_t idx = (size_t)row * N + col;
@@ -653,38 +758,84 @@ struct Tile {
   int wg, bn, stages;   // 64·wg rows x bn columns, a ring of `stages` tiles
 };
 
-// every instantiated tile, largest first
+// every instantiated tile, largest first.  128×160 makes 125 tiles of
+// N = 768 at 3,200 rows (one wave), 64×96 128 of them at 992; the narrow
+// tiles of small row counts keep rings of 6-8 to hide the load latency.
+// (128×256 fits only 3 stages beside its staged C tile and spilled at the
+// 168 registers a thread of two consumer warpgroups gets; 128×160 was as
+// fast on every main-path shape.)
 #define GDR_GEMM_TILES(X)                                                                \
-  X(2, 256, 4) X(2, 192, 4) X(2, 128, 4) X(2, 64, 4) X(1, 128, 4) X(1, 64, 4) X(1, 32, 4) \
-  X(1, 16, 4) X(1, 8, 4)
+  X(2, 192, 4) X(2, 160, 4) X(2, 128, 4) X(2, 64, 4) X(1, 128, 4) X(1, 96, 6) X(1, 64, 6) \
+  X(1, 32, 8) X(1, 16, 8) X(1, 8, 8)
 
-// The tile with the least modelled time: rounds of blocks over the SMs
-// times a block's time per k, the larger of its tensor-core work (989
-// TFLOP/s over 132 SMs) and its operand bytes (~110 GB/s of L2 an SM; rows
-// past M arrive as TMA zeros and cost no bytes).  Ties go to the larger tile.
-static Tile choose_tile(int m, int n) {
 #define GDR_TILE_ENTRY(wg, bn, st) {wg, bn, st},
-  static const Tile kTiles[] = {GDR_GEMM_TILES(GDR_TILE_ENTRY)};
+static const Tile kTiles[] = {GDR_GEMM_TILES(GDR_TILE_ENTRY)};
 #undef GDR_TILE_ENTRY
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
+
+// a launch: the tile, its k-tiles split `splits` ways, units = tiles ·
+// splits work units walked by `blocks` persistent blocks
+struct Plan {
+  Tile tile;
+  int splits, units, blocks;
+};
+
+constexpr int kSplitTiles = 1024;   // output tiles a split launch may count on
+constexpr int kSplitRounds = 4;     // splits only while units <= 4 · SMs
+
+// The cost model's constants, fitted to tools/gemm_plan_sweep.py on the
+// H100: the tensor-core FLOP/s one SM sustains in this mainloop (70% of
+// its share of 989 TFLOP/s), the operand bytes/s one SM pulls from L2, a
+// TMA load's round trip, the rate at which a block writes and reads split
+// partials, and a split's fence and arrival.
+constexpr double kOpsPerSm = 0.7 * 989e12 / 132, kL2PerSm = 120e9, kLatency = 1.0e-6,
+                 kPartPerSm = 10e9, kSplitSync = 0.5e-6;
+
+// Modelled time of a plan: the slowest block's units.  A k-tile costs the
+// largest of its tensor-core work, its operand bytes (rows past M arrive as
+// TMA zeros and cost none) and the ring's latency share; a unit adds its
+// epilogue's bytes or, when split, its partial's write and the arrival, and
+// the tile's last split reads every partial.
+static double plan_time(const Tile& t, int splits, int m, int n, int k, int sms) {
+  const int bm = 64 * t.wg, rows = m < bm ? m : bm;
+  const int parted = (rows + 15) / 16 * 16;        // rows of the live warps
+  const int tiles = (m + bm - 1) / bm * ((n + t.bn - 1) / t.bn), kt = (k + BK - 1) / BK;
+  const int units = tiles * splits, blocks = units < sms ? units : sms;
+  const double ops = 2.0 * bm * t.bn * BK / kOpsPerSm;
+  const double bytes = 2.0 * (rows + t.bn) * BK / kL2PerSm;
+  double t_kt = ops > bytes ? ops : bytes;
+  if (kLatency / t.stages > t_kt) t_kt = kLatency / t.stages;
+  const double out = 4.0 * rows * t.bn / kL2PerSm;     // bf16 written, residual read
+  if (splits == 1) return kLatency + (units + blocks - 1) / blocks * (kt * t_kt + out);
+  const double part = 4.0 * parted * t.bn / kPartPerSm;
+  double worst = 0;
+  for (int b = 0; b < blocks; ++b) {
+    double time = kLatency;
+    for (int u = b; u < units; u += blocks) {
+      const int s = u % splits;
+      time += ((s + 1) * kt / splits - s * kt / splits) * t_kt + part + kSplitSync;
+      if (s == splits - 1) time += splits * part + out;
+    }
+    if (time > worst) worst = time;
   }
-  Tile best = kTiles[0];
+  return worst;
+}
+
+// the plan with the least modelled time; ties go to the larger tile and
+// then to fewer splits
+static Plan choose_plan(int m, int n, int k, int sms) {
+  const int kt = (k + BK - 1) / BK;
+  Plan best{kTiles[0], 1, 0, 0};
   double best_t = 1e30;
   for (const Tile& t : kTiles) {
     const int bm = 64 * t.wg;
-    const long blocks = (long)((m + bm - 1) / bm) * ((n + t.bn - 1) / t.bn);
-    const long rounds = (blocks + sms - 1) / sms;
-    const double ops = 2.0 * bm * t.bn / 7.49e12;
-    const double bytes = 2.0 * ((m < bm ? m : bm) + t.bn) / 110e9;
-    const double time = rounds * (ops > bytes ? ops : bytes);
-    if (time < best_t * (1 - 1e-9)) {
-      best_t = time;
-      best = t;
+    const int tiles = (m + bm - 1) / bm * ((n + t.bn - 1) / t.bn);
+    for (int splits = 1; splits <= kt && splits <= kMaxSplits; ++splits) {
+      if (splits > 1 && (tiles > kSplitTiles || tiles * splits > kSplitRounds * sms)) break;
+      const double time = plan_time(t, splits, m, n, k, sms);
+      if (time < best_t * (1 - 1e-9)) {
+        best_t = time;
+        best = {t, splits, tiles * splits, tiles * splits < sms ? tiles * splits : sms};
+      }
     }
   }
   return best;
@@ -692,31 +843,45 @@ static Tile choose_tile(int m, int n) {
 
 template <int WG, int BN, int ST, int EPI>
 static cudaError_t launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tw,
-                                const void* resid, void* c, int m, int n, int k,
-                                cudaStream_t s) {
+                                const void* resid, void* c, void* ws, int* counters, int m,
+                                int n, int k, int splits, int blocks, cudaStream_t s) {
   using S = GemmShape<WG, BN, ST>;
   auto kernel = gemm_wgmma<WG, BN, ST, EPI>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+  // the opt-in to more than 48 KB of shared memory, once per device
+  static unsigned opted = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  const dim3 grid((n + BN - 1) / BN, (m + S::BM - 1) / S::BM);
-  kernel<<<grid, S::kThreads, S::kSmem, s>>>(ta, tw, static_cast<const __nv_bfloat16*>(resid),
-                                             static_cast<__nv_bfloat16*>(c), m, n, k);
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (!(opted & bit)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+    if (e != cudaSuccess) return e;
+    opted |= bit;
+  }
+  kernel<<<blocks, S::kThreads, S::kSmem, s>>>(
+      ta, tw, static_cast<const __nv_bfloat16*>(resid), static_cast<__nv_bfloat16*>(c),
+      static_cast<float4*>(ws), counters, m, n, k, splits);
   return cudaGetLastError();
 }
 
 template <int WG, int BN, int ST>
 static cudaError_t launch_epi(int epi, const CUtensorMap& ta, const CUtensorMap& tw,
-                              const void* resid, void* c, int m, int n, int k,
-                              cudaStream_t s) {
-  if (epi == kRound) return launch_wgmma<WG, BN, ST, kRound>(ta, tw, resid, c, m, n, k, s);
-  if (epi == kRelu) return launch_wgmma<WG, BN, ST, kRelu>(ta, tw, resid, c, m, n, k, s);
-  return launch_wgmma<WG, BN, ST, kResidual>(ta, tw, resid, c, m, n, k, s);
+                              const void* resid, void* c, void* ws, int* counters, int m,
+                              int n, int k, int splits, int blocks, cudaStream_t s) {
+  if (epi == kRound)
+    return launch_wgmma<WG, BN, ST, kRound>(ta, tw, resid, c, ws, counters, m, n, k, splits,
+                                            blocks, s);
+  if (epi == kRelu)
+    return launch_wgmma<WG, BN, ST, kRelu>(ta, tw, resid, c, ws, counters, m, n, k, splits,
+                                           blocks, s);
+  return launch_wgmma<WG, BN, ST, kResidual>(ta, tw, resid, c, ws, counters, m, n, k, splits,
+                                             blocks, s);
 }
 
 static cudaError_t gemm_bf16(const void* a, const void* scale, void* normed, const void* w,
                              const void* resid, void* c, int m, int n, int k, bool norm,
-                             int epi, float eps, cudaStream_t s) {
+                             int epi, float eps, const Plan& p, void* ws, int* counters,
+                             cudaStream_t s) {
   if (norm) {
     rms_norm_bf16<<<(m + 7) / 8, 256, 0, s>>>(
         static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(scale),
@@ -725,13 +890,13 @@ static cudaError_t gemm_bf16(const void* a, const void* scale, void* normed, con
     if (e != cudaSuccess) return e;
     a = normed;
   }
-  const Tile t = choose_tile(m, n);
   CUtensorMap ta, tw;
-  if (!tensor_map(&ta, a, m, k, 64 * t.wg) || !tensor_map(&tw, w, n, k, t.bn))
+  if (!tensor_map(&ta, a, m, k, 64 * p.tile.wg) || !tensor_map(&tw, w, n, k, p.tile.bn))
     return cudaErrorInvalidValue;
-#define GDR_TILE_LAUNCH(wg_, bn_, st_)                    \
-  if (t.wg == wg_ && t.bn == bn_ && t.stages == st_) \
-    return launch_epi<wg_, bn_, st_>(epi, ta, tw, resid, c, m, n, k, s);
+#define GDR_TILE_LAUNCH(wg_, bn_, st_)                                                  \
+  if (p.tile.wg == wg_ && p.tile.bn == bn_)                                             \
+    return launch_epi<wg_, bn_, st_>(epi, ta, tw, resid, c, ws, counters, m, n, k, p.splits, \
+                                     p.blocks, s);
   GDR_GEMM_TILES(GDR_TILE_LAUNCH)
 #undef GDR_TILE_LAUNCH
   return cudaErrorInvalidValue;
@@ -811,18 +976,46 @@ static cudaError_t launch_self(const void* qkv, void* ck, void* cv, const void* 
 
 using gdr::kBF16;
 
+// The bf16 GEMM's plan for C[m, n] = A[m, k] · W[n, k]ᵀ on a card of `sms`
+// SMs: plan[0..5] = tile rows / 64, tile columns, ring stages, splits, work
+// units, blocks.  A split plan needs splits x [tile rows x tile columns] f32
+// of workspace per output tile and one counter per output tile.
+extern "C" int gdr_gemm_plan(int m, int n, int k, int sms, int* plan) {
+  if (m <= 0 || n <= 0 || k <= 0 || sms <= 0 || plan == nullptr) return cudaErrorInvalidValue;
+  const gdr::Plan p = gdr::choose_plan(m, n, k, sms);
+  const int out[6] = {p.tile.wg, p.tile.bn, p.tile.stages, p.splits, p.units, p.blocks};
+  for (int i = 0; i < 6; ++i) plan[i] = out[i];
+  return cudaSuccess;
+}
+
 // C[M, N] = epi(norm?(A) · Wᵀ).  normed: [M, K] scratch in the model dtype
 // for the bf16 normalised input (may be null for f32 or without norm).
+// bf16 runs the plan (wg, bn, splits, blocks) of gdr_gemm_plan, or any other
+// instantiated tile with 1 <= splits <= min(k-tiles, 32); a split plan takes
+// its f32 workspace and n_counters >= output tiles zeroed counters, which
+// it leaves zeroed.  f32 ignores the plan.
 extern "C" int gdr_gemm(int dtype, const void* a, const void* scale, void* normed,
                         const void* w, const void* resid, void* c, int m, int n, int k,
-                        int norm, int epi, float eps, void* stream) {
+                        int norm, int epi, float eps, int wg, int bn, int splits, int blocks,
+                        void* workspace, void* counters, int n_counters, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0) return cudaErrorInvalidValue;
   const bool ok = (norm && (epi == gdr::kRound || epi == gdr::kRelu)) ||
                   (!norm && epi == gdr::kResidual);
   if (!ok || (dtype == kBF16 && norm && normed == nullptr)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return gdr::gemm_bf16(a, scale, normed, w, resid, c, m, n, k, norm, epi, eps, s);
+  if (dtype == kBF16) {
+    gdr::Plan p{{0, 0, 0}, splits, 0, blocks};
+    for (const gdr::Tile& t : gdr::kTiles)
+      if (t.wg == wg && t.bn == bn) p.tile = t;
+    const int kt = (k + gdr::BK - 1) / gdr::BK;
+    if (p.tile.wg == 0 || splits < 1 || splits > kt || splits > gdr::kMaxSplits || blocks < 1)
+      return cudaErrorInvalidValue;
+    const long tiles = (long)((m + 64 * wg - 1) / (64 * wg)) * ((n + bn - 1) / bn);
+    if (splits > 1 && (workspace == nullptr || counters == nullptr || tiles > n_counters))
+      return cudaErrorInvalidValue;
+    return gdr::gemm_bf16(a, scale, normed, w, resid, c, m, n, k, norm, epi, eps, p, workspace,
+                          static_cast<int*>(counters), s);
+  }
   if (epi == gdr::kRound)
     return gdr::gemm_f32<true, gdr::kRound>(a, scale, w, resid, c, m, n, k, eps, s);
   if (epi == gdr::kRelu)

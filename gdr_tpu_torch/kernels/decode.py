@@ -33,8 +33,9 @@ FLOP/byte ridge, so the tensor cores bound them; at R = 32 the weight bytes
 do.  On the TPU each sublayer was one program with all weights in 16 MB
 VMEM; a Hopper block has 227 KB, so weights stream through shared memory
 and a sublayer is up to three launches of one shared GEMM (:func:`gemm`:
-bf16 on ``wgmma`` with TMA-fed shared-memory rings and a per-shape tile,
-after a row kernel that writes the RMSNorm output once; f32 on the FMA
+bf16 on ``wgmma`` with TMA-fed shared-memory rings, persistent blocks and
+a per-shape plan of tile and split-K (:func:`gemm_plan`), after a row
+kernel that writes the RMSNorm output once; f32 on the FMA
 units with an RMSNorm prologue; round / ReLU / residual epilogue) and, for
 the attention sublayers, one attention core between two GEMMs.  Each
 intermediate is written once in the model dtype, exactly where the TPU
@@ -53,6 +54,7 @@ the TPU kernel's ``[in, out]``): ``wqkv [3·inner, d]``, ``wo [d, inner]``,
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -66,8 +68,12 @@ LAUNCHES = {"self_attn_sublayer": 0, "cross_attn_sublayer": 0,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
-    # dtype, a, scale, normed, w, resid, c, m, n, k, norm, epi, eps, stream
-    "gdr_gemm": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # dtype, a, scale, normed, w, resid, c, m, n, k, norm, epi, eps,
+    # wg, bn, splits, blocks, workspace, counters, n_counters, stream
+    "gdr_gemm": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                 _I, _I, _I, _I, _P, _P, _I, _P],
+    # m, n, k, sms, int plan[6]
+    "gdr_gemm_plan": [_I, _I, _I, _I, _P],
     # dtype, qkv, ck, cv, bias, attn, rows, L, heads, d_kv, pos, stream
     "gdr_self_attn_core": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, q, ck, cv, bias, out, batch, beams, heads, S, d_kv, stream
@@ -80,6 +86,8 @@ _SMEM_OPTIN = 227 * 1024
 _CROSS_F32_WARPS = 4
 # head widths of the bf16 cross-attention core (one instantiation each)
 _CROSS_BF16_DKV = (16, 32, 64, 128)
+# output tiles a split-K launch may count on (kSplitTiles in the source)
+_SPLIT_TILES = 1024
 
 
 def cross_attn_max_len(d_kv: int, dtype: torch.dtype = torch.bfloat16) -> int:
@@ -204,8 +212,68 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what):
-    """One launch of ``gdr_gemm``: RMSNorm + round / ReLU, or residual."""
+class GemmPlan(NamedTuple):
+    """A launch of the bf16 GEMM (``gdr_gemm_plan``): tiles of 64·``wg``
+    rows × ``bn`` columns fed by a ring of ``stages`` k-tiles; each output
+    tile's k-tiles split ``splits`` ways; ``units`` = tiles · splits work
+    units walked by ``blocks`` persistent blocks (at most one per SM)."""
+    wg: int
+    bn: int
+    stages: int
+    splits: int
+    units: int
+    blocks: int
+
+    def workspace(self, m: int, n: int) -> int:
+        """f32 elements of the split partials at C [m, n] (0 unsplit)."""
+        if self.splits == 1:
+            return 0
+        bm = 64 * self.wg
+        return -(-m // bm) * -(-n // self.bn) * self.splits * bm * self.bn
+
+
+_PLANS: dict = {}
+_COUNTERS: dict = {}
+
+
+def gemm_plan(m: int, n: int, k: int, device=None) -> GemmPlan:
+    """The cost model's plan for the bf16 GEMM C[m, n] = A[m, k] · W[n, k]ᵀ
+    on a CUDA device (cached per device and shape)."""
+    dev = torch.device("cuda" if device is None else device)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (idx, m, n, k)
+    plan = _PLANS.get(key)
+    if plan is None:
+        lib = _lib()
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        out = (ctypes.c_int * 6)()
+        build.check(lib, lib.gdr_gemm_plan(m, n, k, sms, ctypes.addressof(out)),
+                    "gemm_plan")
+        plan = _PLANS[key] = GemmPlan(*out)
+    return plan
+
+
+def _counters(device: torch.device) -> torch.Tensor:
+    """The device's split-K arrival counters: zeroed once, and left zero by
+    every launch (the last split of a tile resets its counter).  Split
+    launches on one device share them, so they run in stream order, as the
+    port's decoder does."""
+    buf = _COUNTERS.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("gemm: the first split-K launch on a device "
+                               "runs outside CUDA graph capture (it zeroes "
+                               "the arrival counters)")
+        buf = _COUNTERS[device] = torch.zeros(_SPLIT_TILES, dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
+def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what,
+          plan: GemmPlan | None = None):
+    """One launch of ``gdr_gemm``: RMSNorm + round / ReLU, or residual.  A
+    bf16 launch runs ``plan`` (the cost model's by default) with its split
+    workspace from the caching allocator."""
     m, k = a.shape
     n = w.shape[0]
     norm = epi != EPI_RESIDUAL
@@ -215,21 +283,34 @@ def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what):
                              if t is not None):
         raise ValueError(f"{what}: needs widths that are multiples of 8 and "
                          f"16-byte aligned tensors (m={m}, n={n}, k={k})")
-    normed = (torch.empty_like(a) if norm and a.dtype == torch.bfloat16
-              else None)
+    bf16 = a.dtype == torch.bfloat16
+    normed = torch.empty_like(a) if norm and bf16 else None
+    ws = counters = None
+    if bf16:
+        plan = plan or gemm_plan(m, n, k, a.device)
+        if plan.splits > 1:
+            ws = torch.empty(plan.workspace(m, n), dtype=torch.float32,
+                             device=a.device)
+            counters = _counters(a.device)
+    else:
+        plan = GemmPlan(0, 0, 0, 0, 0, 0)
+    ptr = lambda t: t.data_ptr() if t is not None else None
     build.check(lib, lib.gdr_gemm(
-        code, a.data_ptr(), scale.data_ptr() if norm else None,
-        normed.data_ptr() if normed is not None else None, w.data_ptr(),
-        resid.data_ptr() if resid is not None else None, c.data_ptr(), m, n,
-        k, int(norm), epi, eps, stream), what)
+        code, a.data_ptr(), scale.data_ptr() if norm else None, ptr(normed),
+        w.data_ptr(), ptr(resid), c.data_ptr(), m, n, k, int(norm), epi, eps,
+        plan.wg, plan.bn, plan.splits, plan.blocks, ptr(ws), ptr(counters),
+        _SPLIT_TILES, stream), what)
 
 
-def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6):
+def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6,
+         plan: GemmPlan | None = None):
     """The decoder sublayers' GEMM on its own: a [M, K], w [N, K];
     ``epi`` "round" or "relu" (RMSNorm of ``a`` with ``scale`` first) or
-    "residual" (``resid`` [M, N] + the rounded product).  The sublayer
-    wrappers count their launches; this entry point, for tests and
-    per-shape timing, counts none."""
+    "residual" (``resid`` [M, N] + the rounded product).  ``plan`` replaces
+    the cost model's bf16 plan (any instantiated tile, 1 <= splits <=
+    min(k-tiles, 32), any number of blocks).  The sublayer wrappers count
+    their launches; this entry point, for tests and per-shape timing,
+    counts none."""
     if epi not in _EPIS or (epi == "residual") != (scale is None) or (
             epi == "residual") != (resid is not None):
         raise ValueError(f"gemm: epi {epi!r} takes scale for round/relu and "
@@ -246,7 +327,7 @@ def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6):
     if scale is not None:
         _shape("gemm scale", scale, (a.shape[1],))
     _gemm(_lib(), code, a, scale, w, resid, c, _EPIS[epi], eps, _stream(a),
-          "gemm")
+          "gemm", plan)
     return c
 
 

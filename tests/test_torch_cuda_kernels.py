@@ -11,8 +11,10 @@ Shapes are small and deliberately ragged (row counts that are not
 multiples of any tile, one and 31 beams per query, scorer widths of 40 and
 48 that are not multiples of 32 chunks, 37 beams, cap 5); the decoder's
 GEMM and attention cores are also held at the main path's widths (K up to
-3,072, N up to 2,304, d_kv 64, L 16, encoder lengths up to the
-shared-memory limit).  Tolerances: f32
+3,080, N up to 3,072, d_kv 64, L 16, encoder lengths up to the
+shared-memory limit).  The bf16 GEMM runs the cost model's plans and
+forced ones: split-K with split counts that divide no k-tile count, and
+fewer persistent blocks than work units.  Tolerances: f32
 atol 1e-4 + rtol 1e-5 (f32 sums in another order); bf16 atol 2e-2 + rtol
 1e-2 (one bf16 ulp of an output whose f32 value sits near a rounding
 edge).  The scorers' outputs are f32 sums, held at the f32 tolerance.
@@ -114,7 +116,7 @@ def test_decoder_sublayers_match_plain(dev, dtype, batch, beams, pos):
 def test_gemm_matches_plain(dev, dtype, m, n, k):
     # ragged M and K edges arrive as TMA zeros (K = 40 is under one 64-wide
     # k-tile, 200 ends in a partial one) and M is masked on store; the tile
-    # (64 or 128 rows x 8 to 256 columns) follows the shape
+    # (64 or 128 rows x 8 to 192 columns) follows the shape
     rn = _rand(dev, m + n + k)
     a = rn(m, k, dtype=dtype)
     w = rn(n, k, std=k ** -0.5, dtype=dtype)
@@ -132,23 +134,121 @@ def test_gemm_matches_plain(dev, dtype, m, n, k):
                          ids=["f32", "bf16"])
 def test_gemm_writes_only_its_output(dev, dtype):
     # the rows around C hold NaN canaries: the masked epilogue of a ragged
-    # tile must leave them alone
+    # tile must leave them alone, whether the tile's last split or its only
+    # unit writes it, and whichever persistent block walks it
     m, n, k = 65, 200, 96
     rn = _rand(dev, 11)
     a, w = rn(m, k, dtype=dtype), rn(n, k, std=k ** -0.5, dtype=dtype)
     scale, resid = (1 + rn(k, std=0.1)).to(dtype), rn(m, n, dtype=dtype)
-    buf = torch.full((m + 2, n), float("nan"), dtype=dtype, device=dev)
-    out = buf[1:m + 1]
     lib, code = kd._lib(), build.DTYPES[dtype]
     stream = torch.cuda.current_stream().cuda_stream
-    for epi, sc, rs, want in (
-            (kd.EPI_ROUND, scale, None, kd.gemm_plain(a, w, "round", scale=scale)),
-            (kd.EPI_RESIDUAL, None, resid,
-             kd.gemm_plain(a, w, "residual", resid=resid))):
-        kd._gemm(lib, code, a, sc, w, rs, out, epi, 1e-6, stream, "gemm")
-        torch.cuda.synchronize()
-        assert bool(buf[0].isnan().all()) and bool(buf[m + 1].isnan().all())
-        _close(out, want, dtype)
+    plans = [None]
+    if dtype == torch.bfloat16:          # 2 k-tiles: split 2 ways
+        plans += [kd.GemmPlan(1, 64, 6, 2, 0, 3), kd.GemmPlan(2, 128, 4, 2, 0, 1),
+                  kd.GemmPlan(1, 8, 8, 1, 0, 5)]
+    for plan in plans:
+        buf = torch.full((m + 2, n), float("nan"), dtype=dtype, device=dev)
+        out = buf[1:m + 1]
+        for epi, sc, rs, want in (
+                (kd.EPI_ROUND, scale, None,
+                 kd.gemm_plain(a, w, "round", scale=scale)),
+                (kd.EPI_RESIDUAL, None, resid,
+                 kd.gemm_plain(a, w, "residual", resid=resid))):
+            kd._gemm(lib, code, a, sc, w, rs, out, epi, 1e-6, stream, "gemm",
+                     plan)
+            torch.cuda.synchronize()
+            assert bool(buf[0].isnan().all()) and bool(buf[m + 1].isnan().all())
+            _close(out, want, dtype)
+
+
+# the FFN's products on the main path: (N, K) of wi and wo at t5-base width
+FFN_GEMMS = {"wi": (3072, 768), "wo": (768, 3072)}
+
+
+@pytest.mark.parametrize("m", [1, 33, 991, 3200])
+@pytest.mark.parametrize("k", [776, 3072, 3080])
+def test_gemm_split_and_persistent_plans_match_plain(dev, m, k):
+    # k-tiles 13, 48 and 49 (776 and 3,080 end in a partial one); 5 and 11
+    # splits divide none of them; fewer blocks than units make each block
+    # walk several units through one ring
+    n = 200
+    rn = _rand(dev, m + k)
+    a = rn(m, k, dtype=torch.bfloat16)
+    w = rn(n, k, std=k ** -0.5, dtype=torch.bfloat16)
+    scale = (1 + rn(k, std=0.1)).to(torch.bfloat16)
+    resid = rn(m, n, dtype=torch.bfloat16)
+    plans = [None, kd.GemmPlan(2, 128, 4, 5, 0, 7), kd.GemmPlan(1, 32, 8, 11, 0, 132),
+             kd.GemmPlan(2, 160, 4, 1, 0, 2), kd.GemmPlan(1, 96, 6, 11, 0, 1)]
+    for plan in plans:
+        for epi, kw in (("relu", dict(scale=scale)), ("residual", dict(resid=resid))):
+            got = kd.gemm(a, w, epi, plan=plan, **kw)
+            _close(got, kd.gemm_plain(a, w, epi, **kw), torch.bfloat16)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("m", [32, 992, 3200])
+@pytest.mark.parametrize("which", ["wi", "wo"])
+def test_gemm_is_deterministic(dev, m, which):
+    # two calls, and replays of a CUDA graph of the call, are bit-equal:
+    # split partials are summed in split order, and the arrival counters
+    # are zero again after every launch
+    n, k = FFN_GEMMS[which]
+    rn = _rand(dev, m + n)
+    a = rn(m, k, dtype=torch.bfloat16)
+    w = rn(n, k, std=k ** -0.5, dtype=torch.bfloat16)
+    resid = rn(m, n, dtype=torch.bfloat16)
+    for plan in (None, kd.GemmPlan(2, 128, 4, 7, 0, 132)):
+        first = kd.gemm(a, w, "residual", resid=resid, plan=plan)
+        assert torch.equal(kd.gemm(a, w, "residual", resid=resid, plan=plan),
+                           first)
+        out = {}
+
+        def call():
+            out["c"] = kd.gemm(a, w, "residual", resid=resid, plan=plan)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            call()
+        for _ in range(3):
+            out["c"].fill_(0)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out["c"], first)
+        assert torch.equal(kd._counters(a.device), torch.zeros_like(
+            kd._counters(a.device)))
+
+
+def test_ffn_main_path_shapes_get_split_or_persistent_plans(dev):
+    # R = 32: the K = 3,072 product splits its k-tiles, so that at least
+    # half the SMs each read a slice of W; R = 992 and 3,200: the units
+    # fill >= 90% of the SMs, and at 3,200 rows the wi product's blocks
+    # each walk several units
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m in (32, 992, 3200):
+        for which, (n, k) in FFN_GEMMS.items():
+            plan = kd.gemm_plan(m, n, k, dev)
+            assert plan.blocks == min(plan.units, sms), plan
+            if m == 32 and which == "wo":
+                assert plan.splits > 1 and plan.units >= sms // 2, plan
+            elif m > 32:
+                assert plan.blocks >= 0.9 * sms, plan
+    assert kd.gemm_plan(3200, *FFN_GEMMS["wi"], dev).units > sms
+
+
+def test_gemm_refuses_plans_it_does_not_serve(dev):
+    rn = _rand(dev, 12)
+    a = rn(64, 128, dtype=torch.bfloat16)
+    w = rn(64, 128, dtype=torch.bfloat16)
+    resid = rn(64, 64, dtype=torch.bfloat16)
+    for plan in (kd.GemmPlan(2, 96, 4, 1, 0, 1),      # no such tile
+                 kd.GemmPlan(1, 64, 6, 3, 0, 1),      # 3 splits of 2 k-tiles
+                 kd.GemmPlan(1, 64, 6, 1, 0, 0)):     # no blocks
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kd.gemm(a, w, "residual", resid=resid, plan=plan)
 
 
 HEADS_W, DKV_W = 2, 64           # the main path's head width
