@@ -5,7 +5,8 @@ the port builds, is right and serves retrieval on the card.
     python3 chip_smoke.py [profile]   # from the repository root, one CUDA device
 
 Every phase always runs; ``profile`` adds a torch.profiler table of one
-full-width retrieve.  Any other argument is refused.
+full-width retrieve in phase 4 and of each mode in phase 5.  Any other
+argument is refused.
 
 Phases (each prints its elapsed seconds; any failure exits non-zero before
 the last line):
@@ -17,8 +18,11 @@ the last line):
 2. kernel vs plain — each kernel against its plain PyTorch version on the
    card: the decoder sublayers at the row counts the main path gives them
    (32, 992 and 3,200 rows of t5-base: 32 queries × widths 1, 31, 100, at
-   positions 0, 1 and 3) in bf16 and f32; the three re-rank scorers at 32
-   and 3,200 beams over stores of the operating point's size (the packed
+   positions 0, 1 and 3) and at the shapes the other options give them
+   (3,200 rows at position 0, and at position 4 of a 5-position cache) in
+   bf16 and f32; the three re-rank scorers at 32 and 3,200 beams, each
+   beam with its own query row (the packed scorer also with one row per
+   query), over stores of the operating point's size (the packed
    bf16 / f32 store, the int8 packed store with the query in bf16 and f32,
    the plain bf16 / f32 store with candidates from the bench trie's padded
    cluster table).  Device times (CUDA-graph replay) beside the plain
@@ -32,7 +36,11 @@ the last line):
    versions) and on the card (kernels) from the same seeded weights, on
    the four store layouts (plain, packed, plain int8, packed int8): valid
    doc ids equal, fused scores within 1e-4, int8 stores bit-equal,
-   ``evaluate`` metrics equal;
+   ``evaluate`` metrics equal; then, on the plain and packed layouts, the
+   other options of a retrieve: decoder_avg query reps with average
+   fusion, decoder_special with concate fusion, top_k sampling (the Gumbel
+   noise drawn once on the CPU and given to both runs) and the slow PAWA
+   head, each with valid doc ids equal and fused scores within 1e-4;
 4. whole path, full width — ``Evaluator.retrieve`` with t5-base in bf16
    (seeded random weights), beam 100, top-R 100, 32 queries × 40 tokens,
    over a 334,314-doc store in three layouts (packed bf16, plain bf16,
@@ -41,7 +49,18 @@ the last line):
    and doc ids, then timed retrieves; plain bf16 must return packed bf16's
    top documents, and packed int8's store size and top-1 agreement with
    packed bf16 are printed;
-5. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
+5. the other options at full width — on the packed bf16 layout, four
+   modes of ``Evaluator.retrieve``: (a) beam + decoder_avg + average
+   fusion, (b) beam + decoder_special + concate fusion (one t5-base model
+   with the fusion layer), (c) top_k sampling (temperature 1.0, top-k 10,
+   100 rollouts, seed 0) and (d) beam with the slow PAWA head (a second
+   model): per mode the exact launch counts of one retrieve (30 per
+   decoder kernel in (a) and (b), whose pooled reps take a fifth step; 24
+   in (c) and (d); one packed scorer), 3,200 valid beams or rollouts, top-R
+   valid doc ids, finite scores, then timed retrieves and peak memory; the
+   default path's decode on the same model beside (a)'s, and the slow
+   head's transform alone at 3,200 rows;
+6. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
    layout's main path, max |Δ|, kernel / plain / library ms and its bound
    (the decoder rows also by row count, per retrieve and per GEMM shape).
 
@@ -74,6 +93,10 @@ PACKED_ROWS_INT8 = 356_640   # its int8 packed layout (32-aligned blocks)
 # width-100 step runs twice, at positions 2 and 3)
 POS_OF_WIDTH = {1: 0, 31: 1, 100: 3}
 RETRIEVE_WEIGHT = {1: 6, 31: 6, 100: 12}
+# (position, cache length) of the other retrieve options at 3,200 rows:
+# sampling starts at full width at position 0; pooled decoder reps take a
+# fifth step, position 4 of a 5-position cache
+OPTION_POS_LMAX = ((0, 4), (4, 5))
 DECODER = ("self_attn_sublayer", "cross_attn_sublayer", "ffn_sublayer")
 # the GEMM's (N, K) shapes on the main path, with the epilogue each gets
 GEMM_SHAPES = ((3 * D, D, "round"), (D, D, "residual"), (DFF, D, "relu"),
@@ -190,6 +213,65 @@ def _close(name, got, want, dtype_name) -> float:
     return err
 
 
+def sublayers_vs_plain(rn, stats: dict, r: int, beams: int, pos: int,
+                       lmax: int, dtype):
+    """The three decoder sublayers at r rows (``beams`` per query) and
+    position ``pos`` of an ``lmax``-position cache, on random t5-base
+    inputs from ``rn``, each held to its plain version: logs the max |d|,
+    folds it into ``stats[name]["err"]`` and returns the inputs."""
+    import types
+
+    import torch
+
+    from gdr_tpu_torch.kernels import decode as KD
+
+    dn = str(dtype).split(".")[-1]
+    at = f"{dn} R={r} pos {pos} L {lmax}"
+    x = rn(r, D, dtype=dtype)
+    scale = (1 + rn(D, std=0.1)).to(dtype)
+    wqkv = rn(3 * D, D, std=0.02, dtype=dtype)
+    wo = rn(D, D, std=0.02, dtype=dtype)
+    bias_row = rn(lmax, H, std=0.5)
+    ck, cv = rn(lmax, r, D, dtype=dtype), rn(lmax, r, D, dtype=dtype)
+    ck2, cv2 = ck.clone(), cv.clone()
+    got, ck, cv = KD.self_attn_sublayer(
+        x, pos, scale, wqkv, wo, bias_row, ck, cv, heads=H, d_kv=DKV)
+    want, ck2, cv2 = KD.self_attn_sublayer_plain(
+        x, pos, scale, wqkv, wo, bias_row, ck2, cv2, heads=H, d_kv=DKV)
+    e_self = max(_close(f"self_attn {at}", got, want, dn),
+                 _close(f"self_attn K cache {at}", ck, ck2, dn),
+                 _close(f"self_attn V cache {at}", cv, cv2, dn))
+
+    wcq = rn(D, D, std=0.02, dtype=dtype)
+    wco = rn(D, D, std=0.02, dtype=dtype)
+    cross_k = rn(B, H, S, DKV, dtype=dtype)
+    cross_v = rn(B, H, S, DKV, dtype=dtype)
+    cbias = rn(B, H, S, std=0.5)
+    cbias[:, :, S - 8:] += -1e9                          # padded key positions
+    got = KD.cross_attn_sublayer(x, scale, wcq, wco, cross_k, cross_v, cbias,
+                                 beams, heads=H, d_kv=DKV)
+    want = KD.cross_attn_sublayer_plain(x, scale, wcq, wco, cross_k, cross_v,
+                                        cbias, beams, heads=H, d_kv=DKV)
+    e_cross = _close(f"cross_attn {at}", got, want, dn)
+
+    wi = rn(DFF, D, std=0.02, dtype=dtype)
+    wo2 = rn(D, DFF, std=0.02, dtype=dtype)
+    got = KD.ffn_sublayer(x, scale, wi, wo2)
+    want = KD.ffn_sublayer_plain(x, scale, wi, wo2)
+    e_ffn = _close(f"ffn {at}", got, want, dn)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dn]
+    log(f"  {dn:8s} R={r:5d} pos {pos} L {lmax}  max|d| self {e_self:.3g}  "
+        f"cross {e_cross:.3g}  ffn {e_ffn:.3g}  (tol {atol} + "
+        f"{rtol}·|plain|)")
+    for name, e in zip(DECODER, (e_self, e_cross, e_ffn)):
+        stats[name]["err"] = max(stats[name].get("err", 0.0), e)
+    return types.SimpleNamespace(
+        dn=dn, x=x, scale=scale, wqkv=wqkv, wo=wo, bias_row=bias_row, ck=ck,
+        cv=cv, ck2=ck2, cv2=cv2, wcq=wcq, wco=wco, cross_k=cross_k,
+        cross_v=cross_v, cbias=cbias, wi=wi, wo2=wo2)
+
+
 # ------------------------------------------------------------ phase 2
 
 def phase_kernels(dev, trie) -> dict:
@@ -216,78 +298,38 @@ def phase_kernels(dev, trie) -> dict:
     stats: dict = {name: dict(rows={}) for name in DECODER}
     gemm_rows: list = []
     for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype).split(".")[-1]
         for w in WIDTHS:
             r, pos = B * w, POS_OF_WIDTH[w]
-            x = rn(r, D, dtype=dtype)
-            scale = (1 + rn(D, std=0.1)).to(dtype)
-            wqkv = rn(3 * D, D, std=0.02, dtype=dtype)
-            wo = rn(D, D, std=0.02, dtype=dtype)
-            bias_row = rn(lmax, H, std=0.5)
-            ck, cv = rn(lmax, r, D, dtype=dtype), rn(lmax, r, D, dtype=dtype)
-            ck2, cv2 = ck.clone(), cv.clone()
-            got, ck, cv = KD.self_attn_sublayer(
-                x, pos, scale, wqkv, wo, bias_row, ck, cv, heads=H, d_kv=DKV)
-            want, ck2, cv2 = KD.self_attn_sublayer_plain(
-                x, pos, scale, wqkv, wo, bias_row, ck2, cv2, heads=H, d_kv=DKV)
-            e_self = max(_close(f"self_attn {dn} R={r}", got, want, dn),
-                         _close(f"self_attn K cache {dn} R={r}", ck, ck2, dn),
-                         _close(f"self_attn V cache {dn} R={r}", cv, cv2, dn))
-
-            wcq = rn(D, D, std=0.02, dtype=dtype)
-            wco = rn(D, D, std=0.02, dtype=dtype)
-            cross_k = rn(B, H, S, DKV, dtype=dtype)
-            cross_v = rn(B, H, S, DKV, dtype=dtype)
-            cbias = rn(B, H, S, std=0.5)
-            cbias[:, :, S - 8:] += -1e9                  # padded key positions
-            got = KD.cross_attn_sublayer(x, scale, wcq, wco, cross_k, cross_v,
-                                         cbias, w, heads=H, d_kv=DKV)
-            want = KD.cross_attn_sublayer_plain(x, scale, wcq, wco, cross_k,
-                                                cross_v, cbias, w, heads=H,
-                                                d_kv=DKV)
-            e_cross = _close(f"cross_attn {dn} R={r}", got, want, dn)
-
-            wi = rn(DFF, D, std=0.02, dtype=dtype)
-            wo2 = rn(D, DFF, std=0.02, dtype=dtype)
-            got = KD.ffn_sublayer(x, scale, wi, wo2)
-            want = KD.ffn_sublayer_plain(x, scale, wi, wo2)
-            e_ffn = _close(f"ffn {dn} R={r}", got, want, dn)
-            torch.cuda.synchronize()
-            atol, rtol = TOL[dn]
-            log(f"  {dn:8s} R={r:5d}  max|d| self {e_self:.3g}  cross "
-                f"{e_cross:.3g}  ffn {e_ffn:.3g}  (tol {atol} + {rtol}·|plain|)")
-            errs = {"self_attn_sublayer": e_self,
-                    "cross_attn_sublayer": e_cross, "ffn_sublayer": e_ffn}
-            for name, e in errs.items():
-                stats[name]["err"] = max(stats[name].get("err", 0.0), e)
+            c = sublayers_vs_plain(rn, stats, r, w, pos, lmax, dtype)
             if dtype != torch.bfloat16:
                 continue
 
             # device times at this row count: kernel, plain, library (the
             # sublayer's two GEMMs through torch.matmul, no attention core)
+            x, scale, dn = c.x, c.scale, c.dn
             attn_in = torch.empty(r, D, dtype=dtype, device=dev)
             hid = torch.empty(r, DFF, dtype=dtype, device=dev)
             calls = {
                 "self_attn_sublayer": (
                     lambda: KD.self_attn_sublayer(
-                        x, pos, scale, wqkv, wo, bias_row, ck, cv, heads=H,
-                        d_kv=DKV),
+                        x, pos, scale, c.wqkv, c.wo, c.bias_row, c.ck, c.cv,
+                        heads=H, d_kv=DKV),
                     lambda: KD.self_attn_sublayer_plain(
-                        x, pos, scale, wqkv, wo, bias_row, ck2, cv2, heads=H,
-                        d_kv=DKV),
-                    lambda: (x @ wqkv.t(), attn_in @ wo.t())),
+                        x, pos, scale, c.wqkv, c.wo, c.bias_row, c.ck2, c.cv2,
+                        heads=H, d_kv=DKV),
+                    lambda: (x @ c.wqkv.t(), attn_in @ c.wo.t())),
                 "cross_attn_sublayer": (
                     lambda: KD.cross_attn_sublayer(
-                        x, scale, wcq, wco, cross_k, cross_v, cbias, w,
-                        heads=H, d_kv=DKV),
+                        x, scale, c.wcq, c.wco, c.cross_k, c.cross_v, c.cbias,
+                        w, heads=H, d_kv=DKV),
                     lambda: KD.cross_attn_sublayer_plain(
-                        x, scale, wcq, wco, cross_k, cross_v, cbias, w,
-                        heads=H, d_kv=DKV),
-                    lambda: (x @ wcq.t(), attn_in @ wco.t())),
+                        x, scale, c.wcq, c.wco, c.cross_k, c.cross_v, c.cbias,
+                        w, heads=H, d_kv=DKV),
+                    lambda: (x @ c.wcq.t(), attn_in @ c.wco.t())),
                 "ffn_sublayer": (
-                    lambda: KD.ffn_sublayer(x, scale, wi, wo2),
-                    lambda: KD.ffn_sublayer_plain(x, scale, wi, wo2),
-                    lambda: (x @ wi.t(), hid @ wo2.t())),
+                    lambda: KD.ffn_sublayer(x, scale, c.wi, c.wo2),
+                    lambda: KD.ffn_sublayer_plain(x, scale, c.wi, c.wo2),
+                    lambda: (x @ c.wi.t(), hid @ c.wo2.t())),
             }
             for name, (kern, plain, lib) in calls.items():
                 flops, nbytes = decoder_cost(name, r, pos, lmax,
@@ -329,6 +371,12 @@ def phase_kernels(dev, trie) -> dict:
                     f"{g_['ms']:.4f} ms, torch.matmul {g_['matmul_ms']:.4f} "
                     f"ms, bound {bound:.4f} ms ({by}); plan {plan}")
 
+    # the shapes the other retrieve options give the sublayers at 3,200 rows
+    for dtype in (torch.bfloat16, torch.float32):
+        for pos, lmax_o in OPTION_POS_LMAX:
+            sublayers_vs_plain(rn, stats, rows_main, WIDTHS[-1], pos, lmax_o,
+                               dtype)
+
     for name in DECODER:
         st = stats[name]
         for r, row in sorted(st["rows"].items()):
@@ -363,11 +411,19 @@ def phase_kernels(dev, trie) -> dict:
         rows = rn(m, D, dtype=dtype)
         starts = (torch.randint(0, (m - CAP) // 8, (rows_main,), generator=g,
                                 device=dev) * 8).to(torch.int32)
+        # a distinct query row per beam, as decoder-side reps give them, and
+        # one row per query broadcast to its beams, as the default path does
         q = rn(rows_main, D, std=0.05)
-        got = KR.packed_scores(rows, starts, q, CAP)
-        want = KR.packed_scores_plain(rows, starts, q, CAP)
-        err = _close(f"packed_scores {dn}", got, want, "float32")
-        log(f"  {dn:8s} R={rows_main:5d}  max|d| packed_scores {err:.3g}  "
+        q_bc = q.view(B, -1, D)[:, :1].expand(B, WIDTHS[-1], D
+                                              ).reshape(rows_main, D)
+        errs = [_close(f"packed_scores {dn} {form}",
+                       KR.packed_scores(rows, starts, qq, CAP),
+                       KR.packed_scores_plain(rows, starts, qq, CAP),
+                       "float32")
+                for form, qq in (("row per beam", q), ("row per query", q_bc))]
+        err = max(errs)
+        log(f"  {dn:8s} R={rows_main:5d}  max|d| packed_scores {errs[0]:.3g} "
+            f"(a query row per beam), {errs[1]:.3g} (one row per query)  "
             f"(tol {TOL['float32'][0]} + {TOL['float32'][1]}·|plain|)")
         if dtype == torch.bfloat16:
             idx = starts.long()[:, None] + torch.arange(CAP, device=dev)
@@ -515,21 +571,73 @@ def _small_world(seed: int):
     return cfg, trie, store, ids, mask, data
 
 
-def phase_small(dev) -> None:
+# phase 3's other options of a retrieve: name → ModelConfig and EvalConfig
+# settings; each runs on the plain and packed layouts
+SMALL_MODES = {
+    "decoder_avg + average": (dict(concate_fusion=True),
+                              dict(use_query_embed_decoder_avg=True)),
+    "decoder_special + concate": (dict(concate_fusion=True),
+                                  dict(use_query_embed_decoder_special=True,
+                                       fusion_strategy="concate")),
+    "top_k sampling": (dict(concate_fusion=True),
+                       dict(gen_method="top_k", sample_top_k=3,
+                            temperature=0.9)),
+    "slow PAWA": (dict(adaptor_efficient=False), {}),
+}
+
+
+def _small_models(cfg, dev):
+    """The same seeded small model on the CPU and on the card."""
     import torch
 
-    from gdr_tpu_torch.config import EvalConfig
-    from gdr_tpu_torch.eval.evaluator import Evaluator
     from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
 
-    cfg, trie, store, ids, mask, data = _small_world(0)
-    ev_cfg = EvalConfig(num_beams=12, num_return_sequences=20,
-                        max_output_length=cfg.max_output_length)
     cpu_model = init_weights(GenerativeRetriever(cfg),
                              torch.Generator().manual_seed(0)).eval()
     gpu_model = GenerativeRetriever(cfg)
     gpu_model.load_state_dict(cpu_model.state_dict())
-    gpu_model = gpu_model.to(dev).eval()
+    return cpu_model, gpu_model.to(dev).eval()
+
+
+def _same_retrieve(tag, res_c, rr_c, res_g, rr_g):
+    """Beams, valid doc ids and fused scores (within 1e-4) of a cpu and a
+    gpu retrieve agree; returns (valid beams, valid docs, max |d| score)."""
+    import torch
+
+    valid = res_c.valid.cpu()
+    if not torch.equal(valid, res_g.valid.cpu()):
+        raise Failed(f"small {tag}: beam validity differs between cpu "
+                     f"and gpu")
+    if not torch.equal(res_c.nodes.cpu()[valid],
+                       res_g.nodes.cpu()[valid]):
+        raise Failed(f"small {tag}: beam nodes differ between cpu and "
+                     f"gpu")
+    dv = rr_c.doc_valid.cpu()
+    if not torch.equal(dv, rr_g.doc_valid.cpu()):
+        raise Failed(f"small {tag}: doc validity differs between cpu "
+                     f"and gpu")
+    if not torch.equal(rr_c.doc_ids.cpu()[dv], rr_g.doc_ids.cpu()[dv]):
+        raise Failed(f"small {tag}: doc ids differ between cpu and gpu")
+    err = (rr_c.scores.cpu()[dv] - rr_g.scores.cpu()[dv]).abs().max().item()
+    if not err <= 1e-4:
+        raise Failed(f"small {tag}: fused scores differ by {err:.3g} "
+                     f"> 1e-4")
+    return int(valid.sum()), int(dv.sum()), err
+
+
+def phase_small(dev) -> None:
+    import dataclasses
+
+    import torch
+
+    from gdr_tpu_torch.config import EvalConfig
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.ops.beam import gumbel_noise
+
+    cfg, trie, store, ids, mask, data = _small_world(0)
+    ev_cfg = EvalConfig(num_beams=12, num_return_sequences=20,
+                        max_output_length=cfg.max_output_length)
+    cpu_model, gpu_model = _small_models(cfg, dev)
     for layout, kw in SMALL_LAYOUTS.items():
         ev_c = Evaluator(cpu_model, trie, store, ev_cfg, **kw)
         ev_g = Evaluator(gpu_model, trie, store, ev_cfg, **kw)
@@ -541,24 +649,8 @@ def phase_small(dev) -> None:
                                  f"between cpu and gpu")
         res_c, rr_c = ev_c.retrieve(ids, mask)
         res_g, rr_g = ev_g.retrieve(ids, mask)
-        valid = res_c.valid.cpu()
-        if not torch.equal(valid, res_g.valid.cpu()):
-            raise Failed(f"small {layout}: beam validity differs between cpu "
-                         f"and gpu")
-        if not torch.equal(res_c.nodes.cpu()[valid],
-                           res_g.nodes.cpu()[valid]):
-            raise Failed(f"small {layout}: beam nodes differ between cpu and "
-                         f"gpu")
-        dv = rr_c.doc_valid.cpu()
-        if not torch.equal(dv, rr_g.doc_valid.cpu()):
-            raise Failed(f"small {layout}: doc validity differs between cpu "
-                         f"and gpu")
-        if not torch.equal(rr_c.doc_ids.cpu()[dv], rr_g.doc_ids.cpu()[dv]):
-            raise Failed(f"small {layout}: doc ids differ between cpu and gpu")
-        err = (rr_c.scores.cpu()[dv] - rr_g.scores.cpu()[dv]).abs().max().item()
-        if not err <= 1e-4:
-            raise Failed(f"small {layout}: fused scores differ by {err:.3g} "
-                         f"> 1e-4")
+        n_valid, n_docs, err = _same_retrieve(layout, res_c, rr_c, res_g,
+                                              rr_g)
         m_c = ev_c.evaluate(data, batch_size=2)
         m_g = ev_g.evaluate(data, batch_size=2)
         drop = lambda m: {k: v for k, v in m.items()
@@ -566,10 +658,34 @@ def phase_small(dev) -> None:
         if set(m_c) != set(m_g) or drop(m_c) != drop(m_g):
             raise Failed(f"small {layout}: evaluate metrics differ between "
                          f"cpu and gpu")
-        log(f"  f32 d=64 {layout:11s}: {int(valid.sum())} valid beams, "
-            f"{int(dv.sum())} valid docs equal on cpu and gpu; max |d| fused "
+        log(f"  f32 d=64 {layout:11s}: {n_valid} valid beams, "
+            f"{n_docs} valid docs equal on cpu and gpu; max |d| fused "
             f"score {err:.3g} (tol 1e-4); {len(drop(m_c))} evaluate metrics "
             f"equal (recall100_1.0 {m_c['recall100_1.0']:.3f})")
+
+    models = {}
+    for mode, (m_kw, e_kw) in SMALL_MODES.items():
+        key = tuple(sorted(m_kw.items()))
+        if key not in models:
+            models[key] = _small_models(dataclasses.replace(cfg, **m_kw), dev)
+        cpu_m, gpu_m = models[key]
+        mode_cfg = dataclasses.replace(ev_cfg, **e_kw)
+        for layout in ("plain", "packed"):
+            kw = SMALL_LAYOUTS[layout]
+            ev_c = Evaluator(cpu_m, trie, store, mode_cfg, **kw)
+            ev_g = Evaluator(gpu_m, trie, store, mode_cfg, **kw)
+            noise = None
+            if mode_cfg.gen_method == "top_k":     # one draw for both runs
+                noise = gumbel_noise(
+                    (ev_c._max_len, len(ids) * mode_cfg.num_beams,
+                     cfg.kary + 1), torch.Generator().manual_seed(5))
+            res_c, rr_c = ev_c.retrieve(ids, mask, noise=noise)
+            res_g, rr_g = ev_g.retrieve(ids, mask, noise=noise)
+            n_valid, n_docs, err = _same_retrieve(f"{mode} {layout}", res_c,
+                                                  rr_c, res_g, rr_g)
+            log(f"  f32 d=64 {mode:25s} {layout:6s}: {n_valid} valid beams, "
+                f"{n_docs} valid docs equal on cpu and gpu; max |d| fused "
+                f"score {err:.3g} (tol 1e-4)")
 
 
 # ------------------------------------------------------------ phase 4
@@ -603,6 +719,54 @@ FULL_LAYOUTS = [("packed bf16", dict(packed=True), "packed_scores"),
 SCORERS = ("packed_scores", "packed_scores_int8", "rerank_scores")
 
 
+def _counted_retrieve(name, ev, ids, mask, launches: dict, n_beams: int,
+                      top_r: int):
+    """One retrieve with the launch counts set to 0 just before it: fails
+    unless every kernel launched as often as ``launches`` says (0 for the
+    others), all ``n_beams`` beams or rollouts are valid, every query has
+    ``top_r`` valid in-range doc ids and the fused scores are finite.
+    Returns (BeamResult, RerankResult, the counts)."""
+    import torch
+
+    from gdr_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    res, rr = ev.retrieve(ids, mask)
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    want = {**dict.fromkeys(got, 0), **launches}
+    log(f"  {name}: launches in one retrieve: {got}")
+    if got != want:
+        raise Failed(f"{name}: launch counts {got} != {want}")
+    valid = int(res.valid.sum())
+    if valid != n_beams:
+        raise Failed(f"{name}: {valid} valid beams or rollouts, want "
+                     f"{n_beams}")
+    dv = rr.doc_valid.cpu()
+    docs = rr.doc_ids.cpu()[dv]
+    if dv.sum(-1).min().item() < top_r or docs.min() < 0 \
+            or docs.max() >= N_DOCS:
+        raise Failed(f"{name}: re-rank returned fewer than top-R valid "
+                     f"docs or ids outside the store")
+    if not bool(rr.scores[rr.doc_valid].isfinite().all()):
+        raise Failed(f"{name}: non-finite fused scores")
+    return res, rr, got
+
+
+def _timed_retrieves(ev, ids, mask, timed: int) -> list[float]:
+    """Wall ms of ``timed`` retrieves, each a host clock around a call
+    between two synchronisations."""
+    import torch
+    totals = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev.retrieve(ids, mask)
+        torch.cuda.synchronize()
+        totals.append((time.perf_counter() - t) * 1e3)
+    return totals
+
+
 def _store_bytes(store) -> int:
     import torch
     parts = (store,) if isinstance(store, torch.Tensor) \
@@ -615,7 +779,6 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
     import numpy as np
     import torch
 
-    from gdr_tpu_torch import kernels
     from gdr_tpu_torch.config import EvalConfig, ModelConfig
     from gdr_tpu_torch.eval.evaluator import Evaluator
     from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
@@ -662,41 +825,18 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
         log(f"  {name}: warm retrieve {time.perf_counter() - t:.3f} s")
 
         # the counted run of this layout's main path
-        kernels.reset_launch_counts()
-        res, rr = ev.retrieve(ids, mask)
-        torch.cuda.synchronize()
-        launches = kernels.launch_counts()
-        want = {"self_attn_sublayer": 24, "cross_attn_sublayer": 24,
-                "ffn_sublayer": 24, **dict.fromkeys(SCORERS, 0), scorer: 1}
-        log(f"  {name}: launches in one retrieve: {launches}")
-        if launches != want:
-            raise Failed(f"{name}: launch counts {launches} != {want}")
+        res, rr, launches = _counted_retrieve(
+            name, ev, ids, mask,
+            dict(dict.fromkeys(DECODER, 24), **{scorer: 1}), qbatch * beams,
+            beams)
         for k, v in launches.items():
             if v:
                 out["launches"].setdefault(k, v)
-        valid = res.valid.cpu()
-        if int(valid.sum()) != qbatch * beams:
-            raise Failed(f"{name}: {int(valid.sum())} valid beams, want "
-                         f"{qbatch * beams}")
-        dv = rr.doc_valid.cpu()
-        docs = rr.doc_ids.cpu()[dv]
-        if dv.sum(-1).min().item() < beams or docs.min() < 0 \
-                or docs.max() >= N_DOCS:
-            raise Failed(f"{name}: re-rank returned fewer than top-R valid "
-                         f"docs or ids outside the store")
-        if not bool(rr.scores[rr.doc_valid].isfinite().all()):
-            raise Failed(f"{name}: non-finite fused scores")
         top_docs[name] = rr.doc_ids[:, :, 0].cpu()       # [A, B] top-1
 
         # timed retrieves: host clock around synchronised calls; re-rank
         # separately (host dispatch included), decode = total - both
-        totals = []
-        for _ in range(timed):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            ev.retrieve(ids, mask)
-            torch.cuda.synchronize()
-            totals.append((time.perf_counter() - t) * 1e3)
+        totals = _timed_retrieves(ev, ids, mask, timed)
         rr_ms = _loop_ms(lambda: ev.rerank(q_emb, res))
         if profile and name == FULL_LAYOUTS[0][0]:
             _profile(lambda: ev.retrieve(ids, mask))
@@ -728,6 +868,151 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
         f"{lay['top1_agreement_alpha0']:.4f} at alpha 0")
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"  peak {out['peak_gib']:.2f} GiB over the timed retrieves")
+    return out
+
+
+# phase 5's modes: name, ModelConfig settings, EvalConfig settings, and the
+# launches of each decoder kernel in one retrieve.  The bench trie's
+# clusters all sit at depth 3, so pooled reps run a fifth step (widths 1,
+# 31, 100, 100, 100: 5 steps x 6 layers); the others run 4
+FULL_MODES = [
+    ("(a) beam + decoder_avg + average", dict(concate_fusion=True),
+     dict(use_query_embed_decoder_avg=True), 30),
+    ("(b) beam + decoder_special + concate", dict(concate_fusion=True),
+     dict(use_query_embed_decoder_special=True, fusion_strategy="concate"),
+     30),
+    ("(c) top_k sampling", dict(concate_fusion=True),
+     dict(gen_method="top_k", temperature=1.0, sample_top_k=10,
+          sample_seed=0), 24),
+    ("(d) beam + slow PAWA", dict(adaptor_efficient=False), {}, 24),
+]
+
+
+def phase_modes(dev, card: str, trie, timed: int = 3, profile: bool = False
+                ) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.config import EvalConfig, ModelConfig
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+
+    beams, seq_len, qbatch = 100, 40, 32
+    base = ModelConfig().scaled("base")
+    g = torch.Generator(device=dev).manual_seed(7)
+    store = torch.randn(N_DOCS, base.encoder_d_model, generator=g, device=dev)
+    store = (store / store.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(2, base.vocab_size, size=(qbatch, seq_len)
+                       ).astype(np.int32)
+    mask = np.ones_like(ids)
+    tid = torch.as_tensor(ids, device=dev)
+    tmask = torch.as_tensor(mask, device=dev)
+    ev_base = EvalConfig(num_beams=beams, num_return_sequences=beams,
+                         max_output_length=base.max_output_length,
+                         length_penalty=0.8)
+    out: dict = {}
+    model, model_kw = None, None
+    for name, m_kw, e_kw, want_dec in FULL_MODES:
+        if m_kw != model_kw:
+            del model
+            torch.cuda.empty_cache()
+            with torch.device(dev):
+                model = GenerativeRetriever(dataclasses.replace(base, **m_kw))
+            model = init_weights(model.to(torch.bfloat16),
+                                 torch.Generator(device=dev).manual_seed(0)
+                                 ).eval()
+            model_kw = m_kw
+            with torch.no_grad():
+                enc_ms = _loop_ms(lambda: model.query_embedding(
+                    model.encode(tid, tmask)))
+                q_emb = model.query_embedding(model.encode(tid, tmask))
+            log(f"  t5-base bf16 {m_kw}: "
+                f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+                f"params")
+        ev = Evaluator(model, trie, store, dataclasses.replace(ev_base,
+                                                               **e_kw),
+                       packed=True)
+        t = time.perf_counter()
+        ev.retrieve(ids, mask)                           # warm
+        torch.cuda.synchronize()
+        log(f"  {name}: warm retrieve {time.perf_counter() - t:.3f} s")
+
+        # the counted run of this mode
+        res, rr, launches = _counted_retrieve(
+            name, ev, ids, mask,
+            dict(dict.fromkeys(DECODER, want_dec), packed_scores=1),
+            qbatch * beams, beams)
+
+        torch.cuda.reset_peak_memory_stats()
+        if name.startswith("(a)"):
+            # the default beam path on the same model, timed in turns with
+            # (a): what the fifth step and the pooling add to the decode
+            ev_d = Evaluator(model, trie, store, ev_base, packed=True)
+            ev_d.retrieve(ids, mask)
+            totals, default = [], []
+            for i in range(timed):
+                turns = [(default, ev_d), (totals, ev)]
+                for each, e in (turns if i % 2 else turns[::-1]):
+                    each += _timed_retrieves(e, ids, mask, 1)
+            del ev_d
+        else:
+            totals = _timed_retrieves(ev, ids, mask, timed)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the re-rank alone, on per-beam query rows where the mode has them
+        q_rr = (q_emb[:, None, :].expand(-1, beams, -1).contiguous()
+                if ev._want_dec else q_emb)
+        rr_ms = _loop_ms(lambda: ev.rerank(q_rr, res))
+        if profile:
+            _profile(lambda: ev.retrieve(ids, mask))
+        total = sum(totals) / len(totals)
+        mode = dict(retrieve_ms=total, retrieve_ms_each=totals,
+                    encode_ms=enc_ms, rerank_ms=rr_ms,
+                    decode_ms=total - enc_ms - rr_ms,
+                    queries_per_s=qbatch / (total / 1e3), peak_gib=peak,
+                    launches=launches[DECODER[0]], valid=qbatch * beams)
+        log(f"  {name}: retrieve {total:.2f} ms "
+            f"({', '.join(f'{x:.2f}' for x in totals)}): encode "
+            f"{enc_ms:.2f} ms, decode {mode['decode_ms']:.2f} ms, re-rank "
+            f"{rr_ms:.2f} ms; {mode['queries_per_s']:.1f} queries/s; peak "
+            f"{peak:.2f} GiB; {card}")
+        if name.startswith("(a)"):
+            d_ms = sum(default) / len(default) - enc_ms - rr_ms
+            mode.update(default_decode_ms=d_ms,
+                        default_retrieve_ms_each=default)
+            log(f"  {name}: decode {mode['decode_ms']:.2f} ms against the "
+                f"default path's {d_ms:.2f} ms on the same model, in turns "
+                f"({', '.join(f'{x:.2f}' for x in default)} ms retrieves): "
+                f"the fifth step and the pooling add "
+                f"{mode['decode_ms'] - d_ms:.2f} ms; {card}")
+        if name.startswith("(d)"):
+            rows = qbatch * beams
+            a = torch.randn(rows, base.d_model, generator=g, device=dev
+                            ).to(torch.bfloat16)
+            s_ = torch.randn(rows, base.d_model, generator=g, device=dev
+                             ).to(torch.bfloat16)
+            with torch.no_grad():
+                tr_ms = _loop_ms(lambda: model.pawa.transform(a, s_), n=3)
+            # bound: the products of two bf16 values are exact and the sums
+            # f32 on the tensor cores at the bf16 rate; the SIMT SGEMM the
+            # f32 torch.matmul runs has a floor at the f32 rate
+            d = base.d_model
+            flops = 2 * rows * d * d * d + 2 * rows * d * d
+            nbytes = d * d * d * 2 + 3 * rows * d * 2
+            bound, by = _bound_ms(flops, nbytes, H100_BF16_FLOPS)
+            simt, _ = _bound_ms(flops, nbytes, H100_F32_FLOPS)
+            mode.update(transform_ms=tr_ms, transform_bound_ms=bound,
+                        transform_simt_floor_ms=simt)
+            log(f"  {name}: transform s·reshape(A·U2) at {rows} rows "
+                f"{tr_ms:.2f} ms, {tr_ms / bound:.1f}x its bound {bound:.2f} "
+                f"ms by {by} (exact bf16 products, f32 sums, at "
+                f"{H100_BF16_FLOPS / 1e12:.0f} TFLOP/s); the f32 SIMT "
+                f"SGEMM's floor {simt:.2f} ms at "
+                f"{H100_F32_FLOPS / 1e12:.0f} TFLOP/s; {card}")
+        out[name] = mode
+        del ev, res, rr
     return out
 
 
@@ -897,12 +1182,18 @@ def main(argv: list[str]) -> int:
             "layouts")
         full = phase_full(dev, smi, trie, profile="profile" in argv)
         log(f"[4] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        log("[5] the other options at full width: t5-base bf16, packed "
+            "bf16 store, four modes")
+        modes = phase_modes(dev, smi, trie, profile="profile" in argv)
+        log(f"[5] {time.perf_counter() - t:.1f} s")
     except Failed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
 
     print(json.dumps({"retrieve": full["layouts"],
-                      "peak_gib": full["peak_gib"]}), flush=True)
+                      "peak_gib": full["peak_gib"], "modes": modes}),
+          flush=True)
     print(json.dumps({"kernels": kernel_rows(stats, full)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

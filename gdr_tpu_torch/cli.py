@@ -21,8 +21,11 @@ Differences from the reference CLI:
   the decoder sublayers and the re-rank scorers run as the port's CUDA
   kernels, on ``cpu`` as their plain versions.  There is no ``--pallas`` or
   ``--fused-decode``: the device decides.  ``eval --mesh`` (other than
-  ``none``), ``--gen-method sample|top_k`` and ``--ensemble`` are later
-  slices and are refused; ``retrieve`` has no ``--mesh``.
+  ``none``) and ``--ensemble`` are later slices and are refused;
+  ``retrieve`` has no ``--mesh``.  ``eval --gen-method sample|top_k``
+  draws rollouts (``--temperature``, ``--sample-top-k``).  The
+  decoder-side query reps and the slow PAWA head are reached through
+  ``EvalConfig`` / ``ModelConfig``, as in the reference package.
 - Weights come from ``<workdir>/params.npz``, written from a reference
   checkpoint (or its seeded init) by ``tools/export_gdr_tpu_params.py``.
   Without that file the model gets seeded random weights (``--seed``), as
@@ -181,15 +184,12 @@ def cmd_retrieve(args) -> None:
 
 
 def cmd_eval(args) -> None:
-    if args.gen_method in ("sample", "top_k"):
-        raise SystemExit(f"--gen-method {args.gen_method}: sampled decoding "
-                         f"is not ported yet (ROADMAP.md queue 1, item 2)")
     if args.ensemble > 1:
         raise SystemExit("--ensemble: the N-decoder ensemble is not ported "
-                         "yet (ROADMAP.md queue 1, item 6)")
+                         "yet (ROADMAP.md queue 1, item 8)")
     if args.mesh != "none":
         raise SystemExit(f"--mesh {args.mesh}: the sharded store is not "
-                         f"ported yet (ROADMAP.md queue 1, item 7)")
+                         f"ported yet (ROADMAP.md queue 1, item 10)")
 
     from gdr_tpu_torch.config import EvalConfig
     from gdr_tpu_torch.data.dataset import build_eval_data
@@ -211,7 +211,9 @@ def cmd_eval(args) -> None:
                           args.max_input_length)
     ev_cfg = EvalConfig(num_beams=args.beam, num_return_sequences=args.beam,
                         max_output_length=mcfg.max_output_length,
-                        gen_method=args.gen_method)
+                        gen_method=args.gen_method,
+                        temperature=args.temperature,
+                        sample_top_k=args.sample_top_k)
     evaluator = Evaluator(model, index.trie, index.store, ev_cfg,
                           packed=args.packed, quantize=args.int8_store)
     out = evaluator.evaluate(dev, batch_size=args.eval_batch_size,
@@ -287,7 +289,9 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--gen-method", default="beam",
                     choices=["beam", "greedy", "sample", "top_k"],
                     help="decode mode; greedy is beam search, as in the "
-                         "reference (sample and top_k are not ported yet)")
+                         "reference; sample and top_k draw rollouts")
+    pe.add_argument("--temperature", type=float, default=1.0)
+    pe.add_argument("--sample-top-k", type=int, default=0)
     pe.add_argument("--packed", action="store_true",
                     help="cluster-packed store (one contiguous block per "
                          "beam, scored by the packed re-rank kernel)")

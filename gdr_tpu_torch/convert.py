@@ -10,7 +10,8 @@ The tree is nested dicts of numpy arrays under the names ``init_params`` and
 - attention q/k/v kernels become one fused ``qkv`` weight ``[3·inner, d]``
   (rows q | k | v), which ``models/t5.py::Attention`` slices.
 
-U keeps its ``[d, V, d]`` layout.  Every flax leaf must map to a port
+U keeps its ``[d, V, d]`` layout and the slow PAWA head's U2 its
+``[d, d·d]``.  Every flax leaf must map to a port
 parameter (else :func:`params_from_flax` raises), and the model's strict
 ``load_state_dict`` raises on a missing, extra or mis-shaped parameter.
 """
@@ -60,17 +61,18 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
                 qkv.setdefault(key, {})["qkv".index(parts[-2])] = arr.T
                 continue
             sd[_module_path(parts[:-1]) + ".weight"] = arr.T
-        elif leaf == "embedding" and len(parts) == 2:
-            sd[parts[0] + ".weight"] = arr
+        elif leaf == "embedding" and len(parts) >= 2:
+            sd[_module_path(parts[:-1]) + ".weight"] = arr
         elif leaf == "scale" and len(parts) >= 2:
             # PAWA's LayerNorms are torch-style (weight, bias); T5's RMSNorm
             # keeps the flax name
             name = "weight" if parts[0] == "pawa" else "scale"
             sd[_module_path(parts[:-1]) + "." + name] = arr
-        elif leaf == "bias" and parts[0] == "pawa" and len(parts) >= 2:
+        elif leaf == "bias" and parts[0] in ("pawa", "fusion") \
+                and len(parts) >= 2:
             sd[_module_path(parts[:-1]) + ".bias"] = arr
         elif leaf == "rel_embedding" or path in ("pawa/memory", "pawa/u",
-                                                  "lm_head"):
+                                                  "pawa/u2", "lm_head"):
             sd[_module_path(parts)] = arr
         else:
             raise ValueError(f"flax leaf {path!r} has no port counterpart")

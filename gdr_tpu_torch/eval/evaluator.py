@@ -6,14 +6,22 @@ the token arrays.  Everything runs on the model's device: on a CUDA device
 the decoder sublayers and the re-rank scorers run as the port's
 hand-written kernels, on the CPU as their plain versions.  The store has
 four layouts: plain, cluster-packed (``packed``), and each of them as
-per-row int8 (``quantize``).  The per-position U candidate table is built
-once per weight set and reused by every retrieve.  The sharded-store
-(``mesh=``) layouts are a later slice.
+per-row int8 (``quantize``).  The per-position U candidate table of the
+efficient PAWA head is built once per weight set and reused by every
+retrieve.
+
+The CIDs come from beam search or, with ``gen_method`` ``sample`` /
+``top_k``, from sampled rollouts whose noise comes from a generator seeded
+by (``sample_seed``, batch index).  The dense-stage query is the encoder
+rep, or with ``use_query_embed_decoder_avg`` / ``_special`` each beam's
+pooled decoder states, averaged with the encoder rep or fused by the
+``concate`` layer (``fusion_strategy``).  The sharded-store (``mesh=``)
+layouts are a later slice.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -21,7 +29,7 @@ import torch
 from gdr_tpu_torch.config import EvalConfig
 from gdr_tpu_torch.eval import metrics as M
 from gdr_tpu_torch.eval.offline import write_result_tsv
-from gdr_tpu_torch.ops.beam import BeamResult, generate_cids
+from gdr_tpu_torch.ops.beam import BeamResult, generate_cids, sample_cids
 from gdr_tpu_torch.ops.codec import decode_token_batch
 from gdr_tpu_torch.ops.packed_store import pack_layout, pack_rows
 from gdr_tpu_torch.ops.quantize import pack_quantized_rows, quantize_store
@@ -40,6 +48,14 @@ class EvalData:
     gt_cids: list[list[str]]
 
 
+def sample_seed(seed: int, batch_idx: int) -> int:
+    """The seed of batch ``batch_idx``'s sampling generator: ``seed`` and
+    the batch index mixed by numpy's SeedSequence, so that every batch
+    draws other noise."""
+    return int(np.random.SeedSequence([seed, batch_idx])
+               .generate_state(1, np.uint64)[0])
+
+
 class Evaluator:
     """Retrieval evaluator on the device of ``model``.  ``packed``: lay the
     store out cluster-contiguously so the re-rank reads one contiguous block
@@ -52,16 +68,7 @@ class Evaluator:
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded-store evaluator (mesh=) is not ported yet "
-                "(ROADMAP.md queue 1, item 7: multi-GPU)")
-        if cfg.gen_method in ("sample", "top_k"):   # "greedy" is beam search
-            raise NotImplementedError(
-                f"gen_method={cfg.gen_method!r}: sampled decoding is not "
-                "ported yet (ROADMAP.md queue 1, item 2)")
-        if (cfg.use_query_embed_decoder_avg
-                or cfg.use_query_embed_decoder_special):
-            raise NotImplementedError(
-                "decoder-side query reps are not ported yet (ROADMAP.md "
-                "queue 1, item 1)")
+                "(ROADMAP.md queue 1, item 10: multi-GPU)")
         self.model = model
         self.trie = trie
         self.cfg = cfg
@@ -80,8 +87,18 @@ class Evaluator:
             self._p_cap = cap
         self.set_store(store)
         # every root-to-cluster path ends by the trie's max depth, so the
-        # decode needs at most depth+1 steps (digits + EOS)
-        self._max_len = min(cfg.max_output_length, int(trie.depth.max()) + 1)
+        # decode needs at most depth+1 steps (digits + EOS); pooled decoder
+        # reps need one more, so that full-depth beams' EOS input enters
+        # the pool
+        self._want_dec = (cfg.use_query_embed_decoder_avg
+                          or cfg.use_query_embed_decoder_special)
+        self._max_len = min(cfg.max_output_length,
+                            int(trie.depth.max()) + 1 + int(self._want_dec))
+        if (self._want_dec and cfg.use_query_embed_encoder
+                and cfg.fusion_strategy == "concate"
+                and not model.cfg.concate_fusion):
+            raise ValueError("fusion_strategy 'concate' needs a model with "
+                             "the fusion layer (ModelConfig.concate_fusion)")
         self._children = torch.as_tensor(trie.children, device=dev)
         self._eos = torch.as_tensor(trie.eos_allowed, device=dev)
         self._cluster_of_node = torch.as_tensor(trie.cluster_of_node,
@@ -109,11 +126,11 @@ class Evaluator:
             self.store = store
 
     def _u_table(self):
-        """Per-position U candidate slices, built once per weight set: keyed
-        on the U parameter's storage and version counter, so an in-place
-        update or a new tensor rebuilds it."""
+        """Per-position U candidate slices of the efficient PAWA head, built
+        once per weight set: keyed on the U parameter's storage and version
+        counter, so an in-place update or a new tensor rebuilds it."""
         c = self.model.cfg
-        if not c.adaptor_decode:
+        if not (c.adaptor_decode and c.adaptor_efficient):
             return None
         u = self.model.pawa.u
         key = (u.data_ptr(), u._version, u.dtype, u.device)
@@ -124,16 +141,46 @@ class Evaluator:
         return self._ut
 
     @torch.no_grad()
-    def retrieve(self, input_ids, attn_mask
+    def retrieve(self, input_ids, attn_mask, batch_idx: int = 0,
+                 noise: torch.Tensor | None = None
                  ) -> tuple[BeamResult, RerankResult]:
         """Single-batch retrieval: token arrays [B, S] → (BeamResult,
-        RerankResult) on the model's device."""
+        RerankResult) on the model's device.  Sampled decoding draws its
+        noise from a generator seeded by (``sample_seed``, ``batch_idx``),
+        so eval batches get different noise; ``noise`` [max_len,
+        B·num_beams, kary+1] replaces those draws (the same noise on two
+        devices gives the same rollouts)."""
         cfg = self.cfg
+        model = self.model
         ids = torch.as_tensor(np.asarray(input_ids), device=self.device)
         msk = torch.as_tensor(np.asarray(attn_mask), device=self.device)
-        res, q_emb, _ = generate_cids(
-            self.model, ids, msk, self._children, self._eos, cfg.num_beams,
-            self._max_len, cfg.length_penalty, u_table=self._u_table())
+        if cfg.gen_method in ("sample", "top_k"):
+            gen = None
+            if noise is None:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    sample_seed(cfg.sample_seed, batch_idx))
+            res, q_emb, _ = sample_cids(
+                model, ids, msk, self._children, self._eos, cfg.num_beams,
+                self._max_len, gen, temperature=cfg.temperature,
+                top_k=cfg.sample_top_k, length_penalty=cfg.length_penalty,
+                accumulate_hidden=self._want_dec, u_table=self._u_table(),
+                noise=noise)
+        else:   # "beam"; the reference's "greedy" is beam search too
+            res, q_emb, _ = generate_cids(
+                model, ids, msk, self._children, self._eos, cfg.num_beams,
+                self._max_len, cfg.length_penalty, u_table=self._u_table(),
+                accumulate_hidden=self._want_dec)
+        if self._want_dec:
+            pooled = (res.hid_last if cfg.use_query_embed_decoder_special
+                      else res.hid_avg)
+            q_dec = model.project_query(pooled)               # [B, K, d']
+            res = replace(res, hid_avg=None, hid_last=None)
+            if not cfg.use_query_embed_encoder:
+                q_emb = q_dec
+            elif cfg.fusion_strategy == "concate":
+                q_emb = model.fuse_queries(q_dec, q_emb[:, None, :])
+            else:                                             # "average"
+                q_emb = (q_dec + q_emb[:, None, :]) / 2.0
         return res, self.rerank(q_emb, res)
 
     @torch.no_grad()
@@ -156,13 +203,15 @@ class Evaluator:
         """Retrieval of G batches: token arrays [G, B, S] → (BeamResult,
         RerankResult) whose fields carry a leading G axis.  The reference
         maps the batches inside one compiled program; here it is a loop of
-        ``retrieve`` on the model's device, stacked."""
+        ``retrieve`` on the model's device, stacked.  Sub-batch ``g`` is
+        batch index ``g`` of sampled decoding."""
         ids, msk = np.asarray(input_ids), np.asarray(attn_mask)
-        outs = [self.retrieve(ids[g], msk[g]) for g in range(len(ids))]
+        outs = [self.retrieve(ids[g], msk[g], batch_idx=g)
+                for g in range(len(ids))]
 
-        def stack(cls, parts):
-            return cls(**{f.name: torch.stack([getattr(p, f.name)
-                                               for p in parts])
+        def stack(cls, parts):        # fields that are None stay None
+            return cls(**{f.name: None if getattr(parts[0], f.name) is None
+                          else torch.stack([getattr(p, f.name) for p in parts])
                           for f in fields(cls)})
         return (stack(BeamResult, [o[0] for o in outs]),
                 stack(RerankResult, [o[1] for o in outs]))
@@ -191,7 +240,8 @@ class Evaluator:
                 [data.attn_mask[start:end]]
                 + ([data.attn_mask[start:start + 1]] * pad if pad else []))
             with timer.phase("retrieve"):
-                res, rr = self.retrieve(ids, msk)
+                res, rr = self.retrieve(ids, msk,
+                                        batch_idx=start // batch_size)
                 seqs = res.sequences.cpu().numpy()
                 valid = res.valid.cpu().numpy()
                 doc_ids = rr.doc_ids.cpu().numpy()

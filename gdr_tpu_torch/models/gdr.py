@@ -4,14 +4,19 @@ PAWA, mirroring the serving parts of ``gdr_tpu/models/gdr.py``.
 - ``encode`` / ``query_embedding`` / ``project_query``: the T5 encoder and
   the dense-stage query rep (first-position encoder state, projected into
   the doc-embedding space when the widths differ);
+- ``pool_query`` / ``fuse_queries``: the decoder-side query reps (masked
+  mean or EOS-position decoder state) and their learned ``concate`` fusion
+  with the encoder rep (the ``fusion`` layer, when
+  ``ModelConfig.concate_fusion``);
 - ``init_cache`` / ``decode_tables`` / ``decode_step_candidates``: the
   incremental decode of the constrained beam search.  Position ``pos`` can
   only emit its ``kary`` digit tokens or EOS, so the lm-head and the PAWA
-  delta are computed for those ``kary+1`` columns only.
+  delta are computed for those ``kary+1`` columns only.  The slow PAWA head
+  (``adaptor_efficient=False``) instead transforms the head input by its
+  per-prefix [d, d] matrix.
 
 The model's dtype is its parameters' dtype (``model.to(torch.bfloat16)``
-serves in bf16).  The teacher-forced training paths, the decoder-side query
-reps and the slow ``FullPawaAdaptor`` are not ported yet.
+serves in bf16).  The teacher-forced training paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 from torch import nn
 
 from gdr_tpu_torch.config import ModelConfig
-from gdr_tpu_torch.models.pawa import PawaAdaptor
+from gdr_tpu_torch.models.pawa import FullPawaAdaptor, PawaAdaptor
 from gdr_tpu_torch.models.t5 import Decoder, Encoder, _linear
 
 
@@ -28,10 +33,6 @@ class GenerativeRetriever(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         c = cfg
-        if c.adaptor_decode and not c.adaptor_efficient:
-            raise NotImplementedError(
-                "the slow FullPawaAdaptor is not ported yet (ROADMAP.md "
-                "queue 1, item 3)")
         self.cfg = cfg
         self.shared = nn.Embedding(c.vocab_size, c.d_model)
         self.encoder = Encoder(
@@ -50,9 +51,13 @@ class GenerativeRetriever(nn.Module):
             self.query_proj = nn.Linear(c.d_model, c.encoder_d_model,
                                         bias=False)
         if c.adaptor_decode:
-            self.pawa = PawaAdaptor(c.d_model, c.decode_vocab_size,
-                                    c.adaptor_layer_num, c.adaptor_num_heads,
-                                    c.adaptor_d_ff)
+            pawa_cls = PawaAdaptor if c.adaptor_efficient else FullPawaAdaptor
+            self.pawa = pawa_cls(c.d_model, c.decode_vocab_size,
+                                 c.adaptor_layer_num, c.adaptor_num_heads,
+                                 c.adaptor_d_ff)
+        if c.concate_fusion:
+            # the "concate" query fusion: a biased Dense over [q_dec, q_enc]
+            self.fusion = nn.Linear(2 * c.encoder_d_model, c.encoder_d_model)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -81,6 +86,34 @@ class GenerativeRetriever(nn.Module):
             q = _linear(q, self.query_proj.weight)
         return q
 
+    def pool_query(self, enc: torch.Tensor, decoder_hidden: torch.Tensor,
+                   decoder_attn_mask: torch.Tensor) -> torch.Tensor:
+        """Dense-stage query rep per ``cfg.query_source``: the encoder's
+        first position, the masked mean of the decoder states, or the
+        decoder state at the last unmasked (EOS) position."""
+        src = self.cfg.query_source
+        if src == "encoder":
+            q = enc[:, 0]
+        elif src == "decoder_avg":
+            m = decoder_attn_mask.float()[..., None]
+            q = (decoder_hidden * m).sum(1) / m.sum(1).clamp_min(1.0)
+        elif src == "decoder_special":
+            last = (decoder_attn_mask.long().sum(1) - 1).clamp_min(0)
+            q = decoder_hidden[torch.arange(len(last), device=last.device),
+                               last]
+        else:
+            raise ValueError(f"unknown query_source {src}")
+        return self.project_query(q)
+
+    def fuse_queries(self, q_dec: torch.Tensor, q_enc: torch.Tensor
+                     ) -> torch.Tensor:
+        """The learned ``concate`` fusion of decoder-side and encoder query
+        reps [..., d'] (broadcast-compatible): the ``fusion`` Dense over
+        their concatenation, in the model dtype, its bias added after the
+        product is rounded, as ``flax.linen.Dense(dtype=...)``."""
+        x = torch.cat([q_dec, q_enc.expand(q_dec.shape)], dim=-1)
+        return _linear(x, self.fusion.weight) + self.fusion.bias
+
     # --------------------------------------------------- incremental decode
 
     def init_cache(self, enc: torch.Tensor, max_len: int,
@@ -99,11 +132,15 @@ class GenerativeRetriever(nn.Module):
 
     def decode_step_candidates(self, token: torch.Tensor, cache: dict,
                                enc_mask: torch.Tensor, pos: int,
-                               num_beams: int = 1):
+                               num_beams: int = 1,
+                               return_hidden: bool = False):
         """Logits for only the step's candidates: [rows, kary+1] f32
-        (digits…, EOS), and the cache.  With PAWA the delta reads row
-        ``pos`` of the U table (:meth:`decode_tables`), which the cache
-        carries as ``cross_ucand``."""
+        (digits…, EOS), and the cache.  With the efficient PAWA head the
+        delta reads row ``pos`` of the U table (:meth:`decode_tables`),
+        which the cache carries as ``cross_ucand``; the slow head transforms
+        the head input instead.  ``return_hidden``: also return the decoder
+        state [rows, d] after the final norm and before the d^-0.5 scale,
+        as (logits, hidden, cache)."""
         c = self.cfg
         kary = c.kary
         x = self.decode_embed(token)[:, None]
@@ -114,13 +151,18 @@ class GenerativeRetriever(nn.Module):
         first = pos * kary + 2
         rows = self._head_rows()
         w_cand = torch.cat([rows[first:first + kary], rows[1:2]], dim=0)
+        if c.adaptor_decode and not c.adaptor_efficient:
+            a_t, cache = self.pawa.decode_step(token, cache, pos)
+            s = self.pawa.transform(a_t[:, 0], s)
         cand = s.float() @ w_cand.float().t()
-        if c.adaptor_decode:
+        if c.adaptor_decode and c.adaptor_efficient:
             a_t, cache = self.pawa.decode_step(x, cache, pos)
             cand = cand + self.pawa.delta_candidates_from_table(
                 a_t[:, 0], s, cache["cross_ucand"], pos, kary)
         if pos >= c.max_output_length - 1:   # the last position admits only EOS
             cand[:, :kary] += -1e9
+        if return_hidden:
+            return cand, hidden[:, 0], cache
         return cand, cache
 
 
@@ -128,11 +170,12 @@ class GenerativeRetriever(nn.Module):
 def init_weights(model: GenerativeRetriever, generator: torch.Generator
                  ) -> GenerativeRetriever:
     """Seeded random weights with the reference package's initialiser
-    scales: embeddings and the PAWA memory N(0, 1), projections,
-    rel-bias tables, U and an untied head N(0, 0.02), the query projection
-    N(0, 1/d) (lecun-normal), norm scales 1 and LayerNorm biases 0.  The
-    draws come from ``generator`` on its own device; they are not the
-    reference package's draws (use ``convert.py`` for those)."""
+    scales: embeddings (the slow PAWA head's too) and the PAWA memory
+    N(0, 1), projections, rel-bias tables, U, U2 and an untied head
+    N(0, 0.02), the query projection and the fusion layer N(0, 1/fan_in)
+    (lecun-normal), norm scales 1 and biases 0.  The draws come from
+    ``generator`` on its own device; they are not the reference package's
+    draws (use ``convert.py`` for those)."""
     d = model.cfg.d_model
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -143,10 +186,13 @@ def init_weights(model: GenerativeRetriever, generator: torch.Generator
         if leaf == "bias":
             p.zero_()
             continue
-        if name in ("shared.weight", "decode_embed.weight", "pawa.memory"):
+        if name in ("shared.weight", "decode_embed.weight", "pawa.memory",
+                    "pawa.embed.weight"):
             std = 1.0
         elif name == "query_proj.weight":
             std = d ** -0.5
+        elif name == "fusion.weight":
+            std = p.shape[1] ** -0.5
         else:
             std = 0.02
         r = torch.randn(p.shape, generator=generator, device=generator.device)

@@ -1,5 +1,6 @@
-"""PAWA — the per-prefix adaptive lm-head ("efficient" variant), mirroring
-``PawaLayer`` and ``PawaAdaptor`` of ``gdr_tpu/models/pawa.py``.
+"""PAWA — the per-prefix adaptive lm-head, mirroring ``PawaLayer``,
+``PawaAdaptor`` (the "efficient" variant) and ``FullPawaAdaptor`` (the slow
+one) of ``gdr_tpu/models/pawa.py``.
 
 A small post-norm transformer decoder runs over the decode embeddings of
 the emitted prefix, cross-attending to one learned memory token; its output
@@ -9,7 +10,10 @@ plus the EOS block, so :meth:`PawaAdaptor.candidate_table` stacks those
 slices once per weight set and each step contracts against one row of the
 stack.  Plain PyTorch throughout: the reference package runs this adaptor
 as XLA code (its fused kernels were measured slower and deleted).
-The slow ``FullPawaAdaptor`` is not ported yet.
+
+The slow :class:`FullPawaAdaptor` runs the same layers over its own
+embedding of the prefix tokens and a zero memory, and turns its output into
+a per-prefix [d, d] matrix reshape(A·U2) that transforms the head input.
 """
 
 from __future__ import annotations
@@ -71,6 +75,77 @@ class PawaLayer(nn.Module):
         return self.ln3(x_t + h), cache_k, cache_v
 
 
+def _pawa_cache(num_layers: int, batch: int, max_len: int,
+                param: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Time-major [Lmax, rows, d] self-attention caches of an adaptor's
+    layers, in the dtype and on the device of ``param`` (its [d, ...]
+    weight-delta tensor)."""
+    cache = {}
+    for i in range(num_layers):
+        cache[f"tm_pawa_k_{i}"] = torch.zeros(
+            (max_len, batch, param.shape[0]), dtype=param.dtype,
+            device=param.device)
+        cache[f"tm_pawa_v_{i}"] = torch.zeros_like(cache[f"tm_pawa_k_{i}"])
+    return cache
+
+
+# bytes of the f32 A·U2 rows FullPawaAdaptor.transform holds at once
+_TRANSFORM_CHUNK_BYTES = 1 << 30
+
+
+class FullPawaAdaptor(nn.Module):
+    """The slow PAWA variant (``adaptor_efficient=False``): the adaptor
+    stack over its own ``embed`` table emits per position a [d, d]
+    transform reshape(A·U2) of the head input, s' = s · reshape(A·U2, [d,
+    d]); the base lm-head is then applied to s'."""
+
+    def __init__(self, d_model: int, decode_vocab_size: int,
+                 num_layers: int = 4, num_heads: int = 8, d_ff: int = 0):
+        super().__init__()
+        d_ff = d_ff or min(4 * d_model, 2048)
+        self.d_model = d_model
+        self.embed = nn.Embedding(decode_vocab_size, d_model)
+        self.layers = nn.ModuleList([
+            PawaLayer(d_model, num_heads, d_ff) for _ in range(num_layers)])
+        self.u2 = nn.Parameter(torch.zeros(d_model, d_model * d_model))
+
+    def init_cache(self, batch: int, max_len: int) -> dict[str, torch.Tensor]:
+        return _pawa_cache(len(self.layers), batch, max_len, self.u2)
+
+    def decode_step(self, token: torch.Tensor, cache: dict, pos: int):
+        """One incremental step on the prefix token ids [rows]: returns
+        (A [rows, 1, d] scaled by d^-0.5 in the model dtype, cache).  The
+        memory is zero, and cross-attention to it through biasless
+        projections is exactly 0."""
+        x = self.embed(token)[:, None]
+        zero = x.new_zeros((1, 1, self.d_model))
+        cache = dict(cache)
+        for i, layer in enumerate(self.layers):
+            x, ck, cv = layer.decode_step(
+                x, cache[f"tm_pawa_k_{i}"], cache[f"tm_pawa_v_{i}"], zero, pos)
+            cache[f"tm_pawa_k_{i}"] = ck
+            cache[f"tm_pawa_v_{i}"] = cv
+        return x * x.new_full((), self.d_model ** -0.5), cache
+
+    def transform(self, adaptor_out: torch.Tensor, decoder_out: torch.Tensor
+                  ) -> torch.Tensor:
+        """s' = s · reshape(A·U2, [d, d]) per row.  A, s: [rows, d] in the
+        model dtype.  A·U2 is kept in f32 (``preferred_element_type=f32``
+        in the reference): the operands go to f32, where the product of two
+        bf16 values is exact, and the sums run in f32.  Rows go in chunks so
+        that the f32 [rows, d, d] matrices stay within 1 GiB.  Returns
+        [rows, d] in the model dtype."""
+        d = self.d_model
+        u2 = self.u2.float()
+        out = torch.empty_like(decoder_out)
+        step = max(1, _TRANSFORM_CHUNK_BYTES // (4 * d * d))
+        for i in range(0, adaptor_out.shape[0], step):
+            w = (adaptor_out[i:i + step].float() @ u2).view(-1, d, d)
+            s = decoder_out[i:i + step].float()[:, None]
+            out[i:i + step] = torch.bmm(s, w)[:, 0].to(out.dtype)
+        return out
+
+
 class PawaAdaptor(nn.Module):
     """The adaptor stack plus the weight-delta tensor U [d, V, d]."""
 
@@ -85,14 +160,7 @@ class PawaAdaptor(nn.Module):
         self.u = nn.Parameter(torch.zeros(d_model, decode_vocab_size, d_model))
 
     def init_cache(self, batch: int, max_len: int) -> dict[str, torch.Tensor]:
-        """Time-major [Lmax, rows, d] self-attention caches."""
-        cache = {}
-        for i in range(len(self.layers)):
-            cache[f"tm_pawa_k_{i}"] = torch.zeros(
-                (max_len, batch, self.d_model), dtype=self.u.dtype,
-                device=self.u.device)
-            cache[f"tm_pawa_v_{i}"] = torch.zeros_like(cache[f"tm_pawa_k_{i}"])
-        return cache
+        return _pawa_cache(len(self.layers), batch, max_len, self.u)
 
     def decode_step(self, embed_t: torch.Tensor, cache: dict, pos: int):
         """One incremental adaptor step.  embed_t: [rows, 1, d]."""

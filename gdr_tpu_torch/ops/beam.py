@@ -11,7 +11,16 @@
   through the reorder gather;
 - early exit: the full-width loop stops once no beam is alive.  The check
   is a host ``.item()`` per step (the reference package folds it into a
-  device ``while_loop``; a CUDA graph of the step is the later fix).
+  device ``while_loop``; a CUDA graph of the step is the later fix);
+- ``accumulate_hidden``: the carry pools each beam's decoder states (sum,
+  count, last) and reorders them with the beams, giving the
+  ``decoder_avg`` / ``decoder_special`` query reps without re-running the
+  decoder over the finished sequences.  The early exit then runs one more
+  step while a valid beam's pending input is EOS, so that state enters the
+  pool;
+- :func:`sample_cids`: constant-width trie-constrained rollouts, drawn as
+  ``argmax(dist + g)`` with Gumbel noise ``g`` (:func:`gumbel_noise`) from
+  an explicit generator, or noise the caller hands in.
 
 Positions are Python ints, so each step's kernels get ``pos`` as a launch
 argument.  ``torch.topk`` and ``lax.top_k`` break ties differently; ties
@@ -32,7 +41,8 @@ from gdr_tpu_torch.ops.codec import EOS_ID, PAD_ID, TOKEN_OFFSET
 
 NEG_INF = -1.0e9
 
-# step_fn(cur_token [B·w], cache, pos, width) -> (candidate logits, cache)
+# step_fn(cur_token [B·w], cache, pos, width) -> (candidate logits, cache),
+# or (candidate logits, decoder state, cache) when the search pools states
 StepFn = Callable
 
 
@@ -43,6 +53,23 @@ class BeamResult:
     cum_logprobs: torch.Tensor  # [B, K] f32
     nodes: torch.Tensor         # [B, K] int32 — trie node where each beam ended
     valid: torch.Tensor         # [B, K] bool
+    # pooled decoder states (accumulate_hidden): the mean over each beam's
+    # decoder inputs and the last input's state, [B, K, d] f32
+    hid_avg: torch.Tensor | None = None
+    hid_last: torch.Tensor | None = None
+
+
+def _pool_hidden(acc, cur_tok: torch.Tensor, pos: int, hidden: torch.Tensor):
+    """Pool this step's decoder state (input ``cur_tok``) into the (sum,
+    count, last) accumulator: the start token at position 0, every digit,
+    and the EOS input of beams that finished before the last position —
+    the positions the teacher-forced re-run masks in."""
+    hid_sum, hid_cnt, hid_last = acc
+    do = (cur_tok != PAD_ID) | (pos == 0)
+    h32 = hidden.float()
+    return (hid_sum + torch.where(do[:, None], h32, 0.0),
+            hid_cnt + do.to(torch.int32),
+            torch.where(do[:, None], h32, hid_last))
 
 
 def _reorder_cache(cache: dict, src: torch.Tensor) -> dict:
@@ -59,23 +86,50 @@ def _reorder_cache(cache: dict, src: torch.Tensor) -> dict:
     return out
 
 
+def _trie_masked(logp, node, children, eos_allowed):
+    """The step's candidate log-probs [rows, kary+1] (digits…, EOS) with the
+    digits the trie lacks below ``node`` and a disallowed EOS at NEG_INF."""
+    ok = torch.cat([children[node] >= 0, eos_allowed[node][:, None]], dim=1)
+    return torch.where(ok, logp, NEG_INF)
+
+
+def _advance(tokens, node, finished, eos_pos, option, pos: int, kary: int,
+             children):
+    """Every row takes ``option`` (a digit, or ``kary`` for EOS) at ``pos``;
+    finished rows emit PAD and stay on their node.  Returns (tokens, node,
+    finished, eos_pos, the emitted tokens); ``tokens`` is written in
+    place."""
+    is_eos = (option == kary) & ~finished
+    digit_tok = pos * kary + TOKEN_OFFSET + option
+    new_tok = torch.where(finished, PAD_ID,
+                          torch.where(is_eos, EOS_ID, digit_tok))
+    new_tok = new_tok.to(torch.int32)
+    node = torch.where(option < kary,
+                       children[node, option.clamp_max(kary - 1)], node)
+    node = node.clamp_min(0)             # keep indices safe for dead beams
+    eos_pos = torch.where(is_eos, pos, eos_pos).to(torch.int32)
+    tokens[:, pos + 1] = new_tok
+    return tokens, node, finished | is_eos, eos_pos, new_tok
+
+
 def _beam_step(state, pos: int, step_fn: StepFn, batch: int, in_w: int,
                out_w: int, kary: int, children: torch.Tensor,
                eos_allowed: torch.Tensor):
-    """One constrained step: B·in_w beams → B·out_w beams."""
-    tokens, node, scores, finished, eos_pos, cur_tok, cache = state
-    bk = batch * in_w
+    """One constrained step: B·in_w beams → B·out_w beams.  With an
+    accumulator in the state (``acc`` not None), ``step_fn`` also returns
+    the decoder state, which is pooled and reordered with the beams."""
+    tokens, node, scores, finished, eos_pos, cur_tok, acc, cache = state
     n_opt = kary + 1
-    out, cache = step_fn(cur_tok, cache, pos, in_w)
+    if acc is not None:
+        out, hidden, cache = step_fn(cur_tok, cache, pos, in_w)
+        acc = _pool_hidden(acc, cur_tok, pos, hidden)
+    else:
+        out, cache = step_fn(cur_tok, cache, pos, in_w)
     logp = torch.log_softmax(out.float(), dim=-1)             # [BK, kary+1]
-    ch = children[node]                                       # [BK, kary]
-    neg = torch.full_like(logp[:, :kary], NEG_INF)
-    cand = torch.cat([
-        torch.where(ch >= 0, logp[:, :kary], neg),
-        torch.where(eos_allowed[node], logp[:, kary],
-                    torch.full_like(logp[:, kary], NEG_INF))[:, None]], dim=1)
+    cand = _trie_masked(logp, node, children, eos_allowed)
     # finished beams: one zero-cost "pad" continuation in the EOS slot
-    frozen = torch.cat([neg, torch.zeros_like(logp[:, :1])], dim=1)
+    frozen = torch.cat([torch.full_like(logp[:, :kary], NEG_INF),
+                        torch.zeros_like(logp[:, :1])], dim=1)
     cand = torch.where(finished[:, None], frozen, cand)
 
     flat = (scores[:, None] + cand).reshape(batch, in_w * n_opt)
@@ -85,27 +139,18 @@ def _beam_step(state, pos: int, step_fn: StepFn, batch: int, in_w: int,
     src = (torch.arange(batch, device=flat.device)[:, None] * in_w
            + beam_idx).reshape(-1)
 
-    tokens = tokens[src]
-    node_g = node[src]
-    finished_g = finished[src]
-    eos_pos_g = eos_pos[src]
-    is_eos = (option == kary) & ~finished_g
-    digit_tok = pos * kary + TOKEN_OFFSET + option
-    new_tok = torch.where(finished_g, PAD_ID,
-                          torch.where(is_eos, EOS_ID, digit_tok)).to(torch.int32)
-    node = torch.where(option < kary,
-                       children[node_g, option.clamp_max(kary - 1)], node_g)
-    node = node.clamp_min(0)             # keep indices safe for dead beams
-    finished = finished_g | is_eos
-    eos_pos = torch.where(is_eos, pos, eos_pos_g).to(torch.int32)
-    tokens[:, pos + 1] = new_tok
+    tokens, node, finished, eos_pos, new_tok = _advance(
+        tokens[src], node[src], finished[src], eos_pos[src], option, pos,
+        kary, children)
     cache = _reorder_cache(cache, src)
+    if acc is not None:
+        acc = tuple(a[src] for a in acc)
     scores = top_scores.reshape(-1)
-    return tokens, node, scores, finished, eos_pos, new_tok, cache
+    return tokens, node, scores, finished, eos_pos, new_tok, acc, cache
 
 
 def _finalize(tokens, node, scores, eos_pos, batch: int, num_beams: int,
-              length_penalty: float) -> BeamResult:
+              length_penalty: float, acc=None) -> BeamResult:
     gen_len = (eos_pos + 1).float()
     norm = scores / torch.pow(gen_len, length_penalty)
     valid = scores > NEG_INF / 2
@@ -115,12 +160,26 @@ def _finalize(tokens, node, scores, eos_pos, batch: int, num_beams: int,
     def sort2(x):
         return torch.gather(x.reshape(batch, num_beams), 1, order)
 
-    seqs = tokens.reshape(batch, num_beams, -1)
-    seqs = torch.gather(seqs, 1, order[:, :, None].expand(-1, -1,
-                                                          seqs.shape[-1]))
-    return BeamResult(sequences=seqs, scores=sort2(norm),
+    def sort3(x):
+        x = x.reshape(batch, num_beams, -1)
+        return torch.gather(x, 1, order[:, :, None].expand(-1, -1,
+                                                           x.shape[-1]))
+
+    hid_avg = hid_last = None
+    if acc is not None:
+        hid_sum, hid_cnt, hid_raw = acc
+        hid_avg = sort3(hid_sum / hid_cnt.clamp_min(1)[:, None])
+        hid_last = sort3(hid_raw)
+    return BeamResult(sequences=sort3(tokens), scores=sort2(norm),
                       cum_logprobs=sort2(scores), nodes=sort2(node),
-                      valid=sort2(valid))
+                      valid=sort2(valid), hid_avg=hid_avg, hid_last=hid_last)
+
+
+def _new_acc(rows: int, d: int, device):
+    """A zero (sum, count, last) accumulator of ``rows`` beams."""
+    return (torch.zeros((rows, d), dtype=torch.float32, device=device),
+            torch.zeros((rows,), dtype=torch.int32, device=device),
+            torch.zeros((rows, d), dtype=torch.float32, device=device))
 
 
 def warmup_widths(num_beams: int, kary: int, max_len: int) -> list[int]:
@@ -136,11 +195,14 @@ def warmup_widths(num_beams: int, kary: int, max_len: int) -> list[int]:
 def beam_search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
                 kary: int, max_len: int, children: torch.Tensor,
                 eos_allowed: torch.Tensor, length_penalty: float = 1.0,
-                progressive: bool = False) -> BeamResult:
+                progressive: bool = False,
+                accumulate_hidden: int = 0) -> BeamResult:
     """Run the constrained search.  ``children``: int [N, kary] (-1 =
     absent); ``eos_allowed``: bool [N], both on the decode device.
     ``cache`` holds batch·num_beams rows (row b·K+k = query b), or batch
-    rows when ``progressive``."""
+    rows when ``progressive``.  ``accumulate_hidden`` > 0 (the decoder
+    width d): ``step_fn`` returns ``(logits, hidden [rows, d], cache)`` and
+    the result carries the pooled ``hid_avg`` / ``hid_last``."""
     dev = children.device
     bk0 = batch * (1 if progressive else num_beams)
     tokens = torch.zeros((bk0, max_len + 1), dtype=torch.int32, device=dev)
@@ -153,7 +215,8 @@ def beam_search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
     finished = torch.zeros((bk0,), dtype=torch.bool, device=dev)
     eos_pos = torch.full((bk0,), max_len - 1, dtype=torch.int32, device=dev)
     cur_tok = torch.full((bk0,), PAD_ID, dtype=torch.int32, device=dev)
-    state = (tokens, node, scores, finished, eos_pos, cur_tok, cache)
+    acc = _new_acc(bk0, accumulate_hidden, dev) if accumulate_hidden else None
+    state = (tokens, node, scores, finished, eos_pos, cur_tok, acc, cache)
 
     pos0 = 0
     if progressive:
@@ -168,42 +231,148 @@ def beam_search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
             pos0 = pos + 1
 
     for pos in range(pos0, max_len):
-        alive = ~state[3] & (state[2] > NEG_INF / 2)
-        if not bool(alive.any()):                    # early exit
+        live = state[2] > NEG_INF / 2
+        run = ~state[3] & live
+        if acc is not None:
+            # beams whose pending input is EOS still owe the pool one state
+            run = run | ((state[5] == EOS_ID) & live)
+        if not bool(run.any()):                      # early exit
             break
         state = _beam_step(state, pos, step_fn, batch, num_beams, num_beams,
                            kary, children, eos_allowed)
 
-    tokens, node, scores, finished, eos_pos, _, _ = state
+    tokens, node, scores, finished, eos_pos, _, acc, _ = state
     return _finalize(tokens, node.to(torch.int32), scores, eos_pos, batch,
-                     num_beams, length_penalty)
+                     num_beams, length_penalty, acc)
+
+
+def _decode_cache(model, enc: torch.Tensor, max_len: int, rows_per_query: int,
+                  u_table: torch.Tensor | None) -> dict:
+    """The decode caches at ``rows_per_query`` rows per query, with the
+    efficient PAWA head's U table (built when not given) as the
+    beam-invariant ``cross_ucand`` entry.  The slow PAWA head has no U
+    table."""
+    cache = model.init_cache(enc, max_len, rows_per_query)
+    c = model.cfg
+    if c.adaptor_decode and c.adaptor_efficient:
+        if u_table is None:
+            u_table = model.decode_tables(max_len)
+        cache["cross_ucand"] = u_table      # beam-invariant: never reordered
+    return cache
 
 
 def generate_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
                   children: torch.Tensor, eos_allowed: torch.Tensor,
                   num_beams: int, max_len: int, length_penalty: float = 1.0,
-                  progressive: bool = True, u_table: torch.Tensor | None = None):
+                  progressive: bool = True,
+                  u_table: torch.Tensor | None = None,
+                  accumulate_hidden: bool = False):
     """Encode the queries once and run the constrained search with
     progressive widening.  ``u_table``: the model's ``decode_tables``
-    when it has a PAWA adaptor, built here when not given (callers that
-    retrieve repeatedly build it once per weight set).  Returns
-    (BeamResult, query embedding [B, d'], encoder states [B, S, d])."""
+    when it has the efficient PAWA head, built here when not given (callers
+    that retrieve repeatedly build it once per weight set).
+    ``accumulate_hidden``: pool the decoder states into the result's
+    ``hid_avg`` / ``hid_last``.  Returns (BeamResult, query embedding
+    [B, d'], encoder states [B, S, d])."""
     batch = input_ids.shape[0]
     enc = model.encode(input_ids, attn_mask)
     query_emb = model.query_embedding(enc)
     if progressive and num_beams > (model.cfg.kary + 1) ** max(max_len - 1, 0):
         progressive = False
-    cache = model.init_cache(enc, max_len, 1 if progressive else num_beams)
-    if model.cfg.adaptor_decode:
-        if u_table is None:
-            u_table = model.decode_tables(max_len)
-        cache["cross_ucand"] = u_table      # beam-invariant: never reordered
+    cache = _decode_cache(model, enc, max_len, 1 if progressive else num_beams,
+                          u_table)
 
     def step_fn(cur_tok, cache, pos, width):
         return model.decode_step_candidates(cur_tok, cache, attn_mask, pos,
-                                            width)
+                                            width, accumulate_hidden)
 
     result = beam_search(step_fn, cache, batch, num_beams, model.cfg.kary,
                          max_len, children, eos_allowed, length_penalty,
-                         progressive=progressive)
+                         progressive=progressive,
+                         accumulate_hidden=(model.cfg.d_model
+                                            if accumulate_hidden else 0))
+    return result, query_emb, enc
+
+
+def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))``, f32 on the generator's
+    device, with ``u`` uniform in [tiny, 1) as ``jax.random.gumbel`` draws
+    it.  The only source of randomness of :func:`sample_cids`."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def sample_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
+                children: torch.Tensor, eos_allowed: torch.Tensor,
+                num_samples: int, max_len: int,
+                generator: torch.Generator | None = None,
+                temperature: float = 1.0, top_k: int = 0,
+                length_penalty: float = 1.0, accumulate_hidden: bool = False,
+                u_table: torch.Tensor | None = None,
+                noise: torch.Tensor | None = None):
+    """Stochastic CID decoding (``gen_method`` ``sample`` / ``top_k``):
+    ``num_samples`` independent trie-constrained rollouts per query, at
+    that constant width from position 0 over all ``max_len`` steps (no
+    early exit, so no host sync).  Each step masks the candidates by the
+    trie, divides by ``temperature``, keeps the ``top_k`` largest (ties
+    kept, as the reference's sort-based threshold) and draws
+    ``argmax(dist + g)`` — the form of ``jax.random.categorical``.
+    Finished rollouts stay frozen on the EOS slot.  A rollout's score is the
+    log-softmax of the trie-masked model logits, not of the sampling
+    distribution; duplicate rollouts are possible.
+
+    ``noise``: Gumbel noise [max_len, B·num_samples, kary+1]; when None it
+    is drawn once by :func:`gumbel_noise` from ``generator``.  Returns
+    (BeamResult, query embedding, encoder states) like
+    :func:`generate_cids`, rollouts sorted by score per query."""
+    batch = input_ids.shape[0]
+    kary = model.cfg.kary
+    dev = children.device
+    bk = batch * num_samples
+    shape = (max_len, bk, kary + 1)
+    if noise is None:
+        if generator is None:
+            raise ValueError("sample_cids: needs a generator or noise")
+        noise = gumbel_noise(shape, generator)
+    elif tuple(noise.shape) != shape:
+        raise ValueError(f"sample_cids: noise {tuple(noise.shape)}, need "
+                         f"{shape}")
+    noise = noise.to(dev, torch.float32)
+    enc = model.encode(input_ids, attn_mask)
+    query_emb = model.query_embedding(enc)
+    cache = _decode_cache(model, enc, max_len, num_samples, u_table)
+
+    tokens = torch.zeros((bk, max_len + 1), dtype=torch.int32, device=dev)
+    node = torch.zeros((bk,), dtype=torch.long, device=dev)
+    scores = torch.zeros((bk,), dtype=torch.float32, device=dev)
+    finished = torch.zeros((bk,), dtype=torch.bool, device=dev)
+    eos_pos = torch.full((bk,), max_len - 1, dtype=torch.int32, device=dev)
+    cur_tok = torch.full((bk,), PAD_ID, dtype=torch.int32, device=dev)
+    acc = _new_acc(bk, model.cfg.d_model, dev) if accumulate_hidden else None
+    for pos in range(max_len):
+        if acc is not None:
+            out, hidden, cache = model.decode_step_candidates(
+                cur_tok, cache, attn_mask, pos, num_samples, True)
+            acc = _pool_hidden(acc, cur_tok, pos, hidden)
+        else:
+            out, cache = model.decode_step_candidates(
+                cur_tok, cache, attn_mask, pos, num_samples)
+        logp = torch.log_softmax(out.float(), dim=-1)        # [BK, kary+1]
+        cand = _trie_masked(logp, node, children, eos_allowed)
+        dist = cand / max(temperature, 1e-6)
+        if 0 < top_k < kary + 1:
+            # the top_k-th largest value, duplicates counted
+            kth = torch.topk(dist, top_k, dim=1).values[:, -1:]
+            dist = torch.where(dist >= kth, dist, NEG_INF)
+        option = torch.argmax(dist + noise[pos], dim=1)
+        # finished rollouts are frozen on the EOS slot: a terminal node may
+        # still have children, and a digit would walk past its cluster
+        option = torch.where(finished, kary, option)
+        step_logp = torch.gather(torch.log_softmax(cand, dim=-1), 1,
+                                 option[:, None])[:, 0]
+        scores = scores + torch.where(finished, 0.0, step_logp)
+        tokens, node, finished, eos_pos, cur_tok = _advance(
+            tokens, node, finished, eos_pos, option, pos, kary, children)
+    result = _finalize(tokens, node.to(torch.int32), scores, eos_pos, batch,
+                       num_samples, length_penalty, acc)
     return result, query_emb, enc

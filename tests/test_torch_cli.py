@@ -175,9 +175,24 @@ def test_cli_calculate_matches_jax_cli(eval_runs, flags):
     assert got == want and json.loads(got)
 
 
-@pytest.mark.parametrize("flags", [["--gen-method", "sample"],
-                                   ["--ensemble", "2"], ["--mesh", "auto"]],
-                         ids=["sample", "ensemble", "mesh"])
+def test_cli_eval_top_k_runs(index_path, eval_runs, tmp_path):
+    # sampled decoding: the JAX CLI's metric keys, the beam run's JSON
+    dev = tmp_path / "dev.tsv"
+    dev.write_text("".join(f"{q}\t{d}\n" for q, d in DEV))
+    out = _port_cli(["eval", "--index", index_path, "--dev", str(dev),
+                     "--workdir", str(tmp_path / "run"), *MODEL_FLAGS,
+                     "--beam", "8", "--eval-batch-size", "2",
+                     "--max-input-length", "12", "--packed",
+                     "--gen-method", "top_k", "--sample-top-k", "2",
+                     "--temperature", "0.7", "--device", "cpu"])
+    got, beam = _metrics(out.stdout), _metrics(eval_runs["port_out"])
+    assert set(got) == set(beam)
+    assert all(0.0 <= v <= 1.0 for k, v in got.items()
+               if k not in TIMER_KEYS)
+
+
+@pytest.mark.parametrize("flags", [["--ensemble", "2"], ["--mesh", "auto"]],
+                         ids=["ensemble", "mesh"])
 def test_cli_eval_refuses_unported_modes(flags, tmp_path):
     args = port_cli.build_parser().parse_args(
         ["eval", "--index", str(tmp_path / "none.npz"), "--dev",

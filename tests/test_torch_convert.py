@@ -1,6 +1,7 @@
 """The weight bridge: every leaf of the JAX parameter tree lands in exactly
 one port parameter, in the right layout; a missing or extra key raises."""
 
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -104,6 +105,33 @@ def test_unmappable_leaf_raises(tree):
     extra["params"]["encoder"]["mystery"] = np.zeros(3, np.float32)
     with pytest.raises(ValueError, match="no port counterpart"):
         params_from_flax(extra)
+
+
+@pytest.mark.parametrize("overrides", [dict(concate_fusion=True),
+                                       dict(adaptor_efficient=False)],
+                         ids=["concate-fusion", "slow-pawa"])
+def test_optional_heads_load_strictly(overrides):
+    # the fusion layer's kernel and bias, the slow PAWA head's own
+    # embedding and its U2
+    jcfg = dataclasses.replace(tiny_config().model, **overrides)
+    tree = jax.tree_util.tree_map(
+        np.asarray, init_params(JaxRetriever(jcfg), jax.random.PRNGKey(1)))
+    sd = params_from_flax(tree)
+    model = GenerativeRetriever(dataclasses.replace(
+        port_tiny_config().model, **overrides))
+    model.load_state_dict(sd)
+    assert set(sd) == set(model.state_dict())
+    assert sum(leaf.size for _, leaf in _leaves(tree)) == sum(
+        p.numel() for p in model.parameters())
+    p = tree["params"]
+    if "concate_fusion" in overrides:
+        pairs = [(model.fusion.weight, p["fusion"]["kernel"].T),
+                 (model.fusion.bias, p["fusion"]["bias"])]
+    else:
+        pairs = [(model.pawa.embed.weight, p["pawa"]["embed"]["embedding"]),
+                 (model.pawa.u2, p["pawa"]["u2"])]
+    for got, want in pairs:
+        np.testing.assert_array_equal(got.detach().numpy(), want)
 
 
 def test_export_tool_round_trip(tree, tmp_path):

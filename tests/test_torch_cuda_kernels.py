@@ -12,7 +12,12 @@ multiples of any tile, one and 31 beams per query, scorer widths of 40 and
 48 that are not multiples of 32 chunks, 37 beams, cap 5); the decoder's
 GEMM and attention cores are also held at the main path's widths (K up to
 3,080, N up to 3,072, d_kv 64, L 16, encoder lengths up to the
-shared-memory limit).  The bf16 GEMM runs the cost model's plans and
+shared-memory limit), and the sublayers at the shapes the other retrieve
+options give them (3,200 rows at position 0; position 4 of a 5-position
+cache).  The scorers are held to their plain versions with a distinct
+query row per beam, and the retrieve options (decoder-side query reps,
+sampling with shared noise, the slow PAWA head) to the CPU's plain route
+on a small f32 model.  The bf16 GEMM runs the cost model's plans and
 forced ones: split-K with split counts that divide no k-tile count, and
 fewer persistent blocks than work units.  Tolerances: f32
 atol 1e-4 + rtol 1e-5 (f32 sums in another order); bf16 atol 2e-2 + rtol
@@ -23,6 +28,7 @@ edge).  The scorers' outputs are f32 sums, held at the f32 tolerance.
 import pytest
 import torch
 
+from chip_smoke import SMALL_MODES
 from gdr_tpu_torch import kernels
 from gdr_tpu_torch.kernels import build
 from gdr_tpu_torch.kernels import decode as kd
@@ -58,48 +64,66 @@ def _close(got, want, dtype):
                                rtol=rtol)
 
 
+# (d_model, heads, d_kv, d_ff, encoder length, its padded tail, weight std)
+SMALL_WIDTHS = (D, HEADS, DKV, DFF, S, 3, 0.1)
+BASE_WIDTHS = (768, 12, 64, 3072, 40, 8, 0.02)       # t5-base
+# widths, batch, beams, position, cache length: small ragged row counts;
+# then t5-base at 3,200 rows (32 queries x 100) at the shapes the retrieve
+# options give: sampling starts at full width at position 0, where the self
+# core reads no cache row, and pooled decoder reps take a fifth step,
+# position 4 of a 5-position cache
+SUBLAYER_CASES = {
+    **{f"{b}x{k}-pos{p}": (SMALL_WIDTHS, b, k, p, LMAX)
+       for b, k in ((3, 1), (3, 5), (2, 31)) for p in (0, LMAX - 1)},
+    **{f"t5base-3200-pos{p}-L{l}": (BASE_WIDTHS, 32, 100, p, l)
+       for p, l in ((0, 4), (0, 5), (4, 5))},
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("batch,beams", [(3, 1), (3, 5), (2, 31)])
-@pytest.mark.parametrize("pos", [0, LMAX - 1])
-def test_decoder_sublayers_match_plain(dev, dtype, batch, beams, pos):
-    rn = _rand(dev, 7 * beams + pos)
+@pytest.mark.parametrize("case", list(SUBLAYER_CASES))
+def test_decoder_sublayers_match_plain(dev, dtype, case):
+    (d, heads, d_kv, d_ff, s_, pad, std), batch, beams, pos, lmax = \
+        SUBLAYER_CASES[case]
+    inner = heads * d_kv
+    rn = _rand(dev, 7 * beams + pos + 100 * lmax)
     r = batch * beams
-    x = rn(r, D, dtype=dtype)
-    scale = (1 + rn(D, std=0.1)).to(dtype)
+    x = rn(r, d, dtype=dtype)
+    scale = (1 + rn(d, std=0.1)).to(dtype)
     kernels.reset_launch_counts()
 
-    wqkv = rn(3 * INNER, D, std=0.1, dtype=dtype)
-    wo = rn(D, INNER, std=0.1, dtype=dtype)
-    bias_row = rn(LMAX, HEADS, std=0.5)
-    ck, cv = rn(LMAX, r, INNER, dtype=dtype), rn(LMAX, r, INNER, dtype=dtype)
+    wqkv = rn(3 * inner, d, std=std, dtype=dtype)
+    wo = rn(d, inner, std=std, dtype=dtype)
+    bias_row = rn(lmax, heads, std=0.5)
+    ck, cv = rn(lmax, r, inner, dtype=dtype), rn(lmax, r, inner, dtype=dtype)
     ck_p, cv_p, before = ck.clone(), cv.clone(), ck.clone()
     got, ck_o, cv_o = kd.self_attn_sublayer(x, pos, scale, wqkv, wo, bias_row,
-                                            ck, cv, heads=HEADS, d_kv=DKV)
+                                            ck, cv, heads=heads, d_kv=d_kv)
     want, _, _ = kd.self_attn_sublayer_plain(x, pos, scale, wqkv, wo,
                                              bias_row, ck_p, cv_p,
-                                             heads=HEADS, d_kv=DKV)
+                                             heads=heads, d_kv=d_kv)
     assert ck_o is ck and cv_o is cv                  # written in place
     _close(got, want, dtype)
     _close(ck, ck_p, dtype)
     _close(cv, cv_p, dtype)
-    others = [l for l in range(LMAX) if l != pos]
+    others = [l for l in range(lmax) if l != pos]
     assert torch.equal(ck[others], before[others])    # only row pos changes
 
-    wcq = rn(INNER, D, std=0.1, dtype=dtype)
-    wco = rn(D, INNER, std=0.1, dtype=dtype)
-    cross_k = rn(batch, HEADS, S, DKV, dtype=dtype)
-    cross_v = rn(batch, HEADS, S, DKV, dtype=dtype)
-    cbias = rn(batch, HEADS, S, std=0.5)
-    cbias[:, :, S - 3:] += -1e9                       # padded key positions
+    wcq = rn(inner, d, std=std, dtype=dtype)
+    wco = rn(d, inner, std=std, dtype=dtype)
+    cross_k = rn(batch, heads, s_, d_kv, dtype=dtype)
+    cross_v = rn(batch, heads, s_, d_kv, dtype=dtype)
+    cbias = rn(batch, heads, s_, std=0.5)
+    cbias[:, :, s_ - pad:] += -1e9                    # padded key positions
     got = kd.cross_attn_sublayer(x, scale, wcq, wco, cross_k, cross_v, cbias,
-                                 beams, heads=HEADS, d_kv=DKV)
+                                 beams, heads=heads, d_kv=d_kv)
     want = kd.cross_attn_sublayer_plain(x, scale, wcq, wco, cross_k, cross_v,
-                                        cbias, beams, heads=HEADS, d_kv=DKV)
+                                        cbias, beams, heads=heads, d_kv=d_kv)
     _close(got, want, dtype)
 
-    wi = rn(DFF, D, std=0.1, dtype=dtype)
-    wo2 = rn(D, DFF, std=0.1, dtype=dtype)
+    wi = rn(d_ff, d, std=std, dtype=dtype)
+    wo2 = rn(d, d_ff, std=std, dtype=dtype)
     _close(kd.ffn_sublayer(x, scale, wi, wo2),
            kd.ffn_sublayer_plain(x, scale, wi, wo2), dtype)
     torch.cuda.synchronize()
@@ -488,3 +512,126 @@ def test_quantize_store_on_the_card_equals_cpu(dev, dtype):
     got, want = quantize_store(x), quantize_store(x.cpu())
     assert torch.equal(got.values.cpu(), want.values)
     assert torch.equal(got.scales.cpu(), want.scales)
+
+
+def _small_trie():
+    from gdr_tpu_torch.ops.trie import build_trie
+    cid_to_docs, doc = {}, 0
+    for a in range(4):
+        for b in range(3):
+            for c in range(2):
+                cid_to_docs[f"{a}-{b}-{c}"] = list(range(doc, doc + 3))
+                doc += 3
+    cid_to_docs["3-3"] = [doc, doc + 1]
+    return build_trie(cid_to_docs, 4, max_docs_per_cluster=8), doc + 2
+
+
+@pytest.mark.parametrize("layout", ["packed bf16", "packed int8",
+                                    "plain bf16"])
+def test_scorers_score_each_beam_against_its_own_query_row(dev, layout):
+    # decoder-side reps give every beam its own query row [B, K, d]: the
+    # card's re-rank equals the CPU's, and differs from scoring every beam
+    # by its query's first row
+    from gdr_tpu_torch.ops.packed_store import pack_layout, pack_rows
+    from gdr_tpu_torch.ops.quantize import pack_quantized_rows
+    from gdr_tpu_torch.ops.rerank import rerank, rerank_packed
+    trie, n = _small_trie()
+    g = torch.Generator().manual_seed(21)
+    b, k, d = 3, 6, 64
+    store = torch.randn(n, d, generator=g)
+    store = (store / store.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    leaves = torch.as_tensor((trie.cluster_of_node >= 0).nonzero()[0])
+    nodes = leaves[torch.randperm(len(leaves), generator=g)[:b * k]
+                   ].view(b, k).to(torch.int32)
+    scores = torch.randn(b, k, generator=g).sort(dim=1, descending=True).values
+    valid = torch.ones(b, k, dtype=torch.bool)
+    valid[2, 4:] = False
+    cl = torch.as_tensor(trie.cluster_of_node)
+    alphas = torch.tensor([0.0, 1.0])
+    q_rows = torch.randn(b, k, d, generator=g) * 0.3
+    if layout.startswith("packed"):
+        *arrays, cap = pack_layout(trie, align=32 if "int8" in layout else 8)
+        starts, counts, row_to_doc = map(torch.as_tensor, arrays)
+        rows = (pack_quantized_rows(store, row_to_doc) if "int8" in layout
+                else pack_rows(store, row_to_doc))
+        tables = (starts, counts, row_to_doc, cap)
+    else:
+        rows = store
+        tables = (torch.as_tensor(trie.cluster_docs),
+                  torch.as_tensor(trie.cluster_doc_mask))
+
+    def run(device, q):
+        to = (lambda t: t.to(device) if torch.is_tensor(t) else t)
+        r = (to(rows) if torch.is_tensor(rows) else
+             type(rows)(values=to(rows.values), scales=to(rows.scales)))
+        beams = [to(t) for t in (nodes, scores, valid)]
+        if layout.startswith("packed"):
+            return rerank_packed(r, *map(to, tables), to(q), *beams, to(cl),
+                                 to(alphas), top_r=12)
+        return rerank(r, to(q), *beams, to(cl), *map(to, tables), to(alphas),
+                      top_r=12)
+    kernels.reset_launch_counts()
+    got = run(dev, q_rows)
+    torch.cuda.synchronize()
+    assert sum(kernels.launch_counts().values()) == 1
+    want = run(torch.device("cpu"), q_rows)
+    dv = want.doc_valid
+    assert dv.sum() > 0 and torch.equal(got.doc_valid.cpu(), dv)
+    assert torch.equal(got.doc_ids.cpu()[dv], want.doc_ids[dv])
+    torch.testing.assert_close(got.scores.cpu()[dv], want.scores[dv],
+                               atol=1e-5, rtol=1e-5)
+    first = run(dev, q_rows[:, :1].expand(-1, k, -1).contiguous())
+    assert not torch.equal(first.scores, got.scores)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["plain", "packed"])
+@pytest.mark.parametrize("option", list(SMALL_MODES))
+def test_retrieve_options_on_the_card_equal_cpu(dev, option, packed):
+    # chip_smoke.py phase 3 runs the same options (one table, SMALL_MODES)
+    # on a trie whose clusters all sit at depth 3; this trie adds one at
+    # depth 2, so beams finish at two depths
+    import numpy as np
+
+    from gdr_tpu_torch.config import EvalConfig, ModelConfig
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+    from gdr_tpu_torch.ops.beam import gumbel_noise
+    m_kw, e_kw = SMALL_MODES[option]
+    cfg = ModelConfig(kary=4, max_output_length=5, d_model=64, d_kv=16,
+                      d_ff=128, num_layers=2, num_decoder_layers=2,
+                      num_heads=4, vocab_size=512, encoder_d_model=64,
+                      adaptor_layer_num=1, adaptor_num_heads=2, **m_kw)
+    trie, n = _small_trie()
+    rng = np.random.default_rng(1)
+    store = rng.normal(size=(n, 64)).astype(np.float32)
+    store /= np.linalg.norm(store, axis=1, keepdims=True)
+    ids = rng.integers(2, 512, size=(3, 10)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[1, 7:] = 0
+    cpu_model = init_weights(GenerativeRetriever(cfg),
+                             torch.Generator().manual_seed(0)).eval()
+    gpu_model = GenerativeRetriever(cfg)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model = gpu_model.to(dev).eval()
+    ev_cfg = EvalConfig(num_beams=12, num_return_sequences=20,
+                        max_output_length=5, **e_kw)
+    ev_c = Evaluator(cpu_model, trie, store, ev_cfg, packed=packed)
+    ev_g = Evaluator(gpu_model, trie, store, ev_cfg, packed=packed)
+    noise = None
+    if ev_cfg.gen_method == "top_k":      # one draw, given to both devices
+        noise = gumbel_noise((ev_c._max_len, 3 * ev_cfg.num_beams, 5),
+                             torch.Generator().manual_seed(5))
+    res_c, rr_c = ev_c.retrieve(ids, mask, noise=noise)
+    kernels.reset_launch_counts()
+    res_g, rr_g = ev_g.retrieve(ids, mask, noise=noise)
+    torch.cuda.synchronize()
+    steps = ev_g._max_len * cfg.num_decoder_layers
+    assert kd.LAUNCHES == dict.fromkeys(kd.LAUNCHES, steps)
+    valid = res_c.valid
+    assert torch.equal(res_g.valid.cpu(), valid)
+    assert torch.equal(res_g.nodes.cpu()[valid], res_c.nodes[valid])
+    dv = rr_c.doc_valid
+    assert dv.sum() > 0 and torch.equal(rr_g.doc_valid.cpu(), dv)
+    assert torch.equal(rr_g.doc_ids.cpu()[dv], rr_c.doc_ids[dv])
+    torch.testing.assert_close(rr_g.scores.cpu()[dv], rr_c.scores[dv],
+                               atol=1e-4, rtol=0)
