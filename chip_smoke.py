@@ -5,7 +5,8 @@ the port builds, is right and serves retrieval on the card.
     python3 chip_smoke.py [profile]   # from the repository root, one CUDA device
 
 Every phase always runs; ``profile`` adds a torch.profiler table of one
-full-width retrieve in phase 4 and of each mode in phase 5.  Any other
+full-width retrieve in phase 4, of each mode in phase 5, and in phase 6 of
+one doc-tower batch per dtype and one k-means recursion.  Any other
 argument is refused.
 
 Phases (each prints its elapsed seconds; any failure exits non-zero before
@@ -14,7 +15,7 @@ the last line):
 1. device — the card's name and power limit (nvidia-smi) and the nvcc build
    of every kernel under ``gdr_tpu_torch/csrc`` (one nvcc per source, all
    at once), naming each function that ptxas gives a stack frame or
-   spills;
+   spills, then the host C++ library (``gdr_tpu_torch/native.py``);
 2. kernel vs plain — each kernel against its plain PyTorch version on the
    card: the decoder sublayers at the row counts the main path gives them
    (32, 992 and 3,200 rows of t5-base: 32 queries × widths 1, 31, 100, at
@@ -60,12 +61,36 @@ the last line):
    valid doc ids, finite scores, then timed retrieves and peak memory; the
    default path's decode on the same model beside (a)'s, and the slow
    head's transform alone at 3,200 rows;
-6. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
-   layout's main path, max |Δ|, kernel / plain / library ms and its bound
-   (the decoder rows also by row count, per retrieve and per GEMM shape).
+6. index build and expansion — IndexConfig's defaults (kary 30, leaf cap
+   30, 25 iterations, minibatch at >= 1,000 points with batch 1,024, seed
+   7): (a) a tiny f32 doc tower with seeded weights embeds 2,000 docs on
+   the CPU and the card (within 1e-4) and Lloyd from one CPU-drawn init
+   runs on both (assignments equal, centroids within 1e-4); the CLI's
+   ``index`` → ``expand`` (+200 docs) → ``retrieve`` run as subprocesses on
+   the card over a 2,000-doc TSV; (b) the BERT-base tower embeds 4,096 docs
+   in f32 and 32,768 docs × 128 tokens in bf16 at batch 512: docs/s and
+   the time between CUDA events beside the FLOPs bound; (c) hierarchical
+   k-means of phase 4's 334,314 × 768 unit store, twice, then the
+   recursion alone (its share of the build): seconds, nodes,
+   clusters, leaves by depth, the largest leaf, and the checks that every
+   doc has a path of digits < 30 and every leaf above depth 8 at most 30
+   docs; (d) a t5-base bf16 retrieve over that index's packed bf16 layout:
+   launches 6 × the steps taken (at most 6 · (depth + 1)) per decoder
+   kernel and one packed scorer, valid beams and doc ids, retrieve ms; (e)
+   2,048 new unit rows inserted: insert seconds, the trie's structure
+   unchanged, each new id in one cluster (the best by node embedding), old
+   CIDs unchanged, the packed layout rebuilt with its grown cap, the packed
+   scorer on each new doc's block (its own row the query) giving it the
+   block's top score and matching its plain version, and a retrieve over
+   the grown store;
+7. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
+   layout's main path (and over phase 6's built index), max |Δ|, kernel /
+   plain / library ms and its bound (the decoder rows also by row count,
+   per retrieve and per GEMM shape).
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
-torch, numpy and gdr_tpu_torch only.
+torch, numpy and gdr_tpu_torch only (its phase 6 also runs the port's CLI
+in subprocesses).
 """
 
 from __future__ import annotations
@@ -719,13 +744,31 @@ FULL_LAYOUTS = [("packed bf16", dict(packed=True), "packed_scores"),
 SCORERS = ("packed_scores", "packed_scores_int8", "rerank_scores")
 
 
+def _check_retrieve(name, res, rr, n_beams: int, top_r: int,
+                    n_docs: int = N_DOCS) -> None:
+    """Fails unless all ``n_beams`` beams or rollouts are valid, every query
+    has ``top_r`` valid doc ids in [0, n_docs) and the fused scores are
+    finite."""
+    valid = int(res.valid.sum())
+    if valid != n_beams:
+        raise Failed(f"{name}: {valid} valid beams or rollouts, want "
+                     f"{n_beams}")
+    dv = rr.doc_valid.cpu()
+    docs = rr.doc_ids.cpu()[dv]
+    if dv.sum(-1).min().item() < top_r or docs.min() < 0 \
+            or docs.max() >= n_docs:
+        raise Failed(f"{name}: re-rank returned fewer than top-R valid "
+                     f"docs or ids outside [0, {n_docs})")
+    if not bool(rr.scores[rr.doc_valid].isfinite().all()):
+        raise Failed(f"{name}: non-finite fused scores")
+
+
 def _counted_retrieve(name, ev, ids, mask, launches: dict, n_beams: int,
                       top_r: int):
     """One retrieve with the launch counts set to 0 just before it: fails
     unless every kernel launched as often as ``launches`` says (0 for the
-    others), all ``n_beams`` beams or rollouts are valid, every query has
-    ``top_r`` valid in-range doc ids and the fused scores are finite.
-    Returns (BeamResult, RerankResult, the counts)."""
+    others) and the result passes ``_check_retrieve``.  Returns
+    (BeamResult, RerankResult, the counts)."""
     import torch
 
     from gdr_tpu_torch import kernels
@@ -738,18 +781,7 @@ def _counted_retrieve(name, ev, ids, mask, launches: dict, n_beams: int,
     log(f"  {name}: launches in one retrieve: {got}")
     if got != want:
         raise Failed(f"{name}: launch counts {got} != {want}")
-    valid = int(res.valid.sum())
-    if valid != n_beams:
-        raise Failed(f"{name}: {valid} valid beams or rollouts, want "
-                     f"{n_beams}")
-    dv = rr.doc_valid.cpu()
-    docs = rr.doc_ids.cpu()[dv]
-    if dv.sum(-1).min().item() < top_r or docs.min() < 0 \
-            or docs.max() >= N_DOCS:
-        raise Failed(f"{name}: re-rank returned fewer than top-R valid "
-                     f"docs or ids outside the store")
-    if not bool(rr.scores[rr.doc_valid].isfinite().all()):
-        raise Failed(f"{name}: non-finite fused scores")
+    _check_retrieve(name, res, rr, n_beams, top_r)
     return res, rr, got
 
 
@@ -1016,6 +1048,407 @@ def phase_modes(dev, card: str, trie, timed: int = 3, profile: bool = False
     return out
 
 
+# ------------------------------------------------------------ phase 6
+
+N_NEW = 2048                 # the bench's expansion batch (bench.py n_new)
+SMALL_DOCS, SMALL_NEW = 2000, 200
+WORDS = ("alpha beta gamma delta epsilon zeta eta theta iota kappa lambda mu "
+         "nu xi omicron pi rho sigma tau upsilon phi chi psi omega river "
+         "mountain city music science history football film novel").split()
+
+
+def _write_corpus(path: Path, n: int, rng) -> None:
+    path.write_text("".join(
+        f"doc {i}\t{' '.join(rng.choice(WORDS, int(rng.integers(4, 30))))}\n"
+        for i in range(n)))
+
+
+def _port_cli(argv: list[str], root: Path) -> str:
+    """``python -m gdr_tpu_torch.cli`` in a subprocess; fails on a non-zero
+    exit.  Returns its standard output."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(root))
+    out = subprocess.run([sys.executable, "-m", "gdr_tpu_torch.cli", *argv],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        raise Failed(f"cli {argv[0]} exited {out.returncode}:\n"
+                     f"{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def index_small(dev, root: Path) -> dict:
+    """(a): the tiny tower and Lloyd on the CPU and the card, then the CLI's
+    index → expand → retrieve on the card over a 2,000-doc TSV."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.index.builder import embed_corpus
+    from gdr_tpu_torch.index.io import load_index
+    from gdr_tpu_torch.models.dual_encoder import (DocEncoder,
+                                                   init_doc_encoder,
+                                                   tiny_doc_encoder_config)
+    from gdr_tpu_torch.ops.kmeans import kmeans_fit
+
+    rng = np.random.default_rng(3)
+    ids = rng.integers(2, 512, size=(SMALL_DOCS, 32)).astype(np.int32)
+    mask = (np.arange(32)[None] < rng.integers(4, 33, SMALL_DOCS)[:, None]
+            ).astype(np.int32)
+    ids *= mask
+    cpu = init_doc_encoder(DocEncoder(tiny_doc_encoder_config()),
+                           torch.Generator().manual_seed(0)).eval()
+    gpu = DocEncoder(tiny_doc_encoder_config())
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(dev).eval()
+    e_cpu = embed_corpus(cpu, ids, mask, batch_size=256)
+    e_gpu = embed_corpus(gpu, ids, mask, batch_size=256)
+    tower_err = float(np.abs(e_cpu - e_gpu).max())
+    if not tower_err <= 1e-4:
+        raise Failed(f"tiny doc tower: card and CPU differ by {tower_err:.3g}"
+                     f" > 1e-4")
+    x = torch.as_tensor(e_cpu)
+    init = x[torch.randperm(SMALL_DOCS, generator=torch.Generator()
+                            .manual_seed(1))[:30]]
+    c_cpu, a_cpu = kmeans_fit(x, 30, 25, init=init)
+    c_gpu, a_gpu = kmeans_fit(x.to(dev), 30, 25, init=init.to(dev))
+    moved = int((a_cpu != a_gpu.cpu()).sum())
+    cent_err = (c_cpu - c_gpu.cpu()).abs().max().item()
+    if moved or not cent_err <= 1e-4:
+        raise Failed(f"Lloyd: {moved} assignments differ between card and "
+                     f"CPU, centroids by {cent_err:.3g} (tol 1e-4)")
+    log(f"  (a) tiny tower f32, {SMALL_DOCS} docs: card vs CPU max |d| "
+        f"{tower_err:.3g} (tol 1e-4); Lloyd k 30, 25 iterations from one "
+        f"CPU init: assignments equal, centroids max |d| {cent_err:.3g} "
+        f"(tol 1e-4)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _write_corpus(tmp / "docs.tsv", SMALL_DOCS, rng)
+        _write_corpus(tmp / "new.tsv", SMALL_NEW, rng)
+        tower = ["--encoder-size", "tiny", "--encoder-max-len", "32",
+                 "--device", "cuda"]
+        t = time.perf_counter()
+        _port_cli(["index", "--corpus", str(tmp / "docs.tsv"), "--out",
+                   str(tmp / "index.npz"), *tower], root)
+        _port_cli(["expand", "--index", str(tmp / "index.npz"), "--corpus",
+                   str(tmp / "new.tsv"), "--out", str(tmp / "index2.npz"),
+                   *tower], root)
+        out = _port_cli(["retrieve", "--index", str(tmp / "index2.npz"),
+                         "--workdir", str(tmp / "run"), "--model-size",
+                         "tiny", "--beam", "20", "--top-k", "5", "--json",
+                         "--packed", "--device", "cuda", "--query",
+                         "alpha river music", "--query", "science novel"],
+                        root)
+        cli_s = time.perf_counter() - t
+        small, big = (load_index(str(tmp / f)) for f in ("index.npz",
+                                                         "index2.npz"))
+    hits = [h["doc_id"] for ln in out.splitlines() if ln.startswith("{")
+            for h in json.loads(ln)["results"]]
+    n_big = SMALL_DOCS + SMALL_NEW
+    if len(small.paths) != SMALL_DOCS or len(big.paths) != n_big \
+            or len(big.store) != n_big:
+        raise Failed(f"cli: index holds {len(small.paths)} docs and the "
+                     f"expanded one {len(big.paths)}, want {SMALL_DOCS} and "
+                     f"{n_big}")
+    for f in ("children", "eos_allowed", "depth"):
+        if not np.array_equal(getattr(small.trie, f), getattr(big.trie, f)):
+            raise Failed(f"cli expand changed the trie's {f}")
+    if not hits or min(hits) < 0 or max(hits) >= n_big:
+        raise Failed(f"cli retrieve: hits {hits} outside [0, {n_big})")
+    log(f"  (a) cli on cuda: index {SMALL_DOCS} docs ({small.trie.num_nodes} "
+        f"nodes, {small.trie.num_clusters} clusters, depth "
+        f"{int(small.trie.depth.max())}) → expand +{SMALL_NEW} (structure "
+        f"unchanged) → retrieve {len(hits)} hits in range; {cli_s:.1f} s for "
+        f"the three processes")
+    return dict(tower_max_abs_err=tower_err, lloyd_max_abs_err=cent_err,
+                cli_s=cli_s, cli_nodes=int(small.trie.num_nodes))
+
+
+def tower_cost(n_docs: int, length: int, cfg) -> tuple[float, int, int]:
+    """FLOPs of the doc tower's forward over n_docs × length tokens (the
+    projections, FFN and both attention products of every layer), its
+    weights' element count and the bytes of its token ids and mask."""
+    d, f = cfg.d_model, cfg.d_ff
+    per_token = 2 * d * (4 * d + 2 * f) + 4 * length * d
+    flops = n_docs * length * cfg.num_layers * per_token
+    weights = cfg.num_layers * (4 * d * d + 2 * d * f) + cfg.vocab_size * d
+    return flops, weights, n_docs * length * 8
+
+
+def index_tower(dev, card: str, profile: bool = False) -> dict:
+    """(b): the BERT-base doc tower at full width, f32 then bf16
+    (``profile``: the kernels of one batch in each)."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.index.builder import embed_corpus
+    from gdr_tpu_torch.models.dual_encoder import (DocEncoder,
+                                                   DocEncoderConfig,
+                                                   init_doc_encoder)
+
+    cfg = DocEncoderConfig()
+    length, batch = 128, 512
+    with torch.device(dev):
+        tower = DocEncoder(cfg)
+    tower = init_doc_encoder(tower, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(4)
+    out = {}
+    for dn, n_docs in (("float32", 4096), ("bfloat16", 32768)):
+        dtype = getattr(torch, dn)
+        tower = tower.to(dtype).eval()
+        ids = rng.integers(1, cfg.vocab_size, size=(n_docs, length)
+                           ).astype(np.int32)
+        mask = np.ones_like(ids)
+        embed_corpus(tower, ids[:batch], mask[:batch], batch_size=batch)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        emb = embed_corpus(tower, ids, mask, batch_size=batch)
+        e1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        dev_s = e0.elapsed_time(e1) / 1e3
+        if emb.shape != (n_docs, cfg.d_model) or not np.isfinite(emb).all():
+            raise Failed(f"doc tower {dn}: {emb.shape} embeddings, not all "
+                         f"finite")
+        flops, w, tok = tower_cost(n_docs, length, cfg)
+        peak = H100_BF16_FLOPS if dn == "bfloat16" else H100_F32_FLOPS
+        nbytes = w * tower.tok_embed.weight.element_size() + tok \
+            + n_docs * cfg.d_model * 4
+        bound_ms, by = _bound_ms(flops, nbytes, peak)
+        out[dn] = dict(docs=n_docs, wall_s=wall, device_s=dev_s,
+                       docs_per_s=n_docs / wall, flops=flops,
+                       bound_s=bound_ms / 1e3, bound_by=by)
+        log(f"  (b) doc tower BERT-base {dn}: {n_docs} docs x {length} "
+            f"tokens at batch {batch}: {wall:.3f} s wall, {dev_s:.3f} s "
+            f"between CUDA events, {n_docs / wall:.0f} docs/s; "
+            f"{flops:.3g} FLOPs, bound {bound_ms / 1e3:.3f} s ({by}, "
+            f"{peak / 1e12:.0f} TFLOP/s); every embedding finite; {card}")
+        if profile:
+            log(f"  (b) {dn}: one batch of {batch}")
+            _profile(lambda: embed_corpus(tower, ids[:batch], mask[:batch],
+                                          batch_size=batch))
+    return out
+
+
+def index_kmeans(dev, card: str, profile: bool = False):
+    """(c): hierarchical k-means over the NQ-scale unit store on the card:
+    the index built twice, then the recursion alone (``profile``: its
+    kernels).  Returns (the Index, its store on the card, the stats)."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.config import IndexConfig
+    from gdr_tpu_torch.index.builder import build_index_from_embeddings
+    from gdr_tpu_torch.ops.kmeans import hierarchical_kmeans
+
+    cfg = IndexConfig()
+    g = torch.Generator(device=dev).manual_seed(7)      # phase 4's store
+    store = torch.randn(N_DOCS, cfg.embedding_dim, generator=g, device=dev)
+    store = store / store.norm(dim=1, keepdim=True)
+    secs, built = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        built.append(build_index_from_embeddings(store, cfg))
+        secs.append(time.perf_counter() - t)
+    index = built[-1]
+    trie = index.trie
+    lens = np.array([len(p) for p in index.paths])
+    digits = np.concatenate([np.asarray(p) for p in index.paths])
+    leaf_docs = trie.doc_count[trie.cluster_node_ids]
+    leaf_depth = trie.depth[trie.cluster_node_ids]
+    if lens.min() < 1 or digits.max() >= cfg.kary or digits.min() < 0:
+        raise Failed("k-means: a doc without a path, or a digit outside "
+                     f"[0, {cfg.kary})")
+    if (leaf_docs[leaf_depth < 8] > cfg.leaf_cap).any():
+        raise Failed(f"k-means: a leaf above depth 8 holds more than "
+                     f"{cfg.leaf_cap} docs")
+    if int(trie.doc_count.sum()) != N_DOCS:
+        raise Failed("k-means: the trie does not hold every doc once")
+    same = built[0].paths == built[1].paths
+    hist = np.bincount(leaf_depth).tolist()
+    pass_ms = N_DOCS * cfg.embedding_dim * 4 / H100_BYTES * 1e3
+
+    def recursion():
+        return hierarchical_kmeans(
+            store, kary=cfg.kary, leaf_cap=cfg.leaf_cap, iters=cfg.max_iters,
+            seed=cfg.seed, minibatch_threshold=cfg.minibatch_threshold,
+            minibatch_size=cfg.minibatch_size)
+
+    t = time.perf_counter()
+    recursion()
+    kmeans_s = time.perf_counter() - t
+    log(f"  (c) k-means kary {cfg.kary}, leaf cap {cfg.leaf_cap}, "
+        f"{cfg.max_iters} iterations, minibatch at >= "
+        f"{cfg.minibatch_threshold} (batch {cfg.minibatch_size}) over "
+        f"{N_DOCS} x {cfg.embedding_dim} f32 unit rows: first call "
+        f"{secs[0]:.2f} s, second {secs[1]:.2f} s (same paths: {same}), of "
+        f"which the k-means recursion alone {kmeans_s:.2f} s and the trie, "
+        f"its node embeddings and the host copy the rest; "
+        f"{trie.num_nodes} nodes, {trie.num_clusters} clusters, leaves by "
+        f"depth {hist}, largest leaf {int(leaf_docs.max())} docs; one pass "
+        f"over the store is bound at {pass_ms:.3f} ms, so the host's "
+        f"recursion sets the time; {card}")
+    if profile:
+        log("  (c) one k-means recursion")
+        _profile(recursion)
+    stats = dict(seconds=secs, kmeans_s=kmeans_s, same_paths=same,
+                 nodes=int(trie.num_nodes),
+                 clusters=int(trie.num_clusters), leaves_by_depth=hist,
+                 largest_leaf=int(leaf_docs.max()),
+                 max_depth=int(trie.depth.max()), pass_bound_ms=pass_ms)
+    return index, store, stats
+
+
+def index_serve_and_expand(dev, card: str, index, store) -> dict:
+    """(d) t5-base bf16 retrieves over the built index's packed bf16 layout;
+    (e) 2,048 new docs inserted, the layout rebuilt, the packed scorer held
+    on their blocks, and a retrieve over the grown store."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.config import EvalConfig, ModelConfig
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.index.expand import expand_index
+    from gdr_tpu_torch.kernels import rerank as KR
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+
+    beams, seq_len, qbatch = 100, 40, 32
+    cfg = ModelConfig().scaled("base")
+    with torch.device(dev):
+        model = GenerativeRetriever(cfg)
+    model = init_weights(model.to(torch.bfloat16),
+                         torch.Generator(device=dev).manual_seed(0)).eval()
+    ev_cfg = EvalConfig(num_beams=beams, num_return_sequences=beams,
+                        max_output_length=cfg.max_output_length)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(2, cfg.vocab_size, size=(qbatch, seq_len)
+                       ).astype(np.int32)
+    mask = np.ones_like(ids)
+    ev = Evaluator(model, index.trie, store.to(torch.bfloat16), ev_cfg,
+                   packed=True)
+    ev.retrieve(ids, mask)                                 # warm
+    kernels.reset_launch_counts()
+    res, rr = ev.retrieve(ids, mask)
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    max_depth = int(index.trie.depth.max())
+    layers = cfg.num_decoder_layers
+    steps = got[DECODER[0]] // layers
+    want = {**dict.fromkeys(got, 0),
+            **dict.fromkeys(DECODER, layers * steps), "packed_scores": 1}
+    log(f"  (d) launches in one retrieve over the built index: {got}")
+    if got != want or not 0 < steps <= max_depth + 1:
+        raise Failed(f"built index: launch counts {got}: want {layers} x "
+                     f"the steps taken (at most {max_depth + 1}) per decoder "
+                     f"kernel and one packed scorer")
+    _check_retrieve("built index", res, rr, qbatch * beams, beams)
+    totals = _timed_retrieves(ev, ids, mask, 3)
+    serve_ms = sum(totals) / len(totals)
+    log(f"  (d) t5-base bf16 over the built index, packed bf16 "
+        f"{tuple(ev.store.shape)} (cap {ev._p_cap}): {steps} steps (trie "
+        f"depth {max_depth}), {qbatch * beams} valid beams, 100 valid doc "
+        f"ids per query; retrieve {serve_ms:.2f} ms "
+        f"({', '.join(f'{x:.2f}' for x in totals)}); {card}")
+
+    # (e) expansion
+    g = torch.Generator(device=dev).manual_seed(8)
+    new = torch.randn(N_NEW, store.shape[1], generator=g, device=dev)
+    new = (new / new.norm(dim=1, keepdim=True)).cpu().numpy()
+    t = time.perf_counter()
+    big = expand_index(index, new)
+    insert_s = time.perf_counter() - t
+    old, grown = index.trie, big.trie
+    t = time.perf_counter()        # insert_docs' host product alone
+    np.argmax(new @ old.node_embedding[old.cluster_node_ids].T, axis=1)
+    argmax_s = time.perf_counter() - t
+    for f in ("children", "eos_allowed", "depth", "cluster_node_ids"):
+        if not np.array_equal(getattr(old, f), getattr(grown, f)):
+            raise Failed(f"expansion changed the trie's {f}")
+    n_all = N_DOCS + N_NEW
+
+    def owner(tr):          # cluster row of each doc id
+        rows = np.full(n_all, -1, np.int64)
+        rows[tr.doc_indices] = np.repeat(np.arange(tr.num_clusters),
+                                         tr.doc_count[tr.cluster_node_ids])
+        return rows
+
+    if not np.array_equal(np.bincount(grown.doc_indices, minlength=n_all),
+                          np.ones(n_all, np.int64)):
+        raise Failed("expansion: a doc id sits in no cluster or in two")
+    own_old, own_new = owner(old), owner(grown)
+    if not np.array_equal(own_old[:N_DOCS], own_new[:N_DOCS]) \
+            or big.cid_of_doc[:N_DOCS] != index.cid_of_doc:
+        raise Failed("expansion moved an old doc to another cluster")
+    node_emb = torch.as_tensor(old.node_embedding[old.cluster_node_ids],
+                               device=dev)
+    sims = torch.as_tensor(new, device=dev) @ node_emb.T      # [M, C]
+    joined = torch.as_tensor(own_new[N_DOCS:], device=dev)
+    gap = (sims.max(1).values - sims.gather(1, joined[:, None])[:, 0]).max()
+    if not gap.item() <= 1e-5:
+        raise Failed(f"expansion: a new doc joined a cluster {gap.item():.3g}"
+                     f" below its best node-embedding dot")
+    ev2 = Evaluator(model, grown, torch.as_tensor(big.store, device=dev)
+                    .to(torch.bfloat16), ev_cfg, packed=True)
+    counts = grown.doc_count[grown.cluster_node_ids]
+    want_cap = max(-(-int(counts.max()) // 8) * 8, 8)
+    if ev2._p_cap != want_cap or ev2.store.shape[0] != \
+            int((-(-counts // 8) * 8).sum()) + want_cap:
+        raise Failed(f"expansion: packed layout cap {ev2._p_cap} / rows "
+                     f"{ev2.store.shape[0]} not rebuilt for the grown "
+                     f"clusters (cap {want_cap})")
+    # the packed scorer on each new doc's block, its own row the query
+    starts = ev2._p_starts[joined]
+    q = torch.as_tensor(new, device=dev)
+    scores = KR.packed_scores(ev2.store, starts, q, ev2._p_cap)
+    plain = KR.packed_scores_plain(ev2.store, starts, q, ev2._p_cap)
+    err = _close("packed_scores over the grown blocks", scores, plain,
+                 "float32")
+    slot = torch.arange(ev2._p_cap, device=dev)
+    in_block = slot[None] < ev2._p_counts[joined][:, None]
+    block_docs = ev2._p_row_to_doc[starts.long()[:, None] + slot[None]]
+    mine = block_docs == torch.arange(N_DOCS, n_all, device=dev)[:, None]
+    top = scores.masked_fill(~in_block, -2.0).argmax(1)
+    if not bool(mine.gather(1, top[:, None]).all()):
+        raise Failed("packed scorer: a new doc is not the top score of its "
+                     "own block")
+    res2, rr2 = ev2.retrieve(ids, mask)
+    torch.cuda.synchronize()
+    _check_retrieve("expanded index", res2, rr2, qbatch * beams, beams,
+                    n_docs=n_all)
+    joined_size = old.doc_count[old.cluster_node_ids][own_new[N_DOCS:]]
+    log(f"  (e) inserted {N_NEW} docs in {insert_s:.2f} s ({argmax_s:.2f} s "
+        f"of it the host's [{N_NEW}, {old.num_clusters}] product and "
+        f"argmax): trie structure unchanged, each new id in one cluster, "
+        f"the best by node embedding (gap <= {gap.item():.3g}; the joined "
+        f"clusters held {int(np.median(joined_size))} docs at the median, "
+        f"{int(joined_size.max())} at most), old docs' CIDs unchanged; "
+        f"packed layout rebuilt, cap {ev._p_cap} -> {ev2._p_cap}, rows "
+        f"{ev.store.shape[0]} -> {ev2.store.shape[0]}; packed scorer on the "
+        f"new docs' blocks: each doc its block's top, max |d| vs plain "
+        f"{err:.3g} (tol {TOL['float32'][0]} + {TOL['float32'][1]}·|plain|);"
+        f" a retrieve over the {n_all}-doc store returns valid ids; {card}")
+    return dict(launches=got, steps=steps, retrieve_ms=serve_ms,
+                retrieve_ms_each=totals, insert_s=insert_s,
+                insert_argmax_s=argmax_s, cap=[ev._p_cap, ev2._p_cap],
+                packed_rows=[int(ev.store.shape[0]), int(ev2.store.shape[0])],
+                packed_scores_max_abs_err=err)
+
+
+def phase_index(dev, card: str, root: Path, profile: bool = False) -> dict:
+    out = {"small": index_small(dev, root),
+           "tower": index_tower(dev, card, profile)}
+    index, store, out["kmeans"] = index_kmeans(dev, card, profile)
+    out.update(index_serve_and_expand(dev, card, index, store))
+    return out
+
+
 def _profile(fn) -> None:
     """Device time by kernel over one call, and the device's busy share of
     the call's wall time (torch.profiler with CUDA activity)."""
@@ -1098,12 +1531,13 @@ KERNELS = [
 ]
 
 
-def kernel_rows(stats: dict, full: dict) -> list[dict]:
+def kernel_rows(stats: dict, full: dict, index: dict) -> list[dict]:
     """The ``{"kernels": [...]}`` rows: each kernel's launches on its
     layout's main path (phase 4) and its phase-2 numbers at 3,200 rows; the
     decoder rows add their numbers at each row count (``by_rows``), the
     per-retrieve sums (``per_retrieve``) and their GEMM shapes alone
-    against torch.matmul (``gemms``)."""
+    against torch.matmul (``gemms``).  ``launches_built_index`` counts the
+    launches of one retrieve over phase 6's k-means index."""
     rows = []
     for name, source, replaces, library in KERNELS:
         st = stats[name]
@@ -1114,7 +1548,8 @@ def kernel_rows(stats: dict, full: dict) -> list[dict]:
             bound_by=st["bound_by"], library_ms=st["library_ms"],
             library=library, flops=st["flops"], bytes=st["bytes"],
             rows=B * WIDTHS[-1],
-            dtype="int8" if name == "packed_scores_int8" else "bfloat16")
+            dtype="int8" if name == "packed_scores_int8" else "bfloat16",
+            launches_built_index=index["launches"][name])
         if name in DECODER:
             row.update(by_rows=st["rows"], per_retrieve=st["per_retrieve"],
                        gemms=st["gemms"])
@@ -1154,6 +1589,11 @@ def main(argv: list[str]) -> int:
         f"{torch.version.cuda}")
     secs = build.build_all()
     log(f"    nvcc build of {build.sources()}: {secs:.1f} s")
+    from gdr_tpu_torch import native
+
+    t = time.perf_counter()
+    log(f"    host C++ library {native.build().name}: "
+        f"{time.perf_counter() - t:.1f} s")
     for name, text in build.build_logs.items():
         for fn, props in spilling_functions(text):
             log(f"    {name}: {fn}: {props}")
@@ -1187,14 +1627,21 @@ def main(argv: list[str]) -> int:
             "bf16 store, four modes")
         modes = phase_modes(dev, smi, trie, profile="profile" in argv)
         log(f"[5] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        log("[6] index build and expansion on the card: tiny tower and "
+            "Lloyd vs the CPU, the CLI, the BERT-base tower, k-means at NQ "
+            "scale, serving the built index, 2,048 docs inserted")
+        index = phase_index(dev, smi, root, profile="profile" in argv)
+        log(f"[6] {time.perf_counter() - t:.1f} s")
     except Failed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
 
     print(json.dumps({"retrieve": full["layouts"],
-                      "peak_gib": full["peak_gib"], "modes": modes}),
+                      "peak_gib": full["peak_gib"], "modes": modes,
+                      "index": index}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(stats, full, index)}),
           flush=True)
-    print(json.dumps({"kernels": kernel_rows(stats, full)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

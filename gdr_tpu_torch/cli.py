@@ -1,13 +1,25 @@
-"""Command-line interface of the PyTorch port: ``retrieve`` (serving),
-``eval`` (a dev set's metrics) and ``calculate`` (metrics of a result TSV).
+"""Command-line interface of the PyTorch port: ``index`` (embed a corpus,
+k-means it, pack the trie), ``expand`` (insert new documents without
+retraining), ``tokenizer`` (train a subword tokenizer), ``retrieve``
+(serving), ``eval`` (a dev set's metrics) and ``calculate`` (metrics of a
+result TSV).
 
+    python -m gdr_tpu_torch.cli index --corpus docs.tsv --out index.npz \\
+        [--encoder-size tiny] [--encoder-ckpt enc.npz] [--device cuda]
+    python -m gdr_tpu_torch.cli expand --index index.npz \\
+        --corpus new_docs.tsv --out index_expanded.npz
+    python -m gdr_tpu_torch.cli tokenizer --corpus docs.tsv --out tok.json
     python -m gdr_tpu_torch.cli retrieve --index index.npz --workdir run \\
         --packed --query "who wrote hamlet" [--int8-store] [--device cuda]
     python -m gdr_tpu_torch.cli eval --index index.npz --dev dev.tsv \\
         --workdir run --packed [--int8-store] --result-tsv res1.tsv
     python -m gdr_tpu_torch.cli calculate --result res1.tsv [--ref-compat]
 
-Mirrors ``gdr_tpu/cli.py``.  ``retrieve``: free-text queries from
+Mirrors ``gdr_tpu/cli.py``.  ``index`` / ``expand``: a corpus TSV (title
+\\t text, or text) → the doc tower's embeddings → hierarchical k-means → the
+CID trie, saved as the ``.npz`` both packages read; ``expand`` assigns each
+new document to the cluster whose node embedding is nearest and leaves the
+trie's structure as it is.  ``retrieve``: free-text queries from
 ``--query`` (repeatable), ``--queries-file`` or stdin → beam decode → trie
 expansion → dense re-rank → the top ``--top-k`` documents per query, as
 TSV (query_idx, rank, doc_id, score, cid) or JSON lines.  ``eval``: a dev
@@ -19,7 +31,8 @@ Differences from the reference CLI:
 
 - ``--device`` (default ``cuda``) picks where everything runs; on ``cuda``
   the decoder sublayers and the re-rank scorers run as the port's CUDA
-  kernels, on ``cpu`` as their plain versions.  There is no ``--pallas`` or
+  kernels, on ``cpu`` as their plain versions; the doc tower and the
+  k-means run on the same device.  There is no ``--pallas`` or
   ``--fused-decode``: the device decides.  ``eval --mesh`` (other than
   ``none``) and ``--ensemble`` are later slices and are refused;
   ``retrieve`` has no ``--mesh``.  ``eval --gen-method sample|top_k``
@@ -30,6 +43,11 @@ Differences from the reference CLI:
   checkpoint (or its seeded init) by ``tools/export_gdr_tpu_params.py``.
   Without that file the model gets seeded random weights (``--seed``), as
   the reference CLI falls back to its init when no checkpoint exists.
+- The doc tower's weights come from ``--encoder-ckpt``, an ``.npz`` that
+  ``tools/export_gdr_tpu_params.py --doc-encoder`` writes from the
+  reference's flax checkpoint or its seeded init; without it the tower gets
+  seeded random weights (``--seed``).  ``index --bert-ckpt`` (a HuggingFace
+  BERT checkpoint) is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -91,6 +109,23 @@ def _check_query_length(device, max_input_length: int, mcfg) -> None:
             f"d_kv {mcfg.d_kv}; pass --device cpu for longer queries")
 
 
+def _read_corpus_tsv(path: str) -> tuple[list[str], list[str]]:
+    """TSV rows: title \\t text (or just text)."""
+    import csv
+    titles, texts = [], []
+    with open(path, newline="") as fh:
+        for row in csv.reader(fh, delimiter="\t"):
+            if not row:
+                continue
+            if len(row) >= 2:
+                titles.append(row[0])
+                texts.append(row[1])
+            else:
+                titles.append(f"doc-{len(titles)}")
+                texts.append(row[0])
+    return titles, texts
+
+
 def _read_query_tsv(path: str) -> tuple[list[str], list[list[int]]]:
     """TSV rows: query \\t docid[,docid...]."""
     import csv
@@ -122,6 +157,82 @@ def load_model(cfg, workdir: str, device, seed: int = 42):
         print(f"# no {path}: seeded random weights (seed {seed})",
               file=sys.stderr)
     return model.to(device).eval()
+
+
+def _doc_tower(args, device):
+    """(doc tokenizer, doc tower on ``device``) of ``--encoder-size``: the
+    tower's token table sized to the tokenizer (its ids must fit), weights
+    from ``--encoder-ckpt`` or a seeded init."""
+    import torch
+
+    from gdr_tpu_torch.convert import load_doc_encoder_npz
+    from gdr_tpu_torch.data.tokenize import load_tokenizer
+    from gdr_tpu_torch.models.dual_encoder import (DocEncoder,
+                                                   DocEncoderConfig,
+                                                   init_doc_encoder,
+                                                   tiny_doc_encoder_config)
+
+    cfg = (tiny_doc_encoder_config() if args.encoder_size == "tiny"
+           else DocEncoderConfig())
+    tok = load_tokenizer(args.doc_tokenizer, vocab_size=cfg.vocab_size)
+    if tok.vocab_size != cfg.vocab_size:
+        cfg = dataclasses.replace(cfg, vocab_size=tok.vocab_size)
+    enc = DocEncoder(cfg)
+    if args.encoder_ckpt:
+        enc.load_state_dict(load_doc_encoder_npz(args.encoder_ckpt))
+        print(f"# doc tower from {args.encoder_ckpt}", file=sys.stderr)
+    else:
+        init_doc_encoder(enc, torch.Generator().manual_seed(args.seed))
+        print(f"# no --encoder-ckpt: seeded random doc tower (seed "
+              f"{args.seed})", file=sys.stderr)
+    return tok, enc.to(device).eval()
+
+
+def cmd_index(args) -> None:
+    if args.bert_ckpt:
+        raise SystemExit("--bert-ckpt: the HuggingFace BERT loaders are not "
+                         "ported yet (ROADMAP.md queue 1, item 9)")
+    from gdr_tpu_torch.config import IndexConfig
+    from gdr_tpu_torch.index.builder import build_index
+    from gdr_tpu_torch.index.io import save_index
+
+    device = _device(args.device)
+    _, texts = _read_corpus_tsv(args.corpus)
+    tok, enc = _doc_tower(args, device)
+    ids, mask = tok.encode_batch(texts, args.encoder_max_len)
+    cfg = IndexConfig(kary=args.kary, leaf_cap=args.leaf_cap, seed=args.seed,
+                      embedding_dim=enc.cfg.d_model)
+    index = build_index(enc, ids, mask, cfg, batch_size=args.batch_size)
+    save_index(args.out, index)
+    print(f"index: {len(index.paths)} docs, {index.trie.num_clusters} "
+          f"clusters, {index.trie.num_nodes} nodes → {args.out}")
+
+
+def cmd_expand(args) -> None:
+    from gdr_tpu_torch.index.expand import expand_with_encoder
+    from gdr_tpu_torch.index.io import load_index, save_index
+
+    device = _device(args.device)
+    index = load_index(args.index)
+    _, texts = _read_corpus_tsv(args.corpus)
+    tok, enc = _doc_tower(args, device)
+    ids, mask = tok.encode_batch(texts, args.encoder_max_len)
+    bigger = expand_with_encoder(index, enc, ids, mask)
+    save_index(args.out, bigger)
+    print(f"expanded: {len(index.paths)} → {len(bigger.paths)} docs "
+          f"→ {args.out}")
+
+
+def cmd_tokenizer(args) -> None:
+    """Train a subword tokenizer over every text column of a corpus."""
+    from gdr_tpu_torch.data.subword import train_unigram, train_wordpiece
+
+    titles, texts = _read_corpus_tsv(args.corpus)
+    train = train_unigram if args.type == "unigram" else train_wordpiece
+    tok = train(titles + texts, vocab_size=args.vocab_size, path=args.out)
+    ids, _ = tok.encode_batch(texts[:2], 16)
+    print(f"tokenizer: {args.type} vocab={tok.vocab_size} → {args.out} "
+          f"(smoke: {ids[0][:8].tolist()})")
 
 
 def cmd_retrieve(args) -> None:
@@ -235,9 +346,56 @@ def _add_device_flag(p: argparse.ArgumentParser) -> None:
                         "PyTorch)")
 
 
+def _add_doc_tower_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--encoder-max-len", type=int, default=128)
+    p.add_argument("--doc-tokenizer", default=None)
+    p.add_argument("--encoder-size", default="full", choices=["full", "tiny"])
+    p.add_argument("--encoder-ckpt", default=None,
+                   help="doc tower .npz from tools/export_gdr_tpu_params.py "
+                        "--doc-encoder")
+    p.add_argument("--seed", type=int, default=7,
+                   help="k-means seed, and the seed of the random tower "
+                        "used without --encoder-ckpt")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gdr_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    pi = sub.add_parser("index", help="embed corpus + k-means + trie")
+    pi.add_argument("--corpus", required=True,
+                    help="corpus TSV: title \\t text (or text)")
+    pi.add_argument("--out", required=True)
+    pi.add_argument("--kary", type=int, default=30)
+    pi.add_argument("--leaf-cap", type=int, default=30)
+    _add_doc_tower_flags(pi)
+    pi.add_argument("--batch-size", type=int, default=256)
+    pi.add_argument("--bert-ckpt", default=None,
+                    help="HuggingFace BERT checkpoint (not ported yet; "
+                         "refused)")
+    _add_device_flag(pi)
+    pi.set_defaults(fn=cmd_index)
+
+    px = sub.add_parser("expand", help="insert new docs, no retraining")
+    px.add_argument("--index", required=True)
+    px.add_argument("--corpus", required=True,
+                    help="TSV of the new docs, embedded with the tower the "
+                         "index was built with")
+    px.add_argument("--out", required=True)
+    _add_doc_tower_flags(px)
+    _add_device_flag(px)
+    px.set_defaults(fn=cmd_expand)
+
+    pk = sub.add_parser("tokenizer",
+                        help="train a subword tokenizer over a corpus")
+    pk.add_argument("--corpus", required=True)
+    pk.add_argument("--out", required=True, help=".json output path")
+    pk.add_argument("--type", default="unigram",
+                    choices=["unigram", "wordpiece"],
+                    help="unigram = T5/sentencepiece-style (queries); "
+                         "wordpiece = BERT-style (documents)")
+    pk.add_argument("--vocab-size", type=int, default=32000)
+    pk.set_defaults(fn=cmd_tokenizer)
     pr = sub.add_parser("retrieve",
                         help="ad-hoc retrieval (serving): free-text "
                              "queries → ranked documents")

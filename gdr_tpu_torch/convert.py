@@ -14,6 +14,12 @@ U keeps its ``[d, V, d]`` layout and the slow PAWA head's U2 its
 ``[d, d·d]``.  Every flax leaf must map to a port
 parameter (else :func:`params_from_flax` raises), and the model's strict
 ``load_state_dict`` raises on a missing, extra or mis-shaped parameter.
+
+:func:`doc_encoder_params_from_flax` does the same for the document tower
+(``gdr_tpu/models/dual_encoder.py::DocEncoder`` → ``models/dual_encoder.py``),
+whose layout differs: attention projections are flax ``DenseGeneral``
+kernels ``[d, H, dh]`` (bias ``[H, dh]``) and ``[H, dh, d]`` for the output,
+every Dense has a bias, and LayerNorm has ``scale`` and ``bias``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,14 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return flat
 
 
+def _flat_params(tree: Mapping) -> dict[str, np.ndarray]:
+    """``/``-joined leaf paths, without a top ``params`` level."""
+    flat = _flatten(tree)
+    if all(k.startswith("params/") for k in flat):
+        flat = {k[len("params/"):]: v for k, v in flat.items()}
+    return flat
+
+
 def _module_path(parts: list[str]) -> str:
     out = []
     for p in parts:
@@ -47,9 +61,7 @@ def _module_path(parts: list[str]) -> str:
 def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     """Flax parameter tree (nested dicts of arrays, with or without the top
     ``params`` level) → the port's state_dict."""
-    flat = _flatten(tree)
-    if all(k.startswith("params/") for k in flat):
-        flat = {k[len("params/"):]: v for k, v in flat.items()}
+    flat = _flat_params(tree)
     sd: dict[str, torch.Tensor] = {}
     qkv: dict[str, dict[int, np.ndarray]] = {}
     for path, arr in flat.items():
@@ -84,9 +96,37 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
 
 
-def load_params_npz(path: str) -> dict[str, torch.Tensor]:
-    """The state_dict of an ``.npz`` whose keys are ``/``-joined flax paths
-    (as ``tools/export_gdr_tpu_params.py`` writes it)."""
+def doc_encoder_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``DocEncoder`` parameter tree → the port's ``DocEncoder``
+    state_dict."""
+    flat = _flat_params(tree)
+    sd: dict[str, np.ndarray] = {}
+    for path, arr in flat.items():
+        parts = path.split("/")
+        mod, leaf = _module_path(parts[:-1]), parts[-1]
+        owner = parts[-2] if len(parts) >= 2 else ""
+        if leaf == "embedding" and len(parts) == 2:
+            sd[mod + ".weight"] = arr
+        elif leaf == "kernel" and owner in ("query", "key", "value") \
+                and arr.ndim == 3:                       # [d, H, dh]
+            sd[mod + ".weight"] = arr.reshape(arr.shape[0], -1).T
+        elif leaf == "kernel" and owner == "out" and arr.ndim == 3:
+            sd[mod + ".weight"] = arr.reshape(-1, arr.shape[-1]).T
+        elif leaf == "kernel" and arr.ndim == 2:
+            sd[mod + ".weight"] = arr.T
+        elif leaf == "bias" and len(parts) >= 2:         # [H, dh] or [out]
+            sd[mod + ".bias"] = arr.reshape(-1)
+        elif leaf == "scale" and len(parts) >= 2:
+            sd[mod + ".weight"] = arr
+        else:
+            raise ValueError(f"flax leaf {path!r} has no doc-tower "
+                             f"counterpart")
+    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+def _npz_tree(path: str) -> dict:
+    """The nested parameter tree of an ``.npz`` whose keys are ``/``-joined
+    flax paths (as ``tools/export_gdr_tpu_params.py`` writes it)."""
     with np.load(path, allow_pickle=False) as z:
         tree: dict = {}
         for key in z.files:
@@ -95,4 +135,14 @@ def load_params_npz(path: str) -> dict[str, torch.Tensor]:
             for d in dirs:
                 node = node.setdefault(d, {})
             node[leaf] = z[key]
-    return params_from_flax(tree)
+    return tree
+
+
+def load_params_npz(path: str) -> dict[str, torch.Tensor]:
+    """The retriever's state_dict from an exported ``params.npz``."""
+    return params_from_flax(_npz_tree(path))
+
+
+def load_doc_encoder_npz(path: str) -> dict[str, torch.Tensor]:
+    """The doc tower's state_dict from an exported ``.npz``."""
+    return doc_encoder_params_from_flax(_npz_tree(path))

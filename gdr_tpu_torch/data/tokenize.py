@@ -2,8 +2,10 @@
 ``load_tokenizer`` from ``gdr_tpu/data/tokenize.py``).
 
 The hashing tokenizer keeps the pipeline hermetic; its ids are identical to
-the reference package's (same FNV-1a word hash).  The model only ever sees
-the [B, L] int32 arrays these produce.
+the reference package's (same FNV-1a word hash).  Batches are encoded by the
+port's host C++ library (``native.py``); ``HashTokenizer.encode`` is the
+pure-Python oracle it is held to.  The model only ever sees the [B, L]
+int32 arrays these produce.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import re
 from typing import Sequence
 
 import numpy as np
+
+from gdr_tpu_torch import native
 
 
 def fnv1a(data: bytes) -> int:
@@ -25,7 +29,10 @@ def fnv1a(data: bytes) -> int:
 
 class HashTokenizer:
     """Deterministic word-hash tokenizer: token = 2 + (fnv1a(word) % (V-2));
-    ids 0/1 stay reserved (pad/eos)."""
+    ids 0/1 stay reserved (pad/eos).  Words are ``\\w+`` runs and single
+    punctuation characters; the C++ batch encoder reads ASCII the same way
+    and counts every byte ≥ 0x80 as a word byte, as the reference
+    package's does."""
 
     def __init__(self, vocab_size: int = 32128, lower: bool = True):
         self.vocab_size = vocab_size
@@ -46,11 +53,8 @@ class HashTokenizer:
 
     def encode_batch(self, texts: Sequence[str], max_length: int
                      ) -> tuple[np.ndarray, np.ndarray]:
-        ids = np.zeros((len(texts), max_length), np.int32)
-        mask = np.zeros((len(texts), max_length), np.int32)
-        for i, t in enumerate(texts):
-            ids[i], mask[i] = self.encode(t, max_length)
-        return ids, mask
+        return native.hash_encode_batch(texts, max_length, self.vocab_size,
+                                        self.lower)
 
 
 class HFTokenizer:
@@ -71,14 +75,13 @@ class HFTokenizer:
 
 
 def load_tokenizer(name_or_path: str | None, vocab_size: int = 32128):
-    """A directory / HF name → HuggingFace tokenizer (local files only);
-    otherwise the deterministic hash tokenizer.  The in-repo subword
-    tokenizer (``.json``) is not ported yet and raises."""
+    """A ``.json`` file → the in-repo trained subword model
+    (``data/subword.py``); a directory / HF name → HuggingFace tokenizer
+    (local files only); otherwise the deterministic hash tokenizer."""
     if name_or_path:
         if name_or_path.endswith(".json") and os.path.isfile(name_or_path):
-            raise NotImplementedError(
-                "subword tokenizers (.json) are not ported yet "
-                "(ROADMAP.md queue 1, item 8)")
+            from gdr_tpu_torch.data.subword import SubwordTokenizer
+            return SubwordTokenizer(name_or_path)
         try:
             return HFTokenizer(name_or_path)
         except (ImportError, OSError, ValueError):   # no transformers/files

@@ -2,7 +2,11 @@
 against the JAX package's CLI: the same index file (written by the JAX
 package's ``save_index``), the same weights (the reference CLI's seeded init,
 exported by tools/export_gdr_tpu_params.py), the same ranked documents,
-metrics and result TSV."""
+metrics and result TSV.  ``index`` → ``expand`` → ``retrieve`` on a corpus
+TSV, with the tiny doc tower the tool exports from the reference's init:
+the same store as the reference CLI's ``index`` (within 1e-5), the trie
+``gdr_tpu`` builds from the port's store, and the expansion ``gdr_tpu``'s
+CLI makes of the port's index."""
 
 import contextlib
 import importlib.util
@@ -17,7 +21,9 @@ import numpy as np
 import pytest
 
 from gdr_tpu import cli as jax_cli
+from gdr_tpu.config import IndexConfig as JaxIndexConfig
 from gdr_tpu.index.builder import Index as JaxIndex
+from gdr_tpu.index.builder import build_index_from_embeddings
 from gdr_tpu.index.io import load_index as jax_load_index
 from gdr_tpu.index.io import save_index as jax_save_index
 from gdr_tpu.ops.trie import build_trie as jax_build_trie
@@ -74,13 +80,16 @@ def _results(text: str):
                           for h in r["results"]]) for r in rows]
 
 
-def _export(workdir, index_path) -> None:
+def _tool(argv) -> None:
     spec = importlib.util.spec_from_file_location(
         "export_gdr_tpu_params", ROOT / "tools" / "export_gdr_tpu_params.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    tool.main(["--workdir", str(workdir), "--index", index_path,
-               *MODEL_FLAGS])
+    tool.main(argv)
+
+
+def _export(workdir, index_path) -> None:
+    _tool(["--workdir", str(workdir), "--index", index_path, *MODEL_FLAGS])
     assert (workdir / "params.npz").exists()
 
 
@@ -213,3 +222,105 @@ def test_cli_refuses_cuda_without_a_card(index_path, tmp_path):
         timeout=300)
     assert out.returncode != 0
     assert "CUDA is not available" in out.stderr
+
+
+WORDS = ("alpha beta gamma delta epsilon zeta eta theta iota kappa lambda mu "
+         "nu xi omicron pi rho sigma tau upsilon phi chi psi omega").split()
+TOWER_FLAGS = ["--encoder-size", "tiny", "--encoder-max-len", "16"]
+
+
+def _write_corpus(path, n: int, seed: int, tag: str) -> None:
+    rng = np.random.default_rng(seed)
+    path.write_text("".join(
+        f"{tag} {i}\t{' '.join(rng.choice(WORDS, int(rng.integers(3, 14))))}\n"
+        for i in range(n)))
+
+
+@pytest.fixture(scope="module")
+def index_chain(tmp_path_factory):
+    """The port's ``index`` then ``expand`` over a corpus TSV, the
+    reference CLI's ``index`` of the same corpus and its ``expand`` of the
+    port's index, all with the tool's export of the tiny tower's init."""
+    tmp = tmp_path_factory.mktemp("torch_cli_index")
+    _write_corpus(tmp / "docs.tsv", 150, 0, "doc")
+    _write_corpus(tmp / "new.tsv", 20, 1, "new")
+    enc = str(tmp / "enc.npz")
+    _tool(["--doc-encoder", "tiny", "--out", enc])
+    shape = ["--kary", "4", "--leaf-cap", "8"]
+    out = _port_cli(["index", "--corpus", str(tmp / "docs.tsv"), "--out",
+                     str(tmp / "port.npz"), *shape, *TOWER_FLAGS,
+                     "--encoder-ckpt", enc, "--device", "cpu"])
+    assert "index: 150 docs" in out.stdout and enc in out.stderr
+    _port_cli(["expand", "--index", str(tmp / "port.npz"), "--corpus",
+               str(tmp / "new.tsv"), "--out", str(tmp / "port2.npz"),
+               *TOWER_FLAGS, "--encoder-ckpt", enc, "--device", "cpu"])
+    _jax_cli(["index", "--corpus", str(tmp / "docs.tsv"), "--out",
+              str(tmp / "ref.npz"), *shape, *TOWER_FLAGS])
+    _jax_cli(["expand", "--index", str(tmp / "port.npz"), "--corpus",
+              str(tmp / "new.tsv"), "--out", str(tmp / "ref2.npz"),
+              *TOWER_FLAGS])
+    return tmp
+
+
+def _same_tries(a, b) -> None:
+    for f in ("children", "eos_allowed", "depth", "doc_start", "doc_count",
+              "doc_indices", "cluster_node_ids", "cluster_docs",
+              "cluster_doc_mask", "leaf_count"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
+    np.testing.assert_allclose(a.node_embedding, b.node_embedding, rtol=0,
+                               atol=1e-6)
+
+
+def test_cli_index_matches_gdr_tpu_cli(index_chain):
+    port = load_index(str(index_chain / "port.npz"))
+    ref = jax_load_index(str(index_chain / "ref.npz"))
+    assert port.store.shape == ref.store.shape == (150, 32)
+    np.testing.assert_allclose(port.store, ref.store, rtol=0, atol=1e-5)
+    want = build_index_from_embeddings(port.store, JaxIndexConfig(
+        kary=4, leaf_cap=8, seed=7, embedding_dim=32))
+    _same_tries(port.trie, want.trie)
+    assert port.paths == want.paths and port.trie.num_clusters > 10
+
+
+def test_cli_expand_matches_gdr_tpu_cli_then_retrieves(index_chain):
+    base = load_index(str(index_chain / "port.npz"))
+    big = load_index(str(index_chain / "port2.npz"))
+    ref = jax_load_index(str(index_chain / "ref2.npz"))
+    assert len(big.paths) == len(big.store) == 170
+    np.testing.assert_array_equal(big.store[:150], base.store)
+    np.testing.assert_allclose(big.store, ref.store, rtol=0, atol=1e-5)
+    _same_tries(big.trie, ref.trie)
+    assert big.cid_of_doc == ref.cid_of_doc
+    for f in ("children", "eos_allowed", "depth"):
+        np.testing.assert_array_equal(getattr(big.trie, f),
+                                      getattr(base.trie, f))
+    # the expanded index serves: both CLIs rank the same documents
+    _retrieve_matches(str(index_chain / "port2.npz"),
+                      index_chain / "run", ["--packed"])
+
+
+def test_cli_index_refuses_bert_ckpt(tmp_path):
+    args = port_cli.build_parser().parse_args(
+        ["index", "--corpus", str(tmp_path / "none.tsv"), "--out",
+         str(tmp_path / "x.npz"), "--bert-ckpt", str(tmp_path)])
+    with pytest.raises(SystemExit, match="queue 1, item 9"):
+        args.fn(args)
+
+
+@pytest.mark.parametrize("cmd", ["index", "expand"])
+def test_cli_index_and_expand_refuse_cuda_without_a_card(cmd, index_chain):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = [cmd, "--corpus", str(index_chain / "new.tsv"), "--out",
+            str(index_chain / "never.npz"), *TOWER_FLAGS]
+    if cmd == "expand":
+        argv += ["--index", str(index_chain / "port.npz")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-m", "gdr_tpu_torch.cli", *argv],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert not (index_chain / "never.npz").exists()

@@ -23,6 +23,11 @@ fewer persistent blocks than work units.  Tolerances: f32
 atol 1e-4 + rtol 1e-5 (f32 sums in another order); bf16 atol 2e-2 + rtol
 1e-2 (one bf16 ulp of an output whose f32 value sits near a rounding
 edge).  The scorers' outputs are f32 sums, held at the f32 tolerance.
+
+The index path has no kernel of its own; its plain PyTorch (Lloyd and
+minibatch k-means from injected draws, the doc tower) is held to the CPU's
+run of the same inputs, and the hierarchical recursion on the card to its
+invariants.
 """
 
 import pytest
@@ -635,3 +640,71 @@ def test_retrieve_options_on_the_card_equal_cpu(dev, option, packed):
     assert torch.equal(rr_g.doc_ids.cpu()[dv], rr_c.doc_ids[dv])
     torch.testing.assert_close(rr_g.scores.cpu()[dv], rr_c.scores[dv],
                                atol=1e-4, rtol=0)
+
+
+# --- the index path on the card: plain PyTorch, held to the CPU's run
+
+def _unit_rows(n: int, d: int, seed: int) -> torch.Tensor:
+    x = torch.randn(n, d, generator=torch.Generator().manual_seed(seed))
+    return x / x.norm(dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("n,d,k", [(2000, 32, 30), (5000, 768, 30)])
+def test_kmeans_lloyd_on_the_card_matches_cpu(dev, n, d, k):
+    from gdr_tpu_torch.ops.kmeans import kmeans_fit
+    x = _unit_rows(n, d, n)
+    init = x[torch.randperm(n, generator=torch.Generator().manual_seed(1))[:k]]
+    c_cpu, a_cpu = kmeans_fit(x, k, 25, init=init)
+    c_gpu, a_gpu = kmeans_fit(x.to(dev), k, 25, init=init.to(dev))
+    assert torch.equal(a_gpu.cpu(), a_cpu)
+    torch.testing.assert_close(c_gpu.cpu(), c_cpu, atol=1e-4, rtol=0)
+
+
+def test_kmeans_minibatch_on_the_card_matches_cpu(dev):
+    from gdr_tpu_torch.ops.kmeans import kmeans_fit_minibatch
+    x = _unit_rows(3000, 64, 2)
+    g = torch.Generator().manual_seed(3)
+    seed_idx = torch.randperm(3000, generator=g)[:30]
+    batch_idx = torch.randint(0, 3000, (25, 1024), generator=g)
+    c_cpu, a_cpu = kmeans_fit_minibatch(x, 30, 25, 1024, seed_idx=seed_idx,
+                                        batch_idx=batch_idx)
+    c_gpu, a_gpu = kmeans_fit_minibatch(x.to(dev), 30, 25, 1024,
+                                        seed_idx=seed_idx, batch_idx=batch_idx)
+    assert torch.equal(a_gpu.cpu(), a_cpu)
+    torch.testing.assert_close(c_gpu.cpu(), c_cpu, atol=1e-4, rtol=0)
+
+
+def test_hierarchical_kmeans_on_the_card_keeps_its_invariants(dev):
+    from gdr_tpu_torch.ops.kmeans import (hierarchical_kmeans,
+                                          paths_to_cid_mapping)
+    x = _unit_rows(25_000, 64, 4).to(dev)
+    paths = hierarchical_kmeans(x, 30, 30, iters=10, minibatch_threshold=1000)
+    assert paths == hierarchical_kmeans(x, 30, 30, iters=10,
+                                        minibatch_threshold=1000)
+    mapping = paths_to_cid_mapping(paths)
+    assert sum(len(v) for v in mapping.values()) == 25_000
+    assert all(p and max(p) < 30 for p in paths)
+    assert all(len(v) <= 30 or k.count("-") == 7 for k, v in mapping.items())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_doc_tower_on_the_card_matches_cpu(dev, dtype):
+    import numpy as np
+
+    from gdr_tpu_torch.index.builder import embed_corpus
+    from gdr_tpu_torch.models.dual_encoder import (DocEncoder,
+                                                   init_doc_encoder,
+                                                   tiny_doc_encoder_config)
+    cpu = init_doc_encoder(DocEncoder(tiny_doc_encoder_config()),
+                           torch.Generator().manual_seed(0)).to(dtype).eval()
+    gpu = DocEncoder(tiny_doc_encoder_config()).to(dtype)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(dev).eval()
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(2, 512, (300, 24), generator=g).int().numpy()
+    mask = (torch.arange(24)[None] < torch.randint(3, 25, (300, 1),
+                                                   generator=g)).int().numpy()
+    got = embed_corpus(gpu, ids, mask, batch_size=64)
+    want = embed_corpus(cpu, ids, mask, batch_size=64)
+    atol, rtol = TOL[dtype]
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)

@@ -1,8 +1,12 @@
 """Export a gdr_tpu generator's weights to the ``params.npz`` that the
-PyTorch port reads (``gdr_tpu_torch/convert.py::load_params_npz``).
+PyTorch port reads (``gdr_tpu_torch/convert.py::load_params_npz``), or with
+``--doc-encoder`` its document tower's to the ``.npz`` that the port's
+``index`` / ``expand --encoder-ckpt`` read (``load_doc_encoder_npz``).
 
     python tools/export_gdr_tpu_params.py --workdir runs/nq --index index.npz \\
         [--model-size base --kary 30 ...] [--out runs/nq/params.npz]
+    python tools/export_gdr_tpu_params.py --doc-encoder tiny --out enc.npz \\
+        [--encoder-ckpt enc.msgpack] [--doc-tokenizer tok.json] [--seed 7]
 
 The weights are ``CheckpointManager(<workdir>/ckpt).restore_raw()
 ["params"]["generator"]`` when the workdir holds a checkpoint, else
@@ -10,6 +14,12 @@ The weights are ``CheckpointManager(<workdir>/ckpt).restore_raw()
 reference ``retrieve`` CLI takes, so both CLIs then serve identical weights.
 The model flags are those of ``python -m gdr_tpu.cli retrieve``; ``--index``
 sets the dense-stage width from the store, as that CLI does.
+
+The doc tower (``DocEncoder``, ``full`` or ``tiny``) is built as
+``python -m gdr_tpu.cli index`` builds it: its token table sized to
+``--doc-tokenizer``, its weights the flax msgpack ``--encoder-ckpt`` when
+given, else its init at ``--seed`` (default 7, that CLI's).  Both CLIs then
+embed with the same weights.
 
 Each leaf is written under its ``/``-joined flax path
 (``params/shared/embedding``, ``params/decoder/block_0/self_attn/q/kernel``,
@@ -44,20 +54,63 @@ def export(params, out: str) -> int:
     return len(flat)
 
 
+def export_doc_encoder(args) -> None:
+    import jax
+
+    from gdr_tpu.cli import _load_msgpack
+    from gdr_tpu.data.tokenize import load_tokenizer
+    from gdr_tpu.models.dual_encoder import DocEncoder, tiny_doc_encoder
+
+    enc = tiny_doc_encoder() if args.doc_encoder == "tiny" else DocEncoder()
+    tok = load_tokenizer(args.doc_tokenizer, vocab_size=enc.vocab_size)
+    if tok.vocab_size != enc.vocab_size:
+        enc = dataclasses.replace(enc, vocab_size=tok.vocab_size)
+    seed = 7 if args.seed is None else args.seed
+    ids = np.zeros((2, 8), np.int32)
+    params = enc.init(jax.random.PRNGKey(seed), ids, np.ones_like(ids))
+    if args.encoder_ckpt:
+        params = _load_msgpack(args.encoder_ckpt, params)
+        print(f"# doc tower from {args.encoder_ckpt}", file=sys.stderr)
+    else:
+        print(f"# no --encoder-ckpt: DocEncoder init (seed {seed})",
+              file=sys.stderr)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    n = export(params, args.out)
+    print(f"# wrote {n} arrays to {args.out}", file=sys.stderr)
+
+
 def main(argv=None) -> None:
     from gdr_tpu.cli import _add_common_model_flags, _model_config
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     _add_common_model_flags(p)
-    p.add_argument("--workdir", required=True)
+    p.add_argument("--workdir", default=None,
+                   help="run dir (generator export; required without "
+                        "--doc-encoder)")
+    p.add_argument("--doc-encoder", default=None, choices=["full", "tiny"],
+                   help="export this DocEncoder instead of the generator")
+    p.add_argument("--encoder-ckpt", default=None,
+                   help="with --doc-encoder: the tower's flax msgpack")
+    p.add_argument("--doc-tokenizer", default=None,
+                   help="with --doc-encoder: sizes the tower's vocab")
     p.add_argument("--index", default=None,
                    help="index .npz: its store width sets encoder_d_model")
     p.add_argument("--tokenizer", default=None)
     p.add_argument("--max-input-length", type=int, default=40)
-    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--seed", type=int, default=None,
+                   help="init seed without a checkpoint (default 42 for the "
+                        "generator, 7 for --doc-encoder)")
     p.add_argument("--out", default=None,
-                   help="default: <workdir>/params.npz")
+                   help="default: <workdir>/params.npz (required with "
+                        "--doc-encoder)")
     args = p.parse_args(argv)
+    if args.doc_encoder:
+        if not args.out:
+            p.error("--doc-encoder needs --out")
+        export_doc_encoder(args)
+        return
+    if not args.workdir:
+        p.error("--workdir is required (or --doc-encoder with --out)")
 
     import jax
 
@@ -83,9 +136,10 @@ def main(argv=None) -> None:
             print(f"# checkpoint step {step}", file=sys.stderr)
     if params is None:
         model = GenerativeRetriever(mcfg)
-        params = init_params(model, jax.random.PRNGKey(args.seed),
+        seed = 42 if args.seed is None else args.seed
+        params = init_params(model, jax.random.PRNGKey(seed),
                              input_len=args.max_input_length)
-        print(f"# no checkpoint: init_params (seed {args.seed})",
+        print(f"# no checkpoint: init_params (seed {seed})",
               file=sys.stderr)
     out = args.out or os.path.join(args.workdir, "params.npz")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
