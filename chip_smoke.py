@@ -5,8 +5,9 @@ the port builds, is right and serves retrieval on the card.
     python3 chip_smoke.py [profile]   # from the repository root, one CUDA device
 
 Every phase always runs; ``profile`` adds a torch.profiler table of one
-full-width retrieve in phase 4, of each mode in phase 5, and in phase 6 of
-one doc-tower batch per dtype and one k-means recursion.  Any other
+full-width retrieve in phase 4, of each mode in phase 5, in phase 6 of
+one doc-tower batch per dtype and one k-means recursion, and in phase 7 of
+one full-width train step.  Any other
 argument is refused.
 
 Phases (each prints its elapsed seconds; any failure exits non-zero before
@@ -83,21 +84,48 @@ the last line):
    scorer on each new doc's block (its own row the query) giving it the
    block's top score and matching its plain version, and a retrieve over
    the grown store;
-7. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
-   layout's main path (and over phase 6's built index), max |Δ|, kernel /
-   plain / library ms and its bound (the decoder rows also by row count,
-   per retrieve and per GEMM shape).
+7. training — (a) a small f32 model with every loss on (denoising, both
+   distillations, hard negatives) takes 3 stage-1 and 2 stage-2 steps (a
+   tiny live doc tower) on the CPU and on the card from the same weights
+   and batches, TF32 off, dropout 0: losses and grad norm within 1e-4
+   relative at each step, f32 masters within 1e-5 after them (the doc
+   tower's attention key biases, whose gradient is zero and so rounding
+   noise, within Adam's 2 × Σ lr); (b) t5-base
+   (376.1M parameters, bf16 over f32 masters) at TrainConfig's defaults:
+   batch 64 (128 rows after R-Drop) × 40 tokens, 11 candidates from phase
+   4's store, labels from the bench trie, dropout 0.1, input dropout 0.5,
+   R-Drop 0.1 Contrast: 3 warm and 20 timed steps (step ms, examples/s,
+   peak GiB, the bound from the shapes), then 30 steps on one batch, whose
+   loss must fall; (c) stage 2 with the BERT-base tower at batch 32 (384
+   docs × 128 tokens per step): 3 warm and 5 timed steps, peak GiB; (d)
+   ``TrainLoop`` at full width for one epoch of 512 queries (8 steps) and
+   its eval of 32 queries over the packed f32 store (the launches of one
+   retrieve: 24 per decoder kernel, one packed scorer), its two checkpoint
+   saves timed and sized; at small size on the card two epochs in one run
+   equal one epoch and a resumed one bit for bit (dropout on), and a
+   mid-epoch stop resumes by running that epoch again; the CLI's ``train``
+   → ``eval`` as subprocesses on the card over phase 6's 2,000-doc index,
+   ``eval`` reading the trained ``params.npz``.  ``profile`` adds the
+   device busy share and kernel families of one full-width step;
+8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
+   layout's main path (and over phase 6's built index, and in phase 7's
+   TrainLoop eval), max |Δ|, kernel / plain / library ms and its bound
+   (the decoder rows also by row count, per retrieve and per GEMM shape).
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
-torch, numpy and gdr_tpu_torch only (its phase 6 also runs the port's CLI
-in subprocesses).
+torch, numpy and gdr_tpu_torch only (its phases 6 and 7 also run the
+port's CLI in subprocesses).  Files go to one temporary directory, removed
+at the end.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -715,12 +743,10 @@ def phase_small(dev) -> None:
 
 # ------------------------------------------------------------ phase 4
 
-def build_nq_scale_trie(n_docs: int, kary: int, leaf_cap: int,
-                        max_docs_per_cluster: int):
-    """The bench's systematic 3-level trie: n_docs in clusters of at most
+def bench_cid_map(n_docs: int, kary: int, leaf_cap: int
+                  ) -> dict[str, list[int]]:
+    """The bench's systematic 3-level CIDs: n_docs in clusters of at most
     leaf_cap, spread evenly over kary × kary level-2 nodes."""
-    from gdr_tpu_torch.ops.trie import build_trie
-
     cid_to_docs, doc = {}, 0
     level3 = -(-n_docs // (kary * kary * leaf_cap))
     for i in range(kary):
@@ -731,7 +757,15 @@ def build_nq_scale_trie(n_docs: int, kary: int, leaf_cap: int,
                 take = min(leaf_cap, n_docs - doc)
                 cid_to_docs[f"{i}-{j}-{k}"] = list(range(doc, doc + take))
                 doc += take
-    return build_trie(cid_to_docs, kary,
+    return cid_to_docs
+
+
+def build_nq_scale_trie(n_docs: int, kary: int, leaf_cap: int,
+                        max_docs_per_cluster: int):
+    """The bench's trie over :func:`bench_cid_map`."""
+    from gdr_tpu_torch.ops.trie import build_trie
+
+    return build_trie(bench_cid_map(n_docs, kary, leaf_cap), kary,
                       max_docs_per_cluster=max_docs_per_cluster)
 
 
@@ -1063,9 +1097,9 @@ def _write_corpus(path: Path, n: int, rng) -> None:
         for i in range(n)))
 
 
-def _port_cli(argv: list[str], root: Path) -> str:
+def _port_cli(argv: list[str], root: Path) -> subprocess.CompletedProcess:
     """``python -m gdr_tpu_torch.cli`` in a subprocess; fails on a non-zero
-    exit.  Returns its standard output."""
+    exit.  Returns the finished process (its standard output and error)."""
     import os
     env = dict(os.environ, PYTHONPATH=str(root))
     out = subprocess.run([sys.executable, "-m", "gdr_tpu_torch.cli", *argv],
@@ -1074,14 +1108,13 @@ def _port_cli(argv: list[str], root: Path) -> str:
     if out.returncode != 0:
         raise Failed(f"cli {argv[0]} exited {out.returncode}:\n"
                      f"{out.stderr[-3000:]}")
-    return out.stdout
+    return out
 
 
-def index_small(dev, root: Path) -> dict:
+def index_small(dev, root: Path, work: Path) -> dict:
     """(a): the tiny tower and Lloyd on the CPU and the card, then the CLI's
-    index → expand → retrieve on the card over a 2,000-doc TSV."""
-    import tempfile
-
+    index → expand → retrieve on the card over a 2,000-doc TSV; the TSV and
+    the index stay in ``work`` (phase 7 trains over them)."""
     import numpy as np
     import torch
 
@@ -1123,27 +1156,26 @@ def index_small(dev, root: Path) -> dict:
         f"CPU init: assignments equal, centroids max |d| {cent_err:.3g} "
         f"(tol 1e-4)")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        _write_corpus(tmp / "docs.tsv", SMALL_DOCS, rng)
-        _write_corpus(tmp / "new.tsv", SMALL_NEW, rng)
-        tower = ["--encoder-size", "tiny", "--encoder-max-len", "32",
-                 "--device", "cuda"]
-        t = time.perf_counter()
-        _port_cli(["index", "--corpus", str(tmp / "docs.tsv"), "--out",
-                   str(tmp / "index.npz"), *tower], root)
-        _port_cli(["expand", "--index", str(tmp / "index.npz"), "--corpus",
-                   str(tmp / "new.tsv"), "--out", str(tmp / "index2.npz"),
-                   *tower], root)
-        out = _port_cli(["retrieve", "--index", str(tmp / "index2.npz"),
-                         "--workdir", str(tmp / "run"), "--model-size",
-                         "tiny", "--beam", "20", "--top-k", "5", "--json",
-                         "--packed", "--device", "cuda", "--query",
-                         "alpha river music", "--query", "science novel"],
-                        root)
-        cli_s = time.perf_counter() - t
-        small, big = (load_index(str(tmp / f)) for f in ("index.npz",
-                                                         "index2.npz"))
+    tmp = work
+    _write_corpus(tmp / "docs.tsv", SMALL_DOCS, rng)
+    _write_corpus(tmp / "new.tsv", SMALL_NEW, rng)
+    tower = ["--encoder-size", "tiny", "--encoder-max-len", "32",
+             "--device", "cuda"]
+    t = time.perf_counter()
+    _port_cli(["index", "--corpus", str(tmp / "docs.tsv"), "--out",
+               str(tmp / "index.npz"), *tower], root)
+    _port_cli(["expand", "--index", str(tmp / "index.npz"), "--corpus",
+               str(tmp / "new.tsv"), "--out", str(tmp / "index2.npz"),
+               *tower], root)
+    out = _port_cli(["retrieve", "--index", str(tmp / "index2.npz"),
+                     "--workdir", str(tmp / "run"), "--model-size",
+                     "tiny", "--beam", "20", "--top-k", "5", "--json",
+                     "--packed", "--device", "cuda", "--query",
+                     "alpha river music", "--query", "science novel"],
+                    root).stdout
+    cli_s = time.perf_counter() - t
+    small, big = (load_index(str(tmp / f)) for f in ("index.npz",
+                                                     "index2.npz"))
     hits = [h["doc_id"] for ln in out.splitlines() if ln.startswith("{")
             for h in json.loads(ln)["results"]]
     n_big = SMALL_DOCS + SMALL_NEW
@@ -1441,8 +1473,9 @@ def index_serve_and_expand(dev, card: str, index, store) -> dict:
                 packed_scores_max_abs_err=err)
 
 
-def phase_index(dev, card: str, root: Path, profile: bool = False) -> dict:
-    out = {"small": index_small(dev, root),
+def phase_index(dev, card: str, root: Path, work: Path,
+                profile: bool = False) -> dict:
+    out = {"small": index_small(dev, root, work),
            "tower": index_tower(dev, card, profile)}
     index, store, out["kmeans"] = index_kmeans(dev, card, profile)
     out.update(index_serve_and_expand(dev, card, index, store))
@@ -1484,6 +1517,587 @@ def _profile(fn) -> None:
         sorted(families.items(), key=lambda kv: -kv[1][0])))
     log(events.table(sort_by="self_device_time_total", row_limit=25,
                      max_name_column_width=60))
+
+
+# ------------------------------------------------------------ phase 7
+
+# phase 7's full-width step: TrainConfig's defaults (batch 64, so 128 rows
+# after R-Drop; 11 candidates), 40 query tokens, the bench trie's labels
+TRAIN_WARM, TRAIN_TIMED, TRAIN_FALL = 3, 20, 30
+STAGE2_BATCH, STAGE2_TIMED, DOC_LEN = 32, 5, 128
+LOOP_QUERIES, LOOP_DEV = 512, 32
+SMALL_TOL = 1e-4             # losses and grad norm, card vs CPU (relative)
+SMALL_PARAM_TOL = 1e-5       # f32 masters after the five steps (absolute)
+# the doc tower's attention key biases have a zero gradient (a bias on the
+# keys shifts all of a query's scores alike, which softmax ignores): their
+# computed gradient is rounding noise, which Adam scales to steps of up to
+# ±lr, so the masters comparison leaves them out.  In its place, on each
+# device, their gradient at every stage-2 step stays at rounding level: at
+# most KEY_BIAS_GRAD_TOL × the largest gradient of the same block's key
+# weight (the CPU gives about 1.5e-7)
+NOISE_ONLY = ".attn.key.bias"
+KEY_BIAS_GRAD_TOL = 1e-5
+
+
+def _paths_of(cid_to_docs: dict) -> list[list[int]]:
+    n = sum(len(v) for v in cid_to_docs.values())
+    paths = [None] * n
+    for cid, docs in cid_to_docs.items():
+        for d in docs:
+            paths[d] = [int(c) for c in cid.split("-")]
+    return paths
+
+
+def _train_set(rng, paths, n: int, seq_len: int, vocab: int, mcfg):
+    """n queries of random tokens (an EOS after the last real token, the
+    tail of some rows padded), each with a random positive doc and its CID
+    label."""
+    import numpy as np
+
+    from gdr_tpu_torch.data.dataset import TrainSet
+    from gdr_tpu_torch.ops.codec import digits_to_label
+
+    ids = rng.integers(2, vocab, size=(n, seq_len)).astype(np.int32)
+    lens = rng.integers(seq_len // 2, seq_len + 1, n)
+    mask = (np.arange(seq_len)[None] < lens[:, None]).astype(np.int32)
+    ids = ids * mask
+    ids[np.arange(n), lens - 1] = 1
+    pos = rng.integers(0, len(paths), n).astype(np.int32)
+    lab = np.stack([digits_to_label(paths[d], mcfg.kary,
+                                    mcfg.max_output_length)[0] for d in pos])
+    return TrainSet(input_ids=ids, attn_mask=mask, labels=lab,
+                    label_mask=(lab > 0).astype(np.int32), pos_idx=pos,
+                    source=["gtq"] * n)
+
+
+def _small_train_world(seed: int, dropout: float):
+    """A small f32 config with every loss of the objective on (denoising,
+    embedding and weight distillation, hard negatives, a tiny live doc
+    tower from epoch 1), its index (24 clusters of 3 docs, node
+    embeddings) and data."""
+    import numpy as np
+
+    from gdr_tpu_torch.config import (DataConfig, EvalConfig, GDRConfig,
+                                      ModelConfig, TrainConfig)
+    from gdr_tpu_torch.eval.evaluator import EvalData
+    from gdr_tpu_torch.index.io import Index
+    from gdr_tpu_torch.ops.trie import build_trie
+
+    mcfg = ModelConfig(kary=4, max_output_length=5, d_model=64, d_kv=16,
+                       d_ff=128, num_layers=2, num_decoder_layers=2,
+                       num_heads=4, vocab_size=512, encoder_d_model=32,
+                       adaptor_layer_num=1, adaptor_num_heads=2,
+                       dropout_rate=dropout, input_dropout=5 * dropout,
+                       denoising=True, embedding_distillation=0.5,
+                       weight_distillation=0.5)
+    cfg = GDRConfig(
+        model=mcfg,
+        data=DataConfig(max_intraclass_num=4, hard_negative=True,
+                        sample_neg_num=2),
+        train=TrainConfig(train_batch_size=4, stage2_train_batch_size=4,
+                          eval_batch_size=6, stage2_eval_batch_size=6,
+                          num_train_epochs=2, train_encoder_epoch=0,
+                          bf16=False, log_every_steps=1000),
+        eval=EvalConfig(num_beams=6, num_return_sequences=6,
+                        max_output_length=5, score_rates=(0.0, 1.0)))
+    cid_to_docs, doc = {}, 0
+    for a in range(4):
+        for b in range(3):
+            for c in range(2):
+                cid_to_docs[f"{a}-{b}-{c}"] = list(range(doc, doc + 3))
+                doc += 3
+    rng = np.random.default_rng(seed)
+    store = rng.normal(size=(doc, 32)).astype(np.float32)
+    store /= np.linalg.norm(store, axis=1, keepdims=True)
+    trie = build_trie(cid_to_docs, 4, max_docs_per_cluster=8,
+                      doc_embeddings=store)
+    paths = _paths_of(cid_to_docs)
+    index = Index(store=store, trie=trie, paths=paths,
+                  cid_of_doc=["-".join(map(str, p)) for p in paths])
+    ts = _train_set(rng, paths, 24, 10, 512, mcfg)
+    gt = rng.integers(0, doc, 6)
+    dev_data = EvalData(input_ids=ts.input_ids[:6], attn_mask=ts.attn_mask[:6],
+                        gt_docs=[[str(d)] for d in gt],
+                        gt_cids=[[index.cid_of_doc[d]] for d in gt])
+    doc_tokens = rng.integers(1, 512, size=(doc, 16)).astype(np.int32)
+    doc_mask = np.ones_like(doc_tokens)
+    doc_mask[::3, 12:] = 0
+    return cfg, index, ts, dev_data, doc_tokens, doc_mask
+
+
+def _small_train_models(cfg, dev):
+    """The same seeded small retriever and tiny doc tower (f32), on the CPU
+    and on the card."""
+    import torch
+
+    from gdr_tpu_torch.models.dual_encoder import (DocEncoder,
+                                                   init_doc_encoder,
+                                                   tiny_doc_encoder_config)
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+
+    out = []
+    for device in ("cpu", dev):
+        m = GenerativeRetriever(cfg.model)
+        t = DocEncoder(tiny_doc_encoder_config(cfg.model.encoder_d_model))
+        init_weights(m, torch.Generator().manual_seed(0))
+        init_doc_encoder(t, torch.Generator().manual_seed(1))
+        out.append((m.to(device), t.to(device)))
+    return out
+
+
+def train_small(dev) -> dict:
+    """(a): three stage-1 and two stage-2 steps of the small f32 model on
+    the CPU and on the card from the same weights and batches (TF32 off,
+    dropout 0, the denoising draws made once on the CPU and given to
+    both)."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.data.dataset import (BatchIterator,
+                                            cluster_docs_lookup,
+                                            doc_label_arrays)
+    from gdr_tpu_torch.ops.beam import gumbel_noise
+    from gdr_tpu_torch.ops.trie import prefix_node_embeddings
+    from gdr_tpu_torch.train.trainer import (_device_batch, compute_grads,
+                                             init_train_state, make_loss_fn,
+                                             make_train_step)
+    from gdr_tpu_torch.utils.rng import generator
+
+    cfg, index, ts, _, doc_tokens, doc_mask = _small_train_world(0, 0.0)
+    mcfg = cfg.model
+    dl, dm = doc_label_arrays(index.paths, mcfg)
+    it = BatchIterator(ts, cluster_docs_lookup(index.cid_of_doc), 4,
+                       cfg.data.max_intraclass_num, seed=0, sample_neg_num=2,
+                       doc_labels=dl, doc_label_mask=dm)
+    batches = list(it)[:5]
+    g = torch.Generator().manual_seed(2)
+    for i, b in enumerate(batches):
+        pe, pm = prefix_node_embeddings(index.trie, b["labels"],
+                                        b["label_mask"], mcfg.kary)
+        b.update(prefix_emb=pe, prefix_emb_mask=pm)
+        if i >= 3:                                  # stage 2: live tower
+            b.update(pos_tokens=doc_tokens[b["pos_idx"]],
+                     pos_tok_mask=doc_mask[b["pos_idx"]],
+                     cand_tokens=doc_tokens[b["cand_idx"]],
+                     cand_tok_mask=doc_mask[b["cand_idx"]])
+    noises = [dict(denoise_keep=torch.rand(b["input_ids"].shape, generator=g)
+                   < 0.9,
+                   denoise_gumbel=gumbel_noise(
+                       (*b["input_ids"].shape, mcfg.vocab_size), g))
+              for b in batches]
+    runs = []
+    for device, (model, tower) in zip(("cpu", dev),
+                                      _small_train_models(cfg, dev)):
+        state, opt = init_train_state(cfg, model, tower, total_steps=100)
+        steps = {s: make_train_step(model, tower, opt, cfg, stage=s)
+                 for s in (1, 2)}
+        loss2 = make_loss_fn(model, tower, cfg, stage=2)
+        store = torch.as_tensor(index.store, device=device)
+        mets, kb_ratio = [], 0.0
+        for i, (b, nz) in enumerate(zip(batches, noises)):
+            if i >= 3:
+                # the step's own gradients, taken apart from it
+                _, g = compute_grads(model, tower, loss2,
+                                     _device_batch(b, device), store,
+                                     generator(0, state.step, device), nz)
+                for n, v in g.items():
+                    if n.endswith(NOISE_ONLY):
+                        w = g[n[:-len("bias")] + "weight"]
+                        kb_ratio = max(kb_ratio, (v.abs().max()
+                                                  / w.abs().max()).item())
+            state, m = steps[1 if i < 3 else 2](state, b, store, 0, nz)
+            mets.append({k: float(v) for k, v in m.items()})
+        runs.append((state, mets, kb_ratio))
+    (s_c, m_c, kb_c), (s_g, m_g, kb_g) = runs
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(m_c, m_g)):
+        if set(a) != set(b):
+            raise Failed(f"train small step {i}: metrics {sorted(a)} vs "
+                         f"{sorted(b)}")
+        for k in a:
+            rel = abs(a[k] - b[k]) / max(1.0, abs(a[k]))
+            worst = max(worst, rel)
+            if not rel <= SMALL_TOL:
+                raise Failed(f"train small step {i}: {k} cpu {a[k]:.7g} vs "
+                             f"card {b[k]:.7g} (tol {SMALL_TOL} relative)")
+    diff = {n: (s_c.params[t][n] - s_g.params[t][n].cpu()).abs().max().item()
+            for t in s_c.params for n in s_c.params[t]}
+    p_err = max(v for n, v in diff.items() if not n.endswith(NOISE_ONLY))
+    noise_err = max(v for n, v in diff.items() if n.endswith(NOISE_ONLY))
+    if not (p_err <= SMALL_PARAM_TOL and kb_c <= KEY_BIAS_GRAD_TOL
+            and kb_g <= KEY_BIAS_GRAD_TOL):
+        raise Failed(f"train small: f32 masters differ by {p_err:.3g} after "
+                     f"5 steps (tol {SMALL_PARAM_TOL}); the tower's key-bias "
+                     f"gradients reach {kb_c:.3g} (cpu) / {kb_g:.3g} (card) "
+                     f"of the key weights' (tol {KEY_BIAS_GRAD_TOL})")
+    log(f"  (a) small f32 model, 3 stage-1 + 2 stage-2 steps (denoising, "
+        f"both distillations, 2 hard negatives, tiny live tower): losses and "
+        f"grad norm card vs CPU within {worst:.3g} relative (tol "
+        f"{SMALL_TOL}); masters max |d| {p_err:.3g} (tol {SMALL_PARAM_TOL}) "
+        f"without the tower's zero-gradient key biases, whose gradients are "
+        f"{kb_c:.3g} (cpu) / {kb_g:.3g} (card) of the key weights' (tol "
+        f"{KEY_BIAS_GRAD_TOL}; masters |d| {noise_err:.3g}, not gated); "
+        f"losses " + ", ".join(f"{m['loss']:.4f}" for m in m_c))
+    return dict(metric_rel_err=worst, param_max_abs_err=p_err,
+                key_bias_grad_ratio=[kb_c, kb_g],
+                key_bias_max_abs_err=noise_err,
+                losses=[m["loss"] for m in m_c])
+
+
+def train_step_cost(cfg, rows: int, seq: int, n_params: int
+                    ) -> tuple[float, float]:
+    """(FLOPs, bytes) of one stage-1 step at full width: 3 × the forward's
+    matmul FLOPs (encoder over rows × seq tokens, decoder and PAWA layers
+    over rows × L, U's candidate blocks) and AdamW's bytes (f32 parameter,
+    gradient and two moments read, parameter and moments written)."""
+    m = cfg.model
+    d, dff, L = m.d_model, m.d_ff, m.max_output_length
+    inner = m.num_heads * m.d_kv
+    te, td = rows * seq, rows * L
+    attn = lambda q, k: 2 * 2 * rows * m.num_heads * q * k * m.d_kv
+    enc = m.num_layers * (2 * te * d * 3 * inner + 2 * te * inner * d
+                          + attn(seq, seq) + 4 * te * d * dff)
+    dec = m.num_decoder_layers * (
+        2 * td * d * 3 * inner + 2 * td * inner * d + attn(L, L)
+        + 2 * td * d * inner + 2 * te * d * 2 * inner + 2 * td * inner * d
+        + attn(L, seq) + 4 * td * d * dff)
+    pawa_ff = m.adaptor_d_ff or min(4 * d, 2048)
+    pawa = m.adaptor_layer_num * (2 * td * d * 3 * d + 2 * td * d * d
+                                  + attn(L, L) + 2 * 2 * td * d * d
+                                  + 4 * td * d * pawa_ff)
+    u = 2 * td * d * (m.kary + 1) * d + 2 * td * (m.kary + 1) * d
+    return 3.0 * (enc + dec + pawa + u), 28.0 * n_params
+
+
+def _timed_steps(step, state, batches, store, n: int) -> list[float]:
+    """Wall ms of ``n`` steps, each a host clock around a synchronised
+    step."""
+    import torch
+    out = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batches[i % len(batches)], store, 0)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def _finite(tag: str, m: dict) -> None:
+    import math
+    bad = {k: float(v) for k, v in m.items() if not math.isfinite(float(v))}
+    if bad:
+        raise Failed(f"{tag}: non-finite {bad}")
+
+
+def _full_world(dev):
+    """The full-width training world: t5-base's config at TrainConfig's
+    defaults, the bench trie's paths over 334,314 docs and phase 4's unit
+    store (bf16, on the card)."""
+    import torch
+
+    from gdr_tpu_torch.config import GDRConfig, ModelConfig
+
+    cfg = GDRConfig(model=ModelConfig().scaled("base"))
+    paths = _paths_of(bench_cid_map(N_DOCS, cfg.model.kary, 30))
+    g = torch.Generator(device=dev).manual_seed(7)      # phase 4's store
+    store = torch.randn(N_DOCS, cfg.model.encoder_d_model, generator=g,
+                        device=dev)
+    store = (store / store.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    return cfg, paths, store
+
+
+def train_full(dev, card: str, world, profile: bool = False) -> dict:
+    """(b) and (c): the full-width stage-1 step (timed, its bound, 30 steps
+    on one batch), then the stage-2 step with the BERT-base tower."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.data.dataset import BatchIterator, cluster_docs_lookup
+    from gdr_tpu_torch.models.dual_encoder import (DocEncoder,
+                                                   DocEncoderConfig,
+                                                   init_doc_encoder)
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+    from gdr_tpu_torch.train.trainer import (_device_batch, compute_grads,
+                                             init_train_state, make_loss_fn,
+                                             make_train_step)
+    from gdr_tpu_torch.utils.rng import generator
+
+    cfg, paths, store = world
+    bsz = cfg.train.train_batch_size
+    rng = np.random.default_rng(11)
+    ts = _train_set(rng, paths, bsz * (TRAIN_WARM + TRAIN_TIMED), S,
+                    cfg.model.vocab_size, cfg.model)
+    lookup = cluster_docs_lookup(["-".join(map(str, p)) for p in paths])
+    batches = list(BatchIterator(ts, lookup, bsz,
+                                 cfg.data.max_intraclass_num, seed=0))
+    with torch.device(dev):
+        model = GenerativeRetriever(cfg.model)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    state, opt = init_train_state(cfg, model, None, total_steps=10_000)
+    step = make_train_step(model, None, opt, cfg, stage=1)
+    out: dict = {"params_m": n_params / 1e6}
+    for b in batches[:TRAIN_WARM]:
+        state, m = step(state, b, store, 0)
+    _finite("train full warm", m)
+    ms = _timed_steps(step, state, batches[TRAIN_WARM:], store, TRAIN_TIMED)
+    mean = sum(ms) / len(ms)
+    flops, nbytes = train_step_cost(cfg, 2 * bsz, S, n_params)
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out.update(step_ms=mean, step_ms_each=ms,
+               examples_per_s=bsz / (mean / 1e3), peak_gib=peak,
+               flops=flops, optimizer_bytes=nbytes, bound_ms=t_ops + t_bytes,
+               bound_ops_ms=t_ops, bound_bytes_ms=t_bytes)
+    state, m = step(state, batches[0], store, 0)
+    _finite("train full", m)
+    log(f"  (b) t5-base stage 1, {n_params / 1e6:.1f}M params, bf16 over "
+        f"f32 masters, batch {bsz} ({2 * bsz} rows after R-Drop) x {S} "
+        f"tokens, {cfg.data.max_intraclass_num + 1} candidates: step "
+        f"{mean:.2f} ms (min {min(ms):.2f}, max {max(ms):.2f}; {TRAIN_TIMED} "
+        f"timed after {TRAIN_WARM} warm), {out['examples_per_s']:.1f} "
+        f"examples/s, peak {peak:.2f} GiB; loss {float(m['loss']):.4f}, "
+        f"grad norm {float(m['grad_norm']):.4f}; {card}")
+    log(f"  (b) bound: {flops / 1e12:.3f} TFLOP (3 x forward matmuls) in "
+        f"{t_ops:.3f} ms at 989 TFLOP/s + AdamW {nbytes / 1e9:.2f} GB in "
+        f"{t_bytes:.3f} ms at 3.35 TB/s = {t_ops + t_bytes:.3f} ms; the step "
+        f"takes {mean / (t_ops + t_bytes):.1f}x it")
+    if profile:
+        _profile(lambda: step(state, batches[1], store, 0))
+    fall = []
+    for _ in range(TRAIN_FALL):
+        state, m = step(state, batches[0], store, 0)
+        fall.append(float(m["loss"]))
+    first, last = sum(fall[:5]) / 5, sum(fall[-5:]) / 5
+    out.update(fall_losses=fall, fall_ratio=last / first)
+    if not (all(np.isfinite(fall)) and last < first):
+        raise Failed(f"train full: the loss on one fixed batch did not fall "
+                     f"in {TRAIN_FALL} steps: {fall}")
+    log(f"  (b) {TRAIN_FALL} steps on one batch: loss {fall[0]:.4f} -> "
+        f"{fall[-1]:.4f}; mean of the last 5 / first 5 = "
+        f"{last / first:.3f}")
+
+    # (c) stage 2: the BERT-base tower trains live
+    del state, opt, step
+    torch.cuda.empty_cache()
+    with torch.device(dev):
+        tower = DocEncoder(DocEncoderConfig())
+    init_doc_encoder(tower, torch.Generator(device=dev).manual_seed(1))
+    doc_tokens = rng.integers(1, tower.cfg.vocab_size,
+                              size=(N_DOCS, DOC_LEN)).astype(np.int32)
+    doc_mask = np.ones_like(doc_tokens)
+    batches = list(BatchIterator(ts, lookup, STAGE2_BATCH,
+                                 cfg.data.max_intraclass_num, seed=1))
+    for b in batches:
+        b.update(pos_tokens=doc_tokens[b["pos_idx"]],
+                 pos_tok_mask=doc_mask[b["pos_idx"]],
+                 cand_tokens=doc_tokens[b["cand_idx"]],
+                 cand_tok_mask=doc_mask[b["cand_idx"]])
+    torch.cuda.reset_peak_memory_stats()
+    state, opt = init_train_state(cfg, model, tower, total_steps=10_000)
+    step = make_train_step(model, tower, opt, cfg, stage=2)
+    for b in batches[:TRAIN_WARM]:
+        state, m = step(state, b, store, 0)
+    _finite("train stage 2", m)
+    ms2 = _timed_steps(step, state, batches[TRAIN_WARM:], store,
+                       STAGE2_TIMED)
+    mean2 = sum(ms2) / len(ms2)
+    peak2 = torch.cuda.max_memory_allocated() / 2**30
+    docs = STAGE2_BATCH * (cfg.data.max_intraclass_num + 2)
+    out.update(stage2_step_ms=mean2, stage2_step_ms_each=ms2,
+               stage2_peak_gib=peak2, stage2_docs_per_step=docs)
+    tower_m = sum(p.numel() for p in tower.parameters()) / 1e6
+    log(f"  (c) stage 2, t5-base + BERT-base tower ({tower_m:.1f}M), "
+        f"batch {STAGE2_BATCH}: {docs} docs x {DOC_LEN} tokens per step: "
+        f"step {mean2:.2f} ms ({', '.join(f'{x:.1f}' for x in ms2)}), peak "
+        f"{peak2:.2f} GiB; loss {float(m['loss']):.4f}; {card}")
+    del state, opt, step, model, tower
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_state(tag: str, a, b) -> None:
+    """Two train states equal bit for bit: masters, moments, counts."""
+    import torch
+    for t in a.params:
+        for n, x in a.params[t].items():
+            if not torch.equal(x, b.params[t][n]):
+                raise Failed(f"{tag}: master {t}/{n} differs")
+    for part in ("mu", "nu"):
+        for k, x in a.opt_state[part].items():
+            if not torch.equal(x, b.opt_state[part][k]):
+                raise Failed(f"{tag}: AdamW {part} of {k} differs")
+    if (a.step, a.opt_state["count"]) != (b.step, b.opt_state["count"]):
+        raise Failed(f"{tag}: steps {a.step}/{a.opt_state['count']} vs "
+                     f"{b.step}/{b.opt_state['count']}")
+
+
+def train_loop(dev, card: str, root: Path, work: Path, world) -> dict:
+    """(d): TrainLoop at full width for one short epoch with its eval and
+    checkpoints; at small size on the card, two epochs in one run against
+    one epoch and a resumed one (dropout on), and a mid-epoch preemption;
+    the CLI's train → eval on phase 6's index."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.config import EvalConfig
+    from gdr_tpu_torch.eval.evaluator import EvalData
+    from gdr_tpu_torch.index.io import Index
+    from gdr_tpu_torch.models.dual_encoder import (DocEncoder,
+                                                   init_doc_encoder,
+                                                   tiny_doc_encoder_config)
+    from gdr_tpu_torch.train.loop import TrainLoop
+    from gdr_tpu_torch.utils.preemption import PreemptionGuard
+
+    cfg, paths, store = world
+    cid_of_doc = ["-".join(map(str, p)) for p in paths]
+    trie = build_nq_scale_trie(N_DOCS, cfg.model.kary, 30, 64)
+    index = Index(store=store.float().cpu().numpy(), trie=trie, paths=paths,
+                  cid_of_doc=cid_of_doc)
+    rng = np.random.default_rng(12)
+    ts = _train_set(rng, paths, LOOP_QUERIES, S, cfg.model.vocab_size,
+                    cfg.model)
+    gt = rng.integers(0, N_DOCS, LOOP_DEV)
+    dev_data = EvalData(
+        input_ids=ts.input_ids[:LOOP_DEV], attn_mask=ts.attn_mask[:LOOP_DEV],
+        gt_docs=[[str(d)] for d in gt], gt_cids=[[cid_of_doc[d]] for d in gt])
+    full_cfg = cfg.replace(
+        train=dataclasses.replace(cfg.train, num_train_epochs=1,
+                                  eval_batch_size=LOOP_DEV,
+                                  train_encoder_epoch=99),
+        eval=EvalConfig(max_output_length=cfg.model.max_output_length))
+    t = time.perf_counter()
+    loop = TrainLoop(full_cfg, index, ts, dev_data, str(work / "loop"),
+                     seed=0, packed_eval=True, device=dev)
+    init_s = time.perf_counter() - t
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    loop.run(max_epochs=1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    got = kernels.launch_counts()
+    want = {**dict.fromkeys(got, 0), **dict.fromkeys(DECODER, 24),
+            "packed_scores": 1}
+    log(f"  (d) TrainLoop t5-base: launches over the epoch and its eval: "
+        f"{got}")
+    if got != want:
+        raise Failed(f"TrainLoop eval: launch counts {got} != {want} (one "
+                     f"retrieve of {LOOP_DEV} queries)")
+    met = loop.last_epoch_metrics
+    files = [work / "loop" / "ckpt" / "0.pt",
+             work / "loop" / "ckpt_preempt" / "1.pt"]
+    sizes = [os.path.getsize(f) / 1e9 for f in files]
+    saves = dict(loop.save_seconds)
+    if loop.state.step != LOOP_QUERIES // cfg.train.train_batch_size \
+            or not np.isfinite(met["avg_train_loss"]):
+        raise Failed(f"TrainLoop: {loop.state.step} steps, loss "
+                     f"{met['avg_train_loss']}")
+    out = dict(loop_init_s=init_s, loop_run_s=run_s,
+               loop_epoch_s=met["epoch_seconds"],
+               loop_retrieve_ms=met["retrieve_mean_ms"],
+               loop_launches=got, checkpoint_gb=sizes,
+               checkpoint_s=[saves["best"], saves["resume"]])
+    log(f"  (d) TrainLoop t5-base, {LOOP_QUERIES} queries = "
+        f"{loop.state.step} steps: init {init_s:.1f} s, run {run_s:.1f} s "
+        f"(epoch {met['epoch_seconds']:.2f} s, eval retrieve "
+        f"{met['retrieve_mean_ms']:.1f} ms for {LOOP_DEV} queries, recall1 "
+        f"{met['recall1']:.3f}); checkpoints best {saves['best']:.2f} s "
+        f"{sizes[0]:.2f} GB, resume point {saves['resume']:.2f} s "
+        f"{sizes[1]:.2f} GB; {card}")
+    del loop
+    for f in files:
+        f.unlink()
+    torch.cuda.empty_cache()
+
+    # resume bit for bit, small, dropout on (deterministic kernels)
+    scfg, sindex, sts, sdev, dtok, dmask = _small_train_world(1, 0.1)
+
+    def small_loop(name: str) -> TrainLoop:
+        tower = DocEncoder(tiny_doc_encoder_config(scfg.model.encoder_d_model))
+        init_doc_encoder(tower, torch.Generator().manual_seed(1))
+        return TrainLoop(scfg, sindex, sts, sdev, str(work / name), seed=3,
+                         doc_tokens=dtok, doc_tok_mask=dmask,
+                         doc_encoder=tower, device=dev)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a = small_loop("rA")
+        a.run(max_epochs=2)
+        small_loop("rB").run(max_epochs=1)
+        b = small_loop("rB")
+        if b.start_epoch != 1:
+            raise Failed(f"resume: start epoch {b.start_epoch}, want 1")
+        b.run(max_epochs=2)
+        _same_state("resume", a.state, b.state)
+        # a preemption after the first step of epoch 1 re-runs epoch 1
+        small_loop("rC").run(max_epochs=1)
+        c = small_loop("rC")
+        guard = PreemptionGuard(signals=())
+        guard.request_stop()
+        c.run(max_epochs=2, guard=guard)
+        spe = len(sts) // scfg.train.train_batch_size
+        c2 = small_loop("rC")
+        if (c.state.step, c2.start_epoch, c2.state.step) != (spe + 1, 1,
+                                                              spe + 1):
+            raise Failed(f"preemption: {c.state.step} steps at the stop, "
+                         f"resumed at epoch {c2.start_epoch} step "
+                         f"{c2.state.step}; want {spe + 1}, 1, {spe + 1}")
+        c2.run(max_epochs=2)
+        if c2.state.step != 2 * spe + 1:
+            raise Failed(f"preemption: {c2.state.step} steps after the "
+                         f"re-run epoch, want {2 * spe + 1}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"  (d) small f32 on the card, dropout 0.1, input dropout 0.5, "
+        f"stage 2 from epoch 1: two epochs in one run == one epoch + a "
+        f"resumed one, bit for bit ({a.state.step} steps; masters and "
+        f"moments); a stop after epoch 1's first step resumed at epoch 1 and "
+        f"re-ran it ({c2.state.step} steps)")
+
+    # the CLI: train → eval on phase 6's 2,000-doc index, on the card
+    qrng = np.random.default_rng(13)
+    for name, n in (("train.tsv", 256), ("dev.tsv", 16)):
+        rows = [(" ".join(qrng.choice(WORDS, 5)),
+                 int(qrng.integers(0, SMALL_DOCS))) for _ in range(n)]
+        (work / name).write_text("".join(f"{q}\t{d}\n" for q, d in rows))
+    common = ["--index", str(work / "index.npz"), "--dev",
+              str(work / "dev.tsv"), "--workdir", str(work / "cli"),
+              "--model-size", "tiny", "--beam", "20", "--max-input-length",
+              "16", "--device", "cuda"]
+    t = time.perf_counter()
+    _port_cli(["train", *common, "--train", str(work / "train.tsv"),
+               "--batch-size", "32", "--epochs", "2",
+               "--train-encoder-epoch", "0", "--corpus",
+               str(work / "docs.tsv"), "--encoder-size", "tiny",
+               "--encoder-max-len", "32", "--packed-eval"], root)
+    ev = _port_cli(["eval", *common, "--packed"], root)
+    cli_s = time.perf_counter() - t
+    if f"loaded {work / 'cli' / 'params.npz'}" not in ev.stderr:
+        raise Failed(f"cli eval did not read the trained params.npz:\n"
+                     f"{ev.stderr[-2000:]}")
+    ev_m = json.loads(ev.stdout[ev.stdout.index("{"):])
+    if not np.isfinite(ev_m["recall1"]):
+        raise Failed(f"cli eval: recall1 {ev_m['recall1']}")
+    log(f"  (d) cli on cuda: train (tiny, 2 epochs, stage 2 from epoch 1, "
+        f"{SMALL_DOCS}-doc index) -> eval of its params.npz (recall1 "
+        f"{ev_m['recall1']:.3f}); {cli_s:.1f} s for the two processes")
+    out.update(cli_s=cli_s)
+    return out
+
+
+def phase_train(dev, card: str, root: Path, work: Path,
+                profile: bool = False) -> dict:
+    out = {"small": train_small(dev)}
+    world = _full_world(dev)
+    out.update(train_full(dev, card, world, profile))
+    out.update(train_loop(dev, card, root, work, world))
+    return out
 
 
 # ------------------------------------------------------------ main
@@ -1531,13 +2145,16 @@ KERNELS = [
 ]
 
 
-def kernel_rows(stats: dict, full: dict, index: dict) -> list[dict]:
+def kernel_rows(stats: dict, full: dict, index: dict, train: dict
+                ) -> list[dict]:
     """The ``{"kernels": [...]}`` rows: each kernel's launches on its
     layout's main path (phase 4) and its phase-2 numbers at 3,200 rows; the
     decoder rows add their numbers at each row count (``by_rows``), the
     per-retrieve sums (``per_retrieve``) and their GEMM shapes alone
     against torch.matmul (``gemms``).  ``launches_built_index`` counts the
-    launches of one retrieve over phase 6's k-means index."""
+    launches of one retrieve over phase 6's k-means index,
+    ``launches_train_eval`` those of phase 7's TrainLoop epoch (its
+    eval)."""
     rows = []
     for name, source, replaces, library in KERNELS:
         st = stats[name]
@@ -1549,7 +2166,8 @@ def kernel_rows(stats: dict, full: dict, index: dict) -> list[dict]:
             library=library, flops=st["flops"], bytes=st["bytes"],
             rows=B * WIDTHS[-1],
             dtype="int8" if name == "packed_scores_int8" else "bfloat16",
-            launches_built_index=index["launches"][name])
+            launches_built_index=index["launches"][name],
+            launches_train_eval=train["loop_launches"][name])
         if name in DECODER:
             row.update(by_rows=st["rows"], per_retrieve=st["per_retrieve"],
                        gemms=st["gemms"])
@@ -1607,6 +2225,7 @@ def main(argv: list[str]) -> int:
     log(f"    bench trie: {trie.num_nodes} nodes, {trie.num_clusters} "
         f"clusters, depth {int(trie.depth.max())} "
         f"({time.perf_counter() - t:.2f} s)")
+    work = Path(tempfile.mkdtemp(prefix="gdr_smoke_"))
     try:
         t = time.perf_counter()
         log("[2] kernel vs plain on the card")
@@ -1631,16 +2250,24 @@ def main(argv: list[str]) -> int:
         log("[6] index build and expansion on the card: tiny tower and "
             "Lloyd vs the CPU, the CLI, the BERT-base tower, k-means at NQ "
             "scale, serving the built index, 2,048 docs inserted")
-        index = phase_index(dev, smi, root, profile="profile" in argv)
+        index = phase_index(dev, smi, root, work, profile="profile" in argv)
         log(f"[6] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        log("[7] training on the card: small f32 card vs CPU, t5-base "
+            "stage 1 and stage 2 steps, TrainLoop with eval, checkpoints and "
+            "resume, the CLI's train -> eval")
+        train = phase_train(dev, smi, root, work, profile="profile" in argv)
+        log(f"[7] {time.perf_counter() - t:.1f} s")
     except Failed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     print(json.dumps({"retrieve": full["layouts"],
                       "peak_gib": full["peak_gib"], "modes": modes,
-                      "index": index}), flush=True)
-    print(json.dumps({"kernels": kernel_rows(stats, full, index)}),
+                      "index": index, "train": train}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(stats, full, index, train)}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

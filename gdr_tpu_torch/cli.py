@@ -1,14 +1,16 @@
 """Command-line interface of the PyTorch port: ``index`` (embed a corpus,
 k-means it, pack the trie), ``expand`` (insert new documents without
-retraining), ``tokenizer`` (train a subword tokenizer), ``retrieve``
-(serving), ``eval`` (a dev set's metrics) and ``calculate`` (metrics of a
-result TSV).
+retraining), ``tokenizer`` (train a subword tokenizer), ``train`` (the
+two-stage GDR training), ``retrieve`` (serving), ``eval`` (a dev set's
+metrics) and ``calculate`` (metrics of a result TSV).
 
     python -m gdr_tpu_torch.cli index --corpus docs.tsv --out index.npz \\
         [--encoder-size tiny] [--encoder-ckpt enc.npz] [--device cuda]
     python -m gdr_tpu_torch.cli expand --index index.npz \\
         --corpus new_docs.tsv --out index_expanded.npz
     python -m gdr_tpu_torch.cli tokenizer --corpus docs.tsv --out tok.json
+    python -m gdr_tpu_torch.cli train --index index.npz --train train.tsv \\
+        --dev dev.tsv --workdir run [--corpus docs.tsv] [--device cuda]
     python -m gdr_tpu_torch.cli retrieve --index index.npz --workdir run \\
         --packed --query "who wrote hamlet" [--int8-store] [--device cuda]
     python -m gdr_tpu_torch.cli eval --index index.npz --dev dev.tsv \\
@@ -39,10 +41,21 @@ Differences from the reference CLI:
   draws rollouts (``--temperature``, ``--sample-top-k``).  The
   decoder-side query reps and the slow PAWA head are reached through
   ``EvalConfig`` / ``ModelConfig``, as in the reference package.
-- Weights come from ``<workdir>/params.npz``, written from a reference
-  checkpoint (or its seeded init) by ``tools/export_gdr_tpu_params.py``.
-  Without that file the model gets seeded random weights (``--seed``), as
-  the reference CLI falls back to its init when no checkpoint exists.
+- ``train`` runs ``train/loop.py::TrainLoop`` with the reference's flags
+  for the default mode (stage 2 from ``--train-encoder-epoch`` when
+  ``--corpus`` is given; ``--hard-negatives bm25|random``; ``--query-type``
+  mixing ``gtq``, ``doc`` and ``aug``), bf16 compute over f32 masters
+  unless ``--no-bf16``, and ends by writing the best checkpoint's weights
+  to ``<workdir>/params.npz``.  Refused, as later slices: ``--ensemble``,
+  ``--hierarchic``, ``--softmax`` and ``qg`` queries (ROADMAP.md queue 1,
+  item 8), ``--t5-ckpt`` or ``--bert-ckpt`` naming a HuggingFace
+  checkpoint (item 9; a ``--t5-ckpt`` ``.npz`` in the ``params.npz`` layout
+  warm-starts the encoder and shared embeddings) and ``--mesh`` (item 10).
+- Weights come from ``<workdir>/params.npz``, written by ``train`` or from
+  a reference checkpoint (or its seeded init) by
+  ``tools/export_gdr_tpu_params.py``.  Without that file the model gets
+  seeded random weights (``--seed``), as the reference CLI falls back to
+  its init when no checkpoint exists.
 - The doc tower's weights come from ``--encoder-ckpt``, an ``.npz`` that
   ``tools/export_gdr_tpu_params.py --doc-encoder`` writes from the
   reference's flax checkpoint or its seeded init; without it the tower gets
@@ -93,15 +106,16 @@ def _device(name: str):
     return dev
 
 
-def _check_query_length(device, max_input_length: int, mcfg) -> None:
+def _check_query_length(device, max_input_length: int, mcfg,
+                        dtype=None) -> None:
     """On cuda, refuse queries longer than the cross-attention kernel
-    serves to the CLI's f32 model."""
+    serves to a model of ``dtype`` (default: the serving CLI's f32)."""
     if device.type != "cuda":
         return
     import torch
 
     from gdr_tpu_torch.kernels.decode import cross_attn_max_len
-    limit = cross_attn_max_len(mcfg.d_kv, torch.float32)
+    limit = cross_attn_max_len(mcfg.d_kv, dtype or torch.float32)
     if max_input_length > limit:
         raise SystemExit(
             f"--max-input-length {max_input_length}: the CUDA "
@@ -233,6 +247,150 @@ def cmd_tokenizer(args) -> None:
     ids, _ = tok.encode_batch(texts[:2], 16)
     print(f"tokenizer: {args.type} vocab={tok.vocab_size} → {args.out} "
           f"(smoke: {ids[0][:8].tolist()})")
+
+
+def cmd_train(args) -> None:
+    if args.ensemble > 1 or args.hierarchic or args.softmax:
+        raise SystemExit("--ensemble / --hierarchic / --softmax: the "
+                         "secondary training modes are not ported yet "
+                         "(ROADMAP.md queue 1, item 8)")
+    query_type = args.query_type or "gtq"
+    wanted = query_type.split("_")
+    if args.qg or "qg" in wanted:
+        raise SystemExit("qg queries: query generation is not ported yet "
+                         "(ROADMAP.md queue 1, item 8)")
+    if args.t5_ckpt and not args.t5_ckpt.endswith(".npz"):
+        raise SystemExit("--t5-ckpt: the HuggingFace T5 loaders are not "
+                         "ported yet (ROADMAP.md queue 1, item 9); pass a "
+                         ".npz in the params.npz layout")
+    if args.bert_ckpt:
+        raise SystemExit("--bert-ckpt: the HuggingFace BERT loaders are not "
+                         "ported yet (ROADMAP.md queue 1, item 9)")
+    if args.mesh != "none":
+        raise SystemExit(f"--mesh {args.mesh}: multi-GPU training is not "
+                         f"ported yet (ROADMAP.md queue 1, item 10)")
+
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.config import (DataConfig, EvalConfig, GDRConfig,
+                                      TrainConfig)
+    from gdr_tpu_torch.convert import load_params_npz, save_params_npz
+    from gdr_tpu_torch.data.dataset import (build_doc_query_sets,
+                                            build_eval_data, build_train_set,
+                                            mix_sources)
+    from gdr_tpu_torch.data.tokenize import load_tokenizer
+    from gdr_tpu_torch.index.io import load_index
+    from gdr_tpu_torch.train.loop import TrainLoop
+
+    device = _device(args.device)
+    index = load_index(args.index)
+    mcfg = dataclasses.replace(
+        _model_config(args, store_dim=index.store.shape[1]),
+        embedding_distillation=args.embed_distill,
+        weight_distillation=args.weight_distill)
+    tok = load_tokenizer(args.tokenizer, vocab_size=mcfg.vocab_size)
+    if tok.vocab_size != mcfg.vocab_size:
+        mcfg = dataclasses.replace(mcfg, vocab_size=tok.vocab_size)
+    _check_query_length(device, args.max_input_length, mcfg,
+                        torch.float32 if args.no_bf16 else torch.bfloat16)
+    tcfg = TrainConfig(train_batch_size=args.batch_size,
+                       stage2_train_batch_size=(args.stage2_batch_size
+                                                or args.batch_size),
+                       num_train_epochs=args.epochs,
+                       train_encoder_epoch=args.train_encoder_epoch,
+                       learning_rate=args.lr,
+                       decoder_learning_rate=args.decoder_lr,
+                       gradient_accumulation_steps=args.grad_accum,
+                       bf16=not args.no_bf16,
+                       checkpoint_dir=f"{args.workdir}/ckpt")
+    hard = args.hard_negatives != "none"
+    dcfg = DataConfig(hard_negative=hard,
+                      sample_neg_num=args.sample_neg_num if hard else 0)
+    cfg = GDRConfig(model=mcfg, train=tcfg, data=dcfg,
+                    eval=EvalConfig(num_beams=args.beam,
+                                    num_return_sequences=args.beam,
+                                    max_output_length=mcfg.max_output_length))
+
+    queries, positives = _read_query_tsv(args.train)
+    train_set = build_train_set(
+        queries, [p[0] for p in positives], index.paths, tok, mcfg,
+        args.max_input_length, label_length_cutoff=dcfg.label_length_cutoff)
+    dev_q, dev_pos = _read_query_tsv(args.dev)
+    dev = build_eval_data(dev_q, dev_pos, index.cid_of_doc, tok,
+                          args.max_input_length)
+
+    needs_corpus = (args.hard_negatives == "bm25" or "doc" in wanted
+                    or "aug" in wanted)
+    if needs_corpus and not args.corpus:
+        raise SystemExit("--hard-negatives bm25 and the doc / aug query "
+                         "sources need --corpus (the document text)")
+    doc_texts = _read_corpus_tsv(args.corpus)[1] if args.corpus else None
+    if args.hard_negatives == "bm25":
+        from gdr_tpu_torch.data.negatives import bm25_negatives
+        train_set.neg_pool = bm25_negatives(
+            queries, positives, doc_texts,
+            k=max(args.sample_neg_num * 3, 10))
+    elif args.hard_negatives == "random":
+        from gdr_tpu_torch.data.negatives import random_negatives
+        train_set.neg_pool = random_negatives(
+            len(queries), len(index.paths), positives,
+            k=max(args.sample_neg_num * 3, 10), seed=args.seed)
+
+    if query_type != "gtq":
+        sources = {"gtq": train_set}
+        dq = dataclasses.replace(dcfg, max_input_length=args.max_input_length)
+        sources.update(build_doc_query_sets(
+            doc_texts, index.paths, tok, mcfg, dq,
+            rng=np.random.default_rng(args.seed)))
+        train_set = mix_sources(query_type, **sources)
+        print("train set: " + " + ".join(
+            f"{len(sources[w])} {w}" for w in wanted)
+            + f" = {len(train_set)} rows", file=sys.stderr)
+
+    # stage 2 (the live doc tower) is reachable when the corpus is given
+    doc_tokens = doc_tok_mask = tower = None
+    if args.corpus and args.train_encoder_epoch < args.epochs:
+        dtok, tower = _doc_tower(args, torch.device("cpu"))
+        if tower.cfg.d_model != index.store.shape[1]:
+            raise SystemExit(
+                f"doc tower width {tower.cfg.d_model} != index store width "
+                f"{index.store.shape[1]}: build the index with the same "
+                f"--encoder-size / --encoder-ckpt")
+        doc_tokens, doc_tok_mask = dtok.encode_batch(doc_texts,
+                                                     args.encoder_max_len)
+        print(f"stage 2 enabled: live doc tower over {len(doc_texts)} docs "
+              f"from epoch {args.train_encoder_epoch + 1}", file=sys.stderr)
+
+    warm = None
+    if args.t5_ckpt:
+        sd = {k: v for k, v in load_params_npz(args.t5_ckpt).items()
+              if k.startswith(("shared.", "encoder."))}
+
+        def warm(model, _tower):
+            want = {k for k in model.state_dict()
+                    if k.startswith(("shared.", "encoder."))}
+            if set(sd) != want:
+                raise SystemExit(f"--t5-ckpt {args.t5_ckpt}: its encoder and "
+                                 f"shared leaves do not match the model's")
+            model.load_state_dict(sd, strict=False)
+            print(f"# encoder and shared embeddings from {args.t5_ckpt}",
+                  file=sys.stderr)
+
+    loop = TrainLoop(cfg, index, train_set, dev, workdir=args.workdir,
+                     seed=args.seed, doc_tokens=doc_tokens,
+                     doc_tok_mask=doc_tok_mask, doc_encoder=tower,
+                     packed_eval=args.packed_eval, warm_start=warm,
+                     device=device)
+    best = loop.run()
+    step, state = loop.ckpt.restore_best()
+    params = (state or loop.state).params["generator"]
+    out = os.path.join(args.workdir, "params.npz")
+    n = save_params_npz(out, params)
+    print(f"# wrote {n} arrays of checkpoint step {step} to {out}",
+          file=sys.stderr)
+    print(json.dumps({k: best[k] for k in ("epoch", "avg_train_loss",
+                                            cfg.train.monitor) if k in best}))
 
 
 def cmd_retrieve(args) -> None:
@@ -396,6 +554,77 @@ def build_parser() -> argparse.ArgumentParser:
                          "wordpiece = BERT-style (documents)")
     pk.add_argument("--vocab-size", type=int, default=32000)
     pk.set_defaults(fn=cmd_tokenizer)
+    pt = sub.add_parser("train", help="two-stage training")
+    _add_common_model_flags(pt)
+    pt.add_argument("--index", required=True)
+    pt.add_argument("--train", required=True,
+                    help="train TSV: query \\t docid[,docid...]")
+    pt.add_argument("--dev", required=True)
+    pt.add_argument("--workdir", required=True,
+                    help="run dir: checkpoints, metrics and params.npz")
+    pt.add_argument("--tokenizer", default=None)
+    pt.add_argument("--max-input-length", type=int, default=40)
+    pt.add_argument("--batch-size", type=int, default=64)
+    pt.add_argument("--stage2-batch-size", type=int, default=None,
+                    help="stage-2 batch (default: --batch-size)")
+    pt.add_argument("--epochs", type=int, default=500)
+    pt.add_argument("--train-encoder-epoch", type=int, default=51)
+    pt.add_argument("--lr", type=float, default=2e-4)
+    pt.add_argument("--decoder-lr", type=float, default=1e-4)
+    pt.add_argument("--beam", type=int, default=100)
+    pt.add_argument("--seed", type=int, default=42)
+    pt.add_argument("--hard-negatives", default="none",
+                    choices=["none", "bm25", "random"],
+                    help="mine per-query negatives and train the margin "
+                         "ranking loss on them")
+    pt.add_argument("--sample-neg-num", type=int, default=2)
+    pt.add_argument("--corpus", default=None,
+                    help="corpus TSV: enables stage 2 (with "
+                         "--train-encoder-epoch < --epochs), bm25 negatives "
+                         "and the doc / aug query sources")
+    pt.add_argument("--doc-tokenizer", default=None)
+    pt.add_argument("--encoder-max-len", type=int, default=128)
+    pt.add_argument("--encoder-size", default="full",
+                    choices=["full", "tiny"])
+    pt.add_argument("--encoder-ckpt", default=None,
+                    help="the stage-2 doc tower's starting weights (.npz "
+                         "of tools/export_gdr_tpu_params.py --doc-encoder)")
+    pt.add_argument("--packed-eval", action="store_true",
+                    help="the in-training eval reads the cluster-packed "
+                         "store")
+    pt.add_argument("--mesh", default="none",
+                    help="only 'none' (multi-GPU is not ported yet)")
+    pt.add_argument("--grad-accum", type=int, default=1,
+                    help="micro-batches per optimizer update")
+    pt.add_argument("--no-bf16", action="store_true",
+                    help="compute in f32 (bf16 compute over f32 masters is "
+                         "the default)")
+    pt.add_argument("--embed-distill", type=float, default=0.0,
+                    help="weight of the embedding-distillation loss")
+    pt.add_argument("--weight-distill", type=float, default=0.0,
+                    help="weight of the weight-distillation loss (needs the "
+                         "index's node embeddings)")
+    pt.add_argument("--t5-ckpt", default=None,
+                    help="warm start of the encoder and shared embeddings "
+                         "from a .npz in the params.npz layout (HuggingFace "
+                         "checkpoints are refused)")
+    pt.add_argument("--bert-ckpt", default=None,
+                    help="HuggingFace BERT checkpoint (not ported yet; "
+                         "refused)")
+    pt.add_argument("--qg", default=None,
+                    help="generated queries (not ported yet; refused)")
+    pt.add_argument("--query-type", default=None,
+                    help="underscore-joined mix of gtq, doc and aug "
+                         "(default gtq)")
+    pt.add_argument("--ensemble", type=int, default=1,
+                    help="only 1 (the ensemble is not ported yet)")
+    pt.add_argument("--hierarchic", action="store_true",
+                    help="not ported yet (refused)")
+    pt.add_argument("--softmax", action="store_true",
+                    help="not ported yet (refused)")
+    _add_device_flag(pt)
+    pt.set_defaults(fn=cmd_train)
+
     pr = sub.add_parser("retrieve",
                         help="ad-hoc retrieval (serving): free-text "
                              "queries → ranked documents")

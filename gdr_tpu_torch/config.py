@@ -1,12 +1,14 @@
 """Configuration dataclasses for the PyTorch port.
 
 A copy of ``gdr_tpu/config.py`` (the port imports nothing of ``gdr_tpu``).
-Two differences, both because the device of the tensors decides which code
+Three differences, because the device of the tensors decides which code
 runs:
 
 - ``EvalConfig`` has no ``fused_decode``: on a CUDA device the decoder
   sublayers always run as the hand-written kernels, on the CPU always as
   their plain PyTorch versions;
+- ``TrainConfig`` has no ``async_checkpointing``: a checkpoint is written
+  synchronously, to a temporary file renamed into place;
 - there is no ``MeshConfig``: the multi-GPU layouts are a later slice.
 
 Derived quantities (``decode_vocab_size = kary * max_output_length + 2``)
@@ -49,7 +51,7 @@ class ModelConfig:
     adaptor_num_heads: int = 8
     adaptor_d_ff: int = 0            # 0 → min(4·d_model, 2048)
 
-    # --- regularisation (training only; kept so configs round-trip)
+    # --- regularisation (training only)
     rdrop: float = 0.1
     rdrop_loss: str = "Contrast"
     input_dropout: float = 0.5
@@ -115,6 +117,39 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Training loop configuration (six AdamW groups, two stages)."""
+
+    train_batch_size: int = 64
+    eval_batch_size: int = 1
+    stage2_train_batch_size: int = 32
+    stage2_eval_batch_size: int = 1
+    num_train_epochs: int = 500
+    train_encoder_epoch: int = 51    # stage-1 → stage-2 switch
+    learning_rate: float = 2e-4      # T5 encoder + shared embeddings
+    decoder_learning_rate: float = 1e-4
+    doc_encoder_learning_rate: float = 2e-4
+    weight_decay: float = 1e-4
+    adam_epsilon: float = 1e-8
+    warmup_steps: int = 0
+    scheduler: str = "linear"        # "linear" | "exp"
+    gradient_accumulation_steps: int = 1
+    max_grad_norm: float = 1.0
+    seed: int = 42
+    tau: float = 0.05                # contrastive temperature
+    intra_rate: float = 1.0          # intra-cluster denominator weight
+    loss_func: str = "tanh"          # similarity squashing: "tanh" | "sigmoid"
+    bf16: bool = True                # bf16 compute over f32 master weights
+    checkpoint_dir: str = "checkpoints"
+    save_top_k: int = 1
+    monitor: str = "recall1"
+    log_every_steps: int = 50
+    # stage-2 store refresh: fraction of the corpus re-embedded per eval
+    # epoch (a rotating slice); 1.0 re-embeds it all
+    stage2_refresh_fraction: float = 1.0
+
+
+@dataclass(frozen=True)
 class EvalConfig:
     """Evaluation / retrieval operating point."""
 
@@ -142,6 +177,7 @@ class GDRConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     index: IndexConfig = field(default_factory=IndexConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
 
     def replace(self, **kw: Any) -> "GDRConfig":
@@ -160,6 +196,9 @@ def tiny_config(kary: int = 4, max_output_length: int = 5, d_model: int = 32,
                         max_docs_per_cluster=16)
     data = DataConfig(max_input_length=16, doc_length=16, encoder_max_len=32,
                       max_intraclass_num=4)
+    train = TrainConfig(train_batch_size=4, eval_batch_size=2,
+                        num_train_epochs=2, train_encoder_epoch=1)
     ev = EvalConfig(num_beams=8, num_return_sequences=8,
                     max_output_length=max_output_length)
-    return GDRConfig(model=model, index=index, data=data, eval=ev)
+    return GDRConfig(model=model, index=index, data=data, train=train,
+                     eval=ev)

@@ -1,5 +1,5 @@
-"""Weight bridge from the reference package's flax parameter tree to the
-port's ``state_dict``.
+"""Weight bridge between the reference package's flax parameter tree and
+the port's ``state_dict``, both ways.
 
 The tree is nested dicts of numpy arrays under the names ``init_params`` and
 ``CheckpointManager.restore_raw()["params"]["generator"]`` give
@@ -15,6 +15,10 @@ U keeps its ``[d, V, d]`` layout and the slow PAWA head's U2 its
 parameter (else :func:`params_from_flax` raises), and the model's strict
 ``load_state_dict`` raises on a missing, extra or mis-shaped parameter.
 
+:func:`params_to_flax` is the inverse (a round trip is bit-equal), and
+:func:`save_params_npz` writes a port model's weights as the ``params.npz``
+that :func:`load_params_npz` and the reference package read.
+
 :func:`doc_encoder_params_from_flax` does the same for the document tower
 (``gdr_tpu/models/dual_encoder.py::DocEncoder`` → ``models/dual_encoder.py``),
 whose layout differs: attention projections are flax ``DenseGeneral``
@@ -24,6 +28,7 @@ every Dense has a bias, and LayerNorm has ``scale`` and ``bias``.
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Mapping
 
@@ -94,6 +99,70 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
                              f"{['qkv'[i] for i in sorted(p)]}")
         sd[key] = np.concatenate([p[0], p[1], p[2]], axis=0)
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+_EMBEDDINGS = ("shared", "decode_embed", "embed")
+_AS_IS = ("rel_embedding", "memory", "u", "u2", "lm_head")
+
+
+def _flax_parts(module_path: str) -> list[str]:
+    """``decoder.blocks.0.ln1`` → ``["decoder", "block_0", "ln1"]``."""
+    parts, out = module_path.split("."), []
+    for p in parts:
+        if p.isdigit() and out and out[-1] in ("blocks", "layers"):
+            out[-1] = out[-1][:-1] + "_" + p
+        else:
+            out.append(p)
+    return out
+
+
+def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The port's state_dict → the flax tree ``{"params": {...}}`` of numpy
+    arrays in the reference's names and layouts (the inverse of
+    :func:`params_from_flax`)."""
+    tree: dict = {}
+
+    def put(parts: list[str], arr: np.ndarray) -> None:
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+
+    for name, t in state_dict.items():
+        arr = t.detach().cpu().numpy()
+        mod, _, leaf = name.rpartition(".")
+        parts = _flax_parts(mod) if mod else []
+        if leaf in _AS_IS:
+            put(parts + [leaf], arr)
+        elif leaf == "weight" and mod.endswith("qkv"):
+            inner = arr.shape[0] // 3
+            for i, proj in enumerate("qkv"):
+                put(parts[:-1] + [proj, "kernel"],
+                    arr[i * inner:(i + 1) * inner].T.copy())
+        elif leaf == "weight" and parts and parts[-1] in _EMBEDDINGS:
+            put(parts + ["embedding"], arr)
+        elif leaf == "weight" and arr.ndim == 1:      # PAWA LayerNorm
+            put(parts + ["scale"], arr)
+        elif leaf == "weight":
+            put(parts + ["kernel"], arr.T.copy())
+        elif leaf in ("scale", "bias"):
+            put(parts + [leaf], arr)
+        else:
+            raise ValueError(f"port parameter {name!r} has no flax "
+                             f"counterpart")
+    return {"params": tree}
+
+
+def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor]
+                    ) -> int:
+    """Write a retriever's state_dict as ``params.npz``: each leaf under
+    its ``/``-joined flax path (``params/shared/embedding``, …), written to
+    a temporary file and renamed into place.  Returns the leaf count."""
+    flat = _flatten(params_to_flax(state_dict))
+    tmp = f"{path}.tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+    return len(flat)
 
 
 def doc_encoder_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:

@@ -35,6 +35,7 @@ from gdr_tpu_torch.ops.packed_store import pack_layout, pack_rows
 from gdr_tpu_torch.ops.quantize import pack_quantized_rows, quantize_store
 from gdr_tpu_torch.ops.rerank import RerankResult, rerank, rerank_packed
 from gdr_tpu_torch.ops.trie import TrieTensors
+from gdr_tpu_torch.utils.rng import fold_in
 from gdr_tpu_torch.utils.timing import PhaseTimer
 
 
@@ -52,8 +53,7 @@ def sample_seed(seed: int, batch_idx: int) -> int:
     """The seed of batch ``batch_idx``'s sampling generator: ``seed`` and
     the batch index mixed by numpy's SeedSequence, so that every batch
     draws other noise."""
-    return int(np.random.SeedSequence([seed, batch_idx])
-               .generate_state(1, np.uint64)[0])
+    return fold_in(seed, batch_idx)
 
 
 class Evaluator:

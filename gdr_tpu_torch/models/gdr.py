@@ -13,13 +13,23 @@ PAWA, mirroring the serving parts of ``gdr_tpu/models/gdr.py``.
   only emit its ``kary`` digit tokens or EOS, so the lm-head and the PAWA
   delta are computed for those ``kary+1`` columns only.  The slow PAWA head
   (``adaptor_efficient=False``) instead transforms the head input by its
-  per-prefix [d, d] matrix.
+  per-prefix [d, d] matrix;
+- ``forward`` / ``decode_logits`` / ``decode_candidate_logits`` /
+  ``decode_hidden``: the teacher-forced paths of training, over the full
+  vocab with the positional −1e9 mask, or over each position's ``kary+1``
+  valid slots; ``label_head_vectors`` (weight distillation) and
+  ``denoise`` (the denoising heads, with ``denoise_disc`` when
+  ``ModelConfig.denoising``).
 
 The model's dtype is its parameters' dtype (``model.to(torch.bfloat16)``
-serves in bf16).  The teacher-forced training paths are not ported yet.
+serves in bf16).  The model is built in eval mode: dropout runs only after
+``model.train()``, as the trainer calls it, and draws from the generator
+``models/t5.py::set_dropout_generator`` sets.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -27,6 +37,16 @@ from torch import nn
 from gdr_tpu_torch.config import ModelConfig
 from gdr_tpu_torch.models.pawa import FullPawaAdaptor, PawaAdaptor
 from gdr_tpu_torch.models.t5 import Decoder, Encoder, _linear
+from gdr_tpu_torch.ops.losses import denoising_losses
+from gdr_tpu_torch.ops.masks import positional_logit_mask
+
+
+@functools.lru_cache(maxsize=16)
+def _logit_mask(kary: int, max_output_length: int, position: bool,
+                device: torch.device) -> torch.Tensor:
+    """The [L, V] f32 positional mask on ``device``, made once."""
+    return torch.as_tensor(positional_logit_mask(kary, max_output_length,
+                                                 position), device=device)
 
 
 class GenerativeRetriever(nn.Module):
@@ -38,12 +58,12 @@ class GenerativeRetriever(nn.Module):
         self.encoder = Encoder(
             c.num_layers, c.d_model, c.num_heads, c.d_kv, c.d_ff,
             c.layer_norm_epsilon, c.relative_attention_num_buckets,
-            c.relative_attention_max_distance)
+            c.relative_attention_max_distance, c.dropout_rate, c.remat)
         self.decode_embed = nn.Embedding(c.decode_vocab_size, c.d_model)
         self.decoder = Decoder(
             c.num_decoder_layers, c.d_model, c.num_heads, c.d_kv, c.d_ff,
             c.layer_norm_epsilon, c.relative_attention_num_buckets,
-            c.relative_attention_max_distance)
+            c.relative_attention_max_distance, c.dropout_rate, c.remat)
         if not c.tie_decode_embedding:
             self.lm_head = nn.Parameter(torch.zeros(c.d_model,
                                                     c.decode_vocab_size))
@@ -54,10 +74,15 @@ class GenerativeRetriever(nn.Module):
             pawa_cls = PawaAdaptor if c.adaptor_efficient else FullPawaAdaptor
             self.pawa = pawa_cls(c.d_model, c.decode_vocab_size,
                                  c.adaptor_layer_num, c.adaptor_num_heads,
-                                 c.adaptor_d_ff)
+                                 c.adaptor_d_ff, c.dropout_rate)
+        if c.denoising:
+            # mask-position discrimination head; the reconstruction head is
+            # tied to the shared embedding
+            self.denoise_disc = nn.Linear(c.d_model, 2, bias=False)
         if c.concate_fusion:
             # the "concate" query fusion: a biased Dense over [q_dec, q_enc]
             self.fusion = nn.Linear(2 * c.encoder_d_model, c.encoder_d_model)
+        self.eval()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -113,6 +138,120 @@ class GenerativeRetriever(nn.Module):
         product is rounded, as ``flax.linen.Dense(dtype=...)``."""
         x = torch.cat([q_dec, q_enc.expand(q_dec.shape)], dim=-1)
         return _linear(x, self.fusion.weight) + self.fusion.bias
+
+    # ------------------------------------------------ teacher-forced paths
+
+    def _scaled(self, hidden: torch.Tensor) -> torch.Tensor:
+        """hidden × d^-0.5 in the model dtype (the reference's weak-typed
+        scalar)."""
+        return hidden * hidden.new_full((), self.cfg.d_model ** -0.5)
+
+    def decode_hidden(self, enc, enc_mask, decoder_input_ids,
+                      decoder_attn_mask) -> torch.Tensor:
+        """Decoder states [B, L, d] only (no head)."""
+        return self.decoder(self.decode_embed(decoder_input_ids), enc,
+                            decoder_attn_mask, enc_mask)
+
+    def decode_logits(self, enc, enc_mask, decoder_input_ids,
+                      decoder_attn_mask):
+        """Teacher-forced decode over the full vocab → (masked logits
+        [B, L, V] f32, decoder states [B, L, d])."""
+        c = self.cfg
+        x = self.decode_embed(decoder_input_ids)
+        hidden = self.decoder(x, enc, decoder_attn_mask, enc_mask)
+        s = self._scaled(hidden)
+        w = self._head_rows().float()
+        if c.adaptor_decode and not c.adaptor_efficient:
+            s_t = self.pawa.transform(self.pawa(decoder_input_ids), s)
+            logits = s_t.float() @ w.t()
+        else:
+            logits = s.float() @ w.t()
+            if c.adaptor_decode:
+                logits = logits + self.pawa.delta_logits(self.pawa(x),
+                                                         s).float()
+        l = logits.shape[1]
+        mask = _logit_mask(c.kary, c.max_output_length, c.position,
+                           logits.device)
+        return logits + mask[None, :l], hidden
+
+    def decode_candidate_logits(self, enc, enc_mask, decoder_input_ids,
+                                decoder_attn_mask):
+        """Teacher-forced decode over each position's valid slots only:
+        its ``kary`` digit tokens, then EOS (the positional mask −1e9s every
+        other column, so CE and its gradient equal the full-vocab path's).
+        Needs the efficient PAWA head (or none).  Returns (candidate logits
+        [B, L, kary+1] f32, decoder states [B, L, d])."""
+        c = self.cfg
+        kary = c.kary
+        if c.adaptor_decode and not c.adaptor_efficient:
+            raise ValueError("the candidate-sliced head needs the efficient "
+                             "PAWA adaptor")
+        x = self.decode_embed(decoder_input_ids)
+        hidden = self.decoder(x, enc, decoder_attn_mask, enc_mask)
+        s = self._scaled(hidden)
+        l = s.shape[1]
+        rows = self._head_rows()
+        w_dig = rows[2:2 + l * kary].reshape(l, kary, -1)
+        cand = torch.einsum("bld,lkd->blk", s.float(), w_dig.float())
+        eos = (s.float() * rows[1].float()).sum(-1)
+        cand = torch.cat([cand, eos[..., None]], dim=-1)
+        if c.adaptor_decode:
+            cand = cand + self.pawa.delta_candidates_all(self.pawa(x), s,
+                                                         kary)
+        # the final position admits only EOS
+        last = torch.arange(l, device=cand.device) == c.max_output_length - 1
+        digit_mask = torch.where(last, -1e9, 0.0)[None, :, None]
+        cand = torch.cat([cand[..., :kary] + digit_mask, cand[..., kary:]],
+                         dim=-1)
+        return cand, hidden
+
+    def forward(self, input_ids, attn_mask, decoder_input_ids,
+                decoder_attn_mask, sliced_head: bool = False
+                ) -> dict[str, torch.Tensor]:
+        """The teacher-forced pass of training: ``logits`` (full-vocab, or
+        the candidate slots with ``sliced_head``), ``decoder_hidden``,
+        ``encoder_hidden`` and the pooled ``query_embedding``."""
+        enc = self.encode(input_ids, attn_mask)
+        head = (self.decode_candidate_logits if sliced_head
+                else self.decode_logits)
+        logits, dec_hidden = head(enc, attn_mask, decoder_input_ids,
+                                  decoder_attn_mask)
+        return {"logits": logits, "decoder_hidden": dec_hidden,
+                "encoder_hidden": enc,
+                "query_embedding": self.pool_query(enc, dec_hidden,
+                                                   decoder_attn_mask)}
+
+    def label_head_vectors(self, decoder_input_ids, labels) -> torch.Tensor:
+        """The adapted lm-head rows of the label tokens (weight
+        distillation): base head row + PAWA row, projected into the
+        doc-embedding space.  Needs the efficient PAWA head.  [B, L] →
+        [B, L, encoder_d_model]."""
+        c = self.cfg
+        if not (c.adaptor_decode and c.adaptor_efficient):
+            raise ValueError("weight distillation needs the efficient PAWA "
+                             "adaptor")
+        a = self.pawa(self.decode_embed(decoder_input_ids))
+        base = self._head_rows()[labels.long()]
+        return self.project_query(base + self.pawa.label_delta(a, labels))
+
+    def denoise(self, input_ids, attn_mask, keep_mask,
+                gumbel: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        """The denoising losses (gen, disc): the reconstruction head is the
+        shared embedding, the discrimination head ``denoise_disc``; the
+        replacement tokens are argmax(logits + g), ``gumbel`` or drawn from
+        ``generator`` (``ops/losses.py::denoising_losses``)."""
+        def encode(ids):
+            return self.encoder(self.shared(ids), attn_mask)
+
+        def predict_head(hidden):
+            return self._scaled(hidden).float() @ self.shared.weight.float().t()
+
+        def disc_head(hidden):
+            return _linear(hidden, self.denoise_disc.weight)
+
+        return denoising_losses(encode, predict_head, disc_head, input_ids,
+                                attn_mask, keep_mask, gumbel, generator)
 
     # --------------------------------------------------- incremental decode
 
@@ -172,7 +311,8 @@ def init_weights(model: GenerativeRetriever, generator: torch.Generator
     """Seeded random weights with the reference package's initialiser
     scales: embeddings (the slow PAWA head's too) and the PAWA memory
     N(0, 1), projections, rel-bias tables, U, U2 and an untied head
-    N(0, 0.02), the query projection and the fusion layer N(0, 1/fan_in)
+    N(0, 0.02), the query projection, the denoising discriminator and the
+    fusion layer N(0, 1/fan_in)
     (lecun-normal), norm scales 1 and biases 0.  The draws come from
     ``generator`` on its own device; they are not the reference package's
     draws (use ``convert.py`` for those)."""
@@ -189,7 +329,7 @@ def init_weights(model: GenerativeRetriever, generator: torch.Generator
         if name in ("shared.weight", "decode_embed.weight", "pawa.memory",
                     "pawa.embed.weight"):
             std = 1.0
-        elif name == "query_proj.weight":
+        elif name in ("query_proj.weight", "denoise_disc.weight"):
             std = d ** -0.5
         elif name == "fusion.weight":
             std = p.shape[1] ** -0.5
@@ -198,3 +338,9 @@ def init_weights(model: GenerativeRetriever, generator: torch.Generator
         r = torch.randn(p.shape, generator=generator, device=generator.device)
         p.copy_(r * std)
     return model
+
+
+def shift_right(labels: torch.Tensor, start_token: int = 0) -> torch.Tensor:
+    """Labels → decoder inputs: ``start_token`` then labels[:, :-1]."""
+    return torch.cat([torch.full_like(labels[:, :1], start_token),
+                      labels[:, :-1]], dim=1)

@@ -14,6 +14,11 @@ as XLA code (its fused kernels were measured slower and deleted).
 The slow :class:`FullPawaAdaptor` runs the same layers over its own
 embedding of the prefix tokens and a zero memory, and turns its output into
 a per-prefix [d, d] matrix reshape(A·U2) that transforms the head input.
+
+The teacher-forced paths (``forward`` over all ``L`` positions, the full
+vocab's ``delta_logits``, the candidate slots' ``delta_candidates_all``
+and the label tokens' ``label_delta``) train U and U2 by autograd; the
+layers' dropout is the reference's (``models/t5.py::Dropout``).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gdr_tpu_torch.models.t5 import Attention, _linear
+from gdr_tpu_torch.models.t5 import Attention, Dropout, _linear
 
 
 class LayerNorm(nn.Module):
@@ -49,16 +54,30 @@ class PawaLayer(nn.Module):
     """One adaptor block: causal self-attn → cross-attn(memory) → FF,
     post-norm residuals."""
 
-    def __init__(self, d_model: int, num_heads: int, d_ff: int):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         d_kv = d_model // num_heads
-        self.self_attn = Attention(d_model, num_heads, d_kv)
-        self.cross_attn = Attention(d_model, num_heads, d_kv)
+        self.self_attn = Attention(d_model, num_heads, d_kv, dropout_rate)
+        self.cross_attn = Attention(d_model, num_heads, d_kv, dropout_rate)
         self.ln1 = LayerNorm(d_model)
         self.ln2 = LayerNorm(d_model)
         self.ln3 = LayerNorm(d_model)
         self.ff1 = nn.Linear(d_model, d_ff, bias=False)
         self.ff2 = nn.Linear(d_ff, d_model, bias=False)
+        self.drop = Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        """All positions at once: x [B, L, d], memory [B, 1, d].  The
+        cross-attention runs in full, as the reference's does, so that its
+        probabilities get their dropout."""
+        l = x.shape[1]
+        causal = torch.ones((l, l), dtype=torch.bool,
+                            device=x.device).tril()[None, None]
+        x = self.ln1(x + self.drop(self.self_attn(x, mask=causal)))
+        x = self.ln2(x + self.drop(self.cross_attn(x, kv=memory)))
+        h = _linear(torch.relu(_linear(x, self.ff1.weight)), self.ff2.weight)
+        return self.ln3(x + self.drop(h))
 
     def memory_out(self, memory: torch.Tensor) -> torch.Tensor:
         """Cross-attention to a single memory token is query-independent
@@ -100,14 +119,25 @@ class FullPawaAdaptor(nn.Module):
     d]); the base lm-head is then applied to s'."""
 
     def __init__(self, d_model: int, decode_vocab_size: int,
-                 num_layers: int = 4, num_heads: int = 8, d_ff: int = 0):
+                 num_layers: int = 4, num_heads: int = 8, d_ff: int = 0,
+                 dropout_rate: float = 0.0):
         super().__init__()
         d_ff = d_ff or min(4 * d_model, 2048)
         self.d_model = d_model
         self.embed = nn.Embedding(decode_vocab_size, d_model)
         self.layers = nn.ModuleList([
-            PawaLayer(d_model, num_heads, d_ff) for _ in range(num_layers)])
+            PawaLayer(d_model, num_heads, d_ff, dropout_rate)
+            for _ in range(num_layers)])
         self.u2 = nn.Parameter(torch.zeros(d_model, d_model * d_model))
+
+    def forward(self, decoder_input_ids: torch.Tensor) -> torch.Tensor:
+        """The adaptor over all positions of the prefix tokens [B, L]:
+        A [B, L, d] scaled by d^-0.5 in the model dtype."""
+        x = self.embed(decoder_input_ids)
+        zero = x.new_zeros((x.shape[0], 1, self.d_model))
+        for layer in self.layers:
+            x = layer(x, zero)
+        return x * x.new_full((), self.d_model ** -0.5)
 
     def init_cache(self, batch: int, max_len: int) -> dict[str, torch.Tensor]:
         return _pawa_cache(len(self.layers), batch, max_len, self.u2)
@@ -129,35 +159,92 @@ class FullPawaAdaptor(nn.Module):
 
     def transform(self, adaptor_out: torch.Tensor, decoder_out: torch.Tensor
                   ) -> torch.Tensor:
-        """s' = s · reshape(A·U2, [d, d]) per row.  A, s: [rows, d] in the
-        model dtype.  A·U2 is kept in f32 (``preferred_element_type=f32``
+        """s' = s · reshape(A·U2, [d, d]) per row.  A, s: [rows, d] (or
+        [B, L, d], each position a row) in the model dtype.  A·U2 is kept in f32 (``preferred_element_type=f32``
         in the reference): the operands go to f32, where the product of two
         bf16 values is exact, and the sums run in f32.  Rows go in chunks so
         that the f32 [rows, d, d] matrices stay within 1 GiB.  Returns
         [rows, d] in the model dtype."""
         d = self.d_model
+        shape = decoder_out.shape
+        adaptor_out = adaptor_out.reshape(-1, d)
+        decoder_out = decoder_out.reshape(-1, d)
         u2 = self.u2.float()
-        out = torch.empty_like(decoder_out)
         step = max(1, _TRANSFORM_CHUNK_BYTES // (4 * d * d))
+        out = []
         for i in range(0, adaptor_out.shape[0], step):
             w = (adaptor_out[i:i + step].float() @ u2).view(-1, d, d)
             s = decoder_out[i:i + step].float()[:, None]
-            out[i:i + step] = torch.bmm(s, w)[:, 0].to(out.dtype)
-        return out
+            out.append(torch.bmm(s, w)[:, 0].to(decoder_out.dtype))
+        return torch.cat(out).reshape(shape)
 
 
 class PawaAdaptor(nn.Module):
     """The adaptor stack plus the weight-delta tensor U [d, V, d]."""
 
     def __init__(self, d_model: int, decode_vocab_size: int,
-                 num_layers: int = 4, num_heads: int = 8, d_ff: int = 0):
+                 num_layers: int = 4, num_heads: int = 8, d_ff: int = 0,
+                 dropout_rate: float = 0.0):
         super().__init__()
         d_ff = d_ff or min(4 * d_model, 2048)
         self.d_model = d_model
         self.memory = nn.Parameter(torch.zeros(1, 1, d_model))
         self.layers = nn.ModuleList([
-            PawaLayer(d_model, num_heads, d_ff) for _ in range(num_layers)])
+            PawaLayer(d_model, num_heads, d_ff, dropout_rate)
+            for _ in range(num_layers)])
         self.u = nn.Parameter(torch.zeros(d_model, decode_vocab_size, d_model))
+
+    def forward(self, decode_embeds: torch.Tensor) -> torch.Tensor:
+        """The adaptor over all positions: decode_embeds [B, L, d] (the
+        embedded decoder inputs) → A [B, L, d]."""
+        x = decode_embeds
+        memory = self.memory.expand(x.shape[0], 1, self.d_model)
+        for layer in self.layers:
+            x = layer(x, memory)
+        return x
+
+    def delta_logits(self, adaptor_out: torch.Tensor,
+                     decoder_out: torch.Tensor) -> torch.Tensor:
+        """Σ_ij A[..,j]·s[..,i]·U[j,v,i] for the whole vocab, all positions
+        in one pass over U: G = A·U as one [B·L, d]·[d, V·d] product in the
+        model dtype, then each position's G dotted with s in f32.  A, s
+        [B, L, d] → [B, L, V] in the model dtype."""
+        d = self.d_model
+        b, l, _ = adaptor_out.shape
+        u_flat = self.u.reshape(d, -1)
+        g = (adaptor_out.reshape(b * l, d) @ u_flat).reshape(b, l, -1, d)
+        return torch.einsum("blvi,bli->blv", g.float(),
+                            decoder_out.float()).to(adaptor_out.dtype)
+
+    def label_delta(self, adaptor_out: torch.Tensor, labels: torch.Tensor
+                    ) -> torch.Tensor:
+        """The PAWA rows of the label tokens: Δ[b,l,i] = Σ_j A[b,l,j] ·
+        U[j, labels[b,l], i], in f32 then rounded to the model dtype.  One
+        position at a time, so the gathered U stays [d, B, d].  A [B, L, d],
+        labels [B, L] → [B, L, d]."""
+        out = [torch.einsum("bj,jbi->bi", adaptor_out[:, l].float(),
+                            self.u[:, labels[:, l].long()].float())
+               for l in range(labels.shape[1])]
+        return torch.stack(out, dim=1).to(adaptor_out.dtype)
+
+    def delta_candidates_all(self, adaptor_out: torch.Tensor,
+                             decoder_out: torch.Tensor, kary: int
+                             ) -> torch.Tensor:
+        """The teacher-forced candidate deltas of every position at once:
+        position l's digit blocks of U are the contiguous tokens
+        l·kary+2 …, so they stack into one [d, L, kary·d] view and the delta
+        is an L-batched [B, d]·[d, kary·d] product (model dtype), dotted
+        with s in f32; the EOS block likewise.  A, s [B, L, d] → [B, L,
+        kary+1] f32 (digit slots, EOS)."""
+        d = self.d_model
+        b, l, _ = adaptor_out.shape
+        u_dig = self.u[:, 2:2 + l * kary, :].reshape(d, l, kary * d)
+        g = torch.einsum("bli,ilk->blk", adaptor_out, u_dig)
+        dig = torch.einsum("blkd,bld->blk", g.reshape(b, l, kary, d).float(),
+                           decoder_out.float())
+        ae = adaptor_out @ self.u[:, 1, :]                      # EOS block
+        eos = (ae.float() * decoder_out.float()).sum(-1)
+        return torch.cat([dig, eos[..., None]], dim=-1)
 
     def init_cache(self, batch: int, max_len: int) -> dict[str, torch.Tensor]:
         return _pawa_cache(len(self.layers), batch, max_len, self.u)

@@ -17,6 +17,15 @@ kernels for CUDA tensors, their plain versions on the CPU.  Caches are
 time-major ``[L, rows, H·d_kv]`` for self-attention (``tm_*`` keys, reordered
 by the beam search along axis 1) and per query ``[B, H, S, d_kv]`` for
 cross-attention (``cross_*`` keys, never reordered).
+
+The full-sequence paths (``Encoder.forward``, the teacher-forced
+``Decoder.forward``) are plain PyTorch, as in the reference package, which
+trains outside any Pallas kernel.  They have a :class:`Dropout` at every
+place flax has one: attention probabilities, the FFN hidden, each block's
+residual branches and the stack's input and output.  Dropout runs only in
+train mode and draws from a ``torch.Generator`` the caller sets
+(:func:`set_dropout_generator`).  ``remat`` recomputes each block in the
+backward pass (``torch.utils.checkpoint``), with the same dropout draws.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gdr_tpu_torch.kernels.decode import (cross_attn_sublayer, ffn_sublayer,
                                           self_attn_sublayer)
@@ -35,6 +45,57 @@ NEG_INF = -1e9
 def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Dense in the model dtype (``flax.linen.Dense(dtype=...)``)."""
     return torch.nn.functional.linear(x.to(w.dtype), w)
+
+
+class Dropout(nn.Module):
+    """``flax.linen.Dropout``: in train mode each element is kept with
+    probability 1 − p and scaled by 1 / (1 − p), else zeroed; in eval mode
+    or at p = 0 the identity.  The draws come from ``generator``, set for
+    the whole model by :func:`set_dropout_generator`."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in train mode draws from a generator:"
+                               " call set_dropout_generator(model, gen)")
+        keep_prob = 1.0 - self.p
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep_prob, x / keep_prob,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: torch.Generator | None) -> None:
+    """Every :class:`Dropout` of ``module`` draws from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+def _run_blocks(blocks, remat: bool, x, *args):
+    """x through each block; with ``remat`` (and autograd recording) each
+    block is recomputed in the backward pass, its dropout generator reset
+    to the state the forward drew from, so that the recomputation draws
+    the same masks."""
+    for blk in blocks:
+        if not (remat and torch.is_grad_enabled()):
+            x = blk(x, *args)
+            continue
+        gen = blk.drop.generator
+        state = gen.get_state() if gen is not None else None
+
+        def run(*a, blk=blk, gen=gen, state=state):
+            if state is not None:
+                gen.set_state(state)
+            return blk(*a)
+        x = checkpoint(run, x, *args, use_reentrant=False)
+    return x
 
 
 class RMSNorm(nn.Module):
@@ -108,13 +169,15 @@ class RelativePositionBias(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention with an optional explicit KV cache."""
 
-    def __init__(self, d_model: int, num_heads: int, d_kv: int):
+    def __init__(self, d_model: int, num_heads: int, d_kv: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.d_kv = d_kv
         self.inner = num_heads * d_kv
         self.qkv = nn.Linear(d_model, 3 * self.inner, bias=False)
         self.o = nn.Linear(self.inner, d_model, bias=False)
+        self.attn_dropout = Dropout(dropout_rate)
 
     @property
     def wq(self) -> torch.Tensor:
@@ -146,13 +209,17 @@ class Attention(nn.Module):
             scores = scores + bias.float()
         if mask is not None:
             scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-        probs = torch.softmax(scores, dim=-1).to(self.dtype)
+        probs = self.attn_dropout(torch.softmax(scores, dim=-1).to(self.dtype))
         return _linear(self._merge(probs @ v), self.o.weight)
 
-    def forward(self, x, mask=None, bias=None):
-        """Full self-attention.  mask: broadcastable to [B, 1, Q, K],
-        True = attend."""
-        q, k, v = _linear(x, self.qkv.weight).split(self.inner, dim=-1)
+    def forward(self, x, kv=None, mask=None, bias=None):
+        """Full attention over ``x``, or over ``kv`` (cross-attention).
+        mask: broadcastable to [B, 1, Q, K], True = attend."""
+        if kv is None:
+            q, k, v = _linear(x, self.qkv.weight).split(self.inner, dim=-1)
+        else:
+            q = _linear(x, self.wq)
+            k, v = _linear(kv, self.wk), _linear(kv, self.wv)
         return self._attend(self._split(q), self._split(k), self._split(v),
                             mask, bias)
 
@@ -185,38 +252,54 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int):
+    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0):
         super().__init__()
         self.wi = nn.Linear(d_model, d_ff, bias=False)
         self.wo = nn.Linear(d_ff, d_model, bias=False)
+        self.drop = Dropout(dropout_rate)
 
     def forward(self, x):
-        return _linear(torch.relu(_linear(x, self.wi.weight)), self.wo.weight)
+        h = self.drop(torch.relu(_linear(x, self.wi.weight)))
+        return _linear(h, self.wo.weight)
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, d_model, num_heads, d_kv, d_ff, eps=1e-6):
+    def __init__(self, d_model, num_heads, d_kv, d_ff, eps=1e-6,
+                 dropout_rate=0.0):
         super().__init__()
         self.ln1 = RMSNorm(d_model, eps)
-        self.attn = Attention(d_model, num_heads, d_kv)
+        self.attn = Attention(d_model, num_heads, d_kv, dropout_rate)
         self.ln2 = RMSNorm(d_model, eps)
-        self.ff = FeedForward(d_model, d_ff)
+        self.ff = FeedForward(d_model, d_ff, dropout_rate)
+        self.drop = Dropout(dropout_rate)
 
     def forward(self, x, mask, bias):
-        x = x + self.attn(self.ln1(x), mask=mask, bias=bias)
-        return x + self.ff(self.ln2(x))
+        x = x + self.drop(self.attn(self.ln1(x), mask=mask, bias=bias))
+        return x + self.drop(self.ff(self.ln2(x)))
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, d_model, num_heads, d_kv, d_ff, eps=1e-6):
+    def __init__(self, d_model, num_heads, d_kv, d_ff, eps=1e-6,
+                 dropout_rate=0.0):
         super().__init__()
         self.eps = eps
         self.ln1 = RMSNorm(d_model, eps)
-        self.self_attn = Attention(d_model, num_heads, d_kv)
+        self.self_attn = Attention(d_model, num_heads, d_kv, dropout_rate)
         self.ln2 = RMSNorm(d_model, eps)
-        self.cross_attn = Attention(d_model, num_heads, d_kv)
+        self.cross_attn = Attention(d_model, num_heads, d_kv, dropout_rate)
         self.ln3 = RMSNorm(d_model, eps)
-        self.ff = FeedForward(d_model, d_ff)
+        self.ff = FeedForward(d_model, d_ff, dropout_rate)
+        self.drop = Dropout(dropout_rate)
+
+    def forward(self, x, enc, self_mask, cross_mask, bias, cross_bias):
+        """Teacher-forced block over x [B, L, d] and the encoder output
+        enc [B, S, d]."""
+        h = self.self_attn(self.ln1(x), mask=self_mask, bias=bias)
+        x = x + self.drop(h)
+        h = self.cross_attn(self.ln2(x), kv=enc, mask=cross_mask,
+                            bias=cross_bias)
+        x = x + self.drop(h)
+        return x + self.drop(self.ff(self.ln3(x)))
 
     def decode_step(self, x, self_k, self_v, cross_k, cross_v, pos: int,
                     bias_self, cross_bias, num_beams: int):
@@ -239,29 +322,33 @@ class DecoderBlock(nn.Module):
 
 class Encoder(nn.Module):
     def __init__(self, num_layers, d_model, num_heads, d_kv, d_ff, eps=1e-6,
-                 num_buckets=32, max_distance=128):
+                 num_buckets=32, max_distance=128, dropout_rate=0.0,
+                 remat=False):
         super().__init__()
+        self.remat = remat
         self.rel_bias = RelativePositionBias(num_heads, num_buckets,
                                              max_distance, bidirectional=True)
         self.blocks = nn.ModuleList([
-            EncoderBlock(d_model, num_heads, d_kv, d_ff, eps)
+            EncoderBlock(d_model, num_heads, d_kv, d_ff, eps, dropout_rate)
             for _ in range(num_layers)])
         self.final_norm = RMSNorm(d_model, eps)
+        self.drop = Dropout(dropout_rate)
 
     def forward(self, x, attn_mask):
         """x: embedded inputs [B, L, d]; attn_mask: [B, L] (1 = token)."""
         l = x.shape[1]
         bias = self.rel_bias(l, l)
         mask = attn_mask[:, None, None, :].bool()
-        for blk in self.blocks:
-            x = blk(x, mask, bias)
-        return self.final_norm(x)
+        x = _run_blocks(self.blocks, self.remat, self.drop(x), mask, bias)
+        return self.drop(self.final_norm(x))
 
 
 class Decoder(nn.Module):
     def __init__(self, num_layers, d_model, num_heads, d_kv, d_ff, eps=1e-6,
-                 num_buckets=32, max_distance=128):
+                 num_buckets=32, max_distance=128, dropout_rate=0.0,
+                 remat=False):
         super().__init__()
+        self.remat = remat
         self.num_heads = num_heads
         self.d_kv = d_kv
         self.rel_bias = RelativePositionBias(num_heads, num_buckets,
@@ -271,9 +358,24 @@ class Decoder(nn.Module):
         self.cross_rel_bias = RelativePositionBias(
             num_heads, num_buckets, max_distance, bidirectional=True)
         self.blocks = nn.ModuleList([
-            DecoderBlock(d_model, num_heads, d_kv, d_ff, eps)
+            DecoderBlock(d_model, num_heads, d_kv, d_ff, eps, dropout_rate)
             for _ in range(num_layers)])
         self.final_norm = RMSNorm(d_model, eps)
+        self.drop = Dropout(dropout_rate)
+
+    def forward(self, x, enc, self_attn_mask, enc_mask):
+        """Teacher-forced decode.  x: embedded decoder inputs [B, L, d];
+        self_attn_mask [B, L]; enc [B, S, d]; enc_mask [B, S].  Position q
+        attends to the unmasked positions <= q."""
+        l = x.shape[1]
+        bias = self.rel_bias(l, l)
+        cross_bias = self.cross_rel_bias(l, enc.shape[1])
+        causal = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+        self_mask = causal[None, None] & self_attn_mask[:, None, None, :].bool()
+        cross_mask = enc_mask[:, None, None, :].bool()
+        x = _run_blocks(self.blocks, self.remat, self.drop(x), enc, self_mask,
+                        cross_mask, bias, cross_bias)
+        return self.drop(self.final_norm(x))
 
     def init_cache(self, batch: int, max_len: int, enc: torch.Tensor,
                    num_beams: int = 1) -> dict[str, torch.Tensor]:

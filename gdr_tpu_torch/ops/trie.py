@@ -3,7 +3,8 @@
 A copy of ``gdr_tpu/ops/trie.py``'s index-build and expansion path: the
 arrays, their host helpers, ``build_trie`` (its node graph packed by the
 port's C++ library, ``native.py``), the node embeddings, the greedy
-``tree_match`` and ``insert_docs``.  Node numbering is BFS with per-level
+``tree_match`` and ``insert_docs``, and the training path's
+``prefix_node_embeddings`` (weight distillation's targets).  Node numbering is BFS with per-level
 insertion in sorted-CID order, so the arrays equal the reference package's
 for the same mapping.
 
@@ -31,6 +32,7 @@ from typing import Iterable, Mapping, Sequence
 import numpy as np
 
 from gdr_tpu_torch import native
+from gdr_tpu_torch.ops.codec import TOKEN_OFFSET
 
 
 @dataclass
@@ -320,3 +322,41 @@ def insert_docs(trie: TrieTensors, new_doc_embeddings: np.ndarray,
     out = dataclasses.replace(out, node_embedding=trie.node_embedding,
                               leaf_count=trie.leaf_count)
     return out, rows
+
+
+def prefix_node_embeddings(trie: TrieTensors, labels: np.ndarray,
+                           label_mask: np.ndarray, kary: int,
+                           position: bool = True
+                           ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-position prefix-node embeddings for weight distillation.
+
+    For each row's positional CID label sequence, position ``l`` is scored
+    by an lm-head adapted to the prefix ``digits[:l]`` — its distillation
+    target is the embedding of the trie node that prefix reaches (the
+    reference's ``prefix_embedding[prefix2idx_dict[target[:i]]]``, kept
+    commented out behind np.random fakes at main_models.py:505-519;
+    node embeddings per tree_embedding_calculate, :154-179).
+
+    labels/label_mask: [B, L].  Returns (emb [B, L, d'], mask [B, L]) —
+    mask zero where the label is EOS/padding or the prefix left the trie.
+    """
+    assert trie.node_embedding is not None, (
+        "trie has no node embeddings (build with doc_embeddings)")
+    b, l_max = labels.shape
+    d = trie.node_embedding.shape[1]
+    emb = np.zeros((b, l_max, d), np.float32)
+    mask = np.zeros((b, l_max), np.float32)
+    node = np.zeros(b, np.int64)                 # root
+    alive = np.ones(b, bool)
+    for l in range(l_max):
+        tok = labels[:, l].astype(np.int64)
+        digit = tok - (l * kary if position else 0) - TOKEN_OFFSET
+        is_digit = (digit >= 0) & (digit < kary) & (label_mask[:, l] > 0)
+        take = alive & is_digit
+        emb[take, l] = trie.node_embedding[node[take]]
+        mask[:, l] = take.astype(np.float32)
+        nxt = trie.children[node, np.clip(digit, 0, kary - 1)]
+        node = np.where(take, nxt, node)
+        alive = take & (node >= 0)
+        node = np.clip(node, 0, None)
+    return emb, mask

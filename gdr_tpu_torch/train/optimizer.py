@@ -1,0 +1,175 @@
+"""AdamW over six parameter groups, mirroring ``gdr_tpu/train/optimizer.py``
+(an ``optax.chain(clip_by_global_norm, multi_transform(adamw × 6))``, inside
+``optax.MultiSteps`` when gradients accumulate).
+
+The groups are {T5 encoder + shared embeddings, the decoder side, the doc
+tower} × {decay, no decay}: no decay on biases and norm scales (T5's
+RMSNorm ``scale``, the 1-D ``weight`` of a LayerNorm).  Each has its peak
+learning rate (``learning_rate`` / ``decoder_learning_rate`` /
+``doc_encoder_learning_rate``) under one schedule, linear (with warmup) or
+``((T − x − 0.95) / T) ** 0.1``.
+
+The arithmetic is optax's, on f32 tensors updated in place:
+
+- one global-norm clip over all groups first: g ← g / ‖g‖ · max when
+  ‖g‖ ≥ max (optax's rule, not ``clip_grad_norm_``'s max / (‖g‖ + 1e-6));
+- Adam moments m ← b1·m + (1−b1)·g, v ← b2·v + (1−b2)·g², bias-corrected
+  with the count after the increment: u = m̂ / (√v̂ + ε);
+- weight decay on the pre-update parameter, u ← u + wd·p;
+- p ← p − lr(count)·u, the schedule read at the count before the
+  increment;
+- with ``gradient_accumulation_steps`` k > 1, the running mean of k
+  micro-batches' gradients (Welford, as ``MultiSteps``) is applied every
+  k-th call, and only those calls advance the count.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gdr_tpu_torch.config import TrainConfig
+
+B1, B2 = 0.9, 0.999
+GROUPS = ("enc_wd", "enc_nd", "dec_wd", "dec_nd", "doc_wd", "doc_nd")
+
+
+def _is_no_decay(name: str, p: torch.Tensor) -> bool:
+    leaf = name.rsplit(".", 1)[-1]
+    return leaf in ("bias", "scale") or (leaf == "weight" and p.dim() == 1)
+
+
+def param_labels(params: dict[str, dict[str, torch.Tensor]]
+                 ) -> dict[str, str]:
+    """The group of every parameter: keys ``generator/<name>`` and
+    ``doc_encoder/<name>`` of the ``{"generator": ..., "doc_encoder": ...}``
+    parameter dicts → one of :data:`GROUPS`."""
+    labels = {}
+    for tower, named in params.items():
+        for name, p in named.items():
+            if tower == "doc_encoder":
+                g = "doc"
+            else:
+                g = "enc" if name.startswith(("shared.", "encoder.")) else "dec"
+            labels[f"{tower}/{name}"] = \
+                f"{g}_{'nd' if _is_no_decay(name, p) else 'wd'}"
+    return labels
+
+
+def flat(params: dict[str, dict[str, torch.Tensor]]
+         ) -> dict[str, torch.Tensor]:
+    return {f"{tower}/{name}": t for tower, named in params.items()
+            for name, t in named.items()}
+
+
+def learning_rate(cfg: TrainConfig, total: int, peak: float,
+                  count: int) -> float:
+    """The schedule at optimizer count ``count``, in f32 as the reference
+    computes it."""
+    f32 = np.float32
+    step = f32(count)
+    if cfg.scheduler == "linear":
+        warmup = cfg.warmup_steps
+        warm = step / f32(warmup) if warmup > 0 else f32(1.0)
+        decay = max(f32(0.0), (f32(total) - step) / f32(max(total - warmup, 1)))
+        return float(f32(peak) * (warm if step < warmup else decay))
+    frac = max((f32(total) - step - f32(0.95)) / f32(total), f32(1e-6))
+    return float(f32(peak) * frac ** f32(0.1))
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt(Σ Σ x²) over all tensors, f32, on their device."""
+    norms = torch._foreach_norm(list(tensors))
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+class GroupedAdamW:
+    """The six-group AdamW of :mod:`gdr_tpu_torch.train.optimizer`.
+    ``labels``: flat parameter key → group (:func:`param_labels`);
+    ``total_steps``: the schedule's horizon in optimizer updates."""
+
+    def __init__(self, cfg: TrainConfig, labels: dict[str, str],
+                 total_steps: int):
+        self.cfg = cfg
+        self.labels = labels
+        self.total = total_steps
+        peaks = {"enc": cfg.learning_rate, "dec": cfg.decoder_learning_rate,
+                 "doc": cfg.doc_encoder_learning_rate}
+        self.hyper = {g: (peaks[g[:3]],
+                          cfg.weight_decay if g.endswith("wd") else 0.0)
+                      for g in GROUPS}
+
+    def init(self, params: dict[str, dict[str, torch.Tensor]]) -> dict:
+        """Zero moments (and accumulator) shaped as the f32 parameters."""
+        f = flat(params)
+        state = {"count": 0, "mini_step": 0,
+                 "mu": {k: torch.zeros_like(t) for k, t in f.items()},
+                 "nu": {k: torch.zeros_like(t) for k, t in f.items()},
+                 "acc": None}
+        if self.cfg.gradient_accumulation_steps > 1:
+            state["acc"] = {k: torch.zeros_like(t) for k, t in f.items()}
+        return state
+
+    @torch.no_grad()
+    def update(self, params: dict[str, dict[str, torch.Tensor]],
+               grads: dict[str, torch.Tensor], state: dict) -> bool:
+        """One call per micro-batch: ``grads`` (flat keys, f32) update
+        ``params`` and ``state`` in place.  Returns whether the parameters
+        changed (always, unless this call only accumulated)."""
+        f = flat(params)
+        keys = list(f)
+        g = [grads[k] for k in keys]
+        k_steps = self.cfg.gradient_accumulation_steps
+        if k_steps > 1:
+            acc = [state["acc"][k] for k in keys]
+            n = state["mini_step"]
+            # acc + (g − acc) / (n + 1): the running mean of the micro-batches
+            torch._foreach_add_(acc, torch._foreach_div(
+                torch._foreach_sub(g, acc), float(n + 1)))
+            state["mini_step"] = (n + 1) % k_steps
+            if n != k_steps - 1:
+                return False
+            g = [a.clone() for a in acc]
+            for a in acc:
+                a.zero_()
+        norm = global_norm(g)
+        max_norm = self.cfg.max_grad_norm
+        factor = torch.where(norm < max_norm, torch.ones_like(norm),
+                             max_norm / norm)
+        torch._foreach_mul_(g, factor)
+
+        count = state["count"]
+        c1 = count + 1
+        bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(c1))
+        bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(c1))
+        for group in GROUPS:
+            idx = [i for i, k in enumerate(keys) if self.labels[k] == group]
+            if not idx:
+                continue
+            peak, wd = self.hyper[group]
+            p = [f[keys[i]] for i in idx]
+            gg = [g[i] for i in idx]
+            mu = [state["mu"][keys[i]] for i in idx]
+            nu = [state["nu"][keys[i]] for i in idx]
+            torch._foreach_mul_(mu, B1)
+            torch._foreach_add_(mu, gg, alpha=1 - B1)
+            torch._foreach_mul_(nu, B2)
+            torch._foreach_addcmul_(nu, gg, gg, value=1 - B2)
+            den = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.cfg.adam_epsilon)
+            upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+            if wd:
+                torch._foreach_add_(upd, p, alpha=wd)
+            lr = learning_rate(self.cfg, self.total, peak, count)
+            torch._foreach_add_(p, upd, alpha=-lr)
+        state["count"] = c1
+        return True
+
+
+def build_optimizer(cfg: TrainConfig, params: dict[str, dict[str, torch.Tensor]],
+                    total_steps: int) -> tuple[GroupedAdamW, dict[str, str]]:
+    """(optimizer, labels) for the ``{"generator": ..., "doc_encoder":
+    ...}`` parameter dicts."""
+    labels = param_labels(params)
+    return GroupedAdamW(cfg, labels, total_steps), labels

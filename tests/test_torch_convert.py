@@ -1,5 +1,7 @@
 """The weight bridge: every leaf of the JAX parameter tree lands in exactly
-one port parameter, in the right layout; a missing or extra key raises."""
+one port parameter, in the right layout; a missing or extra key raises.
+The inverse bridge gives the tree back bit for bit, and ``save_params_npz``
+writes the ``params.npz`` that ``load_params_npz`` reads."""
 
 import dataclasses
 import importlib.util
@@ -15,7 +17,8 @@ from gdr_tpu.config import tiny_config
 from gdr_tpu.models.gdr import GenerativeRetriever as JaxRetriever
 from gdr_tpu.models.gdr import init_params
 from gdr_tpu_torch.config import tiny_config as port_tiny_config
-from gdr_tpu_torch.convert import load_params_npz, params_from_flax
+from gdr_tpu_torch.convert import (load_params_npz, params_from_flax,
+                                   params_to_flax, save_params_npz)
 from gdr_tpu_torch.models.gdr import GenerativeRetriever
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -145,3 +148,24 @@ def test_export_tool_round_trip(tree, tmp_path):
     assert set(got) == set(want)
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("overrides", [
+    {}, dict(adaptor_efficient=False),
+    dict(denoising=True, tie_decode_embedding=False, concate_fusion=True)],
+    ids=["default", "slow-pawa", "denoise-untied-fusion"])
+def test_inverse_bridge_round_trip_is_bit_equal(overrides, tmp_path):
+    jcfg = dataclasses.replace(tiny_config().model, **overrides)
+    tree = jax.tree_util.tree_map(
+        np.asarray, init_params(JaxRetriever(jcfg), jax.random.PRNGKey(2)))
+    sd = params_from_flax(tree)
+    back = params_to_flax(sd)
+    want = dict(jax.tree_util.tree_leaves_with_path(tree))
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and np.array_equal(got[k], v), k
+    path = str(tmp_path / "params.npz")
+    assert save_params_npz(path, sd) == len(want)
+    for k, v in load_params_npz(path).items():
+        assert torch.equal(v, sd[k]), k
