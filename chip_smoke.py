@@ -6,8 +6,9 @@ the port builds, is right and serves retrieval on the card.
 
 Every phase always runs; ``profile`` adds a torch.profiler table of one
 full-width retrieve in phase 4, of each mode in phase 5, in phase 6 of
-one doc-tower batch per dtype and one k-means recursion, and in phase 7 of
-one full-width train step.  Any other
+one doc-tower batch per dtype and one k-means recursion, in phase 7 of
+one full-width train step, and in phase 8 of one query-generation batch
+and one hierarchic decode + re-rank.  Any other
 argument is refused.
 
 Phases (each prints its elapsed seconds; any failure exits non-zero before
@@ -21,10 +22,13 @@ the last line):
    card: the decoder sublayers at the row counts the main path gives them
    (32, 992 and 3,200 rows of t5-base: 32 queries × widths 1, 31, 100, at
    positions 0, 1 and 3) and at the shapes the other options give them
-   (3,200 rows at position 0, and at position 4 of a 5-position cache) in
-   bf16 and f32; the three re-rank scorers at 32 and 3,200 beams, each
-   beam with its own query row (the packed scorer also with one row per
-   query), over stores of the operating point's size (the packed
+   (3,200 rows at position 0, and at position 4 of a 5-position cache)
+   and query generation gives them (320 and 3,200 rows, one beam each
+   over a 64-token doc, at position 39 of a 40-position cache, the self
+   core's streaming path; timed there in both dtypes) in bf16 and f32;
+   the three re-rank scorers at 32 and 3,200
+   beams, each beam with its own query row (the packed scorer also with
+   one row per query), over stores of the operating point's size (the packed
    bf16 / f32 store, the int8 packed store with the query in bf16 and f32,
    the plain bf16 / f32 store with candidates from the bench trie's padded
    cluster table).  Device times (CUDA-graph replay) beside the plain
@@ -107,13 +111,35 @@ the last line):
    → ``eval`` as subprocesses on the card over phase 6's 2,000-doc index,
    ``eval`` reading the trained ``params.npz``.  ``profile`` adds the
    device busy share and kernel families of one full-width step;
-8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
-   layout's main path (and over phase 6's built index, and in phase 7's
-   TrainLoop eval), max |Δ|, kernel / plain / library ms and its bound
-   (the decoder rows also by row count, per retrieve and per GEMM shape).
+8. the secondary modes and query generation — (a) a small f32 world on
+   the CPU and the card from the same weights: ``generate_queries``
+   tokens from one Gumbel draw over a 40-position cache equal, one
+   ensemble step (N = 2, R-Drop 0.1, dropout 0) and its eval, hierarchic
+   decode + re-rank, the classifier's logits and one step, within 1e-4;
+   (b) ``generate_queries`` at t5-base in f32, as ``cli qg`` runs it:
+   64 docs × 64 tokens, 5 queries each (320 rows), top-k 10, 40 steps:
+   240 launches of each decoder kernel, time, row-steps/s, peak; then
+   the same in bf16 beside it; (c) the ensemble at t5-base
+   (3 members, f32, R-Drop 0.1): its two extra k-means assignments of
+   phase 4's store on the card, 2 warm + 5 timed steps at batch 64, peak,
+   then ``eval_ensemble`` of 32 queries × 40 tokens at beam 100 over each
+   member's own trie and the plain store (one ``rerank_scores`` per
+   member, 6 × steps of each decoder kernel; every member's beams and doc
+   ids checked); (d) the hierarchic mode at t5-base over the bench trie
+   (3 decoder stacks): timed steps, then decode + re-rank of 32 queries at
+   beam 100 (one ``rerank_scores``); (e) the softmax classifier over the
+   bench trie's 11,144 clusters: timed steps and the top-100 ranking of 32
+   queries; (f) the CLI on the card over phase 6's index: ``qg`` →
+   ``train --qg`` and ``train --ensemble 2`` → ``eval --ensemble 2``;
+9. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
+   layout's main path (and over phase 6's built index, in phase 7's
+   TrainLoop eval and in phase 8's query generation, ensemble eval and
+   hierarchic eval), max |Δ|, kernel / plain / library ms and its bound
+   (the decoder rows also by row count, per retrieve, per GEMM shape and
+   at query generation's shape).
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
-torch, numpy and gdr_tpu_torch only (its phases 6 and 7 also run the
+torch, numpy and gdr_tpu_torch only (its phases 6, 7 and 8 also run the
 port's CLI in subprocesses).  Files go to one temporary directory, removed
 at the end.
 """
@@ -121,6 +147,7 @@ at the end.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import shutil
 import subprocess
@@ -128,6 +155,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from statistics import fmean
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak (NVIDIA data sheet)
 H100_F32_FLOPS = 67e12       # outside the tensor cores
@@ -150,6 +178,12 @@ RETRIEVE_WEIGHT = {1: 6, 31: 6, 100: 12}
 # sampling starts at full width at position 0; pooled decoder reps take a
 # fifth step, position 4 of a 5-position cache
 OPTION_POS_LMAX = ((0, 4), (4, 5))
+# query generation (phase 8): a 40-position self-attention cache (the
+# streaming path of the self core), 64 docs x 64 tokens x 5 queries = 320
+# rows, each its own query (one beam); phase 2 holds the sublayers at that
+# shape at the last position, and also at 3,200 rows
+QG_L, QG_ROWS = 40, (320, 3200)
+QG_DOCS, QG_DOC_LEN, QG_PER_DOC = 64, 64, 5
 DECODER = ("self_attn_sublayer", "cross_attn_sublayer", "ffn_sublayer")
 # the GEMM's (N, K) shapes on the main path, with the epilogue each gets
 GEMM_SHAPES = ((3 * D, D, "round"), (D, D, "residual"), (DFF, D, "relu"),
@@ -192,20 +226,20 @@ def _time_ms(fn, n: int = 20) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def _loop_ms(fn, n: int = 5) -> float:
-    """Wall ms of one call of ``fn``, host dispatch included: CUDA events
-    around ``n`` back-to-back calls after one warm call."""
+def _timed(fn, warm: int, timed: int) -> list[float]:
+    """Wall ms of ``timed`` calls of ``fn`` after ``warm`` ones, each
+    between two synchronisations."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(n):
+    for _ in range(warm):
         fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
+    out = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
 
 
 def _bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -213,12 +247,12 @@ def _bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def decoder_cost(name: str, r: int, pos: int, lmax: int, el: int
-                 ) -> tuple[float, float]:
+def decoder_cost(name: str, r: int, pos: int, lmax: int, el: int,
+                 queries: int = B, enc_len: int = S) -> tuple[float, float]:
     """FLOPs and the bytes a decoder sublayer must move at r rows: each
     input read once (x, weights, the cache rows at positions < pos, the
-    query's encoder K/V, biases, norm scale) and each output written once
-    (x', the new K/V row)."""
+    ``queries``' encoder K/V of ``enc_len`` tokens, biases, norm scale) and
+    each output written once (x', the new K/V row)."""
     inner = H * DKV
     if name == "self_attn_sublayer":
         flops = 2 * r * D * 3 * inner + 2 * r * inner * D \
@@ -226,16 +260,18 @@ def decoder_cost(name: str, r: int, pos: int, lmax: int, el: int
         nbytes = (2 * r * D + 4 * inner * D) * el + 2 * pos * r * inner * el \
             + 2 * r * inner * el + lmax * H * 4 + D * 4
     elif name == "cross_attn_sublayer":
-        flops = 2 * 2 * r * D * inner + 2 * 2 * r * H * S * DKV
-        nbytes = (2 * r * D + 2 * inner * D) * el + 2 * B * H * S * DKV * el \
-            + B * H * S * 4 + D * 4
+        flops = 2 * 2 * r * D * inner + 2 * 2 * r * H * enc_len * DKV
+        nbytes = (2 * r * D + 2 * inner * D) * el \
+            + 2 * queries * H * enc_len * DKV * el \
+            + queries * H * enc_len * 4 + D * 4
     else:
         flops = 2 * 2 * r * D * DFF
         nbytes = (2 * r * D + 2 * D * DFF) * el + D * 4
     return flops, nbytes
 
 
-def core_bytes(name: str, r: int, pos: int, el: int) -> float:
+def core_bytes(name: str, r: int, pos: int, el: int, queries: int = B,
+               enc_len: int = S) -> float:
     """The bytes an attention core alone must move at r rows: the
     self-attention core reads q/k/v and the cache rows at positions < pos
     and writes the attention output and the new K/V row; the
@@ -245,7 +281,8 @@ def core_bytes(name: str, r: int, pos: int, el: int) -> float:
     if name == "self_attn_sublayer":
         return (3 * r * inner + 2 * pos * r * inner + 3 * r * inner) * el \
             + 4 * H * 4
-    return (2 * r * inner + 2 * B * H * S * DKV) * el + B * H * S * 4
+    return (2 * r * inner + 2 * queries * H * enc_len * DKV) * el \
+        + queries * H * enc_len * 4
 
 
 def plan_text(plan) -> str:
@@ -267,8 +304,9 @@ def _close(name, got, want, dtype_name) -> float:
 
 
 def sublayers_vs_plain(rn, stats: dict, r: int, beams: int, pos: int,
-                       lmax: int, dtype):
-    """The three decoder sublayers at r rows (``beams`` per query) and
+                       lmax: int, dtype, enc_len: int = S):
+    """The three decoder sublayers at r rows (``beams`` per query, so
+    r / beams queries, each with ``enc_len`` encoder positions) and
     position ``pos`` of an ``lmax``-position cache, on random t5-base
     inputs from ``rn``, each held to its plain version: logs the max |d|,
     folds it into ``stats[name]["err"]`` and returns the inputs."""
@@ -279,7 +317,8 @@ def sublayers_vs_plain(rn, stats: dict, r: int, beams: int, pos: int,
     from gdr_tpu_torch.kernels import decode as KD
 
     dn = str(dtype).split(".")[-1]
-    at = f"{dn} R={r} pos {pos} L {lmax}"
+    queries = r // beams
+    at = f"{dn} R={r} pos {pos} L {lmax} S {enc_len}"
     x = rn(r, D, dtype=dtype)
     scale = (1 + rn(D, std=0.1)).to(dtype)
     wqkv = rn(3 * D, D, std=0.02, dtype=dtype)
@@ -297,10 +336,10 @@ def sublayers_vs_plain(rn, stats: dict, r: int, beams: int, pos: int,
 
     wcq = rn(D, D, std=0.02, dtype=dtype)
     wco = rn(D, D, std=0.02, dtype=dtype)
-    cross_k = rn(B, H, S, DKV, dtype=dtype)
-    cross_v = rn(B, H, S, DKV, dtype=dtype)
-    cbias = rn(B, H, S, std=0.5)
-    cbias[:, :, S - 8:] += -1e9                          # padded key positions
+    cross_k = rn(queries, H, enc_len, DKV, dtype=dtype)
+    cross_v = rn(queries, H, enc_len, DKV, dtype=dtype)
+    cbias = rn(queries, H, enc_len, std=0.5)
+    cbias[:, :, enc_len - 8:] += -1e9                    # padded key positions
     got = KD.cross_attn_sublayer(x, scale, wcq, wco, cross_k, cross_v, cbias,
                                  beams, heads=H, d_kv=DKV)
     want = KD.cross_attn_sublayer_plain(x, scale, wcq, wco, cross_k, cross_v,
@@ -314,15 +353,51 @@ def sublayers_vs_plain(rn, stats: dict, r: int, beams: int, pos: int,
     e_ffn = _close(f"ffn {at}", got, want, dn)
     torch.cuda.synchronize()
     atol, rtol = TOL[dn]
-    log(f"  {dn:8s} R={r:5d} pos {pos} L {lmax}  max|d| self {e_self:.3g}  "
-        f"cross {e_cross:.3g}  ffn {e_ffn:.3g}  (tol {atol} + "
-        f"{rtol}·|plain|)")
+    log(f"  {dn:8s} R={r:5d} beams {beams} pos {pos} L {lmax} S {enc_len}  "
+        f"max|d| self {e_self:.3g}  cross {e_cross:.3g}  ffn {e_ffn:.3g}  "
+        f"(tol {atol} + {rtol}·|plain|)")
     for name, e in zip(DECODER, (e_self, e_cross, e_ffn)):
         stats[name]["err"] = max(stats[name].get("err", 0.0), e)
     return types.SimpleNamespace(
-        dn=dn, x=x, scale=scale, wqkv=wqkv, wo=wo, bias_row=bias_row, ck=ck,
+        dn=dn, beams=beams, x=x, scale=scale, wqkv=wqkv, wo=wo, bias_row=bias_row, ck=ck,
         cv=cv, ck2=ck2, cv2=cv2, wcq=wcq, wco=wco, cross_k=cross_k,
         cross_v=cross_v, cbias=cbias, wi=wi, wo2=wo2)
+
+
+def sublayer_calls(c, pos: int) -> dict:
+    """name → (kernel, plain, library) calls of the three sublayers on the
+    inputs ``c`` of :func:`sublayers_vs_plain` at position ``pos``; the
+    library call is the sublayer's two GEMMs through torch.matmul, with no
+    attention core."""
+    import torch
+
+    from gdr_tpu_torch.kernels import decode as KD
+
+    x, scale = c.x, c.scale
+    attn_in = torch.empty_like(x)
+    hid = x.new_empty(x.shape[0], DFF)
+    return {
+        "self_attn_sublayer": (
+            lambda: KD.self_attn_sublayer(
+                x, pos, scale, c.wqkv, c.wo, c.bias_row, c.ck, c.cv,
+                heads=H, d_kv=DKV),
+            lambda: KD.self_attn_sublayer_plain(
+                x, pos, scale, c.wqkv, c.wo, c.bias_row, c.ck2, c.cv2,
+                heads=H, d_kv=DKV),
+            lambda: (x @ c.wqkv.t(), attn_in @ c.wo.t())),
+        "cross_attn_sublayer": (
+            lambda: KD.cross_attn_sublayer(
+                x, scale, c.wcq, c.wco, c.cross_k, c.cross_v, c.cbias,
+                c.beams, heads=H, d_kv=DKV),
+            lambda: KD.cross_attn_sublayer_plain(
+                x, scale, c.wcq, c.wco, c.cross_k, c.cross_v, c.cbias,
+                c.beams, heads=H, d_kv=DKV),
+            lambda: (x @ c.wcq.t(), attn_in @ c.wco.t())),
+        "ffn_sublayer": (
+            lambda: KD.ffn_sublayer(x, scale, c.wi, c.wo2),
+            lambda: KD.ffn_sublayer_plain(x, scale, c.wi, c.wo2),
+            lambda: (x @ c.wi.t(), hid @ c.wo2.t())),
+    }
 
 
 # ------------------------------------------------------------ phase 2
@@ -349,6 +424,8 @@ def phase_kernels(dev, trie) -> dict:
         torch.cuda.synchronize()
     del warm
     stats: dict = {name: dict(rows={}) for name in DECODER}
+    for name in DECODER:
+        stats[name]["qg"] = {}
     gemm_rows: list = []
     for dtype in (torch.bfloat16, torch.float32):
         for w in WIDTHS:
@@ -357,34 +434,9 @@ def phase_kernels(dev, trie) -> dict:
             if dtype != torch.bfloat16:
                 continue
 
-            # device times at this row count: kernel, plain, library (the
-            # sublayer's two GEMMs through torch.matmul, no attention core)
+            # device times at this row count: kernel, plain, library
             x, scale, dn = c.x, c.scale, c.dn
-            attn_in = torch.empty(r, D, dtype=dtype, device=dev)
-            hid = torch.empty(r, DFF, dtype=dtype, device=dev)
-            calls = {
-                "self_attn_sublayer": (
-                    lambda: KD.self_attn_sublayer(
-                        x, pos, scale, c.wqkv, c.wo, c.bias_row, c.ck, c.cv,
-                        heads=H, d_kv=DKV),
-                    lambda: KD.self_attn_sublayer_plain(
-                        x, pos, scale, c.wqkv, c.wo, c.bias_row, c.ck2, c.cv2,
-                        heads=H, d_kv=DKV),
-                    lambda: (x @ c.wqkv.t(), attn_in @ c.wo.t())),
-                "cross_attn_sublayer": (
-                    lambda: KD.cross_attn_sublayer(
-                        x, scale, c.wcq, c.wco, c.cross_k, c.cross_v, c.cbias,
-                        w, heads=H, d_kv=DKV),
-                    lambda: KD.cross_attn_sublayer_plain(
-                        x, scale, c.wcq, c.wco, c.cross_k, c.cross_v, c.cbias,
-                        w, heads=H, d_kv=DKV),
-                    lambda: (x @ c.wcq.t(), attn_in @ c.wco.t())),
-                "ffn_sublayer": (
-                    lambda: KD.ffn_sublayer(x, scale, c.wi, c.wo2),
-                    lambda: KD.ffn_sublayer_plain(x, scale, c.wi, c.wo2),
-                    lambda: (x @ c.wi.t(), hid @ c.wo2.t())),
-            }
-            for name, (kern, plain, lib) in calls.items():
+            for name, (kern, plain, lib) in sublayer_calls(c, pos).items():
                 flops, nbytes = decoder_cost(name, r, pos, lmax,
                                              x.element_size())
                 bound, by = _bound_ms(flops, nbytes, H100_BF16_FLOPS)
@@ -429,6 +481,39 @@ def phase_kernels(dev, trie) -> dict:
         for pos, lmax_o in OPTION_POS_LMAX:
             sublayers_vs_plain(rn, stats, rows_main, WIDTHS[-1], pos, lmax_o,
                                dtype)
+
+    # query generation's shape: each of 320 rows its own query (one beam)
+    # over a 64-token doc, at the last position of a 40-position cache (past
+    # the self core's 16 register positions, every cache row read); also
+    # 3,200 rows.  Timed in f32, the dtype `cli qg` runs, and in bf16
+    pos = QG_L - 1
+    for dtype in (torch.bfloat16, torch.float32):
+        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+        for r in QG_ROWS:
+            c = sublayers_vs_plain(rn, stats, r, 1, pos, QG_L, dtype,
+                                   enc_len=QG_DOC_LEN)
+            el = c.x.element_size()
+            for name, (kern, plain, lib) in sublayer_calls(c, pos).items():
+                flops, nbytes = decoder_cost(name, r, pos, QG_L, el,
+                                             queries=r, enc_len=QG_DOC_LEN)
+                bound, by = _bound_ms(flops, nbytes, peak)
+                row = stats[name]["qg"][f"{c.dn} R={r}"] = dict(
+                    ms=_time_ms(kern), plain_ms=_time_ms(plain, n=5),
+                    library_ms=_time_ms(lib), bound_ms=bound, bound_by=by,
+                    flops=flops, bytes=nbytes, rows=r, beams=1, pos=pos,
+                    lmax=QG_L, enc_len=QG_DOC_LEN)
+                core = ""
+                if name != "ffn_sublayer":             # its attention core alone
+                    row["core_bound_ms"] = core_bytes(
+                        name, r, pos, el, queries=r, enc_len=QG_DOC_LEN
+                    ) / H100_BYTES * 1e3
+                    core = (f"; its core's bytes bound "
+                            f"{row['core_bound_ms']:.4f} ms")
+                log(f"  {name:20s} {c.dn:8s} R={r:5d} qg (1 beam, S "
+                    f"{QG_DOC_LEN}, L {QG_L} pos {pos}): kernel "
+                    f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                    f"library {row['library_ms']:.4f} ms, bound "
+                    f"{bound:.4f} ms ({by}){core}")
 
     for name in DECODER:
         st = stats[name]
@@ -819,20 +904,6 @@ def _counted_retrieve(name, ev, ids, mask, launches: dict, n_beams: int,
     return res, rr, got
 
 
-def _timed_retrieves(ev, ids, mask, timed: int) -> list[float]:
-    """Wall ms of ``timed`` retrieves, each a host clock around a call
-    between two synchronisations."""
-    import torch
-    totals = []
-    for _ in range(timed):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ev.retrieve(ids, mask)
-        torch.cuda.synchronize()
-        totals.append((time.perf_counter() - t) * 1e3)
-    return totals
-
-
 def _store_bytes(store) -> int:
     import torch
     parts = (store,) if isinstance(store, torch.Tensor) \
@@ -876,8 +947,8 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
     tid = torch.as_tensor(ids, device=dev)
     tmask = torch.as_tensor(mask, device=dev)
     with torch.no_grad():
-        enc_ms = _loop_ms(lambda: model.query_embedding(
-            model.encode(tid, tmask)))
+        enc_ms = fmean(_timed(lambda: model.query_embedding(
+            model.encode(tid, tmask)), 1, 5))
         q_emb = model.query_embedding(model.encode(tid, tmask))
 
     torch.cuda.reset_peak_memory_stats()
@@ -902,8 +973,8 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
 
         # timed retrieves: host clock around synchronised calls; re-rank
         # separately (host dispatch included), decode = total - both
-        totals = _timed_retrieves(ev, ids, mask, timed)
-        rr_ms = _loop_ms(lambda: ev.rerank(q_emb, res))
+        totals = _timed(lambda: ev.retrieve(ids, mask), 0, timed)
+        rr_ms = fmean(_timed(lambda: ev.rerank(q_emb, res), 1, 5))
         if profile and name == FULL_LAYOUTS[0][0]:
             _profile(lambda: ev.retrieve(ids, mask))
         total = sum(totals) / len(totals)
@@ -992,8 +1063,8 @@ def phase_modes(dev, card: str, trie, timed: int = 3, profile: bool = False
                                  ).eval()
             model_kw = m_kw
             with torch.no_grad():
-                enc_ms = _loop_ms(lambda: model.query_embedding(
-                    model.encode(tid, tmask)))
+                enc_ms = fmean(_timed(lambda: model.query_embedding(
+                    model.encode(tid, tmask)), 1, 5))
                 q_emb = model.query_embedding(model.encode(tid, tmask))
             log(f"  t5-base bf16 {m_kw}: "
                 f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
@@ -1022,15 +1093,15 @@ def phase_modes(dev, card: str, trie, timed: int = 3, profile: bool = False
             for i in range(timed):
                 turns = [(default, ev_d), (totals, ev)]
                 for each, e in (turns if i % 2 else turns[::-1]):
-                    each += _timed_retrieves(e, ids, mask, 1)
+                    each += _timed(lambda: e.retrieve(ids, mask), 0, 1)
             del ev_d
         else:
-            totals = _timed_retrieves(ev, ids, mask, timed)
+            totals = _timed(lambda: ev.retrieve(ids, mask), 0, timed)
         peak = torch.cuda.max_memory_allocated() / 2**30
         # the re-rank alone, on per-beam query rows where the mode has them
         q_rr = (q_emb[:, None, :].expand(-1, beams, -1).contiguous()
                 if ev._want_dec else q_emb)
-        rr_ms = _loop_ms(lambda: ev.rerank(q_rr, res))
+        rr_ms = fmean(_timed(lambda: ev.rerank(q_rr, res), 1, 5))
         if profile:
             _profile(lambda: ev.retrieve(ids, mask))
         total = sum(totals) / len(totals)
@@ -1060,7 +1131,8 @@ def phase_modes(dev, card: str, trie, timed: int = 3, profile: bool = False
             s_ = torch.randn(rows, base.d_model, generator=g, device=dev
                              ).to(torch.bfloat16)
             with torch.no_grad():
-                tr_ms = _loop_ms(lambda: model.pawa.transform(a, s_), n=3)
+                tr_ms = fmean(_timed(lambda: model.pawa.transform(a, s_),
+                                     1, 3))
             # bound: the products of two bf16 values are exact and the sums
             # f32 on the tensor cores at the bf16 rate; the SIMT SGEMM the
             # f32 torch.matmul runs has a floor at the f32 rate
@@ -1381,7 +1453,7 @@ def index_serve_and_expand(dev, card: str, index, store) -> dict:
                      f"the steps taken (at most {max_depth + 1}) per decoder "
                      f"kernel and one packed scorer")
     _check_retrieve("built index", res, rr, qbatch * beams, beams)
-    totals = _timed_retrieves(ev, ids, mask, 3)
+    totals = _timed(lambda: ev.retrieve(ids, mask), 0, 3)
     serve_ms = sum(totals) / len(totals)
     log(f"  (d) t5-base bf16 over the built index, packed bf16 "
         f"{tuple(ev.store.shape)} (cap {ev._p_cap}): {steps} steps (trie "
@@ -1769,20 +1841,6 @@ def train_step_cost(cfg, rows: int, seq: int, n_params: int
     return 3.0 * (enc + dec + pawa + u), 28.0 * n_params
 
 
-def _timed_steps(step, state, batches, store, n: int) -> list[float]:
-    """Wall ms of ``n`` steps, each a host clock around a synchronised
-    step."""
-    import torch
-    out = []
-    for i in range(n):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, m = step(state, batches[i % len(batches)], store, 0)
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t) * 1e3)
-    return out
-
-
 def _finite(tag: str, m: dict) -> None:
     import math
     bad = {k: float(v) for k, v in m.items() if not math.isfinite(float(v))}
@@ -1842,7 +1900,8 @@ def train_full(dev, card: str, world, profile: bool = False) -> dict:
     for b in batches[:TRAIN_WARM]:
         state, m = step(state, b, store, 0)
     _finite("train full warm", m)
-    ms = _timed_steps(step, state, batches[TRAIN_WARM:], store, TRAIN_TIMED)
+    feed = itertools.cycle(batches[TRAIN_WARM:])
+    ms = _timed(lambda: step(state, next(feed), store, 0), 0, TRAIN_TIMED)
     mean = sum(ms) / len(ms)
     flops, nbytes = train_step_cost(cfg, 2 * bsz, S, n_params)
     t_ops = flops / H100_BF16_FLOPS * 1e3
@@ -1902,8 +1961,8 @@ def train_full(dev, card: str, world, profile: bool = False) -> dict:
     for b in batches[:TRAIN_WARM]:
         state, m = step(state, b, store, 0)
     _finite("train stage 2", m)
-    ms2 = _timed_steps(step, state, batches[TRAIN_WARM:], store,
-                       STAGE2_TIMED)
+    feed = itertools.cycle(batches[TRAIN_WARM:])
+    ms2 = _timed(lambda: step(state, next(feed), store, 0), 0, STAGE2_TIMED)
     mean2 = sum(ms2) / len(ms2)
     peak2 = torch.cuda.max_memory_allocated() / 2**30
     docs = STAGE2_BATCH * (cfg.data.max_intraclass_num + 2)
@@ -2100,6 +2159,569 @@ def phase_train(dev, card: str, root: Path, work: Path,
     return out
 
 
+# ------------------------------------------------------------ phase 8
+
+# phase 8's full-width sizes: query generation (64 docs x 64 tokens, 5
+# queries each, a 40-position cache), the modes' step batch and their eval
+MODE_BATCH, MODE_WARM, MODE_TIMED = 64, 2, 5
+
+
+def _small_secondary_world():
+    """A small f32 config (dropout 0), a synthetic task of 40 docs (its
+    k-means trie) as an index and dev set, and an extra assignment."""
+    from gdr_tpu_torch.config import ModelConfig
+    from gdr_tpu_torch.data.synthetic import build_synthetic_task
+    from gdr_tpu_torch.eval.evaluator import EvalData
+    from gdr_tpu_torch.index.io import Index
+
+    mcfg = ModelConfig(kary=4, max_output_length=5, d_model=64, d_kv=16,
+                       d_ff=128, num_layers=2, num_decoder_layers=2,
+                       num_heads=4, vocab_size=256, encoder_d_model=32,
+                       adaptor_layer_num=1, adaptor_num_heads=2,
+                       dropout_rate=0.0)
+    task = build_synthetic_task(n_docs=40, dim=32, kary=4, leaf_cap=4,
+                                seq_len=10, vocab_size=256,
+                                max_output_length=5, seed=3)
+    index = Index(task.store, task.trie, task.paths, task.cid_of_doc)
+    dev_data = EvalData(task.input_ids[:12], task.attn_mask[:12],
+                        task.gt_docs[:12], task.gt_cids[:12])
+    return mcfg, task, index, dev_data
+
+
+def _card_vs_cpu(tag: str, got, want) -> float:
+    """max |card - cpu| of two tensors, held to the f32 tolerance."""
+    return _close(tag, got.detach().float().cpu(), want.detach().float().cpu(),
+                  "float32")
+
+
+def secondary_small(dev, work: Path) -> dict:
+    """(a): the small f32 world on the CPU and on the card from the same
+    weights: qg tokens from one noise, an ensemble step (N = 2) and its
+    eval, hierarchic decode + re-rank, the classifier's logits and step."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.models import ensemble as E
+    from gdr_tpu_torch.models import hierarchic as HI
+    from gdr_tpu_torch.models.classifier import EncoderClassifier
+    from gdr_tpu_torch.models.seq2seq import Seq2SeqLM, generate_queries
+    from gdr_tpu_torch.models.t5 import init_t5_weights
+    from gdr_tpu_torch.ops.beam import gumbel_noise
+    from gdr_tpu_torch.ops.rerank import rerank
+    from gdr_tpu_torch.train import modes as MO
+
+    mcfg, task, index, dev_data = _small_secondary_world()
+    errs: dict = {}
+    rng = np.random.default_rng(5)
+    ids = torch.as_tensor(task.input_ids[:6])
+    msk = torch.as_tensor(task.attn_mask[:6])
+
+    # qg: 6 docs x 2 queries, a 40-position cache, one Gumbel draw for both
+    noise = gumbel_noise((QG_L, 12, mcfg.vocab_size),
+                         torch.Generator().manual_seed(9))
+    toks = []
+    for device in ("cpu", dev):
+        m = init_t5_weights(Seq2SeqLM(mcfg), torch.Generator().manual_seed(0))
+        toks.append(generate_queries(m.to(device), ids.to(device),
+                                     msk.to(device), 2, QG_L, top_k=10,
+                                     noise=noise)[0].cpu())
+    if not torch.equal(toks[0], toks[1]):
+        raise Failed(f"qg small: card tokens differ from the cpu's at "
+                     f"{int((toks[0] != toks[1]).sum())} slots")
+
+    # ensemble: one step from the same weights and batch, then its eval
+    ens_dir = work / "ensemble_small"
+    ens_dir.mkdir()
+    paths = MO.alternative_assignments(index, 2, 4, 4, seed=0, device="cpu")
+    np.save(ens_dir / "ensemble_paths.npy", MO.paths_to_array(paths))
+    labels = MO._member_labels(paths, task.pos_idx[:8], mcfg)
+    batch = {"input_ids": task.input_ids[:8], "attn_mask": task.attn_mask[:8],
+             "labels": labels, "label_mask": (labels != 0).astype(np.int32)}
+    ens, losses, metrics = [], [], []
+    for device in ("cpu", dev):
+        e = E.init_ensemble(mcfg, 2, torch.Generator().manual_seed(1))
+        e = e.to(device)
+        step = E.make_ensemble_train_step(
+            e, MO.ensemble_optimizer(e, 1e-3, 5e-4), rdrop=0.1)
+        losses.append(step({k: torch.as_tensor(v, device=device)
+                            for k, v in batch.items()},
+                           torch.Generator(device=device).manual_seed(2))[1])
+        metrics.append(MO.eval_ensemble(mcfg, index, dev_data, str(ens_dir),
+                                        2, beam=6, batch_size=6,
+                                        device=device, ens=e))
+        ens.append(e)
+    errs["ensemble_loss"] = _card_vs_cpu("ensemble per-member losses",
+                                           losses[1], losses[0])
+    errs["ensemble_params"] = max(
+        _card_vs_cpu(f"ensemble {k}", v, ens[0].state_dict()[k])
+        for k, v in ens[1].state_dict().items())
+    if metrics[0] != metrics[1]:
+        raise Failed(f"ensemble eval: card metrics {metrics[1]} != cpu "
+                     f"{metrics[0]}")
+
+    # hierarchic: decode + re-rank
+    trie = index.trie
+    out = []
+    for device in ("cpu", dev):
+        h = HI.init_hierarchic(mcfg, int(trie.depth.max()),
+                               torch.Generator().manual_seed(3)).to(device)
+        t = [torch.as_tensor(a, device=device) for a in (
+            trie.children, trie.eos_allowed, trie.cluster_of_node,
+            trie.cluster_docs, trie.cluster_doc_mask)]
+        res, q = HI.hierarchic_generate_cids(h, ids.to(device),
+                                             msk.to(device), t[0], t[1],
+                                             num_beams=6, max_len=5)
+        rr = rerank(torch.as_tensor(index.store, device=device), q,
+                    res.nodes, res.scores, res.valid, *t[2:],
+                    torch.zeros(1, device=device), top_r=6)
+        out.append((res, rr))
+    (rc, rrc), (rg, rrg) = out
+    if not (torch.equal(rc.valid, rg.valid.cpu()) and torch.equal(
+            rc.nodes[rc.valid], rg.nodes.cpu()[rc.valid])
+            and torch.equal(rrc.doc_ids[rrc.doc_valid],
+                            rrg.doc_ids.cpu()[rrc.doc_valid])):
+        raise Failed("hierarchic small: card beams or doc ids differ from "
+                     "the cpu's")
+    errs["hierarchic_scores"] = max(
+        _card_vs_cpu("hierarchic beam scores", rg.scores[rg.valid],
+                       rc.scores[rc.valid]),
+        _card_vs_cpu("hierarchic fused scores", rrg.scores[rrg.doc_valid],
+                       rrc.scores[rrc.doc_valid]))
+
+    # classifier: logits, then one step
+    y = torch.as_tensor(rng.integers(0, trie.num_clusters, 6))
+    cls, lg = [], []
+    for device in ("cpu", dev):
+        c = init_t5_weights(EncoderClassifier(mcfg, trie.num_clusters),
+                            torch.Generator().manual_seed(4)).to(device)
+        with torch.no_grad():
+            lg.append(c(ids.to(device), msk.to(device)))
+        MO.softmax_train_step(c, MO.AdamW(c, {"all": (1e-3, 1e-4)}),
+                              ids.to(device), msk.to(device), y.to(device),
+                              torch.Generator(device=device).manual_seed(5))
+        cls.append(c)
+    errs["classifier_logits"] = _card_vs_cpu("classifier logits", lg[1],
+                                               lg[0])
+    errs["classifier_params"] = max(
+        _card_vs_cpu(f"classifier {k}", v, cls[0].state_dict()[k])
+        for k, v in cls[1].state_dict().items())
+    log(f"  (a) small f32, card vs cpu: qg tokens equal ({QG_L}-position "
+        f"cache, 12 rows); ensemble step + eval, hierarchic decode + "
+        f"re-rank, classifier logits + step: max |d| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {TOL['float32'][0]} + {TOL['float32'][1]}·|cpu|); "
+        f"ensemble eval metrics equal")
+    return errs
+
+
+def _launches_exactly(tag: str, want: dict) -> dict:
+    """The launch counts since the last reset; fails unless they are
+    ``want`` (0 for kernels it does not name)."""
+    import torch
+
+    from gdr_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    if got != {**dict.fromkeys(got, 0), **want}:
+        raise Failed(f"{tag}: launch counts {got}, want {want}")
+    return got
+
+
+def secondary_qg(dev, card: str, profile: bool = False) -> dict:
+    """(b): query generation at t5-base: 64 docs x 64 tokens, 5 queries
+    each (320 rows), top-k 10, a 40-position cache.  In f32, as ``cli qg``
+    runs it: launches, tokens checked, time, peak and (``profile``) the
+    profile; then the same weights cast to bf16, checked and timed beside
+    it (no entry point generates in bf16)."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.config import ModelConfig
+    from gdr_tpu_torch.models.seq2seq import EOS, PAD, Seq2SeqLM, \
+        generate_queries
+    from gdr_tpu_torch.models.t5 import init_t5_weights
+
+    cfg = ModelConfig().scaled("base")
+    with torch.device(dev):
+        model = Seq2SeqLM(cfg)
+    init_t5_weights(model, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(1)
+    docs = torch.as_tensor(rng.integers(2, cfg.vocab_size,
+                                        (QG_DOCS, QG_DOC_LEN)), device=dev)
+    mask = torch.ones_like(docs)
+    rows = QG_DOCS * QG_PER_DOC
+
+    def run():
+        return generate_queries(
+            model, docs, mask, QG_PER_DOC, QG_L,
+            torch.Generator(device=dev).manual_seed(7), top_k=10)
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        model.to(dtype)
+        run()                                              # warm
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        toks, src = run()
+        launches = _launches_exactly(
+            f"qg {dn}", dict.fromkeys(DECODER, QG_L * cfg.num_decoder_layers))
+        toks, src = toks.cpu().numpy(), src.cpu().numpy()
+        if toks.shape != (rows, QG_L) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise Failed(f"qg {dn}: tokens {toks.shape} in [{toks.min()}, "
+                         f"{toks.max()}]")
+        if not np.array_equal(src, np.repeat(np.arange(QG_DOCS),
+                                             QG_PER_DOC)):
+            raise Failed(f"qg {dn}: source rows are not 5 per doc in order")
+        for row in toks:
+            eos = np.flatnonzero(row == EOS)
+            if len(eos) and (row[eos[0] + 1:] != PAD).any():
+                raise Failed(f"qg {dn}: a token after EOS is not PAD")
+        ms = _timed(run, 0, 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if profile and dtype == torch.float32:
+            _profile(run)
+        out[dn] = dict(ms=fmean(ms), ms_each=ms, rows=rows, steps=QG_L,
+                       row_steps_per_s=rows * QG_L / (fmean(ms) / 1e3),
+                       tokens_before_eos=int(sum(
+                           (np.flatnonzero(r == EOS)[:1].tolist()
+                            or [QG_L])[0] for r in toks)),
+                       peak_gib=peak, launches=launches)
+        log(f"  (b) qg t5-base {dn}: {QG_DOCS} docs x {QG_DOC_LEN} tokens, "
+            f"{QG_PER_DOC} queries each ({rows} rows), {QG_L} steps: "
+            f"{fmean(ms):.2f} ms ({', '.join(f'{x:.1f}' for x in ms)}), "
+            f"{out[dn]['row_steps_per_s']:.0f} row-steps/s, peak "
+            f"{peak:.2f} GiB; launches {launches}; {card}")
+    del model
+    torch.cuda.empty_cache()
+    return {**out["float32"], "bfloat16": out["bfloat16"]}
+
+
+def _bench_index(dev, trie):
+    """The bench trie over phase 4's unit store (host f32, as an index
+    holds it)."""
+    import torch
+
+    from gdr_tpu_torch.index.io import Index
+
+    g = torch.Generator(device=dev).manual_seed(7)      # phase 4's store
+    store = torch.randn(N_DOCS, 768, generator=g, device=dev)
+    store = (store / store.norm(dim=1, keepdim=True)).cpu().numpy()
+    paths = _paths_of(bench_cid_map(N_DOCS, trie.kary, 30))
+    return Index(store, trie, paths, ["-".join(map(str, p)) for p in paths])
+
+
+def _dev_queries(rng, n: int, vocab: int, index):
+    """n dev queries of S random tokens, each with a random doc."""
+    import numpy as np
+
+    from gdr_tpu_torch.eval.evaluator import EvalData
+
+    ids = rng.integers(2, vocab, size=(n, S)).astype(np.int32)
+    gt = rng.integers(0, len(index.paths), n)
+    return EvalData(ids, np.ones_like(ids), [[str(d)] for d in gt],
+                    [[index.cid_of_doc[d]] for d in gt])
+
+
+def secondary_ensemble(dev, card: str, index, work: Path) -> dict:
+    """(c): ``train --ensemble 3`` at t5-base (f32, R-Drop 0.1): its two
+    extra k-means assignments on the card, timed steps at batch 64, then
+    ``eval_ensemble`` of 32 queries at beam 100, each member over its own
+    trie and the plain store."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.config import ModelConfig
+    from gdr_tpu_torch.eval import evaluator as EV
+    from gdr_tpu_torch.models import ensemble as E
+    from gdr_tpu_torch.train import modes as MO
+    from gdr_tpu_torch.utils.rng import generator
+
+    n, beams = 3, 100
+    cfg = ModelConfig().scaled("base")
+    t = time.perf_counter()
+    paths_list = MO.alternative_assignments(index, n, cfg.kary, 30, seed=42,
+                                            device=dev)
+    kmeans_s = time.perf_counter() - t
+    depths = [max(len(p) for p in paths) for paths in paths_list]
+    ens_dir = work / "ensemble_full"
+    ens_dir.mkdir()
+    np.save(ens_dir / "ensemble_paths.npy", MO.paths_to_array(paths_list))
+    ens = E.init_ensemble(cfg, n, torch.Generator(device=dev).manual_seed(42))
+    n_params = sum(p.numel() for p in ens.parameters())
+    rng = np.random.default_rng(2)
+    ts = _train_set(rng, index.paths, MODE_BATCH * (MODE_WARM + MODE_TIMED),
+                    S, cfg.vocab_size, cfg)
+    labels = MO._member_labels(paths_list, ts.pos_idx, cfg)
+    step = E.make_ensemble_train_step(
+        ens, MO.ensemble_optimizer(ens, 2e-4, 1e-4), rdrop=cfg.rdrop,
+        rdrop_loss=cfg.rdrop_loss)
+    batches = iter(range(MODE_WARM + MODE_TIMED))
+    losses = []
+
+    def one_step():
+        i = next(batches)
+        sl = slice(i * MODE_BATCH, (i + 1) * MODE_BATCH)
+        b = {"input_ids": ts.input_ids[sl], "attn_mask": ts.attn_mask[sl],
+             "labels": labels[:, sl],
+             "label_mask": (labels[:, sl] != 0).astype(np.int32)}
+        loss, _ = step({k: torch.as_tensor(v, device=dev)
+                        for k, v in b.items()}, generator(49, i, dev))
+        losses.append(float(loss))
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = _timed(one_step, MODE_WARM, MODE_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(losses)):
+        raise Failed(f"ensemble: losses {losses}")
+    log(f"  (c) train --ensemble {n} t5-base f32 ({n_params / 1e6:.1f}M "
+        f"params, R-Drop {cfg.rdrop}): k-means of the 2 extra assignments "
+        f"{kmeans_s:.1f} s (depths {depths}); step at batch {MODE_BATCH} "
+        f"{fmean(ms):.1f} ms ({', '.join(f'{x:.1f}' for x in ms)}), peak "
+        f"{peak:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; {card}")
+
+    dev_data = _dev_queries(np.random.default_rng(3), B, cfg.vocab_size,
+                            index)
+    seen = []
+    real = EV.Evaluator.retrieve
+
+    def recording(self, *a, **k):
+        out = real(self, *a, **k)
+        seen.append(out)
+        return out
+
+    EV.Evaluator.retrieve = recording
+    try:
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        metrics = MO.eval_ensemble(cfg, index, dev_data, str(ens_dir), n,
+                                   beam=beams, batch_size=B, device=dev,
+                                   ens=ens)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        got = kernels.launch_counts()
+    finally:
+        EV.Evaluator.retrieve = real
+    n_dec = got[DECODER[0]]
+    most = sum(6 * (d + 1) for d in depths)
+    if any(got[k] != n_dec for k in DECODER) or got["rerank_scores"] != n \
+            or got["packed_scores"] or got["packed_scores_int8"] \
+            or n_dec % 6 or not 6 * 2 * n <= n_dec <= most:
+        raise Failed(f"eval --ensemble: launches {got}; want one "
+                     f"rerank_scores per member and 6 x steps (at most "
+                     f"{most}) per decoder kernel")
+    for i, (res, rr) in enumerate(seen):
+        _check_retrieve(f"ensemble member {i}", res, rr, B * beams, beams)
+    log(f"  (c) eval --ensemble {n}: {B} queries x {S} tokens, beam {beams}: "
+        f"{eval_s:.2f} s (3 tries built over {N_DOCS} docs included); "
+        f"launches {got}; recall100 {metrics['recall100']:.4f}; {card}")
+    out = dict(step_ms=fmean(ms), step_ms_each=ms, peak_gib=peak,
+               n_params=n_params, kmeans_s=kmeans_s, depths=depths,
+               eval_s=eval_s, launches=got, losses=losses)
+    del ens, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def secondary_hierarchic(dev, card: str, index, profile: bool = False
+                         ) -> dict:
+    """(d): ``train --hierarchic`` at t5-base over the bench trie (depth 3,
+    f32): timed steps at batch 64, then decode + re-rank of 32 queries at
+    beam 100 over the plain store."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.config import ModelConfig
+    from gdr_tpu_torch.models import hierarchic as HI
+    from gdr_tpu_torch.ops.rerank import rerank
+    from gdr_tpu_torch.train import modes as MO
+
+    beams = 100
+    cfg = ModelConfig().scaled("base")
+    trie = index.trie
+    depth = int(trie.depth.max())
+    h = HI.init_hierarchic(cfg, depth,
+                           torch.Generator(device=dev).manual_seed(42))
+    opt = MO.AdamW(h, {"all": (2e-4, MO.OPTAX_ADAMW_WD)})
+    rng = np.random.default_rng(4)
+    ts = _train_set(rng, index.paths, MODE_BATCH * (MODE_WARM + MODE_TIMED),
+                    S, cfg.vocab_size, cfg)
+    batches = iter(range(MODE_WARM + MODE_TIMED))
+    losses = []
+
+    def one_step():
+        i = next(batches)
+        sl = slice(i * MODE_BATCH, (i + 1) * MODE_BATCH)
+        b = {k: torch.as_tensor(getattr(ts, k)[sl], device=dev)
+             for k in ("input_ids", "attn_mask", "labels", "label_mask")}
+        losses.append(float(MO.hierarchic_train_step(h, opt, b)))
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = _timed(one_step, MODE_WARM, MODE_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(losses)):
+        raise Failed(f"hierarchic: losses {losses}")
+
+    t = [torch.as_tensor(a, device=dev) for a in (
+        trie.children, trie.eos_allowed, trie.cluster_of_node,
+        trie.cluster_docs, trie.cluster_doc_mask)]
+    store = torch.as_tensor(index.store, device=dev)
+    alphas = torch.zeros(1, device=dev)
+    ids = torch.as_tensor(np.random.default_rng(5).integers(
+        2, cfg.vocab_size, (B, S)), device=dev)
+    msk = torch.ones_like(ids)
+
+    def decode():
+        res, q = HI.hierarchic_generate_cids(
+            h, ids, msk, t[0], t[1], num_beams=beams,
+            max_len=cfg.max_output_length, length_penalty=0.8)
+        return res, rerank(store, q, res.nodes, res.scores, res.valid,
+                           *t[2:], alphas, top_r=beams)
+
+    decode()                                               # warm
+    kernels.reset_launch_counts()
+    res, rr = decode()
+    launches = _launches_exactly("hierarchic decode + re-rank",
+                                 {"rerank_scores": 1})
+    _check_retrieve("hierarchic", res, rr, B * beams, beams)
+    dms = _timed(decode, 0, 3)
+    if profile:
+        _profile(decode)
+    log(f"  (d) train --hierarchic t5-base f32, {depth} decoder stacks: step "
+        f"at batch {MODE_BATCH} {fmean(ms):.1f} ms "
+        f"({', '.join(f'{x:.1f}' for x in ms)}), peak {peak:.2f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; decode + re-rank of {B} "
+        f"queries at beam {beams}: {fmean(dms):.1f} ms "
+        f"({', '.join(f'{x:.1f}' for x in dms)}); launches {launches}; "
+        f"{card}")
+    out = dict(step_ms=fmean(ms), step_ms_each=ms, peak_gib=peak,
+               decode_rerank_ms=fmean(dms), decode_rerank_ms_each=dms,
+               launches=launches, losses=losses, depth=depth)
+    del h, opt, store
+    torch.cuda.empty_cache()
+    return out
+
+
+def secondary_softmax(dev, card: str, index) -> dict:
+    """(e): ``train --softmax`` at t5-base (f32): classes are the bench
+    trie's clusters; timed steps at batch 64, then the top-100 ranking of
+    32 queries."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.config import ModelConfig
+    from gdr_tpu_torch.models.classifier import EncoderClassifier
+    from gdr_tpu_torch.models.t5 import init_t5_weights
+    from gdr_tpu_torch.train import modes as MO
+
+    cfg = ModelConfig().scaled("base")
+    trie = index.trie
+    n_cls = trie.num_clusters
+    with torch.device(dev):
+        model = EncoderClassifier(cfg, n_cls)
+    init_t5_weights(model, torch.Generator(device=dev).manual_seed(42))
+    opt = MO.AdamW(model, {"all": (2e-4, MO.OPTAX_ADAMW_WD)})
+    rng = np.random.default_rng(6)
+    ids = torch.as_tensor(rng.integers(2, cfg.vocab_size,
+                                       (MODE_BATCH, S)), device=dev)
+    msk = torch.ones_like(ids)
+    y = torch.as_tensor(rng.integers(0, n_cls, MODE_BATCH), device=dev)
+    losses = []
+    steps = iter(range(MODE_WARM + MODE_TIMED))
+
+    def one_step():
+        gen = torch.Generator(device=dev).manual_seed(next(steps))
+        losses.append(float(MO.softmax_train_step(model, opt, ids, msk, y,
+                                                  gen)))
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = _timed(one_step, MODE_WARM, MODE_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(losses)):
+        raise Failed(f"softmax: losses {losses}")
+    cids = [trie.cid_of_node(int(nd)) for nd in trie.cluster_node_ids]
+    dev_data = _dev_queries(np.random.default_rng(7), B, cfg.vocab_size,
+                            index)
+    preds = MO.rank_clusters(model, dev_data, cids, B)
+    if len(preds) != B or any(len(v) != 100 or len(set(v)) != 100
+                              for v in preds.values()):
+        raise Failed("softmax: a query's ranking is not 100 distinct "
+                     "clusters")
+    rms = _timed(lambda: MO.rank_clusters(model, dev_data, cids, B), 1, 3)
+    log(f"  (e) train --softmax t5-base f32, {n_cls} classes: step at batch "
+        f"{MODE_BATCH} {fmean(ms):.1f} ms "
+        f"({', '.join(f'{x:.1f}' for x in ms)}), peak {peak:.2f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; rank of {B} queries "
+        f"{fmean(rms):.2f} ms; {card}")
+    out = dict(step_ms=fmean(ms), step_ms_each=ms, peak_gib=peak,
+               rank_ms=fmean(rms), rank_ms_each=rms, classes=n_cls,
+               losses=losses)
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def secondary_cli(root: Path, work: Path) -> dict:
+    """(f): the CLI on the card over phase 6's 2,000-doc index and phase
+    7's TSVs: ``qg`` (tiny, 2 queries per doc, a 40-position cache) →
+    ``train --qg``, and ``train --ensemble 2`` → ``eval --ensemble 2``."""
+    import numpy as np
+
+    model = ["--model-size", "tiny", "--device", "cuda"]
+    common = ["--index", str(work / "index.npz"), "--dev",
+              str(work / "dev.tsv"), "--beam", "20", "--max-input-length",
+              "16", *model]
+    t = time.perf_counter()
+    qg = _port_cli(["qg", "--corpus", str(work / "docs.tsv"), "--out",
+                    str(work / "qg.npz"), "--train", str(work / "train.tsv"),
+                    "--qg-epochs", "1", "--n-per-doc", "2", "--doc-length",
+                    "32", "--max-query-length", str(QG_L), *model], root)
+    with np.load(work / "qg.npz") as z:
+        n_q = len(z["query_tokens"])
+    if n_q != 2 * SMALL_DOCS or f"{n_q} pseudo-queries" not in qg.stdout:
+        raise Failed(f"cli qg: {n_q} pseudo-queries, want {2 * SMALL_DOCS}")
+    tr = _port_cli(["train", *common, "--train", str(work / "train.tsv"),
+                    "--workdir", str(work / "cli_qg"), "--batch-size", "64",
+                    "--epochs", "1", "--qg", str(work / "qg.npz")], root)
+    if f"+ {n_q} qg = " not in tr.stderr:
+        raise Failed(f"cli train --qg did not mix the pseudo-queries:\n"
+                     f"{tr.stderr[-2000:]}")
+    qg_s = time.perf_counter() - t
+    t = time.perf_counter()
+    te = _port_cli(["train", *common, "--train", str(work / "train.tsv"),
+                    "--workdir", str(work / "cli_ens"), "--batch-size", "32",
+                    "--epochs", "1", "--ensemble", "2"], root)
+    ev = _port_cli(["eval", *common, "--workdir", str(work / "cli_ens"),
+                    "--ensemble", "2"], root)
+    ens_s = time.perf_counter() - t
+    m_tr = json.loads(te.stdout[te.stdout.index("{"):])
+    m_ev = json.loads(ev.stdout[ev.stdout.index("{"):])
+    if m_tr != m_ev:
+        raise Failed("cli eval --ensemble 2 disagrees with the metrics of "
+                     "train --ensemble 2's own eval")
+    log(f"  (f) cli on cuda: qg ({n_q} pseudo-queries) -> train --qg: "
+        f"{qg_s:.1f} s; train --ensemble 2 -> eval --ensemble 2 (recall100 "
+        f"{m_ev['recall100']:.3f}, equal to train's): {ens_s:.1f} s")
+    return dict(qg_train_s=qg_s, ensemble_s=ens_s)
+
+
+def phase_secondary(dev, card: str, root: Path, work: Path, trie,
+                    profile: bool = False) -> dict:
+    out = {"small": secondary_small(dev, work)}
+    out["qg"] = secondary_qg(dev, card, profile)
+    index = _bench_index(dev, trie)
+    out["ensemble"] = secondary_ensemble(dev, card, index, work)
+    out["hierarchic"] = secondary_hierarchic(dev, card, index, profile)
+    out["softmax"] = secondary_softmax(dev, card, index)
+    out["cli"] = secondary_cli(root, work)
+    return out
+
+
 # ------------------------------------------------------------ main
 
 def spilling_functions(ptxas_log: str) -> list[tuple[str, str]]:
@@ -2145,8 +2767,8 @@ KERNELS = [
 ]
 
 
-def kernel_rows(stats: dict, full: dict, index: dict, train: dict
-                ) -> list[dict]:
+def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
+                secondary: dict) -> list[dict]:
     """The ``{"kernels": [...]}`` rows: each kernel's launches on its
     layout's main path (phase 4) and its phase-2 numbers at 3,200 rows; the
     decoder rows add their numbers at each row count (``by_rows``), the
@@ -2154,7 +2776,11 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict
     against torch.matmul (``gemms``).  ``launches_built_index`` counts the
     launches of one retrieve over phase 6's k-means index,
     ``launches_train_eval`` those of phase 7's TrainLoop epoch (its
-    eval)."""
+    eval), ``launches_qg`` / ``launches_ensemble_eval`` /
+    ``launches_hierarchic_eval`` those of phase 8's query generation
+    batch, ensemble eval and hierarchic decode + re-rank; the decoder rows
+    add their numbers at query generation's shape (``qg``: one beam per
+    row, a 64-token doc, a 40-position cache; f32 and bf16)."""
     rows = []
     for name, source, replaces, library in KERNELS:
         st = stats[name]
@@ -2167,10 +2793,15 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict
             rows=B * WIDTHS[-1],
             dtype="int8" if name == "packed_scores_int8" else "bfloat16",
             launches_built_index=index["launches"][name],
-            launches_train_eval=train["loop_launches"][name])
+            launches_train_eval=train["loop_launches"][name],
+            launches_qg=secondary["qg"]["launches"][name],
+            launches_ensemble_eval=secondary["ensemble"]["launches"][name],
+            launches_hierarchic_eval=secondary["hierarchic"]["launches"][
+                name])
         if name in DECODER:
             row.update(by_rows=st["rows"], per_retrieve=st["per_retrieve"],
                        gemms=st["gemms"])
+            row.update(qg=st["qg"])
         rows.append(row)
     return rows
 
@@ -2258,6 +2889,13 @@ def main(argv: list[str]) -> int:
             "resume, the CLI's train -> eval")
         train = phase_train(dev, smi, root, work, profile="profile" in argv)
         log(f"[7] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        log("[8] the secondary modes on the card: small f32 card vs CPU, qg "
+            "at t5-base, train --ensemble 3 and its eval, --hierarchic, "
+            "--softmax, the CLI's qg -> train --qg and --ensemble 2")
+        secondary = phase_secondary(dev, smi, root, work, trie,
+                                    profile="profile" in argv)
+        log(f"[8] {time.perf_counter() - t:.1f} s")
     except Failed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2266,9 +2904,10 @@ def main(argv: list[str]) -> int:
 
     print(json.dumps({"retrieve": full["layouts"],
                       "peak_gib": full["peak_gib"], "modes": modes,
-                      "index": index, "train": train}), flush=True)
-    print(json.dumps({"kernels": kernel_rows(stats, full, index, train)}),
-          flush=True)
+                      "index": index, "train": train,
+                      "secondary": secondary}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(stats, full, index, train,
+                                             secondary)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

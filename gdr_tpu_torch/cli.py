@@ -1,8 +1,9 @@
 """Command-line interface of the PyTorch port: ``index`` (embed a corpus,
 k-means it, pack the trie), ``expand`` (insert new documents without
-retraining), ``tokenizer`` (train a subword tokenizer), ``train`` (the
-two-stage GDR training), ``retrieve`` (serving), ``eval`` (a dev set's
-metrics) and ``calculate`` (metrics of a result TSV).
+retraining), ``tokenizer`` (train a subword tokenizer), ``qg`` (generate
+pseudo-queries per document), ``train`` (the two-stage GDR training, or a
+secondary mode), ``retrieve`` (serving), ``eval`` (a dev set's metrics) and
+``calculate`` (metrics of a result TSV).
 
     python -m gdr_tpu_torch.cli index --corpus docs.tsv --out index.npz \\
         [--encoder-size tiny] [--encoder-ckpt enc.npz] [--device cuda]
@@ -16,6 +17,11 @@ metrics) and ``calculate`` (metrics of a result TSV).
     python -m gdr_tpu_torch.cli eval --index index.npz --dev dev.tsv \\
         --workdir run --packed [--int8-store] --result-tsv res1.tsv
     python -m gdr_tpu_torch.cli calculate --result res1.tsv [--ref-compat]
+    python -m gdr_tpu_torch.cli qg --corpus docs.tsv --out qg.npz \\
+        [--train train.tsv] [--n-per-doc 5] [--max-query-length 40]
+    python -m gdr_tpu_torch.cli train ... --qg qg.npz [--query-type gtq_qg]
+    python -m gdr_tpu_torch.cli train ... --ensemble 3   # | --hierarchic
+    python -m gdr_tpu_torch.cli eval ... --ensemble 3
 
 Mirrors ``gdr_tpu/cli.py``.  ``index`` / ``expand``: a corpus TSV (title
 \\t text, or text) → the doc tower's embeddings → hierarchical k-means → the
@@ -36,21 +42,29 @@ Differences from the reference CLI:
   kernels, on ``cpu`` as their plain versions; the doc tower and the
   k-means run on the same device.  There is no ``--pallas`` or
   ``--fused-decode``: the device decides.  ``eval --mesh`` (other than
-  ``none``) and ``--ensemble`` are later slices and are refused;
-  ``retrieve`` has no ``--mesh``.  ``eval --gen-method sample|top_k``
+  ``none``) is a later slice and is refused; ``retrieve`` has no
+  ``--mesh``.  ``eval --gen-method sample|top_k``
   draws rollouts (``--temperature``, ``--sample-top-k``).  The
   decoder-side query reps and the slow PAWA head are reached through
   ``EvalConfig`` / ``ModelConfig``, as in the reference package.
 - ``train`` runs ``train/loop.py::TrainLoop`` with the reference's flags
   for the default mode (stage 2 from ``--train-encoder-epoch`` when
   ``--corpus`` is given; ``--hard-negatives bm25|random``; ``--query-type``
-  mixing ``gtq``, ``doc`` and ``aug``), bf16 compute over f32 masters
-  unless ``--no-bf16``, and ends by writing the best checkpoint's weights
-  to ``<workdir>/params.npz``.  Refused, as later slices: ``--ensemble``,
-  ``--hierarchic``, ``--softmax`` and ``qg`` queries (ROADMAP.md queue 1,
-  item 8), ``--t5-ckpt`` or ``--bert-ckpt`` naming a HuggingFace
-  checkpoint (item 9; a ``--t5-ckpt`` ``.npz`` in the ``params.npz`` layout
-  warm-starts the encoder and shared embeddings) and ``--mesh`` (item 10).
+  mixing ``gtq``, ``qg`` (``--qg``), ``doc`` and ``aug``), bf16 compute
+  over f32 masters unless ``--no-bf16``, and ends by writing the best
+  checkpoint's weights to ``<workdir>/params.npz``.  ``--ensemble N``,
+  ``--hierarchic`` and ``--softmax`` run ``train/modes.py`` instead (f32),
+  print its metrics and write its state file (``ensemble.npz`` +
+  ``ensemble_paths.npy``, ``hierarchic.npz``, ``softmax.npz``: the
+  reference's trees as ``.npz``, not flax msgpack), which ``eval
+  --ensemble N`` reads.  Refused, as later slices: ``--t5-ckpt`` or
+  ``--bert-ckpt`` naming a HuggingFace checkpoint (ROADMAP.md queue 1, item
+  9; a ``--t5-ckpt`` ``.npz`` in the ``params.npz`` layout warm-starts the
+  encoder and shared embeddings) and ``--mesh`` (item 10).
+- ``qg`` samples with the KV-cached decoder (on ``cuda`` the sublayer
+  kernels, the self-attention cache ``--max-query-length`` positions) and
+  writes token arrays, never strings; its Seq2SeqLM starts from seeded
+  random weights (``--seed``), as the reference's does.
 - Weights come from ``<workdir>/params.npz``, written by ``train`` or from
   a reference checkpoint (or its seeded init) by
   ``tools/export_gdr_tpu_params.py``.  Without that file the model gets
@@ -250,15 +264,13 @@ def cmd_tokenizer(args) -> None:
 
 
 def cmd_train(args) -> None:
-    if args.ensemble > 1 or args.hierarchic or args.softmax:
-        raise SystemExit("--ensemble / --hierarchic / --softmax: the "
-                         "secondary training modes are not ported yet "
-                         "(ROADMAP.md queue 1, item 8)")
-    query_type = args.query_type or "gtq"
+    # query-source mixing: gtq (the train TSV), qg (the `qg` subcommand's
+    # .npz), doc and aug (from --corpus); gtq, plus qg when --qg is given
+    query_type = args.query_type or ("gtq_qg" if args.qg else "gtq")
     wanted = query_type.split("_")
-    if args.qg or "qg" in wanted:
-        raise SystemExit("qg queries: query generation is not ported yet "
-                         "(ROADMAP.md queue 1, item 8)")
+    if "qg" in wanted and not args.qg:
+        raise SystemExit(f"--query-type {query_type} needs --qg (run the "
+                         f"`qg` subcommand first)")
     if args.t5_ckpt and not args.t5_ckpt.endswith(".npz"):
         raise SystemExit("--t5-ckpt: the HuggingFace T5 loaders are not "
                          "ported yet (ROADMAP.md queue 1, item 9); pass a "
@@ -292,8 +304,11 @@ def cmd_train(args) -> None:
     tok = load_tokenizer(args.tokenizer, vocab_size=mcfg.vocab_size)
     if tok.vocab_size != mcfg.vocab_size:
         mcfg = dataclasses.replace(mcfg, vocab_size=tok.vocab_size)
+    # the secondary modes compute in f32, as the reference's
+    modes = args.ensemble > 1 or args.hierarchic or args.softmax
     _check_query_length(device, args.max_input_length, mcfg,
-                        torch.float32 if args.no_bf16 else torch.bfloat16)
+                        torch.float32 if args.no_bf16 or modes
+                        else torch.bfloat16)
     tcfg = TrainConfig(train_batch_size=args.batch_size,
                        stage2_train_batch_size=(args.stage2_batch_size
                                                 or args.batch_size),
@@ -319,6 +334,10 @@ def cmd_train(args) -> None:
     dev_q, dev_pos = _read_query_tsv(args.dev)
     dev = build_eval_data(dev_q, dev_pos, index.cid_of_doc, tok,
                           args.max_input_length)
+    if modes:
+        out = _train_mode(args, mcfg, index, train_set, dev, device)
+        print(json.dumps(out, indent=2, sort_keys=True))
+        return
 
     needs_corpus = (args.hard_negatives == "bm25" or "doc" in wanted
                     or "aug" in wanted)
@@ -339,10 +358,15 @@ def cmd_train(args) -> None:
 
     if query_type != "gtq":
         sources = {"gtq": train_set}
-        dq = dataclasses.replace(dcfg, max_input_length=args.max_input_length)
-        sources.update(build_doc_query_sets(
-            doc_texts, index.paths, tok, mcfg, dq,
-            rng=np.random.default_rng(args.seed)))
+        if "qg" in wanted:
+            sources["qg"] = _qg_train_set(
+                args.qg, train_set.input_ids.shape[1], index.paths, mcfg)
+        if "doc" in wanted or "aug" in wanted:
+            dq = dataclasses.replace(dcfg,
+                                     max_input_length=args.max_input_length)
+            sources.update(build_doc_query_sets(
+                doc_texts, index.paths, tok, mcfg, dq,
+                rng=np.random.default_rng(args.seed)))
         train_set = mix_sources(query_type, **sources)
         print("train set: " + " + ".join(
             f"{len(sources[w])} {w}" for w in wanted)
@@ -391,6 +415,44 @@ def cmd_train(args) -> None:
           file=sys.stderr)
     print(json.dumps({k: best[k] for k in ("epoch", "avg_train_loss",
                                             cfg.train.monitor) if k in best}))
+
+
+def _qg_train_set(path: str, width: int, paths, mcfg):
+    """The `qg` subcommand's .npz as a ``qg`` train source, its query
+    tokens padded or cut to the train set's ``width``."""
+    import numpy as np
+
+    from gdr_tpu_torch.data.dataset import build_train_set_from_tokens
+    with np.load(path) as z:
+        qt, qm, src = z["query_tokens"], z["query_mask"], z["source_doc"]
+    if qt.shape[1] < width:
+        pad = ((0, 0), (0, width - qt.shape[1]))
+        qt, qm = np.pad(qt, pad), np.pad(qm, pad)
+    qt, qm = qt[:, :width], qm[:, :width]
+    return build_train_set_from_tokens(qt, qm, [int(s) for s in src], paths,
+                                       mcfg)
+
+
+def _train_mode(args, mcfg, index, train_set, dev, device) -> dict:
+    """``train --ensemble N`` / ``--hierarchic`` / ``--softmax``: the
+    mode's training and eval (``train/modes.py``), its metrics."""
+    from gdr_tpu_torch.train import modes
+
+    common = dict(epochs=args.epochs, lr=args.lr, batch_size=args.batch_size,
+                  workdir=args.workdir, seed=args.seed, device=device)
+    if args.ensemble > 1:
+        modes.train_ensemble(mcfg, index, train_set,
+                             num_decoders=args.ensemble,
+                             leaf_cap=args.leaf_cap,
+                             decoder_lr=args.decoder_lr, rdrop=mcfg.rdrop,
+                             rdrop_loss=mcfg.rdrop_loss, **common)
+        return modes.eval_ensemble(mcfg, index, dev, args.workdir,
+                                   num_decoders=args.ensemble,
+                                   beam=args.beam, device=device)
+    if args.hierarchic:
+        return modes.train_eval_hierarchic(mcfg, index, train_set, dev,
+                                           beam=args.beam, **common)
+    return modes.train_eval_softmax(mcfg, index, train_set, dev, **common)
 
 
 def cmd_retrieve(args) -> None:
@@ -453,9 +515,6 @@ def cmd_retrieve(args) -> None:
 
 
 def cmd_eval(args) -> None:
-    if args.ensemble > 1:
-        raise SystemExit("--ensemble: the N-decoder ensemble is not ported "
-                         "yet (ROADMAP.md queue 1, item 8)")
     if args.mesh != "none":
         raise SystemExit(f"--mesh {args.mesh}: the sharded store is not "
                          f"ported yet (ROADMAP.md queue 1, item 10)")
@@ -473,11 +532,18 @@ def cmd_eval(args) -> None:
     tok = load_tokenizer(args.tokenizer, vocab_size=mcfg.vocab_size)
     if tok.vocab_size != mcfg.vocab_size:
         mcfg = dataclasses.replace(mcfg, vocab_size=tok.vocab_size)
-    model = load_model(mcfg, args.workdir, device, args.seed)
-
     dev_q, dev_pos = _read_query_tsv(args.dev)
     dev = build_eval_data(dev_q, dev_pos, index.cid_of_doc, tok,
                           args.max_input_length)
+    if args.ensemble > 1:
+        from gdr_tpu_torch.train.modes import eval_ensemble
+        out = eval_ensemble(mcfg, index, dev, args.workdir,
+                            num_decoders=args.ensemble, beam=args.beam,
+                            batch_size=args.eval_batch_size, device=device)
+        print(json.dumps(out, indent=2, sort_keys=True))
+        return
+
+    model = load_model(mcfg, args.workdir, device, args.seed)
     ev_cfg = EvalConfig(num_beams=args.beam, num_return_sequences=args.beam,
                         max_output_length=mcfg.max_output_length,
                         gen_method=args.gen_method,
@@ -490,6 +556,105 @@ def cmd_eval(args) -> None:
     if args.result_tsv:
         print(f"wrote result TSV → {args.result_tsv}")
     print(json.dumps(out, indent=2, sort_keys=True))
+
+
+def _ensure_eos(q_ids):
+    """EOS-terminate tokenized queries (seq2seq targets): EOS at the first
+    pad slot, or the last slot when the row is full."""
+    import numpy as np
+    q = np.asarray(q_ids).copy()
+    for i in range(len(q)):
+        pads = np.flatnonzero(q[i] == 0)
+        q[i, pads[0] if len(pads) else -1] = 1
+    return q
+
+
+def cmd_qg(args) -> None:
+    """Query generation (docTTTTTquery): optionally fine-tune a doc→query
+    Seq2SeqLM on the train TSV, then sample ``--n-per-doc`` pseudo-queries
+    per corpus doc into a token-level .npz (``query_tokens``,
+    ``query_mask``, ``source_doc``) that ``train --qg`` reads."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.data.tokenize import load_tokenizer
+    from gdr_tpu_torch.kernels.decode import self_attn_max_len
+    from gdr_tpu_torch.models.seq2seq import (Seq2SeqLM, generate_queries,
+                                              make_qg_train_step,
+                                              qg_optimizer)
+    from gdr_tpu_torch.models.t5 import init_t5_weights
+
+    device = _device(args.device)
+    _, texts = _read_corpus_tsv(args.corpus)
+    mcfg = _model_config(args)
+    tok = load_tokenizer(args.tokenizer, vocab_size=mcfg.vocab_size)
+    if tok.vocab_size != mcfg.vocab_size:
+        mcfg = dataclasses.replace(mcfg, vocab_size=tok.vocab_size)
+    _check_query_length(device, args.doc_length, mcfg)
+    limit = self_attn_max_len(mcfg.d_kv, torch.float32)
+    if device.type == "cuda" and args.max_query_length > limit:
+        raise SystemExit(f"--max-query-length {args.max_query_length}: the "
+                         f"CUDA self-attention core serves at most {limit} "
+                         f"positions at d_kv {mcfg.d_kv}")
+    doc_ids, doc_mask = tok.encode_batch(texts, args.doc_length)
+    with torch.device(device):
+        model = Seq2SeqLM(mcfg)
+    init_t5_weights(model, torch.Generator(device=device)
+                    .manual_seed(args.seed))
+
+    def on_card(a):
+        return torch.as_tensor(np.asarray(a), device=device)
+
+    if args.train:
+        queries, positives = _read_query_tsv(args.train)
+        q_ids = _ensure_eos(tok.encode_batch(queries,
+                                             args.max_query_length)[0])
+        pos = np.asarray([p[0] for p in positives], np.int64)
+        step = make_qg_train_step(model, qg_optimizer(model, args.lr))
+        rng = np.random.default_rng(args.seed)
+        bs = min(args.batch_size, len(queries))
+        for epoch in range(args.qg_epochs):
+            order = rng.permutation(len(queries))
+            losses = []
+            for s in range(0, len(order) - bs + 1, bs):
+                idx = order[s:s + bs]
+                batch = {"doc_tokens": on_card(doc_ids[pos[idx]]),
+                         "doc_mask": on_card(doc_mask[pos[idx]]),
+                         "query_tokens": on_card(q_ids[idx])}
+                gen = torch.Generator(device=device).manual_seed(
+                    epoch * 10_007 + s)
+                losses.append(float(step(batch, gen)))
+            print(f"qg epoch {epoch}: loss {np.mean(losses):.4f}",
+                  file=sys.stderr)
+
+    all_toks, all_src = [], []
+    bs = min(args.batch_size, len(texts))
+    for s in range(0, len(texts), bs):
+        e = min(s + bs, len(texts))
+        ids, msk = doc_ids[s:e], doc_mask[s:e]
+        if e - s < bs:        # pad to the batch shape
+            pad = bs - (e - s)
+            ids = np.concatenate([ids, np.zeros((pad, ids.shape[1]),
+                                                ids.dtype)])
+            msk = np.concatenate([msk, np.ones((pad, msk.shape[1]),
+                                               msk.dtype)])
+        toks, src = generate_queries(
+            model, on_card(ids), on_card(msk), n_per_doc=args.n_per_doc,
+            max_len=args.max_query_length,
+            generator=torch.Generator(device=device).manual_seed(
+                args.seed * 7919 + s),
+            temperature=args.temperature, top_k=args.sample_top_k)
+        toks, src = toks.cpu().numpy(), src.cpu().numpy()
+        keep = src < (e - s)
+        all_toks.append(toks[keep])
+        all_src.append(src[keep] + s)
+    q_toks = np.concatenate(all_toks)
+    src = np.concatenate(all_src)
+    np.savez(args.out, query_tokens=q_toks.astype(np.int32),
+             query_mask=(q_toks != 0).astype(np.int32),
+             source_doc=src.astype(np.int32))
+    print(f"qg: {len(q_toks)} pseudo-queries ({args.n_per_doc}/doc × "
+          f"{len(texts)} docs) → {args.out}")
 
 
 def cmd_calculate(args) -> None:
@@ -612,16 +777,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="HuggingFace BERT checkpoint (not ported yet; "
                          "refused)")
     pt.add_argument("--qg", default=None,
-                    help="generated queries (not ported yet; refused)")
+                    help="generated queries: the `qg` subcommand's .npz")
     pt.add_argument("--query-type", default=None,
-                    help="underscore-joined mix of gtq, doc and aug "
-                         "(default gtq)")
+                    help="underscore-joined mix of gtq, qg, doc and aug "
+                         "(default gtq, or gtq_qg with --qg)")
     pt.add_argument("--ensemble", type=int, default=1,
-                    help="only 1 (the ensemble is not ported yet)")
+                    help="train N decoders on one shared encoder, each on "
+                         "its own k-means docid assignment, then evaluate "
+                         "their merged retrievals")
+    pt.add_argument("--leaf-cap", type=int, default=30,
+                    help="leaf size of the ensemble's extra k-means "
+                         "assignments")
     pt.add_argument("--hierarchic", action="store_true",
-                    help="not ported yet (refused)")
+                    help="one decoder stack per CID depth, then its "
+                         "constrained decode + re-rank")
     pt.add_argument("--softmax", action="store_true",
-                    help="not ported yet (refused)")
+                    help="encoder + linear classifier over the trie's "
+                         "clusters")
     _add_device_flag(pt)
     pt.set_defaults(fn=cmd_train)
 
@@ -691,12 +863,34 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--mesh", default="none",
                     help="only 'none' (the sharded store is not ported yet)")
     pe.add_argument("--ensemble", type=int, default=1,
-                    help="only 1 (the ensemble is not ported yet)")
+                    help="evaluate the N-decoder ensemble that train "
+                         "--ensemble N wrote (ensemble.npz)")
     _add_device_flag(pe)
     pe.add_argument("--seed", type=int, default=42,
                     help="seed of the random weights used when the workdir "
                          "has no params.npz")
     pe.set_defaults(fn=cmd_eval)
+
+    pq = sub.add_parser("qg", help="generate pseudo-queries per doc "
+                                   "(docTTTTTquery)")
+    _add_common_model_flags(pq)
+    pq.add_argument("--corpus", required=True)
+    pq.add_argument("--out", required=True, help=".npz output")
+    pq.add_argument("--train", default=None,
+                    help="train TSV to fine-tune doc→query first")
+    pq.add_argument("--tokenizer", default=None)
+    pq.add_argument("--doc-length", type=int, default=64)
+    pq.add_argument("--max-query-length", type=int, default=40)
+    pq.add_argument("--n-per-doc", type=int, default=5,
+                    help="pseudo-queries per doc")
+    pq.add_argument("--qg-epochs", type=int, default=3)
+    pq.add_argument("--batch-size", type=int, default=64)
+    pq.add_argument("--lr", type=float, default=1e-3)
+    pq.add_argument("--temperature", type=float, default=1.0)
+    pq.add_argument("--sample-top-k", type=int, default=10)
+    pq.add_argument("--seed", type=int, default=42)
+    _add_device_flag(pq)
+    pq.set_defaults(fn=cmd_qg)
 
     pc = sub.add_parser("calculate", help="offline metrics from result TSV")
     pc.add_argument("--result", required=True)

@@ -85,7 +85,7 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
             # keeps the flax name
             name = "weight" if parts[0] == "pawa" else "scale"
             sd[_module_path(parts[:-1]) + "." + name] = arr
-        elif leaf == "bias" and parts[0] in ("pawa", "fusion") \
+        elif leaf == "bias" and parts[0] in ("pawa", "fusion", "fc") \
                 and len(parts) >= 2:
             sd[_module_path(parts[:-1]) + ".bias"] = arr
         elif leaf == "rel_embedding" or path in ("pawa/memory", "pawa/u",
@@ -153,16 +153,23 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     return {"params": tree}
 
 
-def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor]
-                    ) -> int:
-    """Write a retriever's state_dict as ``params.npz``: each leaf under
-    its ``/``-joined flax path (``params/shared/embedding``, …), written to
-    a temporary file and renamed into place.  Returns the leaf count."""
-    flat = _flatten(params_to_flax(state_dict))
+def save_tree_npz(path: str, tree: Mapping) -> int:
+    """Write a nested tree of arrays as an ``.npz``, each leaf under its
+    ``/``-joined path, to a temporary file renamed into place.  Returns the
+    leaf count."""
+    flat = _flatten(tree)
     tmp = f"{path}.tmp.npz"
     np.savez(tmp, **flat)
     os.replace(tmp, path)
     return len(flat)
+
+
+def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor]
+                    ) -> int:
+    """Write a retriever's state_dict as ``params.npz``: each leaf under
+    its ``/``-joined flax path (``params/shared/embedding``, …).  Returns
+    the leaf count."""
+    return save_tree_npz(path, params_to_flax(state_dict))
 
 
 def doc_encoder_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -193,9 +200,10 @@ def doc_encoder_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
 
 
-def _npz_tree(path: str) -> dict:
+def load_tree_npz(path: str) -> dict:
     """The nested parameter tree of an ``.npz`` whose keys are ``/``-joined
-    flax paths (as ``tools/export_gdr_tpu_params.py`` writes it)."""
+    flax paths (as :func:`save_tree_npz` and
+    ``tools/export_gdr_tpu_params.py`` write it)."""
     with np.load(path, allow_pickle=False) as z:
         tree: dict = {}
         for key in z.files:
@@ -209,9 +217,80 @@ def _npz_tree(path: str) -> dict:
 
 def load_params_npz(path: str) -> dict[str, torch.Tensor]:
     """The retriever's state_dict from an exported ``params.npz``."""
-    return params_from_flax(_npz_tree(path))
+    return params_from_flax(load_tree_npz(path))
 
 
 def load_doc_encoder_npz(path: str) -> dict[str, torch.Tensor]:
     """The doc tower's state_dict from an exported ``.npz``."""
-    return doc_encoder_params_from_flax(_npz_tree(path))
+    return doc_encoder_params_from_flax(load_tree_npz(path))
+
+
+# ------------------------------------------------ the secondary modes' trees
+#
+# The reference's modes keep flax trees of their own (gdr_tpu/train/
+# modes.py): the ensemble {"enc": {shared, encoder}, "dec": decoder sides
+# stacked on a leading member axis}; the hierarchic mode {"base": {"params":
+# everything but the decoder}, "dec": decoder stacks on a leading depth
+# axis}; the classifier and Seq2SeqLM a plain {"params": ...}.  The port
+# writes the same trees, as ``.npz`` of ``/``-joined paths
+# (``ensemble.npz``, ``hierarchic.npz``, ``softmax.npz``), and these turn
+# them into its modules' state_dicts and back.
+
+def _index_tree(tree: Mapping, i: int) -> dict:
+    return {k: _index_tree(v, i) if isinstance(v, Mapping)
+            else np.asarray(v)[i] for k, v in tree.items()}
+
+
+def _stack_trees(trees: list) -> dict:
+    first = trees[0]
+    return {k: _stack_trees([t[k] for t in trees])
+            if isinstance(first[k], Mapping)
+            else np.stack([np.asarray(t[k]) for t in trees])
+            for k in first}
+
+
+def _leading(tree: Mapping) -> int:
+    return int(next(iter(_flatten(tree).values())).shape[0])
+
+
+def ensemble_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """``{"enc", "dec"}`` → the state_dict of ``models/ensemble.py::
+    Ensemble`` (every member's keys, its encoder side the shared one)."""
+    sd = {}
+    for i in range(_leading(tree["dec"])):
+        member = params_from_flax({**tree["enc"],
+                                   **_index_tree(tree["dec"], i)})
+        sd.update({f"members.{i}.{k}": v for k, v in member.items()})
+    return sd
+
+
+def ensemble_to_flax(ens: torch.nn.Module) -> dict:
+    """The inverse of :func:`ensemble_from_flax`."""
+    sides = []
+    for m in ens.members:
+        sides.append(params_to_flax(m.state_dict())["params"])
+    enc = {k: v for k, v in sides[0].items() if k in ("shared", "encoder")}
+    dec = [{k: v for k, v in t.items() if k not in ("shared", "encoder")}
+           for t in sides]
+    return {"enc": enc, "dec": _stack_trees(dec)}
+
+
+def hierarchic_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """``{"base", "dec"}`` → the state_dict of ``models/hierarchic.py::
+    Hierarchic``."""
+    sd = {f"base.{k}": v for k, v in params_from_flax(tree["base"]).items()}
+    for i in range(_leading(tree["dec"])):
+        dec = params_from_flax({"decoder": _index_tree(tree["dec"], i)})
+        sd.update({f"decoders.{i}.{k.split('.', 1)[1]}": v
+                   for k, v in dec.items()})
+    return sd
+
+
+def hierarchic_to_flax(h: torch.nn.Module) -> dict:
+    """The inverse of :func:`hierarchic_from_flax`."""
+    decs = [params_to_flax({f"decoder.{k}": v for k, v in
+                            d.state_dict().items()})["params"]["decoder"]
+            for d in h.decoders]
+    return {"base": params_to_flax(h.base.state_dict()),
+            "dec": _stack_trees(decs)}
+

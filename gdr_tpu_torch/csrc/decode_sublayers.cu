@@ -501,6 +501,93 @@ self_attn_core(const T* __restrict__ qkv, T* __restrict__ ck, T* __restrict__ cv
   st16(attn + slice, Chunk<T>::pack(acc));         // rounds to T
 }
 
+// The same core for caches longer than the register path holds (L > 16):
+// the same lane groups stream the cache in chunks of kSelfChunk positions
+// (a chunk's loads all in flight before its reductions) and keep the
+// group's f32 scores in shared memory, one per position <= pos (smem
+// [128 / G groups][pos + 1]).  So the softmax is the plain version's, with
+// no online rescaling: the max over all scores, Σ exp(s − max) (each lane
+// a strided share, then log2(G) shuffles), then p = round_T(exp(s − max) /
+// Σ) against the V rows, streamed the same way.  K and V are each read
+// once; shared memory alone bounds L (kernels/decode.py::self_attn_max_len).
+constexpr int kSelfChunk = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+self_attn_core_long(const T* __restrict__ qkv, T* __restrict__ ck, T* __restrict__ cv,
+                    const float* __restrict__ bias, T* __restrict__ attn, int R, int H, int G,
+                    int pos) {
+  extern __shared__ float self_scores[];
+  constexpr int CH = Chunk<T>::n, LB = kSelfChunk;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int gi = t / G, sub = t & (G - 1);
+  if (gi >= R * H) return;                         // whole groups leave
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned mask = (G == 32) ? 0xffffffffu : ((1u << G) - 1) << (lane & ~(G - 1));
+  const int r = gi / H, h = gi - r * H;
+  const int dkv = G * CH, inner = H * dkv;
+  const T* qp = qkv + (size_t)r * 3 * inner + h * dkv + sub * CH;
+  const size_t slice = (size_t)r * inner + h * dkv + sub * CH;
+  const size_t step = (size_t)R * inner;
+  float* s = self_scores + (threadIdx.x / G) * (pos + 1);
+
+  const uint4 qc = ld16(qp), kc = ld16(qp + inner), vc = ld16(qp + 2 * inner);
+  st16(ck + pos * step + slice, kc);               // only positions < pos are read
+  st16(cv + pos * step + slice, vc);
+  float q[CH];
+  Chunk<T>::unpack(qc, q);
+
+  float m = -INFINITY;
+  for (int l0 = 0; l0 <= pos; l0 += LB) {
+    uint4 kr[LB];
+#pragma unroll
+    for (int j = 0; j < LB; ++j)
+      if (l0 + j < pos) kr[j] = ld16(ck + (l0 + j) * step + slice);
+#pragma unroll
+    for (int j = 0; j < LB; ++j) {
+      const int l = l0 + j;
+      if (l <= pos) {                              // the same l in every lane of the warp
+        float k[CH];
+        Chunk<T>::unpack(l == pos ? kc : kr[j], k);
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < CH; ++e) part += q[e] * k[e];
+        for (int o = G >> 1; o > 0; o >>= 1) part += __shfl_xor_sync(mask, part, o);
+        const float sl = part + bias[l * H + h];  // T5: no 1/sqrt(d_kv)
+        if (sub == 0) s[l] = sl;
+        m = fmaxf(m, sl);
+      }
+    }
+  }
+  __syncwarp(mask);                                // the group's scores are in smem
+
+  float denom = 0.f;
+  for (int l = sub; l <= pos; l += G) denom += expf(s[l] - m);
+  for (int o = G >> 1; o > 0; o >>= 1) denom += __shfl_xor_sync(mask, denom, o);
+
+  float acc[CH];
+#pragma unroll
+  for (int e = 0; e < CH; ++e) acc[e] = 0.f;
+  for (int l0 = 0; l0 <= pos; l0 += LB) {
+    uint4 vr[LB];
+#pragma unroll
+    for (int j = 0; j < LB; ++j)
+      if (l0 + j < pos) vr[j] = ld16(cv + (l0 + j) * step + slice);
+#pragma unroll
+    for (int j = 0; j < LB; ++j) {
+      const int l = l0 + j;
+      if (l <= pos) {
+        const float p = round_to<T>(expf(s[l] - m) / denom);
+        float v[CH];
+        Chunk<T>::unpack(l == pos ? vc : vr[j], v);
+#pragma unroll
+        for (int e = 0; e < CH; ++e) acc[e] += p * v[e];
+      }
+    }
+  }
+  st16(attn + slice, Chunk<T>::pack(acc));
+}
+
 // ------------------------------------------------------------- cross-attention core
 
 // bf16, on the tensor cores.  One block per (query b, head h): the query's
@@ -955,7 +1042,7 @@ static cudaError_t launch_self(const void* qkv, void* ck, void* cv, const void* 
                                void* attn, int R, int L, int H, int dkv, int pos,
                                cudaStream_t s) {
   const int G = dkv / Chunk<T>::n;
-  if (L > 16 || pos < 0 || pos >= L || dkv % Chunk<T>::n || G > 32 || (G & (G - 1)))
+  if (pos < 0 || pos >= L || dkv % Chunk<T>::n || G > 32 || (G & (G - 1)))
     return cudaErrorInvalidValue;
   const int threads = 128;
   const long groups = (long)R * H;
@@ -963,6 +1050,16 @@ static cudaError_t launch_self(const void* qkv, void* ck, void* cv, const void* 
   const T* q = static_cast<const T*>(qkv);
   T *k = static_cast<T*>(ck), *v = static_cast<T*>(cv), *o = static_cast<T*>(attn);
   const float* b = static_cast<const float*>(bias);
+  if (L > 16) {
+    // one f32 score per position <= pos for each of the block's groups
+    const size_t smem = (size_t)(threads / G) * L * sizeof(float);
+    if (smem > 227 * 1024) return cudaErrorInvalidValue;
+    const cudaError_t e = set_smem((const void*)self_attn_core_long<T>, smem);
+    if (e != cudaSuccess) return e;
+    const size_t used = (size_t)(threads / G) * (pos + 1) * sizeof(float);
+    self_attn_core_long<T><<<blocks, threads, used, s>>>(q, k, v, b, o, R, H, G, pos);
+    return cudaGetLastError();
+  }
   if (L <= 4)
     self_attn_core<T, 4><<<blocks, threads, 0, s>>>(q, k, v, b, o, R, H, G, pos);
   else if (L <= 8)

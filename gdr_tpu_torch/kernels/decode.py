@@ -41,9 +41,11 @@ the attention sublayers, one attention core between two GEMMs.  Each
 intermediate is written once in the model dtype, exactly where the TPU
 kernel rounds it.  The attention cores are bound by bytes: the
 self-attention core reads the [L, R, inner] caches once with 16-byte loads
-(d_kv / 8 lanes per row and head in bf16, all cache rows in flight before
-the reductions); the cross-attention core stages one query's [S, d_kv]
-K/V in shared memory once per (query, head) block and, in bf16, runs
+(d_kv / 8 lanes per row and head in bf16; up to 16 positions every cache
+row in flight in registers before the reductions, above that chunks of 16
+positions with the scores in shared memory, :func:`self_attn_max_len`);
+the cross-attention core stages one query's [S, d_kv] K/V in shared
+memory once per (query, head) block and, in bf16, runs
 Q·Kᵀ and P·V of all that query's beam rows on ``mma.sync`` tensor cores.
 
 Weights are passed in ``nn.Linear`` layout ``[out, in]`` (the transpose of
@@ -61,7 +63,7 @@ import torch
 from gdr_tpu_torch.kernels import build
 
 NEG_INF = -1.0e9
-MAX_L = 16          # cache positions the self-attention core keeps in registers
+REGISTER_L = 16     # cache positions the self-attention core keeps in registers
 
 LAUNCHES = {"self_attn_sublayer": 0, "cross_attn_sublayer": 0,
             "ffn_sublayer": 0}
@@ -88,6 +90,17 @@ _CROSS_F32_WARPS = 4
 _CROSS_BF16_DKV = (16, 32, 64, 128)
 # output tiles a split-K launch may count on (kSplitTiles in the source)
 _SPLIT_TILES = 1024
+
+
+def self_attn_max_len(d_kv: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The longest self-attention cache the CUDA core serves in ``dtype``.
+    Up to :data:`REGISTER_L` positions it holds the cache rows in registers;
+    above, each of a 128-thread block's (row, head) groups (d_kv·bytes / 16
+    lanes each) keeps one f32 score per position in shared memory: 3,632
+    positions at d_kv 64 in bf16, 7,264 in f32.  The plain version (CPU) has
+    no such limit."""
+    lanes = d_kv * torch.finfo(dtype).bits // 8 // 16
+    return _SMEM_OPTIN // (4 * (128 // max(lanes, 1)))
 
 
 def cross_attn_max_len(d_kv: int, dtype: torch.dtype = torch.bfloat16) -> int:
@@ -366,10 +379,11 @@ def self_attn_sublayer(x, pos: int, ln_scale, wqkv, wo, bias_row, ck, cv,
     _shape("self_attn_sublayer ck", ck, (lmax, r, inner))
     _shape("self_attn_sublayer cv", cv, (lmax, r, inner))
     _shape("self_attn_sublayer bias_row", bias_row, (lmax, heads))
-    if not 0 <= pos < lmax or lmax > MAX_L:
-        raise ValueError(f"self_attn_sublayer: pos {pos} / L {lmax} outside "
-                         f"0 <= pos < L <= {MAX_L}")
     _check_heads("self_attn_sublayer", x.dtype, d_kv, cross=False)
+    limit = self_attn_max_len(d_kv, x.dtype)
+    if not 0 <= pos < lmax or lmax > limit:
+        raise ValueError(f"self_attn_sublayer: pos {pos} / L {lmax} outside "
+                         f"0 <= pos < L <= {limit} (d_kv {d_kv}, {x.dtype})")
     lib = _lib()
     stream = _stream(x)
     bias = bias_row.to(torch.float32).contiguous()

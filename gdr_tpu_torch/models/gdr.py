@@ -153,12 +153,15 @@ class GenerativeRetriever(nn.Module):
                             decoder_attn_mask, enc_mask)
 
     def decode_logits(self, enc, enc_mask, decoder_input_ids,
-                      decoder_attn_mask):
+                      decoder_attn_mask, decoder=None):
         """Teacher-forced decode over the full vocab → (masked logits
-        [B, L, V] f32, decoder states [B, L, d])."""
+        [B, L, V] f32, decoder states [B, L, d]).  ``decoder``: a decoder
+        stack in place of the model's own (the hierarchic mode's per-depth
+        stacks)."""
         c = self.cfg
         x = self.decode_embed(decoder_input_ids)
-        hidden = self.decoder(x, enc, decoder_attn_mask, enc_mask)
+        dec = self.decoder if decoder is None else decoder
+        hidden = dec(x, enc, decoder_attn_mask, enc_mask)
         s = self._scaled(hidden)
         w = self._head_rows().float()
         if c.adaptor_decode and not c.adaptor_efficient:

@@ -419,3 +419,24 @@ class Decoder(nn.Module):
             cache[f"tm_self_v_{i}"] = sv
         return self.final_norm(x[:, None]), cache
 
+
+@torch.no_grad()
+def init_t5_weights(model: nn.Module, generator: torch.Generator
+                    ) -> nn.Module:
+    """Seeded random weights of a T5 text model (``models/seq2seq.py``,
+    ``models/classifier.py``) at the reference's initialiser scales: the
+    shared table N(0, 1), projections and rel-bias tables N(0, 0.02), the
+    classifier head ``fc`` N(0, 1/fan_in) with bias 0, norm scales 1.  Not
+    the reference's draws (``convert.py`` bridges those)."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "scale":
+            p.fill_(1.0)
+        elif leaf == "bias":
+            p.zero_()
+        else:
+            std = (1.0 if name == "shared.weight"
+                   else p.shape[1] ** -0.5 if name == "fc.weight" else 0.02)
+            p.copy_(torch.randn(p.shape, generator=generator,
+                                device=generator.device) * std)
+    return model

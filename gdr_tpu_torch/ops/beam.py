@@ -114,10 +114,13 @@ def _advance(tokens, node, finished, eos_pos, option, pos: int, kary: int,
 
 def _beam_step(state, pos: int, step_fn: StepFn, batch: int, in_w: int,
                out_w: int, kary: int, children: torch.Tensor,
-               eos_allowed: torch.Tensor):
+               eos_allowed: torch.Tensor, candidates_mode: bool = True):
     """One constrained step: B·in_w beams → B·out_w beams.  With an
     accumulator in the state (``acc`` not None), ``step_fn`` also returns
-    the decoder state, which is pooled and reordered with the beams."""
+    the decoder state, which is pooled and reordered with the beams.
+    ``candidates_mode``: ``step_fn`` gives the [rows, kary+1] candidate
+    logits; else full-vocabulary logits [rows, V], whose log-softmax is
+    read at the position's digit tokens and EOS."""
     tokens, node, scores, finished, eos_pos, cur_tok, acc, cache = state
     n_opt = kary + 1
     if acc is not None:
@@ -126,6 +129,10 @@ def _beam_step(state, pos: int, step_fn: StepFn, batch: int, in_w: int,
     else:
         out, cache = step_fn(cur_tok, cache, pos, in_w)
     logp = torch.log_softmax(out.float(), dim=-1)             # [BK, kary+1]
+    if not candidates_mode:                                   # [BK, V]
+        first = pos * kary + TOKEN_OFFSET
+        logp = torch.cat([logp[:, first:first + kary],
+                          logp[:, EOS_ID:EOS_ID + 1]], dim=1)
     cand = _trie_masked(logp, node, children, eos_allowed)
     # finished beams: one zero-cost "pad" continuation in the EOS slot
     frozen = torch.cat([torch.full_like(logp[:, :kary], NEG_INF),
@@ -196,13 +203,16 @@ def beam_search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
                 kary: int, max_len: int, children: torch.Tensor,
                 eos_allowed: torch.Tensor, length_penalty: float = 1.0,
                 progressive: bool = False,
-                accumulate_hidden: int = 0) -> BeamResult:
+                accumulate_hidden: int = 0,
+                candidates_mode: bool = True) -> BeamResult:
     """Run the constrained search.  ``children``: int [N, kary] (-1 =
     absent); ``eos_allowed``: bool [N], both on the decode device.
     ``cache`` holds batch·num_beams rows (row b·K+k = query b), or batch
     rows when ``progressive``.  ``accumulate_hidden`` > 0 (the decoder
     width d): ``step_fn`` returns ``(logits, hidden [rows, d], cache)`` and
-    the result carries the pooled ``hid_avg`` / ``hid_last``."""
+    the result carries the pooled ``hid_avg`` / ``hid_last``.
+    ``candidates_mode=False``: ``step_fn`` returns full-vocabulary logits
+    (the hierarchic decoders' step)."""
     dev = children.device
     bk0 = batch * (1 if progressive else num_beams)
     tokens = torch.zeros((bk0, max_len + 1), dtype=torch.int32, device=dev)
@@ -227,7 +237,7 @@ def beam_search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
         for pos, w in enumerate(warmup_widths(num_beams, kary, max_len)):
             out_w = min(w * (kary + 1), num_beams)
             state = _beam_step(state, pos, step_fn, batch, w, out_w, kary,
-                               children, eos_allowed)
+                               children, eos_allowed, candidates_mode)
             pos0 = pos + 1
 
     for pos in range(pos0, max_len):
@@ -239,7 +249,7 @@ def beam_search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
         if not bool(run.any()):                      # early exit
             break
         state = _beam_step(state, pos, step_fn, batch, num_beams, num_beams,
-                           kary, children, eos_allowed)
+                           kary, children, eos_allowed, candidates_mode)
 
     tokens, node, scores, finished, eos_pos, _, acc, _ = state
     return _finalize(tokens, node.to(torch.int32), scores, eos_pos, batch,

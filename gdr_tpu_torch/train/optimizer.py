@@ -139,32 +139,90 @@ class GroupedAdamW:
         torch._foreach_mul_(g, factor)
 
         count = state["count"]
-        c1 = count + 1
-        bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(c1))
-        bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(c1))
         for group in GROUPS:
             idx = [i for i, k in enumerate(keys) if self.labels[k] == group]
             if not idx:
                 continue
             peak, wd = self.hyper[group]
-            p = [f[keys[i]] for i in idx]
-            gg = [g[i] for i in idx]
-            mu = [state["mu"][keys[i]] for i in idx]
-            nu = [state["nu"][keys[i]] for i in idx]
-            torch._foreach_mul_(mu, B1)
-            torch._foreach_add_(mu, gg, alpha=1 - B1)
-            torch._foreach_mul_(nu, B2)
-            torch._foreach_addcmul_(nu, gg, gg, value=1 - B2)
-            den = torch._foreach_div(nu, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, self.cfg.adam_epsilon)
-            upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
-            if wd:
-                torch._foreach_add_(upd, p, alpha=wd)
-            lr = learning_rate(self.cfg, self.total, peak, count)
-            torch._foreach_add_(p, upd, alpha=-lr)
-        state["count"] = c1
+            adamw_update([f[keys[i]] for i in idx], [g[i] for i in idx],
+                         [state["mu"][keys[i]] for i in idx],
+                         [state["nu"][keys[i]] for i in idx], count,
+                         learning_rate(self.cfg, self.total, peak, count), wd,
+                         self.cfg.adam_epsilon)
+        state["count"] = count + 1
         return True
+
+
+def adamw_update(p, g, mu, nu, count: int, lr: float, wd: float,
+                 eps: float = 1e-8) -> None:
+    """optax's AdamW on lists of f32 tensors, in place: the moments, bias
+    correction with the count after its increment, weight decay on the
+    pre-update parameter, ``p -= lr · u``."""
+    c1 = count + 1
+    bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(c1))
+    bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(c1))
+    torch._foreach_mul_(mu, B1)
+    torch._foreach_add_(mu, g, alpha=1 - B1)
+    torch._foreach_mul_(nu, B2)
+    torch._foreach_addcmul_(nu, g, g, value=1 - B2)
+    den = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, eps)
+    upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+    if wd:
+        torch._foreach_add_(upd, p, alpha=wd)
+    torch._foreach_add_(p, upd, alpha=-lr)
+
+
+# optax.adamw's default weight decay: ``optax.adamw(lr)`` decays too
+OPTAX_ADAMW_WD = 1e-4
+
+
+class AdamW:
+    """``optax.adamw`` at constant learning rates over named groups of a
+    module's parameters, optionally after one global-norm clip over all of
+    them (``optax.chain(clip_by_global_norm, multi_transform(...))``).
+    ``hyper``: group → (lr, weight decay); ``labels``: parameter name →
+    group.  The secondary modes and query generation train with it, on the
+    module's own f32 parameters, updated in place."""
+
+    def __init__(self, module: torch.nn.Module, hyper: dict[str, tuple],
+                 labels: dict[str, str] | None = None,
+                 max_grad_norm: float | None = None):
+        self.params = dict(module.named_parameters())
+        self.labels = labels or dict.fromkeys(self.params, "all")
+        self.hyper = hyper
+        self.max_grad_norm = max_grad_norm
+        self.count = 0
+        self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """Apply the gradients the last backward left in ``.grad`` (zeros
+        where a parameter got none) and clear them.  Returns their global
+        norm before the clip."""
+        keys = list(self.params)
+        g = [self.params[k].grad if self.params[k].grad is not None
+             else torch.zeros_like(self.params[k]) for k in keys]
+        g = [x.float() for x in g]
+        norm = global_norm(g)
+        if self.max_grad_norm is not None:
+            torch._foreach_mul_(g, torch.where(
+                norm < self.max_grad_norm, torch.ones_like(norm),
+                self.max_grad_norm / norm))
+        for group, (lr, wd) in self.hyper.items():
+            idx = [i for i, k in enumerate(keys) if self.labels[k] == group]
+            if idx:
+                adamw_update([self.params[keys[i]] for i in idx],
+                             [g[i] for i in idx],
+                             [self.mu[keys[i]] for i in idx],
+                             [self.nu[keys[i]] for i in idx], self.count,
+                             lr, wd)
+        self.count += 1
+        for p in self.params.values():
+            p.grad = None
+        return norm
 
 
 def build_optimizer(cfg: TrainConfig, params: dict[str, dict[str, torch.Tensor]],

@@ -169,3 +169,62 @@ def test_inverse_bridge_round_trip_is_bit_equal(overrides, tmp_path):
     assert save_params_npz(path, sd) == len(want)
     for k, v in load_params_npz(path).items():
         assert torch.equal(v, sd[k]), k
+
+
+def _mode_tree(mode: str):
+    """The tree gdr_tpu's ``mode`` keeps, from its own init, with the
+    port's module of the same configuration."""
+    from gdr_tpu.models import ensemble as jens
+    from gdr_tpu.models import hierarchic as jh
+    from gdr_tpu.models.classifier import EncoderClassifier as JaxClassifier
+    from gdr_tpu.models.seq2seq import Seq2SeqLM as JaxSeq2Seq
+    from gdr_tpu_torch.models.classifier import EncoderClassifier
+    from gdr_tpu_torch.models.ensemble import Ensemble
+    from gdr_tpu_torch.models.hierarchic import Hierarchic
+    from gdr_tpu_torch.models.seq2seq import Seq2SeqLM
+
+    jcfg, cfg = tiny_config().model, port_tiny_config().model
+    key = jax.random.PRNGKey(3)
+    ids = np.ones((2, 6), np.int32)
+    if mode == "ensemble":
+        enc, dec = jens.init_ensemble(JaxRetriever(jcfg), key, 2)
+        return {"enc": enc, "dec": dec}, Ensemble(cfg, 2)
+    if mode == "hierarchic":
+        base, dec = jh.init_hierarchic(JaxRetriever(jcfg), key, 3)
+        return {"base": base, "dec": dec}, Hierarchic(cfg, 3)
+    if mode == "softmax":
+        return (JaxClassifier(jcfg, num_cls=7).init(key, ids, ids),
+                EncoderClassifier(cfg, 7))
+    return (JaxSeq2Seq(jcfg).init(key, ids, ids, ids, ids), Seq2SeqLM(cfg))
+
+
+@pytest.mark.parametrize("mode", ["ensemble", "hierarchic", "softmax",
+                                  "seq2seq"])
+def test_export_tool_writes_the_modes_trees(mode, tmp_path):
+    """A secondary mode's flax msgpack → ``.npz`` → the port's module
+    through its bridge, every leaf bit for bit."""
+    from flax import serialization
+
+    from gdr_tpu_torch import convert
+
+    spec = importlib.util.spec_from_file_location(
+        "export_gdr_tpu_params", ROOT / "tools" / "export_gdr_tpu_params.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    jtree, module = _mode_tree(mode)
+    src = tmp_path / f"{mode}.msgpack"
+    src.write_bytes(serialization.to_bytes(jtree))
+    out = str(tmp_path / f"{mode}.npz")
+    assert tool.export_mode(mode, str(src), out) == len(_leaves(jtree))
+    bridge = {"ensemble": convert.ensemble_from_flax,
+              "hierarchic": convert.hierarchic_from_flax}.get(
+                  mode, convert.params_from_flax)
+    module.load_state_dict(bridge(convert.load_tree_npz(out)))
+    back = {"ensemble": convert.ensemble_to_flax,
+            "hierarchic": convert.hierarchic_to_flax}.get(
+                mode, lambda m: convert.params_to_flax(m.state_dict()))(module)
+    want = dict(_leaves(jax.tree_util.tree_map(np.asarray, jtree)))
+    got = dict(_leaves(back))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert np.array_equal(got[k], v), k

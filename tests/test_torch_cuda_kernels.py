@@ -12,10 +12,12 @@ multiples of any tile, one and 31 beams per query, scorer widths of 40 and
 48 that are not multiples of 32 chunks, 37 beams, cap 5); the decoder's
 GEMM and attention cores are also held at the main path's widths (K up to
 3,080, N up to 3,072, d_kv 64, L 16, encoder lengths up to the
-shared-memory limit), and the sublayers at the shapes the other retrieve
+shared-memory limit), the sublayers at the shapes the other retrieve
 options give them (3,200 rows at position 0; position 4 of a 5-position
-cache).  The scorers are held to their plain versions with a distinct
-query row per beam, and the retrieve options (decoder-side query reps,
+cache), and the self-attention sublayer at caches longer than its 16
+register positions (L 17, 24, 40 as query generation samples, and 64; 320
+and 3,200 rows; every position).  The scorers are held to their plain
+versions with a distinct query row per beam, and the retrieve options (decoder-side query reps,
 sampling with shared noise, the slow PAWA head) to the CPU's plain route
 on a small f32 model.  The bf16 GEMM runs the cost model's plans and
 forced ones: split-K with split counts that divide no k-tile count, and
@@ -308,6 +310,53 @@ def test_self_attn_core_at_l16_dkv64(dev, dtype, pos):
     _close(cv, cv_p, dtype)
     others = [l for l in range(lmax) if l != pos]
     assert torch.equal(ck[others], before[others])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [320, 3200])
+@pytest.mark.parametrize("lmax", [17, 24, 40, 64])
+def test_self_attn_sublayer_long_cache_every_pos(dev, dtype, r, lmax):
+    """Caches longer than the register path (query generation samples at
+    L = 40): t5-base widths, every position, the cache written only at
+    ``pos``."""
+    heads, d_kv, d = 12, 64, 768
+    inner = heads * d_kv
+    rn = _rand(dev, 1000 + lmax)
+    scale = (1 + rn(d, std=0.1)).to(dtype)
+    wqkv = rn(3 * inner, d, std=0.02, dtype=dtype)
+    wo = rn(d, inner, std=0.02, dtype=dtype)
+    bias_row = rn(lmax, heads, std=0.5)
+    ck, cv = rn(lmax, r, inner, dtype=dtype), rn(lmax, r, inner, dtype=dtype)
+    ck_p, cv_p = ck.clone(), cv.clone()
+    for pos in range(lmax):
+        x = rn(r, d, dtype=dtype)
+        before = ck.clone()
+        got, _, _ = kd.self_attn_sublayer(x, pos, scale, wqkv, wo, bias_row,
+                                          ck, cv, heads=heads, d_kv=d_kv)
+        want, _, _ = kd.self_attn_sublayer_plain(
+            x, pos, scale, wqkv, wo, bias_row, ck_p, cv_p, heads=heads,
+            d_kv=d_kv)
+        _close(got, want, dtype)
+        _close(ck, ck_p, dtype)
+        _close(cv, cv_p, dtype)
+        others = [l for l in range(lmax) if l != pos]
+        assert torch.equal(ck[others], before[others])
+        ck_p.copy_(ck)                 # the next step reads the same cache
+        cv_p.copy_(cv)
+
+
+def test_self_attn_sublayer_refuses_caches_past_its_limit(dev):
+    heads, d_kv = 2, 64
+    inner = heads * d_kv
+    limit = kd.self_attn_max_len(d_kv, torch.float32)
+    rn = _rand(dev, 5)
+    x, scale = rn(1, D), 1 + rn(D, std=0.1)
+    ck = torch.zeros(limit + 1, 1, inner, device=dev)
+    with pytest.raises(ValueError, match=f"L <= {limit}"):
+        kd.self_attn_sublayer(x, 0, scale, rn(3 * inner, D), rn(D, inner),
+                              rn(limit + 1, heads), ck, ck.clone(),
+                              heads=heads, d_kv=d_kv)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -18,7 +18,7 @@ import torch
 from chip_smoke import _same_state, _small_train_world
 from gdr_tpu.config import ModelConfig as JaxModelConfig
 from gdr_tpu.models.gdr import GenerativeRetriever as JaxRetriever
-from gdr_tpu_torch.convert import _npz_tree, save_params_npz
+from gdr_tpu_torch.convert import load_tree_npz, save_params_npz
 from gdr_tpu_torch.models.dual_encoder import (DocEncoder, init_doc_encoder,
                                                tiny_doc_encoder_config)
 from gdr_tpu_torch.models.gdr import shift_right
@@ -110,7 +110,7 @@ def test_port_trained_params_give_the_reference_the_same_forward(
     cfg = world[0].model
     jm = JaxRetriever(JaxModelConfig(**{
         f: getattr(cfg, f) for f in cfg.__dataclass_fields__}))
-    params = jax.tree_util.tree_map(np.asarray, _npz_tree(path))
+    params = jax.tree_util.tree_map(np.asarray, load_tree_npz(path))
     model = loop.model.float()
     ids, mask = world[2].input_ids[:3], world[2].attn_mask[:3]
     labels = world[2].labels[:3]

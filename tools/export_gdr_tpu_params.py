@@ -7,6 +7,17 @@ PyTorch port reads (``gdr_tpu_torch/convert.py::load_params_npz``), or with
         [--model-size base --kary 30 ...] [--out runs/nq/params.npz]
     python tools/export_gdr_tpu_params.py --doc-encoder tiny --out enc.npz \\
         [--encoder-ckpt enc.msgpack] [--doc-tokenizer tok.json] [--seed 7]
+    python tools/export_gdr_tpu_params.py --mode ensemble \\
+        --msgpack runs/ens/ensemble.msgpack [--out runs/ens/ensemble.npz]
+
+``--mode ensemble|hierarchic|softmax|seq2seq`` exports a tree that
+gdr_tpu's secondary modes wrote (``ensemble.msgpack``,
+``hierarchic.msgpack``, ``softmax.msgpack``; a ``Seq2SeqLM``'s
+``{"params": ...}`` serialised the same way) to the ``.npz`` the port's
+modes read (``ensemble.npz``, ``hierarchic.npz``, ``softmax.npz``; by
+default beside the msgpack).  Every leaf passes through the port's bridge
+(``gdr_tpu_torch/convert.py``), which refuses a leaf it cannot place.  The
+ensemble's ``ensemble_paths.npy`` is read by both packages as it is.
 
 The weights are ``CheckpointManager(<workdir>/ckpt).restore_raw()
 ["params"]["generator"]`` when the workdir holds a checkpoint, else
@@ -54,6 +65,24 @@ def export(params, out: str) -> int:
     return len(flat)
 
 
+def export_mode(mode: str, msgpack: str, out: str) -> int:
+    """A secondary mode's flax msgpack → the port's ``.npz``; returns the
+    leaf count.  The tree is read without a template and handed to the
+    port's bridge for its mode before it is written."""
+    from flax import serialization
+
+    from gdr_tpu_torch import convert
+
+    with open(msgpack, "rb") as fh:
+        tree = serialization.msgpack_restore(fh.read())
+    bridge = {"ensemble": convert.ensemble_from_flax,
+              "hierarchic": convert.hierarchic_from_flax,
+              "softmax": convert.params_from_flax,
+              "seq2seq": convert.params_from_flax}[mode]
+    bridge(tree)                    # raises on a leaf the port cannot place
+    return convert.save_tree_npz(out, tree)
+
+
 def export_doc_encoder(args) -> None:
     import jax
 
@@ -89,6 +118,12 @@ def main(argv=None) -> None:
                         "--doc-encoder)")
     p.add_argument("--doc-encoder", default=None, choices=["full", "tiny"],
                    help="export this DocEncoder instead of the generator")
+    p.add_argument("--mode", default=None,
+                   choices=["ensemble", "hierarchic", "softmax", "seq2seq"],
+                   help="export the tree of this secondary mode (or "
+                        "query generation's Seq2SeqLM) from --msgpack")
+    p.add_argument("--msgpack", default=None,
+                   help="with --mode: the flax msgpack gdr_tpu wrote")
     p.add_argument("--encoder-ckpt", default=None,
                    help="with --doc-encoder: the tower's flax msgpack")
     p.add_argument("--doc-tokenizer", default=None,
@@ -104,6 +139,13 @@ def main(argv=None) -> None:
                    help="default: <workdir>/params.npz (required with "
                         "--doc-encoder)")
     args = p.parse_args(argv)
+    if args.mode:
+        if not args.msgpack:
+            p.error("--mode needs --msgpack")
+        out = args.out or os.path.splitext(args.msgpack)[0] + ".npz"
+        n = export_mode(args.mode, args.msgpack, out)
+        print(f"# wrote {n} arrays to {out}", file=sys.stderr)
+        return
     if args.doc_encoder:
         if not args.out:
             p.error("--doc-encoder needs --out")
