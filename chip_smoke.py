@@ -34,10 +34,12 @@ the last line):
    cluster table).  Device times (CUDA-graph replay) beside the plain
    version's, a library yardstick and the bound: the decoder sublayers at
    each row count and summed per retrieve (6·t32 + 6·t992 + 12·t3200), their
-   bf16 GEMM alone at its four (N, K) shapes at each row count against
-   torch.matmul, and the scorers at 3,200 rows.  The GEMM shapes and the
-   FFN rows print the plan the cost model gave them (tile, ring stages,
-   splits, units and blocks);
+   GEMM alone at its four (N, K) shapes at each row count against
+   torch.matmul, each in bf16 and in f32 (no TF32: the f32 bound is at 67
+   TFLOP/s, the yardstick at "highest" precision), and the scorers at
+   3,200 rows.  The GEMM shapes and the FFN rows print the plan the
+   dtype's cost model gave them (tile, ring stages, splits, units and
+   blocks);
 3. whole path, small — a small f32 model retrieves on the CPU (plain
    versions) and on the card (kernels) from the same seeded weights, on
    the four store layouts (plain, packed, plain int8, packed int8): valid
@@ -54,7 +56,10 @@ the last line):
    decoder kernel, 1 of the layout's scorer, 0 of the others), valid beams
    and doc ids, then timed retrieves; plain bf16 must return packed bf16's
    top documents, and packed int8's store size and top-1 agreement with
-   packed bf16 are printed;
+   packed bf16 are printed; then the model and store in f32, as ``cli
+   retrieve --packed`` serves them (packed f32: 24 launches of each decoder
+   kernel, one packed scorer), timed over 3 retrieves after a warm one,
+   with its peak;
 5. the other options at full width — on the packed bf16 layout, four
    modes of ``Evaluator.retrieve``: (a) beam + decoder_avg + average
    fusion, (b) beam + decoder_special + concate fusion (one t5-base model
@@ -286,8 +291,8 @@ def core_bytes(name: str, r: int, pos: int, el: int, queries: int = B,
 
 
 def plan_text(plan) -> str:
-    """A bf16 GEMM plan as phase 2 prints it: tile, ring, splits, blocks."""
-    return (f"{64 * plan.wg}x{plan.bn} tile, {plan.stages} stages, "
+    """A GEMM plan as phase 2 prints it: tile, ring, splits, blocks."""
+    return (f"{plan.rows}x{plan.bn} tile, {plan.stages} stages, "
             f"{plan.splits} split{'s' if plan.splits > 1 else ''}, "
             f"{plan.units} units on {plan.blocks} blocks")
 
@@ -423,33 +428,36 @@ def phase_kernels(dev, trie) -> dict:
         warm @ warm
         torch.cuda.synchronize()
     del warm
-    stats: dict = {name: dict(rows={}) for name in DECODER}
+    assert torch.get_float32_matmul_precision() == "highest"  # f32 yardstick: no TF32
+    stats: dict = {name: dict(rows={}, rows_f32={}) for name in DECODER}
     for name in DECODER:
         stats[name]["qg"] = {}
-    gemm_rows: list = []
+    gemm_rows: dict = {"bfloat16": [], "float32": []}
     for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        peak = H100_BF16_FLOPS if bf16 else H100_F32_FLOPS
+        rows_key = "rows" if bf16 else "rows_f32"
         for w in WIDTHS:
             r, pos = B * w, POS_OF_WIDTH[w]
             c = sublayers_vs_plain(rn, stats, r, w, pos, lmax, dtype)
-            if dtype != torch.bfloat16:
-                continue
 
             # device times at this row count: kernel, plain, library
             x, scale, dn = c.x, c.scale, c.dn
             for name, (kern, plain, lib) in sublayer_calls(c, pos).items():
                 flops, nbytes = decoder_cost(name, r, pos, lmax,
                                              x.element_size())
-                bound, by = _bound_ms(flops, nbytes, H100_BF16_FLOPS)
-                stats[name]["rows"][r] = dict(
+                bound, by = _bound_ms(flops, nbytes, peak)
+                stats[name][rows_key][r] = dict(
                     ms=_time_ms(kern), plain_ms=_time_ms(plain),
                     library_ms=_time_ms(lib), bound_ms=bound, bound_by=by,
                     flops=flops, bytes=nbytes, pos=pos)
                 if name != "ffn_sublayer":             # its attention core alone
-                    stats[name]["rows"][r]["core_bound_ms"] = core_bytes(
+                    stats[name][rows_key][r]["core_bound_ms"] = core_bytes(
                         name, r, pos, x.element_size()) / H100_BYTES * 1e3
                 else:                                  # its two GEMMs' plans
-                    stats[name]["rows"][r]["plans"] = {
-                        f"{n_}x{k_}": plan_text(KD.gemm_plan(r, n_, k_, dev))
+                    stats[name][rows_key][r]["plans"] = {
+                        f"{n_}x{k_}": plan_text(KD.gemm_plan(r, n_, k_, dev,
+                                                             dtype))
                         for n_, k_ in ((DFF, D), (D, DFF))}
 
             # the GEMM alone at its four main-path shapes, each with the
@@ -459,20 +467,20 @@ def phase_kernels(dev, trie) -> dict:
                 wt = rn(n, k, std=k ** -0.5, dtype=dtype)
                 kw = (dict(resid=rn(r, n, dtype=dtype)) if epi == "residual"
                       else dict(scale=scale))          # norm GEMMs read x [r, D]
-                err = _close(f"gemm {epi} M={r} N={n} K={k}",
+                err = _close(f"gemm {dn} {epi} M={r} N={n} K={k}",
                              KD.gemm(a, wt, epi, **kw),
                              KD.gemm_plain(a, wt, epi, **kw), dn)
                 nbytes = (r * k + n * k + r * n * (2 if epi == "residual"
-                                                   else 1)) * 2
-                bound, by = _bound_ms(2 * r * n * k, nbytes, H100_BF16_FLOPS)
-                plan = plan_text(KD.gemm_plan(r, n, k, dev))
-                gemm_rows.append(dict(
-                    m=r, n=n, k=k, epi=epi, max_abs_err=err,
+                                                   else 1)) * a.element_size()
+                bound, by = _bound_ms(2 * r * n * k, nbytes, peak)
+                plan = plan_text(KD.gemm_plan(r, n, k, dev, dtype))
+                gemm_rows[dn].append(dict(
+                    m=r, n=n, k=k, epi=epi, dtype=dn, max_abs_err=err,
                     ms=_time_ms(lambda: KD.gemm(a, wt, epi, **kw)),
                     matmul_ms=_time_ms(lambda: a @ wt.t()), bound_ms=bound,
                     bound_by=by, plan=plan))
-                g_ = gemm_rows[-1]
-                log(f"  gemm {epi:8s} M={r:5d} N={n:5d} K={k:5d}: "
+                g_ = gemm_rows[dn][-1]
+                log(f"  gemm {dn:8s} {epi:8s} M={r:5d} N={n:5d} K={k:5d}: "
                     f"{g_['ms']:.4f} ms, torch.matmul {g_['matmul_ms']:.4f} "
                     f"ms, bound {bound:.4f} ms ({by}); plan {plan}")
 
@@ -517,27 +525,32 @@ def phase_kernels(dev, trie) -> dict:
 
     for name in DECODER:
         st = stats[name]
-        for r, row in sorted(st["rows"].items()):
-            log(f"  {name:20s} R={r:5d}: kernel {row['ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
-                f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
-                + "".join(f"; {nk} plan {p}"
-                          for nk, p in row.get("plans", {}).items()))
+        for rows_key, dn, sfx in (("rows", "bfloat16", ""),
+                                  ("rows_f32", "float32", "_f32")):
+            for r, row in sorted(st[rows_key].items()):
+                log(f"  {name:20s} {dn:8s} R={r:5d}: kernel {row['ms']:.4f} "
+                    f"ms, plain {row['plain_ms']:.4f} ms, library "
+                    f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+                    f"ms ({row['bound_by']})"
+                    + "".join(f"; {nk} plan {p}"
+                              for nk, p in row.get("plans", {}).items()))
+            st["per_retrieve" + sfx] = {
+                key: sum(RETRIEVE_WEIGHT[w] * st[rows_key][B * w][key]
+                         for w in WIDTHS)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "core_bound_ms") if key in st[rows_key][rows_main]}
+            st["gemms" + sfx] = [g_ for g_ in gemm_rows[dn]
+                                 if (g_["n"], g_["k"]) in DECODER_GEMMS[name]]
+            pr = st["per_retrieve" + sfx]
+            log(f"  {name:20s} {dn:8s} per retrieve (6·t32 + 6·t992 + "
+                f"12·t3200): kernel {pr['ms']:.4f} ms, plain "
+                f"{pr['plain_ms']:.4f} ms, library {pr['library_ms']:.4f} ms, "
+                f"bound {pr['bound_ms']:.4f} ms"
+                + (f"; its attention core's bytes bound "
+                   f"{pr['core_bound_ms']:.4f} ms" if "core_bound_ms" in pr
+                   else ""))
         st.update({k: v for k, v in st["rows"][rows_main].items()
                    if k != "pos"})
-        st["per_retrieve"] = {
-            key: sum(RETRIEVE_WEIGHT[w] * st["rows"][B * w][key]
-                     for w in WIDTHS)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                        "core_bound_ms") if key in st["rows"][rows_main]}
-        st["gemms"] = [g_ for g_ in gemm_rows
-                       if (g_["n"], g_["k"]) in DECODER_GEMMS[name]]
-        pr = st["per_retrieve"]
-        log(f"  {name:20s} per retrieve (6·t32 + 6·t992 + 12·t3200): kernel "
-            f"{pr['ms']:.4f} ms, plain {pr['plain_ms']:.4f} ms, library "
-            f"{pr['library_ms']:.4f} ms, bound {pr['bound_ms']:.4f} ms"
-            + (f"; its attention core's bytes bound {pr['core_bound_ms']:.4f}"
-               f" ms" if "core_bound_ms" in pr else ""))
 
     # the scorers compute in f32 outside the tensor cores; each reads its
     # rows once.  Packed scorer at the operating point: 3,200 beams over
@@ -923,8 +936,9 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
     beams, seq_len, qbatch = 100, 40, 32
     cfg = ModelConfig().scaled("base")
     g = torch.Generator(device=dev).manual_seed(7)
-    store = torch.randn(N_DOCS, cfg.encoder_d_model, generator=g, device=dev)
-    store = (store / store.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    store32 = torch.randn(N_DOCS, cfg.encoder_d_model, generator=g, device=dev)
+    store32 = store32 / store32.norm(dim=1, keepdim=True)
+    store = store32.to(torch.bfloat16)
     with torch.device(dev):
         model = GenerativeRetriever(cfg)
     model = init_weights(model.to(torch.bfloat16),
@@ -1005,6 +1019,38 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
         f"{lay['top1_agreement_alpha0']:.4f} at alpha 0")
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"  peak {out['peak_gib']:.2f} GiB over the timed retrieves")
+
+    # the dtype `cli retrieve --packed` serves: the model and the store in
+    # f32 (load_model keeps the f32 weights), the f32 decoder kernels
+    del evs
+    with torch.device(dev):
+        model32 = GenerativeRetriever(cfg)
+    model32 = init_weights(model32, torch.Generator(device=dev).manual_seed(0)
+                           ).eval()
+    ev = Evaluator(model32, trie, store32, ev_cfg, packed=True)
+    del store32
+    name = "packed f32"
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    ev.retrieve(ids, mask)                               # warm: U table, build
+    torch.cuda.synchronize()
+    log(f"  {name} (f32 model): warm retrieve {time.perf_counter() - t:.3f} s")
+    _, _, launches = _counted_retrieve(
+        name, ev, ids, mask,
+        dict(dict.fromkeys(DECODER, 24), packed_scores=1), qbatch * beams,
+        beams)
+    out["launches_f32"] = {k: v for k, v in launches.items() if v}
+    totals = _timed(lambda: ev.retrieve(ids, mask), 0, timed)
+    total = sum(totals) / len(totals)
+    lay = out["layouts"][name] = dict(
+        retrieve_ms=total, retrieve_ms_each=totals,
+        queries_per_s=qbatch / (total / 1e3), store_bytes=_store_bytes(ev.store),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, dtype="float32")
+    log(f"  {name} (f32 model, as cli retrieve --packed serves): retrieve "
+        f"{total:.2f} ms ({', '.join(f'{x:.2f}' for x in totals)}); "
+        f"{lay['queries_per_s']:.1f} queries/s; store "
+        f"{lay['store_bytes'] / 1e6:.1f} MB; peak {lay['peak_gib']:.2f} GiB; "
+        f"{card}")
     return out
 
 
@@ -2800,8 +2846,12 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
                 name])
         if name in DECODER:
             row.update(by_rows=st["rows"], per_retrieve=st["per_retrieve"],
-                       gemms=st["gemms"])
+                       gemms=st["gemms"], by_rows_f32=st["rows_f32"],
+                       per_retrieve_f32=st["per_retrieve_f32"],
+                       gemms_f32=st["gemms_f32"])
             row.update(qg=st["qg"])
+        if name in full["launches_f32"]:
+            row["launches_f32_retrieve"] = full["launches_f32"][name]
         rows.append(row)
     return rows
 
@@ -2869,7 +2919,7 @@ def main(argv: list[str]) -> int:
         log(f"[3] {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         log("[4] whole path, full width: t5-base bf16 retrieve, three store "
-            "layouts")
+            "layouts, then the f32 model on packed f32")
         full = phase_full(dev, smi, trie, profile="profile" in argv)
         log(f"[4] {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()

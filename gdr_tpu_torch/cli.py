@@ -810,9 +810,9 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--queries-file", default=None,
                     help="file with one query per line (else stdin)")
     pr.add_argument("--max-input-length", type=int, default=40,
-                    help="query tokens; on cuda at most 431 at d_kv 64 "
-                         "(the cross-attention kernel holds a query's "
-                         "K/V in shared memory)")
+                    help="query tokens; on cuda at most 1,472 at d_kv 64 "
+                         "(the f32 cross-attention kernel holds 32 beams' "
+                         "scores of every key in shared memory)")
     pr.add_argument("--beam", type=int, default=100)
     pr.add_argument("--top-k", type=int, default=10)
     pr.add_argument("--alpha", type=float, default=1.0,

@@ -52,15 +52,26 @@
 // pull from L2 (~8-9 TB/s at 3,200 rows) or, for narrow tiles, by the
 // ring's depth against the load latency.
 // The RMSNorm: the TPU kernel rounds norm(x) to the model dtype before the
-// product, so a row kernel (rms_norm_bf16) writes norm(x) once, [R, d] in
-// bf16, and the GEMM reads it by TMA.  That costs one launch and ~10 MB at
-// R = 3,200 (a few µs), gives the GEMM exactly the TPU kernel's rounded
-// input, and keeps the mainloop pure TMA → wgmma (normalising A in
-// registers would need the register-A form of wgmma and a second pass over
-// every A tile).
+// product, so a row kernel (rms_norm<T>) writes norm(x) once, [R, d] in the
+// model dtype, and both GEMMs read it as a plain A operand.  In bf16 that
+// costs one launch and ~10 MB at R = 3,200 (a few µs), gives the GEMM
+// exactly the TPU kernel's rounded input, and keeps the mainloop pure TMA →
+// wgmma (normalising A in registers would need the register-A form of wgmma
+// and a second pass over every A tile).
 //
-// f32 GEMM: 64x64x32 tiles on the FMA units, 8x4 outputs a thread, RMSNorm
-// prologue (the block computes its rows' inverse RMS once).
+// f32 GEMM (gemm_f32_ring): the same C = epi(A · Wᵀ) with exact f32 products
+// summed in f32 on the FMA units (no TF32: 67 TFLOP/s, so every main-path
+// shape above ~40 rows is bound by operations).  Tiles of 128 x 128 (256
+// threads) down to 32 x 64 (32 threads), every thread an 8 x 8 micro-tile.
+// The tiles stay K-major in shared memory, as the 16-byte
+// cp.async.cg copies land them, in a ring of 4 stages of 16 k-values (rows
+// padded to 20 floats), so the next three k-tiles load while the FMAs run;
+// a thread reads 4 k-values of a row per LDS.128: 16 LDS.128 per 256 FMAs.
+// Split-K as in bf16 (partials in split order by the tile's last arrival,
+// on the same counters; ReLU and the residual on the full sum), with one
+// block per work unit.  The plan (tile, splits) comes from a cost model of
+// its own (choose_plan_f32): the busiest SM's units at the FMA rate its
+// resident warps reach, plus the partials' traffic.
 //
 // Weights are in nn.Linear layout W[N, K].  The wrapper guarantees K and N
 // are multiples of 8 and 16-byte aligned tensors (TMA's requirements).
@@ -100,50 +111,35 @@ __device__ __forceinline__ void st16(T* p, const uint4& v) {
 // ------------------------------------------------------------- RMSNorm
 
 // y = round(x · rsqrt(mean(x²) + eps) · scale), one warp a row of K (a
-// multiple of 8) in 16-byte chunks; f32 mean of squares as _rms
+// multiple of 8) in 16-byte chunks; f32 mean of squares as _rms.  Both GEMMs
+// read its output, [M, K] in the model dtype, as their plain A operand.
+template <typename T>
 __global__ void __launch_bounds__(256)
-rms_norm_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ scale,
-              __nv_bfloat16* __restrict__ y, int M, int K, float eps) {
+rms_norm(const T* __restrict__ x, const T* __restrict__ scale, T* __restrict__ y, int M,
+         int K, float eps) {
+  constexpr int CH = Chunk<T>::n;
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;                            // whole warps leave
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * K);
   const uint4* sr = reinterpret_cast<const uint4*>(scale);
   uint4* yr = reinterpret_cast<uint4*>(y + (size_t)row * K);
-  const int chunks = K / 8;
+  const int chunks = K / CH;
   float ss = 0.f;
   for (int c = lane; c < chunks; c += 32) {
-    float f[8];
-    unpack8(xr[c], f);
+    float f[CH];
+    Chunk<T>::unpack(xr[c], f);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) ss += f[t] * f[t];
+    for (int t = 0; t < CH; ++t) ss += f[t] * f[t];
   }
   const float ir = rsqrtf(warp_sum(ss) / (float)K + eps);
   for (int c = lane; c < chunks; c += 32) {
-    float f[8], s[8];
-    unpack8(xr[c], f);
-    unpack8(sr[c], s);
+    float f[CH], s[CH];
+    Chunk<T>::unpack(xr[c], f);
+    Chunk<T>::unpack(sr[c], s);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) f[t] = (f[t] * ir) * s[t];
-    yr[c] = pack8(f);
+    for (int t = 0; t < CH; ++t) f[t] = (f[t] * ir) * s[t];
+    yr[c] = Chunk<T>::pack(f);
   }
-}
-
-// inverse RMS of rows m0 .. m0+rows-1 of A [M, K] into inv_rms, one warp a
-// row: f32 mean of squares, as the TPU kernel's _rms (the f32 GEMM's prologue)
-__device__ void row_inv_rms(const float* __restrict__ A, int M, int K, int m0, int rows,
-                            float eps, float* inv_rms) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < rows; r += blockDim.x >> 5) {
-    const int gr = m0 + r;
-    float ss = 0.f;
-    if (gr < M) {
-      const float* row = A + (size_t)gr * K;
-      for (int k = lane; k < K; k += 32) ss += row[k] * row[k];
-    }
-    ss = warp_sum(ss);
-    if (lane == 0) inv_rms[r] = rsqrtf(ss / (float)K + eps);
-  }
-  __syncthreads();
 }
 
 // ------------------------------------------------------------- bf16 GEMM
@@ -354,63 +350,166 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUten
 
 // ------------------------------------------------------------- f32 GEMM
 
-// thread (tr, tc) owns rows tr+8i, columns tc+16j
-template <bool NORM, int EPI>
-__global__ void __launch_bounds__(128)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ scale,
-                const float* __restrict__ W, const float* __restrict__ resid,
-                float* __restrict__ C, int M, int N, int K, float eps) {
-  constexpr int BM = 64, BN = 64, BK = 32, LD = BK + 1;   // odd stride: no conflicts
-  __shared__ float As[BM * LD];
-  __shared__ float Bs[BN * LD];
-  __shared__ float inv_rms[BM];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  if (NORM) row_inv_rms(A, M, K, m0, BM, eps, inv_rms);
-  const int tr = tid >> 4, tc = tid & 15;
-  float acc[8][4];
+// A ring of kF32Stages k-tiles of kF32BK floats; each shared row (of A or of
+// W) holds its tile's kF32BK k-values K-major, as cp.async copies them, padded
+// to kF32Ld floats: 80 bytes, an odd number of 16-byte slots, so that 8 lanes
+// reading 16 bytes of 8 consecutive rows meet no bank twice.
+constexpr int kF32BK = 16, kF32Ld = kF32BK + 4, kF32Stages = 4;
+
+// a BM x BN tile: (BM / 8) x (BN / 8) threads, each 8 x 8 outputs.  The 64
+// sums and two 8 x 4 fragments a thread hold ~170 registers (the launch
+// bounds ask for 12 warps an SM where the tile has fewer than 8)
+template <int BM, int BN>
+struct F32Tile {
+  static constexpr int TX = BN / 8, TY = BM / 8;
+  static constexpr int kThreads = TX * TY;
+  static constexpr int kMinBlocks = kThreads >= 384 ? 1 : 384 / kThreads;
+  static constexpr int kStage = (BM + BN) * kF32Ld;        // floats
+  static constexpr int kSmem = kF32Stages * kStage * 4;    // bytes
+  static constexpr int kPart = BM * BN / 4;                 // a split's partial, float4s
+  static constexpr int kCopies = (BM + BN) * (kF32BK / 4) / kThreads;   // a thread's, a stage
+  static_assert(TX == 8 || TX == 16, "a warp's quarter shares one row of A");
+  static_assert(kCopies * kThreads == (BM + BN) * (kF32BK / 4), "whole copies a thread");
+};
+
+// Thread (tx, ty) owns rows ty + TY·i and columns tx + TX·j (i, j < 8).  A
+// quarter warp is one ty and 8 consecutive tx: its 16-byte reads of A are one
+// broadcast address, its reads of W 8 consecutive rows.  Each k-step of 4
+// reads 8 + 8 float4s for 256 FMAs.  Block u of the grid is work unit u:
+// output tile u / splits (row-major over tiles_n column tiles) and split
+// u % splits of its k-tiles.  ws: splits x [BM x BN] f32 partials per tile;
+// counters: one int per tile, zero between launches.
+template <int BM, int BN, int EPI>
+__global__ void __launch_bounds__(F32Tile<BM, BN>::kThreads, F32Tile<BM, BN>::kMinBlocks)
+gemm_f32_ring(const float* __restrict__ A, const float* __restrict__ W,
+              const float* __restrict__ resid, float* __restrict__ C,
+              float4* __restrict__ ws, int* __restrict__ counters, int M, int N, int K,
+              int splits) {
+  using T = F32Tile<BM, BN>;
+  constexpr int NT = T::kThreads, ST = kF32Stages;
+  extern __shared__ __align__(16) float f32_ring[];
+  __shared__ int last_split;
+  const int tid = threadIdx.x, tx = tid % T::TX, ty = tid / T::TX;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tile = blockIdx.x / splits, split = blockIdx.x - tile * splits;
+  const int tm = tile / tiles_n;
+  const int m0 = tm * BM, n0 = (tile - tm * tiles_n) * BN;
+  const int ktiles = (K + kF32BK - 1) / kF32BK;
+  const int kb = split * ktiles / splits, nk = (split + 1) * ktiles / splits - kb;
+
+  // k-tile kt into ring slot `slot`: BM rows of A, then BN rows of W, each
+  // kF32BK / 4 16-byte copies; rows past M or N and k past K arrive as zeros
+  // (K is a multiple of 8, so a 16-byte chunk is all in or all out)
+  auto load = [&](int slot, int kt) {
+    float* dst = f32_ring + slot * T::kStage;
+    const int k0 = kt * kF32BK;
+#pragma unroll
+    for (int it = 0; it < T::kCopies; ++it) {
+      const int c = tid + it * NT;
+      const int r = c / (kF32BK / 4), kc = (c % (kF32BK / 4)) * 4;
+      const bool in_a = r < BM;
+      const int gr = in_a ? m0 + r : n0 + (r - BM);
+      const float* src = in_a ? A : W;
+      const bool ok = gr < (in_a ? M : N) && k0 + kc < K;
+      cp_async16(dst + r * kF32Ld + kc, ok ? src + (size_t)gr * K + k0 + kc : src, ok ? 16 : 0);
+    }
+  };
+
+  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += blockDim.x) {
-      const int r = i / BK, k = i - r * BK, gr = m0 + r, gk = k0 + k;
-      float v = 0.f;
-      if (gr < M && gk < K) {
-        v = A[(size_t)gr * K + gk];
-        if (NORM) v = (v * inv_rms[r]) * scale[gk];
-      }
-      As[r * LD + k] = v;
-    }
-    for (int i = tid; i < BN * BK; i += blockDim.x) {
-      const int n = i / BK, k = i - n * BK, gn = n0 + n, gk = k0 + k;
-      Bs[n * LD + k] = (gn < N && gk < K) ? W[(size_t)gn * K + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      float a[8], b[4];
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[(tr + 8 * i) * LD + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[(tc + 16 * j) * LD + k];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < ST - 1; ++s) {               // fill the ring
+    if (s < nk) load(s, kb + s);
+    cp_async_commit();
   }
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<ST - 2>();                       // k-tile i has landed (this thread's copies)
+    __syncthreads();                               // ... everyone's; slot (i - 1) % ST is free
+    if (i + ST - 1 < nk) load((i + ST - 1) % ST, kb + i + ST - 1);
+    cp_async_commit();
+    const float* sa = f32_ring + (i % ST) * T::kStage;
+    const float* sw = sa + BM * kF32Ld;
+#pragma unroll
+    for (int kk = 0; kk < kF32BK; kk += 4) {
+      float4 a[8], b[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        a[r] = *reinterpret_cast<const float4*>(sa + (ty + T::TY * r) * kF32Ld + kk);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        b[c] = *reinterpret_cast<const float4*>(sw + (tx + T::TX * c) * kF32Ld + kk);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r].x, b[c].x, acc[r][c]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r].y, b[c].y, acc[r][c]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r].z, b[c].z, acc[r][c]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r].w, b[c].w, acc[r][c]);
+    }
+  }
+  cp_async_wait<0>();                              // no copy outlives the block
+
+  if (splits > 1) {
+    // this split's partial in thread order (float4 j of thread t at j·NT +
+    // t: each warp instruction stores 512 contiguous bytes); the tile's last
+    // arrival sums all partials in split order, so every call gives the
+    // same bits, and zeroes the counter for the next launch
+    float4* part = ws + (size_t)tile * splits * T::kPart + tid;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      __stcg(part + (size_t)split * T::kPart + j * NT,
+             make_float4(acc[j / 2][4 * (j % 2)], acc[j / 2][4 * (j % 2) + 1],
+                         acc[j / 2][4 * (j % 2) + 2], acc[j / 2][4 * (j % 2) + 3]));
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      const int last = atomicAdd(&counters[tile], 1) == splits - 1;
+      if (last) atomicExch(&counters[tile], 0);
+      __threadfence();
+      last_split = last;
+    }
+    __syncthreads();
+    if (!last_split) return;
+    __threadfence();
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int p = 0; p < splits; ++p) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float4 v = __ldcg(part + (size_t)p * T::kPart + j * NT);
+        acc[j / 2][4 * (j % 2)] += v.x;
+        acc[j / 2][4 * (j % 2) + 1] += v.y;
+        acc[j / 2][4 * (j % 2) + 2] += v.z;
+        acc[j / 2][4 * (j % 2) + 3] += v.w;
+      }
+    }
+  }
+
+  // the epilogue on the full sum: a warp stores 16 (TX 16) or 8 (TX 8)
+  // consecutive columns of 2 or 4 rows per instruction
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int gr = m0 + tr + 8 * i;
+    const int row = m0 + ty + T::TY * i;
+    if (row >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gc = n0 + tc + 16 * j;
-      if (gr < M && gc < N) {
-        const size_t idx = (size_t)gr * N + gc;
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + tx + T::TX * j;
+      if (col < N) {
+        const size_t idx = (size_t)row * N + col;
         C[idx] = epilogue<EPI, float>(acc[i][j], EPI == kResidual ? resid[idx] : 0.f);
       }
     }
@@ -744,58 +843,262 @@ cross_attn_core_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
-// f32 on the FMA units: the query's K/V in f32 shared memory (odd stride:
-// conflict-free reads), one warp per beam row, lane-per-key scores and
-// lane-per-d P·V.
+// f32, on the FMA units, with the plain version's math and order: s = q·k +
+// bias (the bias added after the dot), the f32 max over all S keys, e =
+// exp(s − max), p = e / Σe, o = Σ p·v.  The scores of all S keys sit in
+// shared memory, so the softmax needs no online rescaling.  Two kernels, by
+// the number of beams a query has.
+//
+// Few beams (query generation: each row its own query): a row's K and V are
+// read once, so they are streamed, not staged.  One 128-thread block per
+// (row, head); a group of G = DKV / 4 lanes reads a key's row in 16-byte
+// chunks (one a lane) and reduces the dot in log2(G) shuffles.  The block's
+// 128 / G groups split the keys, kStreamKeys a group in flight with their
+// bias (K and V rows both, when S fits one pass; keys past S read as zeros,
+// so the shuffle chains need no branch), write the scores to shared memory,
+// and every warp takes the max and Σ over all of them; each group then sums
+// p·v over its keys and the groups' partial rows are summed in group order.
+constexpr int kStreamKeys = 4;
+constexpr int kStreamBeams = 4;                    // fewer beams a query: streamed
+
+template <int DKV>
 __global__ void __launch_bounds__(128)
-cross_attn_core_f32(const float* __restrict__ q, const float* __restrict__ ck,
-                    const float* __restrict__ cv, const float* __restrict__ bias,
-                    float* __restrict__ out, int K, int H, int S, int dkv) {
-  extern __shared__ float f32_smem[];
-  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const int ld = dkv + 1, inner = H * dkv;
-  float* ks = f32_smem;
-  float* vs = ks + S * ld;
-  float* qw = vs + S * ld + warp * dkv;
-  float* pw = vs + S * ld + nw * dkv + warp * S;
-  const size_t kv = ((size_t)b * H + h) * S * dkv;
-  for (int i = threadIdx.x; i < S * dkv; i += blockDim.x) {
-    const int j = i / dkv, d = i - j * dkv;
-    ks[j * ld + d] = ck[kv + i];
-    vs[j * ld + d] = cv[kv + i];
+cross_attn_stream_f32(const float* __restrict__ q, const float* __restrict__ ck,
+                      const float* __restrict__ cv, const float* __restrict__ bias,
+                      float* __restrict__ out, int K, int H, int S) {
+  constexpr int G = DKV / 4, NG = 128 / G, KS = kStreamKeys, PASS = NG * KS;
+  extern __shared__ __align__(16) float stream_smem[];
+  float4* red = reinterpret_cast<float4*>(stream_smem);     // [NG][G] partial rows
+  float* sc = stream_smem + 4 * 128;                         // [S] scores
+  const int row = blockIdx.x / H, h = blockIdx.x - row * H, b = row / K;
+  const int tid = threadIdx.x, grp = tid / G, sub = tid & (G - 1), lane = tid & 31;
+  const size_t head = (size_t)row * H * DKV + h * DKV;
+  const size_t kv = ((size_t)b * H + h) * S;                 // the query's key rows
+  const float4 qv = reinterpret_cast<const float4*>(q + head)[sub];
+  const float4* kp = reinterpret_cast<const float4*>(ck + kv * DKV) + sub;
+  const float4* vp = reinterpret_cast<const float4*>(cv + kv * DKV) + sub;
+  const float* bb = bias + kv;
+  const bool one_pass = S <= PASS;
+
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 vr[KS];
+  for (int p0 = 0; p0 < S; p0 += PASS) {
+    float4 kr[KS];
+    float bv[KS];
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {                 // every load in flight first
+      const int j = p0 + grp + NG * i;
+      const bool in = j < S;                       // keys past S: zeros, never stored
+      kr[i] = in ? kp[(size_t)j * G] : zero;
+      bv[i] = in ? bb[j] : 0.f;
+      if (one_pass) vr[i] = in ? vp[(size_t)j * G] : zero;
+    }
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {                 // KS independent shuffle chains
+      float d = qv.x * kr[i].x;
+      d = fmaf(qv.y, kr[i].y, d);
+      d = fmaf(qv.z, kr[i].z, d);
+      d = fmaf(qv.w, kr[i].w, d);
+#pragma unroll
+      for (int o = G >> 1; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+      const int j = p0 + grp + NG * i;
+      if (sub == 0 && j < S) sc[j] = d + bv[i];    // T5: no 1/sqrt(d_kv)
+    }
   }
   __syncthreads();
-  const float* bb = bias + ((size_t)b * H + h) * S;
-  for (int k = warp; k < K; k += nw) {
-    const size_t row = (size_t)b * K + k;
-    const float* qr = q + row * inner + h * dkv;
-    for (int d = lane; d < dkv; d += 32) qw[d] = qr[d];
-    __syncwarp();
-    float mloc = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
-      float s = 0.f;
-      for (int d = 0; d < dkv; ++d) s += qw[d] * ks[j * ld + d];
-      s += bb[j];
-      pw[j] = s;
-      mloc = fmaxf(mloc, s);
+  float m = -INFINITY;
+  for (int j = lane; j < S; j += 32) m = fmaxf(m, sc[j]);
+  m = warp_max(m);
+  float den = 0.f;
+  for (int j = lane; j < S; j += 32) den += expf(sc[j] - m);
+  den = warp_sum(den);
+
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int p0 = 0; p0 < S; p0 += PASS) {
+    if (!one_pass) {
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        const int j = p0 + grp + NG * i;
+        vr[i] = j < S ? vp[(size_t)j * G] : zero;
+      }
     }
-    const float m = warp_max(mloc);
-    float dloc = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(pw[j] - m);
-      pw[j] = e;
-      dloc += e;
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      const int j = p0 + grp + NG * i;
+      if (j < S) {
+        const float p = expf(sc[j] - m) / den;
+        acc.x = fmaf(p, vr[i].x, acc.x);
+        acc.y = fmaf(p, vr[i].y, acc.y);
+        acc.z = fmaf(p, vr[i].z, acc.z);
+        acc.w = fmaf(p, vr[i].w, acc.w);
+      }
     }
-    const float denom = warp_sum(dloc);
-    for (int j = lane; j < S; j += 32) pw[j] = pw[j] / denom;
-    __syncwarp();
-    for (int d = lane; d < dkv; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < S; ++j) acc += pw[j] * vs[j * ld + d];
-      out[row * inner + h * dkv + d] = acc;
+  }
+  red[grp * G + sub] = acc;
+  __syncthreads();
+  if (tid < G) {
+    float4 o = red[tid];
+    for (int g = 1; g < NG; ++g) {
+      const float4 v = red[g * G + tid];
+      o.x += v.x;
+      o.y += v.y;
+      o.z += v.z;
+      o.w += v.w;
     }
-    __syncwarp();
+    reinterpret_cast<float4*>(out + head)[tid] = o;
+  }
+}
+
+// Many beams (the main path: 100 a query): one 128-thread block per (query,
+// head, tile of up to kBeamTile beams).  It stages the tile's q rows and
+// its query's K and V, kKeyTile keys at a time, in shared memory with
+// 16-byte cp.async copies (rows padded to DKV + 4 floats, an odd number of
+// 16-byte slots; the first K and V tiles in flight together; past
+// kKeyTile keys, K and then V are streamed through their buffers).  Q·Kᵀ is
+// register-tiled: thread (kx, by) = (tid % 16, tid / 16) takes beams by + 8r
+// and keys kx + 16i (r, i < 4), 16 FMAs per pair of float4 reads (a quarter
+// warp's q reads are one broadcast address, its K reads 8 consecutive
+// rows).  The scores of all keys go to shared memory [kBeamTile][sp + 4]
+// (sp: S padded to kKeyTile); 4 lanes a beam row take its softmax and write
+// p back.  P·V:
+// thread (dx, bz) = (tid % (DKV / 4), tid / (DKV / 4)) takes a float4 of d
+// and every (128 / (DKV / 4))-th beam, reading 4 p and 4 V rows a step.
+constexpr int kBeamTile = 32, kKeyTile = 64;
+
+template <int DKV>
+__global__ void __launch_bounds__(128)
+cross_attn_tiled_f32(const float* __restrict__ q, const float* __restrict__ ck,
+                     const float* __restrict__ cv, const float* __restrict__ bias,
+                     float* __restrict__ out, int K, int H, int S) {
+  constexpr int BT = kBeamTile, KT = kKeyTile, LD = DKV + 4, C4 = DKV / 4;
+  constexpr int BZ = 128 / C4, TB = BT / BZ;       // P·V: beam groups, beams a thread
+  static_assert(BT * 4 == 128, "the softmax takes 4 lanes a beam row");
+  extern __shared__ __align__(16) float tiled_smem[];
+  const int sp = (S + KT - 1) / KT * KT, lp = sp + 4;
+  float* qs = tiled_smem;                          // [BT][LD]
+  float* ks = qs + BT * LD;                        // [KT][LD]
+  float* vs = ks + KT * LD;                        // [KT][LD]
+  float* ps = vs + KT * LD;                        // [BT][lp] scores, then p
+  const int tiles = (K + BT - 1) / BT;
+  const int bh = blockIdx.x / tiles, t = blockIdx.x - bh * tiles;
+  const int b = bh / H, h = bh - b * H;
+  const int k0 = t * BT, nb = min(BT, K - k0);
+  const int inner = H * DKV, tid = threadIdx.x;
+  const size_t kv = (size_t)bh * S;                // the query's key rows
+  const float* bb = bias + kv;
+
+  for (int c = tid; c < BT * C4; c += 128) {      // the tile's q rows, zeros past nb
+    const int r = c / C4, e = (c - r * C4) * 4;
+    const bool ok = r < nb;
+    cp_async16(qs + r * LD + e, ok ? q + (size_t)(b * K + k0 + r) * inner + h * DKV + e : q,
+               ok ? 16 : 0);
+  }
+  // keys j0 .. j0 + KT - 1 of K or V into buf, zeros past S
+  auto stage = [&](float* buf, const float* src, int j0) {
+    for (int c = tid; c < KT * C4; c += 128) {
+      const int j = c / C4, e = (c - j * C4) * 4;
+      const bool ok = j0 + j < S;
+      cp_async16(buf + j * LD + e, ok ? src + (kv + j0 + j) * DKV + e : src, ok ? 16 : 0);
+    }
+  };
+  stage(ks, ck, 0);
+  cp_async_commit();                               // q and the first K tile
+  stage(vs, cv, 0);
+  cp_async_commit();                               // the first V tile
+
+  const int kx = tid & 15, by = tid >> 4;
+  for (int j0 = 0; j0 < S; j0 += KT) {
+    if (j0 == 0) {
+      cp_async_wait<1>();
+    } else {
+      __syncthreads();                             // done with the last K tile
+      stage(ks, ck, j0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float sc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[r][i] = 0.f;
+#pragma unroll 4
+    for (int e = 0; e < DKV; e += 4) {
+      float4 qa[4], kb[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) qa[r] = *reinterpret_cast<const float4*>(qs + (by + 8 * r) * LD + e);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) kb[i] = *reinterpret_cast<const float4*>(ks + (kx + 16 * i) * LD + e);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sc[r][i] = fmaf(qa[r].x, kb[i].x, sc[r][i]);
+          sc[r][i] = fmaf(qa[r].y, kb[i].y, sc[r][i]);
+          sc[r][i] = fmaf(qa[r].z, kb[i].z, sc[r][i]);
+          sc[r][i] = fmaf(qa[r].w, kb[i].w, sc[r][i]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = j0 + kx + 16 * i;
+      const float bj = j < S ? bb[j] : 0.f;       // keys past S are never read
+#pragma unroll
+      for (int r = 0; r < 4; ++r) ps[(by + 8 * r) * lp + j] = sc[r][i] + bj;
+    }
+  }
+  __syncthreads();
+  {                                                // softmax: 4 lanes a beam row
+    const int q4 = tid & 3;
+    float* pr = ps + (tid >> 2) * lp;              // rows past nb hold finite scores too
+    float m = -INFINITY;
+    for (int j = q4; j < S; j += 4) m = fmaxf(m, pr[j]);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float den = 0.f;
+    for (int j = q4; j < S; j += 4) den += expf(pr[j] - m);
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    for (int j = q4; j < sp; j += 4) pr[j] = j < S ? expf(pr[j] - m) / den : 0.f;
+  }
+
+  const int dx = tid % C4, bz = tid / C4;
+  float4 o[TB];
+#pragma unroll
+  for (int r = 0; r < TB; ++r) o[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j0 = 0; j0 < S; j0 += KT) {
+    if (j0 > 0) {
+      __syncthreads();                             // done with the last V tile
+      stage(vs, cv, j0);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();                               // the V tile and every p are in
+    const int n = min(KT, S - j0);
+    for (int j = 0; j < n; j += 4) {               // past S: p = 0 and V rows of zeros
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = *reinterpret_cast<const float4*>(vs + (j + u) * LD + 4 * dx);
+#pragma unroll
+      for (int r = 0; r < TB; ++r) {
+        const float4 p = *reinterpret_cast<const float4*>(ps + (bz + BZ * r) * lp + j0 + j);
+        const float pj[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          o[r].x = fmaf(pj[u], v[u].x, o[r].x);
+          o[r].y = fmaf(pj[u], v[u].y, o[r].y);
+          o[r].z = fmaf(pj[u], v[u].z, o[r].z);
+          o[r].w = fmaf(pj[u], v[u].w, o[r].w);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < TB; ++r) {
+    const int beam = bz + BZ * r;
+    if (beam < nb)
+      *reinterpret_cast<float4*>(out + (size_t)(b * K + k0 + beam) * inner + h * DKV + 4 * dx) =
+          o[r];
   }
 }
 
@@ -928,6 +1231,83 @@ static Plan choose_plan(int m, int n, int k, int sms) {
   return best;
 }
 
+// The f32 GEMM's tiles, largest first: 8 x 8 outputs a thread, so 256, 128,
+// 128 and 64 threads.  A plan names one as {tile rows / 32, columns,
+// kF32Stages}.  (64 x 64 and 32 x 64 tiles were best at no main-path shape
+// of the H100 sweep, kernels/f32_bench.py sweep.)
+#define GDR_F32_TILES(X) X(128, 128) X(128, 64) X(64, 128) X(32, 128)
+
+struct F32Shape {
+  int bm, bn;
+};
+#define GDR_F32_ENTRY(bm, bn) {bm, bn},
+static const F32Shape kF32Tiles[] = {GDR_F32_TILES(GDR_F32_ENTRY)};
+#undef GDR_F32_ENTRY
+
+constexpr int kF32SplitRounds = 8;  // splits only while units <= 8 · SMs
+
+// The f32 cost model's constants, fitted by kernels/f32_bench.py sweep on
+// the H100 to every plan of the main path's 16 shapes (M 32 / 320 / 992 /
+// 3,200 x the four (N, K)) that ran within 1.5x of its shape's best: the FMAs/s one SM sustains in this
+// mainloop (55% of its share of 67 TFLOP/s), the operand bytes/s a block
+// pulls through its ring, the rate at which a block writes and reads split
+// partials, the launch and first loads, and the registers a thread holds.
+constexpr double kF32FmaPerSm = 0.548 * 67e12 / 2 / 132, kF32OperandPerSm = 15.6e9,
+                 kF32PartPerSm = 59e9, kF32Latency = 5.0e-6;
+constexpr int kF32Regs = 170;
+
+// blocks of tile t an SM holds at once: threads, registers, shared memory
+static int f32_resident(const F32Shape& t) {
+  const int nt = t.bm * t.bn / 64, smem = kF32Stages * (t.bm + t.bn) * kF32Ld * 4 + 1024;
+  int b = 2048 / nt;
+  if (65536 / (nt * kF32Regs) < b) b = 65536 / (nt * kF32Regs);
+  if (233472 / smem < b) b = 233472 / smem;      // 228 KB an SM
+  return b < 1 ? 1 : (b > 32 ? 32 : b);
+}
+
+// Modelled time of an f32 plan.  The grid is one block a work unit; the
+// card runs them in rounds of `resident` blocks an SM.  A unit costs the
+// larger of its FMAs and its operand bytes, plus its partial when split;
+// an SM's round of c units takes c units' cost over the share of the FMA
+// rate its c·threads / 256 warps' worth reach (8 warps reach it all); the
+// tile's last split reads every partial.
+static double plan_time_f32(const F32Shape& t, int splits, int m, int n, int k, int sms) {
+  const int nt = t.bm * t.bn / 64;
+  const int tiles = (m + t.bm - 1) / t.bm * ((n + t.bn - 1) / t.bn), units = tiles * splits;
+  const int kt = (k + kF32BK - 1) / kF32BK, kt_unit = (kt + splits - 1) / splits;
+  const double fma = (double)t.bm * t.bn * kF32BK * kt_unit / kF32FmaPerSm;
+  const double operands = (double)(t.bm + t.bn) * kF32BK * kt_unit * 4 / kF32OperandPerSm;
+  const double part = 4.0 * t.bm * t.bn / kF32PartPerSm;
+  const double unit = (fma > operands ? fma : operands) + (splits > 1 ? part : 0.0);
+  auto round = [&](int c) {
+    const double warps = (double)c * nt / 256;
+    return unit * c / (warps < 1 ? warps : 1.0);
+  };
+  const int res = f32_resident(t), slots = sms * res;
+  double time = kF32Latency + (units / slots) * round(res);
+  if (units % slots) time += round((units % slots + sms - 1) / sms);
+  if (splits > 1) time += splits * part;
+  return time;
+}
+
+static Plan choose_plan_f32(int m, int n, int k, int sms) {
+  const int kt = (k + kF32BK - 1) / kF32BK;
+  Plan best{{0, 0, 0}, 1, 0, 0};
+  double best_t = 1e30;
+  for (const F32Shape& t : kF32Tiles) {
+    const int tiles = (m + t.bm - 1) / t.bm * ((n + t.bn - 1) / t.bn);
+    for (int splits = 1; splits <= kt && splits <= kMaxSplits; ++splits) {
+      if (splits > 1 && (tiles > kSplitTiles || tiles * splits > kF32SplitRounds * sms)) break;
+      const double time = plan_time_f32(t, splits, m, n, k, sms);
+      if (time < best_t * (1 - 1e-9)) {
+        best_t = time;
+        best = {{t.bm / 32, t.bn, kF32Stages}, splits, tiles * splits, tiles * splits};
+      }
+    }
+  }
+  return best;
+}
+
 template <int WG, int BN, int ST, int EPI>
 static cudaError_t launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tw,
                                 const void* resid, void* c, void* ws, int* counters, int m,
@@ -965,18 +1345,9 @@ static cudaError_t launch_epi(int epi, const CUtensorMap& ta, const CUtensorMap&
                                              blocks, s);
 }
 
-static cudaError_t gemm_bf16(const void* a, const void* scale, void* normed, const void* w,
-                             const void* resid, void* c, int m, int n, int k, bool norm,
-                             int epi, float eps, const Plan& p, void* ws, int* counters,
+static cudaError_t gemm_bf16(const void* a, const void* w, const void* resid, void* c, int m,
+                             int n, int k, int epi, const Plan& p, void* ws, int* counters,
                              cudaStream_t s) {
-  if (norm) {
-    rms_norm_bf16<<<(m + 7) / 8, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(scale),
-        static_cast<__nv_bfloat16*>(normed), m, k, eps);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    a = normed;
-  }
   CUtensorMap ta, tw;
   if (!tensor_map(&ta, a, m, k, 64 * p.tile.wg) || !tensor_map(&tw, w, n, k, p.tile.bn))
     return cudaErrorInvalidValue;
@@ -989,16 +1360,47 @@ static cudaError_t gemm_bf16(const void* a, const void* scale, void* normed, con
   return cudaErrorInvalidValue;
 }
 
-template <bool NORM, int EPI>
-static cudaError_t gemm_f32(const void* a, const void* scale, const void* w,
-                            const void* resid, void* c, int m, int n, int k, float eps,
-                            cudaStream_t s) {
-  const dim3 grid((n + 63) / 64, (m + 63) / 64);
-  gemm_f32_kernel<NORM, EPI><<<grid, 128, 0, s>>>(
-      static_cast<const float*>(a), static_cast<const float*>(scale),
-      static_cast<const float*>(w), static_cast<const float*>(resid), static_cast<float*>(c),
-      m, n, k, eps);
+template <int BM, int BN, int EPI>
+static cudaError_t launch_f32_ring(const void* a, const void* w, const void* resid, void* c,
+                                   void* ws, int* counters, int m, int n, int k, int splits,
+                                   cudaStream_t s) {
+  using T = F32Tile<BM, BN>;
+  auto kernel = gemm_f32_ring<BM, BN, EPI>;
+  static unsigned opted = 0;                       // the shared-memory opt-in, once per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (!(opted & bit)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    if (e != cudaSuccess) return e;
+    opted |= bit;
+  }
+  const int tiles = (m + BM - 1) / BM * ((n + BN - 1) / BN);
+  kernel<<<tiles * splits, T::kThreads, T::kSmem, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(w),
+      static_cast<const float*>(resid), static_cast<float*>(c), static_cast<float4*>(ws),
+      counters, m, n, k, splits);
   return cudaGetLastError();
+}
+
+static cudaError_t gemm_f32(const void* a, const void* w, const void* resid, void* c, int m,
+                            int n, int k, int epi, const Plan& p, void* ws, int* counters,
+                            cudaStream_t s) {
+#define GDR_F32_LAUNCH(bm_, bn_)                                                          \
+  if (32 * p.tile.wg == bm_ && p.tile.bn == bn_) {                                        \
+    if (epi == kRound)                                                                    \
+      return launch_f32_ring<bm_, bn_, kRound>(a, w, resid, c, ws, counters, m, n, k,     \
+                                               p.splits, s);                              \
+    if (epi == kRelu)                                                                     \
+      return launch_f32_ring<bm_, bn_, kRelu>(a, w, resid, c, ws, counters, m, n, k,      \
+                                              p.splits, s);                               \
+    return launch_f32_ring<bm_, bn_, kResidual>(a, w, resid, c, ws, counters, m, n, k,    \
+                                                p.splits, s);                             \
+  }
+  GDR_F32_TILES(GDR_F32_LAUNCH)
+#undef GDR_F32_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 static cudaError_t set_smem(const void* kernel, size_t smem) {
@@ -1024,16 +1426,33 @@ static cudaError_t launch_cross_bf16(const void* q, const void* ck, const void* 
   return cudaGetLastError();
 }
 
+// the tiled f32 core's shared memory: q rows, a K and a V tile, and the
+// tile's scores of all keys (kernels/decode.py::cross_attn_max_len mirrors it)
+static size_t cross_tiled_smem(int dkv, int S) {
+  const int sp = (S + kKeyTile - 1) / kKeyTile * kKeyTile;
+  return (size_t)(kBeamTile * (dkv + 4) + 2 * kKeyTile * (dkv + 4) + kBeamTile * (sp + 4)) * 4;
+}
+
+template <int DKV>
 static cudaError_t launch_cross_f32(const void* q, const void* ck, const void* cv,
                                     const void* bias, void* out, int B, int K, int H, int S,
-                                    int dkv, cudaStream_t s) {
-  const int threads = 128, nw = threads / 32;
-  const size_t smem = (size_t)(2 * S * (dkv + 1) + nw * dkv + nw * S) * sizeof(float);
-  const cudaError_t e = set_smem((const void*)cross_attn_core_f32, smem);
+                                    cudaStream_t s) {
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(ck),
+              *vf = static_cast<const float*>(cv), *bf = static_cast<const float*>(bias);
+  float* of = static_cast<float*>(out);
+  if (K < kStreamBeams) {
+    const size_t smem = (size_t)(4 * 128 + S) * 4;  // partial rows, then the scores
+    const cudaError_t e = set_smem((const void*)cross_attn_stream_f32<DKV>, smem);
+    if (e != cudaSuccess) return e;
+    cross_attn_stream_f32<DKV><<<B * K * H, 128, smem, s>>>(qf, kf, vf, bf, of, K, H, S);
+    return cudaGetLastError();
+  }
+  const size_t smem = cross_tiled_smem(DKV, S);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const cudaError_t e = set_smem((const void*)cross_attn_tiled_f32<DKV>, smem);
   if (e != cudaSuccess) return e;
-  cross_attn_core_f32<<<B * H, threads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(ck), static_cast<const float*>(cv),
-      static_cast<const float*>(bias), static_cast<float*>(out), K, H, S, dkv);
+  const int tiles = (K + kBeamTile - 1) / kBeamTile;
+  cross_attn_tiled_f32<DKV><<<B * H * tiles, 128, smem, s>>>(qf, kf, vf, bf, of, K, H, S);
   return cudaGetLastError();
 }
 
@@ -1072,25 +1491,30 @@ static cudaError_t launch_self(const void* qkv, void* ck, void* cv, const void* 
 }  // namespace gdr
 
 using gdr::kBF16;
+using gdr::kF32;
 
-// The bf16 GEMM's plan for C[m, n] = A[m, k] · W[n, k]ᵀ on a card of `sms`
-// SMs: plan[0..5] = tile rows / 64, tile columns, ring stages, splits, work
-// units, blocks.  A split plan needs splits x [tile rows x tile columns] f32
-// of workspace per output tile and one counter per output tile.
-extern "C" int gdr_gemm_plan(int m, int n, int k, int sms, int* plan) {
-  if (m <= 0 || n <= 0 || k <= 0 || sms <= 0 || plan == nullptr) return cudaErrorInvalidValue;
-  const gdr::Plan p = gdr::choose_plan(m, n, k, sms);
+// The GEMM's plan for C[m, n] = A[m, k] · W[n, k]ᵀ in `dtype` on a card of
+// `sms` SMs: plan[0..5] = tile rows / 64 (bf16) or / 32 (f32), tile columns,
+// ring stages, splits, work units, blocks.  A split plan needs splits x
+// [tile rows x tile columns] f32 of workspace per output tile and one
+// counter per output tile.
+extern "C" int gdr_gemm_plan(int dtype, int m, int n, int k, int sms, int* plan) {
+  if (m <= 0 || n <= 0 || k <= 0 || sms <= 0 || plan == nullptr ||
+      (dtype != kBF16 && dtype != kF32))
+    return cudaErrorInvalidValue;
+  const gdr::Plan p =
+      dtype == kBF16 ? gdr::choose_plan(m, n, k, sms) : gdr::choose_plan_f32(m, n, k, sms);
   const int out[6] = {p.tile.wg, p.tile.bn, p.tile.stages, p.splits, p.units, p.blocks};
   for (int i = 0; i < 6; ++i) plan[i] = out[i];
   return cudaSuccess;
 }
 
 // C[M, N] = epi(norm?(A) · Wᵀ).  normed: [M, K] scratch in the model dtype
-// for the bf16 normalised input (may be null for f32 or without norm).
-// bf16 runs the plan (wg, bn, splits, blocks) of gdr_gemm_plan, or any other
-// instantiated tile with 1 <= splits <= min(k-tiles, 32); a split plan takes
-// its f32 workspace and n_counters >= output tiles zeroed counters, which
-// it leaves zeroed.  f32 ignores the plan.
+// that the row kernel writes norm(A) to (null without norm).  Runs the plan
+// (wg, bn, splits, blocks) of gdr_gemm_plan, or any other instantiated tile
+// with 1 <= splits <= min(k-tiles, 32); a split plan takes its f32
+// workspace and n_counters >= output tiles zeroed counters, which it leaves
+// zeroed.  The f32 grid is one block a work unit, so it ignores `blocks`.
 extern "C" int gdr_gemm(int dtype, const void* a, const void* scale, void* normed,
                         const void* w, const void* resid, void* c, int m, int n, int k,
                         int norm, int epi, float eps, int wg, int bn, int splits, int blocks,
@@ -1098,26 +1522,45 @@ extern "C" int gdr_gemm(int dtype, const void* a, const void* scale, void* norme
   if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0) return cudaErrorInvalidValue;
   const bool ok = (norm && (epi == gdr::kRound || epi == gdr::kRelu)) ||
                   (!norm && epi == gdr::kResidual);
-  if (!ok || (dtype == kBF16 && norm && normed == nullptr)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) {
-    gdr::Plan p{{0, 0, 0}, splits, 0, blocks};
+  const bool bf16 = dtype == kBF16;
+  if (!ok || (norm && normed == nullptr) || (!bf16 && dtype != kF32))
+    return cudaErrorInvalidValue;
+  gdr::Plan p{{0, 0, 0}, splits, 0, blocks};
+  int kt, bm;
+  if (bf16) {
     for (const gdr::Tile& t : gdr::kTiles)
       if (t.wg == wg && t.bn == bn) p.tile = t;
-    const int kt = (k + gdr::BK - 1) / gdr::BK;
-    if (p.tile.wg == 0 || splits < 1 || splits > kt || splits > gdr::kMaxSplits || blocks < 1)
-      return cudaErrorInvalidValue;
-    const long tiles = (long)((m + 64 * wg - 1) / (64 * wg)) * ((n + bn - 1) / bn);
-    if (splits > 1 && (workspace == nullptr || counters == nullptr || tiles > n_counters))
-      return cudaErrorInvalidValue;
-    return gdr::gemm_bf16(a, scale, normed, w, resid, c, m, n, k, norm, epi, eps, p, workspace,
-                          static_cast<int*>(counters), s);
+    kt = (k + gdr::BK - 1) / gdr::BK;
+    bm = 64 * wg;
+  } else {
+    for (const gdr::F32Shape& t : gdr::kF32Tiles)
+      if (t.bm == 32 * wg && t.bn == bn) p.tile = {wg, bn, gdr::kF32Stages};
+    kt = (k + gdr::kF32BK - 1) / gdr::kF32BK;
+    bm = 32 * wg;
   }
-  if (epi == gdr::kRound)
-    return gdr::gemm_f32<true, gdr::kRound>(a, scale, w, resid, c, m, n, k, eps, s);
-  if (epi == gdr::kRelu)
-    return gdr::gemm_f32<true, gdr::kRelu>(a, scale, w, resid, c, m, n, k, eps, s);
-  return gdr::gemm_f32<false, gdr::kResidual>(a, scale, w, resid, c, m, n, k, eps, s);
+  if (p.tile.wg == 0 || splits < 1 || splits > kt || splits > gdr::kMaxSplits ||
+      (bf16 && blocks < 1))
+    return cudaErrorInvalidValue;
+  const long tiles = (long)((m + bm - 1) / bm) * ((n + bn - 1) / bn);
+  if (splits > 1 && (workspace == nullptr || counters == nullptr || tiles > n_counters))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (norm) {
+    if (bf16)
+      gdr::rms_norm<__nv_bfloat16><<<(m + 7) / 8, 256, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(scale),
+          static_cast<__nv_bfloat16*>(normed), m, k, eps);
+    else
+      gdr::rms_norm<float><<<(m + 7) / 8, 256, 0, s>>>(static_cast<const float*>(a),
+                                                       static_cast<const float*>(scale),
+                                                       static_cast<float*>(normed), m, k, eps);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    a = normed;
+  }
+  int* cnt = static_cast<int*>(counters);
+  return bf16 ? gdr::gemm_bf16(a, w, resid, c, m, n, k, epi, p, workspace, cnt, s)
+              : gdr::gemm_f32(a, w, resid, c, m, n, k, epi, p, workspace, cnt, s);
 }
 
 extern "C" int gdr_self_attn_core(int dtype, const void* qkv, void* ck, void* cv,
@@ -1134,14 +1577,17 @@ extern "C" int gdr_cross_attn_core(int dtype, const void* q, const void* ck, con
                                    const void* bias, void* out, int batch, int beams,
                                    int heads, int S, int dkv, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != kBF16)
-    return gdr::launch_cross_f32(q, ck, cv, bias, out, batch, beams, heads, S, dkv, s);
+#define GDR_CROSS(d)                                                                     \
+  case d:                                                                                \
+    return dtype == kBF16                                                                \
+               ? gdr::launch_cross_bf16<d>(q, ck, cv, bias, out, batch, beams, heads, S, s) \
+               : gdr::launch_cross_f32<d>(q, ck, cv, bias, out, batch, beams, heads, S, s);
   switch (dkv) {
-    case 16: return gdr::launch_cross_bf16<16>(q, ck, cv, bias, out, batch, beams, heads, S, s);
-    case 32: return gdr::launch_cross_bf16<32>(q, ck, cv, bias, out, batch, beams, heads, S, s);
-    case 64: return gdr::launch_cross_bf16<64>(q, ck, cv, bias, out, batch, beams, heads, S, s);
-    case 128:
-      return gdr::launch_cross_bf16<128>(q, ck, cv, bias, out, batch, beams, heads, S, s);
+    GDR_CROSS(16)
+    GDR_CROSS(32)
+    GDR_CROSS(64)
+    GDR_CROSS(128)
     default: return cudaErrorInvalidValue;
   }
+#undef GDR_CROSS
 }

@@ -1,7 +1,8 @@
 // Hopper primitives in inline PTX for the decoder kernels (sm_90a): TMA tile
 // loads completing on mbarriers, warpgroup MMA (wgmma) on 128-byte-swizzled
-// shared memory, and the warp-level bf16 mma.sync / ldmatrix of the
-// cross-attention core.
+// shared memory, the warp-level bf16 mma.sync / ldmatrix of the
+// cross-attention core, and the cp.async copies and groups of the f32
+// kernels' rings.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (types only: the encoder is fetched at run time)
@@ -284,6 +285,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+// close the group of this thread's copies issued since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // two 8x8 bf16 matrices, transposed: lanes 0-7 give the row addresses of the

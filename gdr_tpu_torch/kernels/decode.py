@@ -34,19 +34,25 @@ do.  On the TPU each sublayer was one program with all weights in 16 MB
 VMEM; a Hopper block has 227 KB, so weights stream through shared memory
 and a sublayer is up to three launches of one shared GEMM (:func:`gemm`:
 bf16 on ``wgmma`` with TMA-fed shared-memory rings, persistent blocks and
-a per-shape plan of tile and split-K (:func:`gemm_plan`), after a row
-kernel that writes the RMSNorm output once; f32 on the FMA
-units with an RMSNorm prologue; round / ReLU / residual epilogue) and, for
-the attention sublayers, one attention core between two GEMMs.  Each
-intermediate is written once in the model dtype, exactly where the TPU
-kernel rounds it.  The attention cores are bound by bytes: the
-self-attention core reads the [L, R, inner] caches once with 16-byte loads
-(d_kv / 8 lanes per row and head in bf16; up to 16 positions every cache
-row in flight in registers before the reductions, above that chunks of 16
-positions with the scores in shared memory, :func:`self_attn_max_len`);
-the cross-attention core stages one query's [S, d_kv] K/V in shared
-memory once per (query, head) block and, in bf16, runs
-Q·Kᵀ and P·V of all that query's beam rows on ``mma.sync`` tensor cores.
+a per-shape plan of tile and split-K (:func:`gemm_plan`); f32 on the FMA
+units, exact f32 products with no TF32, from a 4-stage ``cp.async`` ring of
+K-major tiles, 8 × 8 outputs a thread, split-K by a plan of its own; both
+after a row kernel that writes the RMSNorm output once; round / ReLU /
+residual epilogue) and, for the attention sublayers, one attention core
+between two GEMMs.  Each intermediate is written once in the model dtype,
+exactly where the TPU kernel rounds it.  The attention cores are bound by
+bytes: the self-attention core reads the [L, R, inner] caches once with
+16-byte loads (d_kv / 8 lanes per row and head in bf16; up to 16 positions
+every cache row in flight in registers before the reductions, above that
+chunks of 16 positions with the scores in shared memory,
+:func:`self_attn_max_len`);
+the bf16 cross-attention core stages one query's [S, d_kv] K/V in shared
+memory once per (query, head) block and runs Q·Kᵀ and P·V of all that
+query's beam rows on ``mma.sync`` tensor cores; the f32 core streams the
+K/V of a query with fewer than 4 beams (query generation: one) through
+lane groups with 16-byte loads, every warp of a block on its keys, and
+for more beams stages K/V per (query, head, 32 beams) with 16-byte copies
+and runs Q·Kᵀ and P·V as register-tiled FMA products.
 
 Weights are passed in ``nn.Linear`` layout ``[out, in]`` (the transpose of
 the TPU kernel's ``[in, out]``): ``wqkv [3·inner, d]``, ``wo [d, inner]``,
@@ -74,8 +80,8 @@ _SIGS = {
     # wg, bn, splits, blocks, workspace, counters, n_counters, stream
     "gdr_gemm": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                  _I, _I, _I, _I, _P, _P, _I, _P],
-    # m, n, k, sms, int plan[6]
-    "gdr_gemm_plan": [_I, _I, _I, _I, _P],
+    # dtype, m, n, k, sms, int plan[6]
+    "gdr_gemm_plan": [_I, _I, _I, _I, _I, _P],
     # dtype, qkv, ck, cv, bias, attn, rows, L, heads, d_kv, pos, stream
     "gdr_self_attn_core": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, q, ck, cv, bias, out, batch, beams, heads, S, d_kv, stream
@@ -85,9 +91,10 @@ EPI_ROUND, EPI_RELU, EPI_RESIDUAL = 0, 1, 2
 _EPIS = {"round": EPI_ROUND, "relu": EPI_RELU, "residual": EPI_RESIDUAL}
 # shared memory a Hopper block may opt into
 _SMEM_OPTIN = 227 * 1024
-_CROSS_F32_WARPS = 4
-# head widths of the bf16 cross-attention core (one instantiation each)
-_CROSS_BF16_DKV = (16, 32, 64, 128)
+# head widths of the cross-attention cores (one instantiation each)
+_CROSS_DKV = (16, 32, 64, 128)
+# the f32 many-beam core's tiles (kBeamTile, kKeyTile in the source)
+_CROSS_F32_BEAMS, _CROSS_F32_KEYS = 32, 64
 # output tiles a split-K launch may count on (kSplitTiles in the source)
 _SPLIT_TILES = 1024
 
@@ -107,14 +114,18 @@ def cross_attn_max_len(d_kv: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """The longest encoder sequence the CUDA cross-attention core serves in
     ``dtype``.  bf16: the query's K and V rows (d_kv + 8 bf16 each, keys
     padded to 16) and its f32 bias row fit 227 KB of shared memory, 784
-    tokens at d_kv 64.  f32: K and V rows (d_kv + 1 floats) and four warps'
-    query and score rows, 431 tokens at d_kv 64.  The plain version (CPU)
-    has no such limit."""
+    tokens at d_kv 64.  f32: the many-beam core's shared memory holds 32
+    q rows, one 64-key tile each of K and V (rows of d_kv + 4 floats) and
+    the 32 beams' scores of every key (keys padded to 64, rows + 4), 1,472
+    tokens at d_kv 64 (the few-beam core keeps only one score a key).  The
+    plain version (CPU) has no such limit."""
     if dtype == torch.bfloat16:
         per_key = 2 * (d_kv + 8) * 2 + 4
         return _SMEM_OPTIN // per_key // 16 * 16
-    per_key = 2 * (d_kv + 1) + _CROSS_F32_WARPS
-    return (_SMEM_OPTIN // 4 - _CROSS_F32_WARPS * d_kv) // per_key
+    fixed = (_CROSS_F32_BEAMS + 2 * _CROSS_F32_KEYS) * (d_kv + 4) \
+        + _CROSS_F32_BEAMS * 4
+    keys = (_SMEM_OPTIN // 4 - fixed) // _CROSS_F32_BEAMS
+    return keys // _CROSS_F32_KEYS * _CROSS_F32_KEYS
 
 
 # ------------------------------------------------------------ plain versions
@@ -226,22 +237,29 @@ def _stream(x: torch.Tensor) -> int:
 
 
 class GemmPlan(NamedTuple):
-    """A launch of the bf16 GEMM (``gdr_gemm_plan``): tiles of 64·``wg``
-    rows × ``bn`` columns fed by a ring of ``stages`` k-tiles; each output
-    tile's k-tiles split ``splits`` ways; ``units`` = tiles · splits work
-    units walked by ``blocks`` persistent blocks (at most one per SM)."""
+    """A launch of the GEMM (``gdr_gemm_plan``): tiles of :attr:`rows` ×
+    ``bn`` columns fed by a ring of ``stages`` k-tiles; each output tile's
+    k-tiles split ``splits`` ways; ``units`` = tiles · splits work units.
+    bf16 (``f32`` False): 64·``wg`` rows, one consumer warpgroup per 64, the
+    units walked by ``blocks`` persistent blocks (at most one per SM).  f32:
+    32·``wg`` rows, one block per unit (``blocks`` = ``units``)."""
     wg: int
     bn: int
     stages: int
     splits: int
     units: int
     blocks: int
+    f32: bool = False
+
+    @property
+    def rows(self) -> int:
+        return (32 if self.f32 else 64) * self.wg
 
     def workspace(self, m: int, n: int) -> int:
         """f32 elements of the split partials at C [m, n] (0 unsplit)."""
         if self.splits == 1:
             return 0
-        bm = 64 * self.wg
+        bm = self.rows
         return -(-m // bm) * -(-n // self.bn) * self.splits * bm * self.bn
 
 
@@ -249,20 +267,23 @@ _PLANS: dict = {}
 _COUNTERS: dict = {}
 
 
-def gemm_plan(m: int, n: int, k: int, device=None) -> GemmPlan:
-    """The cost model's plan for the bf16 GEMM C[m, n] = A[m, k] · W[n, k]ᵀ
-    on a CUDA device (cached per device and shape)."""
+def gemm_plan(m: int, n: int, k: int, device=None,
+              dtype: torch.dtype = torch.bfloat16) -> GemmPlan:
+    """The cost model's plan for the GEMM C[m, n] = A[m, k] · W[n, k]ᵀ in
+    ``dtype`` (bf16 or f32, each its own model) on a CUDA device, cached per
+    device, dtype and shape."""
     dev = torch.device("cuda" if device is None else device)
     idx = torch.cuda.current_device() if dev.index is None else dev.index
-    key = (idx, m, n, k)
+    key = (idx, dtype, m, n, k)
     plan = _PLANS.get(key)
     if plan is None:
         lib = _lib()
         sms = torch.cuda.get_device_properties(idx).multi_processor_count
         out = (ctypes.c_int * 6)()
-        build.check(lib, lib.gdr_gemm_plan(m, n, k, sms, ctypes.addressof(out)),
+        build.check(lib, lib.gdr_gemm_plan(build.DTYPES[dtype], m, n, k, sms,
+                                           ctypes.addressof(out)),
                     "gemm_plan")
-        plan = _PLANS[key] = GemmPlan(*out)
+        plan = _PLANS[key] = GemmPlan(*out, f32=dtype == torch.float32)
     return plan
 
 
@@ -284,9 +305,9 @@ def _counters(device: torch.device) -> torch.Tensor:
 
 def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what,
           plan: GemmPlan | None = None):
-    """One launch of ``gdr_gemm``: RMSNorm + round / ReLU, or residual.  A
-    bf16 launch runs ``plan`` (the cost model's by default) with its split
-    workspace from the caching allocator."""
+    """One launch of ``gdr_gemm``: RMSNorm (into a ``normed`` scratch) +
+    round / ReLU, or residual.  It runs ``plan`` (the dtype's cost model's
+    by default) with its split workspace from the caching allocator."""
     m, k = a.shape
     n = w.shape[0]
     norm = epi != EPI_RESIDUAL
@@ -296,17 +317,16 @@ def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what,
                              if t is not None):
         raise ValueError(f"{what}: needs widths that are multiples of 8 and "
                          f"16-byte aligned tensors (m={m}, n={n}, k={k})")
-    bf16 = a.dtype == torch.bfloat16
-    normed = torch.empty_like(a) if norm and bf16 else None
+    normed = torch.empty_like(a) if norm else None
     ws = counters = None
-    if bf16:
-        plan = plan or gemm_plan(m, n, k, a.device)
-        if plan.splits > 1:
-            ws = torch.empty(plan.workspace(m, n), dtype=torch.float32,
-                             device=a.device)
-            counters = _counters(a.device)
-    else:
-        plan = GemmPlan(0, 0, 0, 0, 0, 0)
+    plan = plan or gemm_plan(m, n, k, a.device, a.dtype)
+    if plan.f32 != (a.dtype == torch.float32):
+        raise ValueError(f"{what}: a {'f32' if plan.f32 else 'bf16'} plan for "
+                         f"{a.dtype} operands")
+    if plan.splits > 1:
+        ws = torch.empty(plan.workspace(m, n), dtype=torch.float32,
+                         device=a.device)
+        counters = _counters(a.device)
     ptr = lambda t: t.data_ptr() if t is not None else None
     build.check(lib, lib.gdr_gemm(
         code, a.data_ptr(), scale.data_ptr() if norm else None, ptr(normed),
@@ -320,9 +340,9 @@ def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6,
     """The decoder sublayers' GEMM on its own: a [M, K], w [N, K];
     ``epi`` "round" or "relu" (RMSNorm of ``a`` with ``scale`` first) or
     "residual" (``resid`` [M, N] + the rounded product).  ``plan`` replaces
-    the cost model's bf16 plan (any instantiated tile, 1 <= splits <=
-    min(k-tiles, 32), any number of blocks).  The sublayer wrappers count
-    their launches; this entry point, for tests and per-shape timing,
+    the cost model's plan (any instantiated tile of the dtype, 1 <= splits
+    <= min(k-tiles, 32), any number of bf16 blocks).  The sublayer wrappers
+    count their launches; this entry point, for tests and per-shape timing,
     counts none."""
     if epi not in _EPIS or (epi == "residual") != (scale is None) or (
             epi == "residual") != (resid is not None):
@@ -345,12 +365,11 @@ def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6,
 
 
 def _check_heads(name: str, dtype: torch.dtype, d_kv: int, cross: bool):
-    """The head widths the attention cores take: one of _CROSS_BF16_DKV for
-    the bf16 cross-attention core (any for its f32 core), and a
-    power-of-two number of 16-byte chunks, at most 32, for the
-    self-attention core (one lane a chunk)."""
+    """The head widths the attention cores take: one of _CROSS_DKV for the
+    cross-attention cores, and a power-of-two number of 16-byte chunks, at
+    most 32, for the self-attention core (one lane a chunk)."""
     if cross:
-        ok = dtype != torch.bfloat16 or d_kv in _CROSS_BF16_DKV
+        ok = d_kv in _CROSS_DKV
     else:
         chunks, rem = divmod(d_kv * torch.finfo(dtype).bits // 8, 16)
         ok = rem == 0 and 0 < chunks <= 32 and chunks & (chunks - 1) == 0

@@ -1,0 +1,310 @@
+"""The f32 decoder path on one CUDA device: the GEMM's launch plans and the
+fit of their cost model, and the f32 sublayers, GEMMs and retrieve of any
+checkout of this repository.
+
+    python3 gdr_tpu_torch/kernels/f32_bench.py sweep [--out FILE.json]
+                                             [--rows 32,320,992,3200]
+                                             [--near 1.5]
+    python3 gdr_tpu_torch/kernels/f32_bench.py compare [--root DIR]
+                                             [--out FILE.json]
+
+``sweep``: for each of the four (N, K) products of a t5-base decoder layer
+at each row count, every f32 tile with the splits that keep the units
+within eight waves of the SMs runs the epilogue the main path gives the
+product, held to the plain version (atol 1e-4 + rtol 1e-5).  Prints, per
+shape, the cost model's plan and its time, the fastest plans and f32
+``torch.matmul`` (TF32 off); then the constants of ``plan_time_f32``
+(``csrc/decode_sublayers.cu``) fitted (scipy's Nelder-Mead on the log of
+the times) to every plan within ``--near`` of its shape's best, and how
+the fitted model's picks compare with the best.
+
+``compare`` imports ``gdr_tpu_torch`` and ``chip_smoke`` from ``--root``
+(default: this checkout), so that one script times two commits alike.  It
+uses only entry points that every slice since the f32 path had: the three
+f32 sublayers at the main path's row counts (32, 992 and 3,200 rows at
+positions 0, 1 and 3 of a 4-position cache, 40 encoder positions) and per
+retrieve (6·t32 + 6·t992 + 12·t3200), and at query generation's shape
+(320 rows, one beam each over 64 encoder positions, position 39 of 40);
+the f32 GEMM alone at its four shapes and 32 / 320 / 992 / 3,200 rows;
+and one f32 retrieve as ``cli retrieve --packed`` serves it (t5-base in
+f32, seeded weights, the 334,314-doc unit store packed in f32, 32 queries
+× 40 tokens, beam 100, top-R 100): launches, then 3 timed calls after a
+warm one, and the peak.
+
+Device time of a kernel call: the call captured in a CUDA graph, the graph
+replayed between CUDA events, as ``chip_smoke.py`` phase 2 times it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+import time
+from pathlib import Path
+
+D, H, DKV, DFF = 768, 12, 64, 3072
+SHAPES = ((3 * D, D, "round"), (D, D, "residual"), (DFF, D, "relu"),
+          (D, DFF, "residual"))
+TILES = ((128, 128), (128, 64), (64, 128), (32, 128))   # kF32Tiles
+SPLITS = (1, 2, 3, 4, 6, 8, 11, 16, 24, 32)
+BK, LD, STAGES, REGS, FMA_PEAK = 16, 20, 4, 170, 67e12 / 2 / 132
+# main path: width -> (position, weight per retrieve); 4-position cache
+WIDTHS = {1: (0, 6), 31: (1, 6), 100: (3, 12)}
+
+
+def time_ms(fn, n: int = 10) -> float:
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(n):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def _rand(dev, seed: int):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * std
+    return rn
+
+
+# ------------------------------------------------------------------ sweep
+
+def sweep(rows, dev) -> list[dict]:
+    import torch
+
+    from gdr_tpu_torch.kernels import decode as kd
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rn = _rand(dev, 0)
+    out = []
+    for m in rows:
+        for n, k, epi in SHAPES:
+            a, w = rn(m, k), rn(n, k, std=k ** -0.5)
+            kw = (dict(resid=rn(m, n)) if epi == "residual"
+                  else dict(scale=1 + rn(k, std=0.1)))
+            want = kd.gemm_plain(a, w, epi, **kw)
+            plans = []
+            for bm, bn in TILES:
+                tiles = -(-m // bm) * -(-n // bn)
+                for sp in SPLITS:
+                    if sp > -(-k // BK) or (sp > 1 and tiles * sp > 8 * sms):
+                        continue
+                    plan = kd.GemmPlan(bm // 32, bn, STAGES, sp, tiles * sp,
+                                       tiles * sp, True)
+                    got = kd.gemm(a, w, epi, plan=plan, **kw)
+                    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+                    plans.append((time_ms(lambda: kd.gemm(
+                        a, w, epi, plan=plan, **kw)), bm, bn, sp))
+            plans.sort()
+            model = kd.gemm_plan(m, n, k, dev, torch.float32)
+            row = dict(m=m, n=n, k=k, epi=epi, plans=plans,
+                       model_plan=[model.rows, model.bn, model.splits],
+                       model_ms=time_ms(lambda: kd.gemm(a, w, epi, **kw)),
+                       matmul_ms=time_ms(lambda: a @ w.t()))
+            out.append(row)
+            print(f"M={m:5d} N={n:5d} K={k:5d}: model "
+                  f"{model.rows}x{model.bn} s{model.splits} "
+                  f"{row['model_ms']:.4f} ms; best "
+                  + ", ".join(f"{bm}x{bn} s{sp} {t:.4f}"
+                              for t, bm, bn, sp in plans[:3])
+                  + f"; torch.matmul {row['matmul_ms']:.4f} ms", flush=True)
+    return out
+
+
+def model_ms(p, bm, bn, sp, m, n, k, sms=132) -> float:
+    """``plan_time_f32`` with p = log of (FMA share, operand bytes/s,
+    partial bytes/s, latency s), in ms."""
+    rate, operand_bw, part_bw, latency = (math.exp(x) for x in p)
+    nt = bm * bn // 64
+    smem = STAGES * (bm + bn) * LD * 4 + 1024
+    res = max(1, min(2048 // nt, 65536 // (nt * REGS), 233472 // smem, 32))
+    units = -(-m // bm) * -(-n // bn) * sp
+    ktu = -(-(-(-k // BK)) // sp)
+    part = 4.0 * bm * bn / part_bw
+    unit = max(bm * bn * BK * ktu / (rate * FMA_PEAK),
+               (bm + bn) * BK * ktu * 4 / operand_bw) + (part if sp > 1 else 0)
+
+    def rnd(c):
+        return unit * c / min(1.0, c * nt / 256)
+    slots = sms * res
+    t = latency + (units // slots) * rnd(res)
+    if units % slots:
+        t += rnd(-(-(units % slots) // sms))
+    return 1e3 * (t + (sp * part if sp > 1 else 0))
+
+
+def fit(rows: list[dict], near: float) -> None:
+    from scipy.optimize import minimize
+
+    data = [(bm, bn, sp, r["m"], r["n"], r["k"], t) for r in rows
+            for t, bm, bn, sp in r["plans"] if t <= near * r["plans"][0][0]]
+
+    def loss(p):
+        return sum((math.log(model_ms(p, *d[:6])) - math.log(d[6])) ** 2
+                   for d in data)
+    p = [math.log(0.6), math.log(20e9), math.log(40e9), math.log(3e-6)]
+    for _ in range(2):
+        p = minimize(loss, p, method="Nelder-Mead",
+                     options=dict(maxiter=20000, maxfev=20000)).x
+    rate, operand_bw, part_bw, latency = (math.exp(x) for x in p)
+    print(f"fitted: kF32FmaPerSm = {rate:.3f} * 67e12 / 2 / 132, "
+          f"kF32OperandPerSm = {operand_bw:.3g}, kF32PartPerSm = "
+          f"{part_bw:.3g}, kF32Latency = {latency:.3g} (loss {loss(p):.3f} "
+          f"over {len(data)} plans)")
+    picks = best = 0.0
+    for r in rows:
+        t, bm, bn, sp = min(r["plans"], key=lambda x: model_ms(
+            p, x[1], x[2], x[3], r["m"], r["n"], r["k"]))
+        picks += t
+        best += r["plans"][0][0]
+        print(f"  M={r['m']:5d} N={r['n']:5d} K={r['k']:5d}: fitted pick "
+              f"{bm}x{bn} s{sp} {t:.4f} ms, best {r['plans'][0][0]:.4f}")
+    print(f"  sum of the fitted picks {picks:.4f} ms, of the best {best:.4f}")
+
+
+# ---------------------------------------------------------------- compare
+
+def sublayers(dev, r: int, beams: int, pos: int, lmax: int, enc: int,
+              seed: int) -> dict:
+    """Device ms of the three f32 sublayers at r rows (``beams`` a query)."""
+    from gdr_tpu_torch.kernels import decode as kd
+
+    rn = _rand(dev, seed)
+    b = r // beams
+    x, scale = rn(r, D), 1 + rn(D, std=0.1)
+    wqkv, wo = rn(3 * D, D, std=0.02), rn(D, D, std=0.02)
+    bias_row, ck, cv = rn(lmax, H, std=0.5), rn(lmax, r, D), rn(lmax, r, D)
+    wcq, wco = rn(D, D, std=0.02), rn(D, D, std=0.02)
+    xk, xv, xb = rn(b, H, enc, DKV), rn(b, H, enc, DKV), rn(b, H, enc, std=0.5)
+    wi, wo2 = rn(DFF, D, std=0.02), rn(D, DFF, std=0.02)
+    return {
+        "self_attn_sublayer": time_ms(lambda: kd.self_attn_sublayer(
+            x, pos, scale, wqkv, wo, bias_row, ck, cv, heads=H, d_kv=DKV)),
+        "cross_attn_sublayer": time_ms(lambda: kd.cross_attn_sublayer(
+            x, scale, wcq, wco, xk, xv, xb, beams, heads=H, d_kv=DKV)),
+        "ffn_sublayer": time_ms(lambda: kd.ffn_sublayer(x, scale, wi, wo2)),
+    }
+
+
+def retrieve(dev, smoke, timed: int = 3) -> dict:
+    """An f32 retrieve on the packed f32 layout at phase 4's operating
+    point, with its launches, wall ms and peak."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.config import EvalConfig, ModelConfig
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+
+    cfg = ModelConfig().scaled("base")
+    trie = smoke.build_nq_scale_trie(smoke.N_DOCS, cfg.kary, 30, 64)
+    g = torch.Generator(device=dev).manual_seed(7)
+    store = torch.randn(smoke.N_DOCS, cfg.encoder_d_model, generator=g,
+                        device=dev)
+    store = store / store.norm(dim=1, keepdim=True)
+    with torch.device(dev):
+        model = GenerativeRetriever(cfg)
+    model = init_weights(model, torch.Generator(device=dev).manual_seed(0)
+                         ).eval()
+    ev = Evaluator(model, trie, store, EvalConfig(
+        num_beams=100, num_return_sequences=100,
+        max_output_length=cfg.max_output_length, length_penalty=0.8),
+        packed=True)
+    del store
+    rng = np.random.default_rng(0)
+    ids = rng.integers(2, cfg.vocab_size, size=(32, 40)).astype(np.int32)
+    mask = np.ones_like(ids)
+    torch.cuda.reset_peak_memory_stats()
+    ev.retrieve(ids, mask)                               # warm
+    kernels.reset_launch_counts()
+    res, rr = ev.retrieve(ids, mask)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    valid = int(res.valid.sum())
+    each = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev.retrieve(ids, mask)
+        torch.cuda.synchronize()
+        each.append((time.perf_counter() - t) * 1e3)
+    return dict(retrieve_ms=sum(each) / len(each), retrieve_ms_each=each,
+                launches=launches, valid_beams=valid,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def compare(root: Path, dev) -> dict:
+    from gdr_tpu_torch.kernels import decode as kd
+
+    import chip_smoke as smoke
+    out: dict = {"root": str(root), "sublayers": {}, "per_retrieve": {},
+                 "gemm": {}}
+    for w, (pos, _) in WIDTHS.items():
+        out["sublayers"][f"R={32 * w}"] = sublayers(dev, 32 * w, w, pos, 4,
+                                                     40, seed=w)
+    for name in out["sublayers"]["R=32"]:
+        out["per_retrieve"][name] = sum(
+            wt * out["sublayers"][f"R={32 * w}"][name]
+            for w, (_, wt) in WIDTHS.items())
+    out["sublayers"]["qg R=320"] = sublayers(dev, 320, 1, 39, 40, 64, seed=5)
+    rn = _rand(dev, 9)
+    for m in (32, 320, 992, 3200):
+        for n, k, epi in SHAPES:
+            a, wt = rn(m, k), rn(n, k, std=k ** -0.5)
+            kw = (dict(resid=rn(m, n)) if epi == "residual"
+                  else dict(scale=1 + rn(k, std=0.1)))
+            out["gemm"][f"M={m} N={n} K={k}"] = time_ms(
+                lambda: kd.gemm(a, wt, epi, **kw))
+    out["retrieve"] = retrieve(dev, smoke)
+    return out
+
+
+def main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("mode", choices=("sweep", "compare"))
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--rows", default="32,320,992,3200")
+    ap.add_argument("--near", type=float, default=1.5)
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    here = Path(__file__).resolve().parent        # run as a script: not a package dir
+    sys.path[:] = [str(root)] + [p for p in sys.path if Path(p or ".").resolve() != here]
+    import torch
+    if not torch.cuda.is_available():
+        print("f32_bench: needs a CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    if args.mode == "sweep":
+        out = sweep([int(x) for x in args.rows.split(",")], dev)
+        fit(out, args.near)
+    else:
+        out = compare(root, dev)
+        print(json.dumps(out), flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(out, fh)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

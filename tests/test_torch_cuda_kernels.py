@@ -19,9 +19,13 @@ register positions (L 17, 24, 40 as query generation samples, and 64; 320
 and 3,200 rows; every position).  The scorers are held to their plain
 versions with a distinct query row per beam, and the retrieve options (decoder-side query reps,
 sampling with shared noise, the slow PAWA head) to the CPU's plain route
-on a small f32 model.  The bf16 GEMM runs the cost model's plans and
-forced ones: split-K with split counts that divide no k-tile count, and
-fewer persistent blocks than work units.  Tolerances: f32
+on a small f32 model.  The GEMM runs each dtype's cost-model plans and
+forced ones: split-K with split counts that divide no k-tile count (f32:
+every tile height, up to 32 splits, at 1 to 3,200 rows), and in bf16
+fewer persistent blocks than work units; split results are bit-equal on
+every call and graph replay.  The f32 cross-attention cores run at one
+beam a query (streamed) and 100 (staged), over 1 to the shared-memory
+limit of keys.  Tolerances: f32
 atol 1e-4 + rtol 1e-5 (f32 sums in another order); bf16 atol 2e-2 + rtol
 1e-2 (one bf16 ulp of an output whose f32 value sits near a rounding
 edge).  The scorers' outputs are f32 sums, held at the f32 tolerance.
@@ -74,16 +78,19 @@ def _close(got, want, dtype):
 # (d_model, heads, d_kv, d_ff, encoder length, its padded tail, weight std)
 SMALL_WIDTHS = (D, HEADS, DKV, DFF, S, 3, 0.1)
 BASE_WIDTHS = (768, 12, 64, 3072, 40, 8, 0.02)       # t5-base
+QG_WIDTHS = (768, 12, 64, 3072, 64, 8, 0.02)         # t5-base over a 64-token doc
 # widths, batch, beams, position, cache length: small ragged row counts;
 # then t5-base at 3,200 rows (32 queries x 100) at the shapes the retrieve
 # options give: sampling starts at full width at position 0, where the self
 # core reads no cache row, and pooled decoder reps take a fifth step,
-# position 4 of a 5-position cache
+# position 4 of a 5-position cache; and query generation's shape, 320 rows
+# each its own query over a 64-token doc, at the last of 40 positions
 SUBLAYER_CASES = {
     **{f"{b}x{k}-pos{p}": (SMALL_WIDTHS, b, k, p, LMAX)
        for b, k in ((3, 1), (3, 5), (2, 31)) for p in (0, LMAX - 1)},
     **{f"t5base-3200-pos{p}-L{l}": (BASE_WIDTHS, 32, 100, p, l)
        for p, l in ((0, 4), (0, 5), (4, 5))},
+    "t5base-qg-320x1-pos39-L40": (QG_WIDTHS, 320, 1, 39, 40),
 }
 
 
@@ -177,6 +184,10 @@ def test_gemm_writes_only_its_output(dev, dtype):
     if dtype == torch.bfloat16:          # 2 k-tiles: split 2 ways
         plans += [kd.GemmPlan(1, 64, 6, 2, 0, 3), kd.GemmPlan(2, 128, 4, 2, 0, 1),
                   kd.GemmPlan(1, 8, 8, 1, 0, 5)]
+    else:                                # 6 k-tiles of 16: split 2 and 6 ways
+        plans += [kd.GemmPlan(4, 128, 4, 2, 0, 0, True),
+                  kd.GemmPlan(1, 128, 4, 6, 0, 0, True),
+                  kd.GemmPlan(4, 64, 4, 1, 0, 0, True)]
     for plan in plans:
         buf = torch.full((m + 2, n), float("nan"), dtype=dtype, device=dev)
         out = buf[1:m + 1]
@@ -217,18 +228,48 @@ def test_gemm_split_and_persistent_plans_match_plain(dev, m, k):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("m", [32, 992, 3200])
+@pytest.mark.parametrize("m", [1, 33, 320, 991, 3200])
+@pytest.mark.parametrize("k", [768, 3072])
+def test_gemm_f32_split_plans_match_plain(dev, m, k):
+    # the f32 GEMM at the main path's depths: its own plan and forced ones
+    # (every tile height, splits that divide neither 48 nor 192 k-tiles,
+    # the 32 most); N = 200 ends in a partial tile of every width
+    n = 200
+    rn = _rand(dev, 2 * m + k)
+    a = rn(m, k)
+    w = rn(n, k, std=k ** -0.5)
+    scale = 1 + rn(k, std=0.1)
+    resid = rn(m, n)
+    plans = [None, kd.GemmPlan(4, 128, 4, 5, 0, 0, True),
+             kd.GemmPlan(1, 128, 4, 11, 0, 0, True),
+             kd.GemmPlan(2, 128, 4, 32, 0, 0, True),
+             kd.GemmPlan(4, 64, 4, 1, 0, 0, True),
+             kd.GemmPlan(4, 64, 4, 7, 0, 0, True)]
+    for plan in plans:
+        for epi, kw in (("round", dict(scale=scale)),
+                        ("relu", dict(scale=scale)),
+                        ("residual", dict(resid=resid))):
+            got = kd.gemm(a, w, epi, plan=plan, **kw)
+            _close(got, kd.gemm_plain(a, w, epi, **kw), torch.float32)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [32, 320, 992, 3200])
 @pytest.mark.parametrize("which", ["wi", "wo"])
-def test_gemm_is_deterministic(dev, m, which):
+def test_gemm_is_deterministic(dev, dtype, m, which):
     # two calls, and replays of a CUDA graph of the call, are bit-equal:
     # split partials are summed in split order, and the arrival counters
     # are zero again after every launch
     n, k = FFN_GEMMS[which]
     rn = _rand(dev, m + n)
-    a = rn(m, k, dtype=torch.bfloat16)
-    w = rn(n, k, std=k ** -0.5, dtype=torch.bfloat16)
-    resid = rn(m, n, dtype=torch.bfloat16)
-    for plan in (None, kd.GemmPlan(2, 128, 4, 7, 0, 132)):
+    a = rn(m, k, dtype=dtype)
+    w = rn(n, k, std=k ** -0.5, dtype=dtype)
+    resid = rn(m, n, dtype=dtype)
+    forced = (kd.GemmPlan(2, 128, 4, 7, 0, 132) if dtype == torch.bfloat16
+              else kd.GemmPlan(4, 128, 4, 9, 0, 0, True))
+    for plan in (None, forced):
         first = kd.gemm(a, w, "residual", resid=resid, plan=plan)
         assert torch.equal(kd.gemm(a, w, "residual", resid=resid, plan=plan),
                            first)
@@ -280,6 +321,14 @@ def test_gemm_refuses_plans_it_does_not_serve(dev):
                  kd.GemmPlan(1, 64, 6, 1, 0, 0)):     # no blocks
         with pytest.raises(RuntimeError, match="CUDA error"):
             kd.gemm(a, w, "residual", resid=resid, plan=plan)
+    a32, w32, r32 = a.float(), w.float(), resid.float()
+    for plan in (kd.GemmPlan(3, 128, 4, 1, 0, 0, True),   # no 96-row tile
+                 kd.GemmPlan(2, 64, 4, 1, 0, 0, True),    # no 64 x 64 tile
+                 kd.GemmPlan(1, 128, 4, 9, 0, 0, True)):  # 9 splits of 8 k-tiles
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kd.gemm(a32, w32, "residual", resid=r32, plan=plan)
+    with pytest.raises(ValueError, match="bf16 plan"):
+        kd.gemm(a32, w32, "residual", resid=r32, plan=kd.GemmPlan(1, 64, 6, 1, 0, 1))
 
 
 HEADS_W, DKV_W = 2, 64           # the main path's head width
@@ -361,10 +410,12 @@ def test_self_attn_sublayer_refuses_caches_past_its_limit(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("s_len", ["1", "23", "max"])
+@pytest.mark.parametrize("s_len", ["1", "23", "max", "64", "65"])
 @pytest.mark.parametrize("beams", [1, 100])
 def test_cross_attn_core_lengths(dev, dtype, s_len, beams):
-    # keys padded to the MMA width past S must get probability exactly 0
+    # keys padded to the MMA width (bf16) or the 64-key tile (f32) past S
+    # must get probability exactly 0; 64 keys are one pass of the f32
+    # cores at d_kv 64, 65 two
     s_ = kd.cross_attn_max_len(DKV_W, dtype) if s_len == "max" else int(s_len)
     batch = 2
     rn = _rand(dev, s_ + beams)

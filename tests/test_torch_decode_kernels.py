@@ -117,6 +117,57 @@ def test_ffn_matches_pallas(dtype, rows):
     _cmp(got, want, dtype)
 
 
+# f32 shapes at which the CUDA kernels branch (rows, beams per query,
+# encoder length S, heads, d_kv, FFN hidden): one beam per row over more
+# keys than one 64-key pass (the streaming core at d_kv 64, and the tiled
+# core's key tile); 5 beams a query (the tiled core) over a ragged S with
+# pad keys; an FFN with a 4·d hidden at 13 rows (a ragged GEMM edge).  The
+# Pallas FFN takes rows in blocks of 8, so it runs on 16 rows, 3 of them
+# zero, and its first 13 are compared (the FFN is row by row).
+F32_CASES = {
+    "cross-1beam-S72-dkv64": ("cross", 16, 1, 72, 1, 64, DFF),
+    "cross-5beams-S23-pads": ("cross", 15, 5, 23, HEADS, DKV, DFF),
+    "ffn-hidden4x-13rows": ("ffn", 13, 1, S, HEADS, DKV, 4 * D),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_CASES))
+def test_f32_kernel_branches_match_pallas(case):
+    kind, rows, beams, s_len, heads, d_kv, d_ff = F32_CASES[case]
+    dt = "float32"
+    inner = heads * d_kv
+    rng = np.random.default_rng(7)
+
+    def n(*shape, std=1.0):
+        return (rng.normal(size=shape) * std).astype(np.float32)
+
+    x, scale = n(rows, D), 1 + n(D, std=0.1)
+    if kind == "ffn":
+        wi, wo = n(D, d_ff, std=0.1), n(d_ff, D, std=0.05)
+        pad = -rows % 8
+        xp = np.concatenate([x, np.zeros((pad, D), np.float32)])
+        want = jk.ffn_sublayer(_j(xp, dt), _j(scale, dt), _j(wi, dt),
+                               _j(wo, dt), interpret=True)[:rows]
+        got = kd.ffn_sublayer(_t(x, dt), _t(scale, dt), _t(wi.T, dt),
+                              _t(wo.T, dt))
+        _cmp(got, want, dt)
+        return
+    b = rows // beams
+    wcq, wco = n(D, inner, std=0.1), n(inner, D, std=0.1)
+    ck, cv = n(b, heads, s_len, d_kv), n(b, heads, s_len, d_kv)
+    keep = rng.integers(0, 2, (b, s_len)) | (np.arange(s_len) < 2)
+    bias = (n(b, heads, s_len, std=0.5)
+            + np.where(keep[:, None, :], 0.0, -1e9)).astype(np.float32)
+    want = jk.cross_attn_sublayer(
+        _j(x, dt), _j(scale, dt), _j(wcq, dt), _j(wco, dt), _j(ck, dt),
+        _j(cv, dt), jnp.asarray(bias), beams, heads=heads, d_kv=d_kv,
+        interpret=True)
+    got = kd.cross_attn_sublayer(
+        _t(x, dt), _t(scale, dt), _t(wcq.T, dt), _t(wco.T, dt), _t(ck, dt),
+        _t(cv, dt), torch.tensor(bias), beams, heads=heads, d_kv=d_kv)
+    _cmp(got, want, dt)
+
+
 def test_block_matches_xla_decode_step_at_15_rows():
     """The three sublayers chained as the port's DecoderBlock.decode_step
     against JAX's XLA DecoderBlock.decode_step at 3 queries × 5 beams (a row
@@ -175,18 +226,22 @@ def test_cpu_calls_launch_nothing():
                          ids=["bf16", "f32"])
 def test_cross_attn_max_len_fits_shared_memory(dtype):
     # the CUDA cores' shared memory (csrc/decode_sublayers.cu): bf16 K and V
-    # rows of d_kv + 8 with keys padded to 16, and the f32 bias row; f32 K
-    # and V rows of d_kv + 1, and 4 warps' query and score rows
+    # rows of d_kv + 8 with keys padded to 16, and the f32 bias row; f32
+    # (the many-beam core, cross_tiled_smem): 32 q rows and a 64-key tile
+    # each of K and V, rows of d_kv + 4 floats, and 32 beams' scores of
+    # every key, keys padded to 64 and rows to + 4
     def smem(s, d_kv):
         if dtype == torch.bfloat16:
             sp = -(-s // 16) * 16
             return 2 * sp * (d_kv + 8) * 2 + sp * 4
-        return (2 * s * (d_kv + 1) + 4 * d_kv + 4 * s) * 4
+        sp = -(-s // 64) * 64
+        return (32 * (d_kv + 4) + 2 * 64 * (d_kv + 4) + 32 * (sp + 4)) * 4
     for d_kv in (16, 64, 128):
         n = kd.cross_attn_max_len(d_kv, dtype)
         assert smem(n, d_kv) <= 227 * 1024 < smem(n + 1, d_kv)
+    # at least the 431 tokens the f32 core served before
     assert kd.cross_attn_max_len(64, dtype) == (
-        784 if dtype == torch.bfloat16 else 431)
+        784 if dtype == torch.bfloat16 else 1472)
 
 
 def test_gemm_plain_is_the_sublayers_gemm_step():
