@@ -136,15 +136,38 @@ the last line):
    bench trie's 11,144 clusters: timed steps and the top-100 ranking of 32
    queries; (f) the CLI on the card over phase 6's index: ``qg`` →
    ``train --qg`` and ``train --ensemble 2`` → ``eval --ensemble 2``;
-9. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
+9. pretrained starts and ingest — checkpoint directories in HuggingFace's
+   layout, written by hand with seeded weights (config.json without the
+   fields at their class defaults): (a) a small T5 (bf16 safetensors) and
+   BERT (pytorch_model.bin) load through ``models/convert.py`` on the CPU
+   and on the card, bit-equal to each other and to the files' tensors; the
+   tower's CLS rows on the card within 1e-4 of the CPU's; a seeded state
+   dict under the reference fork's names through ``load_gdr_reference``
+   into phase 3's small model, retrieving on the packed layout on the card
+   (through the kernels) as on the CPU: valid doc ids equal, fused scores
+   within 1e-4; (b) a t5-base encoder directory (safetensors f32, shared
+   [32128, 768]) and a BERT-base one (pytorch_model.bin f32), each with a
+   WordPiece vocab.txt of its vocabulary's size (the tokenizer where
+   transformers is installed): their bytes
+   and load seconds (read + map + move to the card), then the warm-started
+   t5-base in f32 over phase 4's packed f32 store: the exact launches of
+   one retrieve (24 per decoder kernel, one packed scorer), 3,200 valid
+   beams, 3 timed retrieves after a warm one, peak; (c) the CLI on the card
+   as subprocesses: ``ingest`` of ``tests/fixtures/nq_tiny_*.jsonl.gz``
+   (12 docs, 24 train, 6 dev) → ``index --bert-ckpt`` → ``train --t5-ckpt
+   --bert-ckpt`` (one epoch, stage 2 with the live BERT-base tower) →
+   ``eval`` of the trained ``params.npz``: every step exits 0, the counts
+   printed are right, the metrics finite; each process's seconds;
+10. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
    layout's main path (and over phase 6's built index, in phase 7's
-   TrainLoop eval and in phase 8's query generation, ensemble eval and
-   hierarchic eval), max |Δ|, kernel / plain / library ms and its bound
+   TrainLoop eval, in phase 8's query generation, ensemble eval and
+   hierarchic eval, and in phase 9's warm-started retrieve), max |Δ|,
+   kernel / plain / library ms and its bound
    (the decoder rows also by row count, per retrieve, per GEMM shape and
    at query generation's shape).
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
-torch, numpy and gdr_tpu_torch only (its phases 6, 7 and 8 also run the
+torch, numpy and gdr_tpu_torch only (its phases 6 to 9 also run the
 port's CLI in subprocesses).  Files go to one temporary directory, removed
 at the end.
 """
@@ -2768,6 +2791,519 @@ def phase_secondary(dev, card: str, root: Path, work: Path, trie,
     return out
 
 
+# ------------------------------------------------------------ phase 9
+
+# checkpoint directories written by hand (the script needs no
+# transformers to write them): config.json leaves out each field equal to
+# its class's default, as a HuggingFace config may
+T5_CONFIG_DEFAULTS = dict(vocab_size=32128, d_model=512, d_kv=64, d_ff=2048,
+                          num_layers=6, num_heads=8)
+BERT_CONFIG_DEFAULTS = dict(vocab_size=30522, hidden_size=768,
+                            num_hidden_layers=12, num_attention_heads=12,
+                            intermediate_size=3072,
+                            max_position_embeddings=512)
+T5_BASE = dict(vocab_size=32128, d_model=D, d_kv=DKV, d_ff=DFF,
+               num_layers=12, num_heads=H)
+BERT_BASE = dict(BERT_CONFIG_DEFAULTS)
+T5_SMALL = dict(vocab_size=512, d_model=64, d_kv=16, d_ff=128, num_layers=2,
+                num_heads=4)                  # phase 3's small encoder
+BERT_SMALL = dict(vocab_size=512, hidden_size=64, num_hidden_layers=2,
+                  num_attention_heads=4, intermediate_size=128,
+                  max_position_embeddings=64)
+NQ_FIXTURES = ("tests/fixtures/nq_tiny_train.jsonl.gz",
+               "tests/fixtures/nq_tiny_dev.jsonl.gz")
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """A ``.safetensors`` file: the 8-byte little-endian header length, the
+    JSON header (padded with spaces to 8 bytes) and each tensor's bytes."""
+    import torch
+
+    names = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16", torch.int64: "I64"}
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for k, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as fh:
+        fh.write(len(raw).to_bytes(8, "little"))
+        fh.write(raw)
+        for t in tensors.values():
+            fh.write(t.contiguous().reshape(-1).view(torch.uint8).numpy()
+                     .data)
+
+
+def write_hf_checkpoint(path: Path, config: dict, tensors: dict,
+                        fmt: str) -> int:
+    """``config.json`` and ``model.safetensors`` (``fmt`` "safetensors") or
+    ``pytorch_model.bin`` ("bin"); returns the directory's bytes."""
+    import torch
+
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(config, indent=2))
+    if fmt == "safetensors":
+        write_safetensors(path / "model.safetensors", tensors)
+    else:
+        torch.save(tensors, path / "pytorch_model.bin")
+    return sum(f.stat().st_size for f in path.iterdir())
+
+
+def write_vocab(path: Path, size: int) -> None:
+    """A WordPiece ``vocab.txt`` of ``size`` entries and the
+    ``tokenizer_config.json`` that names it, so the directory is its own
+    tokenizer where ``transformers`` is installed, with the checkpoint's
+    vocabulary size (a T5 directory would hold a sentencepiece model,
+    which this script cannot write; the sizes are what the CLI checks)."""
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *WORDS]
+    words += [f"w{i}" for i in range(size - len(words))]
+    (path / "vocab.txt").write_text("\n".join(words) + "\n")
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "BertTokenizer", "do_lower_case": True}))
+
+
+def _normal(g, dtype):
+    import torch
+
+    def rn(*shape, std: float, mean: float = 0.0):
+        return (torch.randn(shape, generator=g) * std + mean).to(dtype)
+    return rn
+
+
+def write_t5_checkpoint(path: Path, widths: dict, seed: int, fmt: str,
+                        dtype=None) -> dict:
+    """A T5 encoder checkpoint (shared embeddings + encoder under HF names)
+    of ``widths`` with seeded weights; returns its tensors."""
+    import torch
+
+    rn = _normal(torch.Generator().manual_seed(seed), dtype or torch.float32)
+    d, ff = widths["d_model"], widths["d_ff"]
+    inner = widths["num_heads"] * widths["d_kv"]
+    sd = {"shared.weight": rn(widths["vocab_size"], d, std=0.5),
+          "encoder.block.0.layer.0.SelfAttention.relative_attention_bias."
+          "weight": rn(32, widths["num_heads"], std=0.1)}
+    for i in range(widths["num_layers"]):
+        hf = f"encoder.block.{i}.layer"
+        for p in "qkv":
+            sd[f"{hf}.0.SelfAttention.{p}.weight"] = rn(inner, d,
+                                                        std=d ** -0.5)
+        sd[f"{hf}.0.SelfAttention.o.weight"] = rn(d, inner, std=inner ** -0.5)
+        sd[f"{hf}.0.layer_norm.weight"] = rn(d, std=0.05, mean=1.0)
+        sd[f"{hf}.1.DenseReluDense.wi.weight"] = rn(ff, d, std=d ** -0.5)
+        sd[f"{hf}.1.DenseReluDense.wo.weight"] = rn(d, ff, std=ff ** -0.5)
+        sd[f"{hf}.1.layer_norm.weight"] = rn(d, std=0.05, mean=1.0)
+    sd["encoder.final_layer_norm.weight"] = rn(d, std=0.05, mean=1.0)
+    config = {"architectures": ["T5EncoderModel"], "model_type": "t5",
+              **{k: v for k, v in widths.items()
+                 if T5_CONFIG_DEFAULTS[k] != v}}
+    write_hf_checkpoint(path, config, sd, fmt)
+    return sd
+
+
+def write_bert_checkpoint(path: Path, widths: dict, seed: int,
+                          fmt: str) -> dict:
+    """A BERT checkpoint (BertModel's names, with its int64
+    ``position_ids`` buffer) of ``widths`` (BertConfig's names) with seeded
+    weights; returns its tensors."""
+    import torch
+
+    rn = _normal(torch.Generator().manual_seed(seed), torch.float32)
+    d, ff = widths["hidden_size"], widths["intermediate_size"]
+    pos = widths["max_position_embeddings"]
+    sd = {"embeddings.word_embeddings.weight": rn(widths["vocab_size"], d,
+                                                  std=0.02),
+          "embeddings.position_embeddings.weight": rn(pos, d, std=0.02),
+          "embeddings.token_type_embeddings.weight": rn(2, d, std=0.02),
+          "embeddings.LayerNorm.weight": rn(d, std=0.02, mean=1.0),
+          "embeddings.LayerNorm.bias": rn(d, std=0.02),
+          "embeddings.position_ids": torch.arange(pos)[None]}
+    for i in range(widths["num_hidden_layers"]):
+        hf = f"encoder.layer.{i}"
+        for name, shape in (("attention.self.query", (d, d)),
+                            ("attention.self.key", (d, d)),
+                            ("attention.self.value", (d, d)),
+                            ("attention.output.dense", (d, d)),
+                            ("intermediate.dense", (ff, d)),
+                            ("output.dense", (d, ff))):
+            sd[f"{hf}.{name}.weight"] = rn(*shape, std=0.02)
+            sd[f"{hf}.{name}.bias"] = rn(shape[0], std=0.02)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[f"{hf}.{name}.weight"] = rn(d, std=0.02, mean=1.0)
+            sd[f"{hf}.{name}.bias"] = rn(d, std=0.02)
+    config = {"architectures": ["BertModel"], "model_type": "bert",
+              **{k: v for k, v in widths.items()
+                 if BERT_CONFIG_DEFAULTS[k] != v}}
+    write_hf_checkpoint(path, config, sd, fmt)
+    return sd
+
+
+def _bert_port_name(hf: str) -> str:
+    """A BertModel parameter's name in the port's DocEncoder."""
+    for a, b in (("embeddings.word_embeddings", "tok_embed"),
+                 ("embeddings.position_embeddings", "pos_embed"),
+                 ("embeddings.token_type_embeddings", "type_embed"),
+                 ("embeddings.LayerNorm", "embed_ln"),
+                 ("encoder.layer.", "blocks."),
+                 ("attention.self.", "attn."),
+                 ("attention.output.dense", "attn.out"),
+                 ("attention.output.LayerNorm", "ln1"),
+                 ("intermediate.dense", "ff1"),
+                 ("output.dense", "ff2"),
+                 ("output.LayerNorm", "ln2")):
+        hf = hf.replace(a, b)
+    return hf
+
+
+def fork_state_dict(cfg, seed: int) -> dict:
+    """Seeded weights of ``cfg`` under the reference fork's names: its
+    ``T5ForConditionalGeneration`` (encoder, decoder with a cross-attention
+    relative bias), ``decode_embeddings``, ``lm_head`` and the efficient
+    PAWA adaptor (``nn.TransformerDecoderLayer``s, zero biases), as numpy
+    f32 arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d, inner = cfg.d_model, cfg.num_heads * cfg.d_kv
+    v, heads = cfg.decode_vocab_size, cfg.num_heads
+    buckets = cfg.relative_attention_num_buckets
+    ad_ff = cfg.adaptor_d_ff or 4 * d
+    sd: dict = {}
+
+    def put(name, *shape, std=0.1, mean=0.0):
+        sd[name] = (rng.normal(size=shape) * std + mean).astype(np.float32)
+
+    def zero(name, n):
+        sd[name] = np.zeros(n, np.float32)
+
+    put("shared.weight", cfg.vocab_size, d, std=0.5)
+    put("decode_embeddings.weight", v, d, std=0.5)
+    put("lm_head.weight", v, d)
+    rel = "relative_attention_bias.weight"
+    for side, n in (("encoder", cfg.num_layers),
+                    ("decoder", cfg.num_decoder_layers)):
+        subs = ["0.SelfAttention"] + (["1.EncDecAttention"]
+                                      if side == "decoder" else [])
+        put(f"{side}.final_layer_norm.weight", d, std=0.05, mean=1.0)
+        put(f"{side}.block.0.layer.0.SelfAttention.{rel}", buckets, heads)
+        for i in range(n):
+            hf = f"{side}.block.{i}.layer"
+            for sub in subs:
+                for p in "qkv":
+                    put(f"{hf}.{sub}.{p}.weight", inner, d)
+                put(f"{hf}.{sub}.o.weight", d, inner)
+            for j in range(len(subs) + 1):
+                put(f"{hf}.{j}.layer_norm.weight", d, std=0.05, mean=1.0)
+            put(f"{hf}.{len(subs)}.DenseReluDense.wi.weight", cfg.d_ff, d)
+            put(f"{hf}.{len(subs)}.DenseReluDense.wo.weight", d, cfg.d_ff)
+    put(f"decoder.block.0.layer.1.EncDecAttention.{rel}", buckets, heads)
+    put("adaptor_embeddings", 1, 1, d)
+    for i in range(cfg.adaptor_layer_num):
+        hf = f"adaptor.layers.{i}"
+        for attn in ("self_attn", "multihead_attn"):
+            put(f"{hf}.{attn}.in_proj_weight", 3 * d, d)
+            zero(f"{hf}.{attn}.in_proj_bias", 3 * d)
+            put(f"{hf}.{attn}.out_proj.weight", d, d)
+            zero(f"{hf}.{attn}.out_proj.bias", d)
+        put(f"{hf}.linear1.weight", ad_ff, d)
+        zero(f"{hf}.linear1.bias", ad_ff)
+        put(f"{hf}.linear2.weight", d, ad_ff)
+        zero(f"{hf}.linear2.bias", d)
+        for n in (1, 2, 3):
+            put(f"{hf}.norm{n}.weight", d, std=0.05, mean=1.0)
+            put(f"{hf}.norm{n}.bias", d, std=0.05)
+    put("adaptor_linear.weight", d * v, d, std=0.05)
+    return sd
+
+
+def _equal_states(tag: str, got: dict, want: dict) -> None:
+    import torch
+    if got.keys() != want.keys():
+        raise Failed(f"{tag}: parameter names differ")
+    for k in want:
+        if not torch.equal(got[k].cpu(), want[k].cpu()):
+            raise Failed(f"{tag}: {k} differs")
+
+
+def pretrained_small(dev, work: Path) -> dict:
+    """(a): a tiny T5 directory (bf16 safetensors) and a tiny BERT one
+    (pytorch_model.bin) load on the card and on the CPU, bit-equal to each
+    other and to the file's tensors; the tower's CLS rows on the card
+    within 1e-4 of the CPU's; the reference fork's full model through
+    ``load_gdr_reference`` retrieves on the card as on the CPU."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.config import EvalConfig
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.models import convert
+    from gdr_tpu_torch.models.dual_encoder import DocEncoder, DocEncoderConfig
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+
+    cfg, trie, store, ids, mask, _ = _small_world(0)
+    t5_sd = write_t5_checkpoint(work / "t5_small", T5_SMALL, 31,
+                                "safetensors", torch.bfloat16)
+    bert_sd = write_bert_checkpoint(work / "bert_small", BERT_SMALL, 32,
+                                    "bin")
+    cfg = dataclasses.replace(cfg, **convert.t5_model_overrides(
+        str(work / "t5_small")))
+    init = init_weights(GenerativeRetriever(cfg),
+                        torch.Generator().manual_seed(0)).state_dict()
+
+    def model_on(device, load):
+        with torch.device(device):
+            m = GenerativeRetriever(cfg)
+        m.load_state_dict(init)
+        return load(m).eval()
+
+    def t5(m):
+        return convert.load_t5_encoder(m, convert.state_dict_from_pretrained(
+            str(work / "t5_small")), cfg.num_layers)
+
+    cpu, gpu = model_on("cpu", t5), model_on(dev, t5)
+    _equal_states("t5 small: card vs cpu", gpu.state_dict(), cpu.state_dict())
+    exported = convert.export_t5_encoder(cpu.state_dict(), cfg.num_layers)
+    _equal_states("t5 small: loaded vs file",
+                  {k: torch.from_numpy(v) for k, v in exported.items()},
+                  {k: v.float() for k, v in t5_sd.items()})
+
+    tcfg = DocEncoderConfig(**convert.bert_model_overrides(
+        str(work / "bert_small")))
+    towers = []
+    for device in ("cpu", dev):
+        with torch.device(device):
+            tower = DocEncoder(tcfg)
+        towers.append(convert.load_bert_encoder(
+            tower, convert.bert_state_dict_from_pretrained(
+                str(work / "bert_small"))).eval())
+    _equal_states("bert small: card vs cpu", towers[1].state_dict(),
+                  towers[0].state_dict())
+    _equal_states("bert small: loaded vs file", towers[0].state_dict(),
+                  {_bert_port_name(k): v for k, v in bert_sd.items()
+                   if k != "embeddings.position_ids"})
+    rng = np.random.default_rng(33)
+    tids = torch.as_tensor(rng.integers(1, 512, size=(64, 32)))
+    tmask = (torch.arange(32)[None] < torch.as_tensor(
+        rng.integers(4, 33, size=64))[:, None]).long()
+    with torch.no_grad():
+        cls_c = towers[0](tids, tmask)
+        cls_g = towers[1](tids.to(dev), tmask.to(dev)).cpu()
+    cls_err = (cls_c - cls_g).abs().max().item()
+    if not cls_err <= 1e-4:
+        raise Failed(f"bert small: CLS rows on the card differ from the "
+                     f"CPU's by {cls_err:.3g} > 1e-4")
+
+    fork = fork_state_dict(cfg, 34)
+    cpu_f = model_on("cpu", lambda m: convert.load_gdr_reference(m, fork))
+    gpu_f = model_on(dev, lambda m: convert.load_gdr_reference(m, fork))
+    ev_cfg = EvalConfig(num_beams=12, num_return_sequences=20,
+                        max_output_length=cfg.max_output_length)
+    res_c, rr_c = Evaluator(cpu_f, trie, store, ev_cfg,
+                            packed=True).retrieve(ids, mask)
+    ev_g = Evaluator(gpu_f, trie, store, ev_cfg, packed=True)
+    kernels.reset_launch_counts()
+    res_g, rr_g = ev_g.retrieve(ids, mask)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if min(launches[k] for k in (*DECODER, "packed_scores")) == 0:
+        raise Failed(f"fork small: the card's retrieve did not reach every "
+                     f"kernel of its path: {launches}")
+    n_valid, n_docs, err = _same_retrieve("fork packed", res_c, rr_c, res_g,
+                                          rr_g)
+    log(f"  (a) t5 {T5_SMALL['d_model']}-wide bf16 safetensors and bert "
+        f"{BERT_SMALL['hidden_size']}-wide .bin: loads on card and cpu "
+        f"bit-equal to each other and to the files; CLS rows max |d| "
+        f"{cls_err:.3g} (tol 1e-4); the fork's model through "
+        f"load_gdr_reference: {n_valid} valid beams, {n_docs} valid docs "
+        f"equal on card and cpu, fused scores max |d| {err:.3g} (tol 1e-4), "
+        f"launches {launches}")
+    return dict(cls_max_abs_err=cls_err, fork_max_abs_err=err)
+
+
+def pretrained_full(dev, card: str, trie, work: Path, timed: int = 3
+                    ) -> dict:
+    """(b): a t5-base-shaped encoder checkpoint (safetensors) and a
+    BERT-base one (pytorch_model.bin): bytes and load seconds (read, map,
+    move to the card), then the warm-started t5-base in f32 retrieves over
+    phase 4's packed f32 store as ``cli retrieve --packed`` serves it."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.config import EvalConfig, ModelConfig
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.models import convert
+    from gdr_tpu_torch.models.dual_encoder import DocEncoder, DocEncoderConfig
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+
+    t = time.perf_counter()
+    t5_dir, bert_dir = work / "t5_base", work / "bert_base"
+    t5_sd = write_t5_checkpoint(t5_dir, T5_BASE, 41, "safetensors")
+    write_bert_checkpoint(bert_dir, BERT_BASE, 42, "bin")
+    write_vocab(t5_dir, T5_BASE["vocab_size"])
+    write_vocab(bert_dir, BERT_BASE["vocab_size"])
+    size = {n: sum(f.stat().st_size for f in p.iterdir())
+            for n, p in (("t5", t5_dir), ("bert", bert_dir))}
+    write_s = time.perf_counter() - t
+
+    cfg = dataclasses.replace(ModelConfig().scaled("base"),
+                              **convert.t5_model_overrides(str(t5_dir)))
+    model = init_weights(GenerativeRetriever(cfg),
+                         torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sd = convert.state_dict_from_pretrained(str(t5_dir))
+    read_s = time.perf_counter() - t
+    convert.load_t5_encoder(model, sd, cfg.num_layers)
+    model = model.to(dev).eval()
+    torch.cuda.synchronize()
+    t5_s = time.perf_counter() - t
+    last = cfg.num_layers - 1
+    qkv = model.state_dict()[f"encoder.blocks.{last}.attn.qkv.weight"].cpu()
+    hf = f"encoder.block.{last}.layer.0.SelfAttention"
+    if not torch.equal(model.shared.weight.cpu(), t5_sd["shared.weight"]) \
+            or not torch.equal(qkv, torch.cat([t5_sd[f"{hf}.{p}.weight"]
+                                               for p in "qkv"])):
+        raise Failed("t5-base: the card's weights are not the file's")
+    del sd, t5_sd
+
+    tower = DocEncoder(DocEncoderConfig(**convert.bert_model_overrides(
+        str(bert_dir))))
+    t = time.perf_counter()
+    bsd = convert.bert_state_dict_from_pretrained(str(bert_dir))
+    bread_s = time.perf_counter() - t
+    tower = convert.load_bert_encoder(tower, bsd).to(dev).eval()
+    torch.cuda.synchronize()
+    bert_s = time.perf_counter() - t
+    del bsd, tower
+    log(f"  (b) t5-base encoder dir {size['t5'] / 1e6:.1f} MB (safetensors "
+        f"f32): load {t5_s:.2f} s (read {read_s:.2f} s); BERT-base dir "
+        f"{size['bert'] / 1e6:.1f} MB (pytorch_model.bin f32): load "
+        f"{bert_s:.2f} s (read {bread_s:.2f} s); writing both took "
+        f"{write_s:.1f} s")
+
+    beams, qbatch = 100, 32
+    g = torch.Generator(device=dev).manual_seed(7)      # phase 4's store
+    store = torch.randn(N_DOCS, D, generator=g, device=dev)
+    store = store / store.norm(dim=1, keepdim=True)
+    ev = Evaluator(model, trie, store, EvalConfig(
+        num_beams=beams, num_return_sequences=beams,
+        max_output_length=cfg.max_output_length, length_penalty=0.8),
+        packed=True)
+    del store
+    rng = np.random.default_rng(0)
+    ids = rng.integers(2, cfg.vocab_size, size=(qbatch, S)).astype(np.int32)
+    mask = np.ones_like(ids)
+    torch.cuda.reset_peak_memory_stats()
+    ev.retrieve(ids, mask)                               # warm
+    _, _, launches = _counted_retrieve(
+        "warm-started packed f32", ev, ids, mask,
+        dict(dict.fromkeys(DECODER, 24), packed_scores=1), qbatch * beams,
+        beams)
+    totals = _timed(lambda: ev.retrieve(ids, mask), 0, timed)
+    total = fmean(totals)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  (b) t5-base f32 warm-started from the directory, packed f32 "
+        f"store: retrieve {total:.2f} ms "
+        f"({', '.join(f'{x:.2f}' for x in totals)}), {qbatch} queries x "
+        f"{S} tokens, beam {beams}; peak {peak:.2f} GiB; {card}")
+    return dict(t5_dir_bytes=size["t5"], bert_dir_bytes=size["bert"],
+                t5_load_s=t5_s, t5_read_s=read_s, bert_load_s=bert_s,
+                bert_read_s=bread_s, write_s=write_s, retrieve_ms=total,
+                retrieve_ms_each=totals, peak_gib=peak,
+                launches=launches, t5_dir=str(t5_dir),
+                bert_dir=str(bert_dir))
+
+
+def pretrained_cli(root: Path, work: Path, t5_dir: str, bert_dir: str
+                   ) -> dict:
+    """(c): the CLI on the card: ``ingest`` of the NQ fixtures → ``index
+    --bert-ckpt`` (the BERT-base directory) → ``train --t5-ckpt --bert-ckpt``
+    (stage 2 from the first epoch: the live BERT-base tower) → ``eval`` of
+    the trained ``params.npz``, each process timed."""
+    import importlib.metadata
+
+    import numpy as np
+
+    from gdr_tpu_torch.data.tokenize import load_tokenizer
+
+    try:
+        found = f"transformers {importlib.metadata.version('transformers')}"
+    except importlib.metadata.PackageNotFoundError:
+        found = "no transformers"
+    toks = {n: load_tokenizer(p) for n, p in (("t5", t5_dir),
+                                              ("bert", bert_dir))}
+    log(f"  (c) {found}; the directories as tokenizers: " + ", ".join(
+        f"{n} {type(tk).__name__} of {tk.vocab_size}"
+        for n, tk in toks.items()))
+    out_dir, run = work / "ingest", work / "ingest_run"
+    secs = {}
+
+    def cli(argv):
+        t = time.perf_counter()
+        done = _port_cli(argv, root)
+        secs[argv[0]] = time.perf_counter() - t
+        return done
+
+    ing = cli(["ingest", "--nq-jsonl", str(root / NQ_FIXTURES[0]),
+               "--dev-jsonl", str(root / NQ_FIXTURES[1]), "--out-dir",
+               str(out_dir)])
+    if "ingest: 12 docs, 24 train, 6 dev" not in ing.stdout:
+        raise Failed(f"cli ingest: {ing.stdout.strip()}")
+    idx = cli(["index", "--corpus", str(out_dir / "corpus.tsv"), "--out",
+               str(out_dir / "index.npz"), "--kary", "4", "--leaf-cap", "4",
+               "--bert-ckpt", bert_dir, "--device", "cuda"])
+    if "index: 12 docs" not in idx.stdout \
+            or f"doc tower from {bert_dir}" not in idx.stderr:
+        raise Failed(f"cli index --bert-ckpt: {idx.stdout.strip()}\n"
+                     f"{idx.stderr[-2000:]}")
+    common = ["--index", str(out_dir / "index.npz"), "--dev",
+              str(out_dir / "dev.tsv"), "--workdir", str(run), "--kary", "4",
+              "--beam", "10", "--device", "cuda"]
+    tr = cli(["train", *common, "--train", str(out_dir / "train.tsv"),
+              "--batch-size", "8", "--epochs", "1", "--train-encoder-epoch",
+              "0", "--corpus", str(out_dir / "corpus.tsv"), "--t5-ckpt",
+              t5_dir, "--bert-ckpt", bert_dir, "--packed-eval"])
+    for want in ("stage 2 enabled: live doc tower over 12 docs",
+                 f"doc tower from {bert_dir}",
+                 f"encoder and shared embeddings from {t5_dir}"):
+        if want not in tr.stderr:
+            raise Failed(f"cli train: no {want!r} in\n{tr.stderr[-2000:]}")
+    m_tr = json.loads(tr.stdout.splitlines()[-1])
+    # eval takes the tokenizer train took from the checkpoint directory
+    ev = cli(["eval", *common, "--packed", "--tokenizer", t5_dir])
+    if f"loaded {run / 'params.npz'}" not in ev.stderr:
+        raise Failed(f"cli eval did not read the trained params.npz:\n"
+                     f"{ev.stderr[-2000:]}")
+    m_ev = json.loads(ev.stdout[ev.stdout.index("{"):])
+    bad = [k for k, v in {**m_tr, **m_ev}.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    if bad or not 0.0 <= m_ev["recall1"] <= 1.0:
+        raise Failed(f"cli chain: non-finite metrics {bad}")
+    shutil.rmtree(run, ignore_errors=True)
+    log(f"  (c) cli on cuda: ingest (12 docs, 24 train, 6 dev) -> index "
+        f"--bert-ckpt -> train --t5-ckpt --bert-ckpt (1 epoch, stage 2, "
+        f"train loss {m_tr['avg_train_loss']:.4f}) -> eval (recall1 "
+        f"{m_ev['recall1']:.3f}, {len(m_ev)} metrics, all finite); "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    return dict(cli_s=sum(secs.values()), cli_s_each=secs,
+                recall1=m_ev["recall1"])
+
+
+def phase_pretrained(dev, card: str, root: Path, work: Path, trie) -> dict:
+    # phase 7's full-width checkpoints are read no more: their disk goes to
+    # this phase's t5-base run
+    shutil.rmtree(work / "loop", ignore_errors=True)
+    out = {"small": pretrained_small(dev, work)}
+    full = pretrained_full(dev, card, trie, work)
+    out["cli"] = pretrained_cli(root, work, full.pop("t5_dir"),
+                                full.pop("bert_dir"))
+    out.update(full)
+    return out
+
+
 # ------------------------------------------------------------ main
 
 def spilling_functions(ptxas_log: str) -> list[tuple[str, str]]:
@@ -2814,7 +3350,7 @@ KERNELS = [
 
 
 def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
-                secondary: dict) -> list[dict]:
+                secondary: dict, pretrained: dict) -> list[dict]:
     """The ``{"kernels": [...]}`` rows: each kernel's launches on its
     layout's main path (phase 4) and its phase-2 numbers at 3,200 rows; the
     decoder rows add their numbers at each row count (``by_rows``), the
@@ -2824,7 +3360,9 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
     ``launches_train_eval`` those of phase 7's TrainLoop epoch (its
     eval), ``launches_qg`` / ``launches_ensemble_eval`` /
     ``launches_hierarchic_eval`` those of phase 8's query generation
-    batch, ensemble eval and hierarchic decode + re-rank; the decoder rows
+    batch, ensemble eval and hierarchic decode + re-rank,
+    ``launches_pretrained`` those of phase 9's retrieve by the t5-base
+    warm-started from a checkpoint directory; the decoder rows
     add their numbers at query generation's shape (``qg``: one beam per
     row, a 64-token doc, a 40-position cache; f32 and bf16)."""
     rows = []
@@ -2843,7 +3381,8 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
             launches_qg=secondary["qg"]["launches"][name],
             launches_ensemble_eval=secondary["ensemble"]["launches"][name],
             launches_hierarchic_eval=secondary["hierarchic"]["launches"][
-                name])
+                name],
+            launches_pretrained=pretrained["launches"][name])
         if name in DECODER:
             row.update(by_rows=st["rows"], per_retrieve=st["per_retrieve"],
                        gemms=st["gemms"], by_rows_f32=st["rows_f32"],
@@ -2946,6 +3485,14 @@ def main(argv: list[str]) -> int:
         secondary = phase_secondary(dev, smi, root, work, trie,
                                     profile="profile" in argv)
         log(f"[8] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        log("[9] pretrained starts and ingest: HF-layout T5 and BERT "
+            "directories on the card vs the CPU, the reference fork's model, "
+            "t5-base and BERT-base loads and a warm-started f32 retrieve, "
+            "the CLI's ingest -> index --bert-ckpt -> train --t5-ckpt "
+            "--bert-ckpt -> eval")
+        pretrained = phase_pretrained(dev, smi, root, work, trie)
+        log(f"[9] {time.perf_counter() - t:.1f} s")
     except Failed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2955,9 +3502,11 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"retrieve": full["layouts"],
                       "peak_gib": full["peak_gib"], "modes": modes,
                       "index": index, "train": train,
-                      "secondary": secondary}), flush=True)
+                      "secondary": secondary, "pretrained": pretrained}),
+          flush=True)
     print(json.dumps({"kernels": kernel_rows(stats, full, index, train,
-                                             secondary)}), flush=True)
+                                             secondary, pretrained)}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

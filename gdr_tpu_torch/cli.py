@@ -1,17 +1,21 @@
-"""Command-line interface of the PyTorch port: ``index`` (embed a corpus,
+"""Command-line interface of the PyTorch port: ``ingest`` (raw NQ jsonl or
+a pickled corpus → the TSVs the others read), ``index`` (embed a corpus,
 k-means it, pack the trie), ``expand`` (insert new documents without
 retraining), ``tokenizer`` (train a subword tokenizer), ``qg`` (generate
 pseudo-queries per document), ``train`` (the two-stage GDR training, or a
 secondary mode), ``retrieve`` (serving), ``eval`` (a dev set's metrics) and
 ``calculate`` (metrics of a result TSV).
 
+    python -m gdr_tpu_torch.cli ingest --nq-jsonl train.jsonl.gz \\
+        [--dev-jsonl dev.jsonl.gz] --out-dir data
     python -m gdr_tpu_torch.cli index --corpus docs.tsv --out index.npz \\
-        [--encoder-size tiny] [--encoder-ckpt enc.npz] [--device cuda]
+        [--encoder-size tiny] [--bert-ckpt bert_dir] [--encoder-ckpt enc.npz]
     python -m gdr_tpu_torch.cli expand --index index.npz \\
         --corpus new_docs.tsv --out index_expanded.npz
     python -m gdr_tpu_torch.cli tokenizer --corpus docs.tsv --out tok.json
     python -m gdr_tpu_torch.cli train --index index.npz --train train.tsv \\
-        --dev dev.tsv --workdir run [--corpus docs.tsv] [--device cuda]
+        --dev dev.tsv --workdir run [--corpus docs.tsv] \\
+        [--t5-ckpt t5_dir] [--bert-ckpt bert_dir] [--device cuda]
     python -m gdr_tpu_torch.cli retrieve --index index.npz --workdir run \\
         --packed --query "who wrote hamlet" [--int8-store] [--device cuda]
     python -m gdr_tpu_torch.cli eval --index index.npz --dev dev.tsv \\
@@ -57,10 +61,21 @@ Differences from the reference CLI:
   print its metrics and write its state file (``ensemble.npz`` +
   ``ensemble_paths.npy``, ``hierarchic.npz``, ``softmax.npz``: the
   reference's trees as ``.npz``, not flax msgpack), which ``eval
-  --ensemble N`` reads.  Refused, as later slices: ``--t5-ckpt`` or
-  ``--bert-ckpt`` naming a HuggingFace checkpoint (ROADMAP.md queue 1, item
-  9; a ``--t5-ckpt`` ``.npz`` in the ``params.npz`` layout warm-starts the
-  encoder and shared embeddings) and ``--mesh`` (item 10).
+  --ensemble N`` reads.  ``--mesh`` is a later slice and is refused
+  (ROADMAP.md queue 1, item 10).
+- Pretrained starts read HuggingFace checkpoint directories (``config.json``
+  and ``model.safetensors``, ``pytorch_model.bin`` or their shards) with
+  ``models/convert.py``, never through ``transformers``.  ``train
+  --t5-ckpt`` takes such a directory (its config replaces the preset's
+  widths), an ``export_t5_encoder`` ``.npz`` (HF names) or a ``params.npz``,
+  and warm-starts the encoder and shared embeddings; ``--bert-ckpt`` (a
+  BERT / DPR / AR2 directory) gives ``index`` its doc tower and ``train``
+  its stage-2 tower.  A checkpoint directory is also the tokenizer when no
+  ``--tokenizer`` / ``--doc-tokenizer`` is given, read through
+  ``transformers``; where that is missing or cannot load the directory,
+  the hash tokenizer of the checkpoint's vocab stands in, as in the
+  reference package, and a tokenizer whose vocab differs from the
+  checkpoint's is refused.
 - ``qg`` samples with the KV-cached decoder (on ``cuda`` the sublayer
   kernels, the self-attention cache ``--max-query-length`` positions) and
   writes token arrays, never strings; its Seq2SeqLM starts from seeded
@@ -73,8 +88,8 @@ Differences from the reference CLI:
 - The doc tower's weights come from ``--encoder-ckpt``, an ``.npz`` that
   ``tools/export_gdr_tpu_params.py --doc-encoder`` writes from the
   reference's flax checkpoint or its seeded init; without it the tower gets
-  seeded random weights (``--seed``).  ``index --bert-ckpt`` (a HuggingFace
-  BERT checkpoint) is not ported yet and is refused.
+  seeded random weights (``--seed``).  With ``--bert-ckpt`` the
+  checkpoint's weights come first and ``--encoder-ckpt`` loads over them.
 """
 
 from __future__ import annotations
@@ -187,14 +202,20 @@ def load_model(cfg, workdir: str, device, seed: int = 42):
     return model.to(device).eval()
 
 
-def _doc_tower(args, device):
-    """(doc tokenizer, doc tower on ``device``) of ``--encoder-size``: the
-    tower's token table sized to the tokenizer (its ids must fit), weights
-    from ``--encoder-ckpt`` or a seeded init."""
+def _doc_tower(args, device, bert_ckpt: str | None = None):
+    """(doc tokenizer, doc tower on ``device``) of ``--encoder-size``, or of
+    the architecture of ``bert_ckpt`` (a HF BERT / DPR checkpoint
+    directory, also the tokenizer unless ``--doc-tokenizer``): the tower's
+    token table sized to the tokenizer (its ids must fit; a checkpoint's
+    must equal it), weights from the checkpoint, then ``--encoder-ckpt``
+    over them, or a seeded init without either."""
     import torch
 
     from gdr_tpu_torch.convert import load_doc_encoder_npz
     from gdr_tpu_torch.data.tokenize import load_tokenizer
+    from gdr_tpu_torch.models.convert import (bert_model_overrides,
+                                              bert_state_dict_from_pretrained,
+                                              load_bert_encoder)
     from gdr_tpu_torch.models.dual_encoder import (DocEncoder,
                                                    DocEncoderConfig,
                                                    init_doc_encoder,
@@ -202,14 +223,23 @@ def _doc_tower(args, device):
 
     cfg = (tiny_doc_encoder_config() if args.encoder_size == "tiny"
            else DocEncoderConfig())
-    tok = load_tokenizer(args.doc_tokenizer, vocab_size=cfg.vocab_size)
+    if bert_ckpt:
+        cfg = dataclasses.replace(cfg, **bert_model_overrides(bert_ckpt))
+    tok = load_tokenizer(args.doc_tokenizer or bert_ckpt,
+                         vocab_size=cfg.vocab_size)
     if tok.vocab_size != cfg.vocab_size:
+        if bert_ckpt:
+            raise ValueError(f"--doc-tokenizer vocab ({tok.vocab_size}) must "
+                             f"match the --bert-ckpt vocab ({cfg.vocab_size})")
         cfg = dataclasses.replace(cfg, vocab_size=tok.vocab_size)
     enc = DocEncoder(cfg)
+    if bert_ckpt:
+        load_bert_encoder(enc, bert_state_dict_from_pretrained(bert_ckpt))
+        print(f"# doc tower from {bert_ckpt}", file=sys.stderr)
     if args.encoder_ckpt:
         enc.load_state_dict(load_doc_encoder_npz(args.encoder_ckpt))
         print(f"# doc tower from {args.encoder_ckpt}", file=sys.stderr)
-    else:
+    elif not bert_ckpt:
         init_doc_encoder(enc, torch.Generator().manual_seed(args.seed))
         print(f"# no --encoder-ckpt: seeded random doc tower (seed "
               f"{args.seed})", file=sys.stderr)
@@ -217,16 +247,13 @@ def _doc_tower(args, device):
 
 
 def cmd_index(args) -> None:
-    if args.bert_ckpt:
-        raise SystemExit("--bert-ckpt: the HuggingFace BERT loaders are not "
-                         "ported yet (ROADMAP.md queue 1, item 9)")
     from gdr_tpu_torch.config import IndexConfig
     from gdr_tpu_torch.index.builder import build_index
     from gdr_tpu_torch.index.io import save_index
 
     device = _device(args.device)
+    tok, enc = _doc_tower(args, device, bert_ckpt=args.bert_ckpt)
     _, texts = _read_corpus_tsv(args.corpus)
-    tok, enc = _doc_tower(args, device)
     ids, mask = tok.encode_batch(texts, args.encoder_max_len)
     cfg = IndexConfig(kary=args.kary, leaf_cap=args.leaf_cap, seed=args.seed,
                       embedding_dim=enc.cfg.d_model)
@@ -271,13 +298,6 @@ def cmd_train(args) -> None:
     if "qg" in wanted and not args.qg:
         raise SystemExit(f"--query-type {query_type} needs --qg (run the "
                          f"`qg` subcommand first)")
-    if args.t5_ckpt and not args.t5_ckpt.endswith(".npz"):
-        raise SystemExit("--t5-ckpt: the HuggingFace T5 loaders are not "
-                         "ported yet (ROADMAP.md queue 1, item 9); pass a "
-                         ".npz in the params.npz layout")
-    if args.bert_ckpt:
-        raise SystemExit("--bert-ckpt: the HuggingFace BERT loaders are not "
-                         "ported yet (ROADMAP.md queue 1, item 9)")
     if args.mesh != "none":
         raise SystemExit(f"--mesh {args.mesh}: multi-GPU training is not "
                          f"ported yet (ROADMAP.md queue 1, item 10)")
@@ -287,22 +307,46 @@ def cmd_train(args) -> None:
 
     from gdr_tpu_torch.config import (DataConfig, EvalConfig, GDRConfig,
                                       TrainConfig)
-    from gdr_tpu_torch.convert import load_params_npz, save_params_npz
+    from gdr_tpu_torch.convert import save_params_npz
     from gdr_tpu_torch.data.dataset import (build_doc_query_sets,
                                             build_eval_data, build_train_set,
                                             mix_sources)
     from gdr_tpu_torch.data.tokenize import load_tokenizer
     from gdr_tpu_torch.index.io import load_index
+    from gdr_tpu_torch.models.convert import (bert_model_overrides,
+                                              t5_model_overrides)
     from gdr_tpu_torch.train.loop import TrainLoop
 
+    # the checkpoints' configs are read first: a missing one fails at once
+    t5_widths = (t5_model_overrides(args.t5_ckpt)
+                 if args.t5_ckpt and not args.t5_ckpt.endswith(".npz")
+                 else None)
+    stage2 = bool(args.corpus) and args.train_encoder_epoch < args.epochs
+    bert_width = None
+    if args.bert_ckpt:
+        bert_width = bert_model_overrides(args.bert_ckpt)["d_model"]
+        if not stage2:
+            raise ValueError("--bert-ckpt warm-starts the stage-2 doc tower: "
+                             "pass --corpus and --train-encoder-epoch < "
+                             "--epochs")
     device = _device(args.device)
     index = load_index(args.index)
     mcfg = dataclasses.replace(
         _model_config(args, store_dim=index.store.shape[1]),
         embedding_distillation=args.embed_distill,
         weight_distillation=args.weight_distill)
-    tok = load_tokenizer(args.tokenizer, vocab_size=mcfg.vocab_size)
+    if t5_widths:
+        # the model takes the checkpoint's widths, so its tensors fit
+        mcfg = dataclasses.replace(mcfg, **t5_widths)
+    tok = load_tokenizer(args.tokenizer or args.t5_ckpt,
+                         vocab_size=mcfg.vocab_size)
     if tok.vocab_size != mcfg.vocab_size:
+        if args.t5_ckpt:
+            raise ValueError(
+                f"--tokenizer vocab ({tok.vocab_size}) must match the "
+                f"--t5-ckpt vocab ({mcfg.vocab_size}): resizing the "
+                "embedding table would break the warm start — point "
+                "--tokenizer at the checkpoint's own tokenizer")
         mcfg = dataclasses.replace(mcfg, vocab_size=tok.vocab_size)
     # the secondary modes compute in f32, as the reference's
     modes = args.ensemble > 1 or args.hierarchic or args.softmax
@@ -374,8 +418,14 @@ def cmd_train(args) -> None:
 
     # stage 2 (the live doc tower) is reachable when the corpus is given
     doc_tokens = doc_tok_mask = tower = None
-    if args.corpus and args.train_encoder_epoch < args.epochs:
-        dtok, tower = _doc_tower(args, torch.device("cpu"))
+    if stage2:
+        if bert_width is not None and bert_width != index.store.shape[1]:
+            raise ValueError(
+                f"--bert-ckpt hidden size ({bert_width}) != index store dim "
+                f"({index.store.shape[1]}): rebuild the index with the same "
+                "checkpoint (index --bert-ckpt)")
+        dtok, tower = _doc_tower(args, torch.device("cpu"),
+                                 bert_ckpt=args.bert_ckpt)
         if tower.cfg.d_model != index.store.shape[1]:
             raise SystemExit(
                 f"doc tower width {tower.cfg.d_model} != index store width "
@@ -386,21 +436,8 @@ def cmd_train(args) -> None:
         print(f"stage 2 enabled: live doc tower over {len(doc_texts)} docs "
               f"from epoch {args.train_encoder_epoch + 1}", file=sys.stderr)
 
-    warm = None
-    if args.t5_ckpt:
-        sd = {k: v for k, v in load_params_npz(args.t5_ckpt).items()
-              if k.startswith(("shared.", "encoder."))}
-
-        def warm(model, _tower):
-            want = {k for k in model.state_dict()
-                    if k.startswith(("shared.", "encoder."))}
-            if set(sd) != want:
-                raise SystemExit(f"--t5-ckpt {args.t5_ckpt}: its encoder and "
-                                 f"shared leaves do not match the model's")
-            model.load_state_dict(sd, strict=False)
-            print(f"# encoder and shared embeddings from {args.t5_ckpt}",
-                  file=sys.stderr)
-
+    warm = _t5_warm_start(args.t5_ckpt, mcfg.num_layers) if args.t5_ckpt \
+        else None
     loop = TrainLoop(cfg, index, train_set, dev, workdir=args.workdir,
                      seed=args.seed, doc_tokens=doc_tokens,
                      doc_tok_mask=doc_tok_mask, doc_encoder=tower,
@@ -415,6 +452,45 @@ def cmd_train(args) -> None:
           file=sys.stderr)
     print(json.dumps({k: best[k] for k in ("epoch", "avg_train_loss",
                                             cfg.train.monitor) if k in best}))
+
+
+def _t5_warm_start(path: str, num_layers: int):
+    """``TrainLoop``'s ``warm_start`` hook of ``train --t5-ckpt``: the
+    encoder and shared embeddings from a HF T5 checkpoint directory, an
+    ``export_t5_encoder`` ``.npz`` (HF names) or a ``params.npz`` (flax
+    paths), told apart by their key names."""
+    import numpy as np
+
+    from gdr_tpu_torch.convert import load_params_npz
+    from gdr_tpu_torch.models.convert import (load_t5_encoder,
+                                              state_dict_from_pretrained)
+
+    sd = None
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as z:
+            names = z.files
+        if "shared.weight" not in names:
+            if not names or not all("/" in k for k in names):
+                raise SystemExit(f"--t5-ckpt {path}: neither an "
+                                 f"export_t5_encoder dump (HF names) nor a "
+                                 f"params.npz (flax paths)")
+            sd = {k: v for k, v in load_params_npz(path).items()
+                  if k.startswith(("shared.", "encoder."))}
+    hf = state_dict_from_pretrained(path) if sd is None else None
+
+    def warm(model, _tower):
+        if hf is not None:
+            load_t5_encoder(model, hf, num_layers)
+        else:
+            want = {k for k in model.state_dict()
+                    if k.startswith(("shared.", "encoder."))}
+            if set(sd) != want:
+                raise SystemExit(f"--t5-ckpt {path}: its encoder and shared "
+                                 f"leaves do not match the model's")
+            model.load_state_dict(sd, strict=False)
+        print(f"# encoder and shared embeddings from {path}", file=sys.stderr)
+
+    return warm
 
 
 def _qg_train_set(path: str, width: int, paths, mcfg):
@@ -657,6 +733,66 @@ def cmd_qg(args) -> None:
           f"{len(texts)} docs) → {args.out}")
 
 
+def cmd_ingest(args) -> None:
+    """Raw data → the ``corpus.tsv`` / ``train.tsv`` / ``dev.tsv`` that
+    ``index`` and ``train`` read: simplified NQ jsonl (train, and dev over
+    the same document table) or the pickled corpus with its query records;
+    without a dev file, ``--dev-frac`` holds out the tail of the train
+    queries."""
+    from gdr_tpu_torch.data.corpus import (QuerySet, corpus_from_records,
+                                           ingest_nq_splits,
+                                           queries_from_records)
+
+    if bool(args.nq_jsonl) == bool(args.corpus_pickle):
+        raise ValueError("pass exactly one of --nq-jsonl / --corpus-pickle")
+    if args.corpus_pickle and not args.train_pickle:
+        raise ValueError("--corpus-pickle requires --train-pickle")
+
+    if args.nq_jsonl:
+        corpus, train_q, dev_q = ingest_nq_splits(
+            args.nq_jsonl, args.dev_jsonl, max_records=args.max_records)
+    else:
+        import pickle
+        with open(args.corpus_pickle, "rb") as fh:
+            corpus, title_to_id = corpus_from_records(pickle.load(fh))
+        with open(args.train_pickle, "rb") as fh:
+            train_q = queries_from_records(pickle.load(fh), title_to_id)
+        dev_q = None
+        if args.dev_pickle:
+            with open(args.dev_pickle, "rb") as fh:
+                dev_q = queries_from_records(pickle.load(fh), title_to_id)
+
+    if dev_q is None and args.dev_frac > 0:
+        # the corpus stays whole, so retrieval still runs over every doc
+        n_dev = max(1, int(len(train_q.queries) * args.dev_frac))
+        dev_q = QuerySet(queries=train_q.queries[-n_dev:],
+                         doc_ids=train_q.doc_ids[-n_dev:])
+        train_q = QuerySet(queries=train_q.queries[:-n_dev],
+                           doc_ids=train_q.doc_ids[:-n_dev])
+
+    os.makedirs(args.out_dir, exist_ok=True)
+
+    def _clean(s: str) -> str:          # TSV-safe single-line fields
+        return s.replace("\t", " ").replace("\n", " ")
+
+    with open(os.path.join(args.out_dir, "corpus.tsv"), "w") as fh:
+        for t, x in zip(corpus.titles, corpus.texts):
+            fh.write(f"{_clean(t)}\t{_clean(x)}\n")
+
+    def _write_queries(name: str, qs) -> None:
+        with open(os.path.join(args.out_dir, name), "w") as fh:
+            for q, ds in zip(qs.queries, qs.doc_ids):
+                fh.write(f"{_clean(q)}\t{','.join(str(d) for d in ds)}\n")
+
+    _write_queries("train.tsv", train_q)
+    if dev_q is not None:
+        _write_queries("dev.tsv", dev_q)
+    print(f"ingest: {len(corpus.titles)} docs, {len(train_q.queries)} train"
+          + (f", {len(dev_q.queries)} dev" if dev_q is not None else "")
+          + f" → {args.out_dir}/{{corpus,train"
+          + (",dev" if dev_q is not None else "") + "}.tsv")
+
+
 def cmd_calculate(args) -> None:
     from gdr_tpu_torch.eval.offline import calculate
     print(json.dumps(calculate(args.result, ref_compat=args.ref_compat),
@@ -694,8 +830,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_doc_tower_flags(pi)
     pi.add_argument("--batch-size", type=int, default=256)
     pi.add_argument("--bert-ckpt", default=None,
-                    help="HuggingFace BERT checkpoint (not ported yet; "
-                         "refused)")
+                    help="HuggingFace BERT / DPR / AR2 checkpoint directory: "
+                         "the doc tower's architecture and weights (and its "
+                         "tokenizer unless --doc-tokenizer)")
     _add_device_flag(pi)
     pi.set_defaults(fn=cmd_index)
 
@@ -771,11 +908,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "index's node embeddings)")
     pt.add_argument("--t5-ckpt", default=None,
                     help="warm start of the encoder and shared embeddings "
-                         "from a .npz in the params.npz layout (HuggingFace "
-                         "checkpoints are refused)")
+                         "from a HuggingFace T5 checkpoint directory (its "
+                         "widths replace the preset's), an export_t5_encoder "
+                         ".npz or a params.npz")
     pt.add_argument("--bert-ckpt", default=None,
-                    help="HuggingFace BERT checkpoint (not ported yet; "
-                         "refused)")
+                    help="the stage-2 doc tower from a HuggingFace BERT / "
+                         "DPR / AR2 checkpoint directory; needs --corpus and "
+                         "--train-encoder-epoch < --epochs")
     pt.add_argument("--qg", default=None,
                     help="generated queries: the `qg` subcommand's .npz")
     pt.add_argument("--query-type", default=None,
@@ -891,6 +1030,25 @@ def build_parser() -> argparse.ArgumentParser:
     pq.add_argument("--seed", type=int, default=42)
     _add_device_flag(pq)
     pq.set_defaults(fn=cmd_qg)
+
+    pn = sub.add_parser("ingest", help="raw NQ jsonl / pickle corpus → "
+                                       "corpus.tsv + train/dev TSVs")
+    pn.add_argument("--nq-jsonl", default=None,
+                    help="simplified NQ train jsonl(.gz)")
+    pn.add_argument("--dev-jsonl", default=None,
+                    help="simplified NQ dev jsonl(.gz); shares the train "
+                         "corpus' doc-id table")
+    pn.add_argument("--max-records", type=int, default=None)
+    pn.add_argument("--corpus-pickle", default=None,
+                    help="pickled [{'title','text'}] corpus")
+    pn.add_argument("--train-pickle", default=None,
+                    help="pickled [{'query','positive_passages'}] records")
+    pn.add_argument("--dev-pickle", default=None)
+    pn.add_argument("--dev-frac", type=float, default=0.0,
+                    help="with no dev file: hold out this query fraction "
+                         "as dev.tsv")
+    pn.add_argument("--out-dir", required=True)
+    pn.set_defaults(fn=cmd_ingest)
 
     pc = sub.add_parser("calculate", help="offline metrics from result TSV")
     pc.add_argument("--result", required=True)

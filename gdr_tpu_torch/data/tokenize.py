@@ -84,6 +84,10 @@ def load_tokenizer(name_or_path: str | None, vocab_size: int = 32128):
             return SubwordTokenizer(name_or_path)
         try:
             return HFTokenizer(name_or_path)
-        except (ImportError, OSError, ValueError):   # no transformers/files
+        except Exception:   # noqa: BLE001
+            # no transformers, or no tokenizer files: a checkpoint directory
+            # holding only config.json and weights makes transformers raise
+            # AttributeError or TypeError as well as OSError / ValueError;
+            # the hash tokenizer stands in, as in the reference package
             pass
     return HashTokenizer(vocab_size=vocab_size)

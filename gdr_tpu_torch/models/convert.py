@@ -1,0 +1,381 @@
+"""Pretrained-weight import: HuggingFace checkpoint directories → the port's
+modules, read without ``transformers`` or ``safetensors``.
+
+A counterpart of ``gdr_tpu/models/convert.py``.  GDR warm-starts from
+t5-base by copying the pretrained encoder and shared-embedding tensors into
+its own model (the decoder side — decode vocabulary, PAWA — trains from
+scratch), and its document tower is a BERT/DPR context encoder.
+
+A checkpoint directory holds ``config.json`` and its tensors as
+``model.safetensors``, ``pytorch_model.bin`` or shards of either listed by
+an ``*.index.json`` ``weight_map``.  :func:`read_state_dict` reads any of
+them as f32 tensors on the host, with the load-time fix ``transformers``
+makes for these checkpoints (legacy ``LayerNorm.gamma`` / ``.beta`` names
+become ``.weight`` / ``.bias``).  Tied duplicates are not needed: a T5 file
+keeps ``shared.weight`` and drops ``encoder.embed_tokens.weight``.
+
+The port's layouts are torch's, so HF's ``[out, in]`` weights copy as they
+are; only T5 attention differs: the port keeps one fused ``qkv`` weight
+``[3·inner, d]`` (rows q | k | v), so HF's q, k and v stack into it.  The
+loaders copy into a module's parameters in place, and check every name and
+shape before they copy anything.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+CONFIG = "config.json"
+# in the order transformers prefers them
+WEIGHT_FILES = ("model.safetensors", "model.safetensors.index.json",
+                "pytorch_model.bin", "pytorch_model.bin.index.json")
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
+                       "BF16": torch.bfloat16, "I64": torch.int64}
+
+
+# ------------------------------------------------------------ the files
+
+def read_config(path: str) -> dict:
+    """``config.json`` of a checkpoint directory."""
+    f = os.path.join(path, CONFIG)
+    if not os.path.isfile(f):
+        raise FileNotFoundError(f"{path}: no {CONFIG} (not a HuggingFace "
+                                f"checkpoint directory)")
+    with open(f) as fh:
+        return json.load(fh)
+
+
+def read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """Every tensor of one ``.safetensors`` file, as f32.  The file is an
+    8-byte little-endian header length, a JSON header (name → dtype, shape,
+    [start, end) byte offsets into the data that follows) and the data."""
+    with open(path, "rb") as fh:
+        n = int.from_bytes(fh.read(8), "little")
+        header = json.loads(fh.read(n))
+        data = bytearray(os.path.getsize(path) - 8 - n)
+        if fh.readinto(data) != len(data):
+            raise ValueError(f"{path}: truncated")
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(meta["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has dtype {meta['dtype']}; "
+                             f"read are {sorted(_SAFETENSORS_DTYPES)}")
+        start, end = meta["data_offsets"]
+        count = int(np.prod(meta["shape"], dtype=np.int64))
+        if end - start != count * dtype.itemsize or end > len(data):
+            raise ValueError(f"{path}: {name}'s offsets {start}..{end} do not "
+                             f"hold a {meta['dtype']} tensor of shape "
+                             f"{meta['shape']}")
+        t = (torch.frombuffer(data, dtype=dtype, count=count, offset=start)
+             if count else torch.empty(0, dtype=dtype))
+        out[name] = t.reshape(meta["shape"]).to(torch.float32, copy=True)
+    return out
+
+
+def _read_weights(path: str) -> dict[str, torch.Tensor]:
+    if path.endswith(".safetensors"):
+        return read_safetensors(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.to(torch.float32) for k, v in sd.items()}
+
+
+def _fix_key(key: str) -> str:
+    """transformers' load-time rename of legacy LayerNorm parameters."""
+    if key.endswith("LayerNorm.gamma"):
+        return key[:-len("gamma")] + "weight"
+    if key.endswith("LayerNorm.beta"):
+        return key[:-len("beta")] + "bias"
+    return key
+
+
+def read_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """The tensors of a checkpoint directory under the file's own names, as
+    f32 on the host: ``model.safetensors``, ``pytorch_model.bin``, or the
+    shards of a ``*.index.json``."""
+    for name in WEIGHT_FILES:
+        f = os.path.join(path, name)
+        if not os.path.isfile(f):
+            continue
+        if name.endswith(".index.json"):
+            with open(f) as fh:
+                shards = dict.fromkeys(json.load(fh)["weight_map"].values())
+            sd = {}
+            for shard in shards:
+                sd.update(_read_weights(os.path.join(path, shard)))
+        else:
+            sd = _read_weights(f)
+        return {_fix_key(k): v for k, v in sd.items()}
+    raise FileNotFoundError(f"{path}: none of {', '.join(WEIGHT_FILES)}")
+
+
+# ------------------------------------------------------------ the configs
+
+# the fields gdr_tpu reads, at their T5Config / BertConfig defaults: a
+# config.json may leave out a field that equals its class's default
+_T5_DEFAULTS = dict(vocab_size=32128, d_model=512, d_kv=64, d_ff=2048,
+                    num_layers=6, num_heads=8)
+_T5_ALIASES = {"hidden_size": "d_model", "num_attention_heads": "num_heads",
+               "num_hidden_layers": "num_layers", "head_dim": "d_kv"}
+_BERT_FIELDS = dict(vocab_size=("vocab_size", 30522),
+                    d_model=("hidden_size", 768),
+                    num_layers=("num_hidden_layers", 12),
+                    num_heads=("num_attention_heads", 12),
+                    d_ff=("intermediate_size", 3072),
+                    max_position=("max_position_embeddings", 512))
+
+
+def t5_model_overrides(path: str) -> dict[str, int]:
+    """``ModelConfig`` fields of a HF T5 checkpoint, so its encoder tensors
+    fit the model exactly."""
+    c = read_config(path)
+    for alias, field in _T5_ALIASES.items():     # T5Config.attribute_map
+        if alias in c:
+            c[field] = c[alias]
+    return {k: int(c.get(k, v)) for k, v in _T5_DEFAULTS.items()}
+
+
+def bert_model_overrides(path: str) -> dict[str, int]:
+    """``DocEncoderConfig`` fields of a HF BERT / DPR checkpoint."""
+    c = read_config(path)
+    return {k: int(c.get(hf, v)) for k, (hf, v) in _BERT_FIELDS.items()}
+
+
+# ------------------------------------------------------------ copying
+
+def _f32(v) -> torch.Tensor:
+    """A torch tensor or numpy array as an f32 tensor on the host."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.as_tensor(np.asarray(v))
+    return v.detach().cpu().float()
+
+
+def _copy_into(module: nn.Module, plan: list, state_dict: Mapping) -> None:
+    """Copy ``state_dict`` into ``module``'s parameters by ``plan``: tuples
+    (source name, port name, row block of a fused ``qkv`` weight or None,
+    transform of the source tensor or None).  Every source name and every
+    shape is checked before anything is copied."""
+    params = module.state_dict()
+    missing = [src for src, *_ in plan if src not in state_dict]
+    if missing:
+        raise KeyError(f"missing {missing[0]} in state dict"
+                       + (f" (and {len(missing) - 1} more)"
+                          if len(missing) > 1 else ""))
+    moves = []
+    for src, dst, block, fn in plan:
+        val = _f32(state_dict[src])
+        if fn is not None:
+            val = fn(val)
+        target = params[dst]
+        if block is not None:
+            rows = target.shape[0] // 3
+            target = target[block * rows:(block + 1) * rows]
+        if tuple(val.shape) != tuple(target.shape):
+            raise ValueError(f"{src} {tuple(val.shape)} does not fit {dst} "
+                             f"{tuple(target.shape)}")
+        moves.append((target, val))
+    with torch.no_grad():
+        for target, val in moves:
+            target.copy_(val)
+
+
+# ------------------------------------------------------------ T5
+
+def hf_encoder_mapping(num_layers: int
+                       ) -> dict[str, tuple[str, int | None]]:
+    """HF T5 name → (the port's parameter, its row block in a fused
+    ``qkv`` weight or None) for the encoder and shared embeddings."""
+    m: dict[str, tuple[str, int | None]] = {
+        "shared.weight": ("shared.weight", None),
+        "encoder.final_layer_norm.weight": ("encoder.final_norm.scale", None),
+        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias."
+        "weight": ("encoder.rel_bias.rel_embedding", None),
+    }
+    for i in range(num_layers):
+        hf, my = f"encoder.block.{i}.layer", f"encoder.blocks.{i}"
+        for j, proj in enumerate("qkv"):
+            m[f"{hf}.0.SelfAttention.{proj}.weight"] = (f"{my}.attn.qkv.weight",
+                                                        j)
+        m[f"{hf}.0.SelfAttention.o.weight"] = (f"{my}.attn.o.weight", None)
+        m[f"{hf}.0.layer_norm.weight"] = (f"{my}.ln1.scale", None)
+        m[f"{hf}.1.DenseReluDense.wi.weight"] = (f"{my}.ff.wi.weight", None)
+        m[f"{hf}.1.DenseReluDense.wo.weight"] = (f"{my}.ff.wo.weight", None)
+        m[f"{hf}.1.layer_norm.weight"] = (f"{my}.ln2.scale", None)
+    return m
+
+
+def load_t5_encoder(model: nn.Module, state_dict: Mapping,
+                    num_layers: int) -> nn.Module:
+    """Copy a HF T5 state dict's encoder and shared embeddings into a
+    ``GenerativeRetriever`` (or ``Seq2SeqLM``); the decoder side, decoder.*
+    and lm_head of the source are ignored.  Returns ``model``."""
+    _copy_into(model, [(src, dst, block, None) for src, (dst, block)
+                       in hf_encoder_mapping(num_layers).items()],
+               state_dict)
+    return model
+
+
+def export_t5_encoder(state_dict: Mapping[str, torch.Tensor],
+                      num_layers: int) -> dict[str, np.ndarray]:
+    """Inverse of :func:`load_t5_encoder`: the encoder and shared
+    embeddings of a port state_dict under HF T5 names, as the ``.npz``
+    that ``train --t5-ckpt`` reads."""
+    out = {}
+    for src, (dst, block) in hf_encoder_mapping(num_layers).items():
+        val = state_dict[dst].detach().cpu().float()
+        if block is not None:
+            rows = val.shape[0] // 3
+            val = val[block * rows:(block + 1) * rows]
+        out[src] = val.numpy().copy()
+    return out
+
+
+def state_dict_from_pretrained(path: str) -> dict[str, torch.Tensor]:
+    """A HF T5 checkpoint directory's tensors; a ``.npz`` path loads an
+    :func:`export_t5_encoder` dump instead (either package's)."""
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as z:
+            return {k: torch.from_numpy(z[k]).float() for k in z.files}
+    return read_state_dict(path)
+
+
+# ------------------------------------------------------------ BERT
+
+_BERT_PREFIXES = ("ctx_encoder.bert_model.", "ctx_model.", "bert.",
+                  "bert_model.", "")
+_BERT_LAYER = (("attention.self.query", "attn.query"),
+               ("attention.self.key", "attn.key"),
+               ("attention.self.value", "attn.value"),
+               ("attention.output.dense", "attn.out"),
+               ("attention.output.LayerNorm", "ln1"),
+               ("intermediate.dense", "ff1"),
+               ("output.dense", "ff2"),
+               ("output.LayerNorm", "ln2"))
+
+
+def bert_state_dict_from_pretrained(path: str) -> dict[str, torch.Tensor]:
+    """A HF BERT-family checkpoint directory's tensors (plain BERT,
+    BertForPreTraining, DPR context encoders, AR2 exports) under the
+    file's own names; :func:`load_bert_encoder` normalises the prefixes."""
+    return read_state_dict(path)
+
+
+def load_bert_encoder(model: nn.Module, state_dict: Mapping) -> nn.Module:
+    """Copy a HF BERT state dict into the port's ``DocEncoder``.  Names may
+    carry DPR's ``ctx_encoder.bert_model.``, AR2's ``ctx_model.`` or
+    BertForPreTraining's ``bert.`` prefix; heads (``cls.*``), the pooler
+    and ``position_ids`` buffers are ignored.  Returns ``model``."""
+    sd = {}
+    for k, v in state_dict.items():
+        for pref in _BERT_PREFIXES:
+            if k.startswith(pref):
+                sd[k[len(pref):]] = v
+                break
+    plan = [(f"embeddings.{hf}", my, None, None) for hf, my in (
+        ("word_embeddings.weight", "tok_embed.weight"),
+        ("position_embeddings.weight", "pos_embed.weight"),
+        ("token_type_embeddings.weight", "type_embed.weight"),
+        ("LayerNorm.weight", "embed_ln.weight"),
+        ("LayerNorm.bias", "embed_ln.bias"))]
+    for i in range(model.cfg.num_layers):
+        for hf, my in _BERT_LAYER:
+            for leaf in ("weight", "bias"):
+                plan.append((f"encoder.layer.{i}.{hf}.{leaf}",
+                             f"blocks.{i}.{my}.{leaf}", None, None))
+    _copy_into(model, plan, sd)
+    return model
+
+
+# ------------------------------------------------------------ the fork
+
+def load_gdr_reference(model: nn.Module, state_dict: Mapping) -> nn.Module:
+    """Copy the reference fork's full model (its ``T5ForConditionalGeneration``
+    with a separate ``decode_embeddings`` table, an untied ``lm_head`` and
+    the efficient PAWA adaptor built from ``nn.TransformerDecoderLayer``)
+    into a ``GenerativeRetriever``.  Returns ``model``.
+
+    - torch ``MultiheadAttention`` scales q by head_dim**-0.5 after the
+      projection; the port's attention is unscaled, so the scale is folded
+      into the q rows of ``qkv``.
+    - The adaptor's projection biases have no counterpart (the adaptor is
+      biasless, T5-style): they must be zero in the source.
+    - ``adaptor_linear.weight`` [d·V, d] (out index o = i·V + v) becomes
+      U [d_j, V, d_i]: ``W.reshape(d, V, d).permute(2, 1, 0)``.
+    - ``lm_head.weight`` [V, d] becomes the port's ``lm_head`` [d, V].
+    """
+    cfg = model.cfg
+    params = model.state_dict()
+    plan = [(src, dst, block, None) for src, (dst, block)
+            in hf_encoder_mapping(cfg.num_layers).items()]
+    rel = "relative_attention_bias.weight"
+    plan += [("decoder.final_layer_norm.weight", "decoder.final_norm.scale",
+              None, None),
+             (f"decoder.block.0.layer.0.SelfAttention.{rel}",
+              "decoder.rel_bias.rel_embedding", None, None),
+             (f"decoder.block.0.layer.1.EncDecAttention.{rel}",
+              "decoder.cross_rel_bias.rel_embedding", None, None)]
+    for i in range(cfg.num_decoder_layers):
+        hf, my = f"decoder.block.{i}.layer", f"decoder.blocks.{i}"
+        for sub, attn in (("0.SelfAttention", "self_attn"),
+                          ("1.EncDecAttention", "cross_attn")):
+            for j, proj in enumerate("qkv"):
+                plan.append((f"{hf}.{sub}.{proj}.weight",
+                             f"{my}.{attn}.qkv.weight", j, None))
+            plan.append((f"{hf}.{sub}.o.weight", f"{my}.{attn}.o.weight",
+                         None, None))
+        for n in (0, 1, 2):
+            plan.append((f"{hf}.{n}.layer_norm.weight", f"{my}.ln{n + 1}.scale",
+                         None, None))
+        for w in ("wi", "wo"):
+            plan.append((f"{hf}.2.DenseReluDense.{w}.weight",
+                         f"{my}.ff.{w}.weight", None, None))
+    plan.append(("decode_embeddings.weight", "decode_embed.weight", None,
+                 None))
+    if "lm_head" in params:
+        plan.append(("lm_head.weight", "lm_head", None, lambda w: w.t()))
+    if "pawa.u" in params:
+        d = cfg.d_model
+        scale = (d // cfg.adaptor_num_heads) ** -0.5
+        plan.append(("adaptor_embeddings", "pawa.memory", None, None))
+        for i in range(cfg.adaptor_layer_num):
+            hf, my = f"adaptor.layers.{i}", f"pawa.layers.{i}"
+            for src, attn in (("self_attn", "self_attn"),
+                              ("multihead_attn", "cross_attn")):
+                w = f"{hf}.{src}.in_proj_weight"
+                plan += [(w, f"{my}.{attn}.qkv.weight", 0,
+                          lambda t, d=d: t[:d] * scale),
+                         (w, f"{my}.{attn}.qkv.weight", 1,
+                          lambda t, d=d: t[d:2 * d]),
+                         (w, f"{my}.{attn}.qkv.weight", 2,
+                          lambda t, d=d: t[2 * d:]),
+                         (f"{hf}.{src}.out_proj.weight",
+                          f"{my}.{attn}.o.weight", None, None)]
+                _zero_bias(state_dict, f"{hf}.{src}.in_proj_bias")
+                _zero_bias(state_dict, f"{hf}.{src}.out_proj.bias")
+            for lin, ff in (("linear1", "ff1"), ("linear2", "ff2")):
+                plan.append((f"{hf}.{lin}.weight", f"{my}.{ff}.weight", None,
+                             None))
+                _zero_bias(state_dict, f"{hf}.{lin}.bias")
+            for n in (1, 2, 3):
+                for leaf in ("weight", "bias"):
+                    plan.append((f"{hf}.norm{n}.{leaf}",
+                                 f"{my}.ln{n}.{leaf}", None, None))
+        plan.append(("adaptor_linear.weight", "pawa.u", None,
+                     lambda w, d=d: w.reshape(d, -1, d).permute(2, 1, 0)))
+    _copy_into(model, plan, state_dict)
+    return model
+
+
+def _zero_bias(state_dict: Mapping, name: str) -> None:
+    b = state_dict.get(name)
+    if b is not None and bool(_f32(b).any()):
+        raise ValueError(f"{name} must be zero: the port's PAWA adaptor is "
+                         f"biasless (T5-style)")

@@ -13,6 +13,7 @@ import importlib.util
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -308,10 +309,14 @@ def test_cli_expand_matches_gdr_tpu_cli_then_retrieves(index_chain):
 
 
 def test_cli_index_refuses_bert_ckpt(tmp_path):
+    """A directory that is not a HuggingFace checkpoint is named before the
+    corpus is read."""
     args = port_cli.build_parser().parse_args(
         ["index", "--corpus", str(tmp_path / "none.tsv"), "--out",
-         str(tmp_path / "x.npz"), "--bert-ckpt", str(tmp_path)])
-    with pytest.raises(SystemExit, match="queue 1, item 9"):
+         str(tmp_path / "x.npz"), "--bert-ckpt", str(tmp_path), "--device",
+         "cpu"])
+    with pytest.raises(FileNotFoundError,
+                       match=re.escape(f"{tmp_path}: no config.json")):
         args.fn(args)
 
 
