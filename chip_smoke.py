@@ -158,16 +158,35 @@ the last line):
    --bert-ckpt`` (one epoch, stage 2 with the live BERT-base tower) →
    ``eval`` of the trained ``params.npz``: every step exits 0, the counts
    printed are right, the metrics finite; each process's seconds;
-10. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
+10. serving over a sharded store — four ranks share the one card over
+   ``gloo`` (NCCL refuses two ranks on one device), or take one card each
+   over ``nccl`` on a machine of four or more cards; spawned processes
+   that each send their launch counts, times and peak back: (a) phase 3's
+   small f32 model, ``Evaluator(mesh=)`` at dp=4 and dp=2 × mp=2 on the
+   plain, packed and packed int8 layouts, on the card and on the CPU:
+   every rank's merged result equals the one-device retrieve (valid doc
+   ids equal, fused scores within 1e-5), and each card rank launches its
+   layout's scorer once and the decoder kernels as often as the one-card
+   retrieve; (b) t5-base in f32 as ``cli retrieve`` serves it, over phase
+   4's store (written once, memory-mapped by the ranks) on packed f32,
+   plain f32 and packed int8 at dp=4: per rank the store bytes it holds,
+   the launches of one retrieve (24 per decoder kernel, one scorer), 3
+   timed retrieves after a warm one beside the one-card ones, the merge
+   alone and the peak; the merged result equal to the one-card retrieve;
+   (c) the CLI under ``torch.distributed.run`` with ``nccl``, one rank per
+   card: ``retrieve --packed --mesh N`` and ``eval --packed --mesh N``
+   over phase 6's index print what the unsharded runs print;
+11. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
    layout's main path (and over phase 6's built index, in phase 7's
    TrainLoop eval, in phase 8's query generation, ensemble eval and
-   hierarchic eval, and in phase 9's warm-started retrieve), max |Δ|,
-   kernel / plain / library ms and its bound
+   hierarchic eval, in phase 9's warm-started retrieve, and per rank in
+   phase 10's sharded retrieves), max |Δ|, kernel / plain / library ms
+   and its bound
    (the decoder rows also by row count, per retrieve, per GEMM shape and
    at query generation's shape).
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
-torch, numpy and gdr_tpu_torch only (its phases 6 to 9 also run the
+torch, numpy and gdr_tpu_torch only (its phases 6 to 10 also run the
 port's CLI in subprocesses).  Files go to one temporary directory, removed
 at the end.
 """
@@ -3304,6 +3323,489 @@ def phase_pretrained(dev, card: str, root: Path, work: Path, trie) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 10
+
+# the sharded store: four ranks share the one card over gloo (NCCL refuses
+# two ranks on one device), or take a card each over nccl where the machine
+# has four; the mesh shapes of (a), and the layouts of (b)
+# with the scorer each rank launches once a retrieve
+MESH_RANKS = 4
+MESH_CFGS = {"dp4": dict(dp=4), "dp2xmp2": dict(dp=2, mp=2)}
+MESH_SMALL_LAYOUTS = ("plain", "packed", "packed int8")
+MESH_LAYOUTS = [("packed f32", dict(packed=True), "packed_scores"),
+                ("plain f32", {}, "rerank_scores"),
+                ("packed int8", dict(packed=True, quantize=True),
+                 "packed_scores_int8")]
+SCORER_OF = {"plain": "rerank_scores", "packed": "packed_scores",
+             "packed int8": "packed_scores_int8"}
+RANK_TIMEOUT = 900           # seconds for every rank's whole run
+MESH_TOL = 1e-5
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _arrays(res, rr) -> dict:
+    """The parts of a retrieve that the comparisons read, on the host."""
+    return dict(valid=res.valid.cpu().numpy(), nodes=res.nodes.cpu().numpy(),
+                doc_ids=rr.doc_ids.cpu().numpy(),
+                scores=rr.scores.cpu().numpy(),
+                doc_valid=rr.doc_valid.cpu().numpy())
+
+
+def _same_merged(tag: str, got: dict, want: dict, tol: float,
+                 beams: bool = True) -> float:
+    """A sharded retrieve against a one-device one: beams (where asked),
+    valid doc ids equal, fused scores within ``tol``; returns max |d|.
+    Docs whose fused scores tie exactly may come in either order (the
+    layouts list candidates in other orders), and a tie at the end of a
+    full row may keep either doc."""
+    import numpy as np
+
+    if beams:
+        v = want["valid"]
+        if not (np.array_equal(got["valid"], v)
+                and np.array_equal(got["nodes"][v], want["nodes"][v])):
+            raise Failed(f"sharded {tag}: beams differ from one device's")
+    dv = want["doc_valid"]
+    if not np.array_equal(got["doc_valid"], dv):
+        raise Failed(f"sharded {tag}: doc validity differs from one "
+                     f"device's")
+    gi, wi = got["doc_ids"], want["doc_ids"]
+    for a, b in {tuple(x[:2]) for x in np.argwhere((gi != wi) & dv)}:
+        v = dv[a, b]
+        ws, gs = want["scores"][a, b][v], got["scores"][a, b][v]
+        keep = ws != ws[-1] if v.all() else np.ones(len(ws), bool)
+        if sorted(zip(-gs[keep], gi[a, b][v][keep])) != sorted(
+                zip(-ws[keep], wi[a, b][v][keep])):
+            raise Failed(f"sharded {tag}: doc ids differ from one device's "
+                         f"(alpha {a}, query {b})")
+    err = float(np.abs(got["scores"][dv] - want["scores"][dv]).max())
+    if not err <= tol:
+        raise Failed(f"sharded {tag}: fused scores differ by {err:.3g} > "
+                     f"{tol:g}")
+    return err
+
+
+def _full_inputs(cfg):
+    """Phase 4's queries and EvalConfig."""
+    import numpy as np
+
+    from gdr_tpu_torch.config import EvalConfig
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(2, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    ev_cfg = EvalConfig(num_beams=100, num_return_sequences=100,
+                        max_output_length=cfg.max_output_length,
+                        length_penalty=0.8)
+    return ids, np.ones_like(ids), ev_cfg
+
+
+def _full_f32_model(dev):
+    """Phase 4's t5-base f32 model, seeded on the card."""
+    import torch
+
+    from gdr_tpu_torch.config import ModelConfig
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+
+    cfg = ModelConfig().scaled("base")
+    with torch.device(dev):
+        model = GenerativeRetriever(cfg)
+    return cfg, init_weights(model, torch.Generator(device=dev).manual_seed(0)
+                             ).eval()
+
+
+def _rank_small(dev) -> dict:
+    """(a) in one rank: phase 3's small model retrieves over the sharded
+    store on the card and on the CPU, each mesh shape and layout, with the
+    launches of each card retrieve."""
+    import torch
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.config import EvalConfig, MeshConfig
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, trie, store, ids, mask, _ = _small_world(0)
+    ev_cfg = EvalConfig(num_beams=12, num_return_sequences=20,
+                        max_output_length=cfg.max_output_length)
+    cpu_model, gpu_model = _small_models(cfg, dev)
+    out = {}
+    for mesh_name, mcfg in MESH_CFGS.items():
+        for where, model in (("card", gpu_model), ("cpu", cpu_model)):
+            mesh = make_mesh(MeshConfig(**mcfg), device=model.device)
+            for layout in MESH_SMALL_LAYOUTS:
+                ev = Evaluator(model, trie, store, ev_cfg, mesh=mesh,
+                               **SMALL_LAYOUTS[layout])
+                kernels.reset_launch_counts()
+                res, rr = ev.retrieve(ids, mask)
+                torch.cuda.synchronize()
+                out[mesh_name, where, layout] = dict(
+                    _arrays(res, rr), launches=kernels.launch_counts(),
+                    rows=int((ev.store.values if ev.quantize
+                              else ev.store).shape[0]))
+    return out
+
+
+def _rank_full(dev, trie, store_path: str, timed: int) -> dict:
+    """(b) in one rank: t5-base f32 over its shard of phase 4's store (a
+    memory map of the parent's copy), on each layout: the bytes it holds,
+    the launches of one retrieve, ``timed`` retrieves after a warm one, the
+    merge alone, and the peak over all of it."""
+    import numpy as np
+    import torch
+    import torch.distributed
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.config import MeshConfig
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.parallel.mesh import make_mesh
+    from gdr_tpu_torch.parallel.store import gather_merge
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, model = _full_f32_model(dev)
+    ids, mask, ev_cfg = _full_inputs(cfg)
+    store = np.load(store_path, mmap_mode="r")
+    mesh = make_mesh(MeshConfig(dp=MESH_RANKS), device=dev)
+    top_r, a = ev_cfg.num_return_sequences, len(ev_cfg.score_rates)
+    out = {}
+    for name, kw, _ in MESH_LAYOUTS:
+        t = time.perf_counter()
+        ev = Evaluator(model, trie, store, ev_cfg, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t
+        ev.retrieve(ids, mask)                           # warm: U table
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        res, rr = ev.retrieve(ids, mask)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        totals = _timed(lambda: ev.retrieve(ids, mask), 0, timed)
+        # the merge alone, at the shapes a retrieve gives it, each call
+        # after a barrier, so that no rank's time waits on another's decode
+        r = min(top_r, ev_cfg.num_beams * CAP)
+        s = torch.randn(a, B, r, device=dev)
+        p = torch.randint(0, N_DOCS, (a, B, r), dtype=torch.int32, device=dev)
+        merge = []
+        for _ in range(6):
+            torch.distributed.barrier()
+            merge += _timed(lambda: gather_merge(mesh, s, p, top_r), 0, 1)
+        merge = merge[1:]
+        out[name] = dict(_arrays(res, rr), launches=launches,
+                         store_bytes=_store_bytes(ev.store),
+                         rows=int((ev.store.values if ev.quantize
+                                   else ev.store).shape[0]),
+                         place_s=place_s, retrieve_ms_each=totals,
+                         merge_ms_each=merge)
+        del ev, res, rr
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def _mesh_backend() -> str:
+    """Phase 10's ranks: a card each over nccl on a machine of
+    ``MESH_RANKS`` or more cards, else all on the one card over gloo."""
+    import torch
+    return "nccl" if torch.cuda.device_count() >= MESH_RANKS else "gloo"
+
+
+def _rank_main(rank: int, coord: str, backend: str, trie, store_path: str,
+               timed: int, queue) -> None:
+    """One rank of phase 10 (a spawned process): join the group over
+    ``backend``, run (a) and (b) on its card (card ``rank`` under nccl,
+    else the first), put (rank, results, None) or (rank, None, traceback)
+    on ``queue``."""
+    import traceback
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from gdr_tpu_torch.parallel.distributed import initialize, shutdown
+    try:
+        initialize(coord, MESH_RANKS, rank, backend=backend)
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        out = {"small": _rank_small(dev),
+               "full": _rank_full(dev, trie, store_path, timed)}
+        queue.put((rank, out, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+    finally:
+        shutdown()
+
+
+def _spawn_ranks(backend: str, trie, store_path: str, timed: int
+                 ) -> list[dict]:
+    """Phase 10's ranks as spawned processes (CUDA does not survive a
+    fork); the first rank to fail fails the phase, and every rank is
+    stopped before this returns."""
+    import multiprocessing
+    import queue as queue_mod
+
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    coord = f"127.0.0.1:{_free_port()}"
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, coord, backend, trie, store_path, timed,
+                               q))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    results: dict[int, dict] = {}
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        while len(results) < MESH_RANKS:
+            try:
+                rank, out, err = q.get(timeout=5.0)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in results and p.exitcode is not None]
+                if dead or time.monotonic() > deadline:
+                    raise Failed(f"phase 10: rank(s) {dead} exited without "
+                                 f"a result" if dead else
+                                 f"phase 10: ranks sent nothing in "
+                                 f"{RANK_TIMEOUT} s") from None
+                continue
+            if err is not None:
+                raise Failed(f"phase 10: rank {rank} failed:\n{err}")
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(MESH_RANKS)]
+
+
+def sharded_small_refs(dev) -> dict:
+    """(a)'s one-device retrieves: phase 3's small model on the card (with
+    its launches) and on the CPU, on each layout."""
+    import torch
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.config import EvalConfig
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+
+    cfg, trie, store, ids, mask, _ = _small_world(0)
+    ev_cfg = EvalConfig(num_beams=12, num_return_sequences=20,
+                        max_output_length=cfg.max_output_length)
+    cpu_model, gpu_model = _small_models(cfg, dev)
+    refs = {}
+    for where, model in (("card", gpu_model), ("cpu", cpu_model)):
+        for layout in MESH_SMALL_LAYOUTS:
+            ev = Evaluator(model, trie, store, ev_cfg,
+                           **SMALL_LAYOUTS[layout])
+            kernels.reset_launch_counts()
+            res, rr = ev.retrieve(ids, mask)
+            torch.cuda.synchronize()
+            refs[where, layout] = dict(_arrays(res, rr),
+                                       launches=kernels.launch_counts())
+    return refs
+
+
+def sharded_full_refs(dev, card: str, trie, store_path: Path,
+                      timed: int) -> dict:
+    """(b)'s one-card retrieves: t5-base f32 over phase 4's store on each
+    layout (packed f32 is phase 4's f32 retrieve), timed beside the
+    sharded ones; the store is written to ``store_path`` for the ranks."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+
+    cfg, model = _full_f32_model(dev)
+    ids, mask, ev_cfg = _full_inputs(cfg)
+    g = torch.Generator(device=dev).manual_seed(7)      # phase 4's store
+    store = torch.randn(N_DOCS, cfg.encoder_d_model, generator=g, device=dev)
+    store = store / store.norm(dim=1, keepdim=True)
+    np.save(store_path, store.cpu().numpy())
+    refs = {}
+    for name, kw, _ in MESH_LAYOUTS:
+        ev = Evaluator(model, trie, store, ev_cfg, **kw)
+        res, rr = ev.retrieve(ids, mask)
+        totals = _timed(lambda: ev.retrieve(ids, mask), 0, timed)
+        refs[name] = dict(_arrays(res, rr), retrieve_ms_each=totals,
+                          store_bytes=_store_bytes(ev.store))
+        log(f"  (b) one card, {name}: retrieve "
+            f"{', '.join(f'{x:.2f}' for x in totals)} ms; store "
+            f"{refs[name]['store_bytes'] / 1e6:.1f} MB; {card}")
+        del ev, res, rr
+    del model, store
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _same_hits(tag: str, got: str, want: str) -> int:
+    """Two ``retrieve --json`` outputs: the same queries, and per query
+    the same scores in order and the same doc at each score, docs of one
+    tied score in either order (a tie at the end of the list may keep
+    either doc).  Returns the number of hits."""
+    g, w = ([json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+            for out in (got, want))
+    if not w or [x["query"] for x in g] != [x["query"] for x in w]:
+        raise Failed(f"{tag}: queries differ or none:\n{got}\nvs\n{want}")
+    for x, y in zip(g, w):
+        gh, wh = ([(h["score"], h["doc_id"]) for h in z["results"]]
+                  for z in (x, y))
+        tail = wh[-1][0] if wh else None
+        if [s for s, _ in gh] != [s for s, _ in wh] or sorted(
+                h for h in gh if h[0] != tail) != sorted(
+                h for h in wh if h[0] != tail):
+            raise Failed(f"{tag}: hits of {y['query']!r} differ:\n{gh}\n"
+                         f"vs\n{wh}")
+    return sum(len(y["results"]) for y in w)
+
+
+def sharded_cli(root: Path, work: Path) -> dict:
+    """(c): the CLI under torch.distributed.run with nccl, one rank per
+    card, over phase 6's index with its rows scaled to unit norm (so that
+    tanh does not saturate and fused scores do not tie) and seeded tiny
+    weights: retrieve --packed --mesh N against retrieve --packed, then
+    eval --packed --mesh N against eval --packed."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.index.io import load_index, save_index
+
+    n = torch.cuda.device_count()
+    index = load_index(str(work / "index.npz"))
+    index.store = index.store / np.linalg.norm(index.store, axis=1,
+                                               keepdims=True)
+    save_index(str(work / "mesh_index.npz"), index)
+    common = ["--index", str(work / "mesh_index.npz"), "--workdir",
+              str(work / "mesh_run"), "--model-size", "tiny", "--beam", "20",
+              "--max-input-length", "16", "--device", "cuda", "--packed"]
+    retrieve = ["retrieve", *common, "--top-k", "5", "--json", "--query",
+                "alpha river music", "--query", "science novel", "--query",
+                "history of football"]
+    evaluate = ["eval", *common, "--dev", str(work / "dev.tsv")]
+    env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="1")
+
+    def torchrun(argv):
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(n), "-m", "gdr_tpu_torch.cli", *argv,
+             "--mesh", str(n)], cwd=root, env=env, capture_output=True,
+            text=True, timeout=300)
+        if out.returncode != 0:
+            raise Failed(f"torchrun cli {argv[0]} --mesh {n} exited "
+                         f"{out.returncode}:\n{out.stderr[-3000:]}")
+        if "over nccl" not in out.stderr:
+            raise Failed(f"torchrun cli {argv[0]}: no nccl group:\n"
+                         f"{out.stderr[-2000:]}")
+        return out.stdout
+
+    t = time.perf_counter()
+    hits = _same_hits(f"cli retrieve --mesh {n} (nccl)", torchrun(retrieve),
+                      _port_cli(retrieve, root).stdout)
+    drop = lambda m: {k: v for k, v in m.items()
+                      if not k.endswith(TIMER_KEYS)}
+    e_one = _port_cli(evaluate, root).stdout
+    e_one = json.loads(e_one[e_one.index("{"):])
+    e_many = torchrun(evaluate)
+    e_many = json.loads(e_many[e_many.index("{"):])
+    if drop(e_many) != drop(e_one):
+        raise Failed(f"cli eval --mesh {n} (nccl) metrics differ from the "
+                     f"unsharded ones")
+    cli_s = time.perf_counter() - t
+    log(f"  (c) cli under torch.distributed.run, nccl, {n} rank(s): "
+        f"retrieve --packed --mesh {n} printed the unsharded hits ({hits}), "
+        f"eval --mesh {n} its {len(drop(e_one))} metrics (recall1 "
+        f"{e_one['recall1']:.3f}); {cli_s:.1f} s for the four processes")
+    return dict(ranks=n, cli_s=cli_s, hits=hits, recall1=e_one["recall1"])
+
+
+def phase_sharded(dev, card: str, root: Path, work: Path, trie,
+                  timed: int = 3) -> dict:
+    t = time.perf_counter()
+    small = sharded_small_refs(dev)
+    store_path = work / "mesh_store.npy"
+    full = sharded_full_refs(dev, card, trie, store_path, timed)
+    log(f"  one-device references {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    backend = _mesh_backend()
+    ranks = _spawn_ranks(backend, trie, str(store_path), timed)
+    store_path.unlink()
+    log(f"  {MESH_RANKS} ranks over {backend}, "
+        + ("a card each" if backend == "nccl" else "sharing the one card")
+        + f": {time.perf_counter() - t:.1f} s from spawn to their results")
+
+    # (a): every rank's merged result equals the one-device retrieve
+    for (mesh_name, where, layout), got in ranks[0]["small"].items():
+        want = small[where, layout]
+        errs = [_same_merged(f"small {mesh_name} {where} {layout} rank {r}",
+                             rk["small"][mesh_name, where, layout], want,
+                             MESH_TOL) for r, rk in enumerate(ranks)]
+        if where == "card":
+            want_l = {k: (v if k in DECODER else 0)
+                      for k, v in want["launches"].items()}
+            want_l[SCORER_OF[layout]] = 1
+            for r, rk in enumerate(ranks):
+                got_l = rk["small"][mesh_name, where, layout]["launches"]
+                if got_l != want_l:
+                    raise Failed(f"sharded small {mesh_name} {layout} rank "
+                                 f"{r}: launches {got_l} != {want_l}")
+        log(f"  (a) f32 d=64 {mesh_name:7s} {where:4s} {layout:11s}: 4 "
+            f"ranks x {got['rows']} rows; {int(want['doc_valid'].sum())} "
+            f"valid docs equal to one {where}'s; max |d| fused score "
+            f"{max(errs):.3g} (tol {MESH_TOL:g})"
+            + (f"; launches per rank {got['launches']}"
+               if where == "card" else ""))
+
+    # (b): the merged full-width result, each rank's launches and numbers
+    out = {"ranks": MESH_RANKS, "backend": backend, "layouts": {}}
+    for name, _, scorer in MESH_LAYOUTS:
+        want = full[name]
+        per = [rk["full"][name] for rk in ranks]
+        err = max(_same_merged(f"t5-base {name} rank {r}", g, want,
+                               MESH_TOL, beams=False)
+                  for r, g in enumerate(per))
+        want_l = {**dict.fromkeys(per[0]["launches"], 0),
+                  **dict.fromkeys(DECODER, 24), scorer: 1}
+        for r, g in enumerate(per):
+            if g["launches"] != want_l:
+                raise Failed(f"sharded t5-base {name} rank {r}: launches "
+                             f"{g['launches']} != {want_l}")
+        retrieve = [fmean(g["retrieve_ms_each"]) for g in per]
+        merge = [fmean(g["merge_ms_each"]) for g in per]
+        lay = dict(
+            store_bytes_per_rank=[g["store_bytes"] for g in per],
+            rows_per_rank=per[0]["rows"],
+            store_bytes_one_card=want["store_bytes"],
+            launches_per_rank={k: v for k, v in per[0]["launches"].items()
+                               if v},
+            retrieve_ms_each=[g["retrieve_ms_each"] for g in per],
+            retrieve_ms=fmean(retrieve),
+            retrieve_ms_one_card=fmean(want["retrieve_ms_each"]),
+            merge_ms_each=[g["merge_ms_each"] for g in per],
+            merge_ms=fmean(merge), place_s=[g["place_s"] for g in per],
+            max_abs_err=err)
+        out["layouts"][name] = lay
+        log(f"  (b) t5-base f32 {name}: per rank {per[0]['rows']} rows, "
+            f"{lay['store_bytes_per_rank'][0] / 1e6:.1f} MB "
+            f"(one card {want['store_bytes'] / 1e6:.1f} MB), placed in "
+            f"{max(lay['place_s']):.2f} s; launches per rank "
+            f"{lay['launches_per_rank']}; retrieve {lay['retrieve_ms']:.2f} "
+            f"ms a rank (one card alone {lay['retrieve_ms_one_card']:.2f} "
+            f"ms), merge {lay['merge_ms']:.3f} ms; merged = one card's "
+            f"({int(want['doc_valid'].sum())} valid docs, max |d| "
+            f"{err:.3g}, tol {MESH_TOL:g}); {card}")
+    out["peak_gib_per_rank"] = [rk["full"]["peak_gib"] for rk in ranks]
+    out["launches"] = {k: v for lay in out["layouts"].values()
+                       for k, v in lay["launches_per_rank"].items()}
+    log("  (b) peak per rank " + ", ".join(
+        f"{x:.2f}" for x in out["peak_gib_per_rank"]) + " GiB")
+    out["cli"] = sharded_cli(root, work)
+    return out
+
+
 # ------------------------------------------------------------ main
 
 def spilling_functions(ptxas_log: str) -> list[tuple[str, str]]:
@@ -3350,7 +3852,8 @@ KERNELS = [
 
 
 def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
-                secondary: dict, pretrained: dict) -> list[dict]:
+                secondary: dict, pretrained: dict, sharded: dict
+                ) -> list[dict]:
     """The ``{"kernels": [...]}`` rows: each kernel's launches on its
     layout's main path (phase 4) and its phase-2 numbers at 3,200 rows; the
     decoder rows add their numbers at each row count (``by_rows``), the
@@ -3362,7 +3865,9 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
     ``launches_hierarchic_eval`` those of phase 8's query generation
     batch, ensemble eval and hierarchic decode + re-rank,
     ``launches_pretrained`` those of phase 9's retrieve by the t5-base
-    warm-started from a checkpoint directory; the decoder rows
+    warm-started from a checkpoint directory, ``launches_sharded_per_rank``
+    those of one rank's retrieve over phase 10's sharded store (its
+    layout's); the decoder rows
     add their numbers at query generation's shape (``qg``: one beam per
     row, a 64-token doc, a 40-position cache; f32 and bf16)."""
     rows = []
@@ -3382,7 +3887,8 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
             launches_ensemble_eval=secondary["ensemble"]["launches"][name],
             launches_hierarchic_eval=secondary["hierarchic"]["launches"][
                 name],
-            launches_pretrained=pretrained["launches"][name])
+            launches_pretrained=pretrained["launches"][name],
+            launches_sharded_per_rank=sharded["launches"][name])
         if name in DECODER:
             row.update(by_rows=st["rows"], per_retrieve=st["per_retrieve"],
                        gemms=st["gemms"], by_rows_f32=st["rows_f32"],
@@ -3493,6 +3999,13 @@ def main(argv: list[str]) -> int:
             "--bert-ckpt -> eval")
         pretrained = phase_pretrained(dev, smi, root, work, trie)
         log(f"[9] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        log(f"[10] serving over a sharded store: {MESH_RANKS} ranks over "
+            f"{_mesh_backend()} (small f32 card and cpu vs one device; "
+            f"t5-base f32 on three layouts vs one card), then the CLI's "
+            f"retrieve / eval --mesh under torch.distributed.run with nccl")
+        sharded = phase_sharded(dev, smi, root, work, trie)
+        log(f"[10] {time.perf_counter() - t:.1f} s")
     except Failed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3502,10 +4015,12 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"retrieve": full["layouts"],
                       "peak_gib": full["peak_gib"], "modes": modes,
                       "index": index, "train": train,
-                      "secondary": secondary, "pretrained": pretrained}),
+                      "secondary": secondary, "pretrained": pretrained,
+                      "sharded": sharded}),
           flush=True)
     print(json.dumps({"kernels": kernel_rows(stats, full, index, train,
-                                             secondary, pretrained)}),
+                                             secondary, pretrained,
+                                             sharded)}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,9 @@ secondary mode), ``retrieve`` (serving), ``eval`` (a dev set's metrics) and
     python -m gdr_tpu_torch.cli train ... --qg qg.npz [--query-type gtq_qg]
     python -m gdr_tpu_torch.cli train ... --ensemble 3   # | --hierarchic
     python -m gdr_tpu_torch.cli eval ... --ensemble 3
+    torchrun --nproc-per-node 4 -m gdr_tpu_torch.cli retrieve ... --mesh 4
+    torchrun --nproc-per-node 2 -m gdr_tpu_torch.cli eval ... --packed \\
+        --mesh 2 --device cpu
 
 Mirrors ``gdr_tpu/cli.py``.  ``index`` / ``expand``: a corpus TSV (title
 \\t text, or text) → the doc tower's embeddings → hierarchical k-means → the
@@ -45,9 +48,7 @@ Differences from the reference CLI:
   the decoder sublayers and the re-rank scorers run as the port's CUDA
   kernels, on ``cpu`` as their plain versions; the doc tower and the
   k-means run on the same device.  There is no ``--pallas`` or
-  ``--fused-decode``: the device decides.  ``eval --mesh`` (other than
-  ``none``) is a later slice and is refused; ``retrieve`` has no
-  ``--mesh``.  ``eval --gen-method sample|top_k``
+  ``--fused-decode``: the device decides.  ``eval --gen-method sample|top_k``
   draws rollouts (``--temperature``, ``--sample-top-k``).  The
   decoder-side query reps and the slow PAWA head are reached through
   ``EvalConfig`` / ``ModelConfig``, as in the reference package.
@@ -61,8 +62,20 @@ Differences from the reference CLI:
   print its metrics and write its state file (``ensemble.npz`` +
   ``ensemble_paths.npy``, ``hierarchic.npz``, ``softmax.npz``: the
   reference's trees as ``.npz``, not flax msgpack), which ``eval
-  --ensemble N`` reads.  ``--mesh`` is a later slice and is refused
-  (ROADMAP.md queue 1, item 10).
+  --ensemble N`` reads.  ``--mesh`` is refused: training over several
+  GPUs is a later slice (ROADMAP.md queue 1, item 11).
+- ``retrieve`` and ``eval --mesh`` row-shard the doc store over the ranks
+  of a process group, one process per GPU as ``torchrun`` starts them
+  (``nccl`` on ``--device cuda``, one card per rank; ``gloo`` on ``--device
+  cpu``); each rank decodes the whole batch, scores the candidates it
+  owns and the ranks' winners merge in one ``all_gather``.  ``--mesh``:
+  ``none``, ``auto`` (every rank, data-parallel; no mesh in a world of
+  one) or ``DP,MP`` (their product the world).  The group comes from
+  ``torchrun``'s environment, or from ``--coordinator`` (rank 0's
+  ``host:port``), ``--num-processes`` and ``--process-id``.  Only rank 0
+  prints results and writes the result TSV; the ranks read no stdin, so
+  give ``retrieve`` ``--query`` or ``--queries-file``.  ``eval
+  --ensemble`` takes no mesh.
 - Pretrained starts read HuggingFace checkpoint directories (``config.json``
   and ``model.safetensors``, ``pytorch_model.bin`` or their shards) with
   ``models/convert.py``, never through ``transformers``.  ``train
@@ -125,6 +138,8 @@ def _model_config(args, store_dim=None):
 
 
 def _device(name: str):
+    """The device of ``--device``; a bare ``cuda`` is the card this rank
+    took (``parallel/distributed.py::initialize``)."""
     import torch
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -132,7 +147,32 @@ def _device(name: str):
             f"--device {name}: CUDA is not available here (torch "
             f"{torch.__version__}); pass --device cpu to run the plain "
             f"PyTorch path on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _mesh_from_flag(spec: str, device):
+    """``--mesh``: ``none`` (one process), ``auto`` (every rank of the
+    process group, data-parallel; none in a world of one) or ``DP,MP``,
+    whose product must be the world."""
+    if spec in (None, "none"):
+        return None
+    from gdr_tpu_torch.config import MeshConfig
+    from gdr_tpu_torch.parallel.distributed import process_info
+    from gdr_tpu_torch.parallel.mesh import make_mesh
+
+    if spec == "auto":
+        world = process_info()[1]
+        return None if world == 1 else make_mesh(MeshConfig(dp=world),
+                                                  device=device)
+    parts = [int(x) for x in spec.split(",")]
+    cfg = MeshConfig(dp=parts[0], mp=parts[1] if len(parts) > 1 else 1)
+    try:
+        return make_mesh(cfg, device=device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {spec}: {e} (start one process per rank, "
+                         f"e.g. torchrun --nproc-per-node {cfg.dp * cfg.mp})")
 
 
 def _check_query_length(device, max_input_length: int, mcfg,
@@ -299,8 +339,8 @@ def cmd_train(args) -> None:
         raise SystemExit(f"--query-type {query_type} needs --qg (run the "
                          f"`qg` subcommand first)")
     if args.mesh != "none":
-        raise SystemExit(f"--mesh {args.mesh}: multi-GPU training is not "
-                         f"ported yet (ROADMAP.md queue 1, item 10)")
+        raise SystemExit(f"--mesh {args.mesh}: training over several GPUs is "
+                         f"not ported yet (ROADMAP.md queue 1, item 11)")
 
     import numpy as np
     import torch
@@ -538,8 +578,11 @@ def cmd_retrieve(args) -> None:
     from gdr_tpu_torch.data.tokenize import load_tokenizer
     from gdr_tpu_torch.eval.evaluator import Evaluator
     from gdr_tpu_torch.index.io import load_index
+    from gdr_tpu_torch.parallel.distributed import process_info
 
     device = _device(args.device)
+    mesh = _mesh_from_flag(args.mesh, device)
+    emit = print if process_info()[0] == 0 else (lambda *a, **k: None)
     queries = list(args.query or [])
     if args.queries_file:
         with open(args.queries_file) as fh:
@@ -561,12 +604,12 @@ def cmd_retrieve(args) -> None:
                         num_return_sequences=args.top_k,
                         max_output_length=mcfg.max_output_length,
                         score_rates=(args.alpha,))
-    evaluator = Evaluator(model, index.trie, index.store, ev_cfg,
+    evaluator = Evaluator(model, index.trie, index.store, ev_cfg, mesh=mesh,
                           packed=args.packed, quantize=args.int8_store)
 
     bs = min(args.batch_size, len(queries))
     if not args.json:
-        print("query_idx\trank\tdoc_id\tscore\tcid")
+        emit("query_idx\trank\tdoc_id\tscore\tcid")
     for s in range(0, len(queries), bs):
         chunk = queries[s:s + bs]
         padded = chunk + [chunk[0]] * (bs - len(chunk))
@@ -579,29 +622,31 @@ def cmd_retrieve(args) -> None:
             hits = [(int(doc_ids[b, r]), float(scores[b, r]))
                     for r in np.flatnonzero(valid[b])[:args.top_k]]
             if args.json:
-                print(json.dumps({
+                emit(json.dumps({
                     "query": q,
                     "results": [{"doc_id": d, "score": round(sc, 6),
                                  "cid": index.cid_of_doc[d]}
                                 for d, sc in hits]}))
             else:
                 for r, (d, sc) in enumerate(hits):
-                    print(f"{s + b}\t{r + 1}\t{d}\t{sc:.6f}"
+                    emit(f"{s + b}\t{r + 1}\t{d}\t{sc:.6f}"
                           f"\t{index.cid_of_doc[d]}")
 
 
 def cmd_eval(args) -> None:
-    if args.mesh != "none":
-        raise SystemExit(f"--mesh {args.mesh}: the sharded store is not "
-                         f"ported yet (ROADMAP.md queue 1, item 10)")
-
     from gdr_tpu_torch.config import EvalConfig
     from gdr_tpu_torch.data.dataset import build_eval_data
     from gdr_tpu_torch.data.tokenize import load_tokenizer
     from gdr_tpu_torch.eval.evaluator import Evaluator
     from gdr_tpu_torch.index.io import load_index
+    from gdr_tpu_torch.parallel.distributed import process_info
 
     device = _device(args.device)
+    mesh = _mesh_from_flag(args.mesh, device)
+    if mesh is not None and args.ensemble > 1:
+        raise SystemExit("--ensemble takes no --mesh: the ensemble's eval "
+                         "reads each member's store on one device")
+    lead = process_info()[0] == 0
     index = load_index(args.index)
     mcfg = _model_config(args, store_dim=index.store.shape[1])
     _check_query_length(device, args.max_input_length, mcfg)
@@ -625,10 +670,12 @@ def cmd_eval(args) -> None:
                         gen_method=args.gen_method,
                         temperature=args.temperature,
                         sample_top_k=args.sample_top_k)
-    evaluator = Evaluator(model, index.trie, index.store, ev_cfg,
+    evaluator = Evaluator(model, index.trie, index.store, ev_cfg, mesh=mesh,
                           packed=args.packed, quantize=args.int8_store)
     out = evaluator.evaluate(dev, batch_size=args.eval_batch_size,
-                             result_tsv=args.result_tsv)
+                             result_tsv=args.result_tsv if lead else None)
+    if not lead:
+        return
     if args.result_tsv:
         print(f"wrote result TSV → {args.result_tsv}")
     print(json.dumps(out, indent=2, sort_keys=True))
@@ -805,6 +852,13 @@ def _add_device_flag(p: argparse.ArgumentParser) -> None:
                         "PyTorch)")
 
 
+def _add_mesh_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh", default="none",
+                   help="row-shard the doc store over the ranks of the "
+                        "process group (torchrun): 'none', 'auto' or "
+                        "'DP,MP'; with --int8-store it needs --packed")
+
+
 def _add_doc_tower_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--encoder-max-len", type=int, default=128)
     p.add_argument("--doc-tokenizer", default=None)
@@ -819,6 +873,13 @@ def _add_doc_tower_flags(p: argparse.ArgumentParser) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gdr_tpu_torch")
+    p.add_argument("--coordinator", default=None,
+                   help="rank 0's host:port, to start a process group "
+                        "without torchrun (torchrun's environment needs "
+                        "nothing); processes are numbered host by host, "
+                        "one per card, process p on card p %% cards")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pi = sub.add_parser("index", help="embed corpus + k-means + trie")
@@ -895,7 +956,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the in-training eval reads the cluster-packed "
                          "store")
     pt.add_argument("--mesh", default="none",
-                    help="only 'none' (multi-GPU is not ported yet)")
+                    help="only 'none' (training over several GPUs is not "
+                         "ported yet)")
     pt.add_argument("--grad-accum", type=int, default=1,
                     help="micro-batches per optimizer update")
     pt.add_argument("--no-bf16", action="store_true",
@@ -967,6 +1029,7 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--int8-store", action="store_true",
                     help="int8 doc-embedding store (4x smaller; with "
                          "--packed scored by the int8 packed kernel)")
+    _add_mesh_flag(pr)
     _add_device_flag(pr)
     pr.add_argument("--seed", type=int, default=42,
                     help="seed of the random weights used when the workdir "
@@ -999,8 +1062,7 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--result-tsv", default=None,
                     help="also write the reference-compatible result TSV "
                          "(query, preds, gts, rank) that `calculate` reads")
-    pe.add_argument("--mesh", default="none",
-                    help="only 'none' (the sharded store is not ported yet)")
+    _add_mesh_flag(pe)
     pe.add_argument("--ensemble", type=int, default=1,
                     help="evaluate the N-decoder ensemble that train "
                          "--ensemble N wrote (ensemble.npz)")
@@ -1060,9 +1122,37 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _bootstrap(args) -> bool:
+    """Join the process group when several processes run
+    (``parallel/distributed.py::initialize`` reads torchrun's environment
+    or ``--coordinator`` / ``--num-processes`` / ``--process-id``):
+    ``nccl`` under ``--device cuda``, one card per rank, ``gloo`` under
+    ``--device cpu``.  Returns True when a group was made."""
+    from gdr_tpu_torch.parallel.distributed import initialize, process_info
+
+    backend = "nccl" if getattr(args, "device", "cuda").startswith("cuda") \
+        else "gloo"
+    try:
+        if not initialize(args.coordinator, args.num_processes,
+                          args.process_id, backend=backend):
+            return False
+    except ValueError as e:
+        raise SystemExit(f"process group: {e}")
+    rank, world = process_info()
+    print(f"# process group: rank {rank}/{world} over {backend}",
+          file=sys.stderr)
+    return True
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    started = _bootstrap(args)
+    try:
+        args.fn(args)
+    finally:
+        if started:
+            from gdr_tpu_torch.parallel.distributed import shutdown
+            shutdown()
 
 
 if __name__ == "__main__":

@@ -9,7 +9,11 @@ runs:
   their plain PyTorch versions;
 - ``TrainConfig`` has no ``async_checkpointing``: a checkpoint is written
   synchronously, to a temporary file renamed into place;
-- there is no ``MeshConfig``: the multi-GPU layouts are a later slice.
+- ``MeshConfig`` lays its dp × mp mesh over processes, one per GPU
+  (``parallel/mesh.py``), where the reference lays it over devices; it
+  has neither ``axis_names`` nor ``tp_min_size``, and ``GDRConfig`` no
+  ``mesh``, until training over the mesh reads them (ROADMAP.md queue 1,
+  item 11).
 
 Derived quantities (``decode_vocab_size = kary * max_output_length + 2``)
 are computed properties, as in the reference package.
@@ -170,6 +174,15 @@ class EvalConfig:
     temperature: float = 1.0
     sample_top_k: int = 0
     sample_seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Process mesh: dp (batch) × mp (parameter) ranks, one per GPU; the
+    doc-embedding store is row-sharded over the flattened mesh."""
+
+    dp: int = -1                     # -1 → every rank of the world
+    mp: int = 1
 
 
 @dataclass(frozen=True)

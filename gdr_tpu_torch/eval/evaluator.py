@@ -15,8 +15,14 @@ The CIDs come from beam search or, with ``gen_method`` ``sample`` /
 by (``sample_seed``, batch index).  The dense-stage query is the encoder
 rep, or with ``use_query_embed_decoder_avg`` / ``_special`` each beam's
 pooled decoder states, averaged with the encoder rep or fused by the
-``concate`` layer (``fusion_strategy``).  The sharded-store (``mesh=``)
-layouts are a later slice.
+``concate`` layer (``fusion_strategy``).
+
+With ``mesh=`` (``parallel/mesh.py``) the store is row-sharded over the
+mesh's ranks, one per GPU: each rank holds only its rows, decodes the
+whole batch, scores the candidates it owns through its layout's scorer
+and merges the ranks' winners with one ``all_gather``
+(``parallel/store.py``), so every rank returns the same result.  The
+sharded layouts are plain, packed and packed int8.
 """
 
 from __future__ import annotations
@@ -31,10 +37,14 @@ from gdr_tpu_torch.eval import metrics as M
 from gdr_tpu_torch.eval.offline import write_result_tsv
 from gdr_tpu_torch.ops.beam import BeamResult, generate_cids, sample_cids
 from gdr_tpu_torch.ops.codec import decode_token_batch
-from gdr_tpu_torch.ops.packed_store import pack_layout, pack_rows
+from gdr_tpu_torch.ops.packed_store import (pack_layout, pack_layout_sharded,
+                                            pack_rows)
 from gdr_tpu_torch.ops.quantize import pack_quantized_rows, quantize_store
 from gdr_tpu_torch.ops.rerank import RerankResult, rerank, rerank_packed
 from gdr_tpu_torch.ops.trie import TrieTensors
+from gdr_tpu_torch.parallel.store import (place_packed_store, place_store,
+                                          sharded_rerank_from_beams,
+                                          sharded_rerank_packed)
 from gdr_tpu_torch.utils.rng import fold_in
 from gdr_tpu_torch.utils.timing import PhaseTimer
 
@@ -61,17 +71,21 @@ class Evaluator:
     store out cluster-contiguously so the re-rank reads one contiguous block
     per beam (ops/packed_store.py) through the packed scorer kernel.
     ``quantize``: hold the store as per-row absmax int8 (ops/quantize.py,
-    4× smaller) and score with the dequantising dot."""
+    4× smaller) and score with the dequantising dot.  ``mesh``: a
+    ``parallel.mesh.Mesh``; the store is then row-sharded over its ranks
+    (plain, or with ``packed`` the shard-aware packed layout, int8 with
+    ``quantize``) and the re-rank merges across them."""
 
     def __init__(self, model, trie: TrieTensors, store, cfg: EvalConfig,
                  mesh=None, packed: bool = False, quantize: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded-store evaluator (mesh=) is not ported yet "
-                "(ROADMAP.md queue 1, item 10: multi-GPU)")
+        if quantize and mesh is not None and not packed:
+            raise ValueError("quantize=True with a mesh needs packed=True "
+                             "(the shard-aware int8 layout; the plain "
+                             "sharded re-rank has no quantized variant)")
         self.model = model
         self.trie = trie
         self.cfg = cfg
+        self.mesh = mesh
         self.packed = packed
         self.quantize = quantize
         dev = model.device
@@ -79,8 +93,14 @@ class Evaluator:
         if packed:
             # the reference's int8 layout aligns blocks to 32 rows (a TPU
             # int8 tiling rule); kept so that starts equal the reference's
-            starts, counts, row_to_doc, cap = pack_layout(
-                trie, align=32 if quantize else 8)
+            align = 32 if quantize else 8
+            if mesh is not None:
+                starts, counts, row_to_doc, cap, self._p_shard_rows = \
+                    pack_layout_sharded(trie, mesh.size, align=align)
+            else:
+                starts, counts, row_to_doc, cap = pack_layout(trie,
+                                                              align=align)
+            self._p_row_to_doc_host = row_to_doc
             self._p_starts = torch.as_tensor(starts, device=dev)
             self._p_counts = torch.as_tensor(counts, device=dev)
             self._p_row_to_doc = torch.as_tensor(row_to_doc, device=dev)
@@ -113,8 +133,16 @@ class Evaluator:
 
     def set_store(self, store) -> None:
         """Replace the doc-embedding store [N, d], applying this evaluator's
-        layout (cluster packing, int8 quantization) on the model's
-        device."""
+        layout (cluster packing, int8 quantization) on the model's device.
+        On a mesh only this rank's rows reach the device: a numpy store
+        (a memory map too) is read only at those rows."""
+        if self.mesh is not None:
+            self.store = (place_packed_store(store, self._p_row_to_doc_host,
+                                             self.mesh, self.device,
+                                             quantize=self.quantize)
+                          if self.packed else
+                          place_store(store, self.mesh, self.device))
+            return
         store = torch.as_tensor(store).to(self.device)
         if self.packed and self.quantize:
             self.store = pack_quantized_rows(store, self._p_row_to_doc)
@@ -188,6 +216,17 @@ class Evaluator:
         """Stage 2 of ``retrieve`` on this evaluator's store layout: the
         beams' clusters expanded, scored against ``q_emb`` and fused."""
         top_r = self.cfg.num_return_sequences
+        if self.mesh is not None and self.packed:
+            return sharded_rerank_packed(
+                self.mesh, self.store, self._p_starts, self._p_counts,
+                self._p_row_to_doc, self._p_cap, self._p_shard_rows, q_emb,
+                res.nodes, res.scores, res.valid, self._cluster_of_node,
+                self._alphas, top_r=top_r)
+        if self.mesh is not None:
+            return sharded_rerank_from_beams(
+                self.mesh, self.store, q_emb, res.nodes, res.scores,
+                res.valid, self._cluster_of_node, self._cluster_docs,
+                self._cluster_doc_mask, self._alphas, top_r=top_r)
         if self.packed:
             return rerank_packed(self.store, self._p_starts, self._p_counts,
                                  self._p_row_to_doc, self._p_cap, q_emb,

@@ -56,7 +56,7 @@ def embed_corpus(doc_encoder: DocEncoder, token_ids: np.ndarray,
     if mesh is not None:
         raise NotImplementedError(
             "embedding over a device mesh (mesh=) is not ported yet "
-            "(ROADMAP.md queue 1, item 10: multi-GPU)")
+            "(ROADMAP.md queue 1, item 11: training over several GPUs)")
     return _embed(doc_encoder, token_ids, masks, batch_size,
                   normalize).cpu().numpy()
 

@@ -62,7 +62,7 @@ class TrainLoop:
         if mesh is not None:
             raise NotImplementedError(
                 "training over a device mesh (mesh=) is not ported yet "
-                "(ROADMAP.md queue 1, item 10: multi-GPU)")
+                "(ROADMAP.md queue 1, item 11: training over several GPUs)")
         self.cfg = cfg
         self.index = index
         self.train_set = train_set

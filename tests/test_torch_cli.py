@@ -204,18 +204,14 @@ def test_cli_eval_top_k_runs(index_path, eval_runs, tmp_path):
 @pytest.mark.parametrize("flags", [["--ensemble", "2"], ["--mesh", "auto"]],
                          ids=["ensemble", "mesh"])
 def test_cli_eval_refuses_unported_modes(flags, tmp_path):
-    """``--mesh`` is refused, naming the ROADMAP item; ``--ensemble`` is
-    ported, so its run gets as far as reading the (missing) index."""
+    """Both are ported: ``--ensemble`` and ``--mesh auto`` (in a world of
+    one process, no mesh) get as far as reading the (missing) index."""
     args = port_cli.build_parser().parse_args(
         ["eval", "--index", str(tmp_path / "none.npz"), "--dev",
          str(tmp_path / "none.tsv"), "--workdir", str(tmp_path), "--device",
          "cpu", *flags])
-    if flags[0] == "--ensemble":
-        with pytest.raises(FileNotFoundError, match="none.npz"):
-            args.fn(args)
-    else:
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            args.fn(args)
+    with pytest.raises(FileNotFoundError, match="none.npz"):
+        args.fn(args)
 
 
 def test_cli_refuses_cuda_without_a_card(index_path, tmp_path):

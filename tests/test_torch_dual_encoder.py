@@ -118,7 +118,7 @@ def test_embed_corpus_refuses_ids_outside_the_vocab():
     with pytest.raises(ValueError, match="positions"):
         tower(torch.zeros(1, 65, dtype=torch.long),
               torch.ones(1, 65, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
         embed_corpus(tower, ids[:1], mask[:1], mesh=object())
 
 

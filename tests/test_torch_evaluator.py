@@ -151,6 +151,8 @@ def test_u_table_built_once_per_weight_set(world):
 
 @pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_layouts_raise(world, kw):
+    """Every layout is ported; an int8 store on a mesh needs the packed
+    layout, as in the reference (checked before the mesh is read)."""
     tm, trie, store = world[2], world[3], world[4]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Evaluator(tm, trie, store, EvalConfig(**EV), **kw)
+    with pytest.raises(ValueError, match="needs packed=True"):
+        Evaluator(tm, trie, store, EvalConfig(**EV), quantize=True, **kw)
