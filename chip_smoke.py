@@ -176,12 +176,29 @@ the last line):
    (c) the CLI under ``torch.distributed.run`` with ``nccl``, one rank per
    card: ``retrieve --packed --mesh N`` and ``eval --packed --mesh N``
    over phase 6's index print what the unsharded runs print;
-11. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
+11. training over a mesh — the same four ranks (gloo on one card, nccl a
+   card each on four): (a) phase 3's small f32 model from seeded weights,
+   ``TrainLoop(mesh=)`` at dp=4 and dp=2 × mp=2, plain and packed eval, two
+   epochs of ``gdr_tpu``'s own mesh-test world (input dropout on, module
+   dropout 0): each rank's step losses within 1e-5 (relative) of the
+   one-card loop's, its masters (mp column slices at 2 × 2) within 1e-5
+   after each epoch (up to 0.1% of elements, Adam's rounding-level steps,
+   within one step), recall1 equal, each epoch's eval launching the decoder
+   kernels as often as the one-card eval and the layout's scorer once a
+   retrieve on its shard; the one-card loop against the CPU's (losses
+   within 1e-4 relative, recall1 equal); (b) t5-base at TrainConfig's
+   defaults (batch 64 global, bf16 over f32 masters, dropout 0.1, R-Drop
+   0.1 Contrast, 11 candidates from phase 4's store, written once and
+   memory-mapped, a quarter of its rows a rank) at dp=2 × mp=2: 1 warm and
+   2 timed steps a rank, the gradient all-reduce alone, peak GiB, the
+   bytes of masters and moments held beside one process's, the store rows
+   held; losses and grad norms finite and equal on every rank;
+12. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
    layout's main path (and over phase 6's built index, in phase 7's
    TrainLoop eval, in phase 8's query generation, ensemble eval and
-   hierarchic eval, in phase 9's warm-started retrieve, and per rank in
-   phase 10's sharded retrieves), max |Δ|, kernel / plain / library ms
-   and its bound
+   hierarchic eval, in phase 9's warm-started retrieve, per rank in
+   phase 10's sharded retrieves and per rank in phase 11's mesh
+   TrainLoop eval), max |Δ|, kernel / plain / library ms and its bound
    (the decoder rows also by row count, per retrieve, per GEMM shape and
    at query generation's shape).
 
@@ -3538,20 +3555,20 @@ def _rank_main(rank: int, coord: str, backend: str, trie, store_path: str,
         shutdown()
 
 
-def _spawn_ranks(backend: str, trie, store_path: str, timed: int
+def _spawn_ranks(backend: str, *args, target=None, phase: str = "phase 10"
                  ) -> list[dict]:
-    """Phase 10's ranks as spawned processes (CUDA does not survive a
-    fork); the first rank to fail fails the phase, and every rank is
-    stopped before this returns."""
+    """A phase's ranks as spawned processes (CUDA does not survive a
+    fork): ``target(rank, coord, backend, *args, queue)``, phase 10's
+    ``_rank_main`` by default; the first rank to fail fails the phase, and
+    every rank is stopped before this returns."""
     import multiprocessing
     import queue as queue_mod
 
     ctx = multiprocessing.get_context("spawn")
     q = ctx.Queue()
     coord = f"127.0.0.1:{_free_port()}"
-    procs = [ctx.Process(target=_rank_main,
-                         args=(r, coord, backend, trie, store_path, timed,
-                               q))
+    procs = [ctx.Process(target=target or _rank_main,
+                         args=(r, coord, backend, *args, q))
              for r in range(MESH_RANKS)]
     for p in procs:
         p.start()
@@ -3565,13 +3582,13 @@ def _spawn_ranks(backend: str, trie, store_path: str, timed: int
                 dead = [r for r, p in enumerate(procs)
                         if r not in results and p.exitcode is not None]
                 if dead or time.monotonic() > deadline:
-                    raise Failed(f"phase 10: rank(s) {dead} exited without "
+                    raise Failed(f"{phase}: rank(s) {dead} exited without "
                                  f"a result" if dead else
-                                 f"phase 10: ranks sent nothing in "
+                                 f"{phase}: ranks sent nothing in "
                                  f"{RANK_TIMEOUT} s") from None
                 continue
             if err is not None:
-                raise Failed(f"phase 10: rank {rank} failed:\n{err}")
+                raise Failed(f"{phase}: rank {rank} failed:\n{err}")
             results[rank] = out
     finally:
         for p in procs:
@@ -3806,6 +3823,381 @@ def phase_sharded(dev, card: str, root: Path, work: Path, trie,
     return out
 
 
+# ------------------------------------------------------------ phase 11
+
+def mesh_train_world(small: bool = False):
+    """The f32 world of ``gdr_tpu``'s own mesh TrainLoop test
+    (``tests/test_parallel.py:178-188``): module dropout 0, input dropout
+    on (0.5), batch 8, two epochs of stage 1, eval at beam 4, masters and
+    moments of leaves of 256+ elements sharded over mp; the port's copy of
+    its synthetic task (16 docs, 3-ary).  ``small``: phase 3's model
+    widths (d 64, 4 heads, vocab 512) over a 64-wide store.
+    (cfg, index, train set, dev set)."""
+    from gdr_tpu_torch.config import tiny_config
+    from gdr_tpu_torch.data.dataset import TrainSet
+    from gdr_tpu_torch.data.synthetic import build_synthetic_task
+    from gdr_tpu_torch.eval.evaluator import EvalData
+    from gdr_tpu_torch.index.io import Index
+
+    cfg = tiny_config(kary=3, max_output_length=5)
+    model = dataclasses.replace(cfg.model, dropout_rate=0.0)
+    if small:
+        model = dataclasses.replace(model, d_model=64, d_kv=16, d_ff=128,
+                                    num_layers=2, num_decoder_layers=2,
+                                    num_heads=4, vocab_size=512,
+                                    encoder_d_model=64)
+    cfg = cfg.replace(
+        model=model,
+        train=dataclasses.replace(
+            cfg.train, train_batch_size=8, eval_batch_size=4,
+            num_train_epochs=2, train_encoder_epoch=99, bf16=False,
+            learning_rate=3e-3, decoder_learning_rate=3e-3),
+        eval=dataclasses.replace(cfg.eval, num_beams=4,
+                                 num_return_sequences=4, score_rates=(0.0,)),
+        mesh=dataclasses.replace(cfg.mesh, tp_min_size=256))
+    task = build_synthetic_task(n_docs=16, dim=model.encoder_d_model, kary=3,
+                                leaf_cap=4, seq_len=8,
+                                vocab_size=model.vocab_size,
+                                max_output_length=5, seed=0)
+    index = Index(store=task.store, trie=task.trie, paths=task.paths,
+                  cid_of_doc=task.cid_of_doc)
+    ts = TrainSet(input_ids=task.input_ids, attn_mask=task.attn_mask,
+                  labels=task.labels, label_mask=task.label_mask,
+                  pos_idx=task.pos_idx, source=["gtq"] * len(task.pos_idx))
+    dev = EvalData(input_ids=task.input_ids, attn_mask=task.attn_mask,
+                   gt_docs=task.gt_docs, gt_cids=task.gt_cids)
+    return cfg, index, ts, dev
+
+
+def record_loop(loop, noise=None) -> dict:
+    """Instrument a TrainLoop before ``run``: each step's loss, this rank's
+    masters at each epoch's end (as the eval sees them) and the kernel
+    launches of each epoch's eval.  ``noise``: global draws handed to step
+    ``i`` as ``{"input_gate": noise["gate"][i], "input_keep":
+    noise["keep"][i]}`` (another package's draws).  Returns the dict that
+    fills in as the loop runs."""
+    from gdr_tpu_torch import kernels
+
+    rec = {"losses": [], "masters": [], "launches": []}
+    for stage in (1, 2):
+        step_fn = loop._step_fn(stage)
+
+        def step(state, batch, store, seed, step_fn=step_fn):
+            n = None if noise is None else {
+                "input_gate": noise["gate"][state.step],
+                "input_keep": noise["keep"][state.step]}
+            state, m = step_fn(state, batch, store, seed, noise=n)
+            rec["losses"].append(float(m["loss"]))
+            return state, m
+        loop._step_fns[stage] = step
+    evaluate = loop.evaluator.evaluate
+
+    def counted(*args, **kw):
+        rec["masters"].append({f"{t}/{n}": v.detach().cpu().clone()
+                               for t, d in loop.state.params.items()
+                               for n, v in d.items()})
+        kernels.reset_launch_counts()
+        out = evaluate(*args, **kw)
+        rec["launches"].append(kernels.launch_counts())
+        return out
+    loop.evaluator.evaluate = counted
+    return rec
+
+
+# f32 masters after each epoch, a mesh's rank against one device.  Adam
+# divides each element's step by the root of its second moment, so an
+# element whose gradient is a near-cancellation at rounding level (a few
+# 1e-8 against terms of 1e-2) takes a step of rounding-determined size:
+# summed in another order it moves by up to ~0.5% of a step more or less
+# (1.43e-5 at lr 3e-3 in (a) on an NVIDIA H100 80GB HBM3 at 700 W).  At
+# most MASTER_NOISE_SHARE of the elements may differ by more than
+# MASTER_TOL, and none by more than one step (the learning rate)
+MASTER_TOL = 1e-5
+MASTER_NOISE_SHARE = 1e-3
+MESH_LOSS_TOL = 1e-5         # each step's loss, relative
+MESH_TRAIN_LAYOUTS = {"plain": ("rerank_scores", False),
+                      "packed": ("packed_scores", True)}
+
+
+def masters_diff(got: dict, want: dict, mp: int, mp_rank: int
+                 ) -> tuple[float, int, int]:
+    """A rank's masters (its mp column slices where sharded) against one
+    device's: (max |d|, elements beyond MASTER_TOL, elements)."""
+    import torch
+
+    worst, over, n = 0.0, 0, 0
+    for k, g in got.items():
+        g, w = torch.as_tensor(g), torch.as_tensor(want[k])
+        if g.shape != w.shape:
+            c = w.shape[-1] // mp
+            w = w[..., mp_rank * c:(mp_rank + 1) * c]
+        d = (g.float() - w.float()).abs()
+        worst = max(worst, float(d.max()))
+        over += int((d > MASTER_TOL).sum())
+        n += d.numel()
+    return worst, over, n
+
+
+def check_masters(tag: str, got: dict, want: dict, mp: int, mp_rank: int,
+                  lr: float) -> float:
+    worst, over, n = masters_diff(got, want, mp, mp_rank)
+    if over > MASTER_NOISE_SHARE * n or worst > lr:
+        raise Failed(f"{tag}: {over} of {n} master elements differ by more "
+                     f"than {MASTER_TOL:g} (max {worst:.3g})")
+    return worst
+
+
+def _train_mesh_loops(dev, weights, noise, work: Path, mesh=None) -> dict:
+    """(a)'s loops on ``dev``: phase 3's small model from ``weights``, two
+    epochs with the input-dropout draws ``noise`` (made once on the host,
+    so that card and CPU take the same), one per mesh shape and eval
+    layout (one device without a mesh): each step's loss, the masters
+    after each epoch, each epoch's eval launches, the best metrics, the
+    store rows a rank holds."""
+    import torch
+
+    from gdr_tpu_torch.config import MeshConfig
+    from gdr_tpu_torch.parallel.mesh import make_mesh
+    from gdr_tpu_torch.train.loop import TrainLoop
+
+    out = {}
+    shapes = MESH_CFGS if mesh else {"one": None}
+    for mesh_name, mcfg in shapes.items():
+        m = make_mesh(MeshConfig(**mcfg), device=dev) if mcfg else None
+        for layout, (_, packed) in MESH_TRAIN_LAYOUTS.items():
+            cfg, index, ts, dv = mesh_train_world(small=True)
+            loop = TrainLoop(cfg, index, ts, dv,
+                             str(work / f"p11_{dev.type}_{mesh_name}_{layout}"),
+                             seed=0, mesh=m, packed_eval=packed,
+                             warm_start=lambda mod, _: mod.load_state_dict(
+                                 weights), device=dev)
+            rec = record_loop(loop, noise)
+            best = loop.run()
+            out[mesh_name, layout] = dict(
+                rec, recall1=best["recall1"], lr=cfg.train.learning_rate,
+                mp=m.mp if m else 1, mp_rank=m.mp_rank if m else 0,
+                store_rows=int(loop.store.shape[0]))
+    return out
+
+
+def _rank_full_train(dev, store_path: str) -> dict:
+    """(b) in one rank: t5-base at TrainConfig's defaults over a dp=2 x
+    mp=2 mesh: 1 warm and 2 timed steps of the global batch 64 (this
+    rank's 32 rows), the gradient all-reduce alone, the bytes of masters
+    and moments held, the store rows held, the peak."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.config import GDRConfig, MeshConfig, ModelConfig
+    from gdr_tpu_torch.data.dataset import BatchIterator, cluster_docs_lookup
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+    from gdr_tpu_torch.parallel.mesh import make_mesh, tp_param_rules
+    from gdr_tpu_torch.parallel.store import place_store
+    from gdr_tpu_torch.train.trainer import (init_train_state,
+                                             make_train_step, shard_state)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = GDRConfig(model=ModelConfig().scaled("base"))
+    mesh = make_mesh(MeshConfig(dp=2, mp=2), device=dev)
+    paths = _paths_of(bench_cid_map(N_DOCS, cfg.model.kary, 30))
+    bsz = cfg.train.train_batch_size
+    ts = _train_set(np.random.default_rng(11), paths, bsz * 3, S,
+                    cfg.model.vocab_size, cfg.model)
+    lookup = cluster_docs_lookup(["-".join(map(str, p)) for p in paths])
+    batches = list(BatchIterator(ts, lookup, bsz,
+                                 cfg.data.max_intraclass_num, seed=0))
+    with torch.device(dev):
+        model = GenerativeRetriever(cfg.model)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    state, opt = init_train_state(cfg, model, None, total_steps=10_000)
+    state = shard_state(state, mesh,
+                        tp_param_rules(mesh.mp, cfg.mesh.tp_min_size))
+    held = sum(t.numel() * 4 for part in (state.params["generator"],
+                                          state.opt_state["mu"],
+                                          state.opt_state["nu"])
+               for t in part.values())
+    store = place_store(np.load(store_path, mmap_mode="r"), mesh, dev)
+    step = make_train_step(model, None, opt, cfg, stage=1, mesh=mesh)
+    losses, norms, ms = [], [], []
+    for i, b in enumerate(batches):
+        torch.distributed.barrier()
+        t = time.perf_counter()
+        state, m = step(state, b, store, 0)
+        torch.cuda.synchronize(dev)
+        if i:
+            ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    grads = [torch.ones(p.shape, device=dev) for p in model.parameters()]
+    reduce_ms = []
+    for _ in range(2):
+        torch.distributed.barrier()
+        t = time.perf_counter()
+        mesh.all_reduce_dp(grads)
+        torch.cuda.synchronize(dev)
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+    if float(grads[0].flatten()[0]) != mesh.dp ** 2:
+        raise Failed(f"(b) the gradient all-reduce summed "
+                     f"{float(grads[0].flatten()[0])}, not {mesh.dp ** 2}")
+    return dict(step_ms_each=ms, allreduce_ms_each=reduce_ms,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                held_bytes=held, one_process_bytes=n_params * 12,
+                n_params=n_params, store_rows=int(store.shape[0]),
+                losses=losses, grad_norms=norms,
+                grad_bytes=sum(g.numel() * 4 for g in grads),
+                dp_rank=mesh.dp_rank, mp_rank=mesh.mp_rank)
+
+
+def _rank_train(rank: int, coord: str, backend: str, weights, noise,
+                store_path, queue) -> None:
+    """One rank of phase 11: (a) then (b) on its card (card ``rank`` under
+    nccl, else the first), each into a temp dir of its own run."""
+    import traceback
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from gdr_tpu_torch.parallel.distributed import initialize, shutdown
+    try:
+        initialize(coord, MESH_RANKS, rank, backend=backend)
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        work = Path(store_path).parent
+        small = _train_mesh_loops(dev, weights, noise, work, mesh=True)
+        for rec in small.values():       # no tensor crosses the queue
+            rec["masters"] = [{k: v.numpy() for k, v in m.items()}
+                              for m in rec["masters"]]
+        queue.put((rank, {"small": small,
+                          "full": _rank_full_train(dev, store_path)}, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+    finally:
+        shutdown()
+
+
+def phase_train_mesh(dev, card: str, work: Path) -> dict:
+    """Phase 11: training over a dp x mp mesh of four ranks (sharing the
+    card over gloo, or a card each over nccl on four cards)."""
+    import numpy as np
+    import torch
+
+    from gdr_tpu_torch.config import ModelConfig
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+
+    t = time.perf_counter()
+    cfg, _, ts, _ = mesh_train_world(small=True)
+    weights = init_weights(GenerativeRetriever(cfg.model),
+                           torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(5)
+    b = cfg.train.train_batch_size
+    steps = cfg.train.num_train_epochs * (len(ts) // b)
+    noise = dict(gate=rng.random(steps) < cfg.model.input_dropout,
+                 keep=rng.random((steps, 2 * b, ts.input_ids.shape[1])) < 0.9)
+    one = _train_mesh_loops(dev, weights, noise, work)
+    cpu = _train_mesh_loops(torch.device("cpu"), weights, noise, work)
+    for layout in MESH_TRAIN_LAYOUTS:
+        c, g = cpu["one", layout], one["one", layout]
+        err = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                      c["losses"]))
+        if not err <= SMALL_TOL or g["recall1"] != c["recall1"]:
+            raise Failed(f"phase 11 one card vs cpu ({layout}): losses "
+                         f"differ by {err:.3g} relative, recall1 "
+                         f"{g['recall1']} vs {c['recall1']}")
+    store_path = work / "mesh_train_store.npy"
+    g = torch.Generator(device=dev).manual_seed(7)      # phase 4's store
+    store = torch.randn(N_DOCS, ModelConfig().scaled("base").encoder_d_model,
+                        generator=g, device=dev)
+    np.save(store_path, (store / store.norm(dim=1, keepdim=True)).cpu()
+            .numpy())
+    del store
+    torch.cuda.empty_cache()
+    log(f"  one-card and cpu loops {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    backend = _mesh_backend()
+    ranks = _spawn_ranks(backend, weights, noise, str(store_path),
+                         target=_rank_train, phase="phase 11")
+    store_path.unlink()
+    log(f"  {MESH_RANKS} ranks over {backend}, "
+        + ("a card each" if backend == "nccl" else "sharing the one card")
+        + f": {time.perf_counter() - t:.1f} s from spawn to their results")
+
+    # (a): each rank's losses and masters against the one-card loop
+    out = {"ranks": MESH_RANKS, "backend": backend, "small": {},
+           "launches": {}}
+    for (mesh_name, layout), got in ranks[0]["small"].items():
+        want = one["one", layout]
+        scorer = MESH_TRAIN_LAYOUTS[layout][0]
+        errs, loss_err = [], 0.0
+        for r, rk in enumerate(ranks):
+            g = rk["small"][mesh_name, layout]
+            loss_err = max(loss_err, max(abs(a - b) / abs(b) for a, b in
+                                         zip(g["losses"], want["losses"])))
+            errs += [check_masters(f"phase 11 (a) {mesh_name} {layout} rank "
+                                   f"{r} epoch {e}", gm, wm, g["mp"],
+                                   g["mp_rank"], g["lr"])
+                     for e, (gm, wm) in enumerate(zip(g["masters"],
+                                                      want["masters"]))]
+            if g["recall1"] != want["recall1"]:
+                raise Failed(f"phase 11 (a) {mesh_name} {layout} rank {r}: "
+                             f"recall1 {g['recall1']} != {want['recall1']}")
+            if g["launches"] != want["launches"] or not all(
+                    ln[scorer] and all(ln[k] for k in DECODER)
+                    for ln in g["launches"]):
+                raise Failed(f"phase 11 (a) {mesh_name} {layout} rank {r}: "
+                             f"eval launches {g['launches']} != the one "
+                             f"card's {want['launches']}")
+        if not loss_err <= MESH_LOSS_TOL:
+            raise Failed(f"phase 11 (a) {mesh_name} {layout}: losses differ "
+                         f"from one card's by {loss_err:.3g} relative")
+        out["small"][f"{mesh_name} {layout}"] = dict(
+            loss_rel_err=loss_err, master_max_err=max(errs),
+            store_rows=got["store_rows"], launches=got["launches"][0],
+            recall1=got["recall1"])
+        out["launches"].update({k: v for k, v in got["launches"][0].items()
+                                if k in DECODER or k == scorer})
+        log(f"  (a) f32 d=64 {mesh_name:7s} {layout:6s}: losses = one "
+            f"card's within {loss_err:.3g} (rel), masters max |d| "
+            f"{max(errs):.3g}; {got['store_rows']} store rows a rank; eval "
+            f"launches per rank and epoch {dict((k, v) for k, v in got['launches'][0].items() if v)}; "
+            f"recall1 {got['recall1']:.4f}")
+
+    # (b): t5-base at dp=2 x mp=2
+    per = [rk["full"] for rk in ranks]
+    for name in ("losses", "grad_norms"):
+        vals = np.asarray([p[name] for p in per])
+        if not (np.isfinite(vals).all() and np.allclose(
+                vals, vals[0], rtol=1e-6, atol=0)):
+            raise Failed(f"phase 11 (b): {name} differ between ranks or are "
+                         f"not finite: {vals.tolist()}")
+    full = dict(
+        step_ms_each=[p["step_ms_each"] for p in per],
+        step_ms=fmean(fmean(p["step_ms_each"]) for p in per),
+        allreduce_ms_each=[p["allreduce_ms_each"] for p in per],
+        allreduce_ms=fmean(fmean(p["allreduce_ms_each"]) for p in per),
+        peak_gib=[p["peak_gib"] for p in per],
+        held_bytes=[p["held_bytes"] for p in per],
+        one_process_bytes=per[0]["one_process_bytes"],
+        store_rows=[p["store_rows"] for p in per],
+        losses=per[0]["losses"], grad_bytes=per[0]["grad_bytes"],
+        loss_spread=float(np.ptp([p["losses"] for p in per], axis=0).max()))
+    out["full"] = full
+    for r, p in enumerate(per):
+        log(f"  (b) t5-base bf16 over f32 masters, dp=2 x mp=2, rank {r} "
+            f"(dp {p['dp_rank']}, mp {p['mp_rank']}): step "
+            f"{', '.join(f'{x:.1f}' for x in p['step_ms_each'])} ms; the "
+            f"gradient all-reduce alone ({p['grad_bytes'] / 1e9:.2f} GB f32) "
+            f"{', '.join(f'{x:.1f}' for x in p['allreduce_ms_each'])} ms; "
+            f"peak {p['peak_gib']:.2f} GiB; masters + moments "
+            f"{p['held_bytes'] / 1e9:.2f} GB (one process "
+            f"{p['one_process_bytes'] / 1e9:.2f} GB); {p['store_rows']} store "
+            f"rows of {N_DOCS}")
+    log(f"  (b) losses {', '.join(f'{x:.4f}' for x in full['losses'])} on "
+        f"every rank (max spread {full['loss_spread']:.3g}); {card}")
+    return out
+
+
 # ------------------------------------------------------------ main
 
 def spilling_functions(ptxas_log: str) -> list[tuple[str, str]]:
@@ -3852,8 +4244,8 @@ KERNELS = [
 
 
 def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
-                secondary: dict, pretrained: dict, sharded: dict
-                ) -> list[dict]:
+                secondary: dict, pretrained: dict, sharded: dict,
+                train_mesh: dict) -> list[dict]:
     """The ``{"kernels": [...]}`` rows: each kernel's launches on its
     layout's main path (phase 4) and its phase-2 numbers at 3,200 rows; the
     decoder rows add their numbers at each row count (``by_rows``), the
@@ -3867,7 +4259,9 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
     ``launches_pretrained`` those of phase 9's retrieve by the t5-base
     warm-started from a checkpoint directory, ``launches_sharded_per_rank``
     those of one rank's retrieve over phase 10's sharded store (its
-    layout's); the decoder rows
+    layout's), ``launches_mesh_train_eval_per_rank`` those of one rank's
+    epoch eval in phase 11's mesh TrainLoop (its layout's scorer once a
+    retrieve); the decoder rows
     add their numbers at query generation's shape (``qg``: one beam per
     row, a 64-token doc, a 40-position cache; f32 and bf16)."""
     rows = []
@@ -3888,7 +4282,9 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
             launches_hierarchic_eval=secondary["hierarchic"]["launches"][
                 name],
             launches_pretrained=pretrained["launches"][name],
-            launches_sharded_per_rank=sharded["launches"][name])
+            launches_sharded_per_rank=sharded["launches"][name],
+            launches_mesh_train_eval_per_rank=train_mesh["launches"].get(
+                name, 0))
         if name in DECODER:
             row.update(by_rows=st["rows"], per_retrieve=st["per_retrieve"],
                        gemms=st["gemms"], by_rows_f32=st["rows_f32"],
@@ -4006,6 +4402,13 @@ def main(argv: list[str]) -> int:
             f"retrieve / eval --mesh under torch.distributed.run with nccl")
         sharded = phase_sharded(dev, smi, root, work, trie)
         log(f"[10] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        log(f"[11] training over a mesh: {MESH_RANKS} ranks over "
+            f"{_mesh_backend()} (small f32 TrainLoop at dp=4 and 2x2 vs one "
+            f"card, its eval through each rank's kernels; t5-base steps at "
+            f"dp=2 x mp=2)")
+        train_mesh = phase_train_mesh(dev, smi, work)
+        log(f"[11] {time.perf_counter() - t:.1f} s")
     except Failed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4016,11 +4419,11 @@ def main(argv: list[str]) -> int:
                       "peak_gib": full["peak_gib"], "modes": modes,
                       "index": index, "train": train,
                       "secondary": secondary, "pretrained": pretrained,
-                      "sharded": sharded}),
+                      "sharded": sharded, "train_mesh": train_mesh}),
           flush=True)
     print(json.dumps({"kernels": kernel_rows(stats, full, index, train,
                                              secondary, pretrained,
-                                             sharded)}),
+                                             sharded, train_mesh)}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -62,8 +62,17 @@ Differences from the reference CLI:
   print its metrics and write its state file (``ensemble.npz`` +
   ``ensemble_paths.npy``, ``hierarchic.npz``, ``softmax.npz``: the
   reference's trees as ``.npz``, not flax msgpack), which ``eval
-  --ensemble N`` reads.  ``--mesh`` is refused: training over several
-  GPUs is a later slice (ROADMAP.md queue 1, item 11).
+  --ensemble N`` reads.  ``--dropout`` sets the modules' dropout rate.
+- ``train --mesh`` (default ``auto``, as in the reference) trains over the
+  ranks of a process group, one process per GPU: ``auto`` makes every
+  rank data-parallel (no mesh in a world of one), ``DP,MP`` shards the
+  masters and moments of large leaves over mp as well.  Where the
+  reference's ``auto`` shrinks dp to a divisor of the batch, a torch world
+  is fixed by its launcher, so a batch that does not divide over the world
+  is refused.  Rank 0 alone prints, writes the metrics, the checkpoints
+  and ``params.npz``.  The secondary modes take no mesh.
+
+      torchrun --nproc-per-node 4 -m gdr_tpu_torch.cli train --mesh 2,2 ...
 - ``retrieve`` and ``eval --mesh`` row-shard the doc store over the ranks
   of a process group, one process per GPU as ``torchrun`` starts them
   (``nccl`` on ``--device cuda``, one card per rank; ``gloo`` on ``--device
@@ -173,6 +182,23 @@ def _mesh_from_flag(spec: str, device):
     except ValueError as e:
         raise SystemExit(f"--mesh {spec}: {e} (start one process per rank, "
                          f"e.g. torchrun --nproc-per-node {cfg.dp * cfg.mp})")
+
+
+def _train_mesh(spec: str, device, batch_sizes: tuple[int, ...]):
+    """``train --mesh``: as :func:`_mesh_from_flag`, but ``auto`` in a
+    world of N > 1 processes must divide every stage's batch by N: the
+    reference shrinks dp to the largest divisor of the batch over its
+    devices, while a torch world is fixed by its launcher."""
+    if spec == "auto":
+        from gdr_tpu_torch.parallel.distributed import process_info
+        world = process_info()[1]
+        bad = [b for b in batch_sizes if b % world]
+        if world > 1 and bad:
+            raise SystemExit(
+                f"--mesh auto: a batch of {bad[0]} does not divide over the "
+                f"world of {world} processes (every rank data-parallel); "
+                f"start a world that divides it, or pass --mesh DP,MP")
+    return _mesh_from_flag(spec, device)
 
 
 def _check_query_length(device, max_input_length: int, mcfg,
@@ -338,10 +364,6 @@ def cmd_train(args) -> None:
     if "qg" in wanted and not args.qg:
         raise SystemExit(f"--query-type {query_type} needs --qg (run the "
                          f"`qg` subcommand first)")
-    if args.mesh != "none":
-        raise SystemExit(f"--mesh {args.mesh}: training over several GPUs is "
-                         f"not ported yet (ROADMAP.md queue 1, item 11)")
-
     import numpy as np
     import torch
 
@@ -370,11 +392,20 @@ def cmd_train(args) -> None:
                              "pass --corpus and --train-encoder-epoch < "
                              "--epochs")
     device = _device(args.device)
+    # the secondary modes compute in f32, as the reference's
+    modes = args.ensemble > 1 or args.hierarchic or args.softmax
+    mesh = _train_mesh(args.mesh, device, (args.batch_size,
+                                           args.stage2_batch_size
+                                           or args.batch_size))
+    if mesh is not None and modes:
+        raise SystemExit("--ensemble / --hierarchic / --softmax take no "
+                         "--mesh: they train in one process (--mesh none)")
+    lead = mesh is None or mesh.rank == 0
     index = load_index(args.index)
     mcfg = dataclasses.replace(
         _model_config(args, store_dim=index.store.shape[1]),
         embedding_distillation=args.embed_distill,
-        weight_distillation=args.weight_distill)
+        weight_distillation=args.weight_distill, dropout_rate=args.dropout)
     if t5_widths:
         # the model takes the checkpoint's widths, so its tensors fit
         mcfg = dataclasses.replace(mcfg, **t5_widths)
@@ -388,8 +419,6 @@ def cmd_train(args) -> None:
                 "embedding table would break the warm start — point "
                 "--tokenizer at the checkpoint's own tokenizer")
         mcfg = dataclasses.replace(mcfg, vocab_size=tok.vocab_size)
-    # the secondary modes compute in f32, as the reference's
-    modes = args.ensemble > 1 or args.hierarchic or args.softmax
     _check_query_length(device, args.max_input_length, mcfg,
                         torch.float32 if args.no_bf16 or modes
                         else torch.bfloat16)
@@ -452,9 +481,10 @@ def cmd_train(args) -> None:
                 doc_texts, index.paths, tok, mcfg, dq,
                 rng=np.random.default_rng(args.seed)))
         train_set = mix_sources(query_type, **sources)
-        print("train set: " + " + ".join(
-            f"{len(sources[w])} {w}" for w in wanted)
-            + f" = {len(train_set)} rows", file=sys.stderr)
+        if lead:
+            print("train set: " + " + ".join(
+                f"{len(sources[w])} {w}" for w in wanted)
+                + f" = {len(train_set)} rows", file=sys.stderr)
 
     # stage 2 (the live doc tower) is reachable when the corpus is given
     doc_tokens = doc_tok_mask = tower = None
@@ -473,17 +503,21 @@ def cmd_train(args) -> None:
                 f"--encoder-size / --encoder-ckpt")
         doc_tokens, doc_tok_mask = dtok.encode_batch(doc_texts,
                                                      args.encoder_max_len)
-        print(f"stage 2 enabled: live doc tower over {len(doc_texts)} docs "
-              f"from epoch {args.train_encoder_epoch + 1}", file=sys.stderr)
+        if lead:
+            print(f"stage 2 enabled: live doc tower over {len(doc_texts)} "
+                  f"docs from epoch {args.train_encoder_epoch + 1}",
+                  file=sys.stderr)
 
     warm = _t5_warm_start(args.t5_ckpt, mcfg.num_layers) if args.t5_ckpt \
         else None
     loop = TrainLoop(cfg, index, train_set, dev, workdir=args.workdir,
                      seed=args.seed, doc_tokens=doc_tokens,
                      doc_tok_mask=doc_tok_mask, doc_encoder=tower,
-                     packed_eval=args.packed_eval, warm_start=warm,
-                     device=device)
+                     mesh=mesh, packed_eval=args.packed_eval,
+                     warm_start=warm, device=device)
     best = loop.run()
+    if not lead:
+        return
     step, state = loop.ckpt.restore_best()
     params = (state or loop.state).params["generator"]
     out = os.path.join(args.workdir, "params.npz")
@@ -955,9 +989,13 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--packed-eval", action="store_true",
                     help="the in-training eval reads the cluster-packed "
                          "store")
-    pt.add_argument("--mesh", default="none",
-                    help="only 'none' (training over several GPUs is not "
-                         "ported yet)")
+    pt.add_argument("--mesh", default="auto",
+                    help="'none', 'auto' (every rank of the process group "
+                         "data-parallel; one process without one) or "
+                         "'DP,MP' (masters and moments of large leaves "
+                         "sharded over MP)")
+    pt.add_argument("--dropout", type=float, default=0.1,
+                    help="the modules' dropout rate")
     pt.add_argument("--grad-accum", type=int, default=1,
                     help="micro-batches per optimizer update")
     pt.add_argument("--no-bf16", action="store_true",

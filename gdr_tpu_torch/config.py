@@ -10,10 +10,7 @@ runs:
 - ``TrainConfig`` has no ``async_checkpointing``: a checkpoint is written
   synchronously, to a temporary file renamed into place;
 - ``MeshConfig`` lays its dp × mp mesh over processes, one per GPU
-  (``parallel/mesh.py``), where the reference lays it over devices; it
-  has neither ``axis_names`` nor ``tp_min_size``, and ``GDRConfig`` no
-  ``mesh``, until training over the mesh reads them (ROADMAP.md queue 1,
-  item 11).
+  (``parallel/mesh.py``), where the reference lays it over devices.
 
 Derived quantities (``decode_vocab_size = kary * max_output_length + 2``)
 are computed properties, as in the reference package.
@@ -183,6 +180,9 @@ class MeshConfig:
 
     dp: int = -1                     # -1 → every rank of the world
     mp: int = 1
+    axis_names: Sequence[str] = ("dp", "mp")
+    tp_min_size: int = 1 << 14       # smallest parameter (elements) whose
+                                     # masters and moments shard over mp
 
 
 @dataclass(frozen=True)
@@ -192,6 +192,7 @@ class GDRConfig:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def replace(self, **kw: Any) -> "GDRConfig":
         return dataclasses.replace(self, **kw)

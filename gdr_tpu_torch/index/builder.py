@@ -52,13 +52,32 @@ def _embed(doc_encoder: DocEncoder, token_ids: np.ndarray,
 def embed_corpus(doc_encoder: DocEncoder, token_ids: np.ndarray,
                  masks: np.ndarray, batch_size: int = 256,
                  normalize: bool = False, mesh=None) -> np.ndarray:
-    """Doc-tower encode of the whole corpus: [N, d] f32 on the host."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "embedding over a device mesh (mesh=) is not ported yet "
-            "(ROADMAP.md queue 1, item 11: training over several GPUs)")
-    return _embed(doc_encoder, token_ids, masks, batch_size,
-                  normalize).cpu().numpy()
+    """Doc-tower encode of the whole corpus: [N, d] f32 on the host.
+
+    ``mesh`` (``parallel/mesh.py``; every rank calls it with the same
+    corpus and tower): ``batch_size`` is rounded up to a multiple of dp,
+    the last batch padded with its first row; each dp rank encodes its
+    rows of each batch, and one all-gather over the dp column builds the
+    whole [N, d] on every rank."""
+    if mesh is None or mesh.dp == 1:
+        return _embed(doc_encoder, token_ids, masks, batch_size,
+                      normalize).cpu().numpy()
+    n, dp = len(token_ids), mesh.dp
+    batch_size = -(-batch_size // dp) * dp
+    pad = -n % batch_size
+    if pad:
+        first = n - n % batch_size        # the last batch's first row
+        token_ids = np.concatenate(
+            [token_ids, np.repeat(token_ids[first][None], pad, 0)])
+        masks = np.concatenate([masks, np.repeat(masks[first][None], pad, 0)])
+    per = batch_size // dp
+    mine = (np.arange(0, len(token_ids), batch_size)[:, None]
+            + mesh.dp_rank * per + np.arange(per)).reshape(-1)
+    local = _embed(doc_encoder, token_ids[mine], masks[mine], per, normalize)
+    d = local.shape[1]
+    # rank-major [dp, batches, per, d] → batch-major rows
+    out = mesh.all_gather_dp(local).reshape(dp, -1, per, d).transpose(0, 1)
+    return out.reshape(-1, d)[:n].cpu().numpy()
 
 
 def build_index_from_embeddings(store, cfg: IndexConfig,

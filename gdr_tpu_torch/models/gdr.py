@@ -239,11 +239,12 @@ class GenerativeRetriever(nn.Module):
 
     def denoise(self, input_ids, attn_mask, keep_mask,
                 gumbel: torch.Tensor | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, dp=None):
         """The denoising losses (gen, disc): the reconstruction head is the
         shared embedding, the discrimination head ``denoise_disc``; the
         replacement tokens are argmax(logits + g), ``gumbel`` or drawn from
-        ``generator`` (``ops/losses.py::denoising_losses``)."""
+        ``generator`` (``ops/losses.py::denoising_losses``; ``dp``: this
+        rank's share over dp ranks)."""
         def encode(ids):
             return self.encoder(self.shared(ids), attn_mask)
 
@@ -254,7 +255,7 @@ class GenerativeRetriever(nn.Module):
             return _linear(hidden, self.denoise_disc.weight)
 
         return denoising_losses(encode, predict_head, disc_head, input_ids,
-                                attn_mask, keep_mask, gumbel, generator)
+                                attn_mask, keep_mask, gumbel, generator, dp)
 
     # --------------------------------------------------- incremental decode
 

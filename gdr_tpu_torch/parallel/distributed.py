@@ -26,6 +26,10 @@ import torch.distributed as dist
 TIMEOUT = timedelta(seconds=120)
 # what torchrun sets for each rank
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
+# the mesh's subgroups, made once per (dp, mp) shape and destroyed by
+# ``shutdown``: (the dp column of each mp coordinate, the mp row of each
+# dp coordinate)
+_SUBGROUPS: dict[tuple[int, int], tuple[list, list]] = {}
 
 
 def local_card(rank: int, world: int, cards: int) -> tuple[int, int]:
@@ -95,7 +99,30 @@ def process_info() -> tuple[int, int]:
     return dist.get_rank(), dist.get_world_size()
 
 
+def subgroups(dp: int, mp: int) -> tuple[list, list]:
+    """(dp columns, mp rows) of a dp × mp mesh over the default group:
+    column ``c`` holds ranks ``c, c + mp, …`` (one mp coordinate), row
+    ``d`` ranks ``d·mp … d·mp + mp − 1``.  Made on the first call for a
+    shape, which every rank must make at the same point (``make_mesh``
+    does); later calls return the same groups.  Nobody else keeps them:
+    ``shutdown`` destroys them before the default group, so that no group
+    outlives it."""
+    key = (dp, mp)
+    if key not in _SUBGROUPS:
+        cols = [dist.new_group(list(range(c, dp * mp, mp)), timeout=TIMEOUT)
+                for c in range(mp)]
+        rows = [dist.new_group(list(range(d * mp, (d + 1) * mp)),
+                               timeout=TIMEOUT) for d in range(dp)]
+        _SUBGROUPS[key] = (cols, rows)
+    return _SUBGROUPS[key]
+
+
 def shutdown() -> None:
-    """Leave the default process group, where one exists."""
+    """Leave the default process group, where one exists, after the
+    mesh's subgroups."""
     if dist.is_initialized():
+        for cols, rows in _SUBGROUPS.values():
+            for g in cols + rows:
+                dist.destroy_process_group(g)
+        _SUBGROUPS.clear()
         dist.destroy_process_group()

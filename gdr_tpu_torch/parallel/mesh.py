@@ -1,36 +1,58 @@
-"""The dp × mp mesh of ranks, mirroring ``make_mesh`` and
-``store_sharding`` of ``gdr_tpu/parallel/mesh.py``.
+"""The dp × mp mesh of ranks, mirroring ``gdr_tpu/parallel/mesh.py``.
 
 JAX lays the mesh over devices and XLA inserts its collectives.  Here the
 mesh is laid over the ranks of the process group, one per GPU, rank ``r``
-at (``r // mp``, ``r % mp``), and the collectives are explicit.  The
-doc-embedding store is row-sharded over the flattened mesh: shard ``r``
-is rank ``r``'s.  Collectives run on ``comm_device``: the rank's card under
+at (``dp_rank = r // mp``, ``mp_rank = r % mp``), and the collectives are
+explicit.  Collectives run on ``comm_device``: the rank's card under
 ``nccl``, the CPU under ``gloo``, which also serves several ranks that
 share one card (NCCL refuses two ranks on one device).
 
-The training side (``batch_sharding``, ``shard_batch``,
-``tp_param_rules``, ``shard_params``) is not ported yet (ROADMAP.md queue
-1, item 11).
+Serving: the doc-embedding store is row-sharded over the flattened mesh;
+shard ``r`` is rank ``r``'s (``store_range``, ``parallel/store.py``).
+
+Training (``train/loop.py::TrainLoop(mesh=)``): every rank builds the same
+global batch and keeps its dp rows (:func:`shard_batch`); the mp ranks of
+a dp coordinate take the same rows.  Large parameters keep their f32
+masters and AdamW moments as column slices over mp (:func:`tp_param_rules`,
+:func:`shard_params`); the gradients are summed over each dp column
+(:meth:`Mesh.all_reduce_dp`) and the updated slices gathered over each mp
+row (:meth:`Mesh.all_gather_mp`).  The library form of ``gdr_tpu``'s
+``examples/demo_mesh_train.py``, one process per GPU:
+
+    # torchrun --nproc-per-node 4 train.py
+    from gdr_tpu_torch.parallel.distributed import initialize, shutdown
+    initialize()
+    loop = TrainLoop(cfg, index, train_set, dev, workdir,
+                     mesh=make_mesh(MeshConfig(dp=2, mp=2)))
+    loop.run()
+    shutdown()
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from gdr_tpu_torch.config import MeshConfig
+from gdr_tpu_torch.parallel.distributed import subgroups
+
+# elements of f32 gradient that one all-reduce carries (256 MB)
+BUCKET = 1 << 26
 
 
 @dataclass
 class Mesh:
     """The mesh over the default process group.  It holds no reference to
-    the group: a group object still referenced when
+    a group: a group object still referenced when
     ``distributed.shutdown`` destroys it is torn down again at interpreter
     exit, which aborted ``gloo`` ranks there (3 of 160 two-rank runs on a
-    loaded CPU host with torch 2.13; none of 150 without the reference)."""
+    loaded CPU host with torch 2.13; none of 150 without the reference).
+    Its subgroups are looked up in ``distributed.subgroups`` at each
+    collective."""
 
     dp: int
     mp: int
@@ -44,30 +66,129 @@ class Mesh:
         """Shards of the store: every rank of the mesh."""
         return self.dp * self.mp
 
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.mp
+
+    @property
+    def mp_rank(self) -> int:
+        return self.rank % self.mp
+
     def store_range(self, n_rows: int) -> tuple[int, int]:
         """This rank's rows [lo, hi) of a store of ``n_rows`` rows padded
         to a multiple of the mesh size (``parallel/store.py::pad_store``)."""
         rows = -(-n_rows // self.size)
         return self.rank * rows, (self.rank + 1) * rows
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` of every rank, concatenated along the last axis in rank
-        order (the reference's ``all_gather(axis=-1, tiled=True)``), on
-        ``t``'s device; ``t`` itself without a process group.  Every rank
-        passes the same shape."""
+    # ------------------------------------------------------- collectives
+
+    def _group(self, axis: str):
+        """The group of this rank's dp column or mp row (None: the whole
+        world, where the axis spans it)."""
+        if axis == "world":
+            return None
         if not dist.is_initialized():
+            raise RuntimeError(f"a {self.dp}x{self.mp} mesh collective "
+                               f"without a process group")
+        cols, rows = ((None, None) if self.dp == 1 or self.mp == 1
+                      else subgroups(self.dp, self.mp))
+        if axis == "dp":
+            return None if self.mp == 1 else cols[self.mp_rank]
+        return None if self.dp == 1 else rows[self.dp_rank]
+
+    def _gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """``t`` of every rank of ``axis`` (``world``, ``dp`` or ``mp``),
+        concatenated along ``dim`` in rank order, on ``t``'s device."""
+        n = {"world": self.world, "dp": self.dp, "mp": self.mp}[axis]
+        if n == 1:
             return t
         src = t.to(self.comm_device).contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.world)]
-        dist.all_gather(parts, src)
-        return torch.cat(parts, dim=-1).to(t.device)
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=self._group(axis))
+        return torch.cat(parts, dim=dim).to(t.device)
+
+    def _sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        if (self.world if axis == "world" else self.dp) == 1:
+            return t
+        out = t.detach().to(self.comm_device).clone()
+        dist.all_reduce(out, group=self._group(axis))
+        return out.to(t.device)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of every rank, concatenated along the last axis in rank
+        order (the reference's ``all_gather(axis=-1, tiled=True)``); ``t``
+        itself in a world of one.  Every rank passes the same shape."""
+        return self._gather(t, "world", -1)
+
+    def all_gather_dp(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of every rank of this rank's dp column, concatenated along
+        the first axis in dp order: the global batch's rows."""
+        return self._gather(t, "dp", 0)
+
+    def all_gather_mp(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of every rank of this rank's mp row, concatenated along
+        the last axis in mp order: a column-sharded leaf made whole."""
+        return self._gather(t, "mp", -1)
+
+    def all_reduce_dp(self, tensors: list[torch.Tensor]) -> None:
+        """SUM each tensor in place over this rank's dp column, in buckets
+        of at most :data:`BUCKET` elements of one dtype."""
+        if self.dp == 1:
+            return
+        group = self._group("dp")
+        bucket: list[torch.Tensor] = []
+
+        def flush():
+            flat = torch.cat([t.reshape(-1) for t in bucket]).to(
+                self.comm_device)
+            dist.all_reduce(flat, group=group)
+            flat = flat.to(bucket[0].device)
+            off = 0
+            for t in bucket:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
+            bucket.clear()
+
+        size = 0
+        for t in tensors:
+            if bucket and (size + t.numel() > BUCKET
+                           or t.dtype != bucket[0].dtype):
+                flush()
+                size = 0
+            bucket.append(t)
+            size += t.numel()
+        if bucket:
+            flush()
+
+    def sum_dp(self, t: torch.Tensor) -> torch.Tensor:
+        """The SUM of ``t`` over this rank's dp column (a new tensor): a
+        count or a metric of the global batch."""
+        return self._sum(t, "dp")
+
+    def sum_world(self, t: torch.Tensor) -> torch.Tensor:
+        """The SUM of ``t`` over every rank (a new tensor)."""
+        return self._sum(t, "world")
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank: a decision every rank
+        takes alike (a preemption stop)."""
+        if self.world == 1:
+            return flag
+        t = torch.tensor([int(flag)], device=self.comm_device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+    def barrier(self) -> None:
+        if self.world > 1:
+            dist.barrier()
 
 
 def make_mesh(cfg: MeshConfig | None = None, device=None) -> Mesh:
     """The mesh over the default process group (a world of one without
     one).  ``dp=-1`` takes every rank; ``dp·mp`` must equal the world.
     ``device``: where this rank computes (default: its card under
-    ``nccl``, else the CPU)."""
+    ``nccl``, else the CPU).  Every rank calls it at the same point: a
+    mesh of dp and mp both above 1 makes its subgroups here."""
     cfg = cfg or MeshConfig()
     if dist.is_initialized():
         rank, world = dist.get_rank(), dist.get_world_size()
@@ -80,6 +201,88 @@ def make_mesh(cfg: MeshConfig | None = None, device=None) -> Mesh:
         raise ValueError(f"mesh {dp}x{mp} != {world} processes")
     comm = (torch.device("cuda", torch.cuda.current_device())
             if backend == "nccl" else torch.device("cpu"))
+    if dp > 1 and mp > 1:
+        subgroups(dp, mp)
     return Mesh(dp=dp, mp=mp, rank=rank, world=world,
                 device=torch.device(device) if device is not None else comm,
                 comm_device=comm)
+
+
+# ------------------------------------------------------------- training
+
+def shard_batch(batch: dict, mesh: Mesh) -> dict:
+    """This rank's rows of a global host batch: rows ``[dp_rank·B/dp,
+    (dp_rank+1)·B/dp)`` of every field, the same on each mp rank of the
+    row.  Every rank builds the same global batch (the iterators are seeded
+    alike), as ``gdr_tpu``'s ``shard_batch`` materialises only a process's
+    addressable shards."""
+    out = {}
+    for k, v in batch.items():
+        b = len(v) // mesh.dp
+        out[k] = v[mesh.dp_rank * b:(mesh.dp_rank + 1) * b]
+    return out
+
+
+def tp_param_rules(mp: int, min_size: int = 1 << 14) -> Callable:
+    """The column-parallel placement rule: a leaf of at least 2 axes and
+    ``min_size`` elements whose last axis divides by ``mp`` is sharded on
+    its last axis (``gdr_tpu``'s predicate); everything else stays whole.
+    ``rule(name, leaf) -> bool``."""
+
+    def rule(name: str, leaf: Any) -> bool:
+        return (isinstance(leaf, torch.Tensor) and leaf.dim() >= 2
+                and leaf.numel() >= min_size and leaf.shape[-1] % mp == 0)
+
+    return rule
+
+
+def mp_slice(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's columns ``[mp_rank·n/mp, (mp_rank+1)·n/mp)`` of the last
+    axis, a copy of its own."""
+    n = t.shape[-1] // mesh.mp
+    return t[..., mesh.mp_rank * n:(mesh.mp_rank + 1) * n].clone()
+
+
+def shard_params(params: Any, mesh: Mesh, rule: Callable | None = None,
+                 name: str = "") -> Any:
+    """A (nested) dict of tensors with each leaf that ``rule`` selects cut
+    to this rank's column slice (:func:`mp_slice`); other leaves, and
+    everything without ``rule``, stay whole."""
+    if isinstance(params, dict):
+        return {k: shard_params(v, mesh, rule, f"{name}/{k}" if name else k)
+                for k, v in params.items()}
+    if rule is not None and mesh.mp > 1 and rule(name, params):
+        return mp_slice(params, mesh)
+    return params
+
+
+def unshard_params(params: Any, shapes: Any, mesh: Mesh, device=None
+                   ) -> Any:
+    """The inverse of :func:`shard_params`: each leaf whose shape differs
+    from its full shape in ``shapes`` (the same nesting) is gathered over
+    this rank's mp row, and with ``device`` moved there leaf by leaf.
+    Every rank of the row calls it."""
+    if isinstance(params, dict):
+        return {k: unshard_params(v, shapes[k], mesh, device)
+                for k, v in params.items()}
+    if tuple(params.shape) != tuple(shapes):
+        params = mesh.all_gather_mp(params)
+    return params if device is None else params.to(device)
+
+
+def fetch_rows(store_local: torch.Tensor, ids: np.ndarray, mesh: Mesh
+               ) -> torch.Tensor:
+    """``store[ids]`` of a row-sharded store (``parallel/store.py::
+    place_store``; every rank passes the same ``ids``): each rank fills the
+    rows it owns and zeros elsewhere, then one SUM over every rank.  Exact:
+    exactly one rank adds a non-zero to each row.  [*ids.shape, d] f32 on
+    the store's device."""
+    rows = store_local.shape[0]
+    flat = torch.as_tensor(np.asarray(ids).reshape(-1),
+                           device=store_local.device).long()
+    local = flat - mesh.rank * rows
+    owned = (local >= 0) & (local < rows)
+    out = torch.zeros(len(flat), store_local.shape[1],
+                      device=store_local.device)
+    out[owned] = store_local[local[owned]].float()
+    return mesh.sum_world(out).reshape(*np.shape(ids), -1)

@@ -14,8 +14,19 @@ corpus (or a rotating fraction of it) into the store before each eval.
 A new loop resumes from the newest checkpoint: after a completed epoch it
 continues with the next one; after a mid-epoch preemption it runs that
 epoch again from its first batch.  ``run(deadline=)`` stops at the first
-epoch boundary past a wall-clock deadline.  There is no ``mesh`` (one
-device) and no ``eval_pallas``: the device decides which kernels run.
+epoch boundary past a wall-clock deadline.  There is no ``eval_pallas``:
+the device decides which kernels run.
+
+``mesh`` (``parallel/mesh.py``, one process per GPU) trains over a dp × mp
+mesh, as ``gdr_tpu``'s SPMD loop does: every rank builds the same global
+batch and the step keeps its dp rows (``train/trainer.py``); the masters
+and moments of large leaves are mp column slices; the doc store is
+row-sharded over the whole mesh for the step and for the evaluator
+(``Evaluator(mesh=)``, each rank's layout scorer on its rows).  The loss
+metric is the global batch's.  Rank 0 alone writes the metrics and the
+checkpoints, as full tensors (a mesh checkpoint resumes in one process
+and the reverse); the other ranks wait at a barrier, and a restore slices
+again.  A preemption stop is agreed by every rank.
 """
 
 from __future__ import annotations
@@ -37,10 +48,14 @@ from gdr_tpu_torch.models.dual_encoder import (DocEncoder, DocEncoderConfig,
                                                init_doc_encoder)
 from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
 from gdr_tpu_torch.ops.trie import prefix_node_embeddings
+from gdr_tpu_torch.parallel.mesh import tp_param_rules
+from gdr_tpu_torch.parallel.store import place_store
 from gdr_tpu_torch.train.checkpoint import CheckpointManager
-from gdr_tpu_torch.train.trainer import (init_train_state, load_masters,
-                                         make_train_step)
-from gdr_tpu_torch.utils.logging import MetricLogger
+from gdr_tpu_torch.train.trainer import (TrainState, init_train_state,
+                                         load_masters, make_train_step,
+                                         param_shapes, shard_state,
+                                         unshard_state)
+from gdr_tpu_torch.utils.logging import MetricLogger, NullLogger
 from gdr_tpu_torch.utils.preemption import PreemptionGuard
 from gdr_tpu_torch.utils.rng import fold_in, generator, set_seed
 
@@ -58,11 +73,20 @@ class TrainLoop:
         tower when ``doc_tokens`` are given).  ``warm_start(model,
         doc_encoder)`` loads pretrained weights into the f32 models before
         the masters are taken; a checkpoint to resume from overrides it.
-        ``packed_eval``: the evaluator reads the cluster-packed store."""
+        ``packed_eval``: the evaluator reads the cluster-packed store.
+        ``mesh``: a ``parallel.mesh.Mesh`` to train over (every rank
+        constructs the loop with the same arguments); both stages' batch
+        sizes must divide by its dp."""
         if mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh (mesh=) is not ported yet "
-                "(ROADMAP.md queue 1, item 11: training over several GPUs)")
+            for name, b in (("train_batch_size", cfg.train.train_batch_size),
+                            ("stage2_train_batch_size",
+                             cfg.train.stage2_train_batch_size)):
+                if b % mesh.dp != 0:
+                    raise ValueError(
+                        f"TrainConfig.{name}={b} must be divisible by the "
+                        f"mesh dp axis ({mesh.dp}) so every device gets "
+                        f"equal batch shards")
+        self.mesh = mesh
         self.cfg = cfg
         self.index = index
         self.train_set = train_set
@@ -92,12 +116,24 @@ class TrainLoop:
         # bf16 compute over f32 masters (TrainConfig.bf16)
         self.state, self.opt = init_train_state(cfg, self.model,
                                                 self.doc_encoder, total)
-        self.store = torch.as_tensor(index.store, device=self.device)
+        self.shapes = param_shapes(self.model, self.doc_encoder)
+        self.rule = None
+        if mesh is not None:
+            if mesh.mp > 1:
+                self.rule = tp_param_rules(mesh.mp, cfg.mesh.tp_min_size)
+            self.state = shard_state(self.state, mesh, self.rule)
+            # this rank's rows, for the step and (in its layout) the eval
+            self.store = place_store(index.store, mesh, self.device)
+        else:
+            self.store = torch.as_tensor(index.store, device=self.device)
         self.lookup = cluster_docs_lookup(index.cid_of_doc)
         # the evaluator keeps the f32 store, as the step does; its scorers
         # take queries of the compute dtype
-        self.evaluator = Evaluator(self.model, index.trie, self.store,
-                                   cfg.eval, packed=packed_eval)
+        self.evaluator = Evaluator(
+            self.model, index.trie,
+            self.store if mesh is None else index.store, cfg.eval,
+            mesh=mesh, packed=packed_eval)
+        self.writer = mesh is None or mesh.rank == 0
         self._neg_kwargs: dict = {}
         if cfg.data.hard_negative and cfg.data.sample_neg_num > 0:
             dl, dm = doc_label_arrays(index.paths, cfg.model)
@@ -105,7 +141,8 @@ class TrainLoop:
                                     doc_labels=dl, doc_label_mask=dm)
         self.ckpt = CheckpointManager.from_config(cfg.train,
                                                   f"{workdir}/ckpt")
-        self.logger = MetricLogger(workdir, run_name="train")
+        self.logger = (MetricLogger(workdir, run_name="train")
+                       if self.writer else NullLogger())
         self.last_epoch_metrics: dict[str, float] = {}
         self.save_seconds: list[tuple[str, float]] = []
         self._refresh_cursor = 0
@@ -114,20 +151,35 @@ class TrainLoop:
         self.start_epoch = 0
         step, restored, preempted = self.ckpt.restore_latest(self.device)
         if step is not None:
+            if mesh is not None:
+                restored = shard_state(restored, mesh, self.rule)
             self.state.params = restored.params
             self.state.opt_state = restored.opt_state
             self.state.step = restored.step
-            load_masters(self.state, self.model, self.doc_encoder)
+            load_masters(self.state, self.model, self.doc_encoder, mesh)
             self.start_epoch = step if preempted else step + 1
-            print(f"resumed from checkpoint step {step}"
-                  + (" (mid-epoch preemption: re-running the epoch)"
-                     if preempted else ""), file=sys.stderr)
+            if self.writer:
+                print(f"resumed from checkpoint step {step}"
+                      + (" (mid-epoch preemption: re-running the epoch)"
+                         if preempted else ""), file=sys.stderr)
 
     def _step_fn(self, stage: int) -> Callable:
         if stage not in self._step_fns:
             self._step_fns[stage] = make_train_step(
-                self.model, self.doc_encoder, self.opt, self.cfg, stage=stage)
+                self.model, self.doc_encoder, self.opt, self.cfg, stage=stage,
+                mesh=self.mesh)
         return self._step_fns[stage]
+
+    def full_state(self) -> Optional[TrainState]:
+        """The state with every leaf whole: on a mesh gathered over the mp
+        rows (the ranks of dp row 0 gather, rank 0's result is kept; every
+        rank calls it), on the CPU; None on the other ranks."""
+        if self.mesh is None:
+            return self.state
+        if self.mesh.dp_rank != 0:
+            return None
+        full = unshard_state(self.state, self.shapes, self.mesh)
+        return full if self.writer else None
 
     def _refresh_store(self) -> None:
         """Re-embed the corpus (or the next rotating fraction of it) with
@@ -137,19 +189,24 @@ class TrainLoop:
         if frac >= 1.0:
             self._host_store = embed_corpus(self.doc_encoder, self.doc_tokens,
                                             self.doc_tok_mask,
-                                            batch_size=min(256, n))
+                                            batch_size=min(256, n),
+                                            mesh=self.mesh)
         else:
             take = max(int(n * frac), 1)
             idx = np.arange(self._refresh_cursor,
                             self._refresh_cursor + take) % n
             emb = embed_corpus(self.doc_encoder, self.doc_tokens[idx],
                                self.doc_tok_mask[idx],
-                               batch_size=min(256, take))
+                               batch_size=min(256, take), mesh=self.mesh)
             base = (self.index.store if self._host_store is None
                     else self._host_store)
             self._host_store = np.array(base, np.float32, copy=True)
             self._host_store[idx] = emb
             self._refresh_cursor = (self._refresh_cursor + take) % n
+        if self.mesh is not None:
+            self.store = place_store(self._host_store, self.mesh, self.device)
+            self.evaluator.set_store(self._host_store)
+            return
         self.store = torch.as_tensor(self._host_store, device=self.device)
         self.evaluator.set_store(self.store)
 
@@ -162,9 +219,15 @@ class TrainLoop:
         batch["cand_tok_mask"] = self.doc_tok_mask[idx]
         return batch
 
-    def _save(self, kind: str, fn, *args) -> float:
+    def _save(self, kind: str, fn, step: int, *args) -> float:
+        """``fn(step, full state, *args)`` on the writing rank, then every
+        rank of a mesh waits for it; returns the seconds it took."""
         t = time.perf_counter()
-        fn(*args)
+        full = self.full_state()
+        if full is not None:
+            fn(step, full, *args)
+        if self.mesh is not None:
+            self.mesh.barrier()
         secs = time.perf_counter() - t
         self.save_seconds.append((kind, secs))
         return secs
@@ -230,11 +293,13 @@ class TrainLoop:
                             f"non-finite loss at step {global_step} "
                             f"(epoch {epoch}): {vals}")
                     self.logger.log(vals, global_step)
-                if guard.should_stop:
+                stop = guard.should_stop
+                if self.mesh is not None:
+                    stop = self.mesh.any_rank(stop)
+                if stop:
                     # preempted: persist a resume point and return; the
                     # epoch runs again from its first batch on resume
-                    self._save("resume", self.ckpt.save_preemption, epoch,
-                               self.state)
+                    self._save("resume", self.ckpt.save_preemption, epoch)
                     self.logger.log({"preempted": 1}, global_step)
                     self.logger.close()
                     return best
@@ -262,16 +327,18 @@ class TrainLoop:
             metrics.update(self.evaluator.evaluate(
                 self.dev, batch_size=max(eval_bs, 1)))
             metrics["checkpoint_seconds"] = self._save(
-                "best", self.ckpt.save, epoch, self.state, metrics)
+                "best", self.ckpt.save, epoch, metrics)
             if not best or metrics.get(cfg.monitor, 0) >= best.get(
                     cfg.monitor, float("-inf")):
                 best = dict(metrics)
             self.logger.log(metrics, global_step)
             self.last_epoch_metrics = metrics
             # the latest-1 resume point, kept apart from best-k retention
-            self._save("resume", self.ckpt.save_preemption, epoch + 1,
-                       self.state)
-            if deadline is not None and time.time() >= deadline:
+            self._save("resume", self.ckpt.save_preemption, epoch + 1)
+            past = deadline is not None and time.time() >= deadline
+            if self.mesh is not None:
+                past = self.mesh.any_rank(past)
+            if past:
                 self.logger.log({"deadline_stop_epoch": epoch}, global_step)
                 break
         self.logger.close()

@@ -21,6 +21,18 @@ The arithmetic is optax's, on f32 tensors updated in place:
 - with ``gradient_accumulation_steps`` k > 1, the running mean of k
   micro-batches' gradients (Welford, as ``MultiSteps``) is applied every
   k-th call, and only those calls advance the count.
+
+**Over a mesh** (``update(mesh=)``).  The masters and moments of the
+leaves that ``parallel/mesh.py::tp_param_rules`` selects hold only this
+rank's column slice of the last axis, as ``gdr_tpu`` places its
+``opt_state`` over ``mp``.  The gradients come in whole and summed over
+dp, the same on every rank, so the clip's global norm is taken over the
+full gradient and every rank agrees on it; then each sharded leaf's
+gradient is cut to the rank's columns.  AdamW is elementwise, so the
+slices compute ``gdr_tpu``'s update, and the column cut never splits a
+contraction.  Where XLA splits the forward over mp, here the mp ranks of
+a dp row repeat it: the sharding saves memory (masters and moments /
+mp), not compute.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ import numpy as np
 import torch
 
 from gdr_tpu_torch.config import TrainConfig
+from gdr_tpu_torch.parallel.mesh import mp_slice
 
 B1, B2 = 0.9, 0.999
 GROUPS = ("enc_wd", "enc_nd", "dec_wd", "dec_nd", "doc_wd", "doc_nd")
@@ -112,10 +125,13 @@ class GroupedAdamW:
 
     @torch.no_grad()
     def update(self, params: dict[str, dict[str, torch.Tensor]],
-               grads: dict[str, torch.Tensor], state: dict) -> bool:
+               grads: dict[str, torch.Tensor], state: dict,
+               mesh=None) -> bool:
         """One call per micro-batch: ``grads`` (flat keys, f32) update
         ``params`` and ``state`` in place.  Returns whether the parameters
-        changed (always, unless this call only accumulated)."""
+        changed (always, unless this call only accumulated).  ``mesh``:
+        a parameter held as this rank's mp column slice (its shape differs
+        from its gradient's) takes the gradient's slice, after the clip."""
         f = flat(params)
         keys = list(f)
         g = [grads[k] for k in keys]
@@ -137,6 +153,9 @@ class GroupedAdamW:
         factor = torch.where(norm < max_norm, torch.ones_like(norm),
                              max_norm / norm)
         torch._foreach_mul_(g, factor)
+        if mesh is not None:
+            g = [mp_slice(x, mesh) if x.shape != f[k].shape else x
+                 for k, x in zip(keys, g)]
 
         count = state["count"]
         for group in GROUPS:

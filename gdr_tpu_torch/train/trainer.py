@@ -27,6 +27,27 @@ reference splits a JAX key five ways; its draws can be handed in through
 The passes that the reference runs deterministically (weight
 distillation's head vectors, denoising, the negatives' decode) run with
 the model in eval mode.
+
+**Over a mesh** (``make_train_step(mesh=)``, one process per GPU).  The
+step takes the global host batch and keeps this rank's dp rows
+(``parallel/mesh.py::shard_batch``).  Its loss is the global batch's, as
+``gdr_tpu``'s SPMD program computes it:
+
+- the step's own draws (input-dropout gate and keep mask, denoising keep
+  mask and Gumbel noise) are drawn at the global batch's shape from the
+  step's generator, then sliced to the rank's rows, so dp = N equals one
+  process at module dropout 0; the modules' dropout draws from a generator
+  that folds in the dp rank, so that dp ranks do not share masks (the mp
+  ranks of a row do, as they repeat one forward);
+- the store is row-sharded over every rank: the step's store rows (the
+  positives and candidates of the global batch) come from their owners
+  in one SUM all-reduce (``fetch_rows``);
+- each loss is this rank's share of the global loss (``ops/losses.py``,
+  ``dp``), its row-coupled terms against keys gathered from every dp rank
+  through a differentiable all-gather; the f32 gradients are summed over
+  each dp column after the backward, and the metrics too;
+- the update runs on each rank's mp slices (``train/optimizer.py``), and
+  the slices are gathered over the mp row into the full compute copy.
 """
 
 from __future__ import annotations
@@ -42,9 +63,13 @@ from gdr_tpu_torch.config import GDRConfig
 from gdr_tpu_torch.models.gdr import GenerativeRetriever, shift_right
 from gdr_tpu_torch.models.t5 import set_dropout_generator
 from gdr_tpu_torch.ops import losses
+from gdr_tpu_torch.ops.beam import gumbel_noise
+from gdr_tpu_torch.parallel.autograd import DPShards
+from gdr_tpu_torch.parallel.mesh import (fetch_rows, shard_batch,
+                                         shard_params, unshard_params)
 from gdr_tpu_torch.train.optimizer import (GroupedAdamW, build_optimizer,
-                                           global_norm)
-from gdr_tpu_torch.utils.rng import generator
+                                           flat, global_norm)
+from gdr_tpu_torch.utils.rng import fold_in, generator
 
 TOWERS = ("generator", "doc_encoder")
 
@@ -69,14 +94,50 @@ def deterministic(model: torch.nn.Module):
 
 @torch.no_grad()
 def load_masters(state: TrainState, model: GenerativeRetriever,
-                 doc_encoder=None) -> None:
-    """Copy the f32 masters into the models' parameters (in their dtype)."""
+                 doc_encoder=None, mesh=None) -> None:
+    """Copy the f32 masters into the models' parameters (in their dtype).
+    A master held as this rank's mp column slice (its shape differs from
+    the parameter's) is gathered over the mesh's mp row first, in the
+    compute dtype (rounding commutes with the concatenation)."""
     for tower, module in zip(TOWERS, (model, doc_encoder)):
         if module is None:
             continue
         masters = state.params[tower]
         for name, p in module.named_parameters():
-            p.copy_(masters[name])
+            m = masters[name]
+            if m.shape != p.shape:
+                m = mesh.all_gather_mp(m.to(p.dtype))
+            p.copy_(m)
+
+
+def param_shapes(model, doc_encoder=None) -> dict:
+    """The full shape of every parameter, nested as ``TrainState.params``."""
+    return {tower: {n: p.shape for n, p in module.named_parameters()}
+            for tower, module in zip(TOWERS, (model, doc_encoder))
+            if module is not None}
+
+
+def shard_state(state: TrainState, mesh, rule) -> TrainState:
+    """``state`` with the masters and AdamW moments of each leaf that
+    ``rule`` selects cut to this rank's mp column slice
+    (``gdr_tpu``'s ``shard_params`` of params and opt_state); the
+    gradient accumulator stays whole."""
+    opt = dict(state.opt_state)
+    opt["mu"] = shard_params(opt["mu"], mesh, rule)
+    opt["nu"] = shard_params(opt["nu"], mesh, rule)
+    return TrainState(params=shard_params(state.params, mesh, rule),
+                      opt_state=opt, step=state.step)
+
+
+def unshard_state(state: TrainState, shapes: dict, mesh) -> TrainState:
+    """The inverse of :func:`shard_state` (``shapes``: :func:`param_shapes`),
+    leaf by leaf on the CPU; every rank of the mp row calls it."""
+    opt = dict(state.opt_state)
+    for k in ("mu", "nu"):
+        opt[k] = unshard_params(opt[k], flat(shapes), mesh, "cpu")
+    return TrainState(params=unshard_params(state.params, shapes, mesh,
+                                            "cpu"),
+                      opt_state=opt, step=state.step)
 
 
 def init_train_state(cfg: GDRConfig, model: GenerativeRetriever,
@@ -107,22 +168,28 @@ def _device_batch(batch: dict, device) -> dict[str, torch.Tensor]:
 
 def make_loss_fn(model: GenerativeRetriever, doc_encoder, cfg: GDRConfig,
                  stage: int = 1) -> Callable:
-    """``loss_fn(batch, store, gen, noise) -> (total, metrics)`` on device
-    tensors, with the model in train mode.
+    """``loss_fn(batch, store, gen, noise, dp=None, rows=None) -> (total,
+    metrics)`` on device tensors, with the model in train mode.
 
     Batch fields: input_ids [B, S], attn_mask [B, S], labels [B, L],
     label_mask [B, L], pos_idx [B], cand_idx [B, C], cand_mask [B, C]
     (stage 1); pos_tokens / pos_tok_mask [B, Le], cand_tokens /
     cand_tok_mask [B, C, Le] (stage 2); optional aug_input_ids /
     aug_attn_mask, prefix_emb / prefix_emb_mask, neg_labels /
-    neg_label_mask [B, N, L].  ``store``: the [N, d] doc embeddings."""
+    neg_label_mask [B, N, L].  ``store``: the [N, d] doc embeddings.
+
+    Over dp ranks (``dp``, ``parallel/autograd.py::DPShards``): ``batch``
+    holds this rank's rows, every loss is its share of the global loss,
+    and ``rows`` replaces the store: ``pos`` (this rank's positives' store
+    rows, when read), ``cand`` (the global batch's candidates' rows, stage
+    1) and ``cand_mask`` (the global batch's)."""
     mcfg, tcfg = cfg.model, cfg.train
     sliced = mcfg.position and (not mcfg.adaptor_decode
                                 or mcfg.adaptor_efficient)
     head = (model.decode_candidate_logits if sliced
             else model.decode_logits)
 
-    def loss_fn(batch, store, gen, noise):
+    def loss_fn(batch, store, gen, noise, dp=None, rows=None):
         noise = noise or {}
         dev = batch["input_ids"].device
         b = batch["input_ids"].shape[0]
@@ -153,30 +220,35 @@ def make_loss_fn(model: GenerativeRetriever, doc_encoder, cfg: GDRConfig,
         ce_labels = (losses.local_candidate_labels(labels, mcfg.kary)
                      if sliced else labels)
         ce = losses.masked_cross_entropy(out["logits"], ce_labels,
-                                         label_mask)
+                                         label_mask, dp)
         if mcfg.rdrop_loss == "Contrast":
             rdrop = losses.rdrop_contrast_loss(
-                model._scaled(out["decoder_hidden"]), label_mask)
+                model._scaled(out["decoder_hidden"]), label_mask, dp)
         elif mcfg.rdrop_loss == "KL":
             rdrop = losses.rdrop_kl_loss(out["logits"])
         else:                                   # "L2"
             rdrop = losses.rdrop_l2_loss(
                 out["logits"],
-                norm_cols=mcfg.decode_vocab_size if sliced else None)
+                norm_cols=mcfg.decode_vocab_size if sliced else None, dp=dp)
         nci_loss = ce + mcfg.rdrop * rdrop
         metrics: dict[str, torch.Tensor] = {}
 
+        if rows is None:                 # one process: the whole store
+            rows = {"cand_mask": batch["cand_mask"],
+                    "pos": store[batch["pos_idx"].long()],
+                    "cand": (store[batch["cand_idx"].long()] if stage == 1
+                             else None)}
         if mcfg.embedding_distillation > 0:
             enc_p = model.project_query(out["encoder_hidden"][:b])
             edl = losses.embedding_distillation_loss(
-                enc_p, batch["input_ids"], store[batch["pos_idx"].long()])
+                enc_p, batch["input_ids"], rows["pos"], dp)
             nci_loss = nci_loss + mcfg.embedding_distillation * edl
             metrics["embed_distill"] = edl
         if mcfg.weight_distillation > 0 and "prefix_emb" in batch:
             with deterministic(model):
                 vec = model.label_head_vectors(dec_in[:b], batch["labels"])
             wdl = losses.weight_distillation_loss(
-                vec, batch["prefix_emb"], batch["prefix_emb_mask"])
+                vec, batch["prefix_emb"], batch["prefix_emb_mask"], dp)
             nci_loss = nci_loss + mcfg.weight_distillation * wdl
             metrics["weight_distill"] = wdl
         if mcfg.denoising:
@@ -191,13 +263,12 @@ def make_loss_fn(model: GenerativeRetriever, doc_encoder, cfg: GDRConfig,
                 gen_loss, disc_loss = model.denoise(
                     batch["input_ids"], batch["attn_mask"],
                     torch.as_tensor(keep, device=dev), gumbel=gumbel,
-                    generator=gen)
+                    generator=gen, dp=dp)
             nci_loss = nci_loss + gen_loss + disc_loss
 
         query = out["query_embedding"][:b]
         if stage == 1:
-            pos_emb = store[batch["pos_idx"].long()]
-            cand_emb = store[batch["cand_idx"].long()]
+            pos_emb, cand_emb = rows["pos"], rows["cand"]
         else:
             pos_emb = doc_encoder(batch["pos_tokens"].long(),
                                   batch["pos_tok_mask"])
@@ -206,9 +277,11 @@ def make_loss_fn(model: GenerativeRetriever, doc_encoder, cfg: GDRConfig,
                 batch["cand_tokens"].reshape(b * c, -1).long(),
                 batch["cand_tok_mask"].reshape(b * c, -1)
             ).reshape(b, c, -1)
+            if dp is not None:
+                cand_emb = dp.gather(cand_emb.float())
         contrast = losses.cluster_infonce(
-            query, pos_emb, cand_emb, batch["cand_mask"], tau=tcfg.tau,
-            intra_rate=tcfg.intra_rate, squash=tcfg.loss_func)
+            query, pos_emb, cand_emb, rows["cand_mask"], tau=tcfg.tau,
+            intra_rate=tcfg.intra_rate, squash=tcfg.loss_func, dp=dp)
 
         total = nci_loss + contrast
         metrics = {"nci_loss": nci_loss, "ce": ce, "rdrop": rdrop,
@@ -237,7 +310,8 @@ def make_loss_fn(model: GenerativeRetriever, doc_encoder, cfg: GDRConfig,
             neg_prob = torch.where(neg_mask > 0, neg_prob,
                                    torch.full_like(neg_prob, -1.0))
             rank = losses.margin_ranking_loss(
-                pos_prob[:, None], neg_prob.reshape(bsz, n, l), margin=0.5)
+                pos_prob[:, None], neg_prob.reshape(bsz, n, l), margin=0.5,
+                dp=dp)
             total = total + rank
             metrics["ranking_loss"] = rank
 
@@ -248,18 +322,20 @@ def make_loss_fn(model: GenerativeRetriever, doc_encoder, cfg: GDRConfig,
 
 
 def compute_grads(model: GenerativeRetriever, doc_encoder, loss_fn,
-                  batch: dict, store, gen, noise=None
+                  batch: dict, store, gen, noise=None, dp=None, rows=None,
+                  dropout_gen=None
                   ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
     """One forward and backward in train mode: (metrics, f32 gradients by
-    flat key ``<tower>/<name>``; zeros where a parameter got none)."""
+    flat key ``<tower>/<name>``; zeros where a parameter got none).  The
+    modules' dropout draws from ``dropout_gen`` (default ``gen``)."""
     modules = [(t, m) for t, m in zip(TOWERS, (model, doc_encoder))
                if m is not None]
     for _, m in modules:
         m.zero_grad(set_to_none=True)
         m.train()
-    set_dropout_generator(model, gen)
+    set_dropout_generator(model, dropout_gen or gen)
     try:
-        total, metrics = loss_fn(batch, store, gen, noise)
+        total, metrics = loss_fn(batch, store, gen, noise, dp, rows)
         total.backward()
     finally:
         for _, m in modules:
@@ -275,27 +351,102 @@ def compute_grads(model: GenerativeRetriever, doc_encoder, loss_fn,
     return {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def _global_draws(batch: dict, cfg: GDRConfig, gen, noise: dict | None,
+                  mesh, vocab: int, dev) -> dict:
+    """The step's draws at the global batch's shape, in the order one
+    process draws them (at module dropout 0), sliced to this rank's rows:
+    ``noise`` entries are taken as global draws where given."""
+    noise = dict(noise or {})
+    mcfg = cfg.model
+    bsz, seq = np.shape(batch["input_ids"])
+    b = bsz // mesh.dp
+    lo, hi = mesh.dp_rank * b, (mesh.dp_rank + 1) * b
+
+    def drawn(key, shape, draw):
+        v = noise.get(key)
+        return torch.as_tensor(v, device=dev) if v is not None else draw(shape)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    if mcfg.input_dropout > 0:
+        noise["input_gate"] = drawn("input_gate", (),
+                                    lambda s: rand(s) < mcfg.input_dropout)
+        keep = drawn("input_keep", (2 * bsz, seq), lambda s: rand(s) < 0.9)
+        noise["input_keep"] = torch.cat([keep[lo:hi],
+                                         keep[bsz + lo:bsz + hi]])
+    if mcfg.denoising:
+        keep = drawn("denoise_keep", (bsz, seq), lambda s: rand(s) < 0.9)
+        gumbel = drawn("denoise_gumbel", (bsz, seq, vocab),
+                       lambda s: gumbel_noise(s, gen))
+        noise["denoise_keep"] = keep[lo:hi]
+        noise["denoise_gumbel"] = gumbel[lo:hi]
+    return noise
+
+
+def _store_rows(batch: dict, store_local, stage: int, cfg: GDRConfig, mesh,
+                dev) -> dict:
+    """The store rows the step reads, from their owners: this rank's
+    positives (stage 1, or for embedding distillation) and the global
+    batch's candidates (stage 1), with the global candidate mask."""
+    rows = {"cand_mask": torch.as_tensor(np.asarray(batch["cand_mask"]),
+                                         device=dev),
+            "pos": None, "cand": None}
+    b = len(batch["pos_idx"]) // mesh.dp
+    lo = mesh.dp_rank * b
+    pos_idx = np.asarray(batch["pos_idx"])[:, None]
+    if stage == 1:
+        got = fetch_rows(store_local, np.concatenate(
+            [pos_idx, np.asarray(batch["cand_idx"])], axis=1), mesh)
+        rows["pos"], rows["cand"] = got[lo:lo + b, 0], got[:, 1:]
+    elif cfg.model.embedding_distillation > 0:
+        rows["pos"] = fetch_rows(store_local, pos_idx, mesh)[lo:lo + b, 0]
+    return rows
+
+
 def make_train_step(model: GenerativeRetriever, doc_encoder,
-                    opt: GroupedAdamW, cfg: GDRConfig, stage: int = 1
-                    ) -> Callable:
+                    opt: GroupedAdamW, cfg: GDRConfig, stage: int = 1,
+                    mesh=None) -> Callable:
     """``train_step(state, batch, store, seed, noise=None) -> (state,
     metrics)``: the step's generator is seeded by (``seed``,
     ``state.step``); ``batch`` holds host or device arrays; the metrics are
     device scalars, ``grad_norm`` the norm of this step's gradients before
     the clip.  The models hold the updated masters afterwards, in eval
-    mode."""
+    mode.
+
+    With ``mesh`` (``parallel/mesh.py``): ``batch`` is the global host
+    batch, the same on every rank; ``store`` this rank's rows
+    (``parallel/store.py::place_store``); ``noise`` holds global draws; the
+    metrics are the global batch's, equal on every rank; ``state`` holds
+    this rank's mp slices (:func:`shard_state`)."""
     loss_fn = make_loss_fn(model, doc_encoder, cfg, stage)
 
     def train_step(state: TrainState, batch: dict, store, seed: int,
                    noise: dict[str, Any] | None = None):
         dev = model.device
         gen = generator(seed, state.step, dev)
-        metrics, grads = compute_grads(model, doc_encoder, loss_fn,
-                                       _device_batch(batch, dev), store,
-                                       gen, noise)
+        if mesh is None:
+            metrics, grads = compute_grads(model, doc_encoder, loss_fn,
+                                           _device_batch(batch, dev), store,
+                                           gen, noise)
+        else:
+            noise = _global_draws(batch, cfg, gen, noise, mesh,
+                                  model.shared.weight.shape[0], dev)
+            rows = _store_rows(batch, store, stage, cfg, mesh, dev)
+            local = _device_batch(shard_batch(batch, mesh), dev)
+            metrics, grads = compute_grads(
+                model, doc_encoder, loss_fn, local, None, gen, noise,
+                dp=DPShards(mesh), rows=rows,
+                dropout_gen=generator(fold_in(seed, mesh.dp_rank),
+                                      state.step, dev))
+            mesh.all_reduce_dp(list(grads.values()))
+            names = list(metrics)
+            summed = mesh.sum_dp(torch.stack([metrics[k].float()
+                                              for k in names]))
+            metrics = dict(zip(names, summed.unbind()))
         metrics["grad_norm"] = global_norm(grads.values())
-        if opt.update(state.params, grads, state.opt_state):
-            load_masters(state, model, doc_encoder)
+        if opt.update(state.params, grads, state.opt_state, mesh):
+            load_masters(state, model, doc_encoder, mesh)
         state.step += 1
         return state, metrics
 

@@ -24,3 +24,14 @@ class MetricLogger:
 
     def close(self) -> None:
         self._fh.close()
+
+
+class NullLogger:
+    """A :class:`MetricLogger` that writes nothing: the ranks of a mesh
+    other than rank 0."""
+
+    def log(self, metrics: dict[str, Any], step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

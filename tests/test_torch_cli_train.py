@@ -2,9 +2,9 @@
 (a tiny model, two epochs, the live doc tower from epoch 1, BM25 hard
 negatives, the gtq + doc query mix) → ``eval`` of the ``params.npz`` it
 wrote, which holds the best checkpoint's masters; the ``--t5-ckpt``
-warm start from a ``params.npz``; the refusal of what is not ported
-(``--mesh``), and the secondary modes, qg queries and pretrained
-checkpoints getting past it; and ``--device cuda`` without a card."""
+warm start from a ``params.npz``; the secondary modes, qg queries,
+pretrained checkpoints and ``--mesh auto`` in one process getting as far
+as reading the index; and ``--device cuda`` without a card."""
 
 import json
 import os
@@ -102,27 +102,27 @@ def test_t5_ckpt_npz_warm_starts_encoder_and_shared(run):
     ["--bert-ckpt", "bert"], ["--mesh", "auto"]],
     ids=lambda f: " ".join(f))
 def test_train_refuses_what_is_not_ported(flags, tmp_path):
-    """Multi-GPU is refused, naming the ROADMAP item; the secondary modes
-    and qg queries are ported, so those runs get as far as reading the
-    (missing) index; qg queries without the ``qg`` subcommand's .npz are
-    refused; a HuggingFace checkpoint is read before the index, so a
-    missing one is named."""
+    """The secondary modes, qg queries and ``--mesh auto`` in one process
+    (no process group: the one-process path, no mesh) get as far as
+    reading the (missing) index; qg queries without the ``qg``
+    subcommand's .npz are refused; a HuggingFace checkpoint is read before
+    the index, so a missing one is named."""
     args = port_cli.build_parser().parse_args(
         ["train", "--index", str(tmp_path / "none.npz"), "--train",
          str(tmp_path / "t.tsv"), "--dev", str(tmp_path / "d.tsv"),
          "--workdir", str(tmp_path), "--device", "cpu", *flags])
-    if flags[0] in ("--ensemble", "--hierarchic", "--softmax", "--qg"):
+    if flags[0] in ("--ensemble", "--hierarchic", "--softmax", "--qg",
+                    "--mesh"):
         with pytest.raises(FileNotFoundError, match="none.npz"):
             args.fn(args)
+        if flags[0] == "--mesh":
+            assert port_cli._train_mesh("auto", "cpu", (8, 8)) is None
     elif flags[0] in ("--t5-ckpt", "--bert-ckpt"):
         with pytest.raises(FileNotFoundError,
                            match=f"{flags[1]}: no config.json"):
             args.fn(args)
-    elif flags == ["--query-type", "gtq_qg"]:
-        with pytest.raises(SystemExit, match="needs --qg"):
-            args.fn(args)
     else:
-        with pytest.raises(SystemExit, match="ROADMAP"):
+        with pytest.raises(SystemExit, match="needs --qg"):
             args.fn(args)
 
 

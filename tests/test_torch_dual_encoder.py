@@ -20,6 +20,7 @@ from gdr_tpu_torch.models.dual_encoder import (DocEncoder, DocEncoderConfig,
                                                init_doc_encoder,
                                                tiny_doc_encoder,
                                                tiny_doc_encoder_config)
+from gdr_tpu_torch.parallel.mesh import make_mesh
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -118,8 +119,11 @@ def test_embed_corpus_refuses_ids_outside_the_vocab():
     with pytest.raises(ValueError, match="positions"):
         tower(torch.zeros(1, 65, dtype=torch.long),
               torch.ones(1, 65, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        embed_corpus(tower, ids[:1], mask[:1], mesh=object())
+    # a mesh over a world of one embeds as one process
+    ids[1, 2] = 5
+    np.testing.assert_array_equal(
+        embed_corpus(tower, ids, mask, batch_size=2, mesh=make_mesh()),
+        embed_corpus(tower, ids, mask, batch_size=2))
 
 
 def test_seeded_init_is_deterministic_and_scaled():
