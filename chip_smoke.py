@@ -3917,20 +3917,32 @@ MASTER_NOISE_SHARE = 1e-3
 MESH_LOSS_TOL = 1e-5         # each step's loss, relative
 MESH_TRAIN_LAYOUTS = {"plain": ("rerank_scores", False),
                       "packed": ("packed_scores", True)}
+# (a)'s meshes: at 1x4 the d=64 model's 4 heads divide over the row (each
+# rank's heads stay local through the core), PAWA's 2 do not (gathered)
+MESH_TRAIN_CFGS = {"dp4": dict(dp=4), "dp2xmp2": dict(dp=2, mp=2),
+                   "1x4": dict(dp=1, mp=4)}
+# (b)'s meshes at t5-base: 12 heads, local through the core at both
+MESH_FULL_CFGS = {"dp2xmp2": dict(dp=2, mp=2), "1x4": dict(dp=1, mp=4)}
 
 
-def masters_diff(got: dict, want: dict, mp: int, mp_rank: int
-                 ) -> tuple[float, int, int]:
-    """A rank's masters (its mp column slices where sharded) against one
-    device's: (max |d|, elements beyond MASTER_TOL, elements)."""
+def masters_diff(got: dict, want: dict, mp: int, mp_rank: int,
+                 min_size: int) -> tuple[float, int, int]:
+    """A rank's masters (its mp parts where cut, by the placement of
+    ``tp_param_rules``) against one device's: (max |d|, elements beyond
+    MASTER_TOL, elements)."""
     import torch
 
+    from gdr_tpu_torch.parallel.mesh import Mesh, mp_slice, tp_param_rules
+
+    rule = tp_param_rules(mp, min_size)
+    row = Mesh(dp=1, mp=mp, rank=mp_rank, world=mp, device="cpu",
+               comm_device="cpu")
     worst, over, n = 0.0, 0, 0
     for k, g in got.items():
         g, w = torch.as_tensor(g), torch.as_tensor(want[k])
-        if g.shape != w.shape:
-            c = w.shape[-1] // mp
-            w = w[..., mp_rank * c:(mp_rank + 1) * c]
+        cut = rule(k, w) if mp > 1 else None
+        if cut is not None:
+            w = mp_slice(w, row, cut)
         d = (g.float() - w.float()).abs()
         worst = max(worst, float(d.max()))
         over += int((d > MASTER_TOL).sum())
@@ -3939,8 +3951,8 @@ def masters_diff(got: dict, want: dict, mp: int, mp_rank: int
 
 
 def check_masters(tag: str, got: dict, want: dict, mp: int, mp_rank: int,
-                  lr: float) -> float:
-    worst, over, n = masters_diff(got, want, mp, mp_rank)
+                  lr: float, min_size: int) -> float:
+    worst, over, n = masters_diff(got, want, mp, mp_rank, min_size)
     if over > MASTER_NOISE_SHARE * n or worst > lr:
         raise Failed(f"{tag}: {over} of {n} master elements differ by more "
                      f"than {MASTER_TOL:g} (max {worst:.3g})")
@@ -3961,7 +3973,7 @@ def _train_mesh_loops(dev, weights, noise, work: Path, mesh=None) -> dict:
     from gdr_tpu_torch.train.loop import TrainLoop
 
     out = {}
-    shapes = MESH_CFGS if mesh else {"one": None}
+    shapes = MESH_TRAIN_CFGS if mesh else {"one": None}
     for mesh_name, mcfg in shapes.items():
         m = make_mesh(MeshConfig(**mcfg), device=dev) if mcfg else None
         for layout, (_, packed) in MESH_TRAIN_LAYOUTS.items():
@@ -3976,15 +3988,53 @@ def _train_mesh_loops(dev, weights, noise, work: Path, mesh=None) -> dict:
             out[mesh_name, layout] = dict(
                 rec, recall1=best["recall1"], lr=cfg.train.learning_rate,
                 mp=m.mp if m else 1, mp_rank=m.mp_rank if m else 0,
+                min_size=cfg.mesh.tp_min_size,
                 store_rows=int(loop.store.shape[0]))
     return out
 
 
-def _rank_full_train(dev, store_path: str) -> dict:
-    """(b) in one rank: t5-base at TrainConfig's defaults over a dp=2 x
-    mp=2 mesh: 1 warm and 2 timed steps of the global batch 64 (this
-    rank's 32 rows), the gradient all-reduce alone, the bytes of masters
-    and moments held, the store rows held, the peak."""
+def _count_mp(mesh, dev) -> dict:
+    """Count and time the mesh's mp-row collectives from here on (the card
+    synchronised around each, so each is timed alone) until ``stop()``:
+    {"n", "ms", "bytes", "stop"}."""
+    import torch
+
+    stats = {"n": 0, "ms": 0.0, "bytes": 0}
+    cls = type(mesh)
+
+    def wrap(name):
+        fn = getattr(cls, name)
+
+        def run(t, axis, *a):
+            if axis != "mp":
+                return fn(mesh, t, axis, *a)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(mesh, t, axis, *a)
+            torch.cuda.synchronize(dev)
+            stats["ms"] += (time.perf_counter() - t0) * 1e3
+            stats["n"] += 1
+            stats["bytes"] += t.numel() * t.element_size()
+            return out
+        setattr(mesh, name, run)
+
+    for name in ("_gather", "_sum"):
+        wrap(name)
+
+    def stop():
+        for name in ("_gather", "_sum"):
+            delattr(mesh, name)
+    stats["stop"] = stop
+    return stats
+
+
+def _rank_full_train(dev, store_path: str, shape: dict) -> dict:
+    """(b) in one rank: t5-base at TrainConfig's defaults over a mesh of
+    ``shape`` (column-parallel over its mp row): 1 warm and 2 timed steps
+    of the global batch 64 (this rank's 64 / dp rows), then one step with
+    the mp collectives timed alone, the gradient's dp all-reduce alone, the
+    bytes of the compute copy, the gradient and the masters + moments held,
+    the store rows held, the peak of the steps and of the set-up."""
     import numpy as np
     import torch
 
@@ -3993,19 +4043,22 @@ def _rank_full_train(dev, store_path: str) -> dict:
     from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
     from gdr_tpu_torch.parallel.mesh import make_mesh, tp_param_rules
     from gdr_tpu_torch.parallel.store import place_store
-    from gdr_tpu_torch.train.trainer import (init_train_state,
+    from gdr_tpu_torch.train.trainer import (init_train_state, load_masters,
                                              make_train_step, shard_state)
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = GDRConfig(model=ModelConfig().scaled("base"))
-    mesh = make_mesh(MeshConfig(dp=2, mp=2), device=dev)
+    mesh = make_mesh(MeshConfig(**shape), device=dev)
     paths = _paths_of(bench_cid_map(N_DOCS, cfg.model.kary, 30))
     bsz = cfg.train.train_batch_size
-    ts = _train_set(np.random.default_rng(11), paths, bsz * 3, S,
+    ts = _train_set(np.random.default_rng(11), paths, bsz * 4, S,
                     cfg.model.vocab_size, cfg.model)
     lookup = cluster_docs_lookup(["-".join(map(str, p)) for p in paths])
     batches = list(BatchIterator(ts, lookup, bsz,
                                  cfg.data.max_intraclass_num, seed=0))
+    if len(batches) < 4:
+        raise Failed(f"(b): {len(batches)} batches, not 4")
     with torch.device(dev):
         model = GenerativeRetriever(cfg.model)
     init_weights(model, torch.Generator(device=dev).manual_seed(0))
@@ -4013,14 +4066,26 @@ def _rank_full_train(dev, store_path: str) -> dict:
     state, opt = init_train_state(cfg, model, None, total_steps=10_000)
     state = shard_state(state, mesh,
                         tp_param_rules(mesh.mp, cfg.mesh.tp_min_size))
+    load_masters(state, model)
     held = sum(t.numel() * 4 for part in (state.params["generator"],
                                           state.opt_state["mu"],
                                           state.opt_state["nu"])
                for t in part.values())
+    copy_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     store = place_store(np.load(store_path, mmap_mode="r"), mesh, dev)
+    # the set-up's peak: the whole f32 state, made before it is cut
+    init_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
     step = make_train_step(model, None, opt, cfg, stage=1, mesh=mesh)
+    grad_shapes = []
+    reduce_dp = mesh.all_reduce_dp
+
+    def record(tensors):
+        grad_shapes[:] = [tuple(t.shape) for t in tensors]
+        return reduce_dp(tensors)
+    mesh.all_reduce_dp = record
     losses, norms, ms = [], [], []
-    for i, b in enumerate(batches):
+    for i, b in enumerate(batches[:3]):
         torch.distributed.barrier()
         t = time.perf_counter()
         state, m = step(state, b, store, 0)
@@ -4029,7 +4094,16 @@ def _rank_full_train(dev, store_path: str) -> dict:
             ms.append((time.perf_counter() - t) * 1e3)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-    grads = [torch.ones(p.shape, device=dev) for p in model.parameters()]
+    del mesh.all_reduce_dp
+    # one more step with each mp collective timed alone
+    torch.distributed.barrier()
+    mp_stats = _count_mp(mesh, dev)
+    state, m = step(state, batches[3], store, 0)
+    torch.cuda.synchronize(dev)
+    mp_stats.pop("stop")()
+    losses.append(float(m["loss"]))
+    norms.append(float(m["grad_norm"]))
+    grads = [torch.ones(s, device=dev) for s in grad_shapes]
     reduce_ms = []
     for _ in range(2):
         torch.distributed.barrier()
@@ -4040,12 +4114,20 @@ def _rank_full_train(dev, store_path: str) -> dict:
     if float(grads[0].flatten()[0]) != mesh.dp ** 2:
         raise Failed(f"(b) the gradient all-reduce summed "
                      f"{float(grads[0].flatten()[0])}, not {mesh.dp ** 2}")
+    grad_bytes = sum(g.numel() * 4 for g in grads)
+    if not (copy_bytes < n_params * 2 and grad_bytes < n_params * 4):
+        raise Failed(f"(b) {shape}: the rank holds a whole compute copy "
+                     f"({copy_bytes} B) or gradient ({grad_bytes} B)")
     return dict(step_ms_each=ms, allreduce_ms_each=reduce_ms,
+                mp_ms=mp_stats["ms"], mp_collectives=mp_stats["n"],
+                mp_bytes=mp_stats["bytes"],
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                init_peak_gib=init_peak,
                 held_bytes=held, one_process_bytes=n_params * 12,
+                copy_bytes=copy_bytes, one_copy_bytes=n_params * 2,
                 n_params=n_params, store_rows=int(store.shape[0]),
-                losses=losses, grad_norms=norms,
-                grad_bytes=sum(g.numel() * 4 for g in grads),
+                losses=losses, grad_norms=norms, grad_bytes=grad_bytes,
+                one_grad_bytes=n_params * 4, dp=mesh.dp, mp=mesh.mp,
                 dp_rank=mesh.dp_rank, mp_rank=mesh.mp_rank)
 
 
@@ -4069,8 +4151,9 @@ def _rank_train(rank: int, coord: str, backend: str, weights, noise,
         for rec in small.values():       # no tensor crosses the queue
             rec["masters"] = [{k: v.numpy() for k, v in m.items()}
                               for m in rec["masters"]]
-        queue.put((rank, {"small": small,
-                          "full": _rank_full_train(dev, store_path)}, None))
+        full = {name: _rank_full_train(dev, store_path, shape)
+                for name, shape in MESH_FULL_CFGS.items()}
+        queue.put((rank, {"small": small, "full": full}, None))
     except BaseException:
         queue.put((rank, None, traceback.format_exc()))
     finally:
@@ -4136,7 +4219,7 @@ def phase_train_mesh(dev, card: str, work: Path) -> dict:
                                          zip(g["losses"], want["losses"])))
             errs += [check_masters(f"phase 11 (a) {mesh_name} {layout} rank "
                                    f"{r} epoch {e}", gm, wm, g["mp"],
-                                   g["mp_rank"], g["lr"])
+                                   g["mp_rank"], g["lr"], g["min_size"])
                      for e, (gm, wm) in enumerate(zip(g["masters"],
                                                       want["masters"]))]
             if g["recall1"] != want["recall1"]:
@@ -4163,39 +4246,58 @@ def phase_train_mesh(dev, card: str, work: Path) -> dict:
             f"launches per rank and epoch {dict((k, v) for k, v in got['launches'][0].items() if v)}; "
             f"recall1 {got['recall1']:.4f}")
 
-    # (b): t5-base at dp=2 x mp=2
-    per = [rk["full"] for rk in ranks]
-    for name in ("losses", "grad_norms"):
-        vals = np.asarray([p[name] for p in per])
-        if not (np.isfinite(vals).all() and np.allclose(
-                vals, vals[0], rtol=1e-6, atol=0)):
-            raise Failed(f"phase 11 (b): {name} differ between ranks or are "
-                         f"not finite: {vals.tolist()}")
-    full = dict(
-        step_ms_each=[p["step_ms_each"] for p in per],
-        step_ms=fmean(fmean(p["step_ms_each"]) for p in per),
-        allreduce_ms_each=[p["allreduce_ms_each"] for p in per],
-        allreduce_ms=fmean(fmean(p["allreduce_ms_each"]) for p in per),
-        peak_gib=[p["peak_gib"] for p in per],
-        held_bytes=[p["held_bytes"] for p in per],
-        one_process_bytes=per[0]["one_process_bytes"],
-        store_rows=[p["store_rows"] for p in per],
-        losses=per[0]["losses"], grad_bytes=per[0]["grad_bytes"],
-        loss_spread=float(np.ptp([p["losses"] for p in per], axis=0).max()))
-    out["full"] = full
-    for r, p in enumerate(per):
-        log(f"  (b) t5-base bf16 over f32 masters, dp=2 x mp=2, rank {r} "
-            f"(dp {p['dp_rank']}, mp {p['mp_rank']}): step "
-            f"{', '.join(f'{x:.1f}' for x in p['step_ms_each'])} ms; the "
-            f"gradient all-reduce alone ({p['grad_bytes'] / 1e9:.2f} GB f32) "
-            f"{', '.join(f'{x:.1f}' for x in p['allreduce_ms_each'])} ms; "
-            f"peak {p['peak_gib']:.2f} GiB; masters + moments "
-            f"{p['held_bytes'] / 1e9:.2f} GB (one process "
-            f"{p['one_process_bytes'] / 1e9:.2f} GB); {p['store_rows']} store "
-            f"rows of {N_DOCS}")
-    log(f"  (b) losses {', '.join(f'{x:.4f}' for x in full['losses'])} on "
-        f"every rank (max spread {full['loss_spread']:.3g}); {card}")
+    # (b): t5-base at dp=2 x mp=2 and dp=1 x mp=4
+    out["full"] = {}
+    for name in MESH_FULL_CFGS:
+        out["full"][name] = _full_mesh_report(name, [rk["full"][name]
+                                                     for rk in ranks], card)
     return out
+
+
+def _full_mesh_report(name: str, per: list[dict], card: str) -> dict:
+    """(b)'s checks and log lines of one mesh shape: every rank's losses
+    bit-equal and finite, grad norms equal within 1e-6; per rank the bytes
+    held, the collectives' and the step's ms, the peak."""
+    import numpy as np
+
+    losses = np.asarray([p["losses"] for p in per])
+    if not (np.isfinite(losses).all() and (losses == losses[0]).all()):
+        raise Failed(f"phase 11 (b) {name}: losses differ between ranks or "
+                     f"are not finite: {losses.tolist()}")
+    norms = np.asarray([p["grad_norms"] for p in per])
+    if not (np.isfinite(norms).all() and np.allclose(norms, norms[0],
+                                                      rtol=1e-6, atol=0)):
+        raise Failed(f"phase 11 (b) {name}: grad norms differ between ranks "
+                     f"or are not finite: {norms.tolist()}")
+    keys = ("step_ms_each", "allreduce_ms_each", "mp_ms", "mp_collectives",
+            "mp_bytes", "peak_gib", "init_peak_gib", "held_bytes",
+            "copy_bytes", "grad_bytes", "store_rows")
+    full = {k: [p[k] for p in per] for k in keys}
+    full.update(step_ms=fmean(fmean(p["step_ms_each"]) for p in per),
+                allreduce_ms=fmean(fmean(p["allreduce_ms_each"]) for p in per),
+                one_process_bytes=per[0]["one_process_bytes"],
+                one_copy_bytes=per[0]["one_copy_bytes"],
+                one_grad_bytes=per[0]["one_grad_bytes"],
+                losses=per[0]["losses"], dp=per[0]["dp"], mp=per[0]["mp"])
+    for r, p in enumerate(per):
+        log(f"  (b) t5-base bf16 over f32 masters, {name}, rank {r} (dp "
+            f"{p['dp_rank']}, mp {p['mp_rank']}): step "
+            f"{', '.join(f'{x:.1f}' for x in p['step_ms_each'])} ms; compute "
+            f"copy {p['copy_bytes'] / 1e9:.3f} GB (whole "
+            f"{p['one_copy_bytes'] / 1e9:.3f}), gradient "
+            f"{p['grad_bytes'] / 1e9:.3f} GB (whole "
+            f"{p['one_grad_bytes'] / 1e9:.3f}), masters + moments "
+            f"{p['held_bytes'] / 1e9:.3f} GB (whole "
+            f"{p['one_process_bytes'] / 1e9:.3f}); the dp all-reduce alone "
+            f"{', '.join(f'{x:.1f}' for x in p['allreduce_ms_each'])} ms; "
+            f"the mp collectives of one step {p['mp_ms']:.1f} ms "
+            f"({p['mp_collectives']} of {p['mp_bytes'] / 1e9:.3f} GB); peak "
+            f"{p['peak_gib']:.2f} GiB in the steps, {p['init_peak_gib']:.2f} "
+            f"GiB in the set-up (the whole state, then cut); "
+            f"{p['store_rows']} store rows of {N_DOCS}")
+    log(f"  (b) {name} losses {', '.join(f'{x:.4f}' for x in full['losses'])}"
+        f" bit-equal on every rank; {card}")
+    return full
 
 
 # ------------------------------------------------------------ main
@@ -4404,9 +4506,9 @@ def main(argv: list[str]) -> int:
         log(f"[10] {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         log(f"[11] training over a mesh: {MESH_RANKS} ranks over "
-            f"{_mesh_backend()} (small f32 TrainLoop at dp=4 and 2x2 vs one "
-            f"card, its eval through each rank's kernels; t5-base steps at "
-            f"dp=2 x mp=2)")
+            f"{_mesh_backend()} (small f32 TrainLoop at dp=4, 2x2 and 1x4 vs "
+            f"one card, its eval through each rank's kernels; column-"
+            f"parallel t5-base steps at dp=2 x mp=2 and dp=1 x mp=4)")
         train_mesh = phase_train_mesh(dev, smi, work)
         log(f"[11] {time.perf_counter() - t:.1f} s")
     except Failed as e:

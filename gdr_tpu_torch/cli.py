@@ -65,8 +65,10 @@ Differences from the reference CLI:
   --ensemble N`` reads.  ``--dropout`` sets the modules' dropout rate.
 - ``train --mesh`` (default ``auto``, as in the reference) trains over the
   ranks of a process group, one process per GPU: ``auto`` makes every
-  rank data-parallel (no mesh in a world of one), ``DP,MP`` shards the
-  masters and moments of large leaves over mp as well.  Where the
+  rank data-parallel (no mesh in a world of one), ``DP,MP`` computes
+  tensor-parallel over mp as well (``gdr_tpu``'s column-parallel
+  placement: each mp rank holds and computes only its columns of every
+  large leaf, forward and backward).  Where the
   reference's ``auto`` shrinks dp to a divisor of the batch, a torch world
   is fixed by its launcher, so a batch that does not divide over the world
   is refused.  Rank 0 alone prints, writes the metrics, the checkpoints
@@ -992,8 +994,8 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--mesh", default="auto",
                     help="'none', 'auto' (every rank of the process group "
                          "data-parallel; one process without one) or "
-                         "'DP,MP' (masters and moments of large leaves "
-                         "sharded over MP)")
+                         "'DP,MP' (tensor-parallel over MP: each rank "
+                         "holds and computes its columns of large leaves)")
     pt.add_argument("--dropout", type=float, default=0.1,
                     help="the modules' dropout rate")
     pt.add_argument("--grad-accum", type=int, default=1,

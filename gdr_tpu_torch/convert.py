@@ -153,6 +153,52 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     return {"params": tree}
 
 
+_DOC_EMBEDDINGS = ("tok_embed", "pos_embed", "type_embed")
+_DOC_HEADS = ("query", "key", "value")
+
+
+def flax_layout(name: str, shape, heads: int = 0
+                ) -> tuple[tuple[int, ...], int, int]:
+    """Where the flax leaf of port parameter ``name`` (of ``shape``) keeps
+    its last axis in the port's tensor: (the flax leaf's shape, the port
+    dim that holds that axis, the contiguous blocks that dim is made of).
+    A cut of the flax last axis into parts cuts each block of the port dim
+    alike.  The retriever's and the doc tower's names (``heads``: the doc
+    tower's, which its attention kernels ``[d, H, dh]`` need):
+
+    - a Dense kernel ``[in, out]`` is the Linear weight ``[out, in]``: dim 0;
+    - the fused ``qkv`` ``[3·inner, d]`` holds the three kernels ``[d,
+      inner]``: dim 0 in 3 blocks, so a part holds q, k and v of the same
+      heads;
+    - the doc tower's query / key / value ``[H·dh, d]`` (kernel ``[d, H,
+      dh]``, bias ``[H, dh]``): dim 0 in H blocks; its ``out`` ``[d, H·dh]``
+      (kernel ``[H, dh, d]``): dim 0;
+    - embeddings ``[vocab, d]`` and the leaves kept as they are (``u``,
+      ``u2``, ``memory``, ``lm_head``, ``rel_embedding``) and 1-D leaves:
+      their last dim."""
+    shape = tuple(shape)
+    mod, _, leaf = name.rpartition(".")
+    owner = mod.rpartition(".")[2]
+    last = len(shape) - 1
+    if owner in _DOC_HEADS and not heads:
+        raise ValueError(f"{name}: the doc tower's attention needs its heads")
+    if leaf in _AS_IS or len(shape) < 2 and owner not in _DOC_HEADS:
+        return shape, last, 1
+    if leaf == "weight" and owner in _EMBEDDINGS + _DOC_EMBEDDINGS:
+        return shape, last, 1
+    if leaf == "weight" and owner == "qkv":
+        return (shape[1], shape[0] // 3), 0, 3
+    if owner in _DOC_HEADS:
+        dh = shape[0] // heads
+        return (((shape[1],) if leaf == "weight" else ()) + (heads, dh),
+                0, heads)
+    if leaf == "weight" and owner == "out" and heads:
+        return (heads, shape[1] // heads, shape[0]), 0, 1
+    if leaf == "weight" and len(shape) == 2:
+        return (shape[1], shape[0]), 0, 1
+    raise ValueError(f"port parameter {name!r} has no flax layout")
+
+
 def save_tree_npz(path: str, tree: Mapping) -> int:
     """Write a nested tree of arrays as an ``.npz``, each leaf under its
     ``/``-joined path, to a temporary file renamed into place.  Returns the

@@ -58,7 +58,9 @@ def embed_corpus(doc_encoder: DocEncoder, token_ids: np.ndarray,
     corpus and tower): ``batch_size`` is rounded up to a multiple of dp,
     the last batch padded with its first row; each dp rank encodes its
     rows of each batch, and one all-gather over the dp column builds the
-    whole [N, d] on every rank."""
+    whole [N, d] on every rank.  The tower's weights are whole: a train
+    loop whose mp row cuts them gathers them first
+    (``train/trainer.py::whole_weights``); a cut tower raises."""
     if mesh is None or mesh.dp == 1:
         return _embed(doc_encoder, token_ids, masks, batch_size,
                       normalize).cpu().numpy()

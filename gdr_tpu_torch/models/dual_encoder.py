@@ -4,7 +4,12 @@ position and type-0 embeddings, post-LN blocks, exact erf GELU, LayerNorm
 eps 1e-12) pooled at the CLS position.  It embeds the corpus for the index
 and the documents that corpus expansion adds.
 
-Plain PyTorch, inference only (no dropout).  The model dtype is the
+Plain PyTorch, no dropout.  It embeds with whole weights; in the stage-2
+train step over a mesh that cuts its leaves (``parallel/mesh.py``;
+``mp_mesh`` set) each Dense is column-parallel (query / key / value cut
+inside each head, as ``gdr_tpu`` cuts their ``[d, H, dh]`` kernels on
+``dh``, and gathered before the core) and each embedding is looked up in
+this rank's columns and gathered.  The model dtype is the
 parameters' dtype (f32 by default; the bench embeds in bf16).  Rounding
 points follow flax's ``MultiHeadDotProductAttention``, ``Dense`` and
 ``LayerNorm`` at that dtype:
@@ -28,6 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gdr_tpu_torch.parallel.autograd import (column_linear, embedding,
+                                             gather_from_mp, mp_mesh)
+
 
 @dataclass(frozen=True)
 class DocEncoderConfig:
@@ -46,8 +54,25 @@ def tiny_doc_encoder_config(d_model: int = 32) -> DocEncoderConfig:
                             num_heads=2, d_ff=64, max_position=64)
 
 
-def _dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    return F.linear(x, lin.weight) + lin.bias
+def _dense(x: torch.Tensor, lin: nn.Linear, module: nn.Module = None,
+           blocks: int = 1) -> torch.Tensor:
+    """``x·Wᵀ + b``; column-parallel over ``module``'s mesh where ``lin``
+    holds this rank's rows (in ``blocks``), its bias added to this rank's
+    columns when cut alike, else to the gathered output."""
+    w = lin.weight
+    if w.shape[0] == lin.out_features:
+        return F.linear(x, w) + lin.bias
+    mesh = mp_mesh(module)
+    y = column_linear(x, w, mesh, blocks, gather=False)
+    if lin.bias.shape[0] != lin.out_features:
+        return gather_from_mp(y + lin.bias, mesh, -1, blocks)
+    return gather_from_mp(y, mesh, -1, blocks) + lin.bias
+
+
+def _whole(w: torch.Tensor, d: int, module: nn.Module) -> torch.Tensor:
+    """An embedding table's rows ``w`` [..., d], gathered where its columns
+    are cut over mp."""
+    return w if w.shape[-1] == d else gather_from_mp(w, mp_mesh(module))
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -82,6 +107,8 @@ class LayerNorm(nn.Module):
 class SelfAttention(nn.Module):
     """Multi-head self-attention with biased projections."""
 
+    mp_mesh = None
+
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
@@ -95,17 +122,19 @@ class SelfAttention(nn.Module):
         b, l, d = x.shape
         h = self.num_heads
         dh = d // h
-        q, k, v = (_dense(x, lin).view(b, l, h, dh)
+        q, k, v = (_dense(x, lin, self, h).view(b, l, h, dh)
                    for lin in (self.query, self.key, self.value))
         q = q / torch.tensor(dh, dtype=torch.float32).sqrt().to(q.dtype)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
         probs = _softmax(scores)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, l, d)
-        return _dense(ctx, self.out)
+        return _dense(ctx, self.out, self)
 
 
 class BertBlock(nn.Module):
+    mp_mesh = None
+
     def __init__(self, d_model: int, num_heads: int, d_ff: int):
         super().__init__()
         self.attn = SelfAttention(d_model, num_heads)
@@ -116,11 +145,14 @@ class BertBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = self.ln1(x + self.attn(x, mask))
-        return self.ln2(x + _dense(_gelu(_dense(x, self.ff1)), self.ff2))
+        return self.ln2(x + _dense(_gelu(_dense(x, self.ff1, self)),
+                                   self.ff2, self))
 
 
 class DocEncoder(nn.Module):
     """BERT-style document tower → CLS embedding."""
+
+    mp_mesh = None
 
     def __init__(self, cfg: DocEncoderConfig = DocEncoderConfig()):
         super().__init__()
@@ -152,8 +184,10 @@ class DocEncoder(nn.Module):
         if l > self.cfg.max_position:
             raise ValueError(f"{l} tokens exceed the tower's "
                              f"{self.cfg.max_position} positions")
-        x = (self.tok_embed(input_ids) + self.pos_embed.weight[:l]
-             + self.type_embed.weight[0])
+        d = self.cfg.d_model
+        x = (embedding(self, self.tok_embed, input_ids)
+             + _whole(self.pos_embed.weight[:l], d, self)
+             + _whole(self.type_embed.weight[0], d, self))
         x = self.embed_ln(x)
         mask = attn_mask[:, None, None, :].bool()
         for block in self.blocks:

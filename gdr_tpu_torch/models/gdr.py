@@ -21,6 +21,15 @@ PAWA, mirroring the serving parts of ``gdr_tpu/models/gdr.py``.
   ``denoise`` (the denoising heads, with ``denoise_disc`` when
   ``ModelConfig.denoising``).
 
+In the train step over a mesh that cuts its leaves (``parallel/mesh.py``;
+``mp_mesh`` set), each mp rank computes its part of every product over
+them: the embeddings are looked up in this rank's columns and gathered,
+``query_proj``, ``fusion`` and ``denoise_disc`` are column-parallel, the
+heads tied to ``decode_embed`` / ``shared`` contract over this rank's part
+of d and sum the partial logits over the mp row in f32, and an untied
+``lm_head`` computes this rank's vocab columns of the full-vocab logits
+(the candidate slots, which straddle its parts, read it gathered).
+
 The model's dtype is its parameters' dtype (``model.to(torch.bfloat16)``
 serves in bf16).  The model is built in eval mode: dropout runs only after
 ``model.train()``, as the trainer calls it, and draws from the generator
@@ -36,7 +45,10 @@ from torch import nn
 
 from gdr_tpu_torch.config import ModelConfig
 from gdr_tpu_torch.models.pawa import FullPawaAdaptor, PawaAdaptor
-from gdr_tpu_torch.models.t5 import Decoder, Encoder, _linear
+from gdr_tpu_torch.models.t5 import Decoder, Encoder, _dense
+from gdr_tpu_torch.parallel.autograd import (copy_to_mp, embedding,
+                                             gather_from_mp, mp_mesh, mp_part,
+                                             reduce_from_mp)
 from gdr_tpu_torch.ops.losses import denoising_losses
 from gdr_tpu_torch.ops.masks import positional_logit_mask
 
@@ -50,6 +62,8 @@ def _logit_mask(kary: int, max_output_length: int, position: bool,
 
 
 class GenerativeRetriever(nn.Module):
+    mp_mesh = None
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         c = cfg
@@ -93,22 +107,50 @@ class GenerativeRetriever(nn.Module):
         return self.shared.weight.device
 
     def _head_rows(self) -> torch.Tensor:
-        """Base lm-head weight as rows [V, d] (tied → decode embeddings)."""
+        """Base lm-head weight as rows [V, d] (tied → decode embeddings);
+        an untied head cut over mp is gathered."""
         if self.cfg.tie_decode_embedding:
             return self.decode_embed.weight
-        return self.lm_head.t()
+        lm = self.lm_head
+        if lm.shape[1] != self.cfg.decode_vocab_size:
+            lm = gather_from_mp(lm, mp_mesh(self))
+        return lm.t()
+
+    def _head_cut(self):
+        """The mesh when the base head holds this rank's part of d (tied
+        and cut), else None."""
+        w = self.decode_embed.weight
+        if (not self.cfg.tie_decode_embedding
+                or w.shape[1] == self.decode_embed.embedding_dim):
+            return None
+        return mp_mesh(self)
+
+    def _head_logits(self, s: torch.Tensor) -> torch.Tensor:
+        """The base head's logits [..., V] f32 of the head input ``s``."""
+        mesh = self._head_cut()
+        if mesh is not None:          # the contraction over d, completed
+            return reduce_from_mp(mp_part(s, mesh).float()
+                                  @ self.decode_embed.weight.float().t(),
+                                  mesh)
+        lm = None if self.cfg.tie_decode_embedding else self.lm_head
+        if lm is not None and lm.shape[1] != self.cfg.decode_vocab_size:
+            mesh = mp_mesh(self)      # this rank's vocab columns
+            return gather_from_mp(copy_to_mp(s, mesh).float() @ lm.float(),
+                                  mesh)
+        return s.float() @ self._head_rows().float().t()
 
     # ---------------------------------------------------------- main paths
 
     def encode(self, input_ids: torch.Tensor, attn_mask: torch.Tensor):
-        return self.encoder(self.shared(input_ids), attn_mask)
+        return self.encoder(embedding(self, self.shared, input_ids),
+                            attn_mask)
 
     def query_embedding(self, enc: torch.Tensor) -> torch.Tensor:
         return self.project_query(enc[:, 0])
 
     def project_query(self, q: torch.Tensor) -> torch.Tensor:
         if self.cfg.encoder_d_model != self.cfg.d_model:
-            q = _linear(q, self.query_proj.weight)
+            q = _dense(self, q, self.query_proj)
         return q
 
     def pool_query(self, enc: torch.Tensor, decoder_hidden: torch.Tensor,
@@ -137,7 +179,7 @@ class GenerativeRetriever(nn.Module):
         their concatenation, in the model dtype, its bias added after the
         product is rounded, as ``flax.linen.Dense(dtype=...)``."""
         x = torch.cat([q_dec, q_enc.expand(q_dec.shape)], dim=-1)
-        return _linear(x, self.fusion.weight) + self.fusion.bias
+        return _dense(self, x, self.fusion) + self.fusion.bias
 
     # ------------------------------------------------ teacher-forced paths
 
@@ -149,8 +191,9 @@ class GenerativeRetriever(nn.Module):
     def decode_hidden(self, enc, enc_mask, decoder_input_ids,
                       decoder_attn_mask) -> torch.Tensor:
         """Decoder states [B, L, d] only (no head)."""
-        return self.decoder(self.decode_embed(decoder_input_ids), enc,
-                            decoder_attn_mask, enc_mask)
+        return self.decoder(embedding(self, self.decode_embed,
+                                      decoder_input_ids),
+                            enc, decoder_attn_mask, enc_mask)
 
     def decode_logits(self, enc, enc_mask, decoder_input_ids,
                       decoder_attn_mask, decoder=None):
@@ -159,16 +202,15 @@ class GenerativeRetriever(nn.Module):
         stack in place of the model's own (the hierarchic mode's per-depth
         stacks)."""
         c = self.cfg
-        x = self.decode_embed(decoder_input_ids)
+        x = embedding(self, self.decode_embed, decoder_input_ids)
         dec = self.decoder if decoder is None else decoder
         hidden = dec(x, enc, decoder_attn_mask, enc_mask)
         s = self._scaled(hidden)
-        w = self._head_rows().float()
         if c.adaptor_decode and not c.adaptor_efficient:
             s_t = self.pawa.transform(self.pawa(decoder_input_ids), s)
-            logits = s_t.float() @ w.t()
+            logits = self._head_logits(s_t)
         else:
-            logits = s.float() @ w.t()
+            logits = self._head_logits(s)
             if c.adaptor_decode:
                 logits = logits + self.pawa.delta_logits(self.pawa(x),
                                                          s).float()
@@ -189,15 +231,19 @@ class GenerativeRetriever(nn.Module):
         if c.adaptor_decode and not c.adaptor_efficient:
             raise ValueError("the candidate-sliced head needs the efficient "
                              "PAWA adaptor")
-        x = self.decode_embed(decoder_input_ids)
+        x = embedding(self, self.decode_embed, decoder_input_ids)
         hidden = self.decoder(x, enc, decoder_attn_mask, enc_mask)
         s = self._scaled(hidden)
         l = s.shape[1]
         rows = self._head_rows()
+        mesh = self._head_cut()
+        s_d = s if mesh is None else mp_part(s, mesh)     # this rank's d
         w_dig = rows[2:2 + l * kary].reshape(l, kary, -1)
-        cand = torch.einsum("bld,lkd->blk", s.float(), w_dig.float())
-        eos = (s.float() * rows[1].float()).sum(-1)
+        cand = torch.einsum("bld,lkd->blk", s_d.float(), w_dig.float())
+        eos = (s_d.float() * rows[1].float()).sum(-1)
         cand = torch.cat([cand, eos[..., None]], dim=-1)
+        if mesh is not None:
+            cand = reduce_from_mp(cand, mesh)
         if c.adaptor_decode:
             cand = cand + self.pawa.delta_candidates_all(self.pawa(x), s,
                                                          kary)
@@ -233,8 +279,11 @@ class GenerativeRetriever(nn.Module):
         if not (c.adaptor_decode and c.adaptor_efficient):
             raise ValueError("weight distillation needs the efficient PAWA "
                              "adaptor")
-        a = self.pawa(self.decode_embed(decoder_input_ids))
+        a = self.pawa(embedding(self, self.decode_embed, decoder_input_ids))
         base = self._head_rows()[labels.long()]
+        mesh = self._head_cut()
+        if mesh is not None:
+            base = gather_from_mp(base, mesh)
         return self.project_query(base + self.pawa.label_delta(a, labels))
 
     def denoise(self, input_ids, attn_mask, keep_mask,
@@ -246,13 +295,19 @@ class GenerativeRetriever(nn.Module):
         ``generator`` (``ops/losses.py::denoising_losses``; ``dp``: this
         rank's share over dp ranks)."""
         def encode(ids):
-            return self.encoder(self.shared(ids), attn_mask)
+            return self.encoder(embedding(self, self.shared, ids), attn_mask)
 
         def predict_head(hidden):
-            return self._scaled(hidden).float() @ self.shared.weight.float().t()
+            w = self.shared.weight
+            if w.shape[1] == self.shared.embedding_dim:
+                return self._scaled(hidden).float() @ w.float().t()
+            mesh = mp_mesh(self)      # the contraction over d, completed
+            return reduce_from_mp(
+                mp_part(self._scaled(hidden), mesh).float() @ w.float().t(),
+                mesh)
 
         def disc_head(hidden):
-            return _linear(hidden, self.denoise_disc.weight)
+            return _dense(self, hidden, self.denoise_disc)
 
         return denoising_losses(encode, predict_head, disc_head, input_ids,
                                 attn_mask, keep_mask, gumbel, generator, dp)

@@ -18,7 +18,14 @@ a per-prefix [d, d] matrix reshape(A·U2) that transforms the head input.
 The teacher-forced paths (``forward`` over all ``L`` positions, the full
 vocab's ``delta_logits``, the candidate slots' ``delta_candidates_all``
 and the label tokens' ``label_delta``) train U and U2 by autograd; the
-layers' dropout is the reference's (``models/t5.py::Dropout``).
+layers' dropout is the reference's (``models/t5.py::Dropout``).  In the
+train step over a mesh that cuts them (``parallel/mesh.py``), the layers'
+linears are column-parallel as T5's, ``embed`` is looked up in this rank's
+columns and gathered, and U and U2 hold this rank's part of their last
+axis: the contractions over that axis (the delta's with the decoder state,
+the transform's with the head input) are this rank's partial sums, summed
+over the mp row in f32 and cast once; ``label_delta``'s output columns
+are gathered.
 """
 
 from __future__ import annotations
@@ -26,7 +33,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gdr_tpu_torch.models.t5 import Attention, Dropout, _linear
+from gdr_tpu_torch.models.t5 import Attention, Dropout, _dense, _linear
+from gdr_tpu_torch.parallel.autograd import (copy_to_mp, embedding,
+                                             gather_from_mp, mp_mesh, mp_part,
+                                             reduce_from_mp)
 
 
 class LayerNorm(nn.Module):
@@ -54,6 +64,8 @@ class PawaLayer(nn.Module):
     """One adaptor block: causal self-attn → cross-attn(memory) → FF,
     post-norm residuals."""
 
+    mp_mesh = None
+
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
                  dropout_rate: float = 0.0):
         super().__init__()
@@ -76,7 +88,7 @@ class PawaLayer(nn.Module):
                             device=x.device).tril()[None, None]
         x = self.ln1(x + self.drop(self.self_attn(x, mask=causal)))
         x = self.ln2(x + self.drop(self.cross_attn(x, kv=memory)))
-        h = _linear(torch.relu(_linear(x, self.ff1.weight)), self.ff2.weight)
+        h = _dense(self, torch.relu(_dense(self, x, self.ff1)), self.ff2)
         return self.ln3(x + self.drop(h))
 
     def memory_out(self, memory: torch.Tensor) -> torch.Tensor:
@@ -118,6 +130,8 @@ class FullPawaAdaptor(nn.Module):
     transform reshape(A·U2) of the head input, s' = s · reshape(A·U2, [d,
     d]); the base lm-head is then applied to s'."""
 
+    mp_mesh = None
+
     def __init__(self, d_model: int, decode_vocab_size: int,
                  num_layers: int = 4, num_heads: int = 8, d_ff: int = 0,
                  dropout_rate: float = 0.0):
@@ -133,7 +147,7 @@ class FullPawaAdaptor(nn.Module):
     def forward(self, decoder_input_ids: torch.Tensor) -> torch.Tensor:
         """The adaptor over all positions of the prefix tokens [B, L]:
         A [B, L, d] scaled by d^-0.5 in the model dtype."""
-        x = self.embed(decoder_input_ids)
+        x = embedding(self, self.embed, decoder_input_ids)
         zero = x.new_zeros((x.shape[0], 1, self.d_model))
         for layer in self.layers:
             x = layer(x, zero)
@@ -170,17 +184,30 @@ class FullPawaAdaptor(nn.Module):
         adaptor_out = adaptor_out.reshape(-1, d)
         decoder_out = decoder_out.reshape(-1, d)
         u2 = self.u2.float()
+        mesh = None
+        if u2.shape[1] != d * d:
+            # this rank's rows of each [d, d] transform: its part of s
+            mesh = mp_mesh(self)
+            adaptor_out = copy_to_mp(adaptor_out, mesh)
+            decoder_out = mp_part(decoder_out, mesh)
+        rows = u2.shape[1] // d
         step = max(1, _TRANSFORM_CHUNK_BYTES // (4 * d * d))
         out = []
         for i in range(0, adaptor_out.shape[0], step):
-            w = (adaptor_out[i:i + step].float() @ u2).view(-1, d, d)
+            w = (adaptor_out[i:i + step].float() @ u2).view(-1, rows, d)
             s = decoder_out[i:i + step].float()[:, None]
-            out.append(torch.bmm(s, w)[:, 0].to(decoder_out.dtype))
+            t = torch.bmm(s, w)[:, 0]
+            out.append(t if mesh else t.to(decoder_out.dtype))
+        if mesh:
+            return reduce_from_mp(torch.cat(out), mesh).to(
+                decoder_out.dtype).reshape(shape)
         return torch.cat(out).reshape(shape)
 
 
 class PawaAdaptor(nn.Module):
     """The adaptor stack plus the weight-delta tensor U [d, V, d]."""
+
+    mp_mesh = None
 
     def __init__(self, d_model: int, decode_vocab_size: int,
                  num_layers: int = 4, num_heads: int = 8, d_ff: int = 0,
@@ -198,7 +225,10 @@ class PawaAdaptor(nn.Module):
         """The adaptor over all positions: decode_embeds [B, L, d] (the
         embedded decoder inputs) → A [B, L, d]."""
         x = decode_embeds
-        memory = self.memory.expand(x.shape[0], 1, self.d_model)
+        memory = self.memory
+        if memory.shape[-1] != self.d_model:
+            memory = gather_from_mp(memory, mp_mesh(self))
+        memory = memory.expand(x.shape[0], 1, self.d_model)
         for layer in self.layers:
             x = layer(x, memory)
         return x
@@ -212,9 +242,20 @@ class PawaAdaptor(nn.Module):
         d = self.d_model
         b, l, _ = adaptor_out.shape
         u_flat = self.u.reshape(d, -1)
-        g = (adaptor_out.reshape(b * l, d) @ u_flat).reshape(b, l, -1, d)
-        return torch.einsum("blvi,bli->blv", g.float(),
-                            decoder_out.float()).to(adaptor_out.dtype)
+        mesh = self._cut()
+        if mesh is None:
+            g = (adaptor_out.reshape(b * l, d) @ u_flat).reshape(b, l, -1, d)
+            return torch.einsum("blvi,bli->blv", g.float(),
+                                decoder_out.float()).to(adaptor_out.dtype)
+        g = (copy_to_mp(adaptor_out, mesh).reshape(b * l, d)
+             @ u_flat).reshape(b, l, -1, self.u.shape[-1])
+        part = torch.einsum("blvi,bli->blv", g.float(),
+                            mp_part(decoder_out, mesh).float())
+        return reduce_from_mp(part, mesh).to(adaptor_out.dtype)
+
+    def _cut(self):
+        """The mesh when U holds this rank's part of its last axis."""
+        return None if self.u.shape[-1] == self.d_model else mp_mesh(self)
 
     def label_delta(self, adaptor_out: torch.Tensor, labels: torch.Tensor
                     ) -> torch.Tensor:
@@ -222,10 +263,14 @@ class PawaAdaptor(nn.Module):
         U[j, labels[b,l], i], in f32 then rounded to the model dtype.  One
         position at a time, so the gathered U stays [d, B, d].  A [B, L, d],
         labels [B, L] → [B, L, d]."""
+        mesh = self._cut()
+        if mesh is not None:
+            adaptor_out = copy_to_mp(adaptor_out, mesh)
         out = [torch.einsum("bj,jbi->bi", adaptor_out[:, l].float(),
                             self.u[:, labels[:, l].long()].float())
                for l in range(labels.shape[1])]
-        return torch.stack(out, dim=1).to(adaptor_out.dtype)
+        out = torch.stack(out, dim=1).to(adaptor_out.dtype)
+        return out if mesh is None else gather_from_mp(out, mesh)
 
     def delta_candidates_all(self, adaptor_out: torch.Tensor,
                              decoder_out: torch.Tensor, kary: int
@@ -238,13 +283,19 @@ class PawaAdaptor(nn.Module):
         kary+1] f32 (digit slots, EOS)."""
         d = self.d_model
         b, l, _ = adaptor_out.shape
-        u_dig = self.u[:, 2:2 + l * kary, :].reshape(d, l, kary * d)
+        c = self.u.shape[-1]                 # d, or this rank's part of it
+        mesh = self._cut()
+        if mesh is not None:
+            adaptor_out = copy_to_mp(adaptor_out, mesh)
+            decoder_out = mp_part(decoder_out, mesh)
+        u_dig = self.u[:, 2:2 + l * kary, :].reshape(d, l, kary * c)
         g = torch.einsum("bli,ilk->blk", adaptor_out, u_dig)
-        dig = torch.einsum("blkd,bld->blk", g.reshape(b, l, kary, d).float(),
+        dig = torch.einsum("blkd,bld->blk", g.reshape(b, l, kary, c).float(),
                            decoder_out.float())
         ae = adaptor_out @ self.u[:, 1, :]                      # EOS block
         eos = (ae.float() * decoder_out.float()).sum(-1)
-        return torch.cat([dig, eos[..., None]], dim=-1)
+        out = torch.cat([dig, eos[..., None]], dim=-1)
+        return out if mesh is None else reduce_from_mp(out, mesh)
 
     def init_cache(self, batch: int, max_len: int) -> dict[str, torch.Tensor]:
         return _pawa_cache(len(self.layers), batch, max_len, self.u)

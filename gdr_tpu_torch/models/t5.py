@@ -20,7 +20,14 @@ cross-attention (``cross_*`` keys, never reordered).
 
 The full-sequence paths (``Encoder.forward``, the teacher-forced
 ``Decoder.forward``) are plain PyTorch, as in the reference package, which
-trains outside any Pallas kernel.  They have a :class:`Dropout` at every
+trains outside any Pallas kernel.  In the train step over a mesh whose mp
+row cuts a weight (``parallel/mesh.py``; the module's ``mp_mesh`` set),
+the module holds this rank's rows of it and computes its columns only
+(``parallel/autograd.py::column_linear``): the fused ``qkv``, ``o``,
+``wi`` and ``wo``.  Where the heads divide over the row, a rank's q, k and
+v heads stay local through the scores, softmax and value product and the
+context is gathered before ``o``; otherwise q, k and v are gathered before
+the core.  They have a :class:`Dropout` at every
 place flax has one: attention probabilities, the FFN hidden, each block's
 residual branches and the stack's input and output.  Dropout runs only in
 train mode and draws from a ``torch.Generator`` the caller sets
@@ -33,11 +40,14 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from gdr_tpu_torch.kernels.decode import (cross_attn_sublayer, ffn_sublayer,
                                           self_attn_sublayer)
+from gdr_tpu_torch.parallel.autograd import (column_linear, copy_to_mp,
+                                             gather_from_mp, mp_mesh, mp_part)
 
 NEG_INF = -1e9
 
@@ -45,6 +55,16 @@ NEG_INF = -1e9
 def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Dense in the model dtype (``flax.linen.Dense(dtype=...)``)."""
     return torch.nn.functional.linear(x.to(w.dtype), w)
+
+
+def _dense(module: nn.Module, x: torch.Tensor, lin: nn.Linear,
+           blocks: int = 1) -> torch.Tensor:
+    """:func:`_linear` by ``module``'s Linear ``lin``; column-parallel over
+    the module's mesh where ``lin`` holds this rank's rows of its weight."""
+    w = lin.weight
+    if w.shape[0] == lin.out_features:
+        return _linear(x, w)
+    return column_linear(x.to(w.dtype), w, mp_mesh(module), blocks)
 
 
 class Dropout(nn.Module):
@@ -58,14 +78,25 @@ class Dropout(nn.Module):
         self.p = p
         self.generator: torch.Generator | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, part=None) -> torch.Tensor:
+        """``part``: (mesh, dim) when ``x`` is this mp rank's part of a
+        tensor cut on ``dim``; the draws are the whole tensor's, so that the
+        mask is the one of an uncut step."""
         if not self.training or self.p == 0.0:
             return x
         if self.generator is None:
             raise RuntimeError("dropout in train mode draws from a generator:"
                                " call set_dropout_generator(model, gen)")
         keep_prob = 1.0 - self.p
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        if part is None:
+            u = torch.rand(x.shape, generator=self.generator,
+                           device=x.device)
+        else:
+            mesh, dim = part
+            shape, n = list(x.shape), x.shape[dim]
+            shape[dim] = n * mesh.mp
+            u = torch.rand(shape, generator=self.generator,
+                           device=x.device).narrow(dim, mesh.mp_rank * n, n)
         return torch.where(u < keep_prob, x / keep_prob,
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -150,9 +181,12 @@ def _buckets(qlen: int, klen: int, q_offset: int, bidirectional: bool,
 
 
 class RelativePositionBias(nn.Module):
+    mp_mesh = None
+
     def __init__(self, num_heads: int, num_buckets: int = 32,
                  max_distance: int = 128, bidirectional: bool = True):
         super().__init__()
+        self.num_heads = num_heads
         self.num_buckets = num_buckets
         self.max_distance = max_distance
         self.bidirectional = bidirectional
@@ -162,12 +196,17 @@ class RelativePositionBias(nn.Module):
         """Bias [1, heads, qlen, klen] in the model dtype."""
         b = _buckets(qlen, klen, int(q_offset), self.bidirectional,
                      self.num_buckets, self.max_distance)
-        bias = self.rel_embedding[b.to(self.rel_embedding.device)]
+        table = self.rel_embedding
+        if table.shape[1] != self.num_heads:          # cut on the heads
+            table = gather_from_mp(table, mp_mesh(self), dim=1)
+        bias = table[b.to(table.device)]
         return bias.permute(2, 0, 1)[None]
 
 
 class Attention(nn.Module):
     """Multi-head attention with an optional explicit KV cache."""
+
+    mp_mesh = None
 
     def __init__(self, d_model: int, num_heads: int, d_kv: int,
                  dropout_rate: float = 0.0):
@@ -181,47 +220,82 @@ class Attention(nn.Module):
 
     @property
     def wq(self) -> torch.Tensor:
-        return self.qkv.weight[:self.inner]
+        n = self.qkv.weight.shape[0] // 3
+        return self.qkv.weight[:n]
 
     @property
     def wk(self) -> torch.Tensor:
-        return self.qkv.weight[self.inner:2 * self.inner]
+        n = self.qkv.weight.shape[0] // 3
+        return self.qkv.weight[n:2 * n]
 
     @property
     def wv(self) -> torch.Tensor:
-        return self.qkv.weight[2 * self.inner:]
+        n = self.qkv.weight.shape[0] // 3
+        return self.qkv.weight[2 * n:]
 
     @property
     def dtype(self) -> torch.dtype:
         return self.qkv.weight.dtype
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
-        b, l, _ = x.shape
-        return x.reshape(b, l, self.num_heads, self.d_kv).transpose(1, 2)
+        b, l, n = x.shape
+        return x.reshape(b, l, n // self.d_kv, self.d_kv).transpose(1, 2)
 
     def _merge(self, x: torch.Tensor) -> torch.Tensor:
         b, h, l, d = x.shape
         return x.transpose(1, 2).reshape(b, l, h * d)
 
-    def _attend(self, q, k, v, mask, bias):
+    def _core(self, q, k, v, mask, bias, part=None):
+        """Scores, softmax, dropout and value product over the heads of q,
+        k, v [B, h, L, d_kv] (``part``: the dropout's, when they are this
+        mp rank's heads) → the merged context [B, L, h·d_kv]."""
         scores = q.float() @ k.float().transpose(-1, -2)
         if bias is not None:
             scores = scores + bias.float()
         if mask is not None:
             scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-        probs = self.attn_dropout(torch.softmax(scores, dim=-1).to(self.dtype))
-        return _linear(self._merge(probs @ v), self.o.weight)
+        probs = self.attn_dropout(torch.softmax(scores, dim=-1).to(self.dtype),
+                                  part)
+        return self._merge(probs @ v)
+
+    def _context_mp(self, x, kv, mask, bias):
+        """The context [B, L, inner] when ``qkv`` holds this mp rank's rows
+        of q, k and v: its heads' core where the heads divide over the row
+        (the bias cut to them), else the whole core after a gather."""
+        mesh = mp_mesh(self)
+        x = copy_to_mp(x.to(self.dtype), mesh)
+        if kv is None:
+            q, k, v = F.linear(x, self.qkv.weight).split(
+                self.qkv.weight.shape[0] // 3, dim=-1)
+        else:
+            kv = copy_to_mp(kv.to(self.dtype), mesh)
+            q = F.linear(x, self.wq)
+            k, v = F.linear(kv, self.wk), F.linear(kv, self.wv)
+        if self.num_heads % mesh.mp:
+            q, k, v = (gather_from_mp(t, mesh) for t in (q, k, v))
+            return self._core(self._split(q), self._split(k), self._split(v),
+                              mask, bias)
+        if bias is not None:
+            bias = mp_part(bias, mesh, dim=1)
+        ctx = self._core(self._split(q), self._split(k), self._split(v),
+                         mask, bias, part=(mesh, 1))
+        return gather_from_mp(ctx, mesh)
 
     def forward(self, x, kv=None, mask=None, bias=None):
         """Full attention over ``x``, or over ``kv`` (cross-attention).
         mask: broadcastable to [B, 1, Q, K], True = attend."""
-        if kv is None:
-            q, k, v = _linear(x, self.qkv.weight).split(self.inner, dim=-1)
+        if self.qkv.weight.shape[0] != 3 * self.inner:
+            ctx = self._context_mp(x, kv, mask, bias)
         else:
-            q = _linear(x, self.wq)
-            k, v = _linear(kv, self.wk), _linear(kv, self.wv)
-        return self._attend(self._split(q), self._split(k), self._split(v),
-                            mask, bias)
+            if kv is None:
+                q, k, v = _linear(x, self.qkv.weight).split(self.inner,
+                                                            dim=-1)
+            else:
+                q = _linear(x, self.wq)
+                k, v = _linear(kv, self.wk), _linear(kv, self.wv)
+            ctx = self._core(self._split(q), self._split(k), self._split(v),
+                             mask, bias)
+        return _dense(self, ctx, self.o)
 
     def precompute_kv(self, kv_src: torch.Tensor):
         """Project a cross-attention source once: ([B,H,S,dk], [B,H,S,dk])."""
@@ -252,6 +326,8 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
+    mp_mesh = None
+
     def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0):
         super().__init__()
         self.wi = nn.Linear(d_model, d_ff, bias=False)
@@ -259,8 +335,8 @@ class FeedForward(nn.Module):
         self.drop = Dropout(dropout_rate)
 
     def forward(self, x):
-        h = self.drop(torch.relu(_linear(x, self.wi.weight)))
-        return _linear(h, self.wo.weight)
+        h = self.drop(torch.relu(_dense(self, x, self.wi)))
+        return _dense(self, h, self.wo)
 
 
 class EncoderBlock(nn.Module):

@@ -12,12 +12,20 @@ shard ``r`` is rank ``r``'s (``store_range``, ``parallel/store.py``).
 
 Training (``train/loop.py::TrainLoop(mesh=)``): every rank builds the same
 global batch and keeps its dp rows (:func:`shard_batch`); the mp ranks of
-a dp coordinate take the same rows.  Large parameters keep their f32
-masters and AdamW moments as column slices over mp (:func:`tp_param_rules`,
-:func:`shard_params`); the gradients are summed over each dp column
-(:meth:`Mesh.all_reduce_dp`) and the updated slices gathered over each mp
-row (:meth:`Mesh.all_gather_mp`).  The library form of ``gdr_tpu``'s
-``examples/demo_mesh_train.py``, one process per GPU:
+a dp coordinate take the same rows.  The placement is ``gdr_tpu``'s
+column-parallel one (:func:`tp_param_rules`): a leaf whose flax shape has
+2+ axes, ``tp_min_size``+ elements and a last axis that divides by mp is
+cut on that axis, which is the output axis of a Dense kernel; the port's
+tensor holds it on the dim ``convert.py::flax_layout`` names (dim 0 of a
+Linear weight ``[out, in]``, the q, k and v blocks of the fused ``qkv``).
+An mp rank holds its part of such a leaf as its f32 master, its AdamW
+moments and its compute copy (:func:`shard_params`), and computes only its
+columns of each product over it, forward and backward
+(``parallel/autograd.py``): the ranks of an mp row split the step's
+compute.  The gradients of the parts are summed over each dp column
+(:meth:`Mesh.all_reduce_dp`); the activations cross the mp row
+(:meth:`Mesh.all_gather_mp`, :meth:`Mesh.sum_mp`).  The library form of
+``gdr_tpu``'s ``examples/demo_mesh_train.py``, one process per GPU:
 
     # torchrun --nproc-per-node 4 train.py
     from gdr_tpu_torch.parallel.distributed import initialize, shutdown
@@ -31,13 +39,14 @@ row (:meth:`Mesh.all_gather_mp`).  The library form of ``gdr_tpu``'s
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from gdr_tpu_torch.config import MeshConfig
+from gdr_tpu_torch.convert import flax_layout
 from gdr_tpu_torch.parallel.distributed import subgroups
 
 # elements of f32 gradient that one all-reduce carries (256 MB)
@@ -96,10 +105,13 @@ class Mesh:
             return None if self.mp == 1 else cols[self.mp_rank]
         return None if self.dp == 1 else rows[self.dp_rank]
 
+    def _size(self, axis: str) -> int:
+        return {"world": self.world, "dp": self.dp, "mp": self.mp}[axis]
+
     def _gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """``t`` of every rank of ``axis`` (``world``, ``dp`` or ``mp``),
         concatenated along ``dim`` in rank order, on ``t``'s device."""
-        n = {"world": self.world, "dp": self.dp, "mp": self.mp}[axis]
+        n = self._size(axis)
         if n == 1:
             return t
         src = t.to(self.comm_device).contiguous()
@@ -108,7 +120,7 @@ class Mesh:
         return torch.cat(parts, dim=dim).to(t.device)
 
     def _sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
-        if (self.world if axis == "world" else self.dp) == 1:
+        if self._size(axis) == 1:
             return t
         out = t.detach().to(self.comm_device).clone()
         dist.all_reduce(out, group=self._group(axis))
@@ -125,10 +137,24 @@ class Mesh:
         the first axis in dp order: the global batch's rows."""
         return self._gather(t, "dp", 0)
 
-    def all_gather_mp(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` of every rank of this rank's mp row, concatenated along
-        the last axis in mp order: a column-sharded leaf made whole."""
-        return self._gather(t, "mp", -1)
+    def all_gather_mp(self, t: torch.Tensor, dim: int = -1,
+                      blocks: int = 1) -> torch.Tensor:
+        """The parts of every rank of this rank's mp row made whole along
+        ``dim``: a cut leaf or activation (:class:`Cut`).  ``blocks``: the
+        dim is that many contiguous blocks, each cut into mp parts, and
+        ``t`` holds this rank's part of each block in block order."""
+        whole = self._gather(t, "mp", dim)
+        if blocks == 1 or self.mp == 1:
+            return whole
+        dim = dim % t.dim()
+        c = t.shape[dim] // blocks
+        return whole.unflatten(dim, (self.mp, blocks, c)).transpose(
+            dim, dim + 1).flatten(dim, dim + 2)
+
+    def sum_mp(self, t: torch.Tensor) -> torch.Tensor:
+        """The SUM of ``t`` over this rank's mp row (a new tensor): a
+        contraction whose axis the row cuts, completed."""
+        return self._sum(t, "mp")
 
     def all_reduce_dp(self, tensors: list[torch.Tensor]) -> None:
         """SUM each tensor in place over this rank's dp column, in buckets
@@ -223,50 +249,79 @@ def shard_batch(batch: dict, mesh: Mesh) -> dict:
     return out
 
 
-def tp_param_rules(mp: int, min_size: int = 1 << 14) -> Callable:
-    """The column-parallel placement rule: a leaf of at least 2 axes and
-    ``min_size`` elements whose last axis divides by ``mp`` is sharded on
-    its last axis (``gdr_tpu``'s predicate); everything else stays whole.
-    ``rule(name, leaf) -> bool``."""
+class Cut(NamedTuple):
+    """Where a leaf is cut over mp: port ``dim``, made of ``blocks``
+    contiguous blocks that are each cut into mp equal parts (the fused
+    ``qkv`` is 3 blocks, q, k and v; ``convert.py::flax_layout``)."""
 
-    def rule(name: str, leaf: Any) -> bool:
-        return (isinstance(leaf, torch.Tensor) and leaf.dim() >= 2
-                and leaf.numel() >= min_size and leaf.shape[-1] % mp == 0)
+    dim: int
+    blocks: int = 1
+
+
+def tp_param_rules(mp: int, min_size: int = 1 << 14,
+                   doc_heads: int = 0) -> Callable:
+    """The column-parallel placement rule of ``gdr_tpu``: a leaf whose
+    *flax* shape has at least 2 axes and ``min_size`` elements and whose
+    last axis divides by ``mp`` is cut on that axis; everything else stays
+    whole.  ``rule(name, leaf) -> Cut | None``, ``name`` is ``<tower>/<port
+    name>`` (``doc_heads``: the doc tower's heads)."""
+
+    def rule(name: str, leaf: Any) -> Cut | None:
+        if not isinstance(leaf, torch.Tensor):
+            return None
+        tower, _, pname = name.rpartition("/")
+        shape, dim, blocks = flax_layout(
+            pname, leaf.shape, doc_heads if tower == "doc_encoder" else 0)
+        if (len(shape) >= 2 and int(np.prod(shape)) >= min_size
+                and shape[-1] % mp == 0):
+            return Cut(dim, blocks)
+        return None
 
     return rule
 
 
-def mp_slice(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This rank's columns ``[mp_rank·n/mp, (mp_rank+1)·n/mp)`` of the last
-    axis, a copy of its own."""
-    n = t.shape[-1] // mesh.mp
-    return t[..., mesh.mp_rank * n:(mesh.mp_rank + 1) * n].clone()
+def mp_slice(t: torch.Tensor, mesh: Mesh, cut: Cut) -> torch.Tensor:
+    """This rank's part of ``t`` cut as ``cut`` says: the ``mp_rank``-th of
+    mp equal parts of each block of ``cut.dim``, in block order (a view)."""
+    dim = cut.dim % t.dim()
+    c = t.shape[dim] // (cut.blocks * mesh.mp)
+    return t.unflatten(dim, (cut.blocks, mesh.mp, c)).select(
+        dim + 1, mesh.mp_rank).flatten(dim, dim + 1)
 
 
 def shard_params(params: Any, mesh: Mesh, rule: Callable | None = None,
-                 name: str = "") -> Any:
+                 name: str = "") -> tuple[Any, dict[str, Cut]]:
     """A (nested) dict of tensors with each leaf that ``rule`` selects cut
-    to this rank's column slice (:func:`mp_slice`); other leaves, and
-    everything without ``rule``, stay whole."""
-    if isinstance(params, dict):
-        return {k: shard_params(v, mesh, rule, f"{name}/{k}" if name else k)
-                for k, v in params.items()}
-    if rule is not None and mesh.mp > 1 and rule(name, params):
-        return mp_slice(params, mesh)
-    return params
+    to this rank's part (:func:`mp_slice`, a copy of its own); other leaves,
+    and everything without ``rule`` or at mp = 1, stay whole.  Returns
+    (the dict, ``{name: Cut}`` of the cut leaves by ``/``-joined name)."""
+    cuts: dict[str, Cut] = {}
+
+    def place(node, path):
+        if isinstance(node, dict):
+            return {k: place(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        cut = rule(path, node) if rule is not None and mesh.mp > 1 else None
+        if cut is None:
+            return node
+        cuts[path] = cut
+        return mp_slice(node, mesh, cut).clone()
+
+    return place(params, name), cuts
 
 
-def unshard_params(params: Any, shapes: Any, mesh: Mesh, device=None
-                   ) -> Any:
-    """The inverse of :func:`shard_params`: each leaf whose shape differs
-    from its full shape in ``shapes`` (the same nesting) is gathered over
-    this rank's mp row, and with ``device`` moved there leaf by leaf.
-    Every rank of the row calls it."""
+def unshard_params(params: Any, cuts: dict[str, Cut], mesh: Mesh,
+                   device=None, name: str = "") -> Any:
+    """The inverse of :func:`shard_params`: each leaf named in ``cuts`` is
+    gathered over this rank's mp row, and with ``device`` every leaf is
+    moved there leaf by leaf.  Every rank of the row calls it."""
     if isinstance(params, dict):
-        return {k: unshard_params(v, shapes[k], mesh, device)
+        return {k: unshard_params(v, cuts, mesh, device,
+                                  f"{name}/{k}" if name else k)
                 for k, v in params.items()}
-    if tuple(params.shape) != tuple(shapes):
-        params = mesh.all_gather_mp(params)
+    cut = cuts.get(name)
+    if cut is not None:
+        params = mesh.all_gather_mp(params, cut.dim, cut.blocks)
     return params if device is None else params.to(device)
 
 

@@ -19,14 +19,17 @@ the device decides which kernels run.
 
 ``mesh`` (``parallel/mesh.py``, one process per GPU) trains over a dp × mp
 mesh, as ``gdr_tpu``'s SPMD loop does: every rank builds the same global
-batch and the step keeps its dp rows (``train/trainer.py``); the masters
-and moments of large leaves are mp column slices; the doc store is
-row-sharded over the whole mesh for the step and for the evaluator
-(``Evaluator(mesh=)``, each rank's layout scorer on its rows).  The loss
-metric is the global batch's.  Rank 0 alone writes the metrics and the
-checkpoints, as full tensors (a mesh checkpoint resumes in one process
-and the reverse); the other ranks wait at a barrier, and a restore slices
-again.  A preemption stop is agreed by every rank.
+batch and the step keeps its dp rows (``train/trainer.py``); over mp > 1
+the step is column-parallel, each rank holding and computing only its
+part of every large leaf (masters, moments and compute copy); the doc
+store is row-sharded over the whole mesh for the step and for the
+evaluator (``Evaluator(mesh=)``, each rank's layout scorer on its rows).
+The eval and the store's re-embedding run on whole weights, gathered over
+each mp row for them and freed after.  The loss metric is the global
+batch's.  Rank 0 alone writes the metrics and the checkpoints, as full
+tensors (a mesh checkpoint resumes in one process and the reverse); the
+other ranks wait at a barrier, and a restore cuts again.  A preemption
+stop is agreed by every rank.
 """
 
 from __future__ import annotations
@@ -53,8 +56,8 @@ from gdr_tpu_torch.parallel.store import place_store
 from gdr_tpu_torch.train.checkpoint import CheckpointManager
 from gdr_tpu_torch.train.trainer import (TrainState, init_train_state,
                                          load_masters, make_train_step,
-                                         param_shapes, shard_state,
-                                         unshard_state)
+                                         shard_state, unshard_state,
+                                         whole_weights)
 from gdr_tpu_torch.utils.logging import MetricLogger, NullLogger
 from gdr_tpu_torch.utils.preemption import PreemptionGuard
 from gdr_tpu_torch.utils.rng import fold_in, generator, set_seed
@@ -116,12 +119,16 @@ class TrainLoop:
         # bf16 compute over f32 masters (TrainConfig.bf16)
         self.state, self.opt = init_train_state(cfg, self.model,
                                                 self.doc_encoder, total)
-        self.shapes = param_shapes(self.model, self.doc_encoder)
         self.rule = None
         if mesh is not None:
             if mesh.mp > 1:
-                self.rule = tp_param_rules(mesh.mp, cfg.mesh.tp_min_size)
+                self.rule = tp_param_rules(
+                    mesh.mp, cfg.mesh.tp_min_size,
+                    doc_heads=(self.doc_encoder.cfg.num_heads
+                               if self.doc_encoder is not None else 0))
             self.state = shard_state(self.state, mesh, self.rule)
+            # the compute copy holds this rank's parts
+            load_masters(self.state, self.model, self.doc_encoder)
             # this rank's rows, for the step and (in its layout) the eval
             self.store = place_store(index.store, mesh, self.device)
         else:
@@ -153,10 +160,8 @@ class TrainLoop:
         if step is not None:
             if mesh is not None:
                 restored = shard_state(restored, mesh, self.rule)
-            self.state.params = restored.params
-            self.state.opt_state = restored.opt_state
-            self.state.step = restored.step
-            load_masters(self.state, self.model, self.doc_encoder, mesh)
+            self.state = restored
+            load_masters(self.state, self.model, self.doc_encoder)
             self.start_epoch = step if preempted else step + 1
             if self.writer:
                 print(f"resumed from checkpoint step {step}"
@@ -178,7 +183,7 @@ class TrainLoop:
             return self.state
         if self.mesh.dp_rank != 0:
             return None
-        full = unshard_state(self.state, self.shapes, self.mesh)
+        full = unshard_state(self.state, self.mesh)
         return full if self.writer else None
 
     def _refresh_store(self) -> None:
@@ -317,15 +322,17 @@ class TrainLoop:
             if rank_losses:
                 metrics["avg_ranking_loss"] = float(
                     np.mean([float(v) for v in rank_losses]))
-            if stage2:
-                t_ref = time.perf_counter()
-                self._refresh_store()
-                metrics["store_refresh_seconds"] = (
-                    time.perf_counter() - t_ref)
             eval_bs = (cfg.stage2_eval_batch_size if stage2
                        else cfg.eval_batch_size)
-            metrics.update(self.evaluator.evaluate(
-                self.dev, batch_size=max(eval_bs, 1)))
+            with whole_weights(self.state, self.model, self.doc_encoder,
+                               self.mesh):
+                if stage2:
+                    t_ref = time.perf_counter()
+                    self._refresh_store()
+                    metrics["store_refresh_seconds"] = (
+                        time.perf_counter() - t_ref)
+                metrics.update(self.evaluator.evaluate(
+                    self.dev, batch_size=max(eval_bs, 1)))
             metrics["checkpoint_seconds"] = self._save(
                 "best", self.ckpt.save, epoch, metrics)
             if not best or metrics.get(cfg.monitor, 0) >= best.get(

@@ -22,17 +22,15 @@ The arithmetic is optax's, on f32 tensors updated in place:
   micro-batches' gradients (Welford, as ``MultiSteps``) is applied every
   k-th call, and only those calls advance the count.
 
-**Over a mesh** (``update(mesh=)``).  The masters and moments of the
-leaves that ``parallel/mesh.py::tp_param_rules`` selects hold only this
-rank's column slice of the last axis, as ``gdr_tpu`` places its
-``opt_state`` over ``mp``.  The gradients come in whole and summed over
-dp, the same on every rank, so the clip's global norm is taken over the
-full gradient and every rank agrees on it; then each sharded leaf's
-gradient is cut to the rank's columns.  AdamW is elementwise, so the
-slices compute ``gdr_tpu``'s update, and the column cut never splits a
-contraction.  Where XLA splits the forward over mp, here the mp ranks of
-a dp row repeat it: the sharding saves memory (masters and moments /
-mp), not compute.
+**Over a mesh** (``update(mesh=, cut=)``).  The masters, moments and
+gradients of the leaves that ``parallel/mesh.py::tp_param_rules`` selects
+(the keys in ``cut``) are this rank's mp part only, as ``gdr_tpu`` places
+its params and ``opt_state`` over ``mp``: the column-parallel step
+(``train/trainer.py``) computes only the part's gradient, summed over dp.
+The clip's global norm is Σ‖part‖² over the cut leaves summed over the mp
+row, plus the whole leaves' squares counted once (the same bits on every
+rank of the row), so every rank agrees on it.  AdamW is elementwise, so
+the parts compute ``gdr_tpu``'s update with nothing cut here.
 """
 
 from __future__ import annotations
@@ -41,7 +39,6 @@ import numpy as np
 import torch
 
 from gdr_tpu_torch.config import TrainConfig
-from gdr_tpu_torch.parallel.mesh import mp_slice
 
 B1, B2 = 0.9, 0.999
 GROUPS = ("enc_wd", "enc_nd", "dec_wd", "dec_nd", "doc_wd", "doc_nd")
@@ -90,10 +87,17 @@ def learning_rate(cfg: TrainConfig, total: int, peak: float,
     return float(f32(peak) * frac ** f32(0.1))
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt(Σ Σ x²) over all tensors, f32, on their device."""
+def global_norm(tensors, mesh=None, cut=None) -> torch.Tensor:
+    """sqrt(Σ Σ x²) over all tensors, f32, on their device.  ``mesh``,
+    ``cut`` (a flag per tensor): the tensors flagged are this rank's mp
+    parts, whose squares are summed over the mp row."""
     norms = torch._foreach_norm(list(tensors))
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if mesh is None or not any(cut or ()):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).square()
+    flags = torch.as_tensor(cut, device=sq.device)
+    parts = mesh.sum_mp(sq[flags].sum())
+    return torch.sqrt(sq[~flags].sum() + parts)
 
 
 class GroupedAdamW:
@@ -126,12 +130,12 @@ class GroupedAdamW:
     @torch.no_grad()
     def update(self, params: dict[str, dict[str, torch.Tensor]],
                grads: dict[str, torch.Tensor], state: dict,
-               mesh=None) -> bool:
+               mesh=None, cut=frozenset()) -> bool:
         """One call per micro-batch: ``grads`` (flat keys, f32) update
         ``params`` and ``state`` in place.  Returns whether the parameters
-        changed (always, unless this call only accumulated).  ``mesh``:
-        a parameter held as this rank's mp column slice (its shape differs
-        from its gradient's) takes the gradient's slice, after the clip."""
+        changed (always, unless this call only accumulated).  ``mesh``,
+        ``cut``: the flat keys whose parameter and gradient are this rank's
+        mp part (:func:`global_norm`)."""
         f = flat(params)
         keys = list(f)
         g = [grads[k] for k in keys]
@@ -148,14 +152,12 @@ class GroupedAdamW:
             g = [a.clone() for a in acc]
             for a in acc:
                 a.zero_()
-        norm = global_norm(g)
+        norm = (global_norm(g, mesh, [k in cut for k in keys]) if cut
+                else global_norm(g))
         max_norm = self.cfg.max_grad_norm
         factor = torch.where(norm < max_norm, torch.ones_like(norm),
                              max_norm / norm)
         torch._foreach_mul_(g, factor)
-        if mesh is not None:
-            g = [mp_slice(x, mesh) if x.shape != f[k].shape else x
-                 for k, x in zip(keys, g)]
 
         count = state["count"]
         for group in GROUPS:

@@ -38,7 +38,7 @@ step takes the global host batch and keeps this rank's dp rows
   step's generator, then sliced to the rank's rows, so dp = N equals one
   process at module dropout 0; the modules' dropout draws from a generator
   that folds in the dp rank, so that dp ranks do not share masks (the mp
-  ranks of a row do, as they repeat one forward);
+  ranks of a row do: each draws the whole mask and keeps its part);
 - the store is row-sharded over every rank: the step's store rows (the
   positives and candidates of the global batch) come from their owners
   in one SUM all-reduce (``fetch_rows``);
@@ -46,14 +46,26 @@ step takes the global host batch and keeps this rank's dp rows
   ``dp``), its row-coupled terms against keys gathered from every dp rank
   through a differentiable all-gather; the f32 gradients are summed over
   each dp column after the backward, and the metrics too;
-- the update runs on each rank's mp slices (``train/optimizer.py``), and
-  the slices are gathered over the mp row into the full compute copy.
+- over the mp row the step is column-parallel, as ``gdr_tpu``'s SPMD step:
+  each leaf that ``parallel/mesh.py::tp_param_rules`` selects is held by a
+  rank as its part only (f32 master, moments and the compute copy alike,
+  :func:`shard_state`), and the rank computes only its part of each
+  product over it, forward and backward (the models read the mesh that
+  :func:`compute_grads` sets; ``parallel/autograd.py``).  Its gradient is
+  the part's; the activations are gathered or summed over the row between
+  the products, so every rank of the row holds the same loss and the same
+  gradients of the whole leaves.  The clip's norm sums the parts' squares
+  over the row (``train/optimizer.py``), the update touches the parts, and
+  :func:`load_masters` copies each rank's master parts into its compute
+  copy without a collective.  Outside the step (the eval, the store's
+  re-embedding, checkpoints) the weights are made whole over the row
+  (:func:`whole_weights`, :func:`unshard_state`).
 """
 
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
@@ -64,11 +76,11 @@ from gdr_tpu_torch.models.gdr import GenerativeRetriever, shift_right
 from gdr_tpu_torch.models.t5 import set_dropout_generator
 from gdr_tpu_torch.ops import losses
 from gdr_tpu_torch.ops.beam import gumbel_noise
-from gdr_tpu_torch.parallel.autograd import DPShards
-from gdr_tpu_torch.parallel.mesh import (fetch_rows, shard_batch,
+from gdr_tpu_torch.parallel.autograd import DPShards, set_mp_mesh
+from gdr_tpu_torch.parallel.mesh import (Cut, fetch_rows, shard_batch,
                                          shard_params, unshard_params)
 from gdr_tpu_torch.train.optimizer import (GroupedAdamW, build_optimizer,
-                                           flat, global_norm)
+                                           global_norm)
 from gdr_tpu_torch.utils.rng import fold_in, generator
 
 TOWERS = ("generator", "doc_encoder")
@@ -79,6 +91,8 @@ class TrainState:
     params: dict[str, dict[str, torch.Tensor]]   # f32 masters per tower
     opt_state: dict
     step: int
+    # ``<tower>/<name>`` → Cut of each leaf held as this rank's mp part
+    cuts: dict[str, Cut] = field(default_factory=dict)
 
 
 @contextlib.contextmanager
@@ -92,50 +106,76 @@ def deterministic(model: torch.nn.Module):
         model.train(was)
 
 
+def _load(p: torch.Tensor, value: torch.Tensor) -> None:
+    """``value`` into parameter ``p`` in its dtype, in place; where the
+    shapes differ (an mp part replacing the whole leaf or the reverse) ``p``
+    gets a new tensor first.  Every load bumps ``p``'s version."""
+    if p.shape != value.shape:
+        p.data = torch.empty(value.shape, dtype=p.dtype, device=p.device)
+    p.copy_(value)
+
+
 @torch.no_grad()
 def load_masters(state: TrainState, model: GenerativeRetriever,
-                 doc_encoder=None, mesh=None) -> None:
-    """Copy the f32 masters into the models' parameters (in their dtype).
-    A master held as this rank's mp column slice (its shape differs from
-    the parameter's) is gathered over the mesh's mp row first, in the
-    compute dtype (rounding commutes with the concatenation)."""
+                 doc_encoder=None) -> None:
+    """Copy the f32 masters into the models' parameters (in their dtype):
+    a master held as this rank's mp part makes the parameter that part.
+    No collective."""
     for tower, module in zip(TOWERS, (model, doc_encoder)):
         if module is None:
             continue
         masters = state.params[tower]
         for name, p in module.named_parameters():
-            m = masters[name]
-            if m.shape != p.shape:
-                m = mesh.all_gather_mp(m.to(p.dtype))
-            p.copy_(m)
+            _load(p, masters[name])
 
 
-def param_shapes(model, doc_encoder=None) -> dict:
-    """The full shape of every parameter, nested as ``TrainState.params``."""
-    return {tower: {n: p.shape for n, p in module.named_parameters()}
-            for tower, module in zip(TOWERS, (model, doc_encoder))
-            if module is not None}
+@contextlib.contextmanager
+def whole_weights(state: TrainState, model: GenerativeRetriever,
+                  doc_encoder=None, mesh=None):
+    """The models hold whole weights inside the block: each master part is
+    gathered over the mp row in the compute dtype (rounding commutes with
+    the concatenation), and the parts are loaded back after it, which frees
+    the whole copy.  Every rank of the row enters it together."""
+    if not state.cuts:
+        yield
+        return
+    with torch.no_grad():
+        for tower, module in zip(TOWERS, (model, doc_encoder)):
+            if module is None:
+                continue
+            for name, p in module.named_parameters():
+                cut = state.cuts.get(f"{tower}/{name}")
+                if cut is not None:
+                    _load(p, mesh.all_gather_mp(
+                        state.params[tower][name].to(p.dtype), *cut))
+    try:
+        yield
+    finally:
+        load_masters(state, model, doc_encoder)
 
 
 def shard_state(state: TrainState, mesh, rule) -> TrainState:
-    """``state`` with the masters and AdamW moments of each leaf that
-    ``rule`` selects cut to this rank's mp column slice
-    (``gdr_tpu``'s ``shard_params`` of params and opt_state); the
-    gradient accumulator stays whole."""
+    """``state`` with the masters, AdamW moments and gradient accumulator
+    of each leaf that ``rule`` selects cut to this rank's mp part
+    (``gdr_tpu``'s ``shard_params`` of params and opt_state), and
+    ``cuts`` naming them."""
+    params, cuts = shard_params(state.params, mesh, rule)
     opt = dict(state.opt_state)
-    opt["mu"] = shard_params(opt["mu"], mesh, rule)
-    opt["nu"] = shard_params(opt["nu"], mesh, rule)
-    return TrainState(params=shard_params(state.params, mesh, rule),
-                      opt_state=opt, step=state.step)
+    for k in ("mu", "nu", "acc"):
+        if opt.get(k) is not None:
+            opt[k] = shard_params(opt[k], mesh, rule)[0]
+    return TrainState(params=params, opt_state=opt, step=state.step,
+                      cuts=cuts)
 
 
-def unshard_state(state: TrainState, shapes: dict, mesh) -> TrainState:
-    """The inverse of :func:`shard_state` (``shapes``: :func:`param_shapes`),
-    leaf by leaf on the CPU; every rank of the mp row calls it."""
+def unshard_state(state: TrainState, mesh) -> TrainState:
+    """The inverse of :func:`shard_state`, leaf by leaf on the CPU; every
+    rank of the mp row calls it."""
     opt = dict(state.opt_state)
-    for k in ("mu", "nu"):
-        opt[k] = unshard_params(opt[k], flat(shapes), mesh, "cpu")
-    return TrainState(params=unshard_params(state.params, shapes, mesh,
+    for k in ("mu", "nu", "acc"):
+        if opt.get(k) is not None:
+            opt[k] = unshard_params(opt[k], state.cuts, mesh, "cpu")
+    return TrainState(params=unshard_params(state.params, state.cuts, mesh,
                                             "cpu"),
                       opt_state=opt, step=state.step)
 
@@ -323,16 +363,19 @@ def make_loss_fn(model: GenerativeRetriever, doc_encoder, cfg: GDRConfig,
 
 def compute_grads(model: GenerativeRetriever, doc_encoder, loss_fn,
                   batch: dict, store, gen, noise=None, dp=None, rows=None,
-                  dropout_gen=None
+                  dropout_gen=None, mp=None
                   ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
     """One forward and backward in train mode: (metrics, f32 gradients by
-    flat key ``<tower>/<name>``; zeros where a parameter got none).  The
-    modules' dropout draws from ``dropout_gen`` (default ``gen``)."""
+    flat key ``<tower>/<name>``, of the parameter's shape: a part's where
+    it holds an mp part; zeros where a parameter got none).  The modules'
+    dropout draws from ``dropout_gen`` (default ``gen``); ``mp``: the mesh
+    whose mp row cuts the models' leaves."""
     modules = [(t, m) for t, m in zip(TOWERS, (model, doc_encoder))
                if m is not None]
     for _, m in modules:
         m.zero_grad(set_to_none=True)
         m.train()
+        set_mp_mesh(m, mp)
     set_dropout_generator(model, dropout_gen or gen)
     try:
         total, metrics = loss_fn(batch, store, gen, noise, dp, rows)
@@ -340,6 +383,7 @@ def compute_grads(model: GenerativeRetriever, doc_encoder, loss_fn,
     finally:
         for _, m in modules:
             m.eval()
+            set_mp_mesh(m, None)
         set_dropout_generator(model, None)
     grads = {}
     for tower, m in modules:
@@ -418,7 +462,8 @@ def make_train_step(model: GenerativeRetriever, doc_encoder,
     batch, the same on every rank; ``store`` this rank's rows
     (``parallel/store.py::place_store``); ``noise`` holds global draws; the
     metrics are the global batch's, equal on every rank; ``state`` holds
-    this rank's mp slices (:func:`shard_state`)."""
+    this rank's mp parts (:func:`shard_state`) and the models those parts
+    of their compute copy (:func:`load_masters`)."""
     loss_fn = make_loss_fn(model, doc_encoder, cfg, stage)
 
     def train_step(state: TrainState, batch: dict, store, seed: int,
@@ -438,15 +483,21 @@ def make_train_step(model: GenerativeRetriever, doc_encoder,
                 model, doc_encoder, loss_fn, local, None, gen, noise,
                 dp=DPShards(mesh), rows=rows,
                 dropout_gen=generator(fold_in(seed, mesh.dp_rank),
-                                      state.step, dev))
+                                      state.step, dev),
+                mp=mesh if state.cuts else None)
             mesh.all_reduce_dp(list(grads.values()))
             names = list(metrics)
             summed = mesh.sum_dp(torch.stack([metrics[k].float()
                                               for k in names]))
             metrics = dict(zip(names, summed.unbind()))
-        metrics["grad_norm"] = global_norm(grads.values())
-        if opt.update(state.params, grads, state.opt_state, mesh):
-            load_masters(state, model, doc_encoder, mesh)
+        if state.cuts:
+            metrics["grad_norm"] = global_norm(
+                grads.values(), mesh, [k in state.cuts for k in grads])
+        else:
+            metrics["grad_norm"] = global_norm(grads.values())
+        if opt.update(state.params, grads, state.opt_state, mesh,
+                      set(state.cuts)):
+            load_masters(state, model, doc_encoder)
         state.step += 1
         return state, metrics
 

@@ -1,10 +1,12 @@
 """The port's training over several processes on the CPU (``gloo``):
-``TrainLoop(mesh=)`` in 4 ranks at dp=4 and dp=2 × mp=2, on the plain and
-packed eval layouts, against the port's one-process loop and ``gdr_tpu``'s
+``TrainLoop(mesh=)`` in 4 ranks at dp=4, dp=2 × mp=2 and mp=4 (the
+column-parallel step; at mp=4 the tiny model's 2 heads do not divide, so
+q, k and v are gathered before the core), on the plain and packed eval
+layouts, against the port's one-process loop and ``gdr_tpu``'s
 mesh ``TrainLoop`` (its 8 virtual devices at dp=4 × mp=2), on the tiny f32
 world of ``tests/test_parallel.py``'s own mesh test with input dropout on
-(``gdr_tpu``'s draws handed to the port); the mp slices of the masters and
-moments; a stage-2 run with every loss on and ``embed_corpus(mesh=)`` at
+(``gdr_tpu``'s draws handed to the port); the mp parts of the masters and
+moments, the replicated masters equal over each mp row; a stage-2 run with every loss on and ``embed_corpus(mesh=)`` at
 dp=2; a mesh checkpoint resumed in new ranks and in one process; ``train
 --mesh 2`` under ``torch.distributed.run``; the refusals; and each
 batch-coupled loss split over ranks simulated in one process (threads).
@@ -40,7 +42,7 @@ from gdr_tpu_torch.models.dual_encoder import (DocEncoder, init_doc_encoder,
                                                tiny_doc_encoder_config)
 from gdr_tpu_torch.ops import losses
 from gdr_tpu_torch.parallel.autograd import DPShards
-from gdr_tpu_torch.parallel.mesh import Mesh, tp_param_rules
+from gdr_tpu_torch.parallel.mesh import Mesh, mp_slice, tp_param_rules
 from gdr_tpu_torch.train.loop import TrainLoop
 from test_torch_parallel_ranks import _env, _free_port
 
@@ -53,7 +55,8 @@ LOSS_TOL = 1e-5              # each step's loss, mesh vs one process
                              # (relative: the losses run to ~40 in f32)
 MASTER_TOL = 1e-5            # f32 masters after each epoch, absolute
 JAX_TOL = 2e-4               # avg_train_loss vs gdr_tpu (its own test's)
-MESHES = {"dp4": dict(dp=4), "dp2xmp2": dict(dp=2, mp=2)}
+MESHES = {"dp4": dict(dp=4), "dp2xmp2": dict(dp=2, mp=2),
+          "mp4": dict(dp=1, mp=4)}
 LAYOUTS = {"plain": False, "packed": True}
 STAGE2_MESH = dict(dp=2, mp=2)
 
@@ -260,20 +263,27 @@ def runs(tmp_path_factory):
                 noise=noise, cfg=cfg)
 
 
-def _rank_slice(want: torch.Tensor, got: torch.Tensor, mp: int, mp_rank: int
-                ) -> torch.Tensor:
-    """The one-process master cut as the rank holds it."""
-    if got.shape == want.shape:
+def _rank_slice(key: str, want: torch.Tensor, mp: int, mp_rank: int,
+                min_size: int, doc_heads: int = 0) -> torch.Tensor:
+    """The one-process master ``key`` cut as the rank holds it (the
+    placement's own axis, ``tp_param_rules``)."""
+    cut = (tp_param_rules(mp, min_size, doc_heads)(key, want) if mp > 1
+           else None)
+    if cut is None:
         return want
-    n = want.shape[-1] // mp
-    return want[..., mp_rank * n:(mp_rank + 1) * n]
+    return mp_slice(want, Mesh(dp=1, mp=mp, rank=mp_rank, world=mp,
+                               device=torch.device("cpu"),
+                               comm_device=torch.device("cpu")), cut)
 
 
-def _same_masters(got: dict, want: dict, mp: int, mp_rank: int, tol: float
-                  ) -> float:
+def _same_masters(got: dict, want: dict, mp: int, mp_rank: int, tol: float,
+                  min_size: int, doc_heads: int = 0) -> float:
     assert got.keys() == want.keys()
-    err = max(float((g - _rank_slice(want[k], g, mp, mp_rank)).abs().max())
-              for k, g in got.items())
+    err = 0.0
+    for k, g in got.items():
+        ref = _rank_slice(k, want[k], mp, mp_rank, min_size, doc_heads)
+        assert g.shape == ref.shape, k
+        err = max(err, float((g - ref).abs().max()))
     assert err <= tol, err
     return err
 
@@ -288,7 +298,8 @@ def test_mesh_loop_matches_one_process(runs, mesh, layout):
                                    rtol=LOSS_TOL, atol=0)
         assert len(rk["masters"]) == EPOCHS
         for got, want in zip(rk["masters"], one["masters"]):
-            _same_masters(got, want, mp, rk["mp_rank"], MASTER_TOL)
+            _same_masters(got, want, mp, rk["mp_rank"], MASTER_TOL,
+                          runs["cfg"].mesh.tp_min_size)
         assert rk["best"]["recall1"] == one["best"]["recall1"]
         assert rk["best"]["avg_train_loss"] == pytest.approx(
             one["best"]["avg_train_loss"], rel=LOSS_TOL)
@@ -307,13 +318,16 @@ def test_mesh_loop_matches_gdr_tpu_mesh_loop(runs, mesh, layout):
 
 def test_mp_ranks_hold_half_the_columns(runs):
     """On an mp=2 rank each leaf tp_param_rules selects (pawa.u among
-    them), its mu and its nu hold half the columns; the rank's
-    master-and-moment bytes follow; no rank holds the whole store."""
+    them), its mu and its nu hold half of the leaf's own cut axis (the
+    output axis: dim 0 of a Linear weight, an embedding's last dim); the
+    rank's master-and-moment bytes follow; no rank holds the whole
+    store."""
     one = runs["one"]["plain"]["state"]
     rule = tp_param_rules(2, runs["cfg"].mesh.tp_min_size)
     full = {f"{t}/{n}": p for t, d in one.params.items() for n, p in d.items()}
-    picked = {k for k, p in full.items() if rule(k, p)}
+    picked = {k: rule(k, p) for k, p in full.items() if rule(k, p)}
     assert "generator/pawa.u" in picked and len(picked) < len(full)
+    assert picked["generator/encoder.blocks.0.ff.wi.weight"].dim == 0
     want_bytes = sum(p.numel() // (2 if k in picked else 1) * 4 * 3
                      for k, p in full.items())
     for rk in runs["got"]["dp2xmp2_plain"]:
@@ -322,12 +336,33 @@ def test_mp_ranks_hold_half_the_columns(runs):
         for k, p in full.items():
             shape = list(p.shape)
             if k in picked:
-                shape[-1] //= 2
+                shape[picked[k].dim] //= 2
             assert list(masters[k].shape) == shape, k
             assert [list(s) for s in rk["moments"][k]] == [shape, shape], k
             held += masters[k].numel() * 4 * 3
         assert held == want_bytes
         assert rk["store_rows"] == rk["eval_rows"] == -(-16 // WORLD)
+
+
+@pytest.mark.parametrize("mesh", [m for m in MESHES if "mp" in MESHES[m]])
+def test_replicated_masters_equal_over_each_mp_row(runs, mesh):
+    """The leaves no rank cuts are the same bits on every rank of an mp
+    row after each epoch: the row's all-reduces hand every rank the same
+    sum."""
+    mp = MESHES[mesh]["mp"]
+    rule = tp_param_rules(mp, runs["cfg"].mesh.tp_min_size)
+    full = {f"{t}/{n}": p for t, d in
+            runs["one"]["plain"]["state"].params.items() for n, p in d.items()}
+    for layout in LAYOUTS:
+        ranks = runs["got"][f"{mesh}_{layout}"]
+        for row in range(WORLD // mp):
+            members = ranks[row * mp:(row + 1) * mp]
+            for e, first in enumerate(members[0]["masters"]):
+                whole = [k for k in first if rule(k, full[k]) is None]
+                assert whole and len(whole) < len(first)
+                for rk in members[1:]:
+                    for k in whole:
+                        assert torch.equal(rk["masters"][e][k], first[k]), k
 
 
 def test_stage2_and_embed_corpus_at_dp2(runs):
@@ -338,7 +373,8 @@ def test_stage2_and_embed_corpus_at_dp2(runs):
         np.testing.assert_allclose(rk["losses"], want["losses"],
                                    rtol=LOSS_TOL, atol=0)
         for got, ref in zip(rk["masters"], want["masters"]):
-            _same_masters(got, ref, 2, rk["mp_rank"], MASTER_TOL)
+            _same_masters(got, ref, 2, rk["mp_rank"], MASTER_TOL,
+                          1 << 14, tiny_doc_encoder_config().num_heads)
         assert rk["best"]["recall1"] == want["best"]["recall1"]
         assert rk["last"]["stage"] == 2
 
@@ -427,6 +463,16 @@ def _cli(argv, nproc: int = 0) -> str:
 
 
 def test_cli_train_mesh_under_torchrun_matches_one_process(tmp_path):
+    _cli_mesh_matches_one_process(tmp_path, "2")
+
+
+def test_cli_train_tensor_parallel_under_torchrun_matches_one_process(
+        tmp_path):
+    """``train --mesh 1,2``: the two ranks of one mp row, column-parallel."""
+    _cli_mesh_matches_one_process(tmp_path, "1,2")
+
+
+def _cli_mesh_matches_one_process(tmp_path, mesh: str):
     _, index, _, _ = mesh_train_world()
     save_index(str(tmp_path / "index.npz"), index)
     rng = np.random.default_rng(3)
@@ -440,7 +486,7 @@ def test_cli_train_mesh_under_torchrun_matches_one_process(tmp_path):
              "--batch-size", "8", "--epochs", "2", "--dropout", "0",
              "--no-bf16", "--seed", "1"]
     one = json.loads(_cli(train + ["--workdir", str(tmp_path / "one")]))
-    two = _cli(train + ["--workdir", str(tmp_path / "two"), "--mesh", "2"],
+    two = _cli(train + ["--workdir", str(tmp_path / "two"), "--mesh", mesh],
                nproc=2)
     assert len(two.splitlines()) == 1            # rank 0 alone prints
     two = json.loads(two)
