@@ -46,7 +46,7 @@ from gdr_tpu_torch.parallel.store import (place_packed_store, place_store,
                                           sharded_rerank_from_beams,
                                           sharded_rerank_packed)
 from gdr_tpu_torch.utils.rng import fold_in
-from gdr_tpu_torch.utils.timing import PhaseTimer
+from gdr_tpu_torch.utils.timing import PhaseTimer, span
 
 
 @dataclass
@@ -178,64 +178,68 @@ class Evaluator:
         so eval batches get different noise; ``noise`` [max_len,
         B·num_beams, kary+1] replaces those draws (the same noise on two
         devices gives the same rollouts)."""
-        cfg = self.cfg
-        model = self.model
-        ids = torch.as_tensor(np.asarray(input_ids), device=self.device)
-        msk = torch.as_tensor(np.asarray(attn_mask), device=self.device)
-        if cfg.gen_method in ("sample", "top_k"):
-            gen = None
-            if noise is None:
-                gen = torch.Generator(device=self.device).manual_seed(
-                    sample_seed(cfg.sample_seed, batch_idx))
-            res, q_emb, _ = sample_cids(
-                model, ids, msk, self._children, self._eos, cfg.num_beams,
-                self._max_len, gen, temperature=cfg.temperature,
-                top_k=cfg.sample_top_k, length_penalty=cfg.length_penalty,
-                accumulate_hidden=self._want_dec, u_table=self._u_table(),
-                noise=noise)
-        else:   # "beam"; the reference's "greedy" is beam search too
-            res, q_emb, _ = generate_cids(
-                model, ids, msk, self._children, self._eos, cfg.num_beams,
-                self._max_len, cfg.length_penalty, u_table=self._u_table(),
-                accumulate_hidden=self._want_dec)
-        if self._want_dec:
-            pooled = (res.hid_last if cfg.use_query_embed_decoder_special
-                      else res.hid_avg)
-            q_dec = model.project_query(pooled)               # [B, K, d']
-            res = replace(res, hid_avg=None, hid_last=None)
-            if not cfg.use_query_embed_encoder:
-                q_emb = q_dec
-            elif cfg.fusion_strategy == "concate":
-                q_emb = model.fuse_queries(q_dec, q_emb[:, None, :])
-            else:                                             # "average"
-                q_emb = (q_dec + q_emb[:, None, :]) / 2.0
-        return res, self.rerank(q_emb, res)
+        with span("gdr.retrieve", f"rows={len(input_ids)}"):
+            cfg = self.cfg
+            model = self.model
+            ids = torch.as_tensor(np.asarray(input_ids), device=self.device)
+            msk = torch.as_tensor(np.asarray(attn_mask), device=self.device)
+            if cfg.gen_method in ("sample", "top_k"):
+                gen = None
+                if noise is None:
+                    gen = torch.Generator(device=self.device).manual_seed(
+                        sample_seed(cfg.sample_seed, batch_idx))
+                res, q_emb, _ = sample_cids(
+                    model, ids, msk, self._children, self._eos, cfg.num_beams,
+                    self._max_len, gen, temperature=cfg.temperature,
+                    top_k=cfg.sample_top_k, length_penalty=cfg.length_penalty,
+                    accumulate_hidden=self._want_dec, u_table=self._u_table,
+                    noise=noise)
+            else:   # "beam"; the reference's "greedy" is beam search too
+                res, q_emb, _ = generate_cids(
+                    model, ids, msk, self._children, self._eos, cfg.num_beams,
+                    self._max_len, cfg.length_penalty, u_table=self._u_table,
+                    accumulate_hidden=self._want_dec)
+            if self._want_dec:
+                with span("gdr.query"):
+                    pooled = (res.hid_last
+                              if cfg.use_query_embed_decoder_special
+                              else res.hid_avg)
+                    q_dec = model.project_query(pooled)           # [B, K, d']
+                    res = replace(res, hid_avg=None, hid_last=None)
+                    if not cfg.use_query_embed_encoder:
+                        q_emb = q_dec
+                    elif cfg.fusion_strategy == "concate":
+                        q_emb = model.fuse_queries(q_dec, q_emb[:, None, :])
+                    else:                                         # "average"
+                        q_emb = (q_dec + q_emb[:, None, :]) / 2.0
+            return res, self.rerank(q_emb, res)
 
     @torch.no_grad()
     def rerank(self, q_emb, res: BeamResult) -> RerankResult:
         """Stage 2 of ``retrieve`` on this evaluator's store layout: the
         beams' clusters expanded, scored against ``q_emb`` and fused."""
         top_r = self.cfg.num_return_sequences
-        if self.mesh is not None and self.packed:
-            return sharded_rerank_packed(
-                self.mesh, self.store, self._p_starts, self._p_counts,
-                self._p_row_to_doc, self._p_cap, self._p_shard_rows, q_emb,
-                res.nodes, res.scores, res.valid, self._cluster_of_node,
-                self._alphas, top_r=top_r)
-        if self.mesh is not None:
-            return sharded_rerank_from_beams(
-                self.mesh, self.store, q_emb, res.nodes, res.scores,
-                res.valid, self._cluster_of_node, self._cluster_docs,
-                self._cluster_doc_mask, self._alphas, top_r=top_r)
-        if self.packed:
-            return rerank_packed(self.store, self._p_starts, self._p_counts,
-                                 self._p_row_to_doc, self._p_cap, q_emb,
-                                 res.nodes, res.scores, res.valid,
-                                 self._cluster_of_node, self._alphas,
-                                 top_r=top_r)
-        return rerank(self.store, q_emb, res.nodes, res.scores, res.valid,
-                      self._cluster_of_node, self._cluster_docs,
-                      self._cluster_doc_mask, self._alphas, top_r=top_r)
+        with span("gdr.rerank"):
+            if self.mesh is not None and self.packed:
+                return sharded_rerank_packed(
+                    self.mesh, self.store, self._p_starts, self._p_counts,
+                    self._p_row_to_doc, self._p_cap, self._p_shard_rows, q_emb,
+                    res.nodes, res.scores, res.valid, self._cluster_of_node,
+                    self._alphas, top_r=top_r)
+            if self.mesh is not None:
+                return sharded_rerank_from_beams(
+                    self.mesh, self.store, q_emb, res.nodes, res.scores,
+                    res.valid, self._cluster_of_node, self._cluster_docs,
+                    self._cluster_doc_mask, self._alphas, top_r=top_r)
+            if self.packed:
+                return rerank_packed(
+                    self.store, self._p_starts, self._p_counts,
+                    self._p_row_to_doc, self._p_cap, q_emb, res.nodes,
+                    res.scores, res.valid, self._cluster_of_node,
+                    self._alphas, top_r=top_r)
+            return rerank(self.store, q_emb, res.nodes, res.scores, res.valid,
+                          self._cluster_of_node, self._cluster_docs,
+                          self._cluster_doc_mask, self._alphas, top_r=top_r)
 
     def retrieve_many(self, input_ids, attn_mask
                       ) -> tuple[BeamResult, RerankResult]:

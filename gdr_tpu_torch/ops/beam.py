@@ -10,7 +10,9 @@
   beam 100 / kary 30 the warmup widths are 1 and 31 — and the caches grow
   through the reorder gather;
 - early exit: the full-width loop stops once no beam is alive.  The check
-  is a host ``.item()`` per step (the reference package folds it into a
+  reads ``bool(run.any())`` on the host before each full-width step, a
+  sync that drains the stream (span ``gdr.decode.sync``, counted in
+  ``utils/timing.py::SYNCS``; the reference package folds it into a
   device ``while_loop``; a CUDA graph of the step is the later fix);
 - ``accumulate_hidden``: the carry pools each beam's decoder states (sum,
   count, last) and reorders them with the beams, giving the
@@ -38,6 +40,7 @@ from typing import Callable
 import torch
 
 from gdr_tpu_torch.ops.codec import EOS_ID, PAD_ID, TOKEN_OFFSET
+from gdr_tpu_torch.utils.timing import SYNCS, span
 
 NEG_INF = -1.0e9
 
@@ -121,13 +124,29 @@ def _beam_step(state, pos: int, step_fn: StepFn, batch: int, in_w: int,
     ``candidates_mode``: ``step_fn`` gives the [rows, kary+1] candidate
     logits; else full-vocabulary logits [rows, V], whose log-softmax is
     read at the position's digit tokens and EOS."""
+    cur_tok, acc, cache = state[5:]
+    with span("gdr.decode.step", f"pos={pos} width={in_w}"):
+        with span("gdr.decode.forward"):
+            if acc is not None:
+                out, hidden, cache = step_fn(cur_tok, cache, pos, in_w)
+            else:
+                out, cache = step_fn(cur_tok, cache, pos, in_w)
+                hidden = None
+        with span("gdr.beam.select"):
+            return _select(state[:7] + (cache,), out, hidden, pos, batch,
+                           in_w, out_w, kary, children, eos_allowed,
+                           candidates_mode)
+
+
+def _select(state, out, hidden, pos: int, batch: int, in_w: int, out_w: int,
+            kary: int, children, eos_allowed, candidates_mode: bool):
+    """The step after the decoder: the candidates' log-probs, the trie
+    mask, the top-k over the beams' options, and the beams, caches and
+    pooled states reordered."""
     tokens, node, scores, finished, eos_pos, cur_tok, acc, cache = state
     n_opt = kary + 1
     if acc is not None:
-        out, hidden, cache = step_fn(cur_tok, cache, pos, in_w)
         acc = _pool_hidden(acc, cur_tok, pos, hidden)
-    else:
-        out, cache = step_fn(cur_tok, cache, pos, in_w)
     logp = torch.log_softmax(out.float(), dim=-1)             # [BK, kary+1]
     if not candidates_mode:                                   # [BK, V]
         first = pos * kary + TOKEN_OFFSET
@@ -246,47 +265,62 @@ def beam_search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
         if acc is not None:
             # beams whose pending input is EOS still owe the pool one state
             run = run | ((state[5] == EOS_ID) & live)
-        if not bool(run.any()):                      # early exit
+        with span("gdr.decode.sync"):
+            SYNCS["host_syncs"] += 1
+            alive = bool(run.any())
+        if not alive:                                # early exit
             break
         state = _beam_step(state, pos, step_fn, batch, num_beams, num_beams,
                            kary, children, eos_allowed, candidates_mode)
 
     tokens, node, scores, finished, eos_pos, _, acc, _ = state
-    return _finalize(tokens, node.to(torch.int32), scores, eos_pos, batch,
-                     num_beams, length_penalty, acc)
+    with span("gdr.decode.finalize"):
+        return _finalize(tokens, node.to(torch.int32), scores, eos_pos,
+                         batch, num_beams, length_penalty, acc)
 
 
 def _decode_cache(model, enc: torch.Tensor, max_len: int, rows_per_query: int,
-                  u_table: torch.Tensor | None) -> dict:
+                  u_table: torch.Tensor | Callable | None) -> dict:
     """The decode caches at ``rows_per_query`` rows per query, with the
-    efficient PAWA head's U table (built when not given) as the
-    beam-invariant ``cross_ucand`` entry.  The slow PAWA head has no U
-    table."""
-    cache = model.init_cache(enc, max_len, rows_per_query)
-    c = model.cfg
-    if c.adaptor_decode and c.adaptor_efficient:
-        if u_table is None:
-            u_table = model.decode_tables(max_len)
-        cache["cross_ucand"] = u_table      # beam-invariant: never reordered
-    return cache
+    efficient PAWA head's U table as the beam-invariant ``cross_ucand``
+    entry: ``u_table``, or what it returns when it is a function (a
+    caller's cached lookup), built here when that is None.  The slow PAWA
+    head has no U table."""
+    with span("gdr.decode.init"):
+        cache = model.init_cache(enc, max_len, rows_per_query)
+        c = model.cfg
+        if c.adaptor_decode and c.adaptor_efficient:
+            if callable(u_table):
+                u_table = u_table()
+            if u_table is None:
+                u_table = model.decode_tables(max_len)
+            cache["cross_ucand"] = u_table  # beam-invariant: never reordered
+        return cache
+
+
+def _encode(model, input_ids: torch.Tensor, attn_mask: torch.Tensor):
+    """(encoder states, query embedding) of the queries."""
+    with span("gdr.encode"):
+        enc = model.encode(input_ids, attn_mask)
+        return enc, model.query_embedding(enc)
 
 
 def generate_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
                   children: torch.Tensor, eos_allowed: torch.Tensor,
                   num_beams: int, max_len: int, length_penalty: float = 1.0,
                   progressive: bool = True,
-                  u_table: torch.Tensor | None = None,
+                  u_table: torch.Tensor | Callable | None = None,
                   accumulate_hidden: bool = False):
     """Encode the queries once and run the constrained search with
     progressive widening.  ``u_table``: the model's ``decode_tables``
-    when it has the efficient PAWA head, built here when not given (callers
-    that retrieve repeatedly build it once per weight set).
+    when it has the efficient PAWA head, or a function that returns them,
+    built here when not given (callers that retrieve repeatedly build it
+    once per weight set).
     ``accumulate_hidden``: pool the decoder states into the result's
     ``hid_avg`` / ``hid_last``.  Returns (BeamResult, query embedding
     [B, d'], encoder states [B, S, d])."""
     batch = input_ids.shape[0]
-    enc = model.encode(input_ids, attn_mask)
-    query_emb = model.query_embedding(enc)
+    enc, query_emb = _encode(model, input_ids, attn_mask)
     if progressive and num_beams > (model.cfg.kary + 1) ** max(max_len - 1, 0):
         progressive = False
     cache = _decode_cache(model, enc, max_len, 1 if progressive else num_beams,
@@ -318,7 +352,7 @@ def sample_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
                 generator: torch.Generator | None = None,
                 temperature: float = 1.0, top_k: int = 0,
                 length_penalty: float = 1.0, accumulate_hidden: bool = False,
-                u_table: torch.Tensor | None = None,
+                u_table: torch.Tensor | Callable | None = None,
                 noise: torch.Tensor | None = None):
     """Stochastic CID decoding (``gen_method`` ``sample`` / ``top_k``):
     ``num_samples`` independent trie-constrained rollouts per query, at
@@ -348,8 +382,7 @@ def sample_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
         raise ValueError(f"sample_cids: noise {tuple(noise.shape)}, need "
                          f"{shape}")
     noise = noise.to(dev, torch.float32)
-    enc = model.encode(input_ids, attn_mask)
-    query_emb = model.query_embedding(enc)
+    enc, query_emb = _encode(model, input_ids, attn_mask)
     cache = _decode_cache(model, enc, max_len, num_samples, u_table)
 
     tokens = torch.zeros((bk, max_len + 1), dtype=torch.int32, device=dev)
@@ -360,29 +393,36 @@ def sample_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
     cur_tok = torch.full((bk,), PAD_ID, dtype=torch.int32, device=dev)
     acc = _new_acc(bk, model.cfg.d_model, dev) if accumulate_hidden else None
     for pos in range(max_len):
-        if acc is not None:
-            out, hidden, cache = model.decode_step_candidates(
-                cur_tok, cache, attn_mask, pos, num_samples, True)
-            acc = _pool_hidden(acc, cur_tok, pos, hidden)
-        else:
-            out, cache = model.decode_step_candidates(
-                cur_tok, cache, attn_mask, pos, num_samples)
-        logp = torch.log_softmax(out.float(), dim=-1)        # [BK, kary+1]
-        cand = _trie_masked(logp, node, children, eos_allowed)
-        dist = cand / max(temperature, 1e-6)
-        if 0 < top_k < kary + 1:
-            # the top_k-th largest value, duplicates counted
-            kth = torch.topk(dist, top_k, dim=1).values[:, -1:]
-            dist = torch.where(dist >= kth, dist, NEG_INF)
-        option = torch.argmax(dist + noise[pos], dim=1)
-        # finished rollouts are frozen on the EOS slot: a terminal node may
-        # still have children, and a digit would walk past its cluster
-        option = torch.where(finished, kary, option)
-        step_logp = torch.gather(torch.log_softmax(cand, dim=-1), 1,
-                                 option[:, None])[:, 0]
-        scores = scores + torch.where(finished, 0.0, step_logp)
-        tokens, node, finished, eos_pos, cur_tok = _advance(
-            tokens, node, finished, eos_pos, option, pos, kary, children)
-    result = _finalize(tokens, node.to(torch.int32), scores, eos_pos, batch,
-                       num_samples, length_penalty, acc)
+        with span("gdr.decode.step", f"pos={pos} width={num_samples}"):
+            with span("gdr.decode.forward"):
+                if acc is not None:
+                    out, hidden, cache = model.decode_step_candidates(
+                        cur_tok, cache, attn_mask, pos, num_samples, True)
+                else:
+                    out, cache = model.decode_step_candidates(
+                        cur_tok, cache, attn_mask, pos, num_samples)
+            with span("gdr.beam.select"):
+                if acc is not None:
+                    acc = _pool_hidden(acc, cur_tok, pos, hidden)
+                logp = torch.log_softmax(out.float(), dim=-1)  # [BK, kary+1]
+                cand = _trie_masked(logp, node, children, eos_allowed)
+                dist = cand / max(temperature, 1e-6)
+                if 0 < top_k < kary + 1:
+                    # the top_k-th largest value, duplicates counted
+                    kth = torch.topk(dist, top_k, dim=1).values[:, -1:]
+                    dist = torch.where(dist >= kth, dist, NEG_INF)
+                option = torch.argmax(dist + noise[pos], dim=1)
+                # finished rollouts are frozen on the EOS slot: a terminal
+                # node may still have children, and a digit would walk past
+                # its cluster
+                option = torch.where(finished, kary, option)
+                step_logp = torch.gather(torch.log_softmax(cand, dim=-1), 1,
+                                         option[:, None])[:, 0]
+                scores = scores + torch.where(finished, 0.0, step_logp)
+                tokens, node, finished, eos_pos, cur_tok = _advance(
+                    tokens, node, finished, eos_pos, option, pos, kary,
+                    children)
+    with span("gdr.decode.finalize"):
+        result = _finalize(tokens, node.to(torch.int32), scores, eos_pos,
+                           batch, num_samples, length_penalty, acc)
     return result, query_emb, enc

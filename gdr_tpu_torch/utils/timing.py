@@ -1,53 +1,61 @@
-"""Per-phase wall-clock timing (a copy of ``PhaseTimer`` from
-``gdr_tpu/utils/timing.py``).
+"""Spans, per-phase wall-clock timing (``PhaseTimer``, a copy of
+``gdr_tpu/utils/timing.py``'s) and the host-sync counter.
 
-The reference's ``profile_trace`` is a ``jax.profiler`` hook and has no
-copy here: ``torch.profiler`` serves on the card (``chip_smoke.py
-profile``).
+``span(name)`` marks a stage of the program in a ``torch.profiler`` (or
+``emit_nvtx``) trace: while a profiler records, it opens a
+``record_function`` range, which lands in the same trace as the device
+events and on their clock; while none records, it returns one shared
+no-op context, at the cost of one check.  The serving path's spans are
+``gdr.retrieve`` and, inside it, ``gdr.encode``, ``gdr.decode.init``,
+``gdr.decode.step`` (holding ``gdr.decode.forward`` and
+``gdr.beam.select``), ``gdr.decode.sync``, ``gdr.decode.finalize``,
+``gdr.query`` and ``gdr.rerank``; ``PhaseTimer`` phases open
+``gdr.eval.<phase>``.
+
+``SYNCS["host_syncs"]`` counts the points of the retrieve path where the
+host reads a device value; ``kernels.launch_counts(host_syncs=True)``
+reads it beside the kernel launches and ``kernels.reset_launch_counts()``
+resets both.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import time
 from collections import defaultdict
 from typing import Iterator
 
 import torch
 
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
-def _cuda_devices(obj) -> set:
-    """The CUDA devices of the tensors in ``obj`` (a tensor, a dataclass,
-    a mapping or a sequence of them)."""
-    if isinstance(obj, torch.Tensor):
-        return {obj.device} if obj.is_cuda else set()
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
-    elif isinstance(obj, dict):
-        obj = list(obj.values())
-    if isinstance(obj, (list, tuple)):
-        return set().union(*(_cuda_devices(x) for x in obj))
-    return set()
+SYNCS = {"host_syncs": 0}
+
+
+def span(name: str, args: str | None = None):
+    """A context manager that records ``name`` (with ``args``) as a range
+    of the trace while a profiler records, and does nothing otherwise."""
+    if not _profiling():
+        return _OFF
+    return torch.profiler.record_function(name, args)
 
 
 class PhaseTimer:
-    """Accumulates wall-clock time per named phase.  ``block_on``: results
-    whose CUDA work the span must cover; their devices are synchronised
-    before the clock stops."""
+    """Accumulates wall-clock time per named phase; each phase is also the
+    span ``gdr.eval.<name>``."""
 
     def __init__(self) -> None:
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
-    def phase(self, name: str, block_on=None) -> Iterator[None]:
+    def phase(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            yield
+            with span("gdr.eval." + name):
+                yield
         finally:
-            for dev in _cuda_devices(block_on):
-                torch.cuda.synchronize(dev)
             dt = time.perf_counter() - t0
             self.totals[name] += dt
             self.counts[name] += 1

@@ -4,7 +4,6 @@ TSV and the ``calculate`` metrics (eval/offline.py), the eval-set assembly
 
 import numpy as np
 import pytest
-import torch
 
 from gdr_tpu.data.dataset import build_eval_data as jax_build_eval_data
 from gdr_tpu.data.tokenize import HashTokenizer as JaxHashTokenizer
@@ -76,9 +75,3 @@ def test_phase_timer_summary_keys_match_jax():
     got.reset()
     assert got.summary() == {}
 
-
-def test_phase_timer_block_on_cpu_tensors():
-    timer = PhaseTimer()
-    with timer.phase("x", block_on={"a": [torch.ones(2)], "b": None}):
-        pass
-    assert timer.counts["x"] == 1
