@@ -8,7 +8,8 @@ hand-written kernels, on the CPU as their plain versions.  The store has
 four layouts: plain, cluster-packed (``packed``), and each of them as
 per-row int8 (``quantize``).  The per-position U candidate table of the
 efficient PAWA head is built once per weight set and reused by every
-retrieve.
+retrieve.  On a CUDA device a beam decode in eval mode replays CUDA graphs
+of its device work (``ops/decode_graphs.py``).
 
 The CIDs come from beam search or, with ``gen_method`` ``sample`` /
 ``top_k``, from sampled rollouts whose noise comes from a generator seeded
@@ -37,6 +38,7 @@ from gdr_tpu_torch.eval import metrics as M
 from gdr_tpu_torch.eval.offline import write_result_tsv
 from gdr_tpu_torch.ops.beam import BeamResult, generate_cids, sample_cids
 from gdr_tpu_torch.ops.codec import decode_token_batch
+from gdr_tpu_torch.ops.decode_graphs import DecodeGraphs
 from gdr_tpu_torch.ops.packed_store import (pack_layout, pack_layout_sharded,
                                             pack_rows)
 from gdr_tpu_torch.ops.quantize import pack_quantized_rows, quantize_store
@@ -130,6 +132,7 @@ class Evaluator:
                                        device=dev)
         self._ut_key = None
         self._ut = None
+        self._graphs = DecodeGraphs()
 
     def set_store(self, store) -> None:
         """Replace the doc-embedding store [N, d], applying this evaluator's
@@ -198,7 +201,7 @@ class Evaluator:
                 res, q_emb, _ = generate_cids(
                     model, ids, msk, self._children, self._eos, cfg.num_beams,
                     self._max_len, cfg.length_penalty, u_table=self._u_table,
-                    accumulate_hidden=self._want_dec)
+                    accumulate_hidden=self._want_dec, graphs=self._graphs)
             if self._want_dec:
                 with span("gdr.query"):
                     pooled = (res.hid_last

@@ -191,15 +191,26 @@ class RelativePositionBias(nn.Module):
         self.max_distance = max_distance
         self.bidirectional = bidirectional
         self.rel_embedding = nn.Parameter(torch.zeros(num_buckets, num_heads))
+        self._ids: dict = {}
+
+    def bucket_ids(self, qlen: int, klen: int, q_offset: int,
+                   device: torch.device) -> torch.Tensor:
+        """The bucket ids [qlen, klen] on ``device``, copied there once:
+        a copy from the host cannot be captured in a CUDA graph."""
+        key = (qlen, klen, int(q_offset), device)
+        ids = self._ids.get(key)
+        if ids is None:
+            ids = self._ids[key] = _buckets(
+                qlen, klen, int(q_offset), self.bidirectional,
+                self.num_buckets, self.max_distance).to(device)
+        return ids
 
     def forward(self, qlen: int, klen: int, q_offset: int = 0) -> torch.Tensor:
         """Bias [1, heads, qlen, klen] in the model dtype."""
-        b = _buckets(qlen, klen, int(q_offset), self.bidirectional,
-                     self.num_buckets, self.max_distance)
         table = self.rel_embedding
         if table.shape[1] != self.num_heads:          # cut on the heads
             table = gather_from_mp(table, mp_mesh(self), dim=1)
-        bias = table[b.to(table.device)]
+        bias = table[self.bucket_ids(qlen, klen, q_offset, table.device)]
         return bias.permute(2, 0, 1)[None]
 
 
@@ -461,6 +472,11 @@ class Decoder(nn.Module):
         cache = {}
         inner = self.num_heads * self.d_kv
         dtype = self.final_norm.scale.dtype
+        # the bias ids of every position the cache serves, on the device
+        # before a decode step is captured in a CUDA graph
+        for pos in range(max_len):
+            self.rel_bias.bucket_ids(1, max_len, pos, enc.device)
+            self.cross_rel_bias.bucket_ids(1, enc.shape[1], pos, enc.device)
         for i, blk in enumerate(self.blocks):
             ck, cv = blk.cross_attn.precompute_kv(enc)
             cache[f"tm_self_k_{i}"] = torch.zeros(

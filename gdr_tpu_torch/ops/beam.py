@@ -13,7 +13,11 @@
   reads ``bool(run.any())`` on the host before each full-width step, a
   sync that drains the stream (span ``gdr.decode.sync``, counted in
   ``utils/timing.py::SYNCS``; the reference package folds it into a
-  device ``while_loop``; a CUDA graph of the step is the later fix);
+  device ``while_loop``).  The search is a generator that yields the
+  device flag at each such check and takes the host's answer back, so the
+  device work between two checks is one piece: :func:`generate_cids` runs
+  the pieces eagerly, or on a CUDA device replays each as a CUDA graph
+  (``ops/decode_graphs.py``);
 - ``accumulate_hidden``: the carry pools each beam's decoder states (sum,
   count, last) and reorders them with the beams, giving the
   ``decoder_avg`` / ``decoder_special`` query reps without re-running the
@@ -40,7 +44,7 @@ from typing import Callable
 import torch
 
 from gdr_tpu_torch.ops.codec import EOS_ID, PAD_ID, TOKEN_OFFSET
-from gdr_tpu_torch.utils.timing import SYNCS, span
+from gdr_tpu_torch.utils.timing import GRAPHS, SYNCS, span
 
 NEG_INF = -1.0e9
 
@@ -218,20 +222,13 @@ def warmup_widths(num_beams: int, kary: int, max_len: int) -> list[int]:
     return widths
 
 
-def beam_search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
-                kary: int, max_len: int, children: torch.Tensor,
-                eos_allowed: torch.Tensor, length_penalty: float = 1.0,
-                progressive: bool = False,
-                accumulate_hidden: int = 0,
-                candidates_mode: bool = True) -> BeamResult:
-    """Run the constrained search.  ``children``: int [N, kary] (-1 =
-    absent); ``eos_allowed``: bool [N], both on the decode device.
-    ``cache`` holds batch·num_beams rows (row b·K+k = query b), or batch
-    rows when ``progressive``.  ``accumulate_hidden`` > 0 (the decoder
-    width d): ``step_fn`` returns ``(logits, hidden [rows, d], cache)`` and
-    the result carries the pooled ``hid_avg`` / ``hid_last``.
-    ``candidates_mode=False``: ``step_fn`` returns full-vocabulary logits
-    (the hierarchic decoders' step)."""
+def _search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
+            kary: int, max_len: int, children: torch.Tensor,
+            eos_allowed: torch.Tensor, progressive: bool = False,
+            accumulate_hidden: int = 0, candidates_mode: bool = True):
+    """The search as a generator: before each full-width step it yields
+    (a device bool, whether any beam still runs; the state so far) and is
+    sent back whether to take the step.  Returns the last state."""
     dev = children.device
     bk0 = batch * (1 if progressive else num_beams)
     tokens = torch.zeros((bk0, max_len + 1), dtype=torch.int32, device=dev)
@@ -265,18 +262,57 @@ def beam_search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
         if acc is not None:
             # beams whose pending input is EOS still owe the pool one state
             run = run | ((state[5] == EOS_ID) & live)
-        with span("gdr.decode.sync"):
-            SYNCS["host_syncs"] += 1
-            alive = bool(run.any())
-        if not alive:                                # early exit
+        if not (yield run.any(), state):             # early exit
             break
         state = _beam_step(state, pos, step_fn, batch, num_beams, num_beams,
                            kary, children, eos_allowed, candidates_mode)
+    return state
 
+
+def alive(flag: torch.Tensor) -> bool:
+    """The early exit's read of a flag the search yielded: a host sync."""
+    with span("gdr.decode.sync"):
+        SYNCS["host_syncs"] += 1
+        return bool(flag)
+
+
+def drive(steps):
+    """Run a search generator eagerly, answering each flag it yields with
+    :func:`alive`; returns what the generator returns."""
+    try:
+        flag, _ = next(steps)
+        while True:
+            flag, _ = steps.send(alive(flag))
+    except StopIteration as stop:
+        return stop.value
+
+
+def _finalized(state, batch: int, num_beams: int,
+               length_penalty: float) -> BeamResult:
     tokens, node, scores, finished, eos_pos, _, acc, _ = state
     with span("gdr.decode.finalize"):
         return _finalize(tokens, node.to(torch.int32), scores, eos_pos,
                          batch, num_beams, length_penalty, acc)
+
+
+def beam_search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
+                kary: int, max_len: int, children: torch.Tensor,
+                eos_allowed: torch.Tensor, length_penalty: float = 1.0,
+                progressive: bool = False,
+                accumulate_hidden: int = 0,
+                candidates_mode: bool = True) -> BeamResult:
+    """Run the constrained search.  ``children``: int [N, kary] (-1 =
+    absent); ``eos_allowed``: bool [N], both on the decode device.
+    ``cache`` holds batch·num_beams rows (row b·K+k = query b), or batch
+    rows when ``progressive``.  ``accumulate_hidden`` > 0 (the decoder
+    width d): ``step_fn`` returns ``(logits, hidden [rows, d], cache)`` and
+    the result carries the pooled ``hid_avg`` / ``hid_last``.
+    ``candidates_mode=False``: ``step_fn`` returns full-vocabulary logits
+    (the hierarchic decoders' step)."""
+    state = drive(_search(step_fn, cache, batch, num_beams, kary, max_len,
+                          children, eos_allowed, progressive,
+                          accumulate_hidden, candidates_mode))
+    return _finalized(state, batch, num_beams, length_penalty)
 
 
 def _decode_cache(model, enc: torch.Tensor, max_len: int, rows_per_query: int,
@@ -305,24 +341,14 @@ def _encode(model, input_ids: torch.Tensor, attn_mask: torch.Tensor):
         return enc, model.query_embedding(enc)
 
 
-def generate_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
-                  children: torch.Tensor, eos_allowed: torch.Tensor,
-                  num_beams: int, max_len: int, length_penalty: float = 1.0,
-                  progressive: bool = True,
-                  u_table: torch.Tensor | Callable | None = None,
-                  accumulate_hidden: bool = False):
-    """Encode the queries once and run the constrained search with
-    progressive widening.  ``u_table``: the model's ``decode_tables``
-    when it has the efficient PAWA head, or a function that returns them,
-    built here when not given (callers that retrieve repeatedly build it
-    once per weight set).
-    ``accumulate_hidden``: pool the decoder states into the result's
-    ``hid_avg`` / ``hid_last``.  Returns (BeamResult, query embedding
-    [B, d'], encoder states [B, S, d])."""
+def _decode(model, input_ids, attn_mask, children, eos_allowed,
+            num_beams: int, max_len: int, progressive: bool, u_table,
+            accumulate_hidden: bool):
+    """The device work of :func:`generate_cids` as a search generator
+    (:func:`_search`) that encodes first; it returns (the last state, the
+    query embedding, the encoder states)."""
     batch = input_ids.shape[0]
     enc, query_emb = _encode(model, input_ids, attn_mask)
-    if progressive and num_beams > (model.cfg.kary + 1) ** max(max_len - 1, 0):
-        progressive = False
     cache = _decode_cache(model, enc, max_len, 1 if progressive else num_beams,
                           u_table)
 
@@ -330,12 +356,50 @@ def generate_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
         return model.decode_step_candidates(cur_tok, cache, attn_mask, pos,
                                             width, accumulate_hidden)
 
-    result = beam_search(step_fn, cache, batch, num_beams, model.cfg.kary,
-                         max_len, children, eos_allowed, length_penalty,
-                         progressive=progressive,
-                         accumulate_hidden=(model.cfg.d_model
-                                            if accumulate_hidden else 0))
-    return result, query_emb, enc
+    state = yield from _search(step_fn, cache, batch, num_beams,
+                               model.cfg.kary, max_len, children, eos_allowed,
+                               progressive,
+                               model.cfg.d_model if accumulate_hidden else 0)
+    return state, query_emb, enc
+
+
+def generate_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
+                  children: torch.Tensor, eos_allowed: torch.Tensor,
+                  num_beams: int, max_len: int, length_penalty: float = 1.0,
+                  progressive: bool = True,
+                  u_table: torch.Tensor | Callable | None = None,
+                  accumulate_hidden: bool = False, graphs=None):
+    """Encode the queries once and run the constrained search with
+    progressive widening.  ``u_table``: the model's ``decode_tables``
+    when it has the efficient PAWA head, or a function that returns them,
+    built here when not given (callers that retrieve repeatedly build it
+    once per weight set).
+    ``accumulate_hidden``: pool the decoder states into the result's
+    ``hid_avg`` / ``hid_last``.  ``graphs``: an
+    ``ops/decode_graphs.py::DecodeGraphs`` that replays the device work as
+    CUDA graphs where it can (a CUDA model in eval mode, autograd off).
+    Returns (BeamResult, query embedding [B, d'], encoder states [B, S,
+    d]), none of them held by the graphs."""
+    if progressive and num_beams > (model.cfg.kary + 1) ** max(max_len - 1, 0):
+        progressive = False
+
+    def decode(ids, mask):
+        return _decode(model, ids, mask, children, eos_allowed, num_beams,
+                       max_len, progressive, u_table, accumulate_hidden)
+
+    if graphs is not None and graphs.engages(model, input_ids):
+        if callable(u_table):           # the graphs read it by address
+            u_table = u_table()
+        state, query_emb, enc = graphs.run(
+            model, decode, input_ids, attn_mask, max_len,
+            (num_beams, max_len, progressive, accumulate_hidden),
+            (children, eos_allowed, u_table))
+    else:
+        if input_ids.is_cuda:
+            GRAPHS["eager_decodes"] += 1
+        state, query_emb, enc = drive(decode(input_ids, attn_mask))
+    return (_finalized(state, input_ids.shape[0], num_beams, length_penalty),
+            query_emb, enc)
 
 
 def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:

@@ -10,12 +10,17 @@ no-op context, at the cost of one check.  The serving path's spans are
 ``gdr.decode.step`` (holding ``gdr.decode.forward`` and
 ``gdr.beam.select``), ``gdr.decode.sync``, ``gdr.decode.finalize``,
 ``gdr.query`` and ``gdr.rerank``; ``PhaseTimer`` phases open
-``gdr.eval.<phase>``.
+``gdr.eval.<phase>``.  Where the decode replays CUDA graphs
+(``ops/decode_graphs.py``), each replayed piece is a ``gdr.decode.replay``
+range (args: the piece's first position) in place of the ranges its
+captured code opened.
 
 ``SYNCS["host_syncs"]`` counts the points of the retrieve path where the
-host reads a device value; ``kernels.launch_counts(host_syncs=True)``
-reads it beside the kernel launches and ``kernels.reset_launch_counts()``
-resets both.
+host reads a device value; ``GRAPHS`` counts the decode's CUDA graph
+pieces captured (``graph_captures``) and replayed (``graph_replays``), and
+the decodes on a CUDA device that ran eagerly (``eager_decodes``).
+``kernels.launch_counts(host_syncs=True, graphs=True)`` reads them beside
+the kernel launches and ``kernels.reset_launch_counts()`` resets all.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ _profiling = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 
 SYNCS = {"host_syncs": 0}
+GRAPHS = {"graph_captures": 0, "graph_replays": 0, "eager_decodes": 0}
 
 
 def span(name: str, args: str | None = None):

@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """One traced run of a serving cell of the benchmark, read through the
 program's spans (``gdrbench/spans.py``): device time, host time and idle
-gaps by ``gdr.`` span, the host syncs per retrieve, the share of the
-device time inside ``gdr.retrieve`` that encode, decoder forward, beam
-selection and re-rank cover, and what the spans cost: ``span()`` with no
+gaps by ``gdr.`` span, the host syncs, CUDA graph pieces replayed and
+captured and eager decodes per retrieve, the share of the device time
+inside ``gdr.retrieve`` that encode, decoder forward, beam selection and
+re-rank cover, or where the decode replays CUDA graphs the device and
+host time of ``gdr.decode.replay`` (the stage spans inside the graphs are
+not recorded then, and their stage metrics are null), and what the spans
+cost: ``span()`` with no
 profiler (ns a call), and the traced stretch with the spans against the
 same stretch with ``span`` replaced by its no-op, alternated
 ``--repeats`` times.  The cell runs as ``gdrbench/run.py --trace 1`` runs
@@ -33,8 +37,9 @@ from gdrbench import harness, spans, trace  # noqa: E402
 # device work: encode, decoder forward, beam selection, re-rank
 RETRIEVE = ("gdr.retrieve", "gdr.encode", "gdr.decode.init",
             "gdr.decode.step", "gdr.decode.forward", "gdr.beam.select",
-            "gdr.decode.sync", "gdr.decode.finalize", "gdr.query",
-            "gdr.rerank")
+            "gdr.decode.sync", "gdr.decode.replay", "gdr.decode.finalize",
+            "gdr.query", "gdr.rerank")
+REPLAY = "gdr.decode.replay"
 STAGES = {"encode_device_ms": "gdr.encode",
           "decoder_device_ms": "gdr.decode.forward",
           "beam_device_ms": "gdr.beam.select",
@@ -110,7 +115,8 @@ def _traced(record: dict, repeats: int, device):
     def traced(fn):
         kernels.reset_launch_counts()
         prof, dt = profiled(fn)
-        record["counts"] = kernels.launch_counts(host_syncs=True)
+        record["counts"] = kernels.launch_counts(host_syncs=True,
+                                                 graphs=True)
         evs = spans.events(prof)
         record["spans"] = spans.attribute(evs)
         record["stretch_s"] = dt
@@ -150,14 +156,24 @@ def main(argv=None) -> int:
     roof = _module(ROOT / "gdrbench" / "metrics" / "decoder_roofline.serve.py")
     host = sp.host_by_span
     inside = sum(v for n, v in sp.device_by_span.items() if n in RETRIEVE)
-    staged = sum(sp.device_by_span.get(n, 0.0) for n in STAGES.values())
-    per = {m: 1e3 * sp.device_by_span.get(n, 0.0) / k
+    # a stage span that no range recorded ran inside a replayed graph: its
+    # stage time is unknown, not 0
+    staged = sum(sp.device_by_span.get(n, 0.0) for n in STAGES.values()
+                 if n in host)
+    per = {m: 1e3 * sp.device_by_span.get(n, 0.0) / k if n in host else None
            for m, n in STAGES.items()}
+    counts = record["counts"]
     retrieve_s = host.get("gdr.retrieve", {}).get("total_s", 0.0)
     sync_s = host.get("gdr.decode.sync", {}).get("total_s", 0.0)
     per.update(dispatch_ms=1e3 * (retrieve_s - sync_s) / k,
                sync_wait_ms=1e3 * sync_s / k,
-               host_syncs_per_retrieve=record["counts"]["host_syncs"] / k)
+               host_syncs_per_retrieve=counts["host_syncs"] / k,
+               replay_device_ms=1e3 * sp.device_by_span.get(REPLAY, 0.0) / k,
+               replay_host_ms=1e3 * host.get(REPLAY, {}).get("total_s", 0.0)
+               / k,
+               **{f"{n}_per_retrieve": counts[n] / k
+                  for n in ("graph_replays", "graph_captures",
+                            "eager_decodes")})
     out = {
         "workload": args.workload, "seed": args.seed,
         "device": result["device"], "correct": result["correct"],
@@ -165,6 +181,7 @@ def main(argv=None) -> int:
         "per_retrieve": per,
         "device_in_retrieve_ms": 1e3 * inside / k,
         "stages_share_of_retrieve": staged / inside if inside else None,
+        "stages_not_recorded": [n for n in STAGES.values() if n not in host],
         "decoder_kernels_ms": 1e3 * tr.device_time(roof.is_decoder_kernel)
         / k,
         "launches": {n: c / k for n, c in record["counts"].items() if c},
