@@ -39,7 +39,16 @@ the last line):
    TFLOP/s, the yardstick at "highest" precision), and the scorers at
    3,200 rows.  The GEMM shapes and the FFN rows print the plan the
    dtype's cost model gave them (tile, ring stages, splits, units and
-   blocks);
+   blocks).  Last, the routed-expert sublayer (``expert_sublayer``, the
+   four ``gdr::moe_`` kernels) at Switch-Base-128's widths (128 experts,
+   d 768, d_ff 3,072, capacity 64) and the Switch cell's calls: a query's
+   40 encoder tokens as one sequence, then decode steps of 1, 31 and 100
+   beam rows over counts of earlier tokens: the same experts, kept rows,
+   counts and routing counters as the plain version, router logits within
+   1e-4 and outputs within 2e-5 (no TF32); its device time, the plain
+   version's wall time (it reads the experts hit back to the host, so no
+   graph holds it) and the bound of the experts it hit, at each row count
+   and summed per retrieve (6·t40 + 3·t1 + 3·t31 + 6·t100);
 3. whole path, small — a small f32 model retrieves on the CPU (plain
    versions) and on the card (kernels) from the same seeded weights, on
    the four store layouts (plain, packed, plain int8, packed int8): valid
@@ -48,7 +57,13 @@ the last line):
    other options of a retrieve: decoder_avg query reps with average
    fusion, decoder_special with concate fusion, top_k sampling (the Gumbel
    noise drawn once on the CPU and given to both runs) and the slow PAWA
-   head, each with valid doc ids equal and fused scores within 1e-4;
+   head, each with valid doc ids equal and fused scores within 1e-4; last,
+   the small model with a routed FFN in every other layer (8 experts,
+   capacity 2, so the encoder drops tokens) on the packed layout, twice
+   (the second retrieve replays the decode's CUDA graphs): valid doc ids
+   equal, fused scores within 1e-4, the routing counters equal on the CPU
+   and the card, and the card's launches of one retrieve (the expert
+   kernels once a sparse layer and step);
 4. whole path, full width — ``Evaluator.retrieve`` with t5-base in bf16
    (seeded random weights), beam 100, top-R 100, 32 queries × 40 tokens,
    over a 334,314-doc store in three layouts (packed bf16, plain bf16,
@@ -200,7 +215,9 @@ the last line):
    phase 10's sharded retrieves and per rank in phase 11's mesh
    TrainLoop eval), max |Δ|, kernel / plain / library ms and its bound
    (the decoder rows also by row count, per retrieve, per GEMM shape and
-   at query generation's shape).
+   at query generation's shape); the expert row gives its launches on
+   phase 4's dense main path (0) and in phase 3's small Switch retrieve,
+   and its phase-2 numbers at 100 rows, by row count and per retrieve.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and gdr_tpu_torch only (its phases 6 to 10 also run the
@@ -255,6 +272,17 @@ GEMM_SHAPES = ((3 * D, D, "round"), (D, D, "residual"), (DFF, D, "relu"),
 DECODER_GEMMS = {"self_attn_sublayer": {(3 * D, D), (D, D)},
                  "cross_attn_sublayer": {(D, D)},
                  "ffn_sublayer": {(DFF, D), (D, DFF)}}
+# Switch-Base-128's routed FFN at serve-b1-switch128's calls, one query a
+# retrieve: (rows, sequence length) of the encoder's 40 tokens, then of the
+# decode steps at widths 1, 31 and 100 (one token a beam row), and how many
+# calls of each a retrieve makes (6 sparse encoder layers; 3 sparse decoder
+# layers a step, the width-100 step twice)
+SW_EXPERTS, SW_CAPACITY = 128, 64
+SW_CALLS = ((S, S), (1, 1), (31, 1), (100, 1))
+SW_WEIGHT = {S: 6, 1: 3, 31: 3, 100: 6}
+# router logits ~N(0, 28²) and outputs ~1: f32 sums of 768 and 3,072
+# products in another order than cuBLAS's differ by a few ulps, TF32 by 1e-3
+SW_TOL = {"logits": 1e-4, "out": 2e-5}
 
 
 def log(msg: str) -> None:
@@ -465,6 +493,106 @@ def sublayer_calls(c, pos: int) -> dict:
 
 
 # ------------------------------------------------------------ phase 2
+
+def expert_cost(stats: dict) -> tuple[float, float]:
+    """FLOPs and the bytes the routed-expert calls that the routing
+    counters ``stats`` count must move: the router [E, d] and norm scale a
+    call, each expert hit (wi and wo, 2·d·d_ff f32) once, each row in and
+    out; 2·d·E FLOPs a row in the router and 4·d·d_ff a kept row."""
+    rows, kept = stats["moe_rows"], stats["moe_rows"] - stats["moe_dropped"]
+    flops = 2 * rows * D * SW_EXPERTS + 4 * kept * D * DFF
+    nbytes = (stats["moe_experts_hit"] * 2 * D * DFF
+              + stats["moe_calls"] * (SW_EXPERTS * D + D) + rows * 2 * D) * 4
+    return float(flops), float(nbytes)
+
+
+def experts_vs_plain(rn) -> dict:
+    """``expert_sublayer`` on the card against its plain version at the
+    Switch cell's calls (``SW_CALLS``), then timed; returns its ``stats``
+    entry (the numbers at 100 rows, ``by_rows``, ``per_retrieve``)."""
+    import torch
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.kernels import experts as KE
+
+    scale = 1 + rn(D, std=0.1)
+    router = rn(SW_EXPERTS, D)                 # transformers' N(0, 1)
+    wi = rn(SW_EXPERTS, DFF, D, std=0.02)
+    wo = rn(SW_EXPERTS, D, DFF, std=0.02)
+
+    def routing() -> dict:
+        return {k: v for k, v in kernels.launch_counts(experts=True).items()
+                if k.startswith("moe_")}
+
+    by_rows, errs = {}, []
+    for r, seq in SW_CALLS:
+        x = rn(r, D)
+        # a decode step's counts: each beam row's earlier tokens an expert
+        counts = None if seq > 1 else \
+            (rn(r, SW_EXPERTS).abs() * 1.5).to(torch.int32)
+        got = {}
+        for side, fn in (("kernel", KE.expert_sublayer),
+                         ("plain", KE.expert_sublayer_plain)):
+            c = None if counts is None else counts.clone()
+            z = torch.empty(r, SW_EXPERTS, device=x.device)
+            kernels.reset_launch_counts()
+            out = fn(x, scale, router, wi, wo, capacity=SW_CAPACITY,
+                     seq_len=seq, counts=c, logits=z)
+            torch.cuda.synchronize()
+            got[side] = (out, z, c, routing(),
+                         KE.LAUNCHES["expert_sublayer"])
+        (out_k, z_k, c_k, st_k, n_k), (out_p, z_p, c_p, st_p, n_p) = \
+            got["kernel"], got["plain"]
+        tag = f"expert_sublayer R={r} seq {seq}"
+        if (n_k, n_p) != (1, 0):
+            raise Failed(f"{tag}: {n_k} kernel launches and {n_p} by the "
+                         f"plain version, want 1 and 0")
+        if st_k != st_p or st_k["moe_rows"] != r:
+            raise Failed(f"{tag}: routing counters {st_k} on the card, "
+                         f"{st_p} plain")
+        if not torch.equal(z_k.argmax(1), z_p.argmax(1)) or (
+                counts is not None and not torch.equal(c_k, c_p)):
+            raise Failed(f"{tag}: experts or counts differ from plain")
+        z_err = (z_k - z_p).abs().max().item()
+        err = (out_k - out_p).abs().max().item()
+        if not (z_err < SW_TOL["logits"] and err < SW_TOL["out"]) \
+                or not bool(out_k.isfinite().all()):
+            raise Failed(f"{tag}: max |d| logits {z_err:.3g} (tol "
+                         f"{SW_TOL['logits']}), outputs {err:.3g} (tol "
+                         f"{SW_TOL['out']})")
+        errs.append((z_err, err))
+        flops, nbytes = expert_cost(st_k)
+        bound, by = _bound_ms(flops, nbytes, H100_F32_FLOPS)
+        c_t = None if counts is None else counts.clone()
+        kern = lambda: KE.expert_sublayer(       # noqa: E731
+            x, scale, router, wi, wo, capacity=SW_CAPACITY, seq_len=seq,
+            counts=c_t)
+        plain = lambda: KE.expert_sublayer_plain(  # noqa: E731
+            x, scale, router, wi, wo, capacity=SW_CAPACITY, seq_len=seq,
+            counts=None if counts is None else counts.clone())
+        row = by_rows[r] = dict(
+            ms=_time_ms(kern), plain_ms=fmean(_timed(plain, 1, 5)),
+            bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+            seq_len=seq, experts_hit=st_k["moe_experts_hit"],
+            max_load=st_k["moe_max_load"], logit_err=z_err, max_abs_err=err)
+        log(f"  expert_sublayer    float32  R={r:5d} seq {seq:2d}: "
+            f"{row['experts_hit']} experts hit (most rows {row['max_load']}"
+            f"), max|d| logits {z_err:.3g}, outputs {err:.3g}; kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms (wall), "
+            f"bound {bound:.4f} ms ({by})")
+    kernels.reset_launch_counts()
+    per = {key: sum(SW_WEIGHT[r] * by_rows[r][key] for r, _ in SW_CALLS)
+           for key in ("ms", "plain_ms", "bound_ms")}
+    log(f"  expert_sublayer    float32  per retrieve (6·t40 + 3·t1 + 3·t31 "
+        f"+ 6·t100): kernel {per['ms']:.4f} ms, plain {per['plain_ms']:.4f} "
+        f"ms, bound {per['bound_ms']:.4f} ms")
+    main = by_rows[100]
+    return dict(err=max(e for _, e in errs),
+                logit_err=max(z for z, _ in errs), ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], flops=main["flops"],
+                bytes=main["bytes"], by_rows=by_rows, per_retrieve=per)
+
 
 def phase_kernels(dev, trie) -> dict:
     import torch
@@ -737,6 +865,7 @@ def phase_kernels(dev, trie) -> dict:
         log(f"  {name:20s} R=3200: kernel {st['ms']:.4f} ms, plain "
             f"{st['plain_ms']:.4f} ms, library {st['library_ms']:.4f} ms, "
             f"bound {st['bound_ms']:.4f} ms ({st['bound_by']})")
+    stats["expert_sublayer"] = experts_vs_plain(rn)
     return stats
 
 
@@ -835,7 +964,7 @@ def _same_retrieve(tag, res_c, rr_c, res_g, rr_g):
     return int(valid.sum()), int(dv.sum()), err
 
 
-def phase_small(dev) -> None:
+def phase_small(dev) -> dict:
     import dataclasses
 
     import torch
@@ -896,6 +1025,62 @@ def phase_small(dev) -> None:
             log(f"  f32 d=64 {mode:25s} {layout:6s}: {n_valid} valid beams, "
                 f"{n_docs} valid docs equal on cpu and gpu; max |d| fused "
                 f"score {err:.3g} (tol 1e-4)")
+    return small_switch(dev, dataclasses.replace(
+        cfg, num_experts=8, expert_capacity=2, encoder_sparse_step=2,
+        decoder_sparse_step=2), trie, store, ids, mask, ev_cfg)
+
+
+def small_switch(dev, sw_cfg, trie, store, ids, mask, ev_cfg) -> dict:
+    """Phase 3's small model with a routed FFN in every other layer of
+    each stack (the Switch layout; 8 experts at capacity 2, so a 10-token
+    query drops some of its tokens) on the packed layout, on the CPU and twice on
+    the card, the second replaying the decode's CUDA graphs.  Returns the
+    card's launches of one retrieve (``switch_launches``)."""
+    import torch
+
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+
+    cpu_m, gpu_m = _small_models(sw_cfg, dev)
+    ev_c = Evaluator(cpu_m, trie, store, ev_cfg, packed=True)
+    ev_g = Evaluator(gpu_m, trie, store, ev_cfg, packed=True)
+    kernels.reset_launch_counts()
+    res_c, rr_c = ev_c.retrieve(ids, mask)
+    routing_c = kernels.launch_counts(experts=True)
+    for turn in ("eager", "replayed"):    # the second replays the graphs
+        kernels.reset_launch_counts()
+        res_g, rr_g = ev_g.retrieve(ids, mask)
+        torch.cuda.synchronize()
+        got = kernels.launch_counts(experts=True, graphs=True,
+                                    host_syncs=True)
+        n_valid, n_docs, err = _same_retrieve(f"switch {turn}", res_c, rr_c,
+                                              res_g, rr_g)
+        replays = 3 if turn == "replayed" else 0
+        if (got["graph_replays"], got["eager_decodes"], got["host_syncs"]) \
+                != (replays, 1 - replays // 3, 2):
+            raise Failed(f"small switch {turn}: {got['graph_replays']} graph "
+                         f"replays, {got['eager_decodes']} eager decodes, "
+                         f"{got['host_syncs']} host syncs (want {replays}, "
+                         f"{1 - replays // 3}, 2)")
+        routing = {k: v for k, v in got.items() if k.startswith("moe_")}
+        if routing != {k: routing_c[k] for k in routing}:
+            raise Failed(f"small switch {turn}: routing counters {routing} "
+                         f"on the card, {routing_c} on the cpu")
+        steps = got["self_attn_sublayer"] // sw_cfg.num_decoder_layers
+        want = 1 + steps              # one sparse layer in each stack
+        if got["expert_sublayer"] != want or routing["moe_dropped"] == 0 \
+                or got["ffn_sublayer"] != steps:
+            raise Failed(f"small switch {turn}: {got['expert_sublayer']} "
+                         f"expert and {got['ffn_sublayer']} ffn launches "
+                         f"(want {want} and {steps}), "
+                         f"{routing['moe_dropped']} tokens dropped")
+        log(f"  f32 d=64 switch (8 experts, cap 2) packed {turn}: {n_valid} "
+            f"valid beams, {n_docs} valid docs equal on cpu and gpu; max |d| "
+            f"fused score {err:.3g} (tol 1e-4); routing {routing}; "
+            f"{got['expert_sublayer']} expert launches")
+    launches = {k: v for k, v in got.items() if k in kernels.launch_counts()}
+    kernels.reset_launch_counts()
+    return {"switch_launches": launches}
 
 
 # ------------------------------------------------------------ phase 4
@@ -4347,7 +4532,7 @@ KERNELS = [
 
 def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
                 secondary: dict, pretrained: dict, sharded: dict,
-                train_mesh: dict) -> list[dict]:
+                train_mesh: dict, small: dict) -> list[dict]:
     """The ``{"kernels": [...]}`` rows: each kernel's launches on its
     layout's main path (phase 4) and its phase-2 numbers at 3,200 rows; the
     decoder rows add their numbers at each row count (``by_rows``), the
@@ -4365,7 +4550,11 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
     epoch eval in phase 11's mesh TrainLoop (its layout's scorer once a
     retrieve); the decoder rows
     add their numbers at query generation's shape (``qg``: one beam per
-    row, a 64-token doc, a 40-position cache; f32 and bf16)."""
+    row, a 64-token doc, a 40-position cache; f32 and bf16).  The last row,
+    ``expert_sublayer``, replaces no TPU kernel: its launches on phase 4's
+    dense main path, ``launches_switch_small`` those of phase 3's small
+    Switch retrieve, and its phase-2 numbers at 100 rows, by row count
+    (``by_rows``) and per retrieve."""
     rows = []
     for name, source, replaces, library in KERNELS:
         st = stats[name]
@@ -4396,6 +4585,19 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
         if name in full["launches_f32"]:
             row["launches_f32_retrieve"] = full["launches_f32"][name]
         rows.append(row)
+    st = stats["expert_sublayer"]
+    rows.append(dict(
+        name="expert_sublayer", route="cuda",
+        source="gdr_tpu_torch/csrc/experts.cu", replaces=None,
+        launches=full["launches"].get("expert_sublayer", 0),
+        launches_switch_small=small["switch_launches"]["expert_sublayer"],
+        max_abs_err=st["err"], logit_err=st["logit_err"], ms=st["ms"],
+        plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+        bound_by=st["bound_by"], library_ms=None,
+        library="the plain version: transformers' loop over the experts "
+                "hit, torch.matmul each (plain_ms, wall)",
+        flops=st["flops"], bytes=st["bytes"], rows=100, dtype="float32",
+        by_rows=st["by_rows"], per_retrieve=st["per_retrieve"]))
     return rows
 
 
@@ -4458,7 +4660,7 @@ def main(argv: list[str]) -> int:
         t = time.perf_counter()
         log("[3] whole path, small f32 model, four store layouts: cpu "
             "(plain) vs gpu (kernels)")
-        phase_small(dev)
+        small = phase_small(dev)
         log(f"[3] {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         log("[4] whole path, full width: t5-base bf16 retrieve, three store "
@@ -4525,7 +4727,7 @@ def main(argv: list[str]) -> int:
           flush=True)
     print(json.dumps({"kernels": kernel_rows(stats, full, index, train,
                                              secondary, pretrained,
-                                             sharded, train_mesh)}),
+                                             sharded, train_mesh, small)}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

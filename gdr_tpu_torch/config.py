@@ -67,6 +67,25 @@ class ModelConfig:
 
     remat: bool = False
 
+    # --- sparse experts (Switch Transformer): at the layers ``i`` of a stack
+    # with ``i % step == 1`` (every layer at step 1, none at step 0) the FFN
+    # is a top-1 routed mixture of ``num_experts`` ReLU experts, each taking
+    # at most ``expert_capacity`` tokens of a sequence; 0 experts is dense
+    num_experts: int = 0
+    expert_capacity: int = 64
+    encoder_sparse_step: int = 2
+    decoder_sparse_step: int = 2
+
+    def refuse_experts(self, what: str) -> None:
+        """Raise where ``what`` is asked of a model with experts, which the
+        port serves but does not train."""
+        if self.num_experts:
+            raise NotImplementedError(
+                f"{what} is not ported for sparse experts (num_experts "
+                f"{self.num_experts}): the router's z-loss and load-balancing"
+                f" loss and the experts' column-parallel placement are "
+                f"missing")
+
     @property
     def output_vocab_size(self) -> int:
         return self.kary
@@ -88,6 +107,12 @@ class ModelConfig:
                           num_heads=8, d_ff=2048, d_kv=64),
             "tiny": dict(num_layers=2, num_decoder_layers=2, d_model=64,
                          num_heads=4, d_ff=128, d_kv=16),
+            # google/switch-base-128 (Fedus et al. 2021): t5-base widths,
+            # every other FFN a top-1 mixture of 128 experts
+            "switch-base": dict(num_layers=12, num_decoder_layers=6,
+                                d_model=768, num_heads=12, d_ff=3072, d_kv=64,
+                                num_experts=128, expert_capacity=64,
+                                encoder_sparse_step=2, decoder_sparse_step=2),
         }
         return dataclasses.replace(self, **presets[preset])
 

@@ -1,0 +1,377 @@
+// Top-1 routed experts (Switch Transformer's sparse FFN) in f32 (sm_90a):
+//
+//   h = RMSNorm(x);  z = h · Wrᵀ;  e = argmax z;  π = softmax(z)[e]
+//   x' = x + π · Wo[e] · ReLU(Wi[e] · h)      (x' = x for a dropped token)
+//
+// A token is dropped when `capacity` earlier tokens of its sequence (rows
+// q·seq_len … q·seq_len + seq_len − 1, plus `counts[q, e]` tokens of earlier
+// calls) were sent to the same expert, as transformers' Top1Router counts.
+//
+// What bounds it: the experts' weights.  An expert is 2·d·d_ff f32 (18.9 MB
+// at Switch-Base's widths) and a call of a serving step touches 1–128 of
+// them with a few rows each, so a call is a batch of GEMVs that must read
+// every touched expert's weights once at HBM speed; its FLOPs per byte stay
+// below 2·(rows per expert) / 4, under the card's f32 ridge of 20 up to ~40
+// rows an expert.  And it runs inside a captured CUDA graph: no count may
+// reach the host, so every launch has a grid fixed by the shapes alone.
+//
+// Four launches, each a `gdr::moe_` kernel:
+// - moe_router: a block normalises 8 rows (written once to `hbuf`) and
+//   scores them against 32 experts: a warp takes 4 experts, its lanes
+//   stride d in float4, and the 32 sums of (expert, row) are reduced over
+//   the warp by a butterfly that leaves lane l with sum l.
+// - moe_group (one block): per row the argmax (the first of equal logits)
+//   and π; the capacity rule; each sequence's counts; the kept rows grouped
+//   by expert (`order`) and cut into chunks of at most 8 rows of one expert,
+//   all in device memory; the stats counters; dropped rows copy x.
+// - moe_up / moe_down: a persistent grid walks the work list (chunk, tile
+//   of columns) that moe_group left, so an empty expert costs nothing, a
+//   busy one is spread over as many blocks as its chunks, and the grid is
+//   the card's, not the routing's.  A work item stages its chunk's rows in
+//   shared memory (K in pieces of 1,024), each warp streams 4 weight rows
+//   of the expert in float4 and forms the 4 × 8 dots, reduced as in the
+//   router; each weight element is read once per chunk.
+//   moe_up writes ReLU(h · Wiᵀ) at the row's place in the grouping, moe_down
+//   writes x + π · (that · Woᵀ) at the row.  Every row's sums run in a fixed
+//   order whatever the grouping, so a call gives the same bits every time.
+
+#include "common.cuh"
+
+namespace gdr {
+
+constexpr int kMoeRows = 8;           // rows a block stages (router and products)
+constexpr int kMoeCols = 4;           // weight rows a warp reads at once
+constexpr int kRouterWarps = 8;       // 8 warps x 4 experts = 32 experts a block
+constexpr int kUpWarps = 8;           // moe_up: 32 columns of d_ff a work item
+constexpr int kDownWarps = 4;         // moe_down: 16 columns of d a work item
+constexpr int kChunkK = 1024;         // K elements of a staged row
+constexpr int kGroupThreads = 1024;
+constexpr int kMaxExperts = 1024;
+constexpr int kMaxD = 1536;           // the router's 8 staged rows in 48 KB
+
+// v[0..31] summed over the warp, lane l left with the sum of v[l]: at each
+// stage a lane keeps the half of its values that its bit selects and adds
+// the partner's copy of that half (31 shuffles in all).
+__device__ __forceinline__ float warp_reduce_scatter32(float (&v)[32]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1) {
+    const bool up = lane & s;
+#pragma unroll
+    for (int j = 0; j < s; ++j) {
+      const float send = up ? v[j] : v[j + s];
+      const float keep = up ? v[j + s] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, s);
+    }
+  }
+  return v[0];
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// The most row chunks a call can have: the kept rows of each hit expert in
+// chunks of kMoeRows, at most R / kMoeRows + E of them.
+__host__ __device__ inline int max_chunks(int R, int E) { return R / kMoeRows + E + 1; }
+
+// The int32 meta area moe_group writes and the products read.
+struct Meta {
+  int* n_chunks;      // [1]
+  int* chunk_expert;  // [C]: the expert of each chunk of kept rows ...
+  int* chunk_place;   // [C]: ... its first grouped place ...
+  int* chunk_rows;    // [C]: ... and its rows (1 to kMoeRows)
+  int* order;         // [R]: the row at each grouped place
+  int* expert;        // [R]: each row's expert
+  int* kept;          // [R]
+  __device__ __host__ Meta(int* m, int E, int R)
+      : n_chunks(m), chunk_expert(m + 1), chunk_place(m + 1 + max_chunks(R, E)),
+        chunk_rows(m + 1 + 2 * max_chunks(R, E)), order(m + 1 + 3 * max_chunks(R, E)),
+        expert(order + R), kept(order + 2 * R) {}
+};
+
+__global__ void __launch_bounds__(kRouterWarps * 32)
+moe_router(const float* __restrict__ x, const float* __restrict__ scale,
+           const float* __restrict__ wr, float* __restrict__ hbuf,
+           float* __restrict__ logits, int R, int D, int E, float eps) {
+  extern __shared__ float4 hs[];        // kMoeRows rows of D floats
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d4 = D / 4;
+  const int r0 = blockIdx.x * kMoeRows;
+  {   // warp w normalises row r0 + w
+    const int r = r0 + warp;
+    float4* dst = hs + warp * d4;
+    if (r < R) {
+      const float4* xr = reinterpret_cast<const float4*>(x + (size_t)r * D);
+      const float4* s4 = reinterpret_cast<const float4*>(scale);
+      float ss = 0.f;
+      for (int i = lane; i < d4; i += 32) {
+        const float4 v = xr[i];
+        ss += dot4(v, v);
+      }
+      const float inv = rsqrtf(warp_sum(ss) / D + eps);
+      float4* out = reinterpret_cast<float4*>(hbuf + (size_t)r * D);
+      for (int i = lane; i < d4; i += 32) {
+        const float4 v = xr[i], s = s4[i];
+        const float4 h = make_float4(v.x * inv * s.x, v.y * inv * s.y,
+                                     v.z * inv * s.z, v.w * inv * s.w);
+        dst[i] = h;
+        if (blockIdx.y == 0) out[i] = h;
+      }
+    } else {
+      for (int i = lane; i < d4; i += 32) dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __syncthreads();
+  const int e0 = blockIdx.y * kRouterWarps * kMoeCols + warp * kMoeCols;
+  const float4* w4 = reinterpret_cast<const float4*>(wr);
+  float acc[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+#pragma unroll 2
+  for (int i = lane; i < d4; i += 32) {
+    float4 a[kMoeRows];
+#pragma unroll
+    for (int rr = 0; rr < kMoeRows; ++rr) a[rr] = hs[rr * d4 + i];
+#pragma unroll
+    for (int c = 0; c < kMoeCols; ++c) {
+      if (e0 + c >= E) continue;
+      const float4 w = w4[(size_t)(e0 + c) * d4 + i];
+#pragma unroll
+      for (int rr = 0; rr < kMoeRows; ++rr) acc[c * kMoeRows + rr] += dot4(w, a[rr]);
+    }
+  }
+  const float v = warp_reduce_scatter32(acc);
+  const int e = e0 + lane / kMoeRows, r = r0 + lane % kMoeRows;
+  if (e < E && r < R) logits[(size_t)r * E + e] = v;
+}
+
+__global__ void __launch_bounds__(kGroupThreads)
+moe_group(const float* __restrict__ logits, const float* __restrict__ x,
+          float* __restrict__ out, float* __restrict__ prob, int* meta_ptr,
+          int* counts, long long* stats, int R, int D, int E, int seq_len,
+          int capacity) {
+  __shared__ int load[kMaxExperts], fill[kMaxExperts], start[kMaxExperts];
+  __shared__ int dropped;
+  const Meta m(meta_ptr, E, R);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) load[e] = fill[e] = 0;
+  if (threadIdx.x == 0) dropped = 0;
+  // each row's expert (the first of equal largest logits) and π, a warp a row
+  for (int r = warp; r < R; r += warps) {
+    const float* z = logits + (size_t)r * E;
+    float best = -INFINITY;
+    int arg = E;
+    for (int e = lane; e < E; e += 32)
+      if (z[e] > best) { best = z[e]; arg = e; }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float b = __shfl_xor_sync(0xffffffffu, best, o);
+      const int a = __shfl_xor_sync(0xffffffffu, arg, o);
+      if (b > best || (b == best && a < arg)) { best = b; arg = a; }
+    }
+    float s = 0.f;
+    for (int e = lane; e < E; e += 32) s += expf(z[e] - best);
+    s = warp_sum(s);
+    if (lane == 0) {
+      m.expert[r] = min(arg, E - 1);
+      prob[r] = 1.f / s;
+    }
+  }
+  __syncthreads();
+  // a token is kept while fewer than `capacity` earlier tokens of its
+  // sequence went to its expert
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const int e = m.expert[r], q = r / seq_len;
+    int prior = counts ? counts[(size_t)q * E + e] : 0;
+    for (int j = q * seq_len; j < r; ++j) prior += m.expert[j] == e;
+    const int keep = prior < capacity;
+    m.kept[r] = keep;
+    atomicAdd(keep ? &load[e] : &dropped, 1);
+  }
+  __syncthreads();
+  if (counts)
+    for (int r = threadIdx.x; r < R; r += blockDim.x)
+      atomicAdd(&counts[(size_t)(r / seq_len) * E + m.expert[r]], 1);
+  if (threadIdx.x == 0) {   // each hit expert's kept rows, in chunks
+    int at = 0, hits = 0, most = 0, chunks = 0;
+    for (int e = 0; e < E; ++e) {
+      start[e] = at;
+      hits += load[e] > 0;
+      most = max(most, load[e]);
+      for (int c0 = 0; c0 < load[e]; c0 += kMoeRows, ++chunks) {
+        m.chunk_expert[chunks] = e;
+        m.chunk_place[chunks] = at + c0;
+        m.chunk_rows[chunks] = min(kMoeRows, load[e] - c0);
+      }
+      at += load[e];
+    }
+    *m.n_chunks = chunks;
+    stats[0] += 1;
+    stats[1] += R;
+    stats[2] += hits;
+    stats[3] += most;
+    stats[4] += dropped;
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += blockDim.x)
+    if (m.kept[r]) {
+      const int e = m.expert[r];
+      m.order[start[e] + atomicAdd(&fill[e], 1)] = r;
+    }
+  // a dropped token adds 0: its row is the residual alone
+  const int d4 = D / 4;
+  for (int r = warp; r < R; r += warps)
+    if (!m.kept[r]) {
+      const float4* src = reinterpret_cast<const float4*>(x + (size_t)r * D);
+      float4* dst = reinterpret_cast<float4*>(out + (size_t)r * D);
+      for (int i = lane; i < d4; i += 32) dst[i] = src[i];
+    }
+}
+
+// C = A · W[e]ᵀ over the chunks of kept rows: a chunk's rows are the
+// grouped places chunk_place … (kDown: rows of `a` at those places; else
+// rows order[place] of `a`), W [E, N, K].  kDown: out[row] = x[row] + π·c;
+// else out[place] = ReLU(c).  A work item is (chunk, tile of columns).
+template <bool kDown, int kWarps>
+__device__ __forceinline__ void moe_product(const float* __restrict__ a,
+                                            const float* __restrict__ w, int* meta_ptr,
+                                            const float* __restrict__ x,
+                                            const float* __restrict__ prob,
+                                            float* __restrict__ out, int R, int N, int K,
+                                            int E) {
+  extern __shared__ float4 as[];        // kMoeRows rows of kChunkK floats
+  constexpr int kCols = kWarps * kMoeCols;
+  const Meta m(meta_ptr, E, R);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tiles = N / kCols;
+  const int items = *m.n_chunks * tiles;
+  const int k4 = K / 4;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int chunk = item / tiles;
+    const int first = m.chunk_place[chunk], nr = m.chunk_rows[chunk];
+    const int col0 = (item % tiles) * kCols + warp * kMoeCols;
+    const float4* w4 =
+        reinterpret_cast<const float4*>(w + (size_t)m.chunk_expert[chunk] * N * K);
+    float acc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+    for (int kc = 0; kc < k4; kc += kChunkK / 4) {
+      const int len = min(kChunkK / 4, k4 - kc);
+      __syncthreads();
+      for (int i = threadIdx.x; i < kMoeRows * len; i += blockDim.x) {
+        const int rr = i / len, j = i % len;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (rr < nr) {
+          const int place = first + rr;
+          const size_t row = kDown ? place : m.order[place];
+          v = reinterpret_cast<const float4*>(a + row * K)[kc + j];
+        }
+        as[rr * (kChunkK / 4) + j] = v;
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int j = lane; j < len; j += 32) {
+        float4 av[kMoeRows];
+#pragma unroll
+        for (int rr = 0; rr < kMoeRows; ++rr) av[rr] = as[rr * (kChunkK / 4) + j];
+#pragma unroll
+        for (int c = 0; c < kMoeCols; ++c) {
+          const float4 wv = w4[(size_t)(col0 + c) * k4 + kc + j];
+#pragma unroll
+          for (int rr = 0; rr < kMoeRows; ++rr) acc[c * kMoeRows + rr] += dot4(wv, av[rr]);
+        }
+      }
+    }
+    const float v = warp_reduce_scatter32(acc);
+    const int col = col0 + lane / kMoeRows, rr = lane % kMoeRows;
+    if (rr < nr) {
+      const int place = first + rr;
+      if (kDown) {
+        const int row = m.order[place];
+        const size_t o = (size_t)row * N + col;
+        out[o] = x[o] + prob[row] * v;
+      } else {
+        out[(size_t)place * N + col] = fmaxf(v, 0.f);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kUpWarps * 32)
+moe_up(const float* __restrict__ hbuf, const float* __restrict__ wi, int* meta,
+       float* __restrict__ hid, int R, int F, int D, int E) {
+  moe_product<false, kUpWarps>(hbuf, wi, meta, nullptr, nullptr, hid, R, F, D, E);
+}
+
+__global__ void __launch_bounds__(kDownWarps * 32)
+moe_down(const float* __restrict__ hid, const float* __restrict__ wo, int* meta,
+         const float* __restrict__ x, const float* __restrict__ prob,
+         float* __restrict__ out, int R, int D, int F, int E) {
+  moe_product<true, kDownWarps>(hid, wo, meta, x, prob, out, R, D, F, E);
+}
+
+// blocks of a persistent product launch: as many as fit on the card at
+// once (the occupancy asked once per kernel, at the first call, which runs
+// outside graph capture), and no more than there can be work items
+template <typename K>
+static int persistent_grid(K kernel, int& per_sm, int threads, size_t smem, int sms,
+                           int max_items) {
+  if (per_sm == 0 &&
+      (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+           cudaSuccess ||
+       per_sm < 1))
+    per_sm = 1;
+  return max(1, min(per_sm * sms, max_items));
+}
+
+}  // namespace gdr
+
+// One expert sublayer (four launches on `stream`).  x, out [R, D]; scale
+// [D]; router [E, D]; wi [E, F, D]; wo [E, D, F]; counts [R / seq_len, E]
+// int32 or null; stats [5] int64, added to; scratch: logits [R, E], hbuf
+// [R, D], hid [R, F], prob [R] f32 and meta [1 + 3 (R / 8 + E + 1) + 3R]
+// int32.
+extern "C" int gdr_moe_sublayer(const void* x, const void* scale, const void* router,
+                                const void* wi, const void* wo, void* out, void* counts,
+                                void* stats, void* logits, void* hbuf, void* hid,
+                                void* prob, void* meta, int R, int D, int F, int E,
+                                int seq_len, int capacity, float eps, int sms,
+                                void* stream) {
+  using namespace gdr;
+  if (R <= 0 || seq_len <= 0 || R % seq_len || D % (kDownWarps * kMoeCols) ||
+      D > kMaxD || F % (kUpWarps * kMoeCols) || E <= 0 || E > kMaxExperts || sms <= 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* outf = static_cast<float*>(out);
+  float* lg = static_cast<float*>(logits);
+  float* hb = static_cast<float*>(hbuf);
+  float* hd = static_cast<float*>(hid);
+  float* pr = static_cast<float*>(prob);
+  int* mt = static_cast<int*>(meta);
+  const dim3 rgrid((R + kMoeRows - 1) / kMoeRows,
+                   (E + kRouterWarps * kMoeCols - 1) / (kRouterWarps * kMoeCols));
+  moe_router<<<rgrid, kRouterWarps * 32, (size_t)kMoeRows * D * sizeof(float), s>>>(
+      xf, static_cast<const float*>(scale), static_cast<const float*>(router), hb, lg, R,
+      D, E, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  moe_group<<<1, kGroupThreads, 0, s>>>(lg, xf, outf, pr, mt, static_cast<int*>(counts),
+                                        static_cast<long long*>(stats), R, D, E, seq_len,
+                                        capacity);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem = (size_t)kMoeRows * kChunkK * sizeof(float);
+  const int up_tiles = F / (kUpWarps * kMoeCols), down_tiles = D / (kDownWarps * kMoeCols);
+  static int up_per_sm = 0, down_per_sm = 0;
+  const int chunks = max_chunks(R, E);
+  moe_up<<<persistent_grid(moe_up, up_per_sm, kUpWarps * 32, smem, sms, chunks * up_tiles),
+           kUpWarps * 32, smem, s>>>(hb, static_cast<const float*>(wi), mt, hd, R, F, D, E);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  moe_down<<<persistent_grid(moe_down, down_per_sm, kDownWarps * 32, smem, sms,
+                             chunks * down_tiles),
+             kDownWarps * 32, smem, s>>>(hd, static_cast<const float*>(wo), mt, xf, pr,
+                                         outf, R, D, F, E);
+  return cudaGetLastError();
+}

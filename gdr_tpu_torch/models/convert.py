@@ -31,6 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from gdr_tpu_torch.models.t5 import is_sparse
+
 CONFIG = "config.json"
 # in the order transformers prefers them
 WEIGHT_FILES = ("model.safetensors", "model.safetensors.index.json",
@@ -133,14 +135,34 @@ _BERT_FIELDS = dict(vocab_size=("vocab_size", 30522),
                     max_position=("max_position_embeddings", 512))
 
 
+def _sparse_step(c: dict, stack: str) -> int:
+    """A Switch config's sparse step of ``stack``, or the one
+    ``SwitchTransformersConfig`` derives from its count of sparse
+    layers."""
+    step = c.get(f"{stack}_sparse_step")
+    if step is not None:
+        return int(step)
+    layers = c.get("num_layers" if stack == "encoder" else
+                   "num_decoder_layers", 12)
+    sparse = c.get(f"num_sparse_{stack}_layers", 3)
+    return layers // sparse if sparse > 0 else layers
+
+
 def t5_model_overrides(path: str) -> dict[str, int]:
     """``ModelConfig`` fields of a HF T5 checkpoint, so its encoder tensors
-    fit the model exactly."""
+    fit the model exactly; a Switch Transformer's adds its experts, their
+    capacity and the sparse steps."""
     c = read_config(path)
     for alias, field in _T5_ALIASES.items():     # T5Config.attribute_map
         if alias in c:
             c[field] = c[alias]
-    return {k: int(c.get(k, v)) for k, v in _T5_DEFAULTS.items()}
+    out = {k: int(c.get(k, v)) for k, v in _T5_DEFAULTS.items()}
+    if c.get("num_experts"):
+        out.update(num_experts=int(c["num_experts"]),
+                   expert_capacity=int(c.get("expert_capacity", 64)),
+                   encoder_sparse_step=_sparse_step(c, "encoder"),
+                   decoder_sparse_step=_sparse_step(c, "decoder"))
+    return out
 
 
 def bert_model_overrides(path: str) -> dict[str, int]:
@@ -158,11 +180,23 @@ def _f32(v) -> torch.Tensor:
     return v.detach().cpu().float()
 
 
+def _part(t: torch.Tensor, block) -> torch.Tensor:
+    """The part of the port's tensor ``t`` that one source tensor fills:
+    all of it (None), a row block of a fused ``qkv`` weight (0, 1, 2) or
+    expert j of a stack (``("expert", j)``)."""
+    if block is None:
+        return t
+    if isinstance(block, tuple):
+        return t[block[1]]
+    rows = t.shape[0] // 3
+    return t[block * rows:(block + 1) * rows]
+
+
 def _copy_into(module: nn.Module, plan: list, state_dict: Mapping) -> None:
     """Copy ``state_dict`` into ``module``'s parameters by ``plan``: tuples
-    (source name, port name, row block of a fused ``qkv`` weight or None,
-    transform of the source tensor or None).  Every source name and every
-    shape is checked before anything is copied."""
+    (source name, port name, its part (:func:`_part`), transform of the
+    source tensor or None).  Every source name and every shape is checked
+    before anything is copied."""
     params = module.state_dict()
     missing = [src for src, *_ in plan if src not in state_dict]
     if missing:
@@ -174,10 +208,7 @@ def _copy_into(module: nn.Module, plan: list, state_dict: Mapping) -> None:
         val = _f32(state_dict[src])
         if fn is not None:
             val = fn(val)
-        target = params[dst]
-        if block is not None:
-            rows = target.shape[0] // 3
-            target = target[block * rows:(block + 1) * rows]
+        target = _part(params[dst], block)
         if tuple(val.shape) != tuple(target.shape):
             raise ValueError(f"{src} {tuple(val.shape)} does not fit {dst} "
                              f"{tuple(target.shape)}")
@@ -189,10 +220,13 @@ def _copy_into(module: nn.Module, plan: list, state_dict: Mapping) -> None:
 
 # ------------------------------------------------------------ T5
 
-def hf_encoder_mapping(num_layers: int
-                       ) -> dict[str, tuple[str, int | None]]:
-    """HF T5 name → (the port's parameter, its row block in a fused
-    ``qkv`` weight or None) for the encoder and shared embeddings."""
+def hf_encoder_mapping(num_layers: int, num_experts: int = 0,
+                       sparse_step: int = 0) -> dict[str, tuple[str, object]]:
+    """HF T5 name → (the port's parameter, its part (:func:`_part`)) for
+    the encoder and shared embeddings.  With ``num_experts``, a Switch
+    Transformer's names (``SwitchTransformersEncoderModel``): the FFN is
+    ``mlp``, and at the sparse layers the router and each expert's ``wi`` /
+    ``wo``, stacked into the port's ``[E, …]`` tensors."""
     m: dict[str, tuple[str, int | None]] = {
         "shared.weight": ("shared.weight", None),
         "encoder.final_layer_norm.weight": ("encoder.final_norm.scale", None),
@@ -206,34 +240,53 @@ def hf_encoder_mapping(num_layers: int
                                                         j)
         m[f"{hf}.0.SelfAttention.o.weight"] = (f"{my}.attn.o.weight", None)
         m[f"{hf}.0.layer_norm.weight"] = (f"{my}.ln1.scale", None)
-        m[f"{hf}.1.DenseReluDense.wi.weight"] = (f"{my}.ff.wi.weight", None)
-        m[f"{hf}.1.DenseReluDense.wo.weight"] = (f"{my}.ff.wo.weight", None)
+        if not num_experts:
+            for w in ("wi", "wo"):
+                m[f"{hf}.1.DenseReluDense.{w}.weight"] = (
+                    f"{my}.ff.{w}.weight", None)
+        elif is_sparse(i, sparse_step):
+            m[f"{hf}.1.mlp.router.classifier.weight"] = (f"{my}.ff.router",
+                                                         None)
+            for j in range(num_experts):
+                for w in ("wi", "wo"):
+                    m[f"{hf}.1.mlp.experts.expert_{j}.{w}.weight"] = (
+                        f"{my}.ff.{w}", ("expert", j))
+        else:
+            for w in ("wi", "wo"):
+                m[f"{hf}.1.mlp.{w}.weight"] = (f"{my}.ff.{w}.weight", None)
         m[f"{hf}.1.layer_norm.weight"] = (f"{my}.ln2.scale", None)
     return m
 
 
+def _experts(cfg) -> tuple[int, int]:
+    """(experts, encoder sparse step) of a model config, (0, 0) for T5."""
+    return (getattr(cfg, "num_experts", 0),
+            getattr(cfg, "encoder_sparse_step", 0))
+
+
 def load_t5_encoder(model: nn.Module, state_dict: Mapping,
                     num_layers: int) -> nn.Module:
-    """Copy a HF T5 state dict's encoder and shared embeddings into a
+    """Copy a HF T5 (or, for a model with experts, Switch Transformer)
+    state dict's encoder and shared embeddings into a
     ``GenerativeRetriever`` (or ``Seq2SeqLM``); the decoder side, decoder.*
     and lm_head of the source are ignored.  Returns ``model``."""
+    mapping = hf_encoder_mapping(num_layers,
+                                 *_experts(getattr(model, "cfg", None)))
     _copy_into(model, [(src, dst, block, None) for src, (dst, block)
-                       in hf_encoder_mapping(num_layers).items()],
-               state_dict)
+                       in mapping.items()], state_dict)
     return model
 
 
 def export_t5_encoder(state_dict: Mapping[str, torch.Tensor],
-                      num_layers: int) -> dict[str, np.ndarray]:
+                      num_layers: int, num_experts: int = 0,
+                      sparse_step: int = 0) -> dict[str, np.ndarray]:
     """Inverse of :func:`load_t5_encoder`: the encoder and shared
-    embeddings of a port state_dict under HF T5 names, as the ``.npz``
-    that ``train --t5-ckpt`` reads."""
+    embeddings of a port state_dict under HF T5 (or Switch) names, as the
+    ``.npz`` that ``train --t5-ckpt`` reads."""
     out = {}
-    for src, (dst, block) in hf_encoder_mapping(num_layers).items():
-        val = state_dict[dst].detach().cpu().float()
-        if block is not None:
-            rows = val.shape[0] // 3
-            val = val[block * rows:(block + 1) * rows]
+    for src, (dst, block) in hf_encoder_mapping(num_layers, num_experts,
+                                                sparse_step).items():
+        val = _part(state_dict[dst].detach().cpu().float(), block)
         out[src] = val.numpy().copy()
     return out
 

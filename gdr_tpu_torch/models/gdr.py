@@ -69,15 +69,19 @@ class GenerativeRetriever(nn.Module):
         c = cfg
         self.cfg = cfg
         self.shared = nn.Embedding(c.vocab_size, c.d_model)
+        experts = lambda step: ((c.num_experts, c.expert_capacity, step)
+                                if c.num_experts else None)
         self.encoder = Encoder(
             c.num_layers, c.d_model, c.num_heads, c.d_kv, c.d_ff,
             c.layer_norm_epsilon, c.relative_attention_num_buckets,
-            c.relative_attention_max_distance, c.dropout_rate, c.remat)
+            c.relative_attention_max_distance, c.dropout_rate, c.remat,
+            experts(c.encoder_sparse_step))
         self.decode_embed = nn.Embedding(c.decode_vocab_size, c.d_model)
         self.decoder = Decoder(
             c.num_decoder_layers, c.d_model, c.num_heads, c.d_kv, c.d_ff,
             c.layer_norm_epsilon, c.relative_attention_num_buckets,
-            c.relative_attention_max_distance, c.dropout_rate, c.remat)
+            c.relative_attention_max_distance, c.dropout_rate, c.remat,
+            experts(c.decoder_sparse_step))
         if not c.tie_decode_embedding:
             self.lm_head = nn.Parameter(torch.zeros(c.d_model,
                                                     c.decode_vocab_size))
@@ -368,13 +372,13 @@ class GenerativeRetriever(nn.Module):
 def init_weights(model: GenerativeRetriever, generator: torch.Generator
                  ) -> GenerativeRetriever:
     """Seeded random weights with the reference package's initialiser
-    scales: embeddings (the slow PAWA head's too) and the PAWA memory
-    N(0, 1), projections, rel-bias tables, U, U2 and an untied head
-    N(0, 0.02), the query projection, the denoising discriminator and the
-    fusion layer N(0, 1/fan_in)
-    (lecun-normal), norm scales 1 and biases 0.  The draws come from
-    ``generator`` on its own device; they are not the reference package's
-    draws (use ``convert.py`` for those)."""
+    scales: embeddings (the slow PAWA head's too), the PAWA memory and the
+    experts' routers (``transformers``' Switch initialiser) N(0, 1);
+    projections, the experts, rel-bias tables, U, U2 and an untied head
+    N(0, 0.02); the query projection, the denoising discriminator and the
+    fusion layer N(0, 1/fan_in) (lecun-normal); norm scales 1 and biases
+    0.  The draws come from ``generator`` on its own device; they are not
+    the reference package's draws (use ``convert.py`` for those)."""
     d = model.cfg.d_model
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -386,7 +390,7 @@ def init_weights(model: GenerativeRetriever, generator: torch.Generator
             p.zero_()
             continue
         if name in ("shared.weight", "decode_embed.weight", "pawa.memory",
-                    "pawa.embed.weight"):
+                    "pawa.embed.weight") or name.endswith(".ff.router"):
             std = 1.0
         elif name in ("query_proj.weight", "denoise_disc.weight"):
             std = d ** -0.5

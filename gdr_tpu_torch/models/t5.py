@@ -33,6 +33,17 @@ residual branches and the stack's input and output.  Dropout runs only in
 train mode and draws from a ``torch.Generator`` the caller sets
 (:func:`set_dropout_generator`).  ``remat`` recomputes each block in the
 backward pass (``torch.utils.checkpoint``), with the same dropout draws.
+
+A stack built with ``experts`` (Switch Transformer: ``ModelConfig``'s
+``num_experts`` > 0) has a :class:`RoutedFeedForward` in place of the FFN
+at its sparse layers: RMSNorm, an f32 router, each token's top expert and
+its probability π, a capacity per sequence and x + π·expert(h), through
+``kernels/experts.py::expert_sublayer`` on every path (the CUDA kernels
+for CUDA tensors, the plain version on the CPU).  Its cached decode keeps
+each beam's tokens per expert (``moe_count_<i>`` cache entries, reordered
+with the beams), so that capacity counts the beam's whole prefix, as a
+decoder recomputed over it does.  Routed layers serve only: in train mode
+they raise (the router's z-loss and load-balancing loss are not ported).
 """
 
 from __future__ import annotations
@@ -46,8 +57,10 @@ from torch.utils.checkpoint import checkpoint
 
 from gdr_tpu_torch.kernels.decode import (cross_attn_sublayer, ffn_sublayer,
                                           self_attn_sublayer)
+from gdr_tpu_torch.kernels.experts import expert_sublayer
 from gdr_tpu_torch.parallel.autograd import (column_linear, copy_to_mp,
                                              gather_from_mp, mp_mesh, mp_part)
+from gdr_tpu_torch.utils.timing import span
 
 NEG_INF = -1e9
 
@@ -350,24 +363,68 @@ class FeedForward(nn.Module):
         return _dense(self, h, self.wo)
 
 
+class RoutedFeedForward(nn.Module):
+    """A top-1 routed mixture of ReLU experts (``transformers``'
+    ``SwitchTransformersSparseMLP`` with its ``Top1Router``): the router
+    ``[E, d]`` (no bias), the stacked experts ``wi [E, d_ff, d]`` and
+    ``wo [E, d, d_ff]``.  Each token of a sequence goes to the expert of
+    its largest router logit, scaled by that expert's softmax probability,
+    unless ``capacity`` earlier tokens of its sequence went there: then it
+    adds 0."""
+
+    def __init__(self, d_model: int, d_ff: int, num_experts: int,
+                 capacity: int):
+        super().__init__()
+        self.capacity = capacity
+        self.router = nn.Parameter(torch.zeros(num_experts, d_model))
+        self.wi = nn.Parameter(torch.zeros(num_experts, d_ff, d_model))
+        self.wo = nn.Parameter(torch.zeros(num_experts, d_model, d_ff))
+
+    def residual(self, x: torch.Tensor, norm: RMSNorm,
+                 counts: torch.Tensor | None = None) -> torch.Tensor:
+        """x + π·expert(norm(x)) of x [B, L, d], capacity counted over each
+        of the B sequences (and ``counts`` [B, E] of earlier tokens, which
+        this call's tokens are added to in place)."""
+        if self.training:
+            raise NotImplementedError(
+                "sparse experts serve only: the router's z-loss and "
+                "load-balancing loss of training are not ported")
+        b, l, d = x.shape
+        with span("gdr.moe", f"rows={b * l}"):
+            out = expert_sublayer(x.reshape(b * l, d), norm.scale, self.router,
+                                  self.wi, self.wo, capacity=self.capacity,
+                                  seq_len=l, counts=counts, eps=norm.eps)
+        return out.view(b, l, d)
+
+
+def _ffn(d_model, d_ff, dropout_rate, experts):
+    """The block's FFN: routed over ``experts`` (number, capacity), or
+    dense."""
+    if experts:
+        return RoutedFeedForward(d_model, d_ff, *experts)
+    return FeedForward(d_model, d_ff, dropout_rate)
+
+
 class EncoderBlock(nn.Module):
     def __init__(self, d_model, num_heads, d_kv, d_ff, eps=1e-6,
-                 dropout_rate=0.0):
+                 dropout_rate=0.0, experts=None):
         super().__init__()
         self.ln1 = RMSNorm(d_model, eps)
         self.attn = Attention(d_model, num_heads, d_kv, dropout_rate)
         self.ln2 = RMSNorm(d_model, eps)
-        self.ff = FeedForward(d_model, d_ff, dropout_rate)
+        self.ff = _ffn(d_model, d_ff, dropout_rate, experts)
         self.drop = Dropout(dropout_rate)
 
     def forward(self, x, mask, bias):
         x = x + self.drop(self.attn(self.ln1(x), mask=mask, bias=bias))
+        if isinstance(self.ff, RoutedFeedForward):
+            return self.ff.residual(x, self.ln2)
         return x + self.drop(self.ff(self.ln2(x)))
 
 
 class DecoderBlock(nn.Module):
     def __init__(self, d_model, num_heads, d_kv, d_ff, eps=1e-6,
-                 dropout_rate=0.0):
+                 dropout_rate=0.0, experts=None):
         super().__init__()
         self.eps = eps
         self.ln1 = RMSNorm(d_model, eps)
@@ -375,8 +432,12 @@ class DecoderBlock(nn.Module):
         self.ln2 = RMSNorm(d_model, eps)
         self.cross_attn = Attention(d_model, num_heads, d_kv, dropout_rate)
         self.ln3 = RMSNorm(d_model, eps)
-        self.ff = FeedForward(d_model, d_ff, dropout_rate)
+        self.ff = _ffn(d_model, d_ff, dropout_rate, experts)
         self.drop = Dropout(dropout_rate)
+
+    @property
+    def routed(self) -> bool:
+        return isinstance(self.ff, RoutedFeedForward)
 
     def forward(self, x, enc, self_mask, cross_mask, bias, cross_bias):
         """Teacher-forced block over x [B, L, d] and the encoder output
@@ -386,14 +447,17 @@ class DecoderBlock(nn.Module):
         h = self.cross_attn(self.ln2(x), kv=enc, mask=cross_mask,
                             bias=cross_bias)
         x = x + self.drop(h)
+        if self.routed:
+            return self.ff.residual(x, self.ln3)
         return x + self.drop(self.ff(self.ln3(x)))
 
     def decode_step(self, x, self_k, self_v, cross_k, cross_v, pos: int,
-                    bias_self, cross_bias, num_beams: int):
+                    bias_self, cross_bias, num_beams: int, counts=None):
         """One step of this block on x [rows, d] through the three sublayer
         wrappers.  bias_self: [L, H] f32; cross_bias: [B, H, S] f32 (rel-bias
         row + −1e9 at pads).  The self caches are written at ``pos`` in
-        place."""
+        place; so are ``counts`` [rows, E], each row's earlier tokens per
+        expert, where the FFN is routed."""
         a = self.self_attn
         x, self_k, self_v = self_attn_sublayer(
             x, pos, self.ln1.scale, a.qkv.weight, a.o.weight, bias_self,
@@ -402,22 +466,42 @@ class DecoderBlock(nn.Module):
         x = cross_attn_sublayer(
             x, self.ln2.scale, c.wq, c.o.weight, cross_k, cross_v, cross_bias,
             num_beams, heads=c.num_heads, d_kv=c.d_kv, eps=self.eps)
-        x = ffn_sublayer(x, self.ln3.scale, self.ff.wi.weight,
-                         self.ff.wo.weight, eps=self.eps)
+        if self.routed:
+            x = self.ff.residual(x[:, None], self.ln3, counts)[:, 0]
+        else:
+            x = ffn_sublayer(x, self.ln3.scale, self.ff.wi.weight,
+                             self.ff.wo.weight, eps=self.eps)
         return x, self_k, self_v
+
+
+def is_sparse(i: int, step: int) -> bool:
+    """Whether layer ``i`` of a stack with sparse step ``step`` routes its
+    FFN over experts (``transformers``' ``SwitchTransformersStack``: every
+    layer at step 1, none at step 0)."""
+    return step > 0 and (step == 1 or i % step == 1)
+
+
+def _experts_at(experts, num_layers: int):
+    """Each layer's (number, capacity) of experts, or None where it is
+    dense; ``experts``: (number, capacity, the sparse step) or None."""
+    if not experts:
+        return [None] * num_layers
+    n, capacity, step = experts
+    return [(n, capacity) if is_sparse(i, step) else None
+            for i in range(num_layers)]
 
 
 class Encoder(nn.Module):
     def __init__(self, num_layers, d_model, num_heads, d_kv, d_ff, eps=1e-6,
                  num_buckets=32, max_distance=128, dropout_rate=0.0,
-                 remat=False):
+                 remat=False, experts=None):
         super().__init__()
         self.remat = remat
         self.rel_bias = RelativePositionBias(num_heads, num_buckets,
                                              max_distance, bidirectional=True)
         self.blocks = nn.ModuleList([
-            EncoderBlock(d_model, num_heads, d_kv, d_ff, eps, dropout_rate)
-            for _ in range(num_layers)])
+            EncoderBlock(d_model, num_heads, d_kv, d_ff, eps, dropout_rate, e)
+            for e in _experts_at(experts, num_layers)])
         self.final_norm = RMSNorm(d_model, eps)
         self.drop = Dropout(dropout_rate)
 
@@ -433,7 +517,7 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, num_layers, d_model, num_heads, d_kv, d_ff, eps=1e-6,
                  num_buckets=32, max_distance=128, dropout_rate=0.0,
-                 remat=False):
+                 remat=False, experts=None):
         super().__init__()
         self.remat = remat
         self.num_heads = num_heads
@@ -445,8 +529,8 @@ class Decoder(nn.Module):
         self.cross_rel_bias = RelativePositionBias(
             num_heads, num_buckets, max_distance, bidirectional=True)
         self.blocks = nn.ModuleList([
-            DecoderBlock(d_model, num_heads, d_kv, d_ff, eps, dropout_rate)
-            for _ in range(num_layers)])
+            DecoderBlock(d_model, num_heads, d_kv, d_ff, eps, dropout_rate, e)
+            for e in _experts_at(experts, num_layers)])
         self.final_norm = RMSNorm(d_model, eps)
         self.drop = Dropout(dropout_rate)
 
@@ -466,9 +550,10 @@ class Decoder(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, enc: torch.Tensor,
                    num_beams: int = 1) -> dict[str, torch.Tensor]:
-        """Per-layer time-major self K/V buffers (batch·num_beams rows) and
+        """Per-layer time-major self K/V buffers (batch·num_beams rows),
         cross K/V projected once per query from the un-expanded encoder
-        output."""
+        output, and at routed layers each row's tokens per expert so far
+        (``moe_count_<i>`` [rows, E] int32, zero)."""
         cache = {}
         inner = self.num_heads * self.d_kv
         dtype = self.final_norm.scale.dtype
@@ -485,6 +570,10 @@ class Decoder(nn.Module):
             cache[f"tm_self_v_{i}"] = torch.zeros_like(cache[f"tm_self_k_{i}"])
             cache[f"cross_k_{i}"] = ck
             cache[f"cross_v_{i}"] = cv
+            if blk.routed:
+                cache[f"moe_count_{i}"] = torch.zeros(
+                    (batch * num_beams, blk.ff.router.shape[0]),
+                    dtype=torch.int32, device=enc.device)
         return cache
 
     def decode_step(self, x_t: torch.Tensor, cache: dict, enc_mask: torch.Tensor,
@@ -506,7 +595,7 @@ class Decoder(nn.Module):
             x, sk, sv = blk.decode_step(
                 x, cache[f"tm_self_k_{i}"], cache[f"tm_self_v_{i}"],
                 cache[f"cross_k_{i}"], cache[f"cross_v_{i}"], pos, bias_self,
-                cross_bias, num_beams)
+                cross_bias, num_beams, cache.get(f"moe_count_{i}"))
             cache[f"tm_self_k_{i}"] = sk
             cache[f"tm_self_v_{i}"] = sv
         return self.final_norm(x[:, None]), cache

@@ -16,6 +16,10 @@ and its host syncs are the eager search's.
   captured in order, so the state one piece leaves is the next piece's
   input at a fixed address; the state at each check is kept for an exit
   there.  Only the query ids and mask are copied in, once a retrieve.
+  Python's cyclic garbage collector is off while a chain captures: a
+  collection there could free the graphs of a chain its caller dropped,
+  and CUDA refuses to destroy a graph while a stream captures, which
+  fails the capture.
 - **When.**  :meth:`DecodeGraphs.engages`: a CUDA model in eval mode (a
   graph would replay the dropout draws), autograd off, no capture under
   way.  Everything else runs eagerly.
@@ -38,6 +42,7 @@ and its host syncs are the eager search's.
 
 from __future__ import annotations
 
+import gc
 from collections import OrderedDict
 from dataclasses import dataclass
 
@@ -70,26 +75,32 @@ class _Chain:
         stream.wait_stream(torch.cuda.current_stream(ids.device))
         captured = []                  # (graph, launches, flag, state)
         result = None
-        while result is None:
-            graph = torch.cuda.CUDAGraph()
-            before = kernels.launch_counts()
-            try:
-                with torch.cuda.stream(stream):
-                    graph.capture_begin(pool=pool)
-                    try:
-                        flag, state = (steps.send(True) if captured
-                                       else next(steps))
-                    except StopIteration as stop:
-                        result, flag, state = stop.value, None, None
-                    finally:
-                        graph.capture_end()
-            finally:                   # a capture launches nothing
-                after = kernels.launch_counts()
-                launched = {k: n - before[k] for k, n in after.items()
-                            if n != before[k]}
-                kernels.add_launches({k: -n for k, n in launched.items()})
-            GRAPHS["graph_captures"] += 1
-            captured.append((graph, launched, flag, state))
+        collecting = gc.isenabled()
+        gc.disable()                   # no graph freed mid-capture
+        try:
+            while result is None:
+                graph = torch.cuda.CUDAGraph()
+                before = kernels.launch_counts()
+                try:
+                    with torch.cuda.stream(stream):
+                        graph.capture_begin(pool=pool)
+                        try:
+                            flag, state = (steps.send(True) if captured
+                                           else next(steps))
+                        except StopIteration as stop:
+                            result, flag, state = stop.value, None, None
+                        finally:
+                            graph.capture_end()
+                finally:               # a capture launches nothing
+                    after = kernels.launch_counts()
+                    launched = {k: n - before[k] for k, n in after.items()
+                                if n != before[k]}
+                    kernels.add_launches({k: -n for k, n in launched.items()})
+                GRAPHS["graph_captures"] += 1
+                captured.append((graph, launched, flag, state))
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.current_stream(ids.device).wait_stream(stream)
         _, query_emb, enc = result
         n = len(captured)

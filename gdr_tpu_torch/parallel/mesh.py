@@ -264,12 +264,16 @@ def tp_param_rules(mp: int, min_size: int = 1 << 14,
     *flax* shape has at least 2 axes and ``min_size`` elements and whose
     last axis divides by ``mp`` is cut on that axis; everything else stays
     whole.  ``rule(name, leaf) -> Cut | None``, ``name`` is ``<tower>/<port
-    name>`` (``doc_heads``: the doc tower's heads)."""
+    name>`` (``doc_heads``: the doc tower's heads).  A routed FFN's leaves
+    (router and stacked experts) have no placement: the rule raises."""
 
     def rule(name: str, leaf: Any) -> Cut | None:
         if not isinstance(leaf, torch.Tensor):
             return None
         tower, _, pname = name.rpartition("/")
+        if pname.endswith((".ff.router", ".ff.wi", ".ff.wo")):
+            raise NotImplementedError(
+                f"{pname}: sparse experts have no column-parallel placement")
         shape, dim, blocks = flax_layout(
             pname, leaf.shape, doc_heads if tower == "doc_encoder" else 0)
         if (len(shape) >= 2 and int(np.prod(shape)) >= min_size

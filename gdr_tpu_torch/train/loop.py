@@ -80,6 +80,7 @@ class TrainLoop:
         ``mesh``: a ``parallel.mesh.Mesh`` to train over (every rank
         constructs the loop with the same arguments); both stages' batch
         sizes must divide by its dp."""
+        cfg.model.refuse_experts("TrainLoop")
         if mesh is not None:
             for name, b in (("train_batch_size", cfg.train.train_batch_size),
                             ("stage2_train_batch_size",

@@ -464,6 +464,7 @@ def make_train_step(model: GenerativeRetriever, doc_encoder,
     metrics are the global batch's, equal on every rank; ``state`` holds
     this rank's mp parts (:func:`shard_state`) and the models those parts
     of their compute copy (:func:`load_masters`)."""
+    model.cfg.refuse_experts("train_step")
     loss_fn = make_loss_fn(model, doc_encoder, cfg, stage)
 
     def train_step(state: TrainState, batch: dict, store, seed: int,

@@ -9,8 +9,9 @@ no-op context, at the cost of one check.  The serving path's spans are
 ``gdr.retrieve`` and, inside it, ``gdr.encode``, ``gdr.decode.init``,
 ``gdr.decode.step`` (holding ``gdr.decode.forward`` and
 ``gdr.beam.select``), ``gdr.decode.sync``, ``gdr.decode.finalize``,
-``gdr.query`` and ``gdr.rerank``; ``PhaseTimer`` phases open
-``gdr.eval.<phase>``.  Where the decode replays CUDA graphs
+``gdr.query`` and ``gdr.rerank``, and ``gdr.moe`` (args: rows) around
+each routed-expert layer of a Switch model (``models/t5.py``);
+``PhaseTimer`` phases open ``gdr.eval.<phase>``.  Where the decode replays CUDA graphs
 (``ops/decode_graphs.py``), each replayed piece is a ``gdr.decode.replay``
 range (args: the piece's first position) in place of the ranges its
 captured code opened.
@@ -20,7 +21,10 @@ host reads a device value; ``GRAPHS`` counts the decode's CUDA graph
 pieces captured (``graph_captures``) and replayed (``graph_replays``), and
 the decodes on a CUDA device that ran eagerly (``eager_decodes``).
 ``kernels.launch_counts(host_syncs=True, graphs=True)`` reads them beside
-the kernel launches and ``kernels.reset_launch_counts()`` resets all.
+the kernel launches and ``kernels.reset_launch_counts()`` resets all; the
+routed experts' counters live on the device (``kernels/experts.py``), so
+that graph replays add to them, and ``launch_counts(experts=True)`` reads
+them.
 """
 
 from __future__ import annotations

@@ -8,12 +8,15 @@ states on and off, on the full trie and on tries whose early exit fires
 after the first piece and after the second; so do ``Evaluator.retrieve``'s
 doc ids and fused scores, with the same kernel launches counted.  A
 result survives the next replay, an in-place weight update is read by the
-next replay, and a new U table or parameter tensor captures anew.
+next replay, a new U table or parameter tensor captures anew, and a
+garbage collection due while a chain captures does not free a dropped
+evaluator's graphs inside the capture.
 
 On the CPU: nothing engages a graph; the default launch counts keep their
 keys; the rel-bias ids kept on the device give the host ids' bias; and the
 chain's pieces, positions and counts, with a stand-in for the CUDA graph
-whose capture runs the code and whose replay does nothing.
+whose capture runs the code and whose replay does nothing; and the cyclic
+collector off during each capture, as it was after.
 
 The file imports neither JAX nor the reference package:
 
@@ -21,12 +24,14 @@ The file imports neither JAX nor the reference package:
 """
 
 import contextlib
+import gc
 
 import numpy as np
 import pytest
 import torch
 
 from gdr_tpu_torch import kernels
+from gdr_tpu_torch.kernels import experts
 from gdr_tpu_torch.config import EvalConfig, ModelConfig
 from gdr_tpu_torch.eval.evaluator import Evaluator
 from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
@@ -263,6 +268,74 @@ def test_a_new_tensor_captures_anew(dev, change):
 # ------------------------------------------------------------------- CPU
 
 
+class _Collecting(torch.cuda.CUDAGraph):
+    """A CUDA graph whose capture, once begun, runs the collection that
+    falls due there wherever the cyclic collector is on."""
+
+    def capture_begin(self, *a, **k):
+        super().capture_begin(*a, **k)
+        if gc.isenabled():
+            gc.collect()
+
+
+@pytest.mark.cuda
+def test_a_collection_due_mid_capture_frees_no_graph(dev, monkeypatch):
+    """A dropped evaluator held in a reference cycle keeps its captured
+    chain until the collector runs; CUDA refuses to destroy a graph while
+    a stream captures, so the next capture runs no collection."""
+    ids, mask = _queries(8, 1)
+    threshold = gc.get_threshold()
+    gc.set_threshold(10 ** 9)             # no collection but the stand-in's
+    try:
+        old, _, _ = _evaluator(dev)
+        old.retrieve(ids, mask)
+        old.retrieve(ids, mask)            # captured
+        old.cycle = old                    # only the collector frees it
+        del old
+        monkeypatch.setattr(torch.cuda, "CUDAGraph", _Collecting)
+        ev, _, _ = _evaluator(dev)
+        want = ev.retrieve(ids, mask)      # eager
+        got = ev.retrieve(ids, mask)       # captured, then replayed
+    finally:
+        gc.set_threshold(*threshold)
+    torch.cuda.synchronize()
+    _same(want, got)
+
+
+def test_the_collector_is_off_while_a_chain_captures(monkeypatch):
+    """With the stand-in graph, each capture starts with the cyclic
+    collector off, and the collector is as it was once the chain is
+    captured."""
+    seen = []
+
+    class Recording(_StandIn):
+        def capture_begin(self, pool=None):
+            seen.append(gc.isenabled())
+
+    for name, value in [("CUDAGraph", Recording),
+                        ("graph_pool_handle", lambda: None),
+                        ("Stream", lambda device=None: _Stream()),
+                        ("current_stream", lambda device=None: _Stream()),
+                        ("stream", lambda s: contextlib.nullcontext())]:
+        monkeypatch.setattr(torch.cuda, name, value)
+    monkeypatch.setattr(DecodeGraphs, "engages",
+                        staticmethod(lambda model, ids: True))
+    cpu = torch.device("cpu")
+    decode = _decoder(_world(torch.float32, cpu),
+                      build_trie(_cid_map(3), SMALL["kary"]), cpu, False, 4)
+    collecting = gc.isenabled()
+    try:
+        for on in (True, False):
+            (gc.enable if on else gc.disable)()
+            seen.clear()
+            graphs = DecodeGraphs()
+            for _ in range(2):                   # eager, then captured
+                decode(*_queries(3, 1), graphs)
+            assert seen == [False] * 3 and gc.isenabled() == on
+    finally:
+        (gc.enable if collecting else gc.disable)()
+
+
 def test_a_cpu_retrieve_engages_no_graph():
     model = _world(torch.float32, torch.device("cpu"))
     ev, _, _ = _evaluator(torch.device("cpu"), model)
@@ -280,8 +353,11 @@ def test_default_launch_counts_keep_their_keys():
     plain = kernels.launch_counts()
     assert set(plain) == {"self_attn_sublayer", "cross_attn_sublayer",
                           "ffn_sublayer", "packed_scores",
-                          "packed_scores_int8", "rerank_scores"}
+                          "packed_scores_int8", "rerank_scores",
+                          "expert_sublayer"}
     assert set(kernels.launch_counts(graphs=True)) == set(plain) | GRAPH_KEYS
+    assert set(kernels.launch_counts(experts=True)) \
+        == set(plain) | set(experts.STATS)
     assert set(kernels.launch_counts(host_syncs=True, graphs=True)) \
         == set(plain) | GRAPH_KEYS | {"host_syncs"}
     timing.GRAPHS["graph_replays"] = 5

@@ -109,7 +109,7 @@ def test_port_trained_params_give_the_reference_the_same_forward(
     save_params_npz(path, loop.state.params["generator"])
     cfg = world[0].model
     jm = JaxRetriever(JaxModelConfig(**{
-        f: getattr(cfg, f) for f in cfg.__dataclass_fields__}))
+        f: getattr(cfg, f) for f in JaxModelConfig.__dataclass_fields__}))
     params = jax.tree_util.tree_map(np.asarray, load_tree_npz(path))
     model = loop.model.float()
     ids, mask = world[2].input_ids[:3], world[2].attn_mask[:3]

@@ -80,8 +80,9 @@ def test_bf16_compute_over_f32_weights():
     from gdr_tpu.models.gdr import GenerativeRetriever as JaxRetriever
 
     jm, params, tm = tiny_pair(seed=2)
-    jm16 = JaxRetriever(JaxModelConfig(**dataclasses.asdict(tm.cfg)),
-                        dtype=jnp.bfloat16)
+    jm16 = JaxRetriever(JaxModelConfig(**{
+        f: getattr(tm.cfg, f) for f in JaxModelConfig.__dataclass_fields__}),
+        dtype=jnp.bfloat16)
     tm16 = tm.to(torch.bfloat16)
     ids, mask, lm = _inputs(1)
     dec = np.array(jax_shift_right(jnp.asarray(LABELS)))
