@@ -39,7 +39,13 @@ the last line):
    TFLOP/s, the yardstick at "highest" precision), and the scorers at
    3,200 rows.  The GEMM shapes and the FFN rows print the plan the
    dtype's cost model gave them (tile, ring stages, splits, units and
-   blocks).  Last, the routed-expert sublayer (``expert_sublayer``, the
+   blocks).  In f32 also at one query a retrieve, serve-b1's rows (1, 31
+   and 100 at positions 0, 1 and 3), where the f32 GEMM takes its small-row
+   kernel: the sublayers held to plain and timed 20 calls a graph, per
+   retrieve (6·t1 + 6·t31 + 12·t100), and the GEMM alone at its four
+   shapes, each call of a graph reading its own copy of W, beside
+   torch.matmul and the bound, with the plan's kernel (rows or ring).
+   Last, the routed-expert sublayer (``expert_sublayer``, the
    four ``gdr::moe_`` kernels) at Switch-Base-128's widths (128 experts,
    d 768, d_ff 3,072, capacity 64) and the Switch cell's calls: a query's
    40 encoder tokens as one sequence, then decode steps of 1, 31 and 100
@@ -73,8 +79,11 @@ the last line):
    top documents, and packed int8's store size and top-1 agreement with
    packed bf16 are printed; then the model and store in f32, as ``cli
    retrieve --packed`` serves them (packed f32: 24 launches of each decoder
-   kernel, one packed scorer), timed over 3 retrieves after a warm one,
-   with its peak;
+   kernel, one packed scorer; the f32 GEMM's launches by kernel, 36 on the
+   small-row kernel at step 0's 32 rows and 108 on the tile ring), timed
+   over 3 retrieves after a warm one, with its peak; then one query a
+   retrieve, as serve-b1 sends (all 144 f32 GEMM launches on the small-row
+   kernel, none on the ring), timed;
 5. the other options at full width — on the packed bf16 layout, four
    modes of ``Evaluator.retrieve``: (a) beam + decoder_avg + average
    fusion, (b) beam + decoder_special + concate fusion (one t5-base model
@@ -215,7 +224,9 @@ the last line):
    phase 10's sharded retrieves and per rank in phase 11's mesh
    TrainLoop eval), max |Δ|, kernel / plain / library ms and its bound
    (the decoder rows also by row count, per retrieve, per GEMM shape and
-   at query generation's shape); the expert row gives its launches on
+   at query generation's shape, in f32 at one query a retrieve too, and the
+   f32 GEMM's launches by kernel in phase 4's f32 retrieves of 32 queries
+   and of one); the expert row gives its launches on
    phase 4's dense main path (0) and in phase 3's small Switch retrieve,
    and its phase-2 numbers at 100 rows, by row count and per retrieve.
 
@@ -297,15 +308,24 @@ def _time_ms(fn, n: int = 20) -> float:
     """Device ms of one call of ``fn``: the call is captured once in a CUDA
     graph and the graph replayed ``n`` times between CUDA events, so the
     wrappers' host-side work (checks, allocation, ctypes) is not timed."""
+    return _time_each_ms(lambda i: fn(), calls=1, n=n)
+
+
+def _time_each_ms(fn, calls: int = 20, n: int = 10) -> float:
+    """Device ms of one call of ``fn(i)``: ``fn(0)`` ... ``fn(calls - 1)``
+    captured back to back in one CUDA graph, as the replayed decode runs its
+    kernels, and the graph replayed ``n`` times between CUDA events (a graph
+    of one call of a few us is paced by the host's graph launches)."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()                                    # warm outside the capture
+        fn(0)                                   # warm outside the capture
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for i in range(calls):
+            fn(i)
     graph.replay()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -315,7 +335,7 @@ def _time_ms(fn, n: int = 20) -> float:
         graph.replay()
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
+    return t0.elapsed_time(t1) / (n * calls)
 
 
 def _timed(fn, warm: int, timed: int) -> list[float]:
@@ -377,10 +397,20 @@ def core_bytes(name: str, r: int, pos: int, el: int, queries: int = B,
         + queries * H * enc_len * 4
 
 
+def plan_kind(plan) -> str:
+    """The kernel a GEMM plan runs: the f32 small-row kernel ("rows"), the
+    f32 tile ring ("ring") or the bf16 wgmma GEMM ("wgmma")."""
+    return "rows" if plan.rows_kernel else ("ring" if plan.f32 else "wgmma")
+
+
 def plan_text(plan) -> str:
-    """A GEMM plan as phase 2 prints it: tile, ring, splits, blocks."""
-    return (f"{plan.rows}x{plan.bn} tile, {plan.stages} stages, "
-            f"{plan.splits} split{'s' if plan.splits > 1 else ''}, "
+    """A GEMM plan as phase 2 prints it: kernel, tile, ring, splits (the
+    small-row kernel's: blocks a cluster), blocks."""
+    if plan.rows_kernel:
+        return (f"rows: {plan.rows}x{plan.bn} strips, {plan.stages} stages, "
+                f"clusters of {plan.splits}, {plan.blocks} blocks")
+    return (f"{plan_kind(plan)}: {plan.rows}x{plan.bn} tile, {plan.stages} "
+            f"stages, {plan.splits} split{'s' if plan.splits > 1 else ''}, "
             f"{plan.units} units on {plan.blocks} blocks")
 
 
@@ -493,6 +523,90 @@ def sublayer_calls(c, pos: int) -> dict:
 
 
 # ------------------------------------------------------------ phase 2
+
+GEMM_CALLS = 20             # calls a timed graph of the GEMM alone at b1's rows
+
+
+def f32_one_query(rn, stats: dict, lmax: int, dev) -> None:
+    """The f32 sublayers and GEMM at one query a retrieve, serve-b1's rows
+    (1 / 31 / 100 at positions 0 / 1 / 3, where the GEMM takes its small-row
+    kernel), each held to its plain version at the f32 tolerance.  Device
+    ms: a sublayer 20 calls a graph on one set of weights (warm in L2); the
+    GEMM 20 calls a graph, each reading its own copy of W (from HBM, as the
+    decode's layers read theirs), beside f32 torch.matmul the same way and
+    the bound.  Adds to ``stats[name]``: ``rows_f32_b1`` (by rows),
+    ``per_retrieve_f32_b1`` (6·t1 + 6·t31 + 12·t100) and ``gemms_f32_b1``
+    (its GEMM shapes, with the plan's kernel)."""
+    import torch
+
+    from gdr_tpu_torch.kernels import decode as KD
+
+    gemms = []
+    for w in WIDTHS:
+        r, pos = w, POS_OF_WIDTH[w]
+        c = sublayers_vs_plain(rn, stats, r, w, pos, lmax, torch.float32)
+        for name, (kern, plain, lib) in sublayer_calls(c, pos).items():
+            flops, nbytes = decoder_cost(name, r, pos, lmax, 4, queries=1)
+            bound, by = _bound_ms(flops, nbytes, H100_F32_FLOPS)
+            row = stats[name].setdefault("rows_f32_b1", {})[r] = dict(
+                ms=_time_each_ms(lambda i: kern()),
+                plain_ms=_time_ms(plain, n=5),
+                library_ms=_time_each_ms(lambda i: lib()), bound_ms=bound,
+                bound_by=by, flops=flops, bytes=nbytes, pos=pos)
+            log(f"  {name:20s} float32  R={r:5d} one query (pos {pos}): "
+                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"library {row['library_ms']:.4f} ms, bound {bound:.4f} ms "
+                f"({by})")
+        for n, k, epi in GEMM_SHAPES:
+            a = rn(r, k)
+            wt = rn(n, k, std=k ** -0.5)
+            wts = [wt] + [wt.clone() for _ in range(GEMM_CALLS - 1)]
+            kw = (dict(resid=rn(r, n)) if epi == "residual"
+                  else dict(scale=c.scale))            # norm GEMMs read x [r, D]
+            err = _close(f"gemm float32 {epi} M={r} N={n} K={k} (one query)",
+                         KD.gemm(a, wt, epi, **kw),
+                         KD.gemm_plain(a, wt, epi, **kw), "float32")
+            nbytes = (r * k + n * k + r * n * (2 if epi == "residual" else 1)
+                      ) * 4
+            bound, by = _bound_ms(2 * r * n * k, nbytes, H100_F32_FLOPS)
+            plan = KD.gemm_plan(r, n, k, dev, torch.float32)
+            g_ = dict(
+                m=r, n=n, k=k, epi=epi, dtype="float32", max_abs_err=err,
+                ms=_time_each_ms(lambda i: KD.gemm(a, wts[i], epi, **kw),
+                                 GEMM_CALLS),
+                matmul_ms=_time_each_ms(lambda i: a @ wts[i].t(), GEMM_CALLS),
+                bound_ms=bound, bound_by=by, kind=plan_kind(plan),
+                plan=plan_text(plan))
+            gemms.append(g_)
+            log(f"  gemm float32  {epi:8s} M={r:5d} N={n:5d} K={k:5d} (one "
+                f"query, W from HBM): {g_['ms']:.4f} ms, torch.matmul "
+                f"{g_['matmul_ms']:.4f} ms, bound {bound:.4f} ms ({by}); "
+                f"max|d| {err:.3g}; plan {g_['plan']}")
+            del wts
+    for name in DECODER:
+        st = stats[name]
+        st["per_retrieve_f32_b1"] = pr = {
+            key: sum(RETRIEVE_WEIGHT[w] * st["rows_f32_b1"][w][key]
+                     for w in WIDTHS)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        st["gemms_f32_b1"] = [g_ for g_ in gemms
+                              if (g_["n"], g_["k"]) in DECODER_GEMMS[name]]
+        log(f"  {name:20s} float32  one query, per retrieve (6·t1 + 6·t31 + "
+            f"12·t100): kernel {pr['ms']:.4f} ms, plain {pr['plain_ms']:.4f} "
+            f"ms, library {pr['library_ms']:.4f} ms, bound "
+            f"{pr['bound_ms']:.4f} ms")
+    # a layer's step runs the 768 x 768 product three times (self O, cross
+    # Q, cross O), timed with the residual epilogue
+    per = {key: sum(RETRIEVE_WEIGHT[g_["m"]] * g_[key]
+                    * (3 if (g_["n"], g_["k"]) == (D, D) else 1)
+                    for g_ in gemms)
+           for key in ("ms", "matmul_ms", "bound_ms")}
+    log(f"  gemm float32  one query, per retrieve (the 144 launches: 6 "
+        f"layers x 4 steps x QKV, O, cross Q, cross O, wi, wo): "
+        f"{per['ms']:.4f} ms, torch.matmul {per['matmul_ms']:.4f} ms, bound "
+        f"{per['bound_ms']:.4f} ms; kernels "
+        f"{sorted({g_['kind'] for g_ in gemms})}")
+
 
 def expert_cost(stats: dict) -> tuple[float, float]:
     """FLOPs and the bytes the routed-expert calls that the routing
@@ -660,16 +774,19 @@ def phase_kernels(dev, trie) -> dict:
                 nbytes = (r * k + n * k + r * n * (2 if epi == "residual"
                                                    else 1)) * a.element_size()
                 bound, by = _bound_ms(2 * r * n * k, nbytes, peak)
-                plan = plan_text(KD.gemm_plan(r, n, k, dev, dtype))
+                gp = KD.gemm_plan(r, n, k, dev, dtype)
+                plan = plan_text(gp)
                 gemm_rows[dn].append(dict(
                     m=r, n=n, k=k, epi=epi, dtype=dn, max_abs_err=err,
                     ms=_time_ms(lambda: KD.gemm(a, wt, epi, **kw)),
                     matmul_ms=_time_ms(lambda: a @ wt.t()), bound_ms=bound,
-                    bound_by=by, plan=plan))
+                    bound_by=by, kind=plan_kind(gp), plan=plan))
                 g_ = gemm_rows[dn][-1]
                 log(f"  gemm {dn:8s} {epi:8s} M={r:5d} N={n:5d} K={k:5d}: "
                     f"{g_['ms']:.4f} ms, torch.matmul {g_['matmul_ms']:.4f} "
                     f"ms, bound {bound:.4f} ms ({by}); plan {plan}")
+
+    f32_one_query(rn, stats, lmax, dev)
 
     # the shapes the other retrieve options give the sublayers at 3,200 rows
     for dtype in (torch.bfloat16, torch.float32):
@@ -1140,11 +1257,13 @@ def _check_retrieve(name, res, rr, n_beams: int, top_r: int,
 
 
 def _counted_retrieve(name, ev, ids, mask, launches: dict, n_beams: int,
-                      top_r: int):
+                      top_r: int, gemm_paths: dict | None = None):
     """One retrieve with the launch counts set to 0 just before it: fails
     unless every kernel launched as often as ``launches`` says (0 for the
-    others) and the result passes ``_check_retrieve``.  Returns
-    (BeamResult, RerankResult, the counts)."""
+    others), the sublayers' f32 GEMM launches by kernel are ``gemm_paths``
+    (where given; ``kernels.launch_counts(gemm_paths=True)``) and the result
+    passes ``_check_retrieve``.  Returns (BeamResult, RerankResult, the
+    counts)."""
     import torch
 
     from gdr_tpu_torch import kernels
@@ -1157,6 +1276,13 @@ def _counted_retrieve(name, ev, ids, mask, launches: dict, n_beams: int,
     log(f"  {name}: launches in one retrieve: {got}")
     if got != want:
         raise Failed(f"{name}: launch counts {got} != {want}")
+    if gemm_paths is not None:
+        paths = {k: v for k, v in kernels.launch_counts(gemm_paths=True).items()
+                 if k not in got}
+        log(f"  {name}: f32 GEMM launches by kernel in one retrieve: {paths}")
+        if paths != gemm_paths:
+            raise Failed(f"{name}: f32 GEMM launches by kernel {paths} != "
+                         f"{gemm_paths}")
     _check_retrieve(name, res, rr, n_beams, top_r)
     return res, rr, got
 
@@ -1279,11 +1405,17 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
     ev.retrieve(ids, mask)                               # warm: U table, build
     torch.cuda.synchronize()
     log(f"  {name} (f32 model): warm retrieve {time.perf_counter() - t:.3f} s")
+    # the f32 GEMM's kernels: step 0's 32 rows on the small-row kernel (6
+    # layers x 6 products), the 992 and 3,200 rows of the other three steps
+    # on the tile ring
+    n_gemms = len(DECODER) * 2 * 6                    # a step's, 6 layers
     _, _, launches = _counted_retrieve(
         name, ev, ids, mask,
         dict(dict.fromkeys(DECODER, 24), packed_scores=1), qbatch * beams,
-        beams)
+        beams, gemm_paths=dict(gemm_f32_rows=n_gemms, gemm_f32_ring=3 * n_gemms))
     out["launches_f32"] = {k: v for k, v in launches.items() if v}
+    out["gemm_paths_f32"] = dict(gemm_f32_rows=n_gemms,
+                                 gemm_f32_ring=3 * n_gemms)
     totals = _timed(lambda: ev.retrieve(ids, mask), 0, timed)
     total = sum(totals) / len(totals)
     lay = out["layouts"][name] = dict(
@@ -1295,6 +1427,27 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
         f"{lay['queries_per_s']:.1f} queries/s; store "
         f"{lay['store_bytes'] / 1e6:.1f} MB; peak {lay['peak_gib']:.2f} GiB; "
         f"{card}")
+
+    # one query a retrieve, as serve-b1 sends: every f32 GEMM (1 / 31 / 100
+    # rows) on the small-row kernel; the second call of the shape captures
+    # the decode's graphs and replays them
+    name = "packed f32 one query"
+    ev.retrieve(ids[:1], mask[:1])
+    torch.cuda.synchronize()
+    _counted_retrieve(
+        name, ev, ids[:1], mask[:1],
+        dict(dict.fromkeys(DECODER, 24), packed_scores=1), beams, beams,
+        gemm_paths=dict(gemm_f32_rows=4 * n_gemms, gemm_f32_ring=0))
+    out["gemm_paths_f32_one_query"] = dict(gemm_f32_rows=4 * n_gemms,
+                                           gemm_f32_ring=0)
+    totals = _timed(lambda: ev.retrieve(ids[:1], mask[:1]), 1, timed)
+    total = sum(totals) / len(totals)
+    out["layouts"][name] = dict(
+        retrieve_ms=total, retrieve_ms_each=totals,
+        queries_per_s=1 / (total / 1e3), dtype="float32")
+    log(f"  {name}: retrieve {total:.2f} ms "
+        f"({', '.join(f'{x:.2f}' for x in totals)}); "
+        f"{1 / (total / 1e3):.1f} queries/s; {card}")
     return out
 
 
@@ -4582,6 +4735,12 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
                        per_retrieve_f32=st["per_retrieve_f32"],
                        gemms_f32=st["gemms_f32"])
             row.update(qg=st["qg"])
+            row.update(by_rows_f32_b1=st["rows_f32_b1"],
+                       per_retrieve_f32_b1=st["per_retrieve_f32_b1"],
+                       gemms_f32_b1=st["gemms_f32_b1"],
+                       gemm_paths_f32_retrieve=full["gemm_paths_f32"],
+                       gemm_paths_f32_one_query_retrieve=full[
+                           "gemm_paths_f32_one_query"])
         if name in full["launches_f32"]:
             row["launches_f32_retrieve"] = full["launches_f32"][name]
         rows.append(row)

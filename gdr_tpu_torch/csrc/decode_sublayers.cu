@@ -71,17 +71,24 @@
 // on the same counters; ReLU and the residual on the full sum), with one
 // block per work unit.  The plan (tile, splits) comes from a cost model of
 // its own (choose_plan_f32): the busiest SM's units at the FMA rate its
-// resident warps reach, plus the partials' traffic.
+// resident warps reach, plus the partials' traffic.  Up to 128 rows the
+// same model weighs a second kernel, gemm_f32_ring_rows (below the ring):
+// all M rows in one tile padded to 8 or 16, W streamed once by TMA in strips
+// split over the blocks of a cluster, split-K summed in shared and
+// distributed shared memory.
 //
 // Weights are in nn.Linear layout W[N, K].  The wrapper guarantees K and N
 // are multiples of 8 and 16-byte aligned tensors (TMA's requirements).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace gdr {
+
+namespace cg = cooperative_groups;
 
 enum Epi { kRound = 0, kRelu = 1, kResidual = 2 };
 
@@ -512,6 +519,210 @@ gemm_f32_ring(const float* __restrict__ A, const float* __restrict__ W,
         const size_t idx = (size_t)row * N + col;
         C[idx] = epilogue<EPI, float>(acc[i][j], EPI == kResidual ? resid[idx] : 0.f);
       }
+    }
+  }
+}
+
+// ------------------------------------------------------------- f32 GEMM, few rows
+
+// k-tiles of 32 floats, one 128-byte swizzle row; 8 warps a block; clusters
+// of at most 8 blocks (the portable size)
+constexpr int kRowsBK = 32, kRowsThreads = 256, kRowsMaxM = 128, kRowsMaxCluster = 8,
+              kRowsMaxStages = 8;
+
+// M rows padded to the row extent mt of the tile: to 8 up to 64 rows, to 16
+// above; the warps that stack the rows, WR = mt / 32 rounded up to 1, 2 or
+// 4, each 4·TM of them (TM = mt / (4·WR) is 2, 4, 5, 6, 7 or 8)
+__host__ __device__ __forceinline__ int rows_pad(int m) {
+  return m <= 64 ? (m + 7) / 8 * 8 : (m + 15) / 16 * 16;
+}
+__host__ __device__ __forceinline__ int rows_wr(int mt) { return mt <= 32 ? 1 : (mt <= 64 ? 2 : 4); }
+
+// shared memory of a block: the ring, or the warps' partials after it (the
+// larger of the two); the slices the cluster's blocks send it; the ring's
+// barriers; slack to align to 1,024
+__host__ __device__ __forceinline__ int rows_smem(int mt, int bn, int stages) {
+  const int ring = stages * (mt + bn) * kRowsBK * 4;
+  const int part = 8 / rows_wr(mt) * mt * (bn + 8) * 4;
+  return (ring > part ? ring : part) + (mt * bn + 4 * kRowsMaxCluster) * 4 + stages * 8 + 1024;
+}
+
+// gemm_f32_ring_rows: the f32 GEMM C = epi(A · Wᵀ) for M <= 128 rows (the
+// decoder at one query a retrieve, 1 / 31 / 100 rows, and step 0 of a batch
+// of 32).  It replaces no TPU kernel: at these rows the ring's 32-row tiles
+// and 16-32 splits spent 18-35 us on products bound at 0.7-7 us, in launch
+// and first loads, a last split that re-reads every partial alone, and FMAs
+// on zero rows.  Below ~40 rows an f32 product is bound by W's bytes (67
+// TFLOP/s over 3.35 TB/s: 20 FLOP a byte, 40 rows of f32 W), at 100 rows by
+// the FMAs.  Design:
+// - W streamed once: block b of a launch owns the strip of BN = 8·TN columns
+//   b / nc (W's rows) and range b % nc of its k-tiles, and streams them by
+//   TMA (128-byte swizzle) through a ring of `stages` slots on mbarriers,
+//   every slot loaded ahead; A's tile of the same k-range rides along, all
+//   mt rows in one box (rows past M arrive as zeros).  The nc blocks of a
+//   strip form one thread-block cluster.  Strips of 48 or 64 columns let the
+//   plan fill the SMs with one even wave.
+// - A from L2, kept below W: a strip's nc blocks split K, so each reads
+//   only its share of A; A's bytes over W's are then mt / BN.
+// - Micro-tiles fitted to M: the 8 warps split a k-tile's 8 chunks of 4
+//   k-values WK = 8 / WR ways and stack the rows WR ways; lane 8·ly + lx owns
+//   rows ly + 4i (i < TM) and columns lx + 8j (j < TN) of its warp's 4·TM
+//   rows, so a quarter warp reads one A address (a broadcast) and 8 W rows
+//   that the swizzle puts on distinct banks: TM + TN LDS.128 for 4·TM·TN
+//   FMAs, W's chunk read column by column beside the TM of A.
+// - Split-K summed on chip in a fixed order: the warps' partials go to shared
+//   memory; each block sums its WK of them in order and sends slice r of the
+//   sum to block r of its cluster (distributed shared memory: its stores wait
+//   on a cluster barrier that every block arrives at once it runs, before its
+//   mainloop); after a second cluster barrier block r sums the slices it
+//   holds rank by rank and applies the epilogue.  No workspace, no counters: every call of a plan
+//   gives the same bits, eager or replayed.
+// - Exact f32 FMAs, the sum in another order than the ring's.
+template <int TM, int TN>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+gemm_f32_ring_rows(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+                   const float* __restrict__ resid, float* __restrict__ C, int M, int N, int K,
+                   int mt, int stages, int epi) {
+  // a partial's rows hold BN + 8 floats (8 or 24 banks past the row above):
+  // a warp's stores of one (t, j), 4 rows x 8 columns, meet no bank twice
+  constexpr int BN = 8 * TN, LDP = BN + 8, G4 = BN / 4;
+  extern __shared__ __align__(16) uint8_t rows_smem_raw[];
+  float* smem =
+      reinterpret_cast<float*>(rows_smem_raw + ((1024 - (smem_u32(rows_smem_raw) & 1023)) & 1023));
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = static_cast<int>(cluster.num_blocks()), rank = static_cast<int>(cluster.block_rank());
+  const int n0 = blockIdx.x / nc * BN;
+  const int WR = rows_wr(mt), WK = 8 / WR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ly = lane >> 3, lx = lane & 7;
+  const int wr = warp % WR, wk = warp / WR;
+  const int kt_all = (K + kRowsBK - 1) / kRowsBK;
+  const int kb = rank * kt_all / nc, nk = (rank + 1) * kt_all / nc - kb;
+  const int slot_f = (mt + BN) * kRowsBK;          // floats of a ring slot: A's tile, W's
+  const int ring_f = stages * slot_f, part_f = WK * mt * LDP;
+  float4* recv = reinterpret_cast<float4*>(smem + (ring_f > part_f ? ring_f : part_f));
+  uint64_t* full = reinterpret_cast<uint64_t*>(recv + mt * G4 + kRowsMaxCluster);
+
+  // k-tile kt into slot s; full[s] completes its phase once both boxes land
+  // (zero-filled bytes count too)
+  const CUtensorMap *map_a = &ta, *map_w = &tw;
+  auto issue = [=](int s, int kt) {
+    float* a = smem + s * slot_f;
+    mbar_expect_tx(&full[s], slot_f * 4);
+    tma_load_2d(a, map_a, &full[s], kt * kRowsBK, 0);
+    tma_load_2d(a + mt * kRowsBK, map_w, &full[s], kt * kRowsBK, n0);
+  };
+  if (tid == 0) {                                  // the ring's barriers, then its first loads
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map_a)) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map_w)) : "memory");
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < stages && s < nk; ++s) issue(s, kb + s);
+  }
+  __syncthreads();
+  // this block is running: the first half of the cluster barrier that each
+  // block waits on before its first store into a peer's shared memory
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  const int r0 = wr * 4 * TM + ly;                 // the lane's first row
+  const int cpw = 8 / WK, c0 = wk * cpw;           // the warp's chunks of a k-tile
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % stages;
+    if (i > 0) {
+      __syncthreads();                             // every warp is done with k-tile i - 1
+      if (tid == 0 && i - 1 + stages < nk) issue((i - 1) % stages, kb + i - 1 + stages);
+    }
+    mbar_wait(&full[s], (i / stages) & 1);
+    const float* sa = smem + s * slot_f + r0 * kRowsBK;
+    const float* sw = smem + s * slot_f + (mt + lx) * kRowsBK;
+    // chunk c of row r sits at 16-byte slot c ^ (r % 8) of its 128-byte row;
+    // the lane's rows r0 + 4t have r % 8 = r0 % 8 for even t, r0 % 8 ^ 4 for
+    // odd t, and its W rows lx + 8j have lx
+    for (int c = c0; c < c0 + cpw; ++c) {
+      const int oa = (c ^ (r0 & 7)) << 2, ow = (c ^ lx) << 2;
+      float4 a[TM];
+#pragma unroll
+      for (int t = 0; t < TM; ++t)
+        a[t] = *reinterpret_cast<const float4*>(sa + 4 * t * kRowsBK + (t & 1 ? oa ^ 16 : oa));
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(sw + 8 * j * kRowsBK + ow);
+#pragma unroll
+        for (int t = 0; t < TM; ++t) acc[t][j] = fmaf(a[t].x, b.x, acc[t][j]);
+#pragma unroll
+        for (int t = 0; t < TM; ++t) acc[t][j] = fmaf(a[t].y, b.y, acc[t][j]);
+#pragma unroll
+        for (int t = 0; t < TM; ++t) acc[t][j] = fmaf(a[t].z, b.z, acc[t][j]);
+#pragma unroll
+        for (int t = 0; t < TM; ++t) acc[t][j] = fmaf(a[t].w, b.w, acc[t][j]);
+      }
+    }
+  }
+
+  // the warps' partials, [WK][mt][LDP] over the drained ring
+  __syncthreads();
+  float* part = smem;
+  {
+    float* p = part + (wk * mt + r0) * LDP + lx;
+#pragma unroll
+    for (int t = 0; t < TM; ++t)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) p[4 * t * LDP + 8 * j] = acc[t][j];
+  }
+  __syncthreads();
+  // every block of the cluster has started (their arrivals above), so their
+  // shared memory may take stores
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  // this block's partial of the rows below M, the WK warps' sums in order,
+  // float4 g of it to block g / per of the cluster, at recv[rank·per + g % per]
+  const int groups = M * G4, per = (groups + nc - 1) / nc;
+  for (int g = tid; g < groups; g += kRowsThreads) {
+    const float* p = part + g / G4 * LDP + g % G4 * 4;
+    float4 v = *reinterpret_cast<const float4*>(p);
+    for (int q = 1; q < WK; ++q) {
+      const float4 u = *reinterpret_cast<const float4*>(p + q * mt * LDP);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    const int owner = g / per;
+    *(cluster.map_shared_rank(recv, owner) + rank * per + (g - owner * per)) = v;
+  }
+  cluster.sync();                                  // every slice has arrived; no more remote stores
+  // slice `rank`: the cluster's partials summed rank by rank, then the
+  // epilogue (ReLU and the residual on the full sum)
+  const int end = (rank + 1) * per < groups ? (rank + 1) * per : groups;
+  for (int g = rank * per + tid; g < end; g += kRowsThreads) {
+    const int j = g - rank * per;
+    float4 v = recv[j];
+    for (int q = 1; q < nc; ++q) {
+      const float4 u = recv[q * per + j];
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    const int row = g / G4, col = n0 + g % G4 * 4;
+    if (col < N) {
+      const size_t idx = (size_t)row * N + col;
+      if (epi == kRelu) {
+        v.x = fmaxf(v.x, 0.f);
+        v.y = fmaxf(v.y, 0.f);
+        v.z = fmaxf(v.z, 0.f);
+        v.w = fmaxf(v.w, 0.f);
+      } else if (epi == kResidual) {
+        const float4 r = *reinterpret_cast<const float4*>(resid + idx);
+        v.x += r.x;
+        v.y += r.y;
+        v.z += r.z;
+        v.w += r.w;
+      }
+      *reinterpret_cast<float4*>(C + idx) = v;
     }
   }
 }
@@ -1129,18 +1340,20 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the [rows, cols] bf16 row-major matrix at ptr, read in boxes of
-// box_rows x 64 with the 128-byte swizzle
-static bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// the [rows, cols] bf16 (or f32) row-major matrix at ptr, read in boxes of
+// box_rows x 64 bf16 (32 f32), one 128-byte row each, with the 128-byte
+// swizzle
+static bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
+                       bool f32 = false) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (f32 ? 4 : 2)};
+  const cuuint32_t box[2] = {(cuuint32_t)(f32 ? kRowsBK : BK), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1163,10 +1376,13 @@ static const Tile kTiles[] = {GDR_GEMM_TILES(GDR_TILE_ENTRY)};
 #undef GDR_TILE_ENTRY
 
 // a launch: the tile, its k-tiles split `splits` ways, units = tiles ·
-// splits work units walked by `blocks` persistent blocks
+// splits work units walked by `blocks` persistent blocks.  f32 `rows`:
+// gemm_f32_ring_rows, tile.wg = its row extent / 8, tile.bn its strip, a ring
+// of tile.stages, `splits` blocks a cluster, one block a unit.
 struct Plan {
   Tile tile;
   int splits, units, blocks;
+  int rows = 0;
 };
 
 constexpr int kSplitTiles = 1024;   // output tiles a split launch may count on
@@ -1290,7 +1506,110 @@ static double plan_time_f32(const F32Shape& t, int splits, int m, int n, int k, 
   return time;
 }
 
+// The small-row kernel's strips and clusters a plan may take (its row extent
+// follows M: rows_pad), and its ring: the model sees no depth, and 4 stages
+// were as fast as 2 or 8 at every shape of the sweep (kernels/f32_bench.py
+// sweep still runs 2 and 8 as forced plans).
+static const int kRowsBn[] = {48, 64};
+static const int kRowsClusters[] = {1, 2, 3, 4, 6, 8};
+constexpr int kRowsStages = 4;
+constexpr int kSmemOptin = 232448;      // shared memory a Hopper block may opt into
+
+// The small-row kernel's cost model, fitted by kernels/f32_bench.py sweep on
+// the H100 to every plan of M 1-128 x the four (N, K) of a t5-base decoder
+// layer within 1.5x of its shape's best: the FMAs/s one SM sustains in this
+// mainloop (47% of its share of 67 TFLOP/s), the launch with its first loads
+// and the cluster's syncs, the bytes/s one block pulls of W and of A through
+// its ring, and the rate at which a block writes, sums and sends its
+// partials.  The sweep fits these five through gdr_gemm_rows_time.
+struct RowsModel {
+  double fma_per_sm, latency, w_per_block, a_per_block, part_per_sm;
+};
+constexpr RowsModel kRowsModel = {0.473 * 67e12 / 2 / 132, 3.72e-6, 15.6e9, 16.8e9, 140e9};
+
+// registers a thread holds (ptxas, the H100 build: 72-96 up to TM 4, 96-128
+// above)
+static int rows_regs(int tm) { return tm >= 5 ? 128 : 80; }
+
+// blocks of a plan an SM holds at once: registers, shared memory, threads
+static int rows_resident(int mt, int bn, int stages) {
+  int b = 65536 / (kRowsThreads * rows_regs(mt / (4 * rows_wr(mt))));
+  const int smem = rows_smem(mt, bn, stages) + 1024;   // + the block's reserved 1 KB
+  if (233472 / smem < b) b = 233472 / smem;
+  if (2048 / kRowsThreads < b) b = 2048 / kRowsThreads;
+  return b < 1 ? 1 : b;
+}
+
+// The blocks of clusters of cl that one wave places one an SM.  A cluster
+// runs inside one GPC.  The SMs of the H100 of the sweep sit in GPCs of 18,
+// 18, 18, 18, 16, 16, 14 and 14, inferred from the sweep (its clusters of 4
+// and 8 blocks ran a second round past 120 and 112 blocks): the plans are
+// tuned to that die.  A 132-SM card floor-swept to another layout runs the
+// same plans, at another speed, with the same results.
+static const int kGpcSms[] = {18, 18, 18, 18, 16, 16, 14, 14};
+static int rows_cluster_cap(int cl, int sms) {
+  if (sms != 132) return sms / cl * cl;
+  int cap = 0;
+  for (const int g : kGpcSms) cap += g / cl * cl;
+  return cap;
+}
+
+// Modelled time of a small-row plan at M rows: strips of bn columns, each
+// split over a cluster of cl blocks, a ring of st slots.  The busiest SM
+// holds `stack` blocks at once (more where the clusters outnumber its share
+// of a wave), in `rounds` where they outnumber its residency; its blocks
+// cost the larger of their FMAs, their k-tiles' pulls of W and A, and the
+// card's stream of W at 3.35 TB/s, plus their partials.
+static double plan_time_rows(const RowsModel& c, int mt, int bn, int cl, int st, int m, int n,
+                             int k, int sms) {
+  const int blocks = (n + bn - 1) / bn * cl;
+  const int kt = (k + kRowsBK - 1) / kRowsBK, kb = (kt + cl - 1) / cl;
+  const int res = rows_resident(mt, bn, st), cap = rows_cluster_cap(cl, sms);
+  int stack = (blocks + cap - 1) / cap;
+  const int rounds = (stack + res - 1) / res;
+  if (stack > res) stack = res;
+  const double per = (double)rounds * stack * kb;        // k-tiles the busiest SM works
+  double t = per * mt * bn * kRowsBK / c.fma_per_sm;
+  const double pulls = per * kRowsBK * 4 * (bn / c.w_per_block + mt / c.a_per_block);
+  const double card = 4.0 * n * k / 3.35e12;
+  if (pulls > t) t = pulls;
+  if (card > t) t = card;
+  const double part = (double)rounds * stack * m * bn * 4 * (2.0 * 8 / rows_wr(mt) + 2) /
+                      c.part_per_sm;
+  return c.latency + t + part;
+}
+
+// whether the small-row kernel runs a plan of a bn strip, cl blocks a
+// cluster and st stages at M rows and K
+static bool rows_plan_ok(int m, int k, int bn, int cl, int st) {
+  return m >= 1 && m <= kRowsMaxM && (bn == 48 || bn == 64) && cl >= 1 &&
+         cl <= kRowsMaxCluster && cl <= (k + kRowsBK - 1) / kRowsBK && st >= 1 &&
+         st <= kRowsMaxStages && rows_smem(rows_pad(m), bn, st) <= kSmemOptin;
+}
+
+// the small-row plan with the least modelled time at M <= 128 rows; ties go
+// to the first strip and cluster in the lists above
+static Plan choose_plan_rows(int m, int n, int k, int sms) {
+  const int mt = rows_pad(m);
+  Plan best{{0, 0, 0}, 1, 0, 0, 1};
+  double best_t = 1e30;
+  for (const int bn : kRowsBn)
+    for (const int cl : kRowsClusters) {
+      if (!rows_plan_ok(m, k, bn, cl, kRowsStages)) continue;
+      const double time = plan_time_rows(kRowsModel, mt, bn, cl, kRowsStages, m, n, k, sms);
+      if (time < best_t * (1 - 1e-9)) {
+        best_t = time;
+        const int units = (n + bn - 1) / bn * cl;
+        best = {{mt / 8, bn, kRowsStages}, cl, units, units, 1};
+      }
+    }
+  return best;
+}
+
+// the plan with the least modelled time: the small-row kernel's up to 128
+// rows, the ring's above
 static Plan choose_plan_f32(int m, int n, int k, int sms) {
+  if (m <= kRowsMaxM) return choose_plan_rows(m, n, k, sms);
   const int kt = (k + kF32BK - 1) / kF32BK;
   Plan best{{0, 0, 0}, 1, 0, 0};
   double best_t = 1e30;
@@ -1403,6 +1722,56 @@ static cudaError_t gemm_f32(const void* a, const void* w, const void* resid, voi
   return cudaErrorInvalidValue;
 }
 
+// the small-row kernel's instantiations: (TM rows, TN columns) a lane
+#define GDR_ROWS_TILES(X) \
+  X(2, 6) X(4, 6) X(5, 6) X(6, 6) X(7, 6) X(8, 6) X(2, 8) X(4, 8) X(5, 8) X(6, 8) X(7, 8) X(8, 8)
+
+template <int TM, int TN>
+static cudaError_t launch_f32_rows(const CUtensorMap& ta, const CUtensorMap& tw,
+                                   const void* resid, void* c, int m, int n, int k, int mt,
+                                   int cl, int stages, int epi, cudaStream_t s) {
+  auto kernel = gemm_f32_ring_rows<TM, TN>;
+  static unsigned opted = 0;                       // the shared-memory opt-in, once per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (!(opted & bit)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptin);
+    if (e != cudaSuccess) return e;
+    opted |= bit;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + 8 * TN - 1) / (8 * TN) * cl);
+  cfg.blockDim = dim3(kRowsThreads);
+  cfg.dynamicSmemBytes = rows_smem(mt, 8 * TN, stages);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;                   // a strip's blocks, consecutive in x
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, ta, tw, static_cast<const float*>(resid),
+                            static_cast<float*>(c), m, n, k, mt, stages, epi);
+}
+
+static cudaError_t gemm_f32_rows(const void* a, const void* w, const void* resid, void* c, int m,
+                                 int n, int k, int epi, const Plan& p, cudaStream_t s) {
+  const int mt = 8 * p.tile.wg, tm = mt / (4 * rows_wr(mt)), tn = p.tile.bn / 8;
+  CUtensorMap ta, tw;
+  if (!tensor_map(&ta, a, m, k, mt, true) || !tensor_map(&tw, w, n, k, p.tile.bn, true))
+    return cudaErrorInvalidValue;
+#define GDR_ROWS_LAUNCH(tm_, tn_)                                                          \
+  if (tm == tm_ && tn == tn_)                                                              \
+    return launch_f32_rows<tm_, tn_>(ta, tw, resid, c, m, n, k, mt, p.splits, p.tile.stages, \
+                                     epi, s);
+  GDR_ROWS_TILES(GDR_ROWS_LAUNCH)
+#undef GDR_ROWS_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
 static cudaError_t set_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1494,18 +1863,36 @@ using gdr::kBF16;
 using gdr::kF32;
 
 // The GEMM's plan for C[m, n] = A[m, k] · W[n, k]ᵀ in `dtype` on a card of
-// `sms` SMs: plan[0..5] = tile rows / 64 (bf16) or / 32 (f32), tile columns,
-// ring stages, splits, work units, blocks.  A split plan needs splits x
-// [tile rows x tile columns] f32 of workspace per output tile and one
-// counter per output tile.
+// `sms` SMs: plan[0..6] = tile rows / 64 (bf16), / 32 (f32) or / 8 (the
+// small-row kernel), tile columns, ring stages, splits, work units, blocks,
+// and 1 for the small-row kernel (else 0).  A split plan of the tile kernels
+// needs splits x [tile rows x tile columns] f32 of workspace per output tile
+// and one counter per output tile; the small-row kernel splits over the
+// blocks of a cluster and needs neither.
 extern "C" int gdr_gemm_plan(int dtype, int m, int n, int k, int sms, int* plan) {
   if (m <= 0 || n <= 0 || k <= 0 || sms <= 0 || plan == nullptr ||
       (dtype != kBF16 && dtype != kF32))
     return cudaErrorInvalidValue;
   const gdr::Plan p =
       dtype == kBF16 ? gdr::choose_plan(m, n, k, sms) : gdr::choose_plan_f32(m, n, k, sms);
-  const int out[6] = {p.tile.wg, p.tile.bn, p.tile.stages, p.splits, p.units, p.blocks};
-  for (int i = 0; i < 6; ++i) plan[i] = out[i];
+  const int out[7] = {p.tile.wg, p.tile.bn, p.tile.stages, p.splits, p.units, p.blocks, p.rows};
+  for (int i = 0; i < 7; ++i) plan[i] = out[i];
+  return cudaSuccess;
+}
+
+// The small-row kernel's modelled time, in seconds, of a plan of a `bn`
+// strip, `cl` blocks a cluster and `stages` at C[m, n], K = k, on a card of
+// `sms` SMs: plan_time_rows with `model` = its five constants in RowsModel's
+// order (null: the fitted ones), so that kernels/f32_bench.py sweep fits the
+// model the chooser runs.  Refuses a plan the kernel does not run.
+extern "C" int gdr_gemm_rows_time(int m, int n, int k, int bn, int cl, int stages, int sms,
+                                  const double* model, double* seconds) {
+  if (n <= 0 || k <= 0 || sms <= 0 || seconds == nullptr ||
+      !gdr::rows_plan_ok(m, k, bn, cl, stages))
+    return cudaErrorInvalidValue;
+  const gdr::RowsModel c =
+      model ? gdr::RowsModel{model[0], model[1], model[2], model[3], model[4]} : gdr::kRowsModel;
+  *seconds = gdr::plan_time_rows(c, gdr::rows_pad(m), bn, cl, stages, m, n, k, sms);
   return cudaSuccess;
 }
 
@@ -1515,10 +1902,15 @@ extern "C" int gdr_gemm_plan(int dtype, int m, int n, int k, int sms, int* plan)
 // with 1 <= splits <= min(k-tiles, 32); a split plan takes its f32
 // workspace and n_counters >= output tiles zeroed counters, which it leaves
 // zeroed.  The f32 grid is one block a work unit, so it ignores `blocks`.
+// `rows`: the small-row kernel's plan (wg = its row extent / 8, at least M
+// and rows_pad of itself; bn 48 or 64; `splits` = 1 to 8 blocks a cluster,
+// at most the 32-float k-tiles; 1 to 8 stages in 227 KB), M <= 128, f32
+// only; it takes no workspace and no counters.
 extern "C" int gdr_gemm(int dtype, const void* a, const void* scale, void* normed,
                         const void* w, const void* resid, void* c, int m, int n, int k,
                         int norm, int epi, float eps, int wg, int bn, int splits, int blocks,
-                        void* workspace, void* counters, int n_counters, void* stream) {
+                        int stages, int rows, void* workspace, void* counters, int n_counters,
+                        void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0) return cudaErrorInvalidValue;
   const bool ok = (norm && (epi == gdr::kRound || epi == gdr::kRelu)) ||
                   (!norm && epi == gdr::kResidual);
@@ -1526,8 +1918,17 @@ extern "C" int gdr_gemm(int dtype, const void* a, const void* scale, void* norme
   if (!ok || (norm && normed == nullptr) || (!bf16 && dtype != kF32))
     return cudaErrorInvalidValue;
   gdr::Plan p{{0, 0, 0}, splits, 0, blocks};
-  int kt, bm;
-  if (bf16) {
+  int kt = 0, bm = 0;
+  if (rows) {
+    const int mt = 8 * wg;
+    if (bf16 || m > gdr::kRowsMaxM || mt < m || mt > gdr::kRowsMaxM || gdr::rows_pad(mt) != mt ||
+        (bn != 48 && bn != 64) || splits < 1 || splits > gdr::kRowsMaxCluster ||
+        splits > (k + gdr::kRowsBK - 1) / gdr::kRowsBK || stages < 1 ||
+        stages > gdr::kRowsMaxStages || gdr::rows_smem(mt, bn, stages) > gdr::kSmemOptin)
+      return cudaErrorInvalidValue;
+    p.tile = {wg, bn, stages};
+    p.rows = 1;
+  } else if (bf16) {
     for (const gdr::Tile& t : gdr::kTiles)
       if (t.wg == wg && t.bn == bn) p.tile = t;
     kt = (k + gdr::BK - 1) / gdr::BK;
@@ -1538,12 +1939,14 @@ extern "C" int gdr_gemm(int dtype, const void* a, const void* scale, void* norme
     kt = (k + gdr::kF32BK - 1) / gdr::kF32BK;
     bm = 32 * wg;
   }
-  if (p.tile.wg == 0 || splits < 1 || splits > kt || splits > gdr::kMaxSplits ||
-      (bf16 && blocks < 1))
-    return cudaErrorInvalidValue;
-  const long tiles = (long)((m + bm - 1) / bm) * ((n + bn - 1) / bn);
-  if (splits > 1 && (workspace == nullptr || counters == nullptr || tiles > n_counters))
-    return cudaErrorInvalidValue;
+  if (!rows) {
+    if (p.tile.wg == 0 || splits < 1 || splits > kt || splits > gdr::kMaxSplits ||
+        (bf16 && blocks < 1))
+      return cudaErrorInvalidValue;
+    const long tiles = (long)((m + bm - 1) / bm) * ((n + bn - 1) / bn);
+    if (splits > 1 && (workspace == nullptr || counters == nullptr || tiles > n_counters))
+      return cudaErrorInvalidValue;
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (norm) {
     if (bf16)
@@ -1558,6 +1961,7 @@ extern "C" int gdr_gemm(int dtype, const void* a, const void* scale, void* norme
     if (e != cudaSuccess) return e;
     a = normed;
   }
+  if (rows) return gdr::gemm_f32_rows(a, w, resid, c, m, n, k, epi, p, s);
   int* cnt = static_cast<int*>(counters);
   return bf16 ? gdr::gemm_bf16(a, w, resid, c, m, n, k, epi, p, workspace, cnt, s)
               : gdr::gemm_f32(a, w, resid, c, m, n, k, epi, p, workspace, cnt, s);

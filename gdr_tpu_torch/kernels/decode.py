@@ -36,8 +36,10 @@ and a sublayer is up to three launches of one shared GEMM (:func:`gemm`:
 bf16 on ``wgmma`` with TMA-fed shared-memory rings, persistent blocks and
 a per-shape plan of tile and split-K (:func:`gemm_plan`); f32 on the FMA
 units, exact f32 products with no TF32, from a 4-stage ``cp.async`` ring of
-K-major tiles, 8 × 8 outputs a thread, split-K by a plan of its own; both
-after a row kernel that writes the RMSNorm output once; round / ReLU /
+K-major tiles, 8 × 8 outputs a thread, split-K by a plan of its own, or at
+up to 128 rows, where the plan picks it, from a small-row kernel that
+streams W once in strips split over a cluster's blocks and sums split-K on
+chip; both after a row kernel that writes the RMSNorm output once; round / ReLU /
 residual epilogue) and, for the attention sublayers, one attention core
 between two GEMMs.  Each intermediate is written once in the model dtype,
 exactly where the TPU kernel rounds it.  The attention cores are bound by
@@ -73,15 +75,21 @@ REGISTER_L = 16     # cache positions the self-attention core keeps in registers
 
 LAUNCHES = {"self_attn_sublayer": 0, "cross_attn_sublayer": 0,
             "ffn_sublayer": 0}
+# the sublayers' f32 GEMM launches by kernel: the small-row kernel (M <= 128)
+# and the tile ring (``kernels.launch_counts(gemm_paths=True)``)
+GEMM_PATHS = {"gemm_f32_rows": 0, "gemm_f32_ring": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
     # dtype, a, scale, normed, w, resid, c, m, n, k, norm, epi, eps,
-    # wg, bn, splits, blocks, workspace, counters, n_counters, stream
+    # wg, bn, splits, blocks, stages, rows, workspace, counters, n_counters,
+    # stream
     "gdr_gemm": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                 _I, _I, _I, _I, _P, _P, _I, _P],
-    # dtype, m, n, k, sms, int plan[6]
+                 _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    # dtype, m, n, k, sms, int plan[7]
     "gdr_gemm_plan": [_I, _I, _I, _I, _I, _P],
+    # m, n, k, bn, cluster, stages, sms, double model[5] or null, double *s
+    "gdr_gemm_rows_time": [_I, _I, _I, _I, _I, _I, _I, _P, _P],
     # dtype, qkv, ck, cv, bias, attn, rows, L, heads, d_kv, pos, stream
     "gdr_self_attn_core": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, q, ck, cv, bias, out, batch, beams, heads, S, d_kv, stream
@@ -97,6 +105,8 @@ _CROSS_DKV = (16, 32, 64, 128)
 _CROSS_F32_BEAMS, _CROSS_F32_KEYS = 32, 64
 # output tiles a split-K launch may count on (kSplitTiles in the source)
 _SPLIT_TILES = 1024
+# the most rows the f32 small-row kernel takes (kRowsMaxM in the source)
+ROWS_MAX_M = 128
 
 
 def self_attn_max_len(d_kv: int, dtype: torch.dtype = torch.bfloat16) -> int:
@@ -242,7 +252,13 @@ class GemmPlan(NamedTuple):
     k-tiles split ``splits`` ways; ``units`` = tiles · splits work units.
     bf16 (``f32`` False): 64·``wg`` rows, one consumer warpgroup per 64, the
     units walked by ``blocks`` persistent blocks (at most one per SM).  f32:
-    32·``wg`` rows, one block per unit (``blocks`` = ``units``)."""
+    32·``wg`` rows, one block per unit (``blocks`` = ``units``).  f32 with
+    ``rows_kernel`` (M <= :data:`ROWS_MAX_M`): the small-row kernel, one tile
+    of all M rows padded to 8·``wg`` (``csrc``'s rows_pad: to 8 up to 64
+    rows, to 16 above) and strips of ``bn`` (48 or 64) columns, each
+    strip's k-tiles split over the ``splits`` (1-8) blocks of a cluster and
+    summed on chip; a ring of ``stages`` (1-8) 32-float k-tiles; no
+    workspace."""
     wg: int
     bn: int
     stages: int
@@ -250,17 +266,37 @@ class GemmPlan(NamedTuple):
     units: int
     blocks: int
     f32: bool = False
+    rows_kernel: bool = False
 
     @property
     def rows(self) -> int:
+        if self.rows_kernel:
+            return 8 * self.wg
         return (32 if self.f32 else 64) * self.wg
 
     def workspace(self, m: int, n: int) -> int:
-        """f32 elements of the split partials at C [m, n] (0 unsplit)."""
-        if self.splits == 1:
+        """f32 elements of the split partials at C [m, n] (0 unsplit, and 0
+        for the small-row kernel, which sums its splits on chip)."""
+        if self.splits == 1 or self.rows_kernel:
             return 0
         bm = self.rows
         return -(-m // bm) * -(-n // self.bn) * self.splits * bm * self.bn
+
+
+def rows_pad(m: int) -> int:
+    """The small-row kernel's row extent at M rows: M padded to 8 up to 64
+    rows, to 16 above (``rows_pad`` in the source)."""
+    return -(-m // 8) * 8 if m <= 64 else -(-m // 16) * 16
+
+
+def rows_plan(m: int, n: int, bn: int = 64, splits: int = 1,
+              stages: int = 4) -> GemmPlan:
+    """A plan of the f32 small-row kernel at C [m, n]: strips of ``bn``
+    columns, each split over a cluster of ``splits`` blocks, a ring of
+    ``stages`` k-tiles."""
+    units = -(-n // bn) * splits
+    return GemmPlan(rows_pad(m) // 8, bn, stages, splits, units, units,
+                    f32=True, rows_kernel=True)
 
 
 _PLANS: dict = {}
@@ -279,11 +315,12 @@ def gemm_plan(m: int, n: int, k: int, device=None,
     if plan is None:
         lib = _lib()
         sms = torch.cuda.get_device_properties(idx).multi_processor_count
-        out = (ctypes.c_int * 6)()
+        out = (ctypes.c_int * 7)()
         build.check(lib, lib.gdr_gemm_plan(build.DTYPES[dtype], m, n, k, sms,
                                            ctypes.addressof(out)),
                     "gemm_plan")
-        plan = _PLANS[key] = GemmPlan(*out, f32=dtype == torch.float32)
+        plan = _PLANS[key] = GemmPlan(*out[:6], f32=dtype == torch.float32,
+                                      rows_kernel=bool(out[6]))
     return plan
 
 
@@ -304,10 +341,11 @@ def _counters(device: torch.device) -> torch.Tensor:
 
 
 def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what,
-          plan: GemmPlan | None = None):
+          plan: GemmPlan | None = None, count: bool = True):
     """One launch of ``gdr_gemm``: RMSNorm (into a ``normed`` scratch) +
     round / ReLU, or residual.  It runs ``plan`` (the dtype's cost model's
-    by default) with its split workspace from the caching allocator."""
+    by default) with its split workspace from the caching allocator, and
+    counts an f32 launch in :data:`GEMM_PATHS` by kernel."""
     m, k = a.shape
     n = w.shape[0]
     norm = epi != EPI_RESIDUAL
@@ -323,7 +361,7 @@ def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what,
     if plan.f32 != (a.dtype == torch.float32):
         raise ValueError(f"{what}: a {'f32' if plan.f32 else 'bf16'} plan for "
                          f"{a.dtype} operands")
-    if plan.splits > 1:
+    if plan.workspace(m, n):
         ws = torch.empty(plan.workspace(m, n), dtype=torch.float32,
                          device=a.device)
         counters = _counters(a.device)
@@ -331,8 +369,12 @@ def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what,
     build.check(lib, lib.gdr_gemm(
         code, a.data_ptr(), scale.data_ptr() if norm else None, ptr(normed),
         w.data_ptr(), ptr(resid), c.data_ptr(), m, n, k, int(norm), epi, eps,
-        plan.wg, plan.bn, plan.splits, plan.blocks, ptr(ws), ptr(counters),
-        _SPLIT_TILES, stream), what)
+        plan.wg, plan.bn, plan.splits, plan.blocks, plan.stages,
+        int(plan.rows_kernel), ptr(ws), ptr(counters), _SPLIT_TILES,
+        stream), what)
+    if count and plan.f32:
+        GEMM_PATHS["gemm_f32_rows" if plan.rows_kernel
+                   else "gemm_f32_ring"] += 1
 
 
 def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6,
@@ -341,9 +383,10 @@ def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6,
     ``epi`` "round" or "relu" (RMSNorm of ``a`` with ``scale`` first) or
     "residual" (``resid`` [M, N] + the rounded product).  ``plan`` replaces
     the cost model's plan (any instantiated tile of the dtype, 1 <= splits
-    <= min(k-tiles, 32), any number of bf16 blocks).  The sublayer wrappers
-    count their launches; this entry point, for tests and per-shape timing,
-    counts none."""
+    <= min(k-tiles, 32), any number of bf16 blocks; or, in f32 at M <= 128,
+    a plan of the small-row kernel, which refuses more rows).  The sublayer
+    wrappers count their launches; this entry point, for tests and
+    per-shape timing, counts none."""
     if epi not in _EPIS or (epi == "residual") != (scale is None) or (
             epi == "residual") != (resid is not None):
         raise ValueError(f"gemm: epi {epi!r} takes scale for round/relu and "
@@ -360,7 +403,7 @@ def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6,
     if scale is not None:
         _shape("gemm scale", scale, (a.shape[1],))
     _gemm(_lib(), code, a, scale, w, resid, c, _EPIS[epi], eps, _stream(a),
-          "gemm", plan)
+          "gemm", plan, count=False)
     return c
 
 

@@ -3,20 +3,26 @@ fit of their cost model, and the f32 sublayers, GEMMs and retrieve of any
 checkout of this repository.
 
     python3 gdr_tpu_torch/kernels/f32_bench.py sweep [--out FILE.json]
-                                             [--rows 32,320,992,3200]
+                                             [--rows 1,8,31,32,64,100,128]
                                              [--near 1.5]
     python3 gdr_tpu_torch/kernels/f32_bench.py compare [--root DIR]
                                              [--out FILE.json]
 
 ``sweep``: for each of the four (N, K) products of a t5-base decoder layer
 at each row count, every f32 tile with the splits that keep the units
-within eight waves of the SMs runs the epilogue the main path gives the
+within eight waves of the SMs and, up to 128 rows, every plan of the
+small-row kernel (strips of 48 or 64 columns, clusters of 1-8 blocks,
+rings of 2, 4 or 8 stages) runs the epilogue the main path gives the
 product, held to the plain version (atol 1e-4 + rtol 1e-5).  Prints, per
-shape, the cost model's plan and its time, the fastest plans and f32
-``torch.matmul`` (TF32 off); then the constants of ``plan_time_f32``
-(``csrc/decode_sublayers.cu``) fitted (scipy's Nelder-Mead on the log of
-the times) to every plan within ``--near`` of its shape's best, and how
-the fitted model's picks compare with the best.
+shape, the cost model's plan and its time, the fastest plans of each
+kernel, f32 ``torch.matmul`` (TF32 off) and the bound (W and A read once,
+C written once, at 3.35 TB/s; the FMAs at 67 TFLOP/s); then the constants
+of ``plan_time_f32`` fitted (scipy's Nelder-Mead on the log of the times)
+to the tile ring's plans above 128 rows and those of ``plan_time_rows``
+to the small-row kernel's (``csrc/decode_sublayers.cu``; the library
+itself evaluates that model, through ``gdr_gemm_rows_time``), each over
+the plans within ``--near`` of their shape's best, and how the fitted
+models' picks compare with the best.
 
 ``compare`` imports ``gdr_tpu_torch`` and ``chip_smoke`` from ``--root``
 (default: this checkout), so that one script times two commits alike.  It
@@ -25,14 +31,16 @@ f32 sublayers at the main path's row counts (32, 992 and 3,200 rows at
 positions 0, 1 and 3 of a 4-position cache, 40 encoder positions) and per
 retrieve (6·t32 + 6·t992 + 12·t3200), and at query generation's shape
 (320 rows, one beam each over 64 encoder positions, position 39 of 40);
-the f32 GEMM alone at its four shapes and 32 / 320 / 992 / 3,200 rows;
+the f32 GEMM alone at its four shapes and 1 / 31 / 32 / 100 / 320 / 992 /
+3,200 rows;
 and one f32 retrieve as ``cli retrieve --packed`` serves it (t5-base in
 f32, seeded weights, the 334,314-doc unit store packed in f32, 32 queries
 × 40 tokens, beam 100, top-R 100): launches, then 3 timed calls after a
 warm one, and the peak.
 
-Device time of a kernel call: the call captured in a CUDA graph, the graph
-replayed between CUDA events, as ``chip_smoke.py`` phase 2 times it.
+Device time of a kernel call: 20 calls captured in one CUDA graph, the
+graph replayed between CUDA events (one call a graph, as ``chip_smoke.py``
+phase 2 times it, is paced by the host's graph launches below ~10 us).
 """
 
 from __future__ import annotations
@@ -50,20 +58,32 @@ SHAPES = ((3 * D, D, "round"), (D, D, "residual"), (DFF, D, "relu"),
 TILES = ((128, 128), (128, 64), (64, 128), (32, 128))   # kF32Tiles
 SPLITS = (1, 2, 3, 4, 6, 8, 11, 16, 24, 32)
 BK, LD, STAGES, REGS, FMA_PEAK = 16, 20, 4, 170, 67e12 / 2 / 132
+# the small-row kernel (M <= 128): strips, clusters and rings the sweep
+# runs (the chooser takes 4 stages)
+ROWS_BN, ROWS_CLUSTERS, ROWS_STAGES = (48, 64), (1, 2, 3, 4, 6, 8), (2, 4, 8)
+ROWS_MAX_M = 128
 # main path: width -> (position, weight per retrieve); 4-position cache
 WIDTHS = {1: (0, 6), 31: (1, 6), 100: (3, 12)}
 
 
-def time_ms(fn, n: int = 10) -> float:
+CALLS = 20          # calls of one timed graph
+
+
+def time_ms(fn, n: int = 10, calls: int = CALLS) -> float:
+    """Device ms of one call: ``fn(0)`` ... ``fn(calls - 1)`` captured in one
+    CUDA graph, back to back as the replayed decode runs its kernels, the
+    graph replayed ``n`` times between CUDA events.  A GEMM's call i reads
+    weight copy i, so that W comes from HBM as the decode's layers do."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        fn(0)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for i in range(calls):
+            fn(i)
     graph.replay()
     torch.cuda.synchronize()
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -72,7 +92,7 @@ def time_ms(fn, n: int = 10) -> float:
         graph.replay()
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
+    return t0.elapsed_time(t1) / (n * calls)
 
 
 def _rand(dev, seed: int):
@@ -86,6 +106,21 @@ def _rand(dev, seed: int):
 
 # ------------------------------------------------------------------ sweep
 
+def rows_plans(m: int, n: int, k: int, sms: int):
+    """(bn, cluster, stages) of every small-row plan the sweep runs at M, N,
+    K: those the kernel takes."""
+    return [(bn, cl, st) for bn in ROWS_BN for cl in ROWS_CLUSTERS
+            for st in ROWS_STAGES
+            if rows_ms(bn, cl, st, m, n, k, sms) is not None]
+
+
+def bound_ms(m: int, n: int, k: int) -> float:
+    """The least time of the product: W and A read once, C written once
+    (and the residual read) at 3.35 TB/s, or its FMAs at 67 TFLOP/s."""
+    return 1e3 * max(4.0 * (m * k + n * k + 2 * m * n) / 3.35e12,
+                     2.0 * m * n * k / 67e12)
+
+
 def sweep(rows, dev) -> list[dict]:
     import torch
 
@@ -97,34 +132,52 @@ def sweep(rows, dev) -> list[dict]:
     for m in rows:
         for n, k, epi in SHAPES:
             a, w = rn(m, k), rn(n, k, std=k ** -0.5)
+            ws = [w] + [w.clone() for _ in range(CALLS - 1)]
             kw = (dict(resid=rn(m, n)) if epi == "residual"
                   else dict(scale=1 + rn(k, std=0.1)))
             want = kd.gemm_plain(a, w, epi, **kw)
+
+            def timed(plan):
+                got = kd.gemm(a, w, epi, plan=plan, **kw)
+                torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+                return time_ms(lambda i: kd.gemm(a, ws[i], epi, plan=plan,
+                                                 **kw))
             plans = []
             for bm, bn in TILES:
                 tiles = -(-m // bm) * -(-n // bn)
                 for sp in SPLITS:
                     if sp > -(-k // BK) or (sp > 1 and tiles * sp > 8 * sms):
                         continue
-                    plan = kd.GemmPlan(bm // 32, bn, STAGES, sp, tiles * sp,
-                                       tiles * sp, True)
-                    got = kd.gemm(a, w, epi, plan=plan, **kw)
-                    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
-                    plans.append((time_ms(lambda: kd.gemm(
-                        a, w, epi, plan=plan, **kw)), bm, bn, sp))
+                    plans.append((timed(kd.GemmPlan(
+                        bm // 32, bn, STAGES, sp, tiles * sp, tiles * sp,
+                        True)), bm, bn, sp))
             plans.sort()
+            rplans = []
+            if m <= ROWS_MAX_M:
+                for bn, cl, st in rows_plans(m, n, k, sms):
+                    rplans.append((timed(kd.rows_plan(m, n, bn, cl, st)),
+                                   bn, cl, st))
+                rplans.sort()
             model = kd.gemm_plan(m, n, k, dev, torch.float32)
-            row = dict(m=m, n=n, k=k, epi=epi, plans=plans,
-                       model_plan=[model.rows, model.bn, model.splits],
-                       model_ms=time_ms(lambda: kd.gemm(a, w, epi, **kw)),
-                       matmul_ms=time_ms(lambda: a @ w.t()))
+            row = dict(m=m, n=n, k=k, epi=epi, plans=plans, rows_plans=rplans,
+                       model_plan=[model.rows, model.bn, model.splits,
+                                   model.stages, model.rows_kernel],
+                       model_ms=time_ms(lambda i: kd.gemm(a, ws[i], epi,
+                                                          **kw)),
+                       matmul_ms=time_ms(lambda i: a @ ws[i].t()),
+                       bound_ms=bound_ms(m, n, k))
             out.append(row)
-            print(f"M={m:5d} N={n:5d} K={k:5d}: model "
-                  f"{model.rows}x{model.bn} s{model.splits} "
-                  f"{row['model_ms']:.4f} ms; best "
+            kind = "rows" if model.rows_kernel else "ring"
+            print(f"M={m:5d} N={n:5d} K={k:5d}: model {kind} "
+                  f"{model.rows}x{model.bn} s{model.splits} st{model.stages} "
+                  f"{row['model_ms']:.4f} ms; ring best "
                   + ", ".join(f"{bm}x{bn} s{sp} {t:.4f}"
-                              for t, bm, bn, sp in plans[:3])
-                  + f"; torch.matmul {row['matmul_ms']:.4f} ms", flush=True)
+                              for t, bm, bn, sp in plans[:2])
+                  + ("; rows best " + ", ".join(
+                      f"bn{bn} c{cl} st{st} {t:.4f}"
+                      for t, bn, cl, st in rplans[:3]) if rplans else "")
+                  + f"; torch.matmul {row['matmul_ms']:.4f} ms; bound "
+                  f"{row['bound_ms']:.4f} ms", flush=True)
     return out
 
 
@@ -150,9 +203,77 @@ def model_ms(p, bm, bn, sp, m, n, k, sms=132) -> float:
     return 1e3 * (t + (sp * part if sp > 1 else 0))
 
 
-def fit(rows: list[dict], near: float) -> None:
+ROWS_FIT = ("fma_per_sm", "latency", "w_per_block", "a_per_block",
+            "part_per_sm")                      # RowsModel's fields
+ROWS_START = (0.45, 4e-6, 20e9, 60e9, 100e9)
+
+
+def rows_ms(bn: int, cl: int, st: int, m: int, n: int, k: int, sms: int,
+            model=None) -> float | None:
+    """The small-row kernel's modelled ms of a plan (``gdr_gemm_rows_time``,
+    the chooser's own model) with ``model`` = RowsModel's five constants
+    (the FMA rate as a share of the SM's; None: the fitted ones); None
+    where the kernel does not run the plan."""
+    import ctypes
+
+    from gdr_tpu_torch.kernels import decode as kd
+
+    arr = None
+    if model is not None:
+        arr = (ctypes.c_double * 5)(model[0] * FMA_PEAK, *model[1:])
+    out = ctypes.c_double()
+    err = kd._lib().gdr_gemm_rows_time(m, n, k, bn, cl, st, sms, arr,
+                                       ctypes.byref(out))
+    return None if err else 1e3 * out.value
+
+
+def fit_rows(rows: list[dict], near: float, sms: int) -> None:
+    """The small-row model's constants fitted to its plans."""
     from scipy.optimize import minimize
 
+    data = [(bn, cl, st, r["m"], r["n"], r["k"], t)
+            for r in rows if r["rows_plans"]
+            for t, bn, cl, st in r["rows_plans"]
+            if t <= near * r["rows_plans"][0][0]]
+    if not data:
+        return
+
+    def loss(p):
+        c = [math.exp(x) for x in p]
+        return sum((math.log(rows_ms(*d[:6], sms, c)) - math.log(d[6])) ** 2
+                   for d in data)
+    p = [math.log(x) for x in ROWS_START]
+    for _ in range(3):
+        p = minimize(loss, p, method="Nelder-Mead",
+                     options=dict(maxiter=40000, maxfev=40000)).x
+    c = [math.exp(x) for x in p]
+    print("fitted: " + ", ".join(
+        f"{name} = {v:.3g}" for name, v in zip(ROWS_FIT, c))
+        + f" (fma_per_sm as a share of 67e12 / 2 / 132; loss {loss(p):.3f} "
+        f"over {len(data)} plans)")
+    picks = best = 0.0
+    for r in rows:
+        if not r["rows_plans"]:
+            continue
+        shape = (r["m"], r["n"], r["k"], sms, c)
+        t, bn, cl, st = min(r["rows_plans"],
+                            key=lambda x: rows_ms(*x[1:], *shape))
+        picks += t
+        best += r["rows_plans"][0][0]
+        print(f"  M={r['m']:5d} N={r['n']:5d} K={r['k']:5d}: fitted pick "
+              f"bn{bn} c{cl} st{st} {t:.4f} ms (model "
+              f"{rows_ms(bn, cl, st, *shape):.4f}), best "
+              f"{r['rows_plans'][0][0]:.4f}, ring best {r['plans'][0][0]:.4f}")
+    print(f"  sum of the fitted picks {picks:.4f} ms, of the best {best:.4f}")
+
+
+def fit(rows: list[dict], near: float) -> None:
+    """The tile ring's constants fitted to its plans above 128 rows."""
+    from scipy.optimize import minimize
+
+    rows = [r for r in rows if r["m"] > ROWS_MAX_M]
+    if not rows:
+        return
     data = [(bm, bn, sp, r["m"], r["n"], r["k"], t) for r in rows
             for t, bm, bn, sp in r["plans"] if t <= near * r["plans"][0][0]]
 
@@ -195,11 +316,12 @@ def sublayers(dev, r: int, beams: int, pos: int, lmax: int, enc: int,
     xk, xv, xb = rn(b, H, enc, DKV), rn(b, H, enc, DKV), rn(b, H, enc, std=0.5)
     wi, wo2 = rn(DFF, D, std=0.02), rn(D, DFF, std=0.02)
     return {
-        "self_attn_sublayer": time_ms(lambda: kd.self_attn_sublayer(
+        "self_attn_sublayer": time_ms(lambda i: kd.self_attn_sublayer(
             x, pos, scale, wqkv, wo, bias_row, ck, cv, heads=H, d_kv=DKV)),
-        "cross_attn_sublayer": time_ms(lambda: kd.cross_attn_sublayer(
+        "cross_attn_sublayer": time_ms(lambda i: kd.cross_attn_sublayer(
             x, scale, wcq, wco, xk, xv, xb, beams, heads=H, d_kv=DKV)),
-        "ffn_sublayer": time_ms(lambda: kd.ffn_sublayer(x, scale, wi, wo2)),
+        "ffn_sublayer": time_ms(lambda i: kd.ffn_sublayer(x, scale, wi,
+                                                           wo2)),
     }
 
 
@@ -266,13 +388,14 @@ def compare(root: Path, dev) -> dict:
             for w, (_, wt) in WIDTHS.items())
     out["sublayers"]["qg R=320"] = sublayers(dev, 320, 1, 39, 40, 64, seed=5)
     rn = _rand(dev, 9)
-    for m in (32, 320, 992, 3200):
+    for m in (1, 31, 32, 100, 320, 992, 3200):
         for n, k, epi in SHAPES:
             a, wt = rn(m, k), rn(n, k, std=k ** -0.5)
+            wts = [wt] + [wt.clone() for _ in range(CALLS - 1)]
             kw = (dict(resid=rn(m, n)) if epi == "residual"
                   else dict(scale=1 + rn(k, std=0.1)))
             out["gemm"][f"M={m} N={n} K={k}"] = time_ms(
-                lambda: kd.gemm(a, wt, epi, **kw))
+                lambda i: kd.gemm(a, wts[i], epi, **kw))
     out["retrieve"] = retrieve(dev, smoke)
     return out
 
@@ -281,7 +404,7 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=("sweep", "compare"))
     ap.add_argument("--out", default=None)
-    ap.add_argument("--rows", default="32,320,992,3200")
+    ap.add_argument("--rows", default="1,8,31,32,64,100,128")
     ap.add_argument("--near", type=float, default=1.5)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     args = ap.parse_args(argv)
@@ -297,6 +420,8 @@ def main(argv: list[str]) -> int:
     if args.mode == "sweep":
         out = sweep([int(x) for x in args.rows.split(",")], dev)
         fit(out, args.near)
+        fit_rows(out, args.near,
+                 torch.cuda.get_device_properties(dev).multi_processor_count)
     else:
         out = compare(root, dev)
         print(json.dumps(out), flush=True)

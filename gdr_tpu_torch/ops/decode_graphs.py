@@ -32,8 +32,9 @@ and its host syncs are the eager search's.
   ids that a capture may not make); the second captures and replays.  At
   most :data:`CHAINS` keys are held, the least recent dropped first.
 - **Counts.**  A replay calls no kernel wrapper, so the launches the
-  wrappers counted while a piece was captured are taken back and added at
-  each replay (``kernels.add_launches``); ``utils/timing.py::GRAPHS``
+  wrappers counted while a piece was captured (the GEMM's by kernel too)
+  are taken back and added at each replay (``kernels.add_launches``);
+  ``utils/timing.py::GRAPHS``
   counts the pieces captured and replayed and the eager CUDA decodes.
 - **Outputs.**  What a piece leaves lives in the pool and is overwritten
   by the next replay: ``beam._finalize`` copies the beams out, and the
@@ -80,7 +81,7 @@ class _Chain:
         try:
             while result is None:
                 graph = torch.cuda.CUDAGraph()
-                before = kernels.launch_counts()
+                before = kernels.launch_counts(gemm_paths=True)
                 try:
                     with torch.cuda.stream(stream):
                         graph.capture_begin(pool=pool)
@@ -92,7 +93,7 @@ class _Chain:
                         finally:
                             graph.capture_end()
                 finally:               # a capture launches nothing
-                    after = kernels.launch_counts()
+                    after = kernels.launch_counts(gemm_paths=True)
                     launched = {k: n - before[k] for k, n in after.items()
                                 if n != before[k]}
                     kernels.add_launches({k: -n for k, n in launched.items()})

@@ -23,7 +23,14 @@ on a small f32 model.  The GEMM runs each dtype's cost-model plans and
 forced ones: split-K with split counts that divide no k-tile count (f32:
 every tile height, up to 32 splits, at 1 to 3,200 rows), and in bf16
 fewer persistent blocks than work units; split results are bit-equal on
-every call and graph replay.  The f32 cross-attention cores run at one
+every call and graph replay.  The f32 small-row kernel runs at 1-128 rows
+(every row tiling) of the four t5-base products under the chooser's plan
+and forced ones (a ring that wraps, clusters of 1, 3 and 8 blocks), bit-
+equal on every call and replay without workspace or counters; the chooser
+takes it at 1 / 31 / 32 / 100 rows and the tile ring at 992 / 3,200, at
+the least time of the model that the sweep fits (gdr_gemm_rows_time); it
+refuses plans past 128 rows; its name passes the decoder roofline's
+filter.  The f32 cross-attention cores run at one
 beam a query (streamed) and 100 (staged), over 1 to the shared-memory
 limit of keys.  Tolerances: f32
 atol 1e-4 + rtol 1e-5 (f32 sums in another order); bf16 atol 2e-2 + rtol
@@ -329,6 +336,164 @@ def test_gemm_refuses_plans_it_does_not_serve(dev):
             kd.gemm(a32, w32, "residual", resid=r32, plan=plan)
     with pytest.raises(ValueError, match="bf16 plan"):
         kd.gemm(a32, w32, "residual", resid=r32, plan=kd.GemmPlan(1, 64, 6, 1, 0, 1))
+
+
+# the four f32 products of a t5-base decoder layer: QKV; self-O, cross-Q
+# and cross-O; wi; wo
+T5_GEMMS = {"qkv": (2304, 768), "o": (768, 768), "wi": (3072, 768),
+            "wo": (768, 3072)}
+
+
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 31, 32, 33, 64, 100, 127, 128])
+@pytest.mark.parametrize("which", list(T5_GEMMS))
+def test_gemm_f32_rows_matches_plain(dev, m, which):
+    # the small-row kernel at every row tiling (mt 8 / 32 / 40 / 64 / 112 /
+    # 128, rows past M as TMA zeros), the chooser's plan and forced ones: a
+    # ring that wraps (2 stages), the widest cluster (8 blocks of 3 or 12
+    # k-tiles), one block down all of K; strips of 48 and 64 columns (the
+    # ragged strip past N: test_gemm_f32_split_plans_match_plain, N = 200)
+    n, k = T5_GEMMS[which]
+    rn = _rand(dev, 3 * m + n + k)
+    a, w = rn(m, k), rn(n, k, std=k ** -0.5)
+    scale, resid = 1 + rn(k, std=0.1), rn(m, n)
+    plans = [None, kd.rows_plan(m, n, 64, 3, 2), kd.rows_plan(m, n, 48, 8, 8),
+             kd.rows_plan(m, n, 48, 1, 4)]
+    for plan in plans:
+        for epi, kw in (("round", dict(scale=scale)), ("relu", dict(scale=scale)),
+                        ("residual", dict(resid=resid))):
+            got = kd.gemm(a, w, epi, plan=plan, **kw)
+            _close(got, kd.gemm_plain(a, w, epi, **kw), torch.float32)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("m", [1, 31, 100])
+@pytest.mark.parametrize("which", ["wi", "wo"])
+def test_gemm_f32_rows_is_deterministic_without_workspace(dev, monkeypatch, m,
+                                                           which):
+    # the cluster's partials are summed rank by rank in shared memory: two
+    # calls and replays of a CUDA graph of the call are bit-equal, and no
+    # workspace or arrival counter is asked for
+    monkeypatch.setattr(kd, "_counters", lambda device: pytest.fail(
+        "the small-row kernel touched the split-K counters"))
+    n, k = T5_GEMMS[which]
+    rn = _rand(dev, m + n)
+    a, w, resid = rn(m, k), rn(n, k, std=k ** -0.5), rn(m, n)
+    for plan in (kd.gemm_plan(m, n, k, dev, torch.float32),
+                 kd.rows_plan(m, n, 48, 8, 2)):
+        assert plan.rows_kernel and plan.workspace(m, n) == 0, plan
+        first = kd.gemm(a, w, "residual", resid=resid, plan=plan)
+        assert torch.equal(kd.gemm(a, w, "residual", resid=resid, plan=plan),
+                           first)
+        out = {}
+
+        def call():
+            out["c"] = kd.gemm(a, w, "residual", resid=resid, plan=plan)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            call()
+        for _ in range(3):
+            out["c"].fill_(0)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out["c"], first)
+
+
+def test_f32_chooser_takes_the_rows_kernel_up_to_128_rows(dev):
+    # one query a retrieve decodes 1, 31 and 100 rows, step 0 of a batch of
+    # 32 queries 32: the small-row kernel; 992 and 3,200 rows stay on the
+    # tile ring
+    for n, k in T5_GEMMS.values():
+        for m in (1, 31, 32, 100):
+            plan = kd.gemm_plan(m, n, k, dev, torch.float32)
+            assert plan.rows_kernel and plan.rows == kd.rows_pad(m), (m, n, k, plan)
+        for m in (992, 3200):
+            plan = kd.gemm_plan(m, n, k, dev, torch.float32)
+            assert not plan.rows_kernel and plan.rows in (32, 64, 128), (m, n, k, plan)
+        assert not kd.gemm_plan(1, n, k, dev, torch.bfloat16).rows_kernel
+
+
+@pytest.mark.parametrize("m", [1, 8, 31, 64, 100, 128])
+def test_f32_chooser_picks_the_least_time_of_the_model_the_sweep_fits(dev, m):
+    # kernels/f32_bench.py sweep fits the small-row model through
+    # gdr_gemm_rows_time, the library's own: the chooser's plan is that
+    # model's least time over its strips and clusters at 4 stages, and the
+    # plans the kernel refuses have no time
+    from gdr_tpu_torch.kernels import f32_bench as fb
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, k in T5_GEMMS.values():
+        plan = kd.gemm_plan(m, n, k, dev, torch.float32)
+        assert plan.stages == 4, plan
+        times = {(bn, cl): fb.rows_ms(bn, cl, 4, m, n, k, sms)
+                 for bn in fb.ROWS_BN for cl in fb.ROWS_CLUSTERS}
+        least = min(t for t in times.values() if t is not None)
+        assert times[(plan.bn, plan.splits)] == least, (m, n, k, plan, times)
+        assert fb.rows_ms(64, 9, 4, m, n, k, sms) is None      # clusters of 8 at most
+        assert fb.rows_ms(32, 1, 4, m, n, k, sms) is None      # no such strip
+    assert fb.rows_ms(64, 1, 4, 129, 768, 768, sms) is None    # 128 rows at most
+    fitted = fb.rows_ms(64, 3, 4, m, 2304, 768, sms)
+    assert fb.rows_ms(64, 3, 4, m, 2304, 768, sms,
+                      (0.473, 3.72e-6, 15.6e9, 16.8e9, 140e9)) == pytest.approx(fitted)
+
+
+def test_gemm_rows_kernel_refuses_what_it_does_not_serve(dev):
+    rn = _rand(dev, 13)
+    n, k = 256, 256
+    w = rn(n, k, std=k ** -0.5)
+    a129, r129 = rn(129, k), rn(129, n)
+    forced = kd.rows_plan(128, n)._replace(wg=17)      # 136 rows: a tile past 128
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kd.gemm(a129, w, "residual", resid=r129, plan=forced)
+    a, resid = rn(31, k), rn(31, n)
+    for plan in (kd.rows_plan(31, n)._replace(wg=3),      # 24 rows < M
+                 kd.rows_plan(100, n)._replace(wg=13),    # 104: not a 16-row tiling
+                 kd.rows_plan(31, n, bn=32),              # no such strip
+                 kd.rows_plan(31, n, splits=9),           # clusters of 8 at most
+                 kd.rows_plan(31, n, stages=9),           # 8 stages at most
+                 kd.rows_plan(31, n, splits=0)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kd.gemm(a, w, "residual", resid=resid, plan=plan)
+    k_small = 64                                         # 2 k-tiles: 3 splits refused
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kd.gemm(a[:, :k_small].contiguous(), w[:, :k_small].contiguous(), "residual",
+                resid=resid, plan=kd.rows_plan(31, n, splits=3))
+    with pytest.raises(ValueError, match="f32 plan"):
+        kd.gemm(a.bfloat16(), w.bfloat16(), "residual", resid=resid.bfloat16(),
+                plan=kd.rows_plan(31, n))
+
+
+def test_rows_kernel_is_counted_by_the_decoder_roofline(dev):
+    # decoder_roofline.serve sums the device time of the sublayer kernels by
+    # name (gdrbench/metrics, read as the benchmark reads it): the small-row
+    # kernel's name has to pass its filter, or the metric's denominator loses
+    # the GEMM
+    import importlib.util
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    path = (Path(__file__).resolve().parents[1] / "gdrbench" / "metrics"
+            / "decoder_roofline.serve.py")
+    spec = importlib.util.spec_from_file_location("decoder_roofline", path)
+    roof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(roof)
+    rn = _rand(dev, 14)
+    n, k = T5_GEMMS["o"]
+    a, w, resid = rn(31, k), rn(n, k, std=k ** -0.5), rn(31, n)
+    kd.gemm(a, w, "residual", resid=resid)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kd.gemm(a, w, "residual", resid=resid)
+        torch.cuda.synchronize()
+    names = {e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA}
+    rows = [nm for nm in names if "gemm_f32_ring_rows" in nm]
+    assert rows and all(roof.is_decoder_kernel(nm) for nm in rows), names
 
 
 HEADS_W, DKV_W = 2, 64           # the main path's head width

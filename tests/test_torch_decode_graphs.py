@@ -368,6 +368,52 @@ def test_default_launch_counts_keep_their_keys():
                                          graphs=True).values())
 
 
+def test_gemm_paths_are_read_only_under_their_flag():
+    # the f32 GEMM's launches by kernel stay out of the default counts (the
+    # serve drivers' set-up compares that dict exactly); replays add to them
+    # as they add launches, and the reset clears them
+    kernels.reset_launch_counts()
+    paths = {"gemm_f32_rows", "gemm_f32_ring"}
+    assert not paths & set(kernels.launch_counts(host_syncs=True, graphs=True,
+                                                 experts=True))
+    got = kernels.launch_counts(gemm_paths=True)
+    assert set(got) == set(kernels.launch_counts()) | paths
+    assert not any(got.values())
+    kernels.add_launches({"gemm_f32_rows": 144, "ffn_sublayer": 24})
+    got = kernels.launch_counts(gemm_paths=True)
+    assert got["gemm_f32_rows"] == 144 and got["gemm_f32_ring"] == 0
+    assert got["ffn_sublayer"] == 24
+    assert "gemm_f32_rows" not in kernels.launch_counts()
+    kernels.reset_launch_counts()
+    assert not any(kernels.launch_counts(gemm_paths=True).values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 32])
+def test_replays_count_the_gemm_paths_of_the_eager_decode(dev, batch):
+    # a replayed piece adds the f32 GEMM launches its capture counted, by
+    # kernel: a replayed retrieve counts what the eager one counts
+    model = _world(torch.float32, dev)
+    trie = build_trie(_cid_map(3), SMALL["kary"])
+    cfg = EvalConfig(num_beams=BEAMS, num_return_sequences=20,
+                     max_output_length=SMALL["max_output_length"])
+    ev = Evaluator(model, trie, _store(trie), cfg, packed=True)
+    ids, mask = _queries(batch, 1)
+    kernels.reset_launch_counts()
+    Evaluator(model, trie, _store(trie), cfg, packed=True).retrieve(ids, mask)
+    eager = kernels.launch_counts(gemm_paths=True)
+    for _ in range(3):                  # eager, capture, replay
+        kernels.reset_launch_counts()
+        ev.retrieve(ids, mask)
+    replayed = kernels.launch_counts(gemm_paths=True, graphs=True)
+    assert replayed["graph_replays"] == 3
+    gemms = 6 * replayed["self_attn_sublayer"]     # 2 a sublayer
+    assert eager["gemm_f32_rows"] + eager["gemm_f32_ring"] == 2 * (
+        eager["self_attn_sublayer"] + eager["cross_attn_sublayer"]
+        + eager["ffn_sublayer"]) == gemms
+    assert {k: replayed[k] for k in eager} == eager
+
+
 @pytest.mark.parametrize("bidirectional", [False, True])
 @pytest.mark.parametrize("qlen, klen, offset", [(1, 5, 0), (1, 5, 4),
                                                 (1, 40, 3), (12, 12, 0),

@@ -254,3 +254,24 @@ def test_gemm_plain_is_the_sublayers_gemm_step():
                        kd.ffn_sublayer(x, scale, wi, wo))
     with pytest.raises(ValueError, match="resid for residual"):
         kd.gemm(x, wi, "residual", scale=scale)
+
+
+@pytest.mark.parametrize("m, mt", [(1, 8), (8, 8), (9, 16), (31, 32),
+                                   (32, 32), (33, 40), (64, 64), (65, 80),
+                                   (100, 112), (128, 128)])
+def test_gemm_plan_encodes_the_rows_kernel(m, mt):
+    # the small-row kernel's plan: one tile of all M rows padded to 8 (to 16
+    # past 64 rows), strips split over a cluster's blocks, one block a unit,
+    # and no split-K workspace at any split count
+    assert kd.rows_pad(m) == mt
+    for bn, splits, stages in ((64, 1, 4), (48, 8, 2), (48, 3, 8)):
+        plan = kd.rows_plan(m, 3072, bn, splits, stages)
+        assert plan.rows_kernel and plan.f32
+        assert plan.rows == mt and plan.wg == mt // 8
+        assert (plan.bn, plan.splits, plan.stages) == (bn, splits, stages)
+        assert plan.units == plan.blocks == -(-3072 // bn) * splits
+        assert plan.workspace(m, 3072) == 0
+    # the tile ring's split plans keep their workspace
+    ring = kd.GemmPlan(1, 128, 4, 5, 0, 0, True)
+    assert not ring.rows_kernel and ring.rows == 32
+    assert ring.workspace(m, 3072) == -(-m // 32) * 24 * 5 * 32 * 128

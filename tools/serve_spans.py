@@ -2,7 +2,8 @@
 """One traced run of a serving cell of the benchmark, read through the
 program's spans (``gdrbench/spans.py``): device time, host time and idle
 gaps by ``gdr.`` span, the host syncs, CUDA graph pieces replayed and
-captured and eager decodes per retrieve, the share of the device time
+captured, eager decodes and f32 GEMM launches by kernel (and the f32
+GEMMs' device time) per retrieve, the share of the device time
 inside ``gdr.retrieve`` that encode, decoder forward, beam selection and
 re-rank cover, or where the decode replays CUDA graphs the device and
 host time of ``gdr.decode.replay`` (the stage spans inside the graphs are
@@ -116,7 +117,8 @@ def _traced(record: dict, repeats: int, device):
         kernels.reset_launch_counts()
         prof, dt = profiled(fn)
         record["counts"] = kernels.launch_counts(host_syncs=True,
-                                                 graphs=True)
+                                                 graphs=True,
+                                                 gemm_paths=True)
         evs = spans.events(prof)
         record["spans"] = spans.attribute(evs)
         record["stretch_s"] = dt
@@ -173,7 +175,8 @@ def main(argv=None) -> int:
                / k,
                **{f"{n}_per_retrieve": counts[n] / k
                   for n in ("graph_replays", "graph_captures",
-                            "eager_decodes")})
+                            "eager_decodes", "gemm_f32_rows",
+                            "gemm_f32_ring")})
     out = {
         "workload": args.workload, "seed": args.seed,
         "device": result["device"], "correct": result["correct"],
@@ -183,6 +186,8 @@ def main(argv=None) -> int:
         "stages_share_of_retrieve": staged / inside if inside else None,
         "stages_not_recorded": [n for n in STAGES.values() if n not in host],
         "decoder_kernels_ms": 1e3 * tr.device_time(roof.is_decoder_kernel)
+        / k,
+        "gemm_f32_ms": 1e3 * tr.device_time(lambda n: "gemm_f32_ring" in n)
         / k,
         "launches": {n: c / k for n, c in record["counts"].items() if c},
         "window_s": tr.window_s, "busy_s": tr.busy_s,
