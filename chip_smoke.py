@@ -654,7 +654,7 @@ def experts_vs_plain(rn) -> dict:
                      seq_len=seq, counts=c, logits=z)
             torch.cuda.synchronize()
             got[side] = (out, z, c, routing(),
-                         KE.LAUNCHES["expert_sublayer"])
+                         kernels.launch_counts()["expert_sublayer"])
         (out_k, z_k, c_k, st_k, n_k), (out_p, z_p, c_p, st_p, n_p) = \
             got["kernel"], got["plain"]
         tag = f"expert_sublayer R={r} seq {seq}"
@@ -1157,6 +1157,7 @@ def small_switch(dev, sw_cfg, trie, store, ids, mask, ev_cfg) -> dict:
 
     from gdr_tpu_torch import kernels
     from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.utils import timing
 
     cpu_m, gpu_m = _small_models(sw_cfg, dev)
     ev_c = Evaluator(cpu_m, trie, store, ev_cfg, packed=True)
@@ -1168,8 +1169,7 @@ def small_switch(dev, sw_cfg, trie, store, ids, mask, ev_cfg) -> dict:
         kernels.reset_launch_counts()
         res_g, rr_g = ev_g.retrieve(ids, mask)
         torch.cuda.synchronize()
-        got = kernels.launch_counts(experts=True, graphs=True,
-                                    host_syncs=True)
+        got = {**timing.counts(), **kernels.launch_counts(experts=True)}
         n_valid, n_docs, err = _same_retrieve(f"switch {turn}", res_c, rr_c,
                                               res_g, rr_g)
         replays = 3 if turn == "replayed" else 0
@@ -1256,13 +1256,36 @@ def _check_retrieve(name, res, rr, n_beams: int, top_r: int,
         raise Failed(f"{name}: non-finite fused scores")
 
 
+def _f32_gemm_launches(fn) -> dict[str, int]:
+    """The sublayers' f32 GEMM launches by kernel name while ``fn`` runs
+    (``gemm_f32_ring_rows``, the small-row kernel; ``gemm_f32_ring``, the
+    tile ring), from a torch.profiler trace, which sees the kernels that
+    replayed CUDA graphs launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"gemm_f32_ring_rows": 0, "gemm_f32_ring": 0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in out:
+                if f"gdr::{name}<" in e.key:
+                    out[name] += e.count
+    return out
+
+
 def _counted_retrieve(name, ev, ids, mask, launches: dict, n_beams: int,
-                      top_r: int, gemm_paths: dict | None = None):
+                      top_r: int, gemm_kernels: dict | None = None):
     """One retrieve with the launch counts set to 0 just before it: fails
     unless every kernel launched as often as ``launches`` says (0 for the
-    others), the sublayers' f32 GEMM launches by kernel are ``gemm_paths``
-    (where given; ``kernels.launch_counts(gemm_paths=True)``) and the result
-    passes ``_check_retrieve``.  Returns (BeamResult, RerankResult, the
+    others) and the result passes ``_check_retrieve``; where
+    ``gemm_kernels`` is given, one more retrieve under the profiler fails
+    unless its f32 GEMM launches by kernel name are those
+    (:func:`_f32_gemm_launches`).  Returns (BeamResult, RerankResult, the
     counts)."""
     import torch
 
@@ -1276,13 +1299,13 @@ def _counted_retrieve(name, ev, ids, mask, launches: dict, n_beams: int,
     log(f"  {name}: launches in one retrieve: {got}")
     if got != want:
         raise Failed(f"{name}: launch counts {got} != {want}")
-    if gemm_paths is not None:
-        paths = {k: v for k, v in kernels.launch_counts(gemm_paths=True).items()
-                 if k not in got}
-        log(f"  {name}: f32 GEMM launches by kernel in one retrieve: {paths}")
-        if paths != gemm_paths:
-            raise Failed(f"{name}: f32 GEMM launches by kernel {paths} != "
-                         f"{gemm_paths}")
+    if gemm_kernels is not None:
+        by_name = _f32_gemm_launches(lambda: ev.retrieve(ids, mask))
+        log(f"  {name}: f32 GEMM launches by kernel in one retrieve's trace: "
+            f"{by_name}")
+        if by_name != gemm_kernels:
+            raise Failed(f"{name}: f32 GEMM launches by kernel {by_name} != "
+                         f"{gemm_kernels}")
     _check_retrieve(name, res, rr, n_beams, top_r)
     return res, rr, got
 
@@ -1412,10 +1435,11 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
     _, _, launches = _counted_retrieve(
         name, ev, ids, mask,
         dict(dict.fromkeys(DECODER, 24), packed_scores=1), qbatch * beams,
-        beams, gemm_paths=dict(gemm_f32_rows=n_gemms, gemm_f32_ring=3 * n_gemms))
+        beams, gemm_kernels=dict(gemm_f32_ring_rows=n_gemms,
+                                 gemm_f32_ring=3 * n_gemms))
     out["launches_f32"] = {k: v for k, v in launches.items() if v}
-    out["gemm_paths_f32"] = dict(gemm_f32_rows=n_gemms,
-                                 gemm_f32_ring=3 * n_gemms)
+    out["gemm_kernels_f32"] = dict(gemm_f32_ring_rows=n_gemms,
+                                   gemm_f32_ring=3 * n_gemms)
     totals = _timed(lambda: ev.retrieve(ids, mask), 0, timed)
     total = sum(totals) / len(totals)
     lay = out["layouts"][name] = dict(
@@ -1437,9 +1461,9 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
     _counted_retrieve(
         name, ev, ids[:1], mask[:1],
         dict(dict.fromkeys(DECODER, 24), packed_scores=1), beams, beams,
-        gemm_paths=dict(gemm_f32_rows=4 * n_gemms, gemm_f32_ring=0))
-    out["gemm_paths_f32_one_query"] = dict(gemm_f32_rows=4 * n_gemms,
-                                           gemm_f32_ring=0)
+        gemm_kernels=dict(gemm_f32_ring_rows=4 * n_gemms, gemm_f32_ring=0))
+    out["gemm_kernels_f32_one_query"] = dict(
+        gemm_f32_ring_rows=4 * n_gemms, gemm_f32_ring=0)
     totals = _timed(lambda: ev.retrieve(ids[:1], mask[:1]), 1, timed)
     total = sum(totals) / len(totals)
     out["layouts"][name] = dict(
@@ -4738,9 +4762,9 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
             row.update(by_rows_f32_b1=st["rows_f32_b1"],
                        per_retrieve_f32_b1=st["per_retrieve_f32_b1"],
                        gemms_f32_b1=st["gemms_f32_b1"],
-                       gemm_paths_f32_retrieve=full["gemm_paths_f32"],
-                       gemm_paths_f32_one_query_retrieve=full[
-                           "gemm_paths_f32_one_query"])
+                       gemm_kernels_f32_retrieve=full["gemm_kernels_f32"],
+                       gemm_kernels_f32_one_query_retrieve=full[
+                           "gemm_kernels_f32_one_query"])
         if name in full["launches_f32"]:
             row["launches_f32_retrieve"] = full["launches_f32"][name]
         rows.append(row)

@@ -1,5 +1,5 @@
 """Decoder-sublayer kernels for the beam-decode loop, with their plain
-PyTorch versions and launch counters.
+PyTorch versions.
 
 Replaces the three Pallas kernels of ``gdr_tpu/ops/pallas/decode_kernel.py``:
 
@@ -18,7 +18,8 @@ Replaces the three Pallas kernels of ``gdr_tpu/ops/pallas/decode_kernel.py``:
 **The device decides.**  For a tensor on the CPU a wrapper runs the plain
 version; for a CUDA tensor it launches the kernels of
 ``csrc/decode_sublayers.cu`` or raises.  There is no switch and no
-fallback.  ``LAUNCHES`` counts the wrapper calls that launched kernels.
+fallback.  The wrappers count the calls that launched kernels
+(``WRAPPERS``, in ``utils/timing.py``'s registry).
 
 **Rounding points** are the TPU kernel's (``decode_kernel.py:105-119``,
 ``:151-154``, ``:193-212``, ``:306-326``, ``:389-393``): the RMSNorm output,
@@ -69,15 +70,13 @@ from typing import NamedTuple
 import torch
 
 from gdr_tpu_torch.kernels import build
+from gdr_tpu_torch.utils.timing import count, declare
 
 NEG_INF = -1.0e9
 REGISTER_L = 16     # cache positions the self-attention core keeps in registers
 
-LAUNCHES = {"self_attn_sublayer": 0, "cross_attn_sublayer": 0,
-            "ffn_sublayer": 0}
-# the sublayers' f32 GEMM launches by kernel: the small-row kernel (M <= 128)
-# and the tile ring (``kernels.launch_counts(gemm_paths=True)``)
-GEMM_PATHS = {"gemm_f32_rows": 0, "gemm_f32_ring": 0}
+WRAPPERS = declare("self_attn_sublayer", "cross_attn_sublayer",
+                   "ffn_sublayer")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
@@ -341,11 +340,10 @@ def _counters(device: torch.device) -> torch.Tensor:
 
 
 def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what,
-          plan: GemmPlan | None = None, count: bool = True):
+          plan: GemmPlan | None = None):
     """One launch of ``gdr_gemm``: RMSNorm (into a ``normed`` scratch) +
     round / ReLU, or residual.  It runs ``plan`` (the dtype's cost model's
-    by default) with its split workspace from the caching allocator, and
-    counts an f32 launch in :data:`GEMM_PATHS` by kernel."""
+    by default) with its split workspace from the caching allocator."""
     m, k = a.shape
     n = w.shape[0]
     norm = epi != EPI_RESIDUAL
@@ -372,9 +370,6 @@ def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what,
         plan.wg, plan.bn, plan.splits, plan.blocks, plan.stages,
         int(plan.rows_kernel), ptr(ws), ptr(counters), _SPLIT_TILES,
         stream), what)
-    if count and plan.f32:
-        GEMM_PATHS["gemm_f32_rows" if plan.rows_kernel
-                   else "gemm_f32_ring"] += 1
 
 
 def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6,
@@ -403,7 +398,7 @@ def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6,
     if scale is not None:
         _shape("gemm scale", scale, (a.shape[1],))
     _gemm(_lib(), code, a, scale, w, resid, c, _EPIS[epi], eps, _stream(a),
-          "gemm", plan, count=False)
+          "gemm", plan)
     return c
 
 
@@ -460,7 +455,7 @@ def self_attn_sublayer(x, pos: int, ln_scale, wqkv, wo, bias_row, ck, cv,
         "self_attn_sublayer core")
     _gemm(lib, code, attn, None, wo, x, out, EPI_RESIDUAL, eps, stream,
           "self_attn_sublayer wo")
-    LAUNCHES["self_attn_sublayer"] += 1
+    count("self_attn_sublayer")
     return out, ck, cv
 
 
@@ -506,7 +501,7 @@ def cross_attn_sublayer(x, ln_scale, wcq, wco, cross_k, cross_v, bias,
         "cross_attn_sublayer core")
     _gemm(lib, code, o, None, wco, x, out, EPI_RESIDUAL, eps, stream,
           "cross_attn_sublayer wo")
-    LAUNCHES["cross_attn_sublayer"] += 1
+    count("cross_attn_sublayer")
     return out
 
 
@@ -529,5 +524,5 @@ def ffn_sublayer(x, ln_scale, wi, wo, *, eps: float = 1e-6):
           "ffn_sublayer wi")
     _gemm(lib, code, h, None, wo, x, out, EPI_RESIDUAL, eps, stream,
           "ffn_sublayer wo")
-    LAUNCHES["ffn_sublayer"] += 1
+    count("ffn_sublayer")
     return out

@@ -1,5 +1,5 @@
 """The routed-expert sublayer of a Switch Transformer (top-1 routing, f32),
-its plain PyTorch version, launch counter and routing counters.
+its plain PyTorch version and its routing counters.
 
 :func:`expert_sublayer` computes, for rows x [R, d] that form R / seq_len
 sequences of ``seq_len`` tokens (the encoder: a query's tokens; a decode
@@ -23,13 +23,13 @@ the router and the grouping run on fixed grids, the two expert products on
 a persistent grid that walks the work list the grouping leaves in device
 memory.  Nothing is read back to the host, so a call captures as it runs.
 
-``LAUNCHES["expert_sublayer"]`` counts the calls that launched the kernels.
-The routing counters (``STATS``: calls, rows, experts hit, the most rows
-on one expert and the dropped tokens, each summed over calls) live on the
-device and are added to by the kernels themselves (by the plain version on
-the CPU), so graph replays count too; ``kernels.launch_counts(experts=
-True)`` reads them with one sync per device and ``reset_launch_counts()``
-zeroes them.
+The wrapper counts the calls that launched the kernels (``WRAPPERS``, in
+``utils/timing.py``'s registry).  The routing counters (``STATS``: calls,
+rows, experts hit, the most rows on one expert and the dropped tokens,
+each summed over calls) live on the device and are added to by the
+kernels themselves (by the plain version on the CPU), so graph replays
+count too; ``kernels.launch_counts(experts=True)`` reads them with one
+sync per device and ``reset_launch_counts()`` zeroes them.
 """
 
 from __future__ import annotations
@@ -41,8 +41,9 @@ import torch.nn.functional as F
 
 from gdr_tpu_torch.kernels import build
 from gdr_tpu_torch.kernels.decode import _mm, _rms
+from gdr_tpu_torch.utils.timing import count, declare
 
-LAUNCHES = {"expert_sublayer": 0}
+WRAPPERS = declare("expert_sublayer")
 STATS = ("moe_calls", "moe_rows", "moe_experts_hit", "moe_max_load",
          "moe_dropped")
 _STATS: dict[torch.device, torch.Tensor] = {}
@@ -193,5 +194,5 @@ def expert_sublayer(x, ln_scale, router, wi, wo, *, capacity: int,
         logits.data_ptr(), hbuf.data_ptr(), hid.data_ptr(), prob.data_ptr(),
         meta.data_ptr(), r, d, dff, n_exp, seq_len, capacity, eps, _sms(dev),
         torch.cuda.current_stream(dev).cuda_stream), "expert_sublayer")
-    LAUNCHES["expert_sublayer"] += 1
+    count("expert_sublayer")
     return out

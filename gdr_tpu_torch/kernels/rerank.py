@@ -1,5 +1,4 @@
-"""Re-rank scorers, each beside its plain PyTorch version and launch
-counter:
+"""Re-rank scorers, each beside its plain PyTorch version:
 
 - ``packed_scores``: ``sim[r, c] = tanh(q[r] · rows[starts[r] + c])`` over
   the cluster-packed f32 / bf16 store (``csrc/rerank_packed.cu``); replaces
@@ -39,10 +38,11 @@ import ctypes
 import torch
 
 from gdr_tpu_torch.kernels import build
+from gdr_tpu_torch.utils.timing import count, declare
 
 NEG_INF = -1.0e9
 
-LAUNCHES = {"packed_scores": 0, "packed_scores_int8": 0, "rerank_scores": 0}
+WRAPPERS = declare("packed_scores", "packed_scores_int8", "rerank_scores")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PACKED_SIGS = {
@@ -115,7 +115,7 @@ def _launch_packed(name: str, rows, starts, query_rows, cap: int):
         build.DTYPES[rows.dtype], rows.data_ptr(), starts.data_ptr(),
         query_rows.data_ptr(), out.data_ptr(), rows.shape[0], r, d, cap,
         torch.cuda.current_stream(dev).cuda_stream), name)
-    LAUNCHES[name] += 1
+    count(name)
     return out
 
 
@@ -176,5 +176,5 @@ def rerank_scores(store, docs, query_rows, mask):
         mask.data_ptr(), query_rows.data_ptr(), out.data_ptr(),
         store.shape[0], r, d, cap,
         torch.cuda.current_stream(dev).cuda_stream), name)
-    LAUNCHES[name] += 1
+    count(name)
     return out

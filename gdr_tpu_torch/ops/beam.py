@@ -11,8 +11,9 @@
   through the reorder gather;
 - early exit: the full-width loop stops once no beam is alive.  The check
   reads ``bool(run.any())`` on the host before each full-width step, a
-  sync that drains the stream (span ``gdr.decode.sync``, counted in
-  ``utils/timing.py::SYNCS``; the reference package folds it into a
+  sync that drains the stream (span ``gdr.decode.sync``, counted as
+  ``host_syncs`` in ``utils/timing.py``'s registry; the reference package
+  folds it into a
   device ``while_loop``).  The search is a generator that yields the
   device flag at each such check and takes the host's answer back, so the
   device work between two checks is one piece: :func:`generate_cids` runs
@@ -26,7 +27,9 @@
   pool;
 - :func:`sample_cids`: constant-width trie-constrained rollouts, drawn as
   ``argmax(dist + g)`` with Gumbel noise ``g`` (:func:`gumbel_noise`) from
-  an explicit generator, or noise the caller hands in.
+  an explicit generator, or noise the caller hands in.  They run through
+  the search's loop with a sampling select (:func:`_sample`) in place of
+  the beams' (:func:`_select`), every step without a check.
 
 Positions are Python ints, so each step's kernels get ``pos`` as a launch
 argument.  ``torch.topk`` and ``lax.top_k`` break ties differently; ties
@@ -39,12 +42,13 @@ Scores are length-normalised ``cum / gen_len ** length_penalty``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable
 
 import torch
 
 from gdr_tpu_torch.ops.codec import EOS_ID, PAD_ID, TOKEN_OFFSET
-from gdr_tpu_torch.utils.timing import GRAPHS, SYNCS, span
+from gdr_tpu_torch.utils.timing import count, span
 
 NEG_INF = -1.0e9
 
@@ -119,15 +123,13 @@ def _advance(tokens, node, finished, eos_pos, option, pos: int, kary: int,
     return tokens, node, finished | is_eos, eos_pos, new_tok
 
 
-def _beam_step(state, pos: int, step_fn: StepFn, batch: int, in_w: int,
-               out_w: int, kary: int, children: torch.Tensor,
-               eos_allowed: torch.Tensor, candidates_mode: bool = True):
-    """One constrained step: B·in_w beams → B·out_w beams.  With an
-    accumulator in the state (``acc`` not None), ``step_fn`` also returns
-    the decoder state, which is pooled and reordered with the beams.
-    ``candidates_mode``: ``step_fn`` gives the [rows, kary+1] candidate
-    logits; else full-vocabulary logits [rows, V], whose log-softmax is
-    read at the position's digit tokens and EOS."""
+def _beam_step(state, pos: int, step_fn: StepFn, in_w: int, out_w: int,
+               select):
+    """One constrained step at ``pos``: the decoder at ``in_w`` rows a
+    query, then ``select`` (:func:`_select` or :func:`_sample`, settings
+    bound) down to ``out_w``.  With an accumulator in the state (``acc``
+    not None), ``step_fn`` also returns the decoder state, which is pooled
+    first."""
     cur_tok, acc, cache = state[5:]
     with span("gdr.decode.step", f"pos={pos} width={in_w}"):
         with span("gdr.decode.forward"):
@@ -135,22 +137,21 @@ def _beam_step(state, pos: int, step_fn: StepFn, batch: int, in_w: int,
                 out, hidden, cache = step_fn(cur_tok, cache, pos, in_w)
             else:
                 out, cache = step_fn(cur_tok, cache, pos, in_w)
-                hidden = None
         with span("gdr.beam.select"):
-            return _select(state[:7] + (cache,), out, hidden, pos, batch,
-                           in_w, out_w, kary, children, eos_allowed,
-                           candidates_mode)
+            if acc is not None:
+                acc = _pool_hidden(acc, cur_tok, pos, hidden)
+            return select(state[:6] + (acc, cache), out, pos, in_w, out_w)
 
 
-def _select(state, out, hidden, pos: int, batch: int, in_w: int, out_w: int,
+def _select(state, out, pos: int, in_w: int, out_w: int, *, batch: int,
             kary: int, children, eos_allowed, candidates_mode: bool):
-    """The step after the decoder: the candidates' log-probs, the trie
-    mask, the top-k over the beams' options, and the beams, caches and
-    pooled states reordered."""
-    tokens, node, scores, finished, eos_pos, cur_tok, acc, cache = state
+    """The beam search's step after the decoder: the candidates' log-probs,
+    the trie mask, the top-k over the beams' options, and the beams, caches
+    and pooled states reordered.  ``candidates_mode``: ``out`` holds the
+    [rows, kary+1] candidate logits; else full-vocabulary logits [rows, V],
+    whose log-softmax is read at the position's digit tokens and EOS."""
+    tokens, node, scores, finished, eos_pos, _, acc, cache = state
     n_opt = kary + 1
-    if acc is not None:
-        acc = _pool_hidden(acc, cur_tok, pos, hidden)
     logp = torch.log_softmax(out.float(), dim=-1)             # [BK, kary+1]
     if not candidates_mode:                                   # [BK, V]
         first = pos * kary + TOKEN_OFFSET
@@ -176,6 +177,31 @@ def _select(state, out, hidden, pos: int, batch: int, in_w: int, out_w: int,
     if acc is not None:
         acc = tuple(a[src] for a in acc)
     scores = top_scores.reshape(-1)
+    return tokens, node, scores, finished, eos_pos, new_tok, acc, cache
+
+
+def _sample(state, out, pos: int, in_w: int, out_w: int, *, kary: int,
+            children, eos_allowed, noise, temperature: float, top_k: int):
+    """The sampling step after the decoder: each rollout draws its option
+    from the trie-masked candidates (:func:`sample_cids`) with
+    ``noise[pos]``, and every row stays in its slot."""
+    tokens, node, scores, finished, eos_pos, _, acc, cache = state
+    logp = torch.log_softmax(out.float(), dim=-1)             # [BK, kary+1]
+    cand = _trie_masked(logp, node, children, eos_allowed)
+    dist = cand / max(temperature, 1e-6)
+    if 0 < top_k < kary + 1:
+        # the top_k-th largest value, duplicates counted
+        kth = torch.topk(dist, top_k, dim=1).values[:, -1:]
+        dist = torch.where(dist >= kth, dist, NEG_INF)
+    option = torch.argmax(dist + noise[pos], dim=1)
+    # finished rollouts are frozen on the EOS slot: a terminal node may
+    # still have children, and a digit would walk past its cluster
+    option = torch.where(finished, kary, option)
+    step_logp = torch.gather(torch.log_softmax(cand, dim=-1), 1,
+                             option[:, None])[:, 0]
+    scores = scores + torch.where(finished, 0.0, step_logp)
+    tokens, node, finished, eos_pos, new_tok = _advance(
+        tokens, node, finished, eos_pos, option, pos, kary, children)
     return tokens, node, scores, finished, eos_pos, new_tok, acc, cache
 
 
@@ -225,15 +251,38 @@ def warmup_widths(num_beams: int, kary: int, max_len: int) -> list[int]:
 def _search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
             kary: int, max_len: int, children: torch.Tensor,
             eos_allowed: torch.Tensor, progressive: bool = False,
-            accumulate_hidden: int = 0, candidates_mode: bool = True):
+            accumulate_hidden: int = 0, candidates_mode: bool = True,
+            sample=None):
     """The search as a generator: before each full-width step it yields
     (a device bool, whether any beam still runs; the state so far) and is
-    sent back whether to take the step.  Returns the last state."""
+    sent back whether to take the step.  Returns the last state.
+
+    The steps before the first check run unchecked: the progressive
+    warm-up, from one live row a query; without it the search starts at
+    ``num_beams`` rows a query with beam 0 live.  ``sample``: a sampling
+    select (:func:`_sample`, its settings bound) in place of
+    :func:`_select`, and not ``progressive``; then every position is an
+    unchecked step at ``num_beams`` rows a query, all live, and nothing is
+    yielded."""
+    select = sample or partial(_select, batch=batch, kary=kary,
+                               children=children, eos_allowed=eos_allowed,
+                               candidates_mode=candidates_mode)
+    unchecked = []
+    if sample is not None:
+        unchecked = [(num_beams, num_beams)] * max_len
+    elif progressive:
+        limit = (kary + 1) ** max(max_len - 1, 0)
+        if num_beams > limit:
+            raise ValueError(f"progressive=True needs num_beams <= "
+                             f"(kary+1)**(max_len-1) = {limit}, got "
+                             f"{num_beams}")
+        unchecked = [(w, min(w * (kary + 1), num_beams))
+                     for w in warmup_widths(num_beams, kary, max_len)]
     dev = children.device
     bk0 = batch * (1 if progressive else num_beams)
     tokens = torch.zeros((bk0, max_len + 1), dtype=torch.int32, device=dev)
     node = torch.zeros((bk0,), dtype=torch.long, device=dev)
-    if progressive:
+    if progressive or sample is not None:
         scores = torch.zeros((bk0,), dtype=torch.float32, device=dev)
     else:   # only beam 0 of each query is live at step 0
         live = torch.arange(bk0, device=dev) % num_beams == 0
@@ -244,19 +293,9 @@ def _search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
     acc = _new_acc(bk0, accumulate_hidden, dev) if accumulate_hidden else None
     state = (tokens, node, scores, finished, eos_pos, cur_tok, acc, cache)
 
-    pos0 = 0
-    if progressive:
-        if num_beams > (kary + 1) ** max(max_len - 1, 0):
-            raise ValueError(
-                f"progressive=True needs num_beams <= (kary+1)**(max_len-1) "
-                f"= {(kary + 1) ** max(max_len - 1, 0)}, got {num_beams}")
-        for pos, w in enumerate(warmup_widths(num_beams, kary, max_len)):
-            out_w = min(w * (kary + 1), num_beams)
-            state = _beam_step(state, pos, step_fn, batch, w, out_w, kary,
-                               children, eos_allowed, candidates_mode)
-            pos0 = pos + 1
-
-    for pos in range(pos0, max_len):
+    for pos, (in_w, out_w) in enumerate(unchecked):
+        state = _beam_step(state, pos, step_fn, in_w, out_w, select)
+    for pos in range(len(unchecked), max_len):
         live = state[2] > NEG_INF / 2
         run = ~state[3] & live
         if acc is not None:
@@ -264,15 +303,14 @@ def _search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
             run = run | ((state[5] == EOS_ID) & live)
         if not (yield run.any(), state):             # early exit
             break
-        state = _beam_step(state, pos, step_fn, batch, num_beams, num_beams,
-                           kary, children, eos_allowed, candidates_mode)
+        state = _beam_step(state, pos, step_fn, num_beams, num_beams, select)
     return state
 
 
 def alive(flag: torch.Tensor) -> bool:
     """The early exit's read of a flag the search yielded: a host sync."""
     with span("gdr.decode.sync"):
-        SYNCS["host_syncs"] += 1
+        count("host_syncs")
         return bool(flag)
 
 
@@ -343,10 +381,11 @@ def _encode(model, input_ids: torch.Tensor, attn_mask: torch.Tensor):
 
 def _decode(model, input_ids, attn_mask, children, eos_allowed,
             num_beams: int, max_len: int, progressive: bool, u_table,
-            accumulate_hidden: bool):
-    """The device work of :func:`generate_cids` as a search generator
-    (:func:`_search`) that encodes first; it returns (the last state, the
-    query embedding, the encoder states)."""
+            accumulate_hidden: bool, sample=None):
+    """The device work of :func:`generate_cids` (or, with ``sample``, of
+    :func:`sample_cids`) as a search generator (:func:`_search`) that
+    encodes first; it returns (the last state, the query embedding, the
+    encoder states)."""
     batch = input_ids.shape[0]
     enc, query_emb = _encode(model, input_ids, attn_mask)
     cache = _decode_cache(model, enc, max_len, 1 if progressive else num_beams,
@@ -359,7 +398,8 @@ def _decode(model, input_ids, attn_mask, children, eos_allowed,
     state = yield from _search(step_fn, cache, batch, num_beams,
                                model.cfg.kary, max_len, children, eos_allowed,
                                progressive,
-                               model.cfg.d_model if accumulate_hidden else 0)
+                               model.cfg.d_model if accumulate_hidden else 0,
+                               sample=sample)
     return state, query_emb, enc
 
 
@@ -396,7 +436,7 @@ def generate_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
             (children, eos_allowed, u_table))
     else:
         if input_ids.is_cuda:
-            GRAPHS["eager_decodes"] += 1
+            count("eager_decodes")
         state, query_emb, enc = drive(decode(input_ids, attn_mask))
     return (_finalized(state, input_ids.shape[0], num_beams, length_penalty),
             query_emb, enc)
@@ -433,11 +473,7 @@ def sample_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
     is drawn once by :func:`gumbel_noise` from ``generator``.  Returns
     (BeamResult, query embedding, encoder states) like
     :func:`generate_cids`, rollouts sorted by score per query."""
-    batch = input_ids.shape[0]
-    kary = model.cfg.kary
-    dev = children.device
-    bk = batch * num_samples
-    shape = (max_len, bk, kary + 1)
+    shape = (max_len, input_ids.shape[0] * num_samples, model.cfg.kary + 1)
     if noise is None:
         if generator is None:
             raise ValueError("sample_cids: needs a generator or noise")
@@ -445,48 +481,12 @@ def sample_cids(model, input_ids: torch.Tensor, attn_mask: torch.Tensor,
     elif tuple(noise.shape) != shape:
         raise ValueError(f"sample_cids: noise {tuple(noise.shape)}, need "
                          f"{shape}")
-    noise = noise.to(dev, torch.float32)
-    enc, query_emb = _encode(model, input_ids, attn_mask)
-    cache = _decode_cache(model, enc, max_len, num_samples, u_table)
-
-    tokens = torch.zeros((bk, max_len + 1), dtype=torch.int32, device=dev)
-    node = torch.zeros((bk,), dtype=torch.long, device=dev)
-    scores = torch.zeros((bk,), dtype=torch.float32, device=dev)
-    finished = torch.zeros((bk,), dtype=torch.bool, device=dev)
-    eos_pos = torch.full((bk,), max_len - 1, dtype=torch.int32, device=dev)
-    cur_tok = torch.full((bk,), PAD_ID, dtype=torch.int32, device=dev)
-    acc = _new_acc(bk, model.cfg.d_model, dev) if accumulate_hidden else None
-    for pos in range(max_len):
-        with span("gdr.decode.step", f"pos={pos} width={num_samples}"):
-            with span("gdr.decode.forward"):
-                if acc is not None:
-                    out, hidden, cache = model.decode_step_candidates(
-                        cur_tok, cache, attn_mask, pos, num_samples, True)
-                else:
-                    out, cache = model.decode_step_candidates(
-                        cur_tok, cache, attn_mask, pos, num_samples)
-            with span("gdr.beam.select"):
-                if acc is not None:
-                    acc = _pool_hidden(acc, cur_tok, pos, hidden)
-                logp = torch.log_softmax(out.float(), dim=-1)  # [BK, kary+1]
-                cand = _trie_masked(logp, node, children, eos_allowed)
-                dist = cand / max(temperature, 1e-6)
-                if 0 < top_k < kary + 1:
-                    # the top_k-th largest value, duplicates counted
-                    kth = torch.topk(dist, top_k, dim=1).values[:, -1:]
-                    dist = torch.where(dist >= kth, dist, NEG_INF)
-                option = torch.argmax(dist + noise[pos], dim=1)
-                # finished rollouts are frozen on the EOS slot: a terminal
-                # node may still have children, and a digit would walk past
-                # its cluster
-                option = torch.where(finished, kary, option)
-                step_logp = torch.gather(torch.log_softmax(cand, dim=-1), 1,
-                                         option[:, None])[:, 0]
-                scores = scores + torch.where(finished, 0.0, step_logp)
-                tokens, node, finished, eos_pos, cur_tok = _advance(
-                    tokens, node, finished, eos_pos, option, pos, kary,
-                    children)
-    with span("gdr.decode.finalize"):
-        result = _finalize(tokens, node.to(torch.int32), scores, eos_pos,
-                           batch, num_samples, length_penalty, acc)
-    return result, query_emb, enc
+    sample = partial(_sample, kary=model.cfg.kary, children=children,
+                     eos_allowed=eos_allowed,
+                     noise=noise.to(children.device, torch.float32),
+                     temperature=temperature, top_k=top_k)
+    state, query_emb, enc = drive(_decode(
+        model, input_ids, attn_mask, children, eos_allowed, num_samples,
+        max_len, False, u_table, accumulate_hidden, sample))
+    return (_finalized(state, input_ids.shape[0], num_samples,
+                       length_penalty), query_emb, enc)

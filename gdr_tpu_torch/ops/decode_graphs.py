@@ -31,11 +31,11 @@ and its host syncs are the eager search's.
   eagerly (it makes the GEMM plans, the split-K counters and the rel-bias
   ids that a capture may not make); the second captures and replays.  At
   most :data:`CHAINS` keys are held, the least recent dropped first.
-- **Counts.**  A replay calls no kernel wrapper, so the launches the
-  wrappers counted while a piece was captured (the GEMM's by kernel too)
-  are taken back and added at each replay (``kernels.add_launches``);
-  ``utils/timing.py::GRAPHS``
-  counts the pieces captured and replayed and the eager CUDA decodes.
+- **Counts.**  A replay calls no kernel wrapper, so each capture takes a
+  snapshot of the counter registry (``utils/timing.py``) and puts it back
+  after, keeping the launches the wrappers counted meanwhile as the
+  piece's count, which each replay adds.  The registry also counts the
+  pieces captured and replayed and the eager CUDA decodes.
 - **Outputs.**  What a piece leaves lives in the pool and is overwritten
   by the next replay: ``beam._finalize`` copies the beams out, and the
   query embedding and encoder states are cloned here.
@@ -49,9 +49,8 @@ from dataclasses import dataclass
 
 import torch
 
-from gdr_tpu_torch import kernels
 from gdr_tpu_torch.ops.beam import alive, drive
-from gdr_tpu_torch.utils.timing import GRAPHS, span
+from gdr_tpu_torch.utils.timing import count, counts, restore, span
 
 CHAINS = 4
 
@@ -81,7 +80,7 @@ class _Chain:
         try:
             while result is None:
                 graph = torch.cuda.CUDAGraph()
-                before = kernels.launch_counts(gemm_paths=True)
+                before = counts()
                 try:
                     with torch.cuda.stream(stream):
                         graph.capture_begin(pool=pool)
@@ -93,11 +92,10 @@ class _Chain:
                         finally:
                             graph.capture_end()
                 finally:               # a capture launches nothing
-                    after = kernels.launch_counts(gemm_paths=True)
-                    launched = {k: n - before[k] for k, n in after.items()
+                    launched = {k: n - before[k] for k, n in counts().items()
                                 if n != before[k]}
-                    kernels.add_launches({k: -n for k, n in launched.items()})
-                GRAPHS["graph_captures"] += 1
+                    restore(before)
+                count("graph_captures")
                 captured.append((graph, launched, flag, state))
         finally:
             if collecting:
@@ -118,8 +116,9 @@ class _Chain:
         for piece in self.pieces:
             with span("gdr.decode.replay", f"pos={piece.pos}"):
                 piece.graph.replay()
-            GRAPHS["graph_replays"] += 1
-            kernels.add_launches(piece.launches)
+            count("graph_replays")
+            for name, n in piece.launches.items():
+                count(name, n)
             if piece.flag is None or not alive(piece.flag):
                 break
         state, query_emb, enc = piece.out
@@ -165,6 +164,6 @@ class DecodeGraphs:
         while len(self._chains) > CHAINS:
             self._chains.popitem(last=False)
         if chain is None:                  # the first decode of this key
-            GRAPHS["eager_decodes"] += 1
+            count("eager_decodes")
             return drive(decode(input_ids, attn_mask))
         return chain.replay(input_ids, attn_mask)

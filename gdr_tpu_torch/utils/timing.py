@@ -1,5 +1,5 @@
 """Spans, per-phase wall-clock timing (``PhaseTimer``, a copy of
-``gdr_tpu/utils/timing.py``'s) and the host-sync counter.
+``gdr_tpu/utils/timing.py``'s) and the counter registry.
 
 ``span(name)`` marks a stage of the program in a ``torch.profiler`` (or
 ``emit_nvtx``) trace: while a profiler records, it opens a
@@ -16,15 +16,14 @@ each routed-expert layer of a Switch model (``models/t5.py``);
 range (args: the piece's first position) in place of the ranges its
 captured code opened.
 
-``SYNCS["host_syncs"]`` counts the points of the retrieve path where the
-host reads a device value; ``GRAPHS`` counts the decode's CUDA graph
-pieces captured (``graph_captures``) and replayed (``graph_replays``), and
-the decodes on a CUDA device that ran eagerly (``eager_decodes``).
-``kernels.launch_counts(host_syncs=True, graphs=True)`` reads them beside
-the kernel launches and ``kernels.reset_launch_counts()`` resets all; the
-routed experts' counters live on the device (``kernels/experts.py``), so
-that graph replays add to them, and ``launch_counts(experts=True)`` reads
-them.
+The counter registry holds every host counter by name: the kernel
+wrappers' launches (each kernel module declares its own, :func:`declare`),
+``host_syncs`` (the retrieve path's reads of a device value), the decode's
+CUDA graph pieces captured and replayed (``graph_captures``,
+``graph_replays``) and its eager CUDA decodes (``eager_decodes``).  Every
+increment goes through :func:`count` and :func:`counts` reads them all; a
+graph capture puts back (:func:`restore`) what it read before.  The routed
+experts' routing counters live on the device (``kernels/experts.py``).
 """
 
 from __future__ import annotations
@@ -39,8 +38,30 @@ import torch
 _profiling = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 
-SYNCS = {"host_syncs": 0}
-GRAPHS = {"graph_captures": 0, "graph_replays": 0, "eager_decodes": 0}
+_COUNTS = dict.fromkeys(("host_syncs", "graph_captures", "graph_replays",
+                         "eager_decodes"), 0)
+
+
+def declare(*names: str) -> tuple[str, ...]:
+    """Counters ``names`` in the registry, at 0 where new; returns them."""
+    for name in names:
+        _COUNTS.setdefault(name, 0)
+    return names
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _COUNTS[name] += n
+
+
+def counts() -> dict[str, int]:
+    """Every counter of the registry, a copy."""
+    return dict(_COUNTS)
+
+
+def restore(snapshot: dict[str, int]) -> None:
+    """Set the counters to ``snapshot`` (what :func:`counts` read)."""
+    _COUNTS.update(snapshot)
 
 
 def span(name: str, args: str | None = None):

@@ -43,6 +43,7 @@ from gdr_tpu_torch.kernels import build, experts
 from gdr_tpu_torch.models import t5
 from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
 from gdr_tpu_torch.ops.trie import build_trie
+from gdr_tpu_torch.utils import timing
 from gdrbench.drivers import serve_switch
 from gdrbench.reference import model as M
 from gdrbench.reference import switch as ref_switch
@@ -169,7 +170,7 @@ def test_kernel_matches_plain_at_switch_base_widths(dev, rows, seq_len):
     again = experts.expert_sublayer(x, scale, router, wi, wo, capacity=64,
                                     seq_len=seq_len, counts=counts)
     assert torch.equal(again, got)
-    assert experts.LAUNCHES["expert_sublayer"] == 1
+    assert kernels.launch_counts()["expert_sublayer"] == 1
 
 
 @pytest.mark.cuda
@@ -274,12 +275,11 @@ def test_replayed_switch_retrieve_is_the_eager_retrieve(dev):
         ids, mask = _queries(1, seed)
         kernels.reset_launch_counts()
         want = _evaluator(model, dev).retrieve(ids, mask)
-        eager = kernels.launch_counts(host_syncs=True, graphs=True,
-                                      experts=True)
+        eager = {**timing.counts(), **kernels.launch_counts(experts=True)}
         kernels.reset_launch_counts()
         got = ev.retrieve(ids, mask)
-        replayed = kernels.launch_counts(host_syncs=True, graphs=True,
-                                         experts=True)
+        replayed = {**timing.counts(),
+                    **kernels.launch_counts(experts=True)}
         _same(want, got)
         assert replayed["graph_replays"] == (seed > 1) * 3
         assert replayed["eager_decodes"] == (seed == 1)

@@ -6,14 +6,16 @@ gives the eager decode's beams, scores, query embedding and encoder states
 bit for bit, in f32 and bf16, at batch 1 and 32, with the decoder-pooled
 states on and off, on the full trie and on tries whose early exit fires
 after the first piece and after the second; so do ``Evaluator.retrieve``'s
-doc ids and fused scores, with the same kernel launches counted.  A
+doc ids and fused scores, with the same kernel launches counted (the f32
+GEMM's by kernel name in a profiler trace).  A
 result survives the next replay, an in-place weight update is read by the
 next replay, a new U table or parameter tensor captures anew, and a
 garbage collection due while a chain captures does not free a dropped
 evaluator's graphs inside the capture.
 
-On the CPU: nothing engages a graph; the default launch counts keep their
-keys; the rel-bias ids kept on the device give the host ids' bias; and the
+On the CPU: nothing engages a graph; the counter registry's views keep
+their keys, a reset zeroes every counter and a capture puts the registry
+back as it found it; the rel-bias ids kept on the device give the host ids' bias; and the
 chain's pieces, positions and counts, with a stand-in for the CUDA graph
 whose capture runs the code and whose replay does nothing; and the cyclic
 collector off during each capture, as it was after.
@@ -86,7 +88,7 @@ def _store(trie: TrieTensors) -> np.ndarray:
 
 
 def _counts() -> dict[str, int]:
-    return kernels.launch_counts(host_syncs=True, graphs=True)
+    return timing.counts()
 
 
 def _same(a, b) -> None:
@@ -348,70 +350,116 @@ def test_a_cpu_retrieve_engages_no_graph():
     assert not DecodeGraphs.engages(model, torch.zeros(1))
 
 
-def test_default_launch_counts_keep_their_keys():
-    kernels.reset_launch_counts()
-    plain = kernels.launch_counts()
-    assert set(plain) == {"self_attn_sublayer", "cross_attn_sublayer",
-                          "ffn_sublayer", "packed_scores",
-                          "packed_scores_int8", "rerank_scores",
-                          "expert_sublayer"}
-    assert set(kernels.launch_counts(graphs=True)) == set(plain) | GRAPH_KEYS
-    assert set(kernels.launch_counts(experts=True)) \
-        == set(plain) | set(experts.STATS)
-    assert set(kernels.launch_counts(host_syncs=True, graphs=True)) \
-        == set(plain) | GRAPH_KEYS | {"host_syncs"}
-    timing.GRAPHS["graph_replays"] = 5
-    kernels.add_launches({"ffn_sublayer": 2, "packed_scores": 1})
-    assert kernels.launch_counts(graphs=True)["ffn_sublayer"] == 2
-    kernels.reset_launch_counts()
-    assert not any(kernels.launch_counts(host_syncs=True,
-                                         graphs=True).values())
+WRAPPERS = {"self_attn_sublayer", "cross_attn_sublayer", "ffn_sublayer",
+            "packed_scores", "packed_scores_int8", "rerank_scores",
+            "expert_sublayer"}
 
 
-def test_gemm_paths_are_read_only_under_their_flag():
-    # the f32 GEMM's launches by kernel stay out of the default counts (the
-    # serve drivers' set-up compares that dict exactly); replays add to them
-    # as they add launches, and the reset clears them
+def _counting_decode(ids, mask):
+    """A search generator of two pieces whose code counts launches as the
+    wrappers do: 2 ``ffn_sublayer`` before its check, 1 ``packed_scores``
+    after."""
+    timing.count("ffn_sublayer", 2)
+    yield torch.tensor(True), None
+    timing.count("packed_scores")
+    return None, ids, mask
+
+
+@pytest.mark.parametrize("case", ["views", "reset_and_capture"])
+def test_the_counter_registry(monkeypatch, case):
     kernels.reset_launch_counts()
-    paths = {"gemm_f32_rows", "gemm_f32_ring"}
-    assert not paths & set(kernels.launch_counts(host_syncs=True, graphs=True,
-                                                 experts=True))
-    got = kernels.launch_counts(gemm_paths=True)
-    assert set(got) == set(kernels.launch_counts()) | paths
-    assert not any(got.values())
-    kernels.add_launches({"gemm_f32_rows": 144, "ffn_sublayer": 24})
-    got = kernels.launch_counts(gemm_paths=True)
-    assert got["gemm_f32_rows"] == 144 and got["gemm_f32_ring"] == 0
-    assert got["ffn_sublayer"] == 24
-    assert "gemm_f32_rows" not in kernels.launch_counts()
+    if case == "views":
+        # the default view holds exactly the wrappers (the serve drivers'
+        # set-up compares that dict exactly); experts=True adds the device
+        # routing counters; timing.counts() every host counter
+        assert set(kernels.launch_counts()) == WRAPPERS
+        assert set(kernels.launch_counts(experts=True)) \
+            == WRAPPERS | set(experts.STATS)
+        assert set(_counts()) == WRAPPERS | GRAPH_KEYS | {"host_syncs"}
+        assert not any(_counts().values())
+        timing.count("ffn_sublayer", 2)
+        timing.count("graph_replays")
+        assert kernels.launch_counts() == {**dict.fromkeys(WRAPPERS, 0),
+                                           "ffn_sublayer": 2}
+        assert _counts()["graph_replays"] == 1
+        kernels.reset_launch_counts()
+        return
+    # a reset zeroes every group: launches, host counters, device counters
+    for name in WRAPPERS | GRAPH_KEYS | {"host_syncs"}:
+        timing.count(name, 3)
+    experts.stats_tensor(torch.device("cpu")).add_(1)
     kernels.reset_launch_counts()
-    assert not any(kernels.launch_counts(gemm_paths=True).values())
+    assert not any(_counts().values())
+    assert not any(kernels.launch_counts(experts=True).values())
+    # a capture on the stand-in graph puts the registry back as it found
+    # it, keeps each piece's launches and adds them at each replay
+    for name, value in [("CUDAGraph", _StandIn),
+                        ("graph_pool_handle", lambda: None),
+                        ("current_stream", lambda device=None: _Stream()),
+                        ("stream", lambda s: contextlib.nullcontext())]:
+        monkeypatch.setattr(torch.cuda, name, value)
+    timing.count("rerank_scores", 5)
+    timing.count("host_syncs", 7)
+    before = _counts()
+    ids, mask = torch.ones(1, 3), torch.ones(1, 3)
+    chain = decode_graphs._Chain(_counting_decode, ids, mask, 2, _Stream())
+    assert _counts() == {**before, "graph_captures": 2}
+    assert [p.launches for p in chain.pieces] == [{"ffn_sublayer": 2},
+                                                  {"packed_scores": 1}]
+    for i in (1, 2):
+        state, query_emb, enc = chain.replay(ids, mask)
+        assert state is None and torch.equal(query_emb, ids)
+        assert _counts() == {**before, "graph_captures": 2,
+                             "graph_replays": 2 * i, "host_syncs": 7 + i,
+                             "ffn_sublayer": 2 * i, "packed_scores": i}
+    kernels.reset_launch_counts()
+
+
+def _f32_gemm_launches(fn) -> dict[str, int]:
+    """The f32 GEMM's launches by kernel name while ``fn`` runs, read from
+    a profiler trace (it sees the kernels a replayed graph launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"gemm_f32_ring_rows": 0, "gemm_f32_ring": 0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in out:
+                if f"gdr::{name}<" in e.key:
+                    out[name] += e.count
+    return out
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 32])
 def test_replays_count_the_gemm_paths_of_the_eager_decode(dev, batch):
-    # a replayed piece adds the f32 GEMM launches its capture counted, by
-    # kernel: a replayed retrieve counts what the eager one counts
+    # a replayed retrieve counts the eager one's launches, and launches
+    # the f32 GEMM's kernels as often as the eager one, by name in the trace
     model = _world(torch.float32, dev)
     trie = build_trie(_cid_map(3), SMALL["kary"])
     cfg = EvalConfig(num_beams=BEAMS, num_return_sequences=20,
                      max_output_length=SMALL["max_output_length"])
     ev = Evaluator(model, trie, _store(trie), cfg, packed=True)
     ids, mask = _queries(batch, 1)
-    kernels.reset_launch_counts()
-    Evaluator(model, trie, _store(trie), cfg, packed=True).retrieve(ids, mask)
-    eager = kernels.launch_counts(gemm_paths=True)
-    for _ in range(3):                  # eager, capture, replay
-        kernels.reset_launch_counts()
+    for _ in range(2):                  # eager, capture
         ev.retrieve(ids, mask)
-    replayed = kernels.launch_counts(gemm_paths=True, graphs=True)
+    kernels.reset_launch_counts()
+    eager_gemms = _f32_gemm_launches(lambda: Evaluator(
+        model, trie, _store(trie), cfg, packed=True).retrieve(ids, mask))
+    eager = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    replayed_gemms = _f32_gemm_launches(lambda: ev.retrieve(ids, mask))
+    replayed = _counts()
     assert replayed["graph_replays"] == 3
-    gemms = 6 * replayed["self_attn_sublayer"]     # 2 a sublayer
-    assert eager["gemm_f32_rows"] + eager["gemm_f32_ring"] == 2 * (
-        eager["self_attn_sublayer"] + eager["cross_attn_sublayer"]
-        + eager["ffn_sublayer"]) == gemms
     assert {k: replayed[k] for k in eager} == eager
+    assert replayed_gemms == eager_gemms
+    assert sum(eager_gemms.values()) == 2 * (
+        eager["self_attn_sublayer"] + eager["cross_attn_sublayer"]
+        + eager["ffn_sublayer"]) == 6 * eager["self_attn_sublayer"] > 0
 
 
 @pytest.mark.parametrize("bidirectional", [False, True])

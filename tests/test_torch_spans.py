@@ -1,8 +1,8 @@
 """The serving path's spans and host-sync counter (utils/timing.py): under
 ``torch.profiler`` one ``Evaluator.retrieve`` is a ``gdr.retrieve`` range
 holding each stage's range, one ``gdr.decode.step`` (with its forward and
-beam selection) per beam step and one ``gdr.decode.sync`` per early-exit
-read; with no profiler ``span`` is one shared no-op and the results are
+beam selection) per beam step or sampling step and one ``gdr.decode.sync``
+per early-exit read; with no profiler ``span`` is one shared no-op and the results are
 bit for bit those of a profiled retrieve."""
 
 import numpy as np
@@ -16,6 +16,7 @@ from gdr_tpu_torch.eval.evaluator import EvalData, Evaluator
 from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
 from gdr_tpu_torch.ops import beam
 from gdr_tpu_torch.ops.trie import build_trie
+from gdr_tpu_torch.utils import timing
 from gdr_tpu_torch.utils.timing import PhaseTimer, span
 from torch_port_helpers import TINY, queries, small_cid_map
 
@@ -83,13 +84,13 @@ def test_retrieve_spans_nest_under_retrieve(world, mode, monkeypatch):
     steps = []
     real_step = beam._beam_step
 
-    def counted(state, pos, step_fn, batch, in_w, *a, **k):
+    def counted(state, pos, step_fn, in_w, *a, **k):
         steps.append((pos, in_w))
-        return real_step(state, pos, step_fn, batch, in_w, *a, **k)
+        return real_step(state, pos, step_fn, in_w, *a, **k)
     monkeypatch.setattr(beam, "_beam_step", counted)
     kernels.reset_launch_counts()
     _, spans = _profiled(lambda: ev.retrieve(ids, mask))
-    syncs = kernels.launch_counts(host_syncs=True)["host_syncs"]
+    syncs = timing.counts()["host_syncs"]
 
     parents = _parents(spans)
     names = [s[0] for s in spans]
@@ -107,15 +108,16 @@ def test_retrieve_spans_nest_under_retrieve(world, mode, monkeypatch):
         assert names.count(stage) == (stage in want)
 
     step_idx = [i for i, n in enumerate(names) if n == "gdr.decode.step"]
-    n_steps = ev._max_len if mode == "sample" else len(steps)
+    n_steps = len(steps)
     assert len(step_idx) == n_steps > 0
     for i in step_idx:
         inner = [j for j, p in enumerate(parents) if p == i]
         assert _names(spans, inner) == ["gdr.decode.forward",
                                         "gdr.beam.select"]
     full = [p for p, w in steps if w == EV["num_beams"]]
-    if mode == "sample":
-        assert steps == [] and syncs == 0
+    if mode == "sample":        # every position at the samples' width
+        assert steps == [(p, EV["num_beams"]) for p in range(ev._max_len)]
+        assert syncs == 0
     else:
         early_exit = len(steps) < ev._max_len
         assert len(full) >= 1
@@ -127,18 +129,19 @@ def test_retrieve_spans_nest_under_retrieve(world, mode, monkeypatch):
 def test_host_syncs_counter_reads_and_resets(world):
     ev = _evaluator(world, "beam")
     kernels.reset_launch_counts()
-    assert kernels.launch_counts(host_syncs=True)["host_syncs"] == 0
+    assert timing.counts()["host_syncs"] == 0
     ev.retrieve(world[3], world[4])
-    one = kernels.launch_counts(host_syncs=True)["host_syncs"]
+    one = timing.counts()["host_syncs"]
     ev.retrieve(world[3], world[4])
-    got = kernels.launch_counts(host_syncs=True)
+    got = timing.counts()
     assert one >= 1 and got["host_syncs"] == 2 * one
     # the launch counts alone are read as before: no sync key, and on the
     # CPU every kernel ran as its plain version
-    assert set(kernels.launch_counts()) == set(got) - {"host_syncs"}
+    assert set(kernels.launch_counts()) < set(got)
+    assert "host_syncs" not in kernels.launch_counts()
     assert not any(kernels.launch_counts().values())
     kernels.reset_launch_counts()
-    assert kernels.launch_counts(host_syncs=True)["host_syncs"] == 0
+    assert timing.counts()["host_syncs"] == 0
 
 
 def test_span_without_profiler_is_one_shared_noop():

@@ -2,8 +2,8 @@
 """One traced run of a serving cell of the benchmark, read through the
 program's spans (``gdrbench/spans.py``): device time, host time and idle
 gaps by ``gdr.`` span, the host syncs, CUDA graph pieces replayed and
-captured, eager decodes and f32 GEMM launches by kernel (and the f32
-GEMMs' device time) per retrieve, the share of the device time
+captured and eager decodes (the counter registry) and the f32 GEMM's
+launches by kernel name in the trace (and its device time) per retrieve, the share of the device time
 inside ``gdr.retrieve`` that encode, decoder forward, beam selection and
 re-rank cover, or where the decode replays CUDA graphs the device and
 host time of ``gdr.decode.replay`` (the stage spans inside the graphs are
@@ -41,6 +41,8 @@ RETRIEVE = ("gdr.retrieve", "gdr.encode", "gdr.decode.init",
             "gdr.decode.sync", "gdr.decode.replay", "gdr.decode.finalize",
             "gdr.query", "gdr.rerank")
 REPLAY = "gdr.decode.replay"
+# the f32 GEMM's kernels: the small-row kernel and the tile ring
+GEMM_F32 = ("gdr::gemm_f32_ring_rows", "gdr::gemm_f32_ring")
 STAGES = {"encode_device_ms": "gdr.encode",
           "decoder_device_ms": "gdr.decode.forward",
           "beam_device_ms": "gdr.beam.select",
@@ -99,6 +101,7 @@ def _traced(record: dict, repeats: int, device):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.utils import timing
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -116,9 +119,7 @@ def _traced(record: dict, repeats: int, device):
     def traced(fn):
         kernels.reset_launch_counts()
         prof, dt = profiled(fn)
-        record["counts"] = kernels.launch_counts(host_syncs=True,
-                                                 graphs=True,
-                                                 gemm_paths=True)
+        record["counts"] = timing.counts()
         evs = spans.events(prof)
         record["spans"] = spans.attribute(evs)
         record["stretch_s"] = dt
@@ -175,8 +176,10 @@ def main(argv=None) -> int:
                / k,
                **{f"{n}_per_retrieve": counts[n] / k
                   for n in ("graph_replays", "graph_captures",
-                            "eager_decodes", "gemm_f32_rows",
-                            "gemm_f32_ring")})
+                            "eager_decodes")},
+               **{f"{n[5:]}_per_retrieve": sum(
+                   trace.short_name(o) == n for o, _, _ in tr.ops) / k
+                  for n in GEMM_F32})
     out = {
         "workload": args.workload, "seed": args.seed,
         "device": result["device"], "correct": result["correct"],
