@@ -80,7 +80,8 @@ the last line):
    packed bf16 are printed; then the model and store in f32, as ``cli
    retrieve --packed`` serves them (packed f32: 24 launches of each decoder
    kernel, one packed scorer; the f32 GEMM's launches by kernel, 36 on the
-   small-row kernel at step 0's 32 rows and 108 on the tile ring), timed
+   small-row kernel at step 0's 32 rows and 108 on the warp-specialised
+   ring), timed
    over 3 retrieves after a warm one, with its peak; then one query a
    retrieve, as serve-b1 sends (all 144 f32 GEMM launches on the small-row
    kernel, none on the ring), timed;
@@ -399,14 +400,15 @@ def core_bytes(name: str, r: int, pos: int, el: int, queries: int = B,
 
 def plan_kind(plan) -> str:
     """The kernel a GEMM plan runs: the f32 small-row kernel ("rows"), the
-    f32 tile ring ("ring") or the bf16 wgmma GEMM ("wgmma")."""
-    return "rows" if plan.rows_kernel else ("ring" if plan.f32 else "wgmma")
+    warp-specialised f32 ring ("ring_ws") or the bf16 wgmma GEMM
+    ("wgmma")."""
+    return ("wgmma", "rows", "ring_ws")[plan.kernel]
 
 
 def plan_text(plan) -> str:
     """A GEMM plan as phase 2 prints it: kernel, tile, ring, splits (the
     small-row kernel's: blocks a cluster), blocks."""
-    if plan.rows_kernel:
+    if plan_kind(plan) == "rows":
         return (f"rows: {plan.rows}x{plan.bn} strips, {plan.stages} stages, "
                 f"clusters of {plan.splits}, {plan.blocks} blocks")
     return (f"{plan_kind(plan)}: {plan.rows}x{plan.bn} tile, {plan.stages} "
@@ -1258,9 +1260,10 @@ def _check_retrieve(name, res, rr, n_beams: int, top_r: int,
 
 def _f32_gemm_launches(fn) -> dict[str, int]:
     """The sublayers' f32 GEMM launches by kernel name while ``fn`` runs
-    (``gemm_f32_ring_rows``, the small-row kernel; ``gemm_f32_ring``, the
-    tile ring), from a torch.profiler trace, which sees the kernels that
-    replayed CUDA graphs launch."""
+    (``gemm_f32_ring_rows``, the small-row kernel; ``gemm_f32_ring_ws``, the
+    warp-specialised ring), from a
+    torch.profiler trace, which sees the kernels that replayed CUDA graphs
+    launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1269,7 +1272,7 @@ def _f32_gemm_launches(fn) -> dict[str, int]:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = {"gemm_f32_ring_rows": 0, "gemm_f32_ring": 0}
+    out = {"gemm_f32_ring_rows": 0, "gemm_f32_ring_ws": 0}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             for name in out:
@@ -1430,16 +1433,15 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
     log(f"  {name} (f32 model): warm retrieve {time.perf_counter() - t:.3f} s")
     # the f32 GEMM's kernels: step 0's 32 rows on the small-row kernel (6
     # layers x 6 products), the 992 and 3,200 rows of the other three steps
-    # on the tile ring
+    # (108 launches) on the warp-specialised ring
     n_gemms = len(DECODER) * 2 * 6                    # a step's, 6 layers
+    gemm_kernels = dict(gemm_f32_ring_rows=n_gemms, gemm_f32_ring_ws=3 * n_gemms)
     _, _, launches = _counted_retrieve(
         name, ev, ids, mask,
         dict(dict.fromkeys(DECODER, 24), packed_scores=1), qbatch * beams,
-        beams, gemm_kernels=dict(gemm_f32_ring_rows=n_gemms,
-                                 gemm_f32_ring=3 * n_gemms))
+        beams, gemm_kernels=gemm_kernels)
     out["launches_f32"] = {k: v for k, v in launches.items() if v}
-    out["gemm_kernels_f32"] = dict(gemm_f32_ring_rows=n_gemms,
-                                   gemm_f32_ring=3 * n_gemms)
+    out["gemm_kernels_f32"] = gemm_kernels
     totals = _timed(lambda: ev.retrieve(ids, mask), 0, timed)
     total = sum(totals) / len(totals)
     lay = out["layouts"][name] = dict(
@@ -1461,9 +1463,9 @@ def phase_full(dev, card: str, trie, timed: int = 3, profile: bool = False
     _counted_retrieve(
         name, ev, ids[:1], mask[:1],
         dict(dict.fromkeys(DECODER, 24), packed_scores=1), beams, beams,
-        gemm_kernels=dict(gemm_f32_ring_rows=4 * n_gemms, gemm_f32_ring=0))
+        gemm_kernels=dict(gemm_f32_ring_rows=4 * n_gemms, gemm_f32_ring_ws=0))
     out["gemm_kernels_f32_one_query"] = dict(
-        gemm_f32_ring_rows=4 * n_gemms, gemm_f32_ring=0)
+        gemm_f32_ring_rows=4 * n_gemms, gemm_f32_ring_ws=0)
     totals = _timed(lambda: ev.retrieve(ids[:1], mask[:1]), 1, timed)
     total = sum(totals) / len(totals)
     out["layouts"][name] = dict(

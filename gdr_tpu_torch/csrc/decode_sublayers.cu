@@ -59,29 +59,26 @@
 // wgmma (normalising A in registers would need the register-A form of wgmma
 // and a second pass over every A tile).
 //
-// f32 GEMM (gemm_f32_ring): the same C = epi(A · Wᵀ) with exact f32 products
-// summed in f32 on the FMA units (no TF32: 67 TFLOP/s, so every main-path
-// shape above ~40 rows is bound by operations).  Tiles of 128 x 128 (256
-// threads) down to 32 x 64 (32 threads), every thread an 8 x 8 micro-tile.
-// The tiles stay K-major in shared memory, as the 16-byte
-// cp.async.cg copies land them, in a ring of 4 stages of 16 k-values (rows
-// padded to 20 floats), so the next three k-tiles load while the FMAs run;
-// a thread reads 4 k-values of a row per LDS.128: 16 LDS.128 per 256 FMAs.
-// Split-K as in bf16 (partials in split order by the tile's last arrival,
-// on the same counters; ReLU and the residual on the full sum), with one
-// block per work unit.  The plan (tile, splits) comes from a cost model of
-// its own (choose_plan_f32): the busiest SM's units at the FMA rate its
-// resident warps reach, plus the partials' traffic.  Up to 128 rows the
-// same model weighs a second kernel, gemm_f32_ring_rows (below the ring):
-// all M rows in one tile padded to 8 or 16, W streamed once by TMA in strips
-// split over the blocks of a cluster, split-K summed in shared and
-// distributed shared memory.
-//
+// f32 GEMM: the same C = epi(A · Wᵀ) with exact f32 products summed in f32
+// on the FMA units (no TF32: 67 TFLOP/s, so every main-path shape above ~40
+// rows is bound by operations), in one of two kernels by the row count.
+// Above 128 rows gemm_f32_ring_ws, warp-specialised and persistent (a TMA
+// producer warpgroup on full / empty mbarriers, consumer warps of 8 x 12
+// outputs a lane with the registers setmaxnreg gives them, every block an
+// even share of the launch's k-tiles, so a tile's k-range may be cut across
+// blocks and summed in k order by its last arrival).  Up to 128 rows
+// gemm_f32_ring_rows (below it): all M rows in one tile padded to 8 or 16,
+// W streamed once by TMA in strips split over the blocks of a cluster,
+// split-K summed in shared and distributed shared memory.  Each has a cost
+// model of its own that picks its plan (choose_plan_f32).
+
 // Weights are in nn.Linear layout W[N, K].  The wrapper guarantees K and N
 // are multiples of 8 and 16-byte aligned tensors (TMA's requirements).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <vector>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -355,169 +352,356 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUten
   }
 }
 
-// ------------------------------------------------------------- f32 GEMM
+// ------------------------------------------------------------- f32 GEMM, warp-specialised
 
-// A ring of kF32Stages k-tiles of kF32BK floats; each shared row (of A or of
-// W) holds its tile's kF32BK k-values K-major, as cp.async copies them, padded
-// to kF32Ld floats: 80 bytes, an odd number of 16-byte slots, so that 8 lanes
-// reading 16 bytes of 8 consecutive rows meet no bank twice.
-constexpr int kF32BK = 16, kF32Ld = kF32BK + 4, kF32Stages = 4;
+// k-tiles of 32 floats, one 128-byte swizzle row; rings of at most 8 stages
+constexpr int kWsBK = 32, kWsMaxStages = 8;
+// registers a consumer thread holds once the roles split (setmaxnreg)
+constexpr int kWsConsumerRegs = 232;
 
-// a BM x BN tile: (BM / 8) x (BN / 8) threads, each 8 x 8 outputs.  The 64
-// sums and two 8 x 4 fragments a thread hold ~170 registers (the launch
-// bounds ask for 12 warps an SM where the tile has fewer than 8)
-template <int BM, int BN>
-struct F32Tile {
-  static constexpr int TX = BN / 8, TY = BM / 8;
-  static constexpr int kThreads = TX * TY;
-  static constexpr int kMinBlocks = kThreads >= 384 ? 1 : 384 / kThreads;
-  static constexpr int kStage = (BM + BN) * kF32Ld;        // floats
-  static constexpr int kSmem = kF32Stages * kStage * 4;    // bytes
-  static constexpr int kPart = BM * BN / 4;                 // a split's partial, float4s
-  static constexpr int kCopies = (BM + BN) * (kF32BK / 4) / kThreads;   // a thread's, a stage
-  static_assert(TX == 8 || TX == 16, "a warp's quarter shares one row of A");
-  static_assert(kCopies * kThreads == (BM + BN) * (kF32BK / 4), "whole copies a thread");
+// The ring's block: one consumer warpgroup of WM x WN warps, each a 32 x
+// 8·TN warp tile of 8 x TN outputs a lane, then a producer warpgroup
+// (setmaxnreg acts on whole warpgroups; one of its threads issues the
+// loads); two blocks an SM.
+template <int WM, int WN, int TN>
+struct WsRing {
+  static constexpr int TM = 8;
+  static constexpr int BM = 32 * WM, BN = 8 * TN * WN;
+  static constexpr int kWarps = WM * WN;                   // consumer warps
+  static constexpr int kConsumers = 32 * kWarps;
+  static constexpr int kThreads = kConsumers + 128;
+  // registers a thread starts with (__maxnreg__): half an SM's 65,536, in
+  // the allocation's steps of 8; the producer warpgroup keeps what the
+  // consumers' kWsConsumerRegs leave of the block's pool
+  static constexpr int kEntryRegs = 65536 / (kThreads * 2) / 8 * 8;
+  static constexpr int kProducerRegs =
+      (kThreads * kEntryRegs - kConsumers * kWsConsumerRegs) / 128 / 8 * 8;
+  static constexpr int kStage = (BM + BN) * kWsBK * 4;    // bytes, a multiple of 1,024
+  static constexpr int kGroups = TM * TN / 4;              // a lane's float4s of outputs
+  static_assert(kWarps == 4, "one consumer warpgroup");
+  static_assert(BM <= 256 && BN <= 256, "a TMA box holds at most 256 rows");
+  static_assert(kGroups % 8 == 0, "partials are summed 8 float4s at a time");
+  static_assert(kProducerRegs >= 24 && kEntryRegs <= kWsConsumerRegs,
+                "setmaxnreg's counts: 24 to 256, the producer's down, the consumers' up");
 };
 
-// Thread (tx, ty) owns rows ty + TY·i and columns tx + TX·j (i, j < 8).  A
-// quarter warp is one ty and 8 consecutive tx: its 16-byte reads of A are one
-// broadcast address, its reads of W 8 consecutive rows.  Each k-step of 4
-// reads 8 + 8 float4s for 256 FMAs.  Block u of the grid is work unit u:
-// output tile u / splits (row-major over tiles_n column tiles) and split
-// u % splits of its k-tiles.  ws: splits x [BM x BN] f32 partials per tile;
-// counters: one int per tile, zero between launches.
-template <int BM, int BN, int EPI>
-__global__ void __launch_bounds__(F32Tile<BM, BN>::kThreads, F32Tile<BM, BN>::kMinBlocks)
-gemm_f32_ring(const float* __restrict__ A, const float* __restrict__ W,
-              const float* __restrict__ resid, float* __restrict__ C,
-              float4* __restrict__ ws, int* __restrict__ counters, int M, int N, int K,
-              int splits) {
-  using T = F32Tile<BM, BN>;
-  constexpr int NT = T::kThreads, ST = kF32Stages;
-  extern __shared__ __align__(16) float f32_ring[];
-  __shared__ int last_split;
-  const int tid = threadIdx.x, tx = tid % T::TX, ty = tid / T::TX;
+// A launch's schedule.  Tiles of BM x BN, row-major over tiles_n column
+// tiles; tile t's kt k-tiles cut into s units (unit i: k-tiles [i·kt/s,
+// (i+1)·kt/s)), its units t·s .. t·s + s - 1; the u = tiles·s units dealt to
+// g <= u blocks in contiguous ranges [b·u/g, (b+1)·u/g), so that every block
+// works an even share, within one unit, of the launch's k-tiles.  The cuts
+// depend on the shape and the plan alone.
+struct Sched {
+  int tiles_n, kt, s, g, u;
+  __host__ __device__ int start(int b) const { return (int)((long long)b * u / g); }
+  // the block whose range holds unit v
+  __host__ __device__ int block_of(int v) const { return (int)((((long long)v + 1) * g - 1) / u); }
+};
+
+// a block's run of units [u, ue) inside one tile: the tile, its corner and
+// its k-tiles [kb, ke)
+struct Seg {
+  int tile, m0, n0, kb, ke;
+  int tu, ue;                // the tile's first unit; the end of the run
+};
+
+template <int BM, int BN>
+__host__ __device__ __forceinline__ Seg seg_at(const Sched& sc, int u, int u1) {
+  Seg g;
+  g.tile = u / sc.s;
+  g.tu = g.tile * sc.s;
+  g.ue = u1 < g.tu + sc.s ? u1 : g.tu + sc.s;
+  g.kb = (u - g.tu) * sc.kt / sc.s;
+  g.ke = (g.ue - g.tu) * sc.kt / sc.s;
+  const int tm = g.tile / sc.tiles_n;
+  g.m0 = tm * BM;
+  g.n0 = (g.tile - tm * sc.tiles_n) * BN;
+  return g;
+}
+
+// bar.red.or over a named barrier: synchronises `threads` threads and
+// returns whether any of them passed true
+__device__ __forceinline__ bool named_sync_or(int id, int threads, bool pred) {
+  unsigned r;
+  asm volatile(
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"((unsigned)pred), "r"(id), "r"(threads)
+      : "memory");
+  return r != 0;
+}
+
+__device__ __forceinline__ float4 f4add(const float4& a, const float4& b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// A's fragments of chunk c (4 k-values) of a k-tile: rows r0 + 4i of the
+// stage, chunk c of row r at 16-byte slot c ^ (r % 8) (r0 % 8 = ly, and
+// r % 8 = ly ^ 4 for odd i)
+template <int TM>
+__device__ __forceinline__ void ws_a(float4 (&a)[TM], const float* sa, int c, int ly) {
+  const int oa = (c ^ ly) << 2;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+    a[i] = *reinterpret_cast<const float4*>(sa + i * 4 * kWsBK + (i & 1 ? oa ^ 16 : oa));
+}
+
+// chunk c's FMAs: W rows lx + 8j (r % 8 = lx), each read once beside A's TM
+// fragments, k in order within every output
+template <int TM, int TN>
+__device__ __forceinline__ void ws_fma(float (&acc)[TM][TN], const float4 (&a)[TM],
+                                       const float* sw, int c, int lx) {
+  const int ow = (c ^ lx) << 2;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const float4 b = *reinterpret_cast<const float4*>(sw + j * 8 * kWsBK + ow);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+  }
+}
+
+// float4 group q of a lane's outputs: row i = q / (TN / 4), columns
+// 4·(q % (TN / 4)) .. + 3 of its TN
+template <int TM, int TN>
+__device__ __forceinline__ float4 acc_group(const float (&acc)[TM][TN], int q) {
+  const int i = q / (TN / 4), j = 4 * (q % (TN / 4));
+  return make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+}
+template <int TM, int TN>
+__device__ __forceinline__ void set_group(float (&acc)[TM][TN], int q, const float4& v) {
+  const int i = q / (TN / 4), j = 4 * (q % (TN / 4));
+  acc[i][j] = v.x;
+  acc[i][j + 1] = v.y;
+  acc[i][j + 2] = v.z;
+  acc[i][j + 3] = v.w;
+}
+
+// gemm_f32_ring_ws: the f32 GEMM C = epi(A · Wᵀ) above 128 rows (the
+// decoder at batch > 1: 992 and 3,200 rows at 32 queries of 100 beams; 320
+// rows in query generation).  It replaces no TPU kernel (the TPU's f32
+// product is XLA's).  Bound: at these rows every product does >= 20 FMAs a
+// byte it must move, so the 67 TFLOP/s of the FMA units bound it; f32 has
+// no tensor-core path that keeps every product exact.  On the H100 it
+// reaches 61-64% of that at 3,200 rows and 52% on 768 x 768 (its mainloop
+// issues 93% FFMAs; the rest are stalls, kernels/f32_bench.py sweep).
+// ptxas -v (sm_90a): 128 registers at entry (__maxnreg__), 0 bytes of
+// spill, for both tiles.  Design:
+// - Warp-specialised ring: one thread of a producer warpgroup keeps TMA
+//   loads of A's and W's 32-float k-tiles (128-byte swizzle, rows past M or
+//   N and k past K as zeros) in flight through a ring of `stages` slots on
+//   full / empty mbarriers; consumer warps wait only on a slot's full
+//   barrier and release it, warp by warp, on its empty barrier.  They issue
+//   no copies, and the mainloop has no block barrier.  setmaxnreg moves the
+//   producer warpgroup's registers to the consumers (it acts on whole
+//   warpgroups: a lone producer warp that lowered its count hung the block).
+// - A larger register tile: a lane holds 8 x TN outputs (TN = 12), rows
+//   ly + 4i and columns lx + 8j of its warp's 32 x 8·TN (lane 8·ly + lx), so
+//   a quarter warp reads one A address (a broadcast) and 8 W rows that the
+//   swizzle puts on distinct banks: 8 + TN LDS.128 for 32·TN FMAs, A's
+//   fragments of the next chunk loaded while this chunk's FMAs run.
+// - Persistent, an even share of k-work on every block (Sched): a tile's
+//   k-range may be cut across blocks.  A cut tile's partials are summed in k
+//   order (block order) by its last arrival on the tile's counter, which
+//   zeroes the counter again; a block that finds every other part already
+//   in skips writing its own.  No block waits on another, and every call of
+//   a plan gives the same bits, eager or replayed.  While the consumers
+//   store one tile (round, ReLU or residual, on the full sum), the producer
+//   already loads the next one's first k-tiles.
+// ws: 2 f32 partials of BM x BN a block (its first run, its last), each in
+// lane order (float4 q of consumer thread c at q·NC + c); counters: one int
+// a tile, zero between launches.
+template <int WM, int WN, int TN>
+__global__ void __maxnreg__((WsRing<WM, WN, TN>::kEntryRegs))
+gemm_f32_ring_ws(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+                 const float* __restrict__ resid, float* __restrict__ C, float4* __restrict__ ws,
+                 int* __restrict__ counters, int M, int N, int K, int splits, int stages,
+                 int epi) {
+  using R = WsRing<WM, WN, TN>;
+  constexpr int TM = R::TM, NC = R::kConsumers, G4 = R::kGroups, BM = R::BM, BN = R::BN;
+  extern __shared__ __align__(16) uint8_t ws_smem_raw[];
+  uint8_t* smem = ws_smem_raw + ((1024 - (smem_u32(ws_smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * R::kStage);
+  uint64_t* empty = full + kWsMaxStages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int tiles_n = (N + BN - 1) / BN;
-  const int tile = blockIdx.x / splits, split = blockIdx.x - tile * splits;
-  const int tm = tile / tiles_n;
-  const int m0 = tm * BM, n0 = (tile - tm * tiles_n) * BN;
-  const int ktiles = (K + kF32BK - 1) / kF32BK;
-  const int kb = split * ktiles / splits, nk = (split + 1) * ktiles / splits - kb;
-
-  // k-tile kt into ring slot `slot`: BM rows of A, then BN rows of W, each
-  // kF32BK / 4 16-byte copies; rows past M or N and k past K arrive as zeros
-  // (K is a multiple of 8, so a 16-byte chunk is all in or all out)
-  auto load = [&](int slot, int kt) {
-    float* dst = f32_ring + slot * T::kStage;
-    const int k0 = kt * kF32BK;
-#pragma unroll
-    for (int it = 0; it < T::kCopies; ++it) {
-      const int c = tid + it * NT;
-      const int r = c / (kF32BK / 4), kc = (c % (kF32BK / 4)) * 4;
-      const bool in_a = r < BM;
-      const int gr = in_a ? m0 + r : n0 + (r - BM);
-      const float* src = in_a ? A : W;
-      const bool ok = gr < (in_a ? M : N) && k0 + kc < K;
-      cp_async16(dst + r * kF32Ld + kc, ok ? src + (size_t)gr * K + k0 + kc : src, ok ? 16 : 0);
+  const Sched sc{tiles_n, (K + kWsBK - 1) / kWsBK, splits, (int)gridDim.x,
+                 (M + BM - 1) / BM * tiles_n * splits};
+  const int u0 = sc.start(blockIdx.x), u1 = sc.start(blockIdx.x + 1);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], R::kWarps);             // every consumer warp
     }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll
-  for (int s = 0; s < ST - 1; ++s) {               // fill the ring
-    if (s < nk) load(s, kb + s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int i = 0; i < nk; ++i) {
-    cp_async_wait<ST - 2>();                       // k-tile i has landed (this thread's copies)
-    __syncthreads();                               // ... everyone's; slot (i - 1) % ST is free
-    if (i + ST - 1 < nk) load((i + ST - 1) % ST, kb + i + ST - 1);
-    cp_async_commit();
-    const float* sa = f32_ring + (i % ST) * T::kStage;
-    const float* sw = sa + BM * kF32Ld;
-#pragma unroll
-    for (int kk = 0; kk < kF32BK; kk += 4) {
-      float4 a[8], b[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        a[r] = *reinterpret_cast<const float4*>(sa + (ty + T::TY * r) * kF32Ld + kk);
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        b[c] = *reinterpret_cast<const float4*>(sw + (tx + T::TX * c) * kF32Ld + kk);
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r].x, b[c].x, acc[r][c]);
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r].y, b[c].y, acc[r][c]);
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r].z, b[c].z, acc[r][c]);
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r].w, b[c].w, acc[r][c]);
-    }
-  }
-  cp_async_wait<0>();                              // no copy outlives the block
+  __syncthreads();
 
-  if (splits > 1) {
-    // this split's partial in thread order (float4 j of thread t at j·NT +
-    // t: each warp instruction stores 512 contiguous bytes); the tile's last
-    // arrival sums all partials in split order, so every call gives the
-    // same bits, and zeroes the counter for the next launch
-    float4* part = ws + (size_t)tile * splits * T::kPart + tid;
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      __stcg(part + (size_t)split * T::kPart + j * NT,
-             make_float4(acc[j / 2][4 * (j % 2)], acc[j / 2][4 * (j % 2) + 1],
-                         acc[j / 2][4 * (j % 2) + 2], acc[j / 2][4 * (j % 2) + 3]));
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) {
-      const int last = atomicAdd(&counters[tile], 1) == splits - 1;
-      if (last) atomicExch(&counters[tile], 0);
-      __threadfence();
-      last_split = last;
-    }
-    __syncthreads();
-    if (!last_split) return;
-    __threadfence();
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int p = 0; p < splits; ++p) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float4 v = __ldcg(part + (size_t)p * T::kPart + j * NT);
-        acc[j / 2][4 * (j % 2)] += v.x;
-        acc[j / 2][4 * (j % 2) + 1] += v.y;
-        acc[j / 2][4 * (j % 2) + 2] += v.z;
-        acc[j / 2][4 * (j % 2) + 3] += v.w;
+  // ring slot s of round r: full[s] completes its phase r once both boxes
+  // land (zero-filled bytes count too), empty[s] once every consumer warp
+  // is done with them; ph = r & 1
+  if (warp >= R::kWarps) {                         // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R::kProducerRegs));
+    if (tid == NC) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&ta)) : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tw)) : "memory");
+      int s = 0, it = 0;
+      unsigned ph = 0;
+      for (int u = u0; u < u1;) {
+        const Seg g = seg_at<BM, BN>(sc, u, u1);
+        for (int kt = g.kb; kt < g.ke; ++kt, ++it) {
+          if (it >= stages) mbar_wait(&empty[s], ph ^ 1);
+          uint8_t* st = smem + s * R::kStage;
+          mbar_expect_tx(&full[s], R::kStage);
+          tma_load_2d(st, &ta, &full[s], kt * kWsBK, g.m0);
+          tma_load_2d(st + BM * kWsBK * 4, &tw, &full[s], kt * kWsBK, g.n0);
+          if (++s == stages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+        u = g.ue;
       }
     }
-  }
+  } else {                                         // the consumer warps
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kWsConsumerRegs));
+    const int wm = warp % WM, wn = warp / WM, ly = lane >> 3, lx = lane & 7;
+    const int a_off = (wm * 32 + ly) * kWsBK, w_off = (BM + wn * 8 * TN + lx) * kWsBK;
+    int s = 0;
+    unsigned ph = 0;
+    for (int u = u0; u < u1;) {
+      const Seg g = seg_at<BM, BN>(sc, u, u1);
+      const bool first_run = u == u0;
+      u = g.ue;
+      float acc[TM][TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+      for (int kt = g.kb; kt < g.ke; ++kt) {
+        mbar_wait(&full[s], ph);
+        const float* sa = reinterpret_cast<const float*>(smem + s * R::kStage) + a_off;
+        const float* sw = reinterpret_cast<const float*>(smem + s * R::kStage) + w_off;
+        float4 a0[TM], a1[TM];
+        ws_a(a0, sa, 0, ly);
+#pragma unroll 1
+        for (int c = 0; c < 6; c += 2) {
+          ws_a(a1, sa, c + 1, ly);
+          ws_fma(acc, a0, sw, c, lx);
+          ws_a(a0, sa, c + 2, ly);
+          ws_fma(acc, a1, sw, c + 1, lx);
+        }
+        ws_a(a1, sa, 7, ly);
+        ws_fma(acc, a0, sw, 6, lx);
+        ws_fma(acc, a1, sw, 7, lx);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);     // this warp is done with the slot
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
 
-  // the epilogue on the full sum: a warp stores 16 (TX 16) or 8 (TX 8)
-  // consecutive columns of 2 or 4 rows per instruction
+      if (g.kb != 0 || g.ke != sc.kt) {
+        // a cut tile: blocks first .. last hold its runs in k order; block
+        // b's run is its first (slot 0) unless b started before the tile
+        const int first = sc.block_of(g.tu), last = sc.block_of(g.tu + sc.s - 1);
+        const int me = blockIdx.x;
+        auto part = [&](int b) {
+          const int slot = b == first && sc.start(b) < g.tu ? 1 : 0;
+          return ws + ((size_t)b * 2 + slot) * (NC * G4) + tid;
+        };
+        int* cnt = counters + g.tile;
+        bool done = false;                         // every other run has arrived
+        if (tid == 0) {
+          int seen;
+          asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(seen) : "l"(cnt) : "memory");
+          done = seen == last - first;
+        }
+        bool is_last = named_sync_or(1, NC, done);
+        if (!is_last) {
+          float4* p = ws + ((size_t)me * 2 + (first_run ? 0 : 1)) * (NC * G4) + tid;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + ty + T::TY * i;
-    if (row >= M) continue;
+          for (int q = 0; q < G4; ++q) __stcg(p + q * NC, acc_group(acc, q));
+          __threadfence();
+          bool arrived_last = false;
+          named_sync(1, NC);
+          if (tid == 0) {
+            arrived_last = atomicAdd(cnt, 1) == last - first;
+            __threadfence();
+          }
+          is_last = named_sync_or(1, NC, arrived_last);
+          if (!is_last) continue;
+        }
+        if (tid == 0) atomicExch(cnt, 0);          // zero again for the next launch
+        __threadfence();
+        // the sum in block order: the earlier runs' ordered sum (4 float4s of
+        // a lane at a time, two runs' loads in flight) added to this run's,
+        // then each later run's partial, half a lane's float4s at a time
+        if (me > first) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + tx + T::TX * j;
-      if (col < N) {
-        const size_t idx = (size_t)row * N + col;
-        C[idx] = epilogue<EPI, float>(acc[i][j], EPI == kResidual ? resid[idx] : 0.f);
+          for (int h = 0; h < G4 / 4; ++h) {
+            float4 pre[4];
+            for (int b = first; b < me; b += 2) {
+              const float4* p = part(b) + h * 4 * NC;
+              const float4* p2 = b + 1 < me ? part(b + 1) + h * 4 * NC : p;
+              float4 v[4], v2[4];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                v[q] = __ldcg(p + q * NC);
+                v2[q] = __ldcg(p2 + q * NC);
+              }
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                pre[q] = b == first ? v[q] : f4add(pre[q], v[q]);
+                if (b + 1 < me) pre[q] = f4add(pre[q], v2[q]);
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              set_group(acc, h * 4 + q, f4add(acc_group(acc, h * 4 + q), pre[q]));
+          }
+        }
+        for (int b = me + 1; b <= last; ++b) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4* p = part(b) + h * (G4 / 2) * NC;
+            float4 v[G4 / 2];
+#pragma unroll
+            for (int q = 0; q < G4 / 2; ++q) v[q] = __ldcg(p + q * NC);
+#pragma unroll
+            for (int q = 0; q < G4 / 2; ++q)
+              set_group(acc, h * (G4 / 2) + q, f4add(acc_group(acc, h * (G4 / 2) + q), v[q]));
+          }
+        }
+      }
+
+      // the epilogue on the full sum: a quarter warp stores 8 consecutive
+      // columns of one row, a warp 4 rows, per instruction (staging the tile
+      // in shared memory for float4 stores was slower at every shape)
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int row = g.m0 + wm * 32 + ly + 4 * i;
+        if (row >= M) continue;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int col = g.n0 + wn * 8 * TN + lx + 8 * j;
+          if (col < N) {
+            const size_t idx = (size_t)row * N + col;
+            float v = acc[i][j];
+            if (epi == kRelu) v = fmaxf(v, 0.f);
+            else if (epi == kResidual) v = resid[idx] + v;
+            C[idx] = v;
+          }
+        }
       }
     }
   }
@@ -549,10 +733,10 @@ __host__ __device__ __forceinline__ int rows_smem(int mt, int bn, int stages) {
 
 // gemm_f32_ring_rows: the f32 GEMM C = epi(A · Wᵀ) for M <= 128 rows (the
 // decoder at one query a retrieve, 1 / 31 / 100 rows, and step 0 of a batch
-// of 32).  It replaces no TPU kernel: at these rows the ring's 32-row tiles
-// and 16-32 splits spent 18-35 us on products bound at 0.7-7 us, in launch
-// and first loads, a last split that re-reads every partial alone, and FMAs
-// on zero rows.  Below ~40 rows an f32 product is bound by W's bytes (67
+// of 32).  It replaces no TPU kernel: at these rows the earlier tile ring's
+// 32-row tiles and 16-32 splits spent 18-35 us on products bound at 0.7-7
+// us, in launch and first loads, a last split that re-reads every partial
+// alone, and FMAs on zero rows.  Below ~40 rows an f32 product is bound by W's bytes (67
 // TFLOP/s over 3.35 TB/s: 20 FLOP a byte, 40 rows of f32 W), at 100 rows by
 // the FMAs.  Design:
 // - W streamed once: block b of a launch owns the strip of BN = 8·TN columns
@@ -1375,14 +1559,21 @@ struct Tile {
 static const Tile kTiles[] = {GDR_GEMM_TILES(GDR_TILE_ENTRY)};
 #undef GDR_TILE_ENTRY
 
-// a launch: the tile, its k-tiles split `splits` ways, units = tiles ·
-// splits work units walked by `blocks` persistent blocks.  f32 `rows`:
-// gemm_f32_ring_rows, tile.wg = its row extent / 8, tile.bn its strip, a ring
-// of tile.stages, `splits` blocks a cluster, one block a unit.
+// The GEMM's kernels: the bf16 tile kernel (gemm_wgmma), the f32 small-row
+// kernel (gemm_f32_ring_rows) and the f32 warp-specialised ring
+// (gemm_f32_ring_ws).
+enum Kernel { kWgmma = 0, kF32Rows = 1, kF32Ws = 2 };
+
+// a launch: the kernel, its tile, the tile's k-tiles split `splits` ways,
+// units = tiles · splits work units walked by `blocks` persistent blocks.
+// kF32Rows: tile.wg = its row extent / 8, tile.bn its strip, a ring of
+// tile.stages, `splits` blocks a cluster, one block a unit; kF32Ws: tiles of
+// 32·wg rows whose 32-float k-tiles are cut into `splits` units, dealt to
+// `blocks` blocks.
 struct Plan {
   Tile tile;
   int splits, units, blocks;
-  int rows = 0;
+  int kernel = kWgmma;
 };
 
 constexpr int kSplitTiles = 1024;   // output tiles a split launch may count on
@@ -1445,65 +1636,6 @@ static Plan choose_plan(int m, int n, int k, int sms) {
     }
   }
   return best;
-}
-
-// The f32 GEMM's tiles, largest first: 8 x 8 outputs a thread, so 256, 128,
-// 128 and 64 threads.  A plan names one as {tile rows / 32, columns,
-// kF32Stages}.  (64 x 64 and 32 x 64 tiles were best at no main-path shape
-// of the H100 sweep, kernels/f32_bench.py sweep.)
-#define GDR_F32_TILES(X) X(128, 128) X(128, 64) X(64, 128) X(32, 128)
-
-struct F32Shape {
-  int bm, bn;
-};
-#define GDR_F32_ENTRY(bm, bn) {bm, bn},
-static const F32Shape kF32Tiles[] = {GDR_F32_TILES(GDR_F32_ENTRY)};
-#undef GDR_F32_ENTRY
-
-constexpr int kF32SplitRounds = 8;  // splits only while units <= 8 · SMs
-
-// The f32 cost model's constants, fitted by kernels/f32_bench.py sweep on
-// the H100 to every plan of the main path's 16 shapes (M 32 / 320 / 992 /
-// 3,200 x the four (N, K)) that ran within 1.5x of its shape's best: the FMAs/s one SM sustains in this
-// mainloop (55% of its share of 67 TFLOP/s), the operand bytes/s a block
-// pulls through its ring, the rate at which a block writes and reads split
-// partials, the launch and first loads, and the registers a thread holds.
-constexpr double kF32FmaPerSm = 0.548 * 67e12 / 2 / 132, kF32OperandPerSm = 15.6e9,
-                 kF32PartPerSm = 59e9, kF32Latency = 5.0e-6;
-constexpr int kF32Regs = 170;
-
-// blocks of tile t an SM holds at once: threads, registers, shared memory
-static int f32_resident(const F32Shape& t) {
-  const int nt = t.bm * t.bn / 64, smem = kF32Stages * (t.bm + t.bn) * kF32Ld * 4 + 1024;
-  int b = 2048 / nt;
-  if (65536 / (nt * kF32Regs) < b) b = 65536 / (nt * kF32Regs);
-  if (233472 / smem < b) b = 233472 / smem;      // 228 KB an SM
-  return b < 1 ? 1 : (b > 32 ? 32 : b);
-}
-
-// Modelled time of an f32 plan.  The grid is one block a work unit; the
-// card runs them in rounds of `resident` blocks an SM.  A unit costs the
-// larger of its FMAs and its operand bytes, plus its partial when split;
-// an SM's round of c units takes c units' cost over the share of the FMA
-// rate its c·threads / 256 warps' worth reach (8 warps reach it all); the
-// tile's last split reads every partial.
-static double plan_time_f32(const F32Shape& t, int splits, int m, int n, int k, int sms) {
-  const int nt = t.bm * t.bn / 64;
-  const int tiles = (m + t.bm - 1) / t.bm * ((n + t.bn - 1) / t.bn), units = tiles * splits;
-  const int kt = (k + kF32BK - 1) / kF32BK, kt_unit = (kt + splits - 1) / splits;
-  const double fma = (double)t.bm * t.bn * kF32BK * kt_unit / kF32FmaPerSm;
-  const double operands = (double)(t.bm + t.bn) * kF32BK * kt_unit * 4 / kF32OperandPerSm;
-  const double part = 4.0 * t.bm * t.bn / kF32PartPerSm;
-  const double unit = (fma > operands ? fma : operands) + (splits > 1 ? part : 0.0);
-  auto round = [&](int c) {
-    const double warps = (double)c * nt / 256;
-    return unit * c / (warps < 1 ? warps : 1.0);
-  };
-  const int res = f32_resident(t), slots = sms * res;
-  double time = kF32Latency + (units / slots) * round(res);
-  if (units % slots) time += round((units % slots + sms - 1) / sms);
-  if (splits > 1) time += splits * part;
-  return time;
 }
 
 // The small-row kernel's strips and clusters a plan may take (its row extent
@@ -1591,7 +1723,7 @@ static bool rows_plan_ok(int m, int k, int bn, int cl, int st) {
 // to the first strip and cluster in the lists above
 static Plan choose_plan_rows(int m, int n, int k, int sms) {
   const int mt = rows_pad(m);
-  Plan best{{0, 0, 0}, 1, 0, 0, 1};
+  Plan best{{0, 0, 0}, 1, 0, 0, kF32Rows};
   double best_t = 1e30;
   for (const int bn : kRowsBn)
     for (const int cl : kRowsClusters) {
@@ -1600,30 +1732,124 @@ static Plan choose_plan_rows(int m, int n, int k, int sms) {
       if (time < best_t * (1 - 1e-9)) {
         best_t = time;
         const int units = (n + bn - 1) / bn * cl;
-        best = {{mt / 8, bn, kRowsStages}, cl, units, units, 1};
+        best = {{mt / 8, bn, kRowsStages}, cl, units, units, kF32Rows};
       }
     }
   return best;
 }
 
-// the plan with the least modelled time: the small-row kernel's up to 128
-// rows, the ring's above
-static Plan choose_plan_f32(int m, int n, int k, int sms) {
-  if (m <= kRowsMaxM) return choose_plan_rows(m, n, k, sms);
-  const int kt = (k + kF32BK - 1) / kF32BK;
-  Plan best{{0, 0, 0}, 1, 0, 0};
-  double best_t = 1e30;
-  for (const F32Shape& t : kF32Tiles) {
-    const int tiles = (m + t.bm - 1) / t.bm * ((n + t.bn - 1) / t.bn);
-    for (int splits = 1; splits <= kt && splits <= kMaxSplits; ++splits) {
-      if (splits > 1 && (tiles > kSplitTiles || tiles * splits > kF32SplitRounds * sms)) break;
-      const double time = plan_time_f32(t, splits, m, n, k, sms);
-      if (time < best_t * (1 - 1e-9)) {
-        best_t = time;
-        best = {{t.bm / 32, t.bn, kF32Stages}, splits, tiles * splits, tiles * splits};
+// The ring's instantiations (WM, WN, TN): tiles of 128 x 96 and 64 x 192, 4
+// consumer warps of 8 x 12 outputs a lane.  (8 x 16 a lane, in tiles of 128
+// x 128, 64 x 256, and 256 x 128 or 128 x 256 of 8 consumer warps at one
+// block an SM, spilled and was slower at every shape of the sweep,
+// kernels/f32_bench.py sweep.)
+#define GDR_WS_TILES(X) X(4, 1, 12) X(2, 2, 12)
+
+struct WsShape {
+  int bm, bn;
+};
+#define GDR_WS_ENTRY(wm, wn, tn) {WsRing<wm, wn, tn>::BM, WsRing<wm, wn, tn>::BN},
+static const WsShape kWsTiles[] = {GDR_WS_TILES(GDR_WS_ENTRY)};
+#undef GDR_WS_ENTRY
+
+// shared memory of a ring block: the stages, the barriers, slack to align
+// to 1,024
+static int ws_smem(int bm, int bn, int stages) {
+  return stages * (bm + bn) * kWsBK * 4 + 2 * kWsMaxStages * 8 + 1024;
+}
+
+// the deepest ring (at most 4 stages) that lets two blocks share an SM
+static int ws_stages(const WsShape& t) {
+  int st = 4;
+  while (st > 1 && 2 * (ws_smem(t.bm, t.bn, st) + 1024) > 233472) --st;
+  return st;
+}
+
+// The ring's cost model, fitted by kernels/f32_bench.py sweep on the H100
+// to every plan of M 129 / 320 / 992 / 997 / 3,200 x the four (N, K) of a
+// t5-base decoder layer within 1.5x of its shape's best: the FMAs/s one SM
+// sustains with two blocks (67% of its share of 67 TFLOP/s), the share of
+// that one block reaches alone, the bytes/s at which an SM writes or reads a
+// partial, and the launch with its first loads and the last tile's fix-up.
+// (A tile's store fitted to no cost: the SM's other block hides it.)  The
+// sweep fits these four through gdr_gemm_ws_time.
+struct WsModel {
+  double fma_per_sm, lone, part_per_sm, latency;
+};
+constexpr WsModel kWsModel = {0.673 * 67e12 / 2 / 132, 0.892, 61.8e9, 12.4e-6};
+
+// Modelled time of a ring plan: the busiest SM's blocks (block b on SM
+// b % sms; the two blocks an SM holds share its FMA rate).  A block's
+// runs cost their k-tiles; a cut tile's runs each write a partial, except
+// the tile's first block, which arrives last (its run there is its last)
+// and reads the others'.
+static double plan_time_ws(const WsModel& c, const WsShape& t, int s, int g, int m, int n,
+                           int k, int sms) {
+  const int tiles_n = (n + t.bn - 1) / t.bn;
+  Sched sc{tiles_n, (k + kWsBK - 1) / kWsBK, s, g, (m + t.bm - 1) / t.bm * tiles_n * s};
+  if (sc.g > sc.u) sc.g = sc.u;
+  const double rate = c.fma_per_sm * (sc.g > sms ? 1.0 : c.lone);
+  const double t_kt = (double)t.bm * t.bn * kWsBK / rate;
+  const double part = 4.0 * t.bm * t.bn / c.part_per_sm;
+  std::vector<double> sm(sms, 0.0);
+  for (int b = 0; b < sc.g; ++b) {
+    const int u1 = sc.start(b + 1);
+    double time = 0;
+    for (int u = sc.start(b); u < u1;) {
+      const Seg r = seg_at<1, 1>(sc, u, u1);
+      time += (r.ke - r.kb) * t_kt;
+      if (r.kb != 0 || r.ke != sc.kt)
+        time += (sc.block_of(r.tu) == b ? sc.block_of(r.tu + s - 1) - b : 1) * part;
+      u = r.ue;
+    }
+    sm[b % sms] += time;
+  }
+  double worst = 0;
+  for (const double x : sm) worst = x > worst ? x : worst;
+  return c.latency + worst;
+}
+
+// the ring plans the chooser weighs at M, N, K: both tiles, each tile's
+// k-tiles cut into s units (s = 1, a few, or one a k-tile; s > 1 only while
+// the tiles fit the arrival counters), dealt to one or two blocks an SM
+template <typename F>
+static void ws_plans(int m, int n, int k, int sms, F&& visit) {
+  const int kt = (k + kWsBK - 1) / kWsBK;
+  static const int kCuts[] = {1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96};
+  int cuts[16], nc = 0;
+  for (const int s : kCuts)
+    if (s < kt) cuts[nc++] = s;
+  cuts[nc++] = kt;
+  for (const WsShape& t : kWsTiles) {
+    const long long tiles = (long long)((m + t.bm - 1) / t.bm) * ((n + t.bn - 1) / t.bn);
+    for (int i = 0; i < nc; ++i) {
+      const int s = cuts[i];
+      if (s > 1 && tiles > kSplitTiles) continue;
+      for (int per = 1; per <= 2; ++per) {
+        const long long units = tiles * s;
+        const int g = units < (long long)sms * per ? (int)units : sms * per;
+        if (per > 1 && g <= sms * (per - 1)) continue;   // as few blocks as the last
+        visit(t, s, g);
       }
     }
   }
+}
+
+// the plan with the least modelled time: the small-row kernel's up to 128
+// rows, the warp-specialised ring's above, each by its own model; ties go to
+// the first tile, cut and block count
+static Plan choose_plan_f32(int m, int n, int k, int sms) {
+  if (m <= kRowsMaxM) return choose_plan_rows(m, n, k, sms);
+  Plan best{{0, 0, 0}, 1, 0, 0, kF32Ws};
+  double best_t = 1e30;
+  ws_plans(m, n, k, sms, [&](const WsShape& t, int s, int g) {
+    const double time = plan_time_ws(kWsModel, t, s, g, m, n, k, sms);
+    if (time < best_t * (1 - 1e-9)) {
+      best_t = time;
+      const int units = (m + t.bm - 1) / t.bm * ((n + t.bn - 1) / t.bn) * s;
+      best = {{t.bm / 32, t.bn, ws_stages(t)}, s, units, g, kF32Ws};
+    }
+  });
   return best;
 }
 
@@ -1679,46 +1905,54 @@ static cudaError_t gemm_bf16(const void* a, const void* w, const void* resid, vo
   return cudaErrorInvalidValue;
 }
 
-template <int BM, int BN, int EPI>
-static cudaError_t launch_f32_ring(const void* a, const void* w, const void* resid, void* c,
-                                   void* ws, int* counters, int m, int n, int k, int splits,
-                                   cudaStream_t s) {
-  using T = F32Tile<BM, BN>;
-  auto kernel = gemm_f32_ring<BM, BN, EPI>;
-  static unsigned opted = 0;                       // the shared-memory opt-in, once per device
+template <int WM, int WN, int TN>
+static cudaError_t launch_f32_ws(const CUtensorMap& ta, const CUtensorMap& tw, const void* resid,
+                                 void* c, void* ws, int* counters, int m, int n, int k,
+                                 int splits, int blocks, int stages, int epi, cudaStream_t s) {
+  using R = WsRing<WM, WN, TN>;
+  auto kernel = gemm_f32_ring_ws<WM, WN, TN>;
+  static unsigned ready = 0;                       // checked and opted in, once per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (!(opted & bit)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (!(ready & bit)) {
+    // the consumers' setmaxnreg.inc waits for registers that the block's
+    // pool, its threads x the kernel's count, must hold
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, kernel);
     if (e != cudaSuccess) return e;
-    opted |= bit;
+    if (fa.numRegs * R::kThreads < R::kConsumers * kWsConsumerRegs + 128 * R::kProducerRegs)
+      return cudaErrorInvalidConfiguration;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptin);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    ready |= bit;
   }
-  const int tiles = (m + BM - 1) / BM * ((n + BN - 1) / BN);
-  kernel<<<tiles * splits, T::kThreads, T::kSmem, s>>>(
-      static_cast<const float*>(a), static_cast<const float*>(w),
-      static_cast<const float*>(resid), static_cast<float*>(c), static_cast<float4*>(ws),
-      counters, m, n, k, splits);
+  const long long units =
+      (long long)((m + R::BM - 1) / R::BM) * ((n + R::BN - 1) / R::BN) * splits;
+  const int grid = blocks < units ? blocks : (int)units;
+  kernel<<<grid, R::kThreads, ws_smem(R::BM, R::BN, stages), s>>>(
+      ta, tw, static_cast<const float*>(resid), static_cast<float*>(c), static_cast<float4*>(ws),
+      counters, m, n, k, splits, stages, epi);
   return cudaGetLastError();
 }
 
-static cudaError_t gemm_f32(const void* a, const void* w, const void* resid, void* c, int m,
-                            int n, int k, int epi, const Plan& p, void* ws, int* counters,
-                            cudaStream_t s) {
-#define GDR_F32_LAUNCH(bm_, bn_)                                                          \
-  if (32 * p.tile.wg == bm_ && p.tile.bn == bn_) {                                        \
-    if (epi == kRound)                                                                    \
-      return launch_f32_ring<bm_, bn_, kRound>(a, w, resid, c, ws, counters, m, n, k,     \
-                                               p.splits, s);                              \
-    if (epi == kRelu)                                                                     \
-      return launch_f32_ring<bm_, bn_, kRelu>(a, w, resid, c, ws, counters, m, n, k,      \
-                                              p.splits, s);                               \
-    return launch_f32_ring<bm_, bn_, kResidual>(a, w, resid, c, ws, counters, m, n, k,    \
-                                                p.splits, s);                             \
-  }
-  GDR_F32_TILES(GDR_F32_LAUNCH)
-#undef GDR_F32_LAUNCH
+static cudaError_t gemm_f32_ws(const void* a, const void* w, const void* resid, void* c, int m,
+                               int n, int k, int epi, const Plan& p, void* ws, int* counters,
+                               cudaStream_t s) {
+  CUtensorMap ta, tw;
+  if (!tensor_map(&ta, a, m, k, 32 * p.tile.wg, true) ||
+      !tensor_map(&tw, w, n, k, p.tile.bn, true))
+    return cudaErrorInvalidValue;
+#define GDR_WS_LAUNCH(wm_, wn_, tn_)                                                        \
+  if (32 * p.tile.wg == WsRing<wm_, wn_, tn_>::BM && p.tile.bn == WsRing<wm_, wn_, tn_>::BN) \
+    return launch_f32_ws<wm_, wn_, tn_>(ta, tw, resid, c, ws, counters, m, n, k, p.splits,  \
+                                        p.blocks, p.tile.stages, epi, s);
+  GDR_WS_TILES(GDR_WS_LAUNCH)
+#undef GDR_WS_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -1863,20 +2097,44 @@ using gdr::kBF16;
 using gdr::kF32;
 
 // The GEMM's plan for C[m, n] = A[m, k] · W[n, k]ᵀ in `dtype` on a card of
-// `sms` SMs: plan[0..6] = tile rows / 64 (bf16), / 32 (f32) or / 8 (the
-// small-row kernel), tile columns, ring stages, splits, work units, blocks,
-// and 1 for the small-row kernel (else 0).  A split plan of the tile kernels
-// needs splits x [tile rows x tile columns] f32 of workspace per output tile
-// and one counter per output tile; the small-row kernel splits over the
-// blocks of a cluster and needs neither.
+// `sms` SMs: plan[0..6] = tile rows / 64 (bf16), / 32 (the f32 ring) or / 8
+// (the small-row kernel), tile columns, ring stages, splits, work units,
+// blocks, and the kernel (Kernel: 0 the bf16 tile kernel, 1 the small-row
+// kernel, 2 the warp-specialised f32 ring).  A split plan of the bf16 tile
+// kernel needs splits x [tile rows x tile columns] f32 of workspace per
+// output tile, one of the warp-specialised ring (its tiles' k-tiles cut into
+// `splits` units) 2 x [tile rows x tile columns] per block; both one counter
+// per output tile.  The small-row kernel splits over the blocks of a cluster
+// and needs neither.
 extern "C" int gdr_gemm_plan(int dtype, int m, int n, int k, int sms, int* plan) {
   if (m <= 0 || n <= 0 || k <= 0 || sms <= 0 || plan == nullptr ||
       (dtype != kBF16 && dtype != kF32))
     return cudaErrorInvalidValue;
   const gdr::Plan p =
       dtype == kBF16 ? gdr::choose_plan(m, n, k, sms) : gdr::choose_plan_f32(m, n, k, sms);
-  const int out[7] = {p.tile.wg, p.tile.bn, p.tile.stages, p.splits, p.units, p.blocks, p.rows};
+  const int out[7] = {p.tile.wg, p.tile.bn, p.tile.stages, p.splits, p.units, p.blocks, p.kernel};
   for (int i = 0; i < 7; ++i) plan[i] = out[i];
+  return cudaSuccess;
+}
+
+// The warp-specialised ring's plans that choose_plan_f32 weighs at C[m, n],
+// K = k, on a card of `sms` SMs, in its order: five ints each (tile rows,
+// tile columns, ring stages, splits, blocks), at most `cap` of them into
+// `plans`; *count = how many there are (so that kernels/f32_bench.py sweep
+// times, and the tests check, the chooser's own list).
+extern "C" int gdr_gemm_ws_plans(int m, int n, int k, int sms, int* plans, int cap, int* count) {
+  if (m <= 0 || n <= 0 || k <= 0 || sms <= 0 || cap < 0 || count == nullptr ||
+      (cap > 0 && plans == nullptr))
+    return cudaErrorInvalidValue;
+  int c = 0;
+  gdr::ws_plans(m, n, k, sms, [&](const gdr::WsShape& t, int s, int g) {
+    if (c < cap) {
+      const int row[5] = {t.bm, t.bn, gdr::ws_stages(t), s, g};
+      for (int i = 0; i < 5; ++i) plans[5 * c + i] = row[i];
+    }
+    ++c;
+  });
+  *count = c;
   return cudaSuccess;
 }
 
@@ -1896,55 +2154,82 @@ extern "C" int gdr_gemm_rows_time(int m, int n, int k, int bn, int cl, int stage
   return cudaSuccess;
 }
 
+// The ring's modelled time, in seconds, of a plan of a `bm` x `bn` tile
+// whose k-tiles are cut into `splits` units, dealt to `blocks` blocks, at
+// C[m, n], K = k, on a card of `sms` SMs: plan_time_ws with `model` = its
+// four constants in WsModel's order (null: the fitted ones), so that
+// kernels/f32_bench.py sweep fits the model the chooser runs.  Refuses a
+// tile the kernel does not have.
+extern "C" int gdr_gemm_ws_time(int m, int n, int k, int bm, int bn, int splits, int blocks,
+                                  int sms, const double* model, double* seconds) {
+  if (m <= 0 || n <= 0 || k <= 0 || sms <= 0 || blocks < 1 || splits < 1 ||
+      splits > (k + gdr::kWsBK - 1) / gdr::kWsBK || seconds == nullptr)
+    return cudaErrorInvalidValue;
+  for (const gdr::WsShape& t : gdr::kWsTiles)
+    if (t.bm == bm && t.bn == bn) {
+      const gdr::WsModel c =
+          model ? gdr::WsModel{model[0], model[1], model[2], model[3]} : gdr::kWsModel;
+      *seconds = gdr::plan_time_ws(c, t, splits, blocks, m, n, k, sms);
+      return cudaSuccess;
+    }
+  return cudaErrorInvalidValue;
+}
+
 // C[M, N] = epi(norm?(A) · Wᵀ).  normed: [M, K] scratch in the model dtype
 // that the row kernel writes norm(A) to (null without norm).  Runs the plan
-// (wg, bn, splits, blocks) of gdr_gemm_plan, or any other instantiated tile
-// with 1 <= splits <= min(k-tiles, 32); a split plan takes its f32
-// workspace and n_counters >= output tiles zeroed counters, which it leaves
-// zeroed.  The f32 grid is one block a work unit, so it ignores `blocks`.
-// `rows`: the small-row kernel's plan (wg = its row extent / 8, at least M
-// and rows_pad of itself; bn 48 or 64; `splits` = 1 to 8 blocks a cluster,
-// at most the 32-float k-tiles; 1 to 8 stages in 227 KB), M <= 128, f32
-// only; it takes no workspace and no counters.
+// (wg, bn, stages, splits, blocks, kernel) of gdr_gemm_plan, or any other of
+// an instantiated tile.  `kernel` 0 (bf16 only): the tile kernel, 1 <=
+// splits <= min(k-tiles, 32), any number of blocks.  1 (f32 only): the
+// small-row kernel (wg = its row extent / 8, at least M and rows_pad of
+// itself; bn 48 or 64; `splits` = 1 to 8 blocks a cluster, at most the
+// 32-float k-tiles; 1 to 8 stages in 227 KB), M <= 128; no workspace, no
+// counters.  2 (f32 only): the warp-specialised ring, 1 <= splits <= its
+// 32-float k-tiles, 1 to 8 stages in 227 KB, on min(blocks, tiles x splits)
+// blocks.  A split plan of kernel 0 or 2 takes its f32 workspace and
+// n_counters >= output tiles zeroed counters, which it leaves zeroed.
 extern "C" int gdr_gemm(int dtype, const void* a, const void* scale, void* normed,
                         const void* w, const void* resid, void* c, int m, int n, int k,
                         int norm, int epi, float eps, int wg, int bn, int splits, int blocks,
-                        int stages, int rows, void* workspace, void* counters, int n_counters,
+                        int stages, int kernel, void* workspace, void* counters, int n_counters,
                         void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0) return cudaErrorInvalidValue;
   const bool ok = (norm && (epi == gdr::kRound || epi == gdr::kRelu)) ||
                   (!norm && epi == gdr::kResidual);
   const bool bf16 = dtype == kBF16;
-  if (!ok || (norm && normed == nullptr) || (!bf16 && dtype != kF32))
+  if (!ok || (norm && normed == nullptr) || (!bf16 && dtype != kF32) ||
+      (bf16 ? kernel != gdr::kWgmma : kernel != gdr::kF32Rows && kernel != gdr::kF32Ws))
     return cudaErrorInvalidValue;
-  gdr::Plan p{{0, 0, 0}, splits, 0, blocks};
+  gdr::Plan p{{0, 0, 0}, splits, 0, blocks, kernel};
   int kt = 0, bm = 0;
-  if (rows) {
+  if (kernel == gdr::kF32Rows) {
     const int mt = 8 * wg;
-    if (bf16 || m > gdr::kRowsMaxM || mt < m || mt > gdr::kRowsMaxM || gdr::rows_pad(mt) != mt ||
+    if (m > gdr::kRowsMaxM || mt < m || mt > gdr::kRowsMaxM || gdr::rows_pad(mt) != mt ||
         (bn != 48 && bn != 64) || splits < 1 || splits > gdr::kRowsMaxCluster ||
         splits > (k + gdr::kRowsBK - 1) / gdr::kRowsBK || stages < 1 ||
         stages > gdr::kRowsMaxStages || gdr::rows_smem(mt, bn, stages) > gdr::kSmemOptin)
       return cudaErrorInvalidValue;
     p.tile = {wg, bn, stages};
-    p.rows = 1;
-  } else if (bf16) {
-    for (const gdr::Tile& t : gdr::kTiles)
-      if (t.wg == wg && t.bn == bn) p.tile = t;
-    kt = (k + gdr::BK - 1) / gdr::BK;
-    bm = 64 * wg;
   } else {
-    for (const gdr::F32Shape& t : gdr::kF32Tiles)
-      if (t.bm == 32 * wg && t.bn == bn) p.tile = {wg, bn, gdr::kF32Stages};
-    kt = (k + gdr::kF32BK - 1) / gdr::kF32BK;
-    bm = 32 * wg;
-  }
-  if (!rows) {
-    if (p.tile.wg == 0 || splits < 1 || splits > kt || splits > gdr::kMaxSplits ||
-        (bf16 && blocks < 1))
+    if (bf16) {
+      for (const gdr::Tile& t : gdr::kTiles)
+        if (t.wg == wg && t.bn == bn) p.tile = t;
+      kt = (k + gdr::BK - 1) / gdr::BK;
+      bm = 64 * wg;
+    } else {
+      for (const gdr::WsShape& t : gdr::kWsTiles)
+        if (t.bm == 32 * wg && t.bn == bn) p.tile = {wg, bn, stages};
+      kt = (k + gdr::kWsBK - 1) / gdr::kWsBK;
+      bm = 32 * wg;
+      if (stages < 1 || stages > gdr::kWsMaxStages ||
+          gdr::ws_smem(bm, bn, stages) > gdr::kSmemOptin)
+        return cudaErrorInvalidValue;
+    }
+    if (p.tile.wg == 0 || splits < 1 || splits > kt || (bf16 && splits > gdr::kMaxSplits) ||
+        blocks < 1)
       return cudaErrorInvalidValue;
     const long tiles = (long)((m + bm - 1) / bm) * ((n + bn - 1) / bn);
-    if (splits > 1 && (workspace == nullptr || counters == nullptr || tiles > n_counters))
+    if ((splits > 1 && (workspace == nullptr || counters == nullptr || tiles > n_counters)) ||
+        tiles * splits > 0x7fffffff)
       return cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1961,10 +2246,11 @@ extern "C" int gdr_gemm(int dtype, const void* a, const void* scale, void* norme
     if (e != cudaSuccess) return e;
     a = normed;
   }
-  if (rows) return gdr::gemm_f32_rows(a, w, resid, c, m, n, k, epi, p, s);
   int* cnt = static_cast<int*>(counters);
-  return bf16 ? gdr::gemm_bf16(a, w, resid, c, m, n, k, epi, p, workspace, cnt, s)
-              : gdr::gemm_f32(a, w, resid, c, m, n, k, epi, p, workspace, cnt, s);
+  if (kernel == gdr::kF32Rows) return gdr::gemm_f32_rows(a, w, resid, c, m, n, k, epi, p, s);
+  if (kernel == gdr::kF32Ws)
+    return gdr::gemm_f32_ws(a, w, resid, c, m, n, k, epi, p, workspace, cnt, s);
+  return gdr::gemm_bf16(a, w, resid, c, m, n, k, epi, p, workspace, cnt, s);
 }
 
 extern "C" int gdr_self_attn_core(int dtype, const void* qkv, void* ck, void* cv,

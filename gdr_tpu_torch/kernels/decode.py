@@ -36,11 +36,13 @@ VMEM; a Hopper block has 227 KB, so weights stream through shared memory
 and a sublayer is up to three launches of one shared GEMM (:func:`gemm`:
 bf16 on ``wgmma`` with TMA-fed shared-memory rings, persistent blocks and
 a per-shape plan of tile and split-K (:func:`gemm_plan`); f32 on the FMA
-units, exact f32 products with no TF32, from a 4-stage ``cp.async`` ring of
-K-major tiles, 8 × 8 outputs a thread, split-K by a plan of its own, or at
-up to 128 rows, where the plan picks it, from a small-row kernel that
-streams W once in strips split over a cluster's blocks and sums split-K on
-chip; both after a row kernel that writes the RMSNorm output once; round / ReLU /
+units, exact f32 products with no TF32, above 128 rows from a
+warp-specialised, persistent ring (a TMA producer warpgroup, consumer warps
+of 8 × 12 outputs a lane, every block an even share of the k-tiles, a
+tile's k-range cut across blocks and summed in k order), up to 128 rows
+from a small-row kernel that streams W once in strips split over a
+cluster's blocks and sums split-K on chip, each by a plan of its own; both
+after a row kernel that writes the RMSNorm output once; round / ReLU /
 residual epilogue) and, for the attention sublayers, one attention core
 between two GEMMs.  Each intermediate is written once in the model dtype,
 exactly where the TPU kernel rounds it.  The attention cores are bound by
@@ -81,12 +83,16 @@ WRAPPERS = declare("self_attn_sublayer", "cross_attn_sublayer",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
     # dtype, a, scale, normed, w, resid, c, m, n, k, norm, epi, eps,
-    # wg, bn, splits, blocks, stages, rows, workspace, counters, n_counters,
+    # wg, bn, splits, blocks, stages, kernel, workspace, counters, n_counters,
     # stream
     "gdr_gemm": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                  _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     # dtype, m, n, k, sms, int plan[7]
     "gdr_gemm_plan": [_I, _I, _I, _I, _I, _P],
+    # m, n, k, sms, int plans[5 * cap], cap, int *count
+    "gdr_gemm_ws_plans": [_I, _I, _I, _I, _P, _I, _P],
+    # m, n, k, bm, bn, splits, blocks, sms, double model[4] or null, double *s
+    "gdr_gemm_ws_time": [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # m, n, k, bn, cluster, stages, sms, double model[5] or null, double *s
     "gdr_gemm_rows_time": [_I, _I, _I, _I, _I, _I, _I, _P, _P],
     # dtype, qkv, ck, cv, bias, attn, rows, L, heads, d_kv, pos, stream
@@ -245,40 +251,53 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# GemmPlan.kernel, csrc's Kernel: the bf16 tile kernel, the f32 small-row
+# kernel, the f32 warp-specialised ring
+KERNEL_WGMMA, KERNEL_ROWS, KERNEL_WS = 0, 1, 2
+
+
 class GemmPlan(NamedTuple):
     """A launch of the GEMM (``gdr_gemm_plan``): tiles of :attr:`rows` ×
     ``bn`` columns fed by a ring of ``stages`` k-tiles; each output tile's
     k-tiles split ``splits`` ways; ``units`` = tiles · splits work units.
-    bf16 (``f32`` False): 64·``wg`` rows, one consumer warpgroup per 64, the
-    units walked by ``blocks`` persistent blocks (at most one per SM).  f32:
-    32·``wg`` rows, one block per unit (``blocks`` = ``units``).  f32 with
-    ``rows_kernel`` (M <= :data:`ROWS_MAX_M`): the small-row kernel, one tile
-    of all M rows padded to 8·``wg`` (``csrc``'s rows_pad: to 8 up to 64
-    rows, to 16 above) and strips of ``bn`` (48 or 64) columns, each
-    strip's k-tiles split over the ``splits`` (1-8) blocks of a cluster and
-    summed on chip; a ring of ``stages`` (1-8) 32-float k-tiles; no
-    workspace."""
+    ``kernel`` :data:`KERNEL_WGMMA` (bf16): 64·``wg`` rows, one consumer
+    warpgroup per 64, the units walked by ``blocks`` persistent blocks (at
+    most one per SM).  :data:`KERNEL_WS` (f32): the warp-specialised ring,
+    tiles of 32·``wg`` rows (128 × 96 or 64 × 192), each tile's 32-float
+    k-tiles cut into ``splits`` units, the units dealt to ``blocks``
+    persistent blocks in even contiguous ranges (a tile's k-range may be cut
+    across blocks).  :data:`KERNEL_ROWS` (f32, M <= :data:`ROWS_MAX_M`): the
+    small-row kernel, one tile of all M rows padded to 8·``wg``
+    (``csrc``'s rows_pad: to 8 up to 64 rows, to 16 above) and strips of
+    ``bn`` (48 or 64) columns, each strip's k-tiles split over the
+    ``splits`` (1-8) blocks of a cluster and summed on chip; a ring of
+    ``stages`` (1-8) 32-float k-tiles; no workspace."""
     wg: int
     bn: int
     stages: int
     splits: int
     units: int
     blocks: int
-    f32: bool = False
-    rows_kernel: bool = False
+    kernel: int = KERNEL_WGMMA
+
+    @property
+    def f32(self) -> bool:
+        return self.kernel != KERNEL_WGMMA
 
     @property
     def rows(self) -> int:
-        if self.rows_kernel:
-            return 8 * self.wg
-        return (32 if self.f32 else 64) * self.wg
+        return {KERNEL_WGMMA: 64, KERNEL_ROWS: 8, KERNEL_WS: 32}[self.kernel] * self.wg
 
     def workspace(self, m: int, n: int) -> int:
-        """f32 elements of the split partials at C [m, n] (0 unsplit, and 0
-        for the small-row kernel, which sums its splits on chip)."""
-        if self.splits == 1 or self.rows_kernel:
+        """f32 elements of the split partials at C [m, n]: per output tile
+        and split for the bf16 tile kernel, two tiles a block for the
+        warp-specialised ring (a block's first and last run); 0 unsplit, and
+        0 for the small-row kernel, which sums its splits on chip."""
+        if self.splits == 1 or self.kernel == KERNEL_ROWS:
             return 0
         bm = self.rows
+        if self.kernel == KERNEL_WS:
+            return 2 * self.blocks * bm * self.bn
         return -(-m // bm) * -(-n // self.bn) * self.splits * bm * self.bn
 
 
@@ -295,7 +314,19 @@ def rows_plan(m: int, n: int, bn: int = 64, splits: int = 1,
     ``stages`` k-tiles."""
     units = -(-n // bn) * splits
     return GemmPlan(rows_pad(m) // 8, bn, stages, splits, units, units,
-                    f32=True, rows_kernel=True)
+                    KERNEL_ROWS)
+
+
+def ws_plan(m: int, n: int, k: int, rows: int = 128, bn: int = 96,
+            splits: int | None = None, blocks: int = 132,
+            stages: int = 3) -> GemmPlan:
+    """A plan of the warp-specialised f32 ring at C [m, n], K = k: tiles of
+    ``rows`` × ``bn``, each tile's 32-float k-tiles cut into ``splits``
+    units (default: one a k-tile), dealt to ``blocks`` blocks, a ring of
+    ``stages``."""
+    splits = -(-k // 32) if splits is None else splits
+    units = -(-m // rows) * -(-n // bn) * splits
+    return GemmPlan(rows // 32, bn, stages, splits, units, blocks, KERNEL_WS)
 
 
 _PLANS: dict = {}
@@ -318,8 +349,7 @@ def gemm_plan(m: int, n: int, k: int, device=None,
         build.check(lib, lib.gdr_gemm_plan(build.DTYPES[dtype], m, n, k, sms,
                                            ctypes.addressof(out)),
                     "gemm_plan")
-        plan = _PLANS[key] = GemmPlan(*out[:6], f32=dtype == torch.float32,
-                                      rows_kernel=bool(out[6]))
+        plan = _PLANS[key] = GemmPlan(*out)
     return plan
 
 
@@ -368,7 +398,7 @@ def _gemm(lib, code, a, scale, w, resid, c, epi, eps, stream, what,
         code, a.data_ptr(), scale.data_ptr() if norm else None, ptr(normed),
         w.data_ptr(), ptr(resid), c.data_ptr(), m, n, k, int(norm), epi, eps,
         plan.wg, plan.bn, plan.splits, plan.blocks, plan.stages,
-        int(plan.rows_kernel), ptr(ws), ptr(counters), _SPLIT_TILES,
+        plan.kernel, ptr(ws), ptr(counters), _SPLIT_TILES,
         stream), what)
 
 
@@ -377,9 +407,11 @@ def gemm(a, w, epi: str, *, scale=None, resid=None, eps: float = 1e-6,
     """The decoder sublayers' GEMM on its own: a [M, K], w [N, K];
     ``epi`` "round" or "relu" (RMSNorm of ``a`` with ``scale`` first) or
     "residual" (``resid`` [M, N] + the rounded product).  ``plan`` replaces
-    the cost model's plan (any instantiated tile of the dtype, 1 <= splits
-    <= min(k-tiles, 32), any number of bf16 blocks; or, in f32 at M <= 128,
-    a plan of the small-row kernel, which refuses more rows).  The sublayer
+    the cost model's plan (in bf16 any instantiated tile, 1 <= splits <=
+    min(k-tiles, 32), any number of blocks; in f32 a plan of the
+    warp-specialised ring, 1 <= splits <= its 32-float k-tiles, 1-8 stages,
+    any number of blocks, or, at M <= 128, a plan of the small-row kernel,
+    which refuses more rows).  The sublayer
     wrappers count their launches; this entry point, for tests and
     per-shape timing, counts none."""
     if epi not in _EPIS or (epi == "residual") != (scale is None) or (

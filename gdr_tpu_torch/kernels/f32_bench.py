@@ -9,20 +9,22 @@ checkout of this repository.
                                              [--out FILE.json]
 
 ``sweep``: for each of the four (N, K) products of a t5-base decoder layer
-at each row count, every f32 tile with the splits that keep the units
-within eight waves of the SMs and, up to 128 rows, every plan of the
-small-row kernel (strips of 48 or 64 columns, clusters of 1-8 blocks,
-rings of 2, 4 or 8 stages) runs the epilogue the main path gives the
-product, held to the plain version (atol 1e-4 + rtol 1e-5).  Prints, per
-shape, the cost model's plan and its time, the fastest plans of each
-kernel, f32 ``torch.matmul`` (TF32 off) and the bound (W and A read once,
-C written once, at 3.35 TB/s; the FMAs at 67 TFLOP/s); then the constants
-of ``plan_time_f32`` fitted (scipy's Nelder-Mead on the log of the times)
-to the tile ring's plans above 128 rows and those of ``plan_time_rows``
-to the small-row kernel's (``csrc/decode_sublayers.cu``; the library
-itself evaluates that model, through ``gdr_gemm_rows_time``), each over
-the plans within ``--near`` of their shape's best, and how the fitted
-models' picks compare with the best.
+at each row count, above 128 rows the plans of the warp-specialised ring
+that its chooser weighs (``gdr_gemm_ws_plans``: both tiles, their k-tiles
+cut into 1, 2 or 4 units or one a k-tile, on one or two blocks an SM, the
+tile's ring; the best of those again at every other depth), up to 128
+rows every plan of the small-row kernel (strips of 48 or 64 columns,
+clusters of 1-8 blocks, rings of 2, 4 or 8 stages), each running the
+epilogue the main path gives the product, held to the plain version (atol
+1e-4 + rtol 1e-5).  Prints, per shape, the cost model's plan and its
+time, the fastest plans, f32 ``torch.matmul`` (TF32 off) and the bound (W
+and A read once, C written once, at 3.35 TB/s; the FMAs at 67 TFLOP/s);
+then the constants of ``plan_time_ws`` and of ``plan_time_rows``
+(``csrc/decode_sublayers.cu``) fitted, by scipy's Nelder-Mead on the log
+of the times, to the plans within ``--near`` of their shape's best, the
+library itself evaluating each model (``gdr_gemm_ws_time``,
+``gdr_gemm_rows_time``), and how the fitted models' picks compare with
+the best.
 
 ``compare`` imports ``gdr_tpu_torch`` and ``chip_smoke`` from ``--root``
 (default: this checkout), so that one script times two commits alike.  It
@@ -55,9 +57,9 @@ from pathlib import Path
 D, H, DKV, DFF = 768, 12, 64, 3072
 SHAPES = ((3 * D, D, "round"), (D, D, "residual"), (DFF, D, "relu"),
           (D, DFF, "residual"))
-TILES = ((128, 128), (128, 64), (64, 128), (32, 128))   # kF32Tiles
-SPLITS = (1, 2, 3, 4, 6, 8, 11, 16, 24, 32)
-BK, LD, STAGES, REGS, FMA_PEAK = 16, 20, 4, 170, 67e12 / 2 / 132
+FMA_PEAK = 67e12 / 2 / 132          # an SM's share of the FMA rate, FMA/s
+# the warp-specialised ring's cuts the sweep times (besides one a k-tile)
+SWEEP_CUTS = (1, 2, 4)
 # the small-row kernel (M <= 128): strips, clusters and rings the sweep
 # runs (the chooser takes 4 stages)
 ROWS_BN, ROWS_CLUSTERS, ROWS_STAGES = (48, 64), (1, 2, 3, 4, 6, 8), (2, 4, 8)
@@ -142,16 +144,26 @@ def sweep(rows, dev) -> list[dict]:
                 torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
                 return time_ms(lambda i: kd.gemm(a, ws[i], epi, plan=plan,
                                                  **kw))
-            plans = []
-            for bm, bn in TILES:
-                tiles = -(-m // bm) * -(-n // bn)
-                for sp in SPLITS:
-                    if sp > -(-k // BK) or (sp > 1 and tiles * sp > 8 * sms):
-                        continue
-                    plans.append((timed(kd.GemmPlan(
-                        bm // 32, bn, STAGES, sp, tiles * sp, tiles * sp,
-                        True)), bm, bn, sp))
-            plans.sort()
+            wplans = []
+            if m > ROWS_MAX_M:
+                kt = -(-k // 32)
+
+                def ws_timed(bm, bn, st, s, g):
+                    plan = kd.ws_plan(m, n, k, bm, bn, s, g, st)
+                    return (timed(plan), bm, bn, st, s, g)
+                wplans = [ws_timed(*p) for p in ws_plans(m, n, k, sms)
+                          if p[3] in SWEEP_CUTS or p[3] == kt]
+                wplans.sort()
+                _, bm, bn, st0, s, g = wplans[0]
+                # the best plan's ring at every other depth that fits the
+                # 227 KB of a block (the kernel refuses the others)
+                for st in range(2, 9):
+                    if st != st0:
+                        try:
+                            wplans.append(ws_timed(bm, bn, st, s, g))
+                        except RuntimeError:
+                            pass
+                wplans.sort()
             rplans = []
             if m <= ROWS_MAX_M:
                 for bn, cl, st in rows_plans(m, n, k, sms):
@@ -159,20 +171,22 @@ def sweep(rows, dev) -> list[dict]:
                                    bn, cl, st))
                 rplans.sort()
             model = kd.gemm_plan(m, n, k, dev, torch.float32)
-            row = dict(m=m, n=n, k=k, epi=epi, plans=plans, rows_plans=rplans,
+            row = dict(m=m, n=n, k=k, epi=epi, ws_plans=wplans,
+                       rows_plans=rplans,
                        model_plan=[model.rows, model.bn, model.splits,
-                                   model.stages, model.rows_kernel],
+                                   model.stages, model.blocks, model.kernel],
                        model_ms=time_ms(lambda i: kd.gemm(a, ws[i], epi,
                                                           **kw)),
                        matmul_ms=time_ms(lambda i: a @ ws[i].t()),
                        bound_ms=bound_ms(m, n, k))
             out.append(row)
-            kind = "rows" if model.rows_kernel else "ring"
+            kind = "rows" if model.kernel == kd.KERNEL_ROWS else "ring_ws"
             print(f"M={m:5d} N={n:5d} K={k:5d}: model {kind} "
-                  f"{model.rows}x{model.bn} s{model.splits} st{model.stages} "
-                  f"{row['model_ms']:.4f} ms; ring best "
-                  + ", ".join(f"{bm}x{bn} s{sp} {t:.4f}"
-                              for t, bm, bn, sp in plans[:2])
+                  f"{model.rows}x{model.bn} s{model.splits} g{model.blocks} "
+                  f"st{model.stages} {row['model_ms']:.4f} ms"
+                  + ("; ring_ws best " + ", ".join(
+                      f"{bm}x{bn} st{st} s{s} g{g} {t:.4f}"
+                      for t, bm, bn, st, s, g in wplans[:3]) if wplans else "")
                   + ("; rows best " + ", ".join(
                       f"bn{bn} c{cl} st{st} {t:.4f}"
                       for t, bn, cl, st in rplans[:3]) if rplans else "")
@@ -181,26 +195,45 @@ def sweep(rows, dev) -> list[dict]:
     return out
 
 
-def model_ms(p, bm, bn, sp, m, n, k, sms=132) -> float:
-    """``plan_time_f32`` with p = log of (FMA share, operand bytes/s,
-    partial bytes/s, latency s), in ms."""
-    rate, operand_bw, part_bw, latency = (math.exp(x) for x in p)
-    nt = bm * bn // 64
-    smem = STAGES * (bm + bn) * LD * 4 + 1024
-    res = max(1, min(2048 // nt, 65536 // (nt * REGS), 233472 // smem, 32))
-    units = -(-m // bm) * -(-n // bn) * sp
-    ktu = -(-(-(-k // BK)) // sp)
-    part = 4.0 * bm * bn / part_bw
-    unit = max(bm * bn * BK * ktu / (rate * FMA_PEAK),
-               (bm + bn) * BK * ktu * 4 / operand_bw) + (part if sp > 1 else 0)
+def ws_plans(m: int, n: int, k: int, sms: int) -> list[tuple]:
+    """(rows, columns, stages, cuts, blocks) of every plan of the
+    warp-specialised ring that its chooser weighs at M, N, K, in its order
+    (``gdr_gemm_ws_plans``)."""
+    import ctypes
 
-    def rnd(c):
-        return unit * c / min(1.0, c * nt / 256)
-    slots = sms * res
-    t = latency + (units // slots) * rnd(res)
-    if units % slots:
-        t += rnd(-(-(units % slots) // sms))
-    return 1e3 * (t + (sp * part if sp > 1 else 0))
+    from gdr_tpu_torch.kernels import build
+    from gdr_tpu_torch.kernels import decode as kd
+
+    lib, count = kd._lib(), ctypes.c_int()
+    build.check(lib, lib.gdr_gemm_ws_plans(m, n, k, sms, None, 0,
+                                           ctypes.byref(count)), "ws_plans")
+    buf = (ctypes.c_int * (5 * count.value))()
+    build.check(lib, lib.gdr_gemm_ws_plans(m, n, k, sms, buf, count.value,
+                                           ctypes.byref(count)), "ws_plans")
+    return [tuple(buf[5 * i:5 * i + 5]) for i in range(count.value)]
+
+
+WS_FIT = ("fma_per_sm", "lone", "part_per_sm", "latency")    # WsModel's fields
+WS_START = (0.65, 0.85, 60e9, 1e-5)
+
+
+def ws_ms(bm: int, bn: int, s: int, g: int, m: int, n: int, k: int,
+          sms: int, model=None) -> float | None:
+    """The warp-specialised ring's modelled ms of a plan
+    (``gdr_gemm_ws_time``, the chooser's own model) with ``model`` =
+    WsModel's four constants (the FMA rate as a share of the SM's; None:
+    the fitted ones); None for a tile or cut the ring does not have."""
+    import ctypes
+
+    from gdr_tpu_torch.kernels import decode as kd
+
+    arr = None
+    if model is not None:
+        arr = (ctypes.c_double * 4)(model[0] * FMA_PEAK, *model[1:])
+    out = ctypes.c_double()
+    err = kd._lib().gdr_gemm_ws_time(m, n, k, bm, bn, s, g, sms, arr,
+                                     ctypes.byref(out))
+    return None if err else 1e3 * out.value
 
 
 ROWS_FIT = ("fma_per_sm", "latency", "w_per_block", "a_per_block",
@@ -263,40 +296,51 @@ def fit_rows(rows: list[dict], near: float, sms: int) -> None:
         print(f"  M={r['m']:5d} N={r['n']:5d} K={r['k']:5d}: fitted pick "
               f"bn{bn} c{cl} st{st} {t:.4f} ms (model "
               f"{rows_ms(bn, cl, st, *shape):.4f}), best "
-              f"{r['rows_plans'][0][0]:.4f}, ring best {r['plans'][0][0]:.4f}")
+              f"{r['rows_plans'][0][0]:.4f}")
     print(f"  sum of the fitted picks {picks:.4f} ms, of the best {best:.4f}")
 
 
-def fit(rows: list[dict], near: float) -> None:
-    """The tile ring's constants fitted to its plans above 128 rows."""
+def fit_ws(rows: list[dict], near: float, sms: int) -> None:
+    """The warp-specialised ring's constants fitted to its plans above 128
+    rows (at the depth the chooser gives each tile); then, per shape, the
+    fitted pick beside the best."""
     from scipy.optimize import minimize
 
-    rows = [r for r in rows if r["m"] > ROWS_MAX_M]
-    if not rows:
+    depth = {p[:2]: p[2] for r in rows if r["ws_plans"]
+             for p in ws_plans(r["m"], r["n"], r["k"], sms)}
+    rows = [dict(r, ws_plans=[x for x in r["ws_plans"]
+                              if x[3] == depth[x[1:3]]])
+            for r in rows if r["ws_plans"]]
+    data = [(bm, bn, s, g, r["m"], r["n"], r["k"], t) for r in rows
+            for t, bm, bn, st, s, g in r["ws_plans"]
+            if t <= near * r["ws_plans"][0][0]]
+    if not data:
         return
-    data = [(bm, bn, sp, r["m"], r["n"], r["k"], t) for r in rows
-            for t, bm, bn, sp in r["plans"] if t <= near * r["plans"][0][0]]
 
     def loss(p):
-        return sum((math.log(model_ms(p, *d[:6])) - math.log(d[6])) ** 2
+        c = [math.exp(x) for x in p]
+        return sum((math.log(ws_ms(*d[:7], sms, c)) - math.log(d[7])) ** 2
                    for d in data)
-    p = [math.log(0.6), math.log(20e9), math.log(40e9), math.log(3e-6)]
-    for _ in range(2):
+    p = [math.log(x) for x in WS_START]
+    for _ in range(3):
         p = minimize(loss, p, method="Nelder-Mead",
-                     options=dict(maxiter=20000, maxfev=20000)).x
-    rate, operand_bw, part_bw, latency = (math.exp(x) for x in p)
-    print(f"fitted: kF32FmaPerSm = {rate:.3f} * 67e12 / 2 / 132, "
-          f"kF32OperandPerSm = {operand_bw:.3g}, kF32PartPerSm = "
-          f"{part_bw:.3g}, kF32Latency = {latency:.3g} (loss {loss(p):.3f} "
-          f"over {len(data)} plans)")
+                     options=dict(maxiter=40000, maxfev=40000)).x
+    c = [math.exp(x) for x in p]
+    print("fitted: " + ", ".join(
+        f"{name} = {v:.3g}" for name, v in zip(WS_FIT, c))
+        + f" (fma_per_sm as a share of 67e12 / 2 / 132; loss {loss(p):.3f} "
+        f"over {len(data)} plans)")
     picks = best = 0.0
     for r in rows:
-        t, bm, bn, sp = min(r["plans"], key=lambda x: model_ms(
-            p, x[1], x[2], x[3], r["m"], r["n"], r["k"]))
+        shape = (r["m"], r["n"], r["k"], sms, c)
+        t, bm, bn, st, s, g = min(r["ws_plans"], key=lambda x: ws_ms(
+            x[1], x[2], x[4], x[5], *shape))
         picks += t
-        best += r["plans"][0][0]
+        best += r["ws_plans"][0][0]
         print(f"  M={r['m']:5d} N={r['n']:5d} K={r['k']:5d}: fitted pick "
-              f"{bm}x{bn} s{sp} {t:.4f} ms, best {r['plans'][0][0]:.4f}")
+              f"{bm}x{bn} st{st} s{s} g{g} {t:.4f} ms (model "
+              f"{ws_ms(bm, bn, s, g, *shape):.4f}), best "
+              f"{r['ws_plans'][0][0]:.4f}, bound {r['bound_ms']:.4f}")
     print(f"  sum of the fitted picks {picks:.4f} ms, of the best {best:.4f}")
 
 
@@ -419,9 +463,9 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda", 0)
     if args.mode == "sweep":
         out = sweep([int(x) for x in args.rows.split(",")], dev)
-        fit(out, args.near)
-        fit_rows(out, args.near,
-                 torch.cuda.get_device_properties(dev).multi_processor_count)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        fit_ws(out, args.near, sms)
+        fit_rows(out, args.near, sms)
     else:
         out = compare(root, dev)
         print(json.dumps(out), flush=True)

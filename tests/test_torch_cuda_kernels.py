@@ -20,17 +20,24 @@ and 3,200 rows; every position).  The scorers are held to their plain
 versions with a distinct query row per beam, and the retrieve options (decoder-side query reps,
 sampling with shared noise, the slow PAWA head) to the CPU's plain route
 on a small f32 model.  The GEMM runs each dtype's cost-model plans and
-forced ones: split-K with split counts that divide no k-tile count (f32:
-every tile height, up to 32 splits, at 1 to 3,200 rows), and in bf16
-fewer persistent blocks than work units; split results are bit-equal on
-every call and graph replay.  The f32 small-row kernel runs at 1-128 rows
-(every row tiling) of the four t5-base products under the chooser's plan
-and forced ones (a ring that wraps, clusters of 1, 3 and 8 blocks), bit-
-equal on every call and replay without workspace or counters; the chooser
-takes it at 1 / 31 / 32 / 100 rows and the tile ring at 992 / 3,200, at
-the least time of the model that the sweep fits (gdr_gemm_rows_time); it
-refuses plans past 128 rows; its name passes the decoder roofline's
-filter.  The f32 cross-attention cores run at one
+forced ones: in bf16 split-K with split counts that divide no k-tile
+count and fewer persistent blocks than work units; split results are
+bit-equal on every call and graph replay.  The warp-specialised f32 ring
+runs both its tiles at 1 to 3,200 rows, cut across blocks at every k-tile,
+in 2 to 13 units, or whole, on one to 264 blocks, rings of 1 to 7 stages;
+above 128 rows (129 / 320 / 992 / 997 / 3,200) the four t5-base products
+under the chooser's plan and forced cut plans, bit-equal on every call and
+replay; the chooser takes it for every product above 128 rows, at the
+least time of the model that the sweep fits (gdr_gemm_ws_time) over its
+own plan list (gdr_gemm_ws_plans), within 10% of the fastest of those
+plans on the clock, and it refuses what it does not serve.  The f32
+small-row kernel runs at 1-128 rows (every row tiling) of the four t5-base
+products under the chooser's plan and forced ones (a ring that wraps,
+clusters of 1, 3 and 8 blocks), bit-equal on every call and replay
+without workspace or counters; the chooser takes it at 1 / 31 / 32 / 100
+rows and the warp-specialised ring at 992 / 3,200, at the least time of
+the model that the sweep fits (gdr_gemm_rows_time); it refuses plans past
+128 rows; its name passes the decoder roofline's filter.  The f32 cross-attention cores run at one
 beam a query (streamed) and 100 (staged), over 1 to the shared-memory
 limit of keys.  Tolerances: f32
 atol 1e-4 + rtol 1e-5 (f32 sums in another order); bf16 atol 2e-2 + rtol
@@ -191,10 +198,13 @@ def test_gemm_writes_only_its_output(dev, dtype):
     if dtype == torch.bfloat16:          # 2 k-tiles: split 2 ways
         plans += [kd.GemmPlan(1, 64, 6, 2, 0, 3), kd.GemmPlan(2, 128, 4, 2, 0, 1),
                   kd.GemmPlan(1, 8, 8, 1, 0, 5)]
-    else:                                # 6 k-tiles of 16: split 2 and 6 ways
-        plans += [kd.GemmPlan(4, 128, 4, 2, 0, 0, True),
-                  kd.GemmPlan(1, 128, 4, 6, 0, 0, True),
-                  kd.GemmPlan(4, 64, 4, 1, 0, 0, True)]
+    else:                                # 3 k-tiles of 32: cut 2 and 3 ways
+        plans += [kd.ws_plan(m, n, k, 128, 96, 2, 2),
+                  kd.ws_plan(m, n, k, 64, 192, 2, 264, stages=2),
+                  kd.ws_plan(m, n, k, 64, 192, 1, 132),
+                  kd.ws_plan(m, n, k, 128, 96, 3, 5),
+                  kd.ws_plan(m, n, k, 64, 192, 3, 4, stages=1),
+                  kd.ws_plan(m, n, k, 128, 96, 1, 1, stages=4)]
     for plan in plans:
         buf = torch.full((m + 2, n), float("nan"), dtype=dtype, device=dev)
         out = buf[1:m + 1]
@@ -238,20 +248,28 @@ def test_gemm_split_and_persistent_plans_match_plain(dev, m, k):
 @pytest.mark.parametrize("m", [1, 33, 320, 991, 3200])
 @pytest.mark.parametrize("k", [768, 3072])
 def test_gemm_f32_split_plans_match_plain(dev, m, k):
-    # the f32 GEMM at the main path's depths: its own plan and forced ones
-    # (every tile height, splits that divide neither 48 nor 192 k-tiles,
-    # the 32 most); N = 200 ends in a partial tile of every width
+    # the f32 GEMM at the main path's depths: its own plan and forced plans
+    # of the warp-specialised ring (both tiles cut at every k-tile, in 2 to
+    # 13 units (none divides 24 or 96 k-tiles but 2) or whole, one block
+    # walking every unit, 3 to 264 blocks, rings of 1 to 7 stages); N = 200
+    # ends in a partial tile of every width
     n = 200
     rn = _rand(dev, 2 * m + k)
     a = rn(m, k)
     w = rn(n, k, std=k ** -0.5)
     scale = 1 + rn(k, std=0.1)
     resid = rn(m, n)
-    plans = [None, kd.GemmPlan(4, 128, 4, 5, 0, 0, True),
-             kd.GemmPlan(1, 128, 4, 11, 0, 0, True),
-             kd.GemmPlan(2, 128, 4, 32, 0, 0, True),
-             kd.GemmPlan(4, 64, 4, 1, 0, 0, True),
-             kd.GemmPlan(4, 64, 4, 7, 0, 0, True)]
+    plans = [None, kd.ws_plan(m, n, k, 128, 96, 2, 3),
+             kd.ws_plan(m, n, k, 64, 192, 7, 131, stages=7),
+             kd.ws_plan(m, n, k, 128, 96, 13, 200, stages=2),
+             kd.ws_plan(m, n, k, 64, 192, None, 17),
+             kd.ws_plan(m, n, k, 128, 96, 1, 1, stages=5),
+             kd.ws_plan(m, n, k, 128, 96, None, 264),
+             kd.ws_plan(m, n, k, 128, 96, 5, 7),
+             kd.ws_plan(m, n, k, 64, 192, 1, 132),
+             kd.ws_plan(m, n, k, 64, 192, 11, 264, stages=1),
+             kd.ws_plan(m, n, k, 128, 96, None, 132, stages=6),
+             kd.ws_plan(m, n, k, 64, 192, None, 1)]
     for plan in plans:
         for epi, kw in (("round", dict(scale=scale)),
                         ("relu", dict(scale=scale)),
@@ -275,7 +293,7 @@ def test_gemm_is_deterministic(dev, dtype, m, which):
     w = rn(n, k, std=k ** -0.5, dtype=dtype)
     resid = rn(m, n, dtype=dtype)
     forced = (kd.GemmPlan(2, 128, 4, 7, 0, 132) if dtype == torch.bfloat16
-              else kd.GemmPlan(4, 128, 4, 9, 0, 0, True))
+              else kd.ws_plan(m, n, k, 128, 96, 9, 132))
     for plan in (None, forced):
         first = kd.gemm(a, w, "residual", resid=resid, plan=plan)
         assert torch.equal(kd.gemm(a, w, "residual", resid=resid, plan=plan),
@@ -329,9 +347,9 @@ def test_gemm_refuses_plans_it_does_not_serve(dev):
         with pytest.raises(RuntimeError, match="CUDA error"):
             kd.gemm(a, w, "residual", resid=resid, plan=plan)
     a32, w32, r32 = a.float(), w.float(), resid.float()
-    for plan in (kd.GemmPlan(3, 128, 4, 1, 0, 0, True),   # no 96-row tile
-                 kd.GemmPlan(2, 64, 4, 1, 0, 0, True),    # no 64 x 64 tile
-                 kd.GemmPlan(1, 128, 4, 9, 0, 0, True)):  # 9 splits of 8 k-tiles
+    for plan in (kd.GemmPlan(4, 96, 3, 1, 0, 1, 3),       # no kernel 3
+                 kd.ws_plan(64, 64, 128, 128, 64, 1, 1),  # no 128 x 64 tile
+                 kd.ws_plan(64, 64, 128, 128, 96, 9, 1)): # 9 cuts of 4 k-tiles
         with pytest.raises(RuntimeError, match="CUDA error"):
             kd.gemm(a32, w32, "residual", resid=r32, plan=plan)
     with pytest.raises(ValueError, match="bf16 plan"):
@@ -380,7 +398,7 @@ def test_gemm_f32_rows_is_deterministic_without_workspace(dev, monkeypatch, m,
     a, w, resid = rn(m, k), rn(n, k, std=k ** -0.5), rn(m, n)
     for plan in (kd.gemm_plan(m, n, k, dev, torch.float32),
                  kd.rows_plan(m, n, 48, 8, 2)):
-        assert plan.rows_kernel and plan.workspace(m, n) == 0, plan
+        assert plan.kernel == kd.KERNEL_ROWS and plan.workspace(m, n) == 0, plan
         first = kd.gemm(a, w, "residual", resid=resid, plan=plan)
         assert torch.equal(kd.gemm(a, w, "residual", resid=resid, plan=plan),
                            first)
@@ -405,16 +423,17 @@ def test_gemm_f32_rows_is_deterministic_without_workspace(dev, monkeypatch, m,
 
 def test_f32_chooser_takes_the_rows_kernel_up_to_128_rows(dev):
     # one query a retrieve decodes 1, 31 and 100 rows, step 0 of a batch of
-    # 32 queries 32: the small-row kernel; 992 and 3,200 rows stay on the
-    # tile ring
+    # 32 queries 32: the small-row kernel; 992 and 3,200 rows go to the
+    # warp-specialised ring
     for n, k in T5_GEMMS.values():
         for m in (1, 31, 32, 100):
             plan = kd.gemm_plan(m, n, k, dev, torch.float32)
-            assert plan.rows_kernel and plan.rows == kd.rows_pad(m), (m, n, k, plan)
+            assert plan.kernel == kd.KERNEL_ROWS and plan.rows == kd.rows_pad(m), (
+                m, n, k, plan)
         for m in (992, 3200):
             plan = kd.gemm_plan(m, n, k, dev, torch.float32)
-            assert not plan.rows_kernel and plan.rows in (32, 64, 128), (m, n, k, plan)
-        assert not kd.gemm_plan(1, n, k, dev, torch.bfloat16).rows_kernel
+            assert plan.kernel == kd.KERNEL_WS and plan.rows in (64, 128), (m, n, k, plan)
+        assert kd.gemm_plan(1, n, k, dev, torch.bfloat16).kernel == kd.KERNEL_WGMMA
 
 
 @pytest.mark.parametrize("m", [1, 8, 31, 64, 100, 128])
@@ -494,6 +513,174 @@ def test_rows_kernel_is_counted_by_the_decoder_roofline(dev):
              if e.device_type() == torch.autograd.DeviceType.CUDA}
     rows = [nm for nm in names if "gemm_f32_ring_rows" in nm]
     assert rows and all(roof.is_decoder_kernel(nm) for nm in rows), names
+
+
+# the warp-specialised ring's tiles (rows, columns)
+WS_TILES = ((128, 96), (64, 192))
+
+
+def _ws_forced(m, n, k):
+    # both tiles cut at every k-tile over two blocks an SM, in 5 units over
+    # 132 blocks and whole over 264 (a deeper ring there), and one block
+    # walking every unit of the 64-row tile
+    plans = [kd.ws_plan(m, n, k, bm, bn, None, 264) for bm, bn in WS_TILES]
+    return plans + [kd.ws_plan(m, n, k, 128, 96, 5, 132),
+                    kd.ws_plan(m, n, k, 128, 96, 1, 264, stages=4),
+                    kd.ws_plan(m, n, k, 64, 192, None, 1)]
+
+
+@pytest.mark.parametrize("m", [129, 320, 992, 997, 3200])
+@pytest.mark.parametrize("which", list(T5_GEMMS))
+def test_gemm_f32_ws_matches_plain(dev, m, which):
+    # the warp-specialised ring above 128 rows at the four t5-base products
+    # and every epilogue: the chooser's plan and forced ones that cut tiles'
+    # k-ranges across blocks (ragged M: 129, 320 and 997 end in a partial
+    # row tile)
+    n, k = T5_GEMMS[which]
+    rn = _rand(dev, 5 * m + n + k)
+    a, w = rn(m, k), rn(n, k, std=k ** -0.5)
+    scale, resid = 1 + rn(k, std=0.1), rn(m, n)
+    for plan in [None] + _ws_forced(m, n, k):
+        for epi, kw in (("round", dict(scale=scale)), ("relu", dict(scale=scale)),
+                        ("residual", dict(resid=resid))):
+            got = kd.gemm(a, w, epi, plan=plan, **kw)
+            _close(got, kd.gemm_plain(a, w, epi, **kw), torch.float32)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("m", [129, 992, 3200])
+@pytest.mark.parametrize("which", list(T5_GEMMS))
+def test_gemm_f32_ws_is_deterministic(dev, m, which):
+    # two eager calls and replays of a CUDA graph of the call are bit-equal
+    # under a plan that cuts every tile at every k-tile and one of 5 units a
+    # tile: a cut tile's partials are summed in k order whichever block
+    # arrives last, and the arrival counters are zero again after every
+    # launch
+    n, k = T5_GEMMS[which]
+    rn = _rand(dev, 7 * m + n)
+    a, w = rn(m, k), rn(n, k, std=k ** -0.5)
+    scale = 1 + rn(k, std=0.1)
+    for plan in (kd.ws_plan(m, n, k, 128, 96, None, 264),
+                 kd.ws_plan(m, n, k, 64, 192, 5, 132)):
+        first = kd.gemm(a, w, "relu", scale=scale, plan=plan)
+        assert torch.equal(kd.gemm(a, w, "relu", scale=scale, plan=plan), first)
+        out = {}
+
+        def call():
+            out["c"] = kd.gemm(a, w, "relu", scale=scale, plan=plan)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            call()
+        for _ in range(3):
+            out["c"].fill_(0)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out["c"], first)
+        assert torch.equal(kd._counters(a.device), torch.zeros_like(
+            kd._counters(a.device)))
+
+
+# the row counts above 128 that kernels/f32_bench.py sweep times
+SWEPT_ROWS = (129, 320, 992, 997, 3200)
+
+
+def test_f32_chooser_takes_the_ws_ring_at_the_least_time_of_its_model(dev):
+    # above 128 rows the chooser takes the warp-specialised ring for every
+    # product, at the least time of the model that kernels/f32_bench.py
+    # sweep fits (gdr_gemm_ws_time, the library's own) among the plans the
+    # chooser weighs (gdr_gemm_ws_plans, the list the sweep times), with the
+    # ring depth that list gives the tile; tiles and cuts the ring lacks
+    # have no time
+    from gdr_tpu_torch.kernels import f32_bench as fb
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m in SWEPT_ROWS:
+        for n, k in T5_GEMMS.values():
+            plan = kd.gemm_plan(m, n, k, dev, torch.float32)
+            assert plan.kernel == kd.KERNEL_WS, (m, n, k, plan)
+            listed = fb.ws_plans(m, n, k, sms)
+            assert (plan.rows, plan.bn, plan.stages, plan.splits, plan.blocks) in listed
+            mine = fb.ws_ms(plan.rows, plan.bn, plan.splits, plan.blocks, m, n, k, sms)
+            least = min(fb.ws_ms(bm, bn, s, g, m, n, k, sms) for bm, bn, _, s, g in listed)
+            assert mine == pytest.approx(least, rel=1e-12), (m, n, k, plan)
+    assert fb.ws_ms(128, 128, 1, 132, 992, 768, 768, sms) is None
+    assert fb.ws_ms(128, 96, 25, 132, 992, 768, 768, sms) is None      # 24 k-tiles
+
+
+def test_gemm_ws_refuses_what_it_does_not_serve(dev):
+    rn = _rand(dev, 16)
+    a, w, resid = rn(64, 128), rn(64, 128), rn(64, 64)
+    for plan in (kd.ws_plan(64, 64, 128, 96, 96, 1, 1),       # no 96-row tile
+                 kd.ws_plan(64, 64, 128, 128, 128, 1, 1),     # no 128 x 128 tile
+                 kd.ws_plan(64, 64, 128, 128, 96, 5, 1),      # 5 cuts of 4 k-tiles
+                 kd.ws_plan(64, 64, 128, 128, 96, 1, 1, 9),   # 8 stages at most
+                 kd.ws_plan(64, 64, 128, 64, 192, 1, 1, 8),   # 8 x 32 KB past 227 KB
+                 kd.ws_plan(64, 64, 128, 128, 96, 1, 0)):     # no blocks
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kd.gemm(a, w, "residual", resid=resid, plan=plan)
+    with pytest.raises(ValueError, match="f32 plan"):
+        kd.gemm(a.bfloat16(), w.bfloat16(), "residual", resid=resid.bfloat16(),
+                plan=kd.ws_plan(64, 64, 128))
+
+
+def test_ws_kernel_is_counted_by_the_decoder_roofline(dev):
+    # the warp-specialised ring's name passes decoder_roofline.serve's filter
+    # (read as the benchmark reads it)
+    import importlib.util
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    path = (Path(__file__).resolve().parents[1] / "gdrbench" / "metrics"
+            / "decoder_roofline.serve.py")
+    spec = importlib.util.spec_from_file_location("decoder_roofline", path)
+    roof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(roof)
+    rn = _rand(dev, 15)
+    n, k = T5_GEMMS["o"]
+    a, w, resid = rn(3200, k), rn(n, k, std=k ** -0.5), rn(3200, n)
+    assert kd.gemm_plan(3200, n, k, dev, torch.float32).kernel == kd.KERNEL_WS
+    kd.gemm(a, w, "residual", resid=resid)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kd.gemm(a, w, "residual", resid=resid)
+        torch.cuda.synchronize()
+    names = {e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA}
+    ws = [nm for nm in names if "gdr::gemm_f32_ring_ws<" in nm]
+    assert ws and all(roof.is_decoder_kernel(nm) for nm in ws), names
+
+
+@pytest.mark.parametrize("m", SWEPT_ROWS)
+def test_f32_chooser_plan_is_within_10pct_of_the_fastest_swept_plan(dev, m):
+    # on the clock, as kernels/f32_bench.py sweep times them (20 calls a
+    # CUDA graph, each call reading its own copy of W from HBM), the
+    # chooser's plan is within 10% of the fastest of the plans the sweep
+    # runs at each product (its fitted model picked within 1-2% of the best
+    # at every swept shape on the H100)
+    from gdr_tpu_torch.kernels import f32_bench as fb
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rn = _rand(dev, 17 + m)
+    for n, k in T5_GEMMS.values():
+        a, w = rn(m, k), rn(n, k, std=k ** -0.5)
+        ws = [w] + [w.clone() for _ in range(fb.CALLS - 1)]
+        resid = rn(m, n)
+
+        def clock(plan):
+            return fb.time_ms(lambda i: kd.gemm(a, ws[i], "residual", resid=resid,
+                                                plan=plan))
+        kt = -(-k // 32)
+        swept = {(bm, bn, st, s, g) for bm, bn, st, s, g in fb.ws_plans(m, n, k, sms)
+                 if s in fb.SWEEP_CUTS or s == kt}
+        best = min(clock(kd.ws_plan(m, n, k, bm, bn, s, g, st)) for bm, bn, st, s, g in swept)
+        mine = clock(kd.gemm_plan(m, n, k, dev, torch.float32))
+        assert mine <= 1.10 * best, (m, n, k, mine, best)
 
 
 HEADS_W, DKV_W = 2, 64           # the main path's head width

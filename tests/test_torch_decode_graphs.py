@@ -425,7 +425,7 @@ def _f32_gemm_launches(fn) -> dict[str, int]:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = {"gemm_f32_ring_rows": 0, "gemm_f32_ring": 0}
+    out = {"gemm_f32_ring_rows": 0, "gemm_f32_ring_ws": 0}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             for name in out:

@@ -266,12 +266,24 @@ def test_gemm_plan_encodes_the_rows_kernel(m, mt):
     assert kd.rows_pad(m) == mt
     for bn, splits, stages in ((64, 1, 4), (48, 8, 2), (48, 3, 8)):
         plan = kd.rows_plan(m, 3072, bn, splits, stages)
-        assert plan.rows_kernel and plan.f32
+        assert plan.kernel == kd.KERNEL_ROWS and plan.f32
         assert plan.rows == mt and plan.wg == mt // 8
         assert (plan.bn, plan.splits, plan.stages) == (bn, splits, stages)
         assert plan.units == plan.blocks == -(-3072 // bn) * splits
         assert plan.workspace(m, 3072) == 0
-    # the tile ring's split plans keep their workspace
-    ring = kd.GemmPlan(1, 128, 4, 5, 0, 0, True)
-    assert not ring.rows_kernel and ring.rows == 32
-    assert ring.workspace(m, 3072) == -(-m // 32) * 24 * 5 * 32 * 128
+    # the bf16 tile kernel's split plans keep a partial a tile and split
+    tile = kd.GemmPlan(1, 128, 4, 5, 0, 0)
+    assert tile.kernel == kd.KERNEL_WGMMA and not tile.f32 and tile.rows == 64
+    assert tile.workspace(m, 3072) == -(-m // 64) * 24 * 5 * 64 * 128
+    # the warp-specialised ring's plans: tiles of 32·wg rows, each tile's
+    # 32-float k-tiles cut into `splits` units dealt to `blocks` blocks; a
+    # cut plan's workspace holds two partial tiles a block, an uncut one none
+    ws = kd.ws_plan(m, 3072, 768, 128, 96, None, 264)
+    assert ws.kernel == kd.KERNEL_WS and ws.f32
+    assert ws.rows == 128 and ws.wg == 4
+    assert (ws.bn, ws.splits, ws.blocks, ws.stages) == (96, 24, 264, 3)
+    assert ws.units == -(-m // 128) * 32 * 24
+    assert ws.workspace(m, 3072) == 2 * 264 * 128 * 96
+    whole = kd.ws_plan(m, 768, 3072, 64, 192, 1, 132, stages=2)
+    assert (whole.rows, whole.splits, whole.stages) == (64, 1, 2)
+    assert whole.units == -(-m // 64) * 4 and whole.workspace(m, 768) == 0

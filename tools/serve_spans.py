@@ -41,8 +41,8 @@ RETRIEVE = ("gdr.retrieve", "gdr.encode", "gdr.decode.init",
             "gdr.decode.sync", "gdr.decode.replay", "gdr.decode.finalize",
             "gdr.query", "gdr.rerank")
 REPLAY = "gdr.decode.replay"
-# the f32 GEMM's kernels: the small-row kernel and the tile ring
-GEMM_F32 = ("gdr::gemm_f32_ring_rows", "gdr::gemm_f32_ring")
+# the f32 GEMM's kernels: the small-row kernel and the warp-specialised ring
+GEMM_F32 = ("gdr::gemm_f32_ring_rows", "gdr::gemm_f32_ring_ws")
 STAGES = {"encode_device_ms": "gdr.encode",
           "decoder_device_ms": "gdr.decode.forward",
           "beam_device_ms": "gdr.beam.select",
