@@ -54,7 +54,16 @@ the last line):
    1e-4 and outputs within 2e-5 (no TF32); its device time, the plain
    version's wall time (it reads the experts hit back to the host, so no
    graph holds it) and the bound of the experts it hit, at each row count
-   and summed per retrieve (6·t40 + 3·t1 + 3·t31 + 6·t100);
+   and summed per retrieve (6·t40 + 3·t1 + 3·t31 + 6·t100).  Then
+   Moonlight-16B-A3B's top-k experts (``topk_expert_sublayer``, five
+   ``gdr::moe_`` kernels: 64 experts, d 2,048, d_ff 1,408, top-6) and MLA
+   decode (``mla_attention``, ``gdr::mla_decode``: 16 heads, a 40-position
+   prefix) at serve-b1-moonlight's calls (40 prefill rows, then 1, 31 and
+   100 beam rows): held to their plain versions within 2e-5, timed beside
+   them and their bounds, their launches counted by kernel name in a
+   profiler trace, and summed over one layer's calls a retrieve; and the
+   f32 GEMM at the stack's eight shapes and those row counts (the
+   chooser's plan, the fastest small-row plan, the bound);
 3. whole path, small — a small f32 model retrieves on the CPU (plain
    versions) and on the card (kernels) from the same seeded weights, on
    the four store layouts (plain, packed, plain int8, packed int8): valid
@@ -69,7 +78,16 @@ the last line):
    (the second retrieve replays the decode's CUDA graphs): valid doc ids
    equal, fused scores within 1e-4, the routing counters equal on the CPU
    and the card, and the card's launches of one retrieve (the expert
-   kernels once a sparse layer and step);
+   kernels once a sparse layer and step); last, Moonlight-16B-A3B at its
+   published widths (MLA 512 / 128 / 64 / 128 over 16 heads, 64 top-6
+   experts and 2 shared, vocabulary 163,840) cut to 1 dense + 2 expert
+   layers, with the benchmark's weight scales, on the packed layout over
+   the small trie, on the CPU and twice on the card in the same way: the
+   same checks, the smallest k-th / (k+1)-th selection-score gap of the
+   CPU's routing printed beside them, and the card's launches of one
+   retrieve (``mla_attention`` at every layer a step,
+   ``topk_expert_sublayer`` at every expert layer for the prefill and a
+   step);
 4. whole path, full width — ``Evaluator.retrieve`` with t5-base in bf16
    (seeded random weights), beam 100, top-R 100, 32 queries × 40 tokens,
    over a 334,314-doc store in three layouts (packed bf16, plain bf16,
@@ -227,9 +245,10 @@ the last line):
    (the decoder rows also by row count, per retrieve, per GEMM shape and
    at query generation's shape, in f32 at one query a retrieve too, and the
    f32 GEMM's launches by kernel in phase 4's f32 retrieves of 32 queries
-   and of one); the expert row gives its launches on
-   phase 4's dense main path (0) and in phase 3's small Switch retrieve,
-   and its phase-2 numbers at 100 rows, by row count and per retrieve.
+   and of one); the expert rows give their launches on
+   phase 4's dense main path (0) and in phase 3's small Switch or
+   Moonlight retrieve, and their phase-2 numbers at 100 rows, by row count
+   and per retrieve.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and gdr_tpu_torch only (its phases 6 to 10 also run the
@@ -622,6 +641,195 @@ def expert_cost(stats: dict) -> tuple[float, float]:
     return float(flops), float(nbytes)
 
 
+# Moonlight-16B-A3B's top-k experts and MLA decode at serve-b1-moonlight's
+# calls: the prefill's 40 rows, then the steps at widths 1, 31 and 100
+# (26 expert layers and 27 MLA layers a call; the width-100 step twice)
+ML_D, ML_F, ML_E, ML_K, ML_HEADS = 2048, 1408, 64, 6, 16
+ML_ROWS = (40, 1, 31, 100)
+ML_WEIGHT = {40: 1, 1: 1, 31: 1, 100: 2}
+# the kernels of each, counted by name in a profiler trace of one call
+ML_KERNELS = {"topk_expert_sublayer": (
+    "moe_router", "moe_topk_group", "moe_swiglu_up", "moe_topk_down",
+    "moe_combine"), "mla_attention": ("mla_decode",)}
+
+
+def _launches_by_name(fn, names) -> dict:
+    """The launches of ``gdr::<name>`` kernels while ``fn`` runs, from a
+    torch.profiler trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in out:
+                if f"gdr::{name}(" in e.key or f"gdr::{name}<" in e.key:
+                    out[name] += e.count
+    return out
+
+
+def moonlight_vs_plain(rn) -> dict:
+    """``topk_expert_sublayer`` and ``mla_attention`` on the card against
+    their plain versions at Moonlight's widths and serve-b1-moonlight's
+    calls (``ML_ROWS``), then timed, with their launches by kernel name;
+    returns their ``stats`` entries (the numbers at 100 rows, step 3 for
+    MLA; ``by_rows``; ``per_retrieve`` over one layer's calls)."""
+    import torch
+
+    from gdrbench import costs_moonlight
+    from gdr_tpu_torch.kernels import experts as KE
+    from gdr_tpu_torch.kernels import mla as KM
+
+    m = dict(d_model=ML_D, moe_d_ff=ML_F, num_experts=ML_E, num_heads=ML_HEADS,
+             qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+             kv_lora_rank=512)
+    scale = 1 + rn(ML_D, std=0.1)
+    router, bias = rn(ML_E, ML_D, std=0.02), rn(ML_E, std=0.01)
+    wi, wo = rn(ML_E, 2 * ML_F, ML_D, std=0.02), rn(ML_E, ML_D, ML_F, std=0.02)
+    inv = KM.rope_inv_freq(64, 50000.0, "cuda")
+    out = {}
+    for name in ML_KERNELS:
+        out[name] = dict(by_rows={}, err=0.0)
+    for r in ML_ROWS:
+        x = rn(r, ML_D)
+        z = torch.empty(r, ML_E, device=x.device)
+        route = torch.empty(r, ML_K, dtype=torch.int32, device=x.device)
+        kw = dict(k=ML_K, scale=2.446, eps=1e-5)
+        kern = lambda: KE.topk_expert_sublayer(       # noqa: E731
+            x, x, scale, router, bias, wi, wo, **kw)
+        got = KE.topk_expert_sublayer(x, x, scale, router, bias, wi, wo,
+                                      route=route, logits=z, **kw)
+        # the plain version held to the card's choice (a near tie of two
+        # f32 sums may go either way)
+        lift = bias[None].repeat(r, 1).scatter_add_(
+            1, route.long(), torch.full(route.shape, 10.0, device=x.device))
+        plain = lambda: KE.topk_expert_sublayer_plain(  # noqa: E731
+            x, x, scale, router, lift, wi, wo, **kw)
+        err = (got - plain()).abs().max().item()
+        if not err < 2e-5:
+            raise Failed(f"topk_expert_sublayer R={r}: max |d| {err:.3g}")
+        KE.reset_stats()
+        launches = _launches_by_name(kern, ML_KERNELS["topk_expert_sublayer"])
+        st = dict(zip(KE.STATS, KE.stats_tensor(x.device).tolist()))
+        flops, nbytes = costs_moonlight.topk_expert_cost(m, st)
+        bound, by = _bound_ms(flops, nbytes, H100_F32_FLOPS)
+        row = out["topk_expert_sublayer"]["by_rows"][r] = dict(
+            ms=_time_ms(kern), plain_ms=fmean(_timed(plain, 1, 3)),
+            bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+            experts_hit=st["moe_experts_hit"], max_load=st["moe_max_load"],
+            max_abs_err=err, launches=launches)
+        out["topk_expert_sublayer"]["err"] = max(
+            out["topk_expert_sublayer"]["err"], err)
+        log(f"  topk_expert_sublayer float32 R={r:4d}: {row['experts_hit']} "
+            f"experts hit (most {row['max_load']}), max|d| {err:.3g}; kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms (wall), "
+            f"bound {bound:.4f} ms ({by}); launches {launches}")
+        w = r if r != 40 else 1                    # the prefill: no MLA call
+        if r == 40:
+            continue
+        pos = {1: 0, 31: 1, 100: 3}[r]
+        args = (rn(w, ML_HEADS * 192), rn(w, 576), rn(w, ML_HEADS * 256),
+                rn(1, ML_HEADS, 40, 192), rn(1, ML_HEADS, 40, 128),
+                torch.where(torch.arange(40, device="cuda") < 14, 0.0,
+                            -1e9)[None].float(),
+                torch.tensor([14], dtype=torch.int32, device="cuda"),
+                rn(4, w, ML_HEADS, 192), rn(4, w, ML_HEADS, 128))
+        kern = lambda: KM.mla_attention(*args, pos, inv, w,  # noqa: E731
+                                        scale=192 ** -0.5)
+        plain = lambda: KM.mla_attention_plain(  # noqa: E731
+            *args[:7], args[7].clone(), args[8].clone(), pos, inv, w,
+            scale=192 ** -0.5)
+        err = (kern() - plain()).abs().max().item()
+        if not err < 2e-5:
+            raise Failed(f"mla_attention R={w} pos {pos}: max |d| {err:.3g}")
+        flops, nbytes = costs_moonlight.mla_cost(m, 1, w, pos, 40)
+        bound, by = _bound_ms(flops, nbytes, H100_F32_FLOPS)
+        launches = _launches_by_name(kern, ML_KERNELS["mla_attention"])
+        row = out["mla_attention"]["by_rows"][w] = dict(
+            ms=_time_ms(kern), plain_ms=_time_ms(plain, n=5), bound_ms=bound,
+            bound_by=by, flops=flops, bytes=nbytes, pos=pos, max_abs_err=err,
+            launches=launches)
+        out["mla_attention"]["err"] = max(out["mla_attention"]["err"], err)
+        log(f"  mla_attention      float32  R={w:4d} pos {pos}: max|d| "
+            f"{err:.3g}; kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); "
+            f"launches {launches}")
+    for name, st in out.items():
+        rows = st["by_rows"]
+        st["per_retrieve"] = {key: sum(ML_WEIGHT[r] * rows[r][key]
+                                       for r in rows)
+                              for key in ("ms", "plain_ms", "bound_ms")}
+        st.update({k: rows[100][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "flops", "bytes")})
+        log(f"  {name:20s} float32  one layer's calls a retrieve: kernel "
+            f"{st['per_retrieve']['ms']:.4f} ms, plain "
+            f"{st['per_retrieve']['plain_ms']:.4f} ms, bound "
+            f"{st['per_retrieve']['bound_ms']:.4f} ms")
+    KE.reset_stats()
+    return out
+
+
+# the stack's f32 GEMM shapes (N, K, epilogue) and their launches a
+# retrieve at each of ML_ROWS' row counts: q, kv_a, kv_b and o at 27
+# layers, the shared experts at 26, the dense FFN at 1
+ML_GEMMS = ((3072, 2048, "round", 27), (576, 2048, "round", 27),
+            (4096, 512, "round", 27), (2048, 2048, "residual", 27),
+            (5632, 2048, "round", 26), (2048, 2816, "residual", 26),
+            (22528, 2048, "round", 1), (2048, 11264, "residual", 1))
+
+
+def moonlight_gemms(rn) -> dict:
+    """The f32 GEMM at the Moonlight stack's shapes and serve-b1-moonlight's
+    row counts: the chooser's plan, the fastest plan of the small-row
+    kernel's strips and clusters (4 stages), each call of a graph reading
+    its own copy of W (at least 120 MB of copies, past the L2), and the
+    bound; summed per retrieve."""
+    import math
+
+    import torch
+
+    from gdr_tpu_torch.kernels import decode as kd
+
+    rows, per = [], dict(ms=0.0, best_ms=0.0, bound_ms=0.0)
+    for n, k, epi, layers in ML_GEMMS:
+        copies = max(2, math.ceil(120e6 / (4 * n * k)))
+        ws = [rn(n, k, std=k ** -0.5) for _ in range(copies)]
+        for m in ML_ROWS:
+            a = rn(m, k)
+            kw = (dict(resid=rn(m, n)) if epi == "residual"
+                  else dict(scale=1 + rn(k, std=0.1)))
+
+            def ms(plan=None):
+                return _time_each_ms(lambda i: kd.gemm(
+                    a, ws[i % copies], epi, plan=plan, **kw), calls=copies)
+            plan = kd.gemm_plan(m, n, k, "cuda", torch.float32)
+            got = ms()
+            best = min(ms(kd.rows_plan(m, n, bn, cl))
+                       for bn in (48, 64) for cl in (1, 2, 3, 4, 6, 8)
+                       if cl <= -(-k // 32))
+            bound = 1e3 * max(4.0 * (m * k + n * k + 2 * m * n) / 3.35e12,
+                              2.0 * m * n * k / 67e12)
+            w_ = ML_WEIGHT[m] * layers
+            per["ms"] += w_ * got
+            per["best_ms"] += w_ * best
+            per["bound_ms"] += w_ * bound
+            rows.append(dict(m=m, n=n, k=k, ms=got, best_ms=best,
+                             bound_ms=bound, plan=plan._asdict()))
+            log(f"  gemm float32 {m:3d} x {n:5d} x {k:5d} {epi:8s}: chooser "
+                f"{got * 1e3:7.1f} us (bn {plan.bn}, cluster {plan.splits}), "
+                f"best plan {best * 1e3:7.1f} us, bound {bound * 1e3:6.1f} us")
+        del ws
+    log(f"  gemm float32  the stack's launches a retrieve: chooser "
+        f"{per['ms']:.3f} ms, best plans {per['best_ms']:.3f} ms, bound "
+        f"{per['bound_ms']:.3f} ms")
+    return dict(rows=rows, per_retrieve=per)
+
+
 def experts_vs_plain(rn) -> dict:
     """``expert_sublayer`` on the card against its plain version at the
     Switch cell's calls (``SW_CALLS``), then timed; returns its ``stats``
@@ -985,6 +1193,8 @@ def phase_kernels(dev, trie) -> dict:
             f"{st['plain_ms']:.4f} ms, library {st['library_ms']:.4f} ms, "
             f"bound {st['bound_ms']:.4f} ms ({st['bound_by']})")
     stats["expert_sublayer"] = experts_vs_plain(rn)
+    stats.update(moonlight_vs_plain(rn))
+    stats["gemm_f32_moonlight"] = moonlight_gemms(rn)
     return stats
 
 
@@ -1088,7 +1298,7 @@ def phase_small(dev) -> dict:
 
     import torch
 
-    from gdr_tpu_torch.config import EvalConfig
+    from gdr_tpu_torch.config import EvalConfig, ModelConfig
     from gdr_tpu_torch.eval.evaluator import Evaluator
     from gdr_tpu_torch.ops.beam import gumbel_noise
 
@@ -1144,9 +1354,14 @@ def phase_small(dev) -> dict:
             log(f"  f32 d=64 {mode:25s} {layout:6s}: {n_valid} valid beams, "
                 f"{n_docs} valid docs equal on cpu and gpu; max |d| fused "
                 f"score {err:.3g} (tol 1e-4)")
-    return small_switch(dev, dataclasses.replace(
+    out = small_switch(dev, dataclasses.replace(
         cfg, num_experts=8, expert_capacity=2, encoder_sparse_step=2,
         decoder_sparse_step=2), trie, store, ids, mask, ev_cfg)
+    ml_cfg = dataclasses.replace(
+        ModelConfig().scaled("moonlight-16b-a3b"), num_layers=3,
+        kary=cfg.kary, max_output_length=cfg.max_output_length)
+    return {**out, **small_moonlight(dev, ml_cfg, trie, len(store), ids,
+                                     mask, ev_cfg)}
 
 
 def small_switch(dev, sw_cfg, trie, store, ids, mask, ev_cfg) -> dict:
@@ -1200,6 +1415,115 @@ def small_switch(dev, sw_cfg, trie, store, ids, mask, ev_cfg) -> dict:
     launches = {k: v for k, v in got.items() if k in kernels.launch_counts()}
     kernels.reset_launch_counts()
     return {"switch_launches": launches}
+
+
+def _routing_gap(model) -> float:
+    """The smallest gap between the k-th and (k+1)-th selection scores
+    (sigmoid + bias) over the chosen experts that ``model``'s expert layers
+    recorded (``MoE.record``)."""
+    import torch
+
+    from gdr_tpu_torch.models.deepseek import MoE
+
+    gap = float("inf")
+    for ff in model.modules():
+        if isinstance(ff, MoE):
+            for _, z in ff.record or ():
+                s = (torch.sigmoid(z) + ff.score_bias.detach().float()
+                     ).sort(dim=1, descending=True).values
+                gap = min(gap, float((s[:, ff.k - 1] - s[:, ff.k]).min()))
+    return gap
+
+
+def small_moonlight(dev, ml_cfg, trie, n_docs, ids, mask, ev_cfg) -> dict:
+    """A decoder-only DeepSeek-V3 generator (``ml_cfg``: phase 3's run
+    with Moonlight-16B-A3B's widths at 1 dense + 2 expert layers) with the
+    benchmark's weight scales (``gdrbench/weights_moonlight.py``, drawn on
+    the CPU and copied to the card) over phase 3's trie and a unit store of
+    ``n_docs`` rows of its query width, on the packed layout, on the CPU and twice on the
+    card, the second replaying the decode's CUDA graphs.  The CPU's run
+    records its routing, whose smallest k-th / (k+1)-th selection-score gap
+    is printed: a gap within the card's rounding (~1e-6) may route a token
+    otherwise there.  Returns the card's launches of one retrieve
+    (``moonlight_launches``)."""
+    import numpy as np
+    import torch
+
+    from gdrbench.weights_moonlight import draw_into
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.eval.evaluator import Evaluator
+    from gdr_tpu_torch.models.deepseek import MoE
+    from gdr_tpu_torch.models.gdr import GenerativeRetriever
+    from gdr_tpu_torch.utils import timing
+
+    t = time.perf_counter()
+    cpu_m = GenerativeRetriever(ml_cfg).eval()
+    draw_into(cpu_m, 11)
+    with dev:
+        gpu_m = GenerativeRetriever(ml_cfg).eval()
+    gpu_m.load_state_dict(cpu_m.state_dict())
+    store = np.random.default_rng(1).normal(
+        size=(n_docs, ml_cfg.encoder_d_model))
+    store = (store / np.linalg.norm(store, axis=1, keepdims=True)
+             ).astype(np.float32)
+    ev_c = Evaluator(cpu_m, trie, store, ev_cfg, packed=True)
+    ev_g = Evaluator(gpu_m, trie, store, ev_cfg, packed=True)
+    log(f"  moonlight widths, {ml_cfg.num_layers} layers: weights on the "
+        f"cpu and the card in {time.perf_counter() - t:.1f} s")
+    moes = [ff for ff in cpu_m.modules() if isinstance(ff, MoE)]
+    for ff in moes:
+        ff.record = []
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    res_c, rr_c = ev_c.retrieve(ids, mask)
+    cpu_s = time.perf_counter() - t
+    routing_c = kernels.launch_counts(experts=True)
+    gap = _routing_gap(cpu_m)
+    for ff in moes:
+        ff.record = None
+    steps = ev_g._max_len
+    moe_layers = ml_cfg.num_layers - ml_cfg.first_k_dense
+    want = {"mla_attention": ml_cfg.num_layers * steps,
+            "topk_expert_sublayer": moe_layers * (steps + 1),
+            "packed_scores": 1}
+    syncs = None
+    for turn in ("eager", "replayed"):    # the second replays the graphs
+        kernels.reset_launch_counts()
+        res_g, rr_g = ev_g.retrieve(ids, mask)
+        torch.cuda.synchronize()
+        got = {**timing.counts(), **kernels.launch_counts(experts=True)}
+        routing = {k: v for k, v in got.items() if k.startswith("moe_")}
+        if routing != {k: routing_c[k] for k in routing}:
+            raise Failed(f"small moonlight {turn}: routing counters "
+                         f"{routing} on the card, {routing_c} on the cpu "
+                         f"(smallest selection-score gap on the cpu "
+                         f"{gap:.3g})")
+        n_valid, n_found, err = _same_retrieve(f"moonlight {turn}", res_c,
+                                               rr_c, res_g, rr_g)
+        replays = 3 if turn == "replayed" else 0
+        syncs = got["host_syncs"] if syncs is None else syncs
+        if (got["graph_replays"], got["eager_decodes"], got["host_syncs"]) \
+                != (replays, 1 - replays // 3, syncs):
+            raise Failed(f"small moonlight {turn}: {got['graph_replays']} "
+                         f"graph replays, {got['eager_decodes']} eager "
+                         f"decodes, {got['host_syncs']} host syncs (want "
+                         f"{replays}, {1 - replays // 3}, {syncs})")
+        launches = {k: v for k, v in got.items()
+                    if k in kernels.launch_counts() and v}
+        if launches != want:
+            raise Failed(f"small moonlight {turn}: launches {launches}, "
+                         f"want {want}")
+        log(f"  f32 moonlight widths ({ml_cfg.num_layers} layers, 64 "
+            f"experts top-6) packed {turn}: {n_valid} valid beams, "
+            f"{n_found} valid docs equal on cpu and gpu; max |d| fused score "
+            f"{err:.3g} (tol 1e-4); routing {routing}; smallest "
+            f"selection-score gap on the cpu {gap:.3g}; launches "
+            f"{launches}; cpu retrieve {cpu_s:.1f} s")
+    launches = {k: v for k, v in got.items() if k in kernels.launch_counts()}
+    kernels.reset_launch_counts()
+    del ev_g, gpu_m
+    torch.cuda.empty_cache()
+    return {"moonlight_launches": launches}
 
 
 # ------------------------------------------------------------ phase 4
@@ -1261,24 +1585,9 @@ def _check_retrieve(name, res, rr, n_beams: int, top_r: int,
 def _f32_gemm_launches(fn) -> dict[str, int]:
     """The sublayers' f32 GEMM launches by kernel name while ``fn`` runs
     (``gemm_f32_ring_rows``, the small-row kernel; ``gemm_f32_ring_ws``, the
-    warp-specialised ring), from a
-    torch.profiler trace, which sees the kernels that replayed CUDA graphs
-    launch."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {"gemm_f32_ring_rows": 0, "gemm_f32_ring_ws": 0}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            for name in out:
-                if f"gdr::{name}<" in e.key:
-                    out[name] += e.count
-    return out
+    warp-specialised ring), from a torch.profiler trace, which sees the
+    kernels that replayed CUDA graphs launch."""
+    return _launches_by_name(fn, ("gemm_f32_ring_rows", "gemm_f32_ring_ws"))
 
 
 def _counted_retrieve(name, ev, ids, mask, launches: dict, n_beams: int,
@@ -4783,6 +5092,18 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
                 "hit, torch.matmul each (plain_ms, wall)",
         flops=st["flops"], bytes=st["bytes"], rows=100, dtype="float32",
         by_rows=st["by_rows"], per_retrieve=st["per_retrieve"]))
+    for name, source in (("topk_expert_sublayer", "experts.cu"),
+                         ("mla_attention", "mla.cu")):
+        st = stats[name]
+        rows.append(dict(
+            name=name, route="cuda", source=f"gdr_tpu_torch/csrc/{source}",
+            replaces=None, launches=full["launches"].get(name, 0),
+            launches_moonlight_small=small["moonlight_launches"][name],
+            max_abs_err=st["err"], ms=st["ms"], plain_ms=st["plain_ms"],
+            bound_ms=st["bound_ms"], bound_by=st["bound_by"],
+            library_ms=None, library="the plain version (plain_ms)",
+            flops=st["flops"], bytes=st["bytes"], rows=100, dtype="float32",
+            by_rows=st["by_rows"], per_retrieve=st["per_retrieve"]))
     return rows
 
 

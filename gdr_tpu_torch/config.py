@@ -76,6 +76,30 @@ class ModelConfig:
     encoder_sparse_step: int = 2
     decoder_sparse_step: int = 2
 
+    # --- decoder-only backbone ("deepseek_v3": DeepSeek-V3's block, as
+    # Moonlight publishes it): ``num_layers`` causal layers of latent
+    # attention (MLA) over the query, then GDR's CID steps
+    # (``models/deepseek.py``); the first ``first_k_dense`` FFNs are dense
+    # SwiGLU of width ``d_ff``, the rest mixtures of ``num_experts`` SwiGLU
+    # experts of width ``moe_d_ff``, ``num_experts_per_tok`` a token by
+    # sigmoid scores plus a selection-only bias, and ``num_shared_experts``
+    # always taken; ``num_decoder_layers`` and ``d_kv`` are T5's only
+    backbone: str = "t5"             # "t5" | "deepseek_v3"
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 50000.0
+    moe_d_ff: int = 1408
+    num_experts_per_tok: int = 1
+    num_shared_experts: int = 0
+    first_k_dense: int = 1
+    routed_scaling_factor: float = 1.0
+
+    @property
+    def decoder_only(self) -> bool:
+        return self.backbone == "deepseek_v3"
+
     def refuse_experts(self, what: str) -> None:
         """Raise where ``what`` is asked of a model with experts, which the
         port serves but does not train."""
@@ -113,6 +137,17 @@ class ModelConfig:
                                 d_model=768, num_heads=12, d_ff=3072, d_kv=64,
                                 num_experts=128, expert_capacity=64,
                                 encoder_sparse_step=2, decoder_sparse_step=2),
+            # moonshotai/Moonlight-16B-A3B (DeepSeek-V3's block): 27 MLA
+            # layers, the first a dense SwiGLU, then 64 routed experts
+            # top-6 and 2 shared
+            "moonlight-16b-a3b": dict(
+                backbone="deepseek_v3", vocab_size=163840, d_model=2048,
+                num_layers=27, num_heads=16, d_ff=11264, kv_lora_rank=512,
+                qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+                rope_theta=50000.0, layer_norm_epsilon=1e-5,
+                num_experts=64, moe_d_ff=1408, num_experts_per_tok=6,
+                num_shared_experts=2, first_k_dense=1,
+                routed_scaling_factor=2.446),
         }
         return dataclasses.replace(self, **presets[preset])
 

@@ -1,4 +1,7 @@
-// Top-1 routed experts (Switch Transformer's sparse FFN) in f32 (sm_90a):
+// Routed experts in f32 (sm_90a): Switch Transformer's top-1 sparse FFN,
+// and DeepSeek-V3's top-k sigmoid-routed SwiGLU experts (at the end).
+//
+// Switch:
 //
 //   h = RMSNorm(x);  z = h · Wrᵀ;  e = argmax z;  π = softmax(z)[e]
 //   x' = x + π · Wo[e] · ReLU(Wi[e] · h)      (x' = x for a dropped token)
@@ -47,7 +50,7 @@ constexpr int kDownWarps = 4;         // moe_down: 16 columns of d a work item
 constexpr int kChunkK = 1024;         // K elements of a staged row
 constexpr int kGroupThreads = 1024;
 constexpr int kMaxExperts = 1024;
-constexpr int kMaxD = 1536;           // the router's 8 staged rows in 48 KB
+constexpr int kMaxD = 2048;           // the router's 8 staged rows in 64 KB
 
 // v[0..31] summed over the warp, lane l left with the sum of v[l]: at each
 // stage a lane keeps the half of its values that its bit selects and adds
@@ -65,6 +68,23 @@ __device__ __forceinline__ float warp_reduce_scatter32(float (&v)[32]) {
     }
   }
   return v[0];
+}
+
+// v[0..31] summed over the 16 lanes of a half-warp, lane l of the half left
+// with the sums of v[2 (l % 16)] and v[2 (l % 16) + 1] in v[0] and v[1] (30
+// shuffles in all).
+__device__ __forceinline__ void half_reduce_scatter32(float (&v)[32]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 8, n = 16; s >= 1; s >>= 1, n >>= 1) {
+    const bool up = lane & s;
+#pragma unroll
+    for (int j = 0; j < n; ++j) {
+      const float send = up ? v[j] : v[j + n];
+      const float keep = up ? v[j + n] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, s);
+    }
+  }
 }
 
 __device__ __forceinline__ float dot4(const float4& a, const float4& b) {
@@ -213,6 +233,7 @@ moe_group(const float* __restrict__ logits, const float* __restrict__ x,
     stats[2] += hits;
     stats[3] += most;
     stats[4] += dropped;
+    stats[5] += R;
   }
   __syncthreads();
   for (int r = threadIdx.x; r < R; r += blockDim.x)
@@ -326,6 +347,26 @@ static int persistent_grid(K kernel, int& per_sm, int threads, size_t smem, int 
   return max(1, min(per_sm * sms, max_items));
 }
 
+// moe_router over R rows: kMoeRows rows of D floats staged a block (the
+// shared-memory limit raised once for D up to kMaxD)
+static cudaError_t launch_router(const float* x, const float* scale, const float* router,
+                                 float* hbuf, float* logits, int R, int D, int E, float eps,
+                                 cudaStream_t s) {
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(moe_router, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(kMoeRows * kMaxD * sizeof(float)));
+    if (e != cudaSuccess) return e;
+    opted = true;
+  }
+  const dim3 grid((R + kMoeRows - 1) / kMoeRows,
+                  (E + kRouterWarps * kMoeCols - 1) / (kRouterWarps * kMoeCols));
+  moe_router<<<grid, kRouterWarps * 32, (size_t)kMoeRows * D * sizeof(float), s>>>(
+      x, scale, router, hbuf, logits, R, D, E, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace gdr
 
 // One expert sublayer (four launches on `stream`).  x, out [R, D]; scale
@@ -351,12 +392,8 @@ extern "C" int gdr_moe_sublayer(const void* x, const void* scale, const void* ro
   float* hd = static_cast<float*>(hid);
   float* pr = static_cast<float*>(prob);
   int* mt = static_cast<int*>(meta);
-  const dim3 rgrid((R + kMoeRows - 1) / kMoeRows,
-                   (E + kRouterWarps * kMoeCols - 1) / (kRouterWarps * kMoeCols));
-  moe_router<<<rgrid, kRouterWarps * 32, (size_t)kMoeRows * D * sizeof(float), s>>>(
-      xf, static_cast<const float*>(scale), static_cast<const float*>(router), hb, lg, R,
-      D, E, eps);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_router(xf, static_cast<const float*>(scale),
+                                  static_cast<const float*>(router), hb, lg, R, D, E, eps, s);
   if (err != cudaSuccess) return err;
   moe_group<<<1, kGroupThreads, 0, s>>>(lg, xf, outf, pr, mt, static_cast<int*>(counts),
                                         static_cast<long long*>(stats), R, D, E, seq_len,
@@ -373,5 +410,333 @@ extern "C" int gdr_moe_sublayer(const void* x, const void* scale, const void* ro
                              chunks * down_tiles),
              kDownWarps * 32, smem, s>>>(hd, static_cast<const float*>(wo), mt, xf, pr,
                                          outf, R, D, F, E);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- top-k
+//
+// DeepSeek-V3's routed experts (transformers' DeepseekV3MoE, one group):
+//
+//   h = RMSNorm(x);  s = sigmoid(h · Wrᵀ);  the row's K experts e_j are those
+//   of the K largest s + b (the lower index first among equals), ascending;
+//   w_j = s_{e_j} / (Σ_j s_{e_j} + 1e-20) · scale
+//   x' = base + Σ_j w_j · Wo[e_j] (silu(Wg[e_j] h) ⊙ Wu[e_j] h)
+//
+// where base is x plus the shared experts' output (the caller's GEMMs) and
+// an expert's wi [2F, D] holds its gate rows, then its up rows.  No capacity.
+//
+// What bounds it: the hit experts' weights, 3·D·F f32 each (34.6 MB at
+// Moonlight's D 2,048, F 1,408).  A beam step's 100 rows make 600
+// assignments over 64 experts, ~9.4 an expert, so nearly every expert is
+// read each call, at ~2·9.4 / 4 FLOP a byte, under the f32 ridge.  So the
+// chunks hold up to kTopRows = 16 assignments of one expert, and an expert
+// with ≤ 16 is read once.
+//
+// Five launches, each a `gdr::moe_` kernel:
+// - moe_router (as above): h to `hbuf`, the logits.
+// - moe_topk_group (one block): each row's K experts and weights (a warp a
+//   row), the assignments a = r·K + j grouped by expert and cut into
+//   chunks, the stats (with moe_assignments += R·K), the chosen experts to
+//   `route` when asked.
+// - moe_swiglu_up: a persistent grid, one block of 16 warps an SM, over
+//   (chunk, 64 columns of F); the item stages the chunk's 16 rows whole
+//   in shared memory, then each half-warp reads 2 columns' gate row c and
+//   up row F + c once, one after another, and writes silu(g)·u at the
+//   assignment's grouped place.
+// - moe_topk_down: the same over (chunk, 128 columns of D), a half-warp's
+//   step 2 rows of Wo[e]; it writes w_a · (hid · Woᵀ) to `ybuf` at the
+//   assignment.
+// - moe_combine: x' = base + Σ_j ybuf[r·K + j], j in order.
+// Each assignment's sums run in a fixed order whatever its place, so a
+// call gives the same bits every time.
+
+namespace gdr {
+
+constexpr int kTopRows = 16;        // assignments a chunk stages
+constexpr int kTopWarps = 16;       // a block's warps, one block an SM
+constexpr int kTopSteps = 4;        // column steps a warp takes an item
+constexpr int kTopMaxK = 16;
+constexpr int kTopMaxSmem = 232448; // the staged rows: kTopRows x K floats
+
+__host__ __device__ inline int topk_max_chunks(int A, int E) { return A / kTopRows + E + 1; }
+
+struct TopMeta {
+  int* n_chunks;      // [1]
+  int* chunk_expert;  // [C]
+  int* chunk_place;   // [C]
+  int* chunk_rows;    // [C]: 1 to kTopRows
+  int* order;         // [A]: the assignment at each grouped place
+  int* expert;        // [A]: each assignment's expert
+  __device__ __host__ TopMeta(int* m, int E, int A)
+      : n_chunks(m), chunk_expert(m + 1), chunk_place(m + 1 + topk_max_chunks(A, E)),
+        chunk_rows(m + 1 + 2 * topk_max_chunks(A, E)),
+        order(m + 1 + 3 * topk_max_chunks(A, E)), expert(order + A) {}
+};
+
+__global__ void __launch_bounds__(kGroupThreads)
+moe_topk_group(const float* __restrict__ logits, const float* __restrict__ bias,
+               float* __restrict__ wgt, int* __restrict__ route, int* meta_ptr,
+               long long* stats, int R, int E, int K, float scale) {
+  __shared__ int load[kMaxExperts], fill[kMaxExperts], start[kMaxExperts];
+  const int A = R * K;
+  const TopMeta m(meta_ptr, E, A);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) load[e] = fill[e] = 0;
+  for (int r = warp; r < R; r += warps) {
+    const float* z = logits + (size_t)r * E;
+    unsigned taken = 0;                 // bit i: expert lane + 32 i chosen
+    int sel[kTopMaxK];
+#pragma unroll
+    for (int j = 0; j < kTopMaxK; ++j) {
+      if (j >= K) break;
+      float best = -INFINITY;
+      int arg = E;
+      for (int i = 0, e = lane; e < E; ++i, e += 32) {
+        if (taken >> i & 1u) continue;
+        const float c = 1.f / (1.f + expf(-z[e])) + bias[e];
+        if (c > best) { best = c; arg = e; }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float bb = __shfl_xor_sync(0xffffffffu, best, o);
+        const int a = __shfl_xor_sync(0xffffffffu, arg, o);
+        if (bb > best || (bb == best && a < arg)) { best = bb; arg = a; }
+      }
+      sel[j] = arg;
+      if ((arg & 31) == lane) taken |= 1u << (arg >> 5);
+    }
+    if (lane == 0) {
+      for (int i = 1; i < K; ++i)        // ascending expert order
+        for (int j = i; j > 0 && sel[j - 1] > sel[j]; --j) {
+          const int t = sel[j]; sel[j] = sel[j - 1]; sel[j - 1] = t;
+        }
+      float sig[kTopMaxK], sum = 0.f;
+      for (int j = 0; j < K; ++j) {
+        sig[j] = 1.f / (1.f + expf(-z[sel[j]]));
+        sum += sig[j];
+      }
+      const float inv = 1.f / (sum + 1e-20f);
+      for (int j = 0; j < K; ++j) {
+        const int a = r * K + j;
+        m.expert[a] = sel[j];
+        wgt[a] = sig[j] * inv * scale;
+        if (route) route[a] = sel[j];
+      }
+    }
+  }
+  __syncthreads();
+  for (int a = threadIdx.x; a < A; a += blockDim.x) atomicAdd(&load[m.expert[a]], 1);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int at = 0, hits = 0, most = 0, chunks = 0;
+    for (int e = 0; e < E; ++e) {
+      start[e] = at;
+      hits += load[e] > 0;
+      most = max(most, load[e]);
+      for (int c0 = 0; c0 < load[e]; c0 += kTopRows, ++chunks) {
+        m.chunk_expert[chunks] = e;
+        m.chunk_place[chunks] = at + c0;
+        m.chunk_rows[chunks] = min(kTopRows, load[e] - c0);
+      }
+      at += load[e];
+    }
+    *m.n_chunks = chunks;
+    stats[0] += 1;
+    stats[1] += R;
+    stats[2] += hits;
+    stats[3] += most;
+    stats[5] += A;
+  }
+  __syncthreads();
+  for (int a = threadIdx.x; a < A; a += blockDim.x) {
+    const int e = m.expert[a];
+    m.order[start[e] + atomicAdd(&fill[e], 1)] = a;
+  }
+}
+
+// The chunk's kTopRows rows of `a` [*, K] at the item's start, whole, in
+// shared memory (128 KB at K = 2,048): the row for grouped place p is
+// order[p] / topk (up: hbuf's token rows) or p itself (down: hid's places).
+// Then each half-warp streams the weight rows of its columns, kTopSteps / 2
+// pairs one after another, a lane reading every 16th float4 of the rows
+// with the loop unrolled 4 deep: 8 16-byte loads in flight a lane, 64 KB an
+// SM.  (A whole warp a row pair, a lane every 32nd float4, read 43% of the
+// bound, its down product at ~37% of the bytes' rate: a step's stream was
+// 11 float4s a lane at K 1,408; loading the next 4 while the last are
+// summed was slower still, 39%.)
+//   up (kUp):  W = wi [E, 2N, K]; a half-warp's step is column c's gate row
+//              c and up row N + c; out = hid [A, N] at the place:
+//              silu(g) · u.
+//   down:      W = wo [E, N, K]; a half-warp's step is columns c and c + 1;
+//              out = ybuf [A, N] at the assignment: wgt · (hid · Wᵀ).
+template <bool kUp>
+__device__ __forceinline__ void topk_product(const float* __restrict__ a,
+                                             const float* __restrict__ w, int* meta_ptr,
+                                             const float* __restrict__ wgt,
+                                             float* __restrict__ out, int R, int N, int K,
+                                             int E, int topk) {
+  extern __shared__ float4 as[];        // [kTopRows][K / 4]
+  // each half-warp takes its own pair of weight rows a step, its 16 lanes
+  // striding K: up, a column's gate and up rows; down, two columns' rows
+  constexpr int kHalfCols = kUp ? 1 : 2;
+  constexpr int kSteps = kTopSteps / 2;
+  constexpr int kItemCols = kTopWarps * kSteps * 2 * kHalfCols;
+  const TopMeta m(meta_ptr, E, R * topk);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int half = lane >> 4, hl = lane & 15;
+  const int k4 = K / 4;
+  const int tiles = (N + kItemCols - 1) / kItemCols;
+  const int items = *m.n_chunks * tiles;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int chunk = item / tiles;
+    const int first = m.chunk_place[chunk], nr = m.chunk_rows[chunk];
+    const int e = m.chunk_expert[chunk];
+    __syncthreads();                    // the last item's readers are done
+    for (int i = threadIdx.x; i < kTopRows * k4; i += blockDim.x) {
+      const int rr = i / k4, j = i % k4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (rr < nr) {
+        const int place = first + rr;
+        const size_t row = kUp ? m.order[place] / topk : place;
+        v = reinterpret_cast<const float4*>(a + row * (size_t)K)[j];
+      }
+      as[i] = v;
+    }
+    __syncthreads();
+    // the two rows this lane's sums end in (2·hl mod 16 and the next) and,
+    // down, their assignments and weights, read once an item
+    const int r0 = (2 * hl) & (kTopRows - 1);
+    int a0 = 0, a1 = 0;
+    float wa0 = 0.f, wa1 = 0.f;
+    if (!kUp) {
+      if (r0 < nr) wa0 = wgt[a0 = m.order[first + r0]];
+      if (r0 + 1 < nr) wa1 = wgt[a1 = m.order[first + r0 + 1]];
+    }
+    for (int st = 0; st < kSteps; ++st) {
+      const int c = (item % tiles) * kItemCols + (warp * kSteps + st) * 2 * kHalfCols;
+      if (c >= N) break;
+      const int cp = c + kHalfCols * half;
+      const float4* w0 = reinterpret_cast<const float4*>(
+          w + ((size_t)e * (kUp ? 2 * N : N) + cp) * K);
+      const float4* w1 = w0 + (size_t)(kUp ? N : 1) * k4;
+      float acc[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+#pragma unroll 4
+      for (int j = hl; j < k4; j += 16) {
+        const float4 g = w0[j], u = w1[j];
+#pragma unroll
+        for (int r = 0; r < kTopRows; ++r) {
+          const float4 av = as[r * k4 + j];
+          acc[r] += dot4(g, av);
+          acc[kTopRows + r] += dot4(u, av);
+        }
+      }
+      half_reduce_scatter32(acc);       // (gate | up or column, rows r0, r0 + 1)
+      if (kUp) {
+        const float u0 = __shfl_down_sync(0xffffffffu, acc[0], 8);
+        const float u1 = __shfl_down_sync(0xffffffffu, acc[1], 8);
+        if (hl < 8 && r0 < nr)
+          out[(size_t)(first + r0) * N + cp] = acc[0] / (1.f + expf(-acc[0])) * u0;
+        if (hl < 8 && r0 + 1 < nr)
+          out[(size_t)(first + r0 + 1) * N + cp] = acc[1] / (1.f + expf(-acc[1])) * u1;
+      } else {
+        const int col = cp + (hl >> 3);
+        if (r0 < nr) out[(size_t)a0 * N + col] = wa0 * acc[0];
+        if (r0 + 1 < nr) out[(size_t)a1 * N + col] = wa1 * acc[1];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTopWarps * 32, 1)
+moe_swiglu_up(const float* __restrict__ hbuf, const float* __restrict__ wi, int* meta,
+              float* __restrict__ hid, int R, int F, int D, int E, int K) {
+  topk_product<true>(hbuf, wi, meta, nullptr, hid, R, F, D, E, K);
+}
+
+__global__ void __launch_bounds__(kTopWarps * 32, 1)
+moe_topk_down(const float* __restrict__ hid, const float* __restrict__ wo, int* meta,
+              const float* __restrict__ wgt, float* __restrict__ ybuf, int R, int D, int F,
+              int E, int K) {
+  topk_product<false>(hid, wo, meta, wgt, ybuf, R, D, F, E, K);
+}
+
+__global__ void moe_combine(const float* __restrict__ base, const float* __restrict__ ybuf,
+                            float* __restrict__ out, int R, int D, int K) {
+  const int d4 = D / 4;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)R * d4) return;
+  const size_t r = i / d4, c = i % d4;
+  float4 acc = reinterpret_cast<const float4*>(base)[i];
+  for (int j = 0; j < K; ++j) {
+    const float4 y = reinterpret_cast<const float4*>(ybuf + (r * K + j) * D)[c];
+    acc.x += y.x;
+    acc.y += y.y;
+    acc.z += y.z;
+    acc.w += y.w;
+  }
+  reinterpret_cast<float4*>(out)[i] = acc;
+}
+
+}  // namespace gdr
+
+// One top-k expert sublayer (five launches on `stream`).  x, base, out [R,
+// D]; scale [D]; router [E, D]; bias [E]; wi [E, 2F, D]; wo [E, D, F];
+// stats [6] int64, added to; route [R, K] int32 or null; scratch: logits
+// [R, E], hbuf [R, D], hid [R·K, F], ybuf [R·K, D], wgt [R·K] f32 and meta
+// [1 + 3 (R·K / 16 + E + 1) + 2 R·K] int32.
+extern "C" int gdr_moe_topk_sublayer(const void* x, const void* base, const void* scale,
+                                     const void* router, const void* bias, const void* wi,
+                                     const void* wo, void* out, void* stats, void* logits,
+                                     void* hbuf, void* hid, void* ybuf, void* wgt, void* meta,
+                                     void* route, int R, int D, int F, int E, int K,
+                                     float route_scale, float eps, int sms, void* stream) {
+  using namespace gdr;
+  if (R <= 0 || D % 16 || D > kMaxD || F % 32 || (size_t)kTopRows * F * 4 > kTopMaxSmem ||
+      E <= 0 || E > kMaxExperts || K <= 0 || K > kTopMaxK || K > E || sms <= 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* hb = static_cast<float*>(hbuf);
+  float* lg = static_cast<float*>(logits);
+  int* mt = static_cast<int*>(meta);
+  cudaError_t err =
+      launch_router(static_cast<const float*>(x), static_cast<const float*>(scale),
+                    static_cast<const float*>(router), hb, lg, R, D, E, eps, s);
+  if (err != cudaSuccess) return err;
+  moe_topk_group<<<1, kGroupThreads, 0, s>>>(
+      lg, static_cast<const float*>(bias), static_cast<float*>(wgt), static_cast<int*>(route),
+      mt, static_cast<long long*>(stats), R, E, K, route_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  static int up_per_sm = 0, down_per_sm = 0;
+  static bool opted = false;
+  if (!opted) {
+    if ((err = cudaFuncSetAttribute(moe_swiglu_up, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kTopMaxSmem)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(moe_topk_down, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kTopMaxSmem)) != cudaSuccess)
+      return err;
+    opted = true;
+  }
+  const int chunks = topk_max_chunks(R * K, E);
+  const size_t up_smem = (size_t)kTopRows * D * sizeof(float);
+  const size_t down_smem = (size_t)kTopRows * F * sizeof(float);
+  const int up_cols = kTopWarps * kTopSteps, down_cols = kTopWarps * kTopSteps * 2;
+  moe_swiglu_up<<<persistent_grid(moe_swiglu_up, up_per_sm, kTopWarps * 32, up_smem, sms,
+                                  chunks * ((F + up_cols - 1) / up_cols)),
+                  kTopWarps * 32, up_smem, s>>>(hb, static_cast<const float*>(wi), mt,
+                                                static_cast<float*>(hid), R, F, D, E, K);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  moe_topk_down<<<persistent_grid(moe_topk_down, down_per_sm, kTopWarps * 32, down_smem, sms,
+                                  chunks * ((D + down_cols - 1) / down_cols)),
+                  kTopWarps * 32, down_smem, s>>>(
+      static_cast<const float*>(hid), static_cast<const float*>(wo), mt,
+      static_cast<const float*>(wgt), static_cast<float*>(ybuf), R, D, F, E, K);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t n4 = (size_t)R * (D / 4);
+  moe_combine<<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(base), static_cast<const float*>(ybuf),
+      static_cast<float*>(out), R, D, K);
   return cudaGetLastError();
 }

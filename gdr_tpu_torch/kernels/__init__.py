@@ -4,11 +4,12 @@ plain version, CUDA → kernel.  Each kernel module declares its wrappers'
 launch counters in the registry of ``utils/timing.py``; the routed
 experts' routing counters live on the device (``experts.py``)."""
 
-from gdr_tpu_torch.kernels import decode, rerank
+from gdr_tpu_torch.kernels import decode, mla, rerank
 from gdr_tpu_torch.kernels import experts as _experts
 from gdr_tpu_torch.utils import timing
 
-_WRAPPERS = decode.WRAPPERS + rerank.WRAPPERS + _experts.WRAPPERS
+_WRAPPERS = (decode.WRAPPERS + rerank.WRAPPERS + _experts.WRAPPERS
+             + mla.WRAPPERS)
 
 
 def reset_launch_counts() -> None:

@@ -1,5 +1,11 @@
-"""The routed-expert sublayer of a Switch Transformer (top-1 routing, f32),
-its plain PyTorch version and its routing counters.
+"""The routed-expert sublayers, their plain PyTorch versions and their
+routing counters, in f32:
+
+- :func:`expert_sublayer`, a Switch Transformer's (top-1 routing with a
+  capacity, ReLU experts);
+- :func:`topk_expert_sublayer`, DeepSeek-V3's (top-k of sigmoid scores
+  plus a selection-only bias, SwiGLU experts, no capacity, shared experts
+  added by the caller).
 
 :func:`expert_sublayer` computes, for rows x [R, d] that form R / seq_len
 sequences of ``seq_len`` tokens (the encoder: a query's tokens; a decode
@@ -13,23 +19,36 @@ step: one token a beam row), as ``transformers``'
   in place, so that a cached decode counts the beam's whole prefix);
 - x' = x + π · W_o[e] ReLU(W_i[e] h), and x' = x for a dropped token.
 
-**The device decides.**  A CPU tensor runs the plain version, a CUDA tensor
-launches the four ``gdr::moe_`` kernels of ``csrc/experts.cu`` or raises;
-the library is built and loaded at the first CUDA call, so a dense model
-never touches it.  Only f32 is served on the card: a bf16 model raises.
+:func:`topk_expert_sublayer` computes, for rows x [R, d], as
+``transformers``' ``DeepseekV3MoE`` with its ``DeepseekV3TopkRouter`` (one
+group): h = RMSNorm(x); s = sigmoid(h·W_rᵀ) in f32; the row's k experts
+are those of the k largest s + b (``bias``, the score correction; the
+lower index first among equals), taken in ascending expert order; their
+weights w_j = s_j / (Σ s + 1e-20) · ``scale``; and x' = ``base`` + Σ_j w_j
+· W_o[e_j](silu(W_g[e_j] h) ⊙ W_u[e_j] h), the sum in that order, where
+``base`` is x plus the shared experts' output, which the caller computes
+(``models/deepseek.py``).  An expert's ``wi`` [2·d_ff, d] holds its gate
+rows, then its up rows.
+
+**The device decides.**  A CPU tensor runs the plain version, a CUDA
+tensor launches the ``gdr::moe_`` kernels of ``csrc/experts.cu`` or
+raises; the library is built and loaded at the first CUDA call, so a
+dense model never touches it.  Only f32 is served on the card: a bf16
+model raises.
 
 **Inside a CUDA graph.**  The launches' grids depend on the shapes alone:
-the router and the grouping run on fixed grids, the two expert products on
+the router and the grouping run on fixed grids, the expert products on
 a persistent grid that walks the work list the grouping leaves in device
 memory.  Nothing is read back to the host, so a call captures as it runs.
 
-The wrapper counts the calls that launched the kernels (``WRAPPERS``, in
+The wrappers count the calls that launched the kernels (``WRAPPERS``, in
 ``utils/timing.py``'s registry).  The routing counters (``STATS``: calls,
-rows, experts hit, the most rows on one expert and the dropped tokens,
-each summed over calls) live on the device and are added to by the
-kernels themselves (by the plain version on the CPU), so graph replays
-count too; ``kernels.launch_counts(experts=True)`` reads them with one
-sync per device and ``reset_launch_counts()`` zeroes them.
+rows, experts hit, the most rows on one expert, the dropped tokens and
+the assignments of rows to experts, rows × k, each summed over calls) live
+on the device and are added to by the kernels themselves (by the plain
+versions on the CPU), so graph replays count too;
+``kernels.launch_counts(experts=True)`` reads them with one sync per device
+and ``reset_launch_counts()`` zeroes them.
 """
 
 from __future__ import annotations
@@ -43,9 +62,9 @@ from gdr_tpu_torch.kernels import build
 from gdr_tpu_torch.kernels.decode import _mm, _rms
 from gdr_tpu_torch.utils.timing import count, declare
 
-WRAPPERS = declare("expert_sublayer")
+WRAPPERS = declare("expert_sublayer", "topk_expert_sublayer")
 STATS = ("moe_calls", "moe_rows", "moe_experts_hit", "moe_max_load",
-         "moe_dropped")
+         "moe_dropped", "moe_assignments")
 _STATS: dict[torch.device, torch.Tensor] = {}
 _SMS: dict[torch.device, int] = {}
 
@@ -54,8 +73,14 @@ _SIGS = {
     # x, scale, router, wi, wo, out, counts, stats, logits, hbuf, hid, prob,
     # meta, rows, d, d_ff, experts, seq_len, capacity, eps, sms, stream
     "gdr_moe_sublayer": [_P] * 13 + [_I] * 6 + [_F, _I, _P],
+    # x, base, scale, router, bias, wi, wo, out, stats, logits, hbuf, hid,
+    # ybuf, wgt, meta, route, rows, d, d_ff, experts, k, route_scale, eps,
+    # sms, stream
+    "gdr_moe_topk_sublayer": [_P] * 16 + [_I] * 5 + [_F, _F, _I, _P],
 }
-MAX_D = 1536            # the router kernel's 8 staged rows in 48 KB
+MAX_D = 2048            # the router kernel's 8 staged rows in 64 KB
+MAX_K = 16              # experts a row of the top-k sublayer
+MAX_DFF_TOPK = 3616     # the top-k down product's 16 staged rows in 227 KB
 MAX_EXPERTS = 1024      # the grouping's one block keeps a count an expert
 
 
@@ -114,7 +139,8 @@ def expert_sublayer_plain(x, ln_scale, router, wi, wo, *, capacity: int,
         y[rows] = _mm(hid, wo[j]).to(x.dtype)
     load = torch.bincount(e[keep], minlength=n_exp)
     stats_tensor(x.device).add_(torch.tensor(
-        [1, r, len(hit), int(load.max()) if r else 0, int((~keep).sum())],
+        [1, r, len(hit), int(load.max()) if r else 0, int((~keep).sum()),
+         r],
         dtype=torch.int64, device=x.device))
     return x + pi[:, None].to(x.dtype) * y
 
@@ -195,4 +221,123 @@ def expert_sublayer(x, ln_scale, router, wi, wo, *, capacity: int,
         meta.data_ptr(), r, d, dff, n_exp, seq_len, capacity, eps, _sms(dev),
         torch.cuda.current_stream(dev).cuda_stream), "expert_sublayer")
     count("expert_sublayer")
+    return out
+
+
+# ------------------------------------------------- top-k (DeepSeek-V3)
+
+def topk_select(z: torch.Tensor, bias: torch.Tensor, k: int, scale: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The experts [R, k] (ascending) and weights [R, k] f32 of router
+    logits z [R, E]: the k largest sigmoid(z) + bias, the lower index first
+    among equals; the weights their sigmoids over their sum, × scale."""
+    s = torch.sigmoid(z.float())
+    order = torch.sort(s + bias.float(), dim=1, descending=True,
+                       stable=True).indices
+    sel = order[:, :k].sort(dim=1).values
+    w = s.gather(1, sel)
+    return sel, w / (w.sum(1, keepdim=True) + 1e-20) * scale
+
+
+def topk_expert_sublayer_plain(x, base, ln_scale, router, bias, wi, wo, *,
+                               k: int, scale: float, eps: float = 1e-6,
+                               route=None, logits=None):
+    r, d = x.shape
+    n_exp, dff = wi.shape[0], wi.shape[1] // 2
+    h = _rms(x, ln_scale, eps)
+    z = _mm(h, router)                                    # f32 [R, E]
+    sel, w = topk_select(z, bias, k, scale)
+    if logits is not None:
+        logits.copy_(z)
+    if route is not None:
+        route.copy_(sel.to(route.dtype))
+    y = torch.zeros((r, k, d), dtype=torch.float32, device=x.device)
+    hit = torch.unique(sel).tolist()
+    for e in hit:
+        rows, slot = (sel == e).nonzero(as_tuple=True)
+        gu = _mm(h[rows], wi[e])
+        hid = F.silu(gu[:, :dff]) * gu[:, dff:]
+        y[rows, slot] = _mm(hid, wo[e])
+    out = base.float()
+    for j in range(k):
+        out = out + w[:, j:j + 1] * y[:, j]
+    load = torch.bincount(sel.reshape(-1), minlength=n_exp)
+    stats_tensor(x.device).add_(torch.tensor(
+        [1, r, len(hit), int(load.max()) if r else 0, 0, r * k],
+        dtype=torch.int64, device=x.device))
+    return out.to(x.dtype)
+
+
+def topk_expert_sublayer(x, base, ln_scale, router, bias, wi, wo, *, k: int,
+                         scale: float, eps: float = 1e-6, route=None,
+                         logits=None):
+    """x, base: [R, d]; ln_scale: [d]; router: [E, d]; bias: [E]; wi: [E,
+    2·d_ff, d] (gate rows, then up rows); wo: [E, d, d_ff].  Returns base +
+    the routed experts' weighted sum (see the module's docstring).
+    ``route``: an int32 [R, k] tensor the chosen experts are written to;
+    ``logits``: an f32 [R, E] tensor the router's logits are written to."""
+    r, d = x.shape
+    n_exp, dff2 = wi.shape[0], wi.shape[1]
+    dff = dff2 // 2
+    for name, t, shape in (("base", base, (r, d)),
+                           ("router", router, (n_exp, d)),
+                           ("bias", bias, (n_exp,)),
+                           ("wi", wi, (n_exp, 2 * dff, d)),
+                           ("wo", wo, (n_exp, d, dff)),
+                           ("route", route, (r, k)),
+                           ("logits", logits, (r, n_exp))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"topk_expert_sublayer {name}: expected shape "
+                             f"{shape}, got {tuple(t.shape)}")
+    if not 0 < k <= min(n_exp, MAX_K):
+        raise ValueError(f"topk_expert_sublayer: k {k} of {n_exp} experts "
+                         f"(at most {MAX_K})")
+    if x.device.type == "cpu":
+        return topk_expert_sublayer_plain(
+            x, base, ln_scale, router, bias, wi, wo, k=k, scale=scale,
+            eps=eps, route=route, logits=logits)
+    if x.dtype != torch.float32:
+        raise TypeError(f"topk_expert_sublayer: the CUDA experts serve "
+                        f"float32 models only, not {x.dtype}")
+    if x.device.type != "cuda":
+        raise ValueError(f"topk_expert_sublayer: tensors on {x.device}, "
+                         f"expected cpu or cuda")
+    tensors = (x, base, ln_scale, router, bias, wi, wo)
+    for t in tensors + tuple(t for t in (route, logits) if t is not None):
+        if t.device != x.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError("topk_expert_sublayer: tensors must be "
+                             "contiguous, 16-byte aligned and on one device")
+    if any(t.dtype != torch.float32 for t in tensors) or (
+            route is not None and route.dtype != torch.int32):
+        raise TypeError("topk_expert_sublayer: f32 tensors and an int32 "
+                        "route")
+    if d % 16 or d > MAX_D or dff % 32 or dff > MAX_DFF_TOPK \
+            or not 0 < n_exp <= MAX_EXPERTS:
+        raise ValueError(f"topk_expert_sublayer: d {d} (a multiple of 16, at "
+                         f"most {MAX_D}), d_ff {dff} (a multiple of 32, at "
+                         f"most {MAX_DFF_TOPK}), {n_exp} experts (at most "
+                         f"{MAX_EXPERTS}) not served")
+    dev = x.device
+    stats = stats_tensor(dev)
+    a = r * k
+    out = torch.empty_like(x)
+    if logits is None:
+        logits = torch.empty((r, n_exp), dtype=torch.float32, device=dev)
+    hbuf = torch.empty_like(x)
+    hid = torch.empty((a, dff), dtype=torch.float32, device=dev)
+    ybuf = torch.empty((a, d), dtype=torch.float32, device=dev)
+    wgt = torch.empty((a,), dtype=torch.float32, device=dev)
+    meta = torch.empty((1 + 3 * (a // 16 + n_exp + 1) + 2 * a,),
+                       dtype=torch.int32, device=dev)
+    lib = _lib()
+    build.check(lib, lib.gdr_moe_topk_sublayer(
+        x.data_ptr(), base.data_ptr(), ln_scale.data_ptr(), router.data_ptr(),
+        bias.data_ptr(), wi.data_ptr(), wo.data_ptr(), out.data_ptr(),
+        stats.data_ptr(), logits.data_ptr(), hbuf.data_ptr(), hid.data_ptr(),
+        ybuf.data_ptr(), wgt.data_ptr(), meta.data_ptr(),
+        None if route is None else route.data_ptr(), r, d, dff, n_exp, k,
+        scale, eps, _sms(dev), torch.cuda.current_stream(dev).cuda_stream),
+        "topk_expert_sublayer")
+    count("topk_expert_sublayer")
     return out

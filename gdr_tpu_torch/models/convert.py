@@ -182,12 +182,18 @@ def _f32(v) -> torch.Tensor:
 
 def _part(t: torch.Tensor, block) -> torch.Tensor:
     """The part of the port's tensor ``t`` that one source tensor fills:
-    all of it (None), a row block of a fused ``qkv`` weight (0, 1, 2) or
-    expert j of a stack (``("expert", j)``)."""
+    all of it (None), a row block of a fused ``qkv`` weight (0, 1, 2),
+    expert j of a stack (``("expert", j)``), or half h of a fused SwiGLU
+    ``wi`` (gate rows, then up rows), of an expert's (``("expert", j,
+    h)``) or of a whole tensor's (``("half", h)``)."""
     if block is None:
         return t
     if isinstance(block, tuple):
-        return t[block[1]]
+        if block[0] == "half":
+            rows = t.shape[0] // 2
+            return t[block[1] * rows:(block[1] + 1) * rows]
+        t = t[block[1]]
+        return t if len(block) == 2 else _part(t, ("half", block[2]))
     rows = t.shape[0] // 3
     return t[block * rows:(block + 1) * rows]
 
@@ -432,3 +438,94 @@ def _zero_bias(state_dict: Mapping, name: str) -> None:
     if b is not None and bool(_f32(b).any()):
         raise ValueError(f"{name} must be zero: the port's PAWA adaptor is "
                          f"biasless (T5-style)")
+
+
+# ------------------------------------------------------------ DeepSeek-V3
+
+def deepseek_v3_model_overrides(path: str) -> dict:
+    """``ModelConfig`` fields of a ``deepseek_v3`` checkpoint directory's
+    ``config.json`` (Moonlight-16B-A3B's keys); the decoder-only stack
+    serves one group (``n_group`` 1), no q LoRA and no RoPE scaling."""
+    c = read_config(path)
+    if c.get("model_type") != "deepseek_v3":
+        raise ValueError(f"{path}: model_type {c.get('model_type')!r}, not "
+                         f"deepseek_v3")
+    if c.get("q_lora_rank") or c.get("rope_scaling") or \
+            c.get("n_group", 1) != 1 or c.get("attention_bias"):
+        raise ValueError(f"{path}: q LoRA, RoPE scaling, expert groups and "
+                         f"attention biases are not ported")
+    return dict(backbone="deepseek_v3", vocab_size=c["vocab_size"],
+                d_model=c["hidden_size"], num_layers=c["num_hidden_layers"],
+                num_heads=c["num_attention_heads"],
+                d_ff=c["intermediate_size"], kv_lora_rank=c["kv_lora_rank"],
+                qk_nope_head_dim=c["qk_nope_head_dim"],
+                qk_rope_head_dim=c["qk_rope_head_dim"],
+                v_head_dim=c["v_head_dim"], rope_theta=c["rope_theta"],
+                layer_norm_epsilon=c["rms_norm_eps"],
+                num_experts=c["n_routed_experts"],
+                moe_d_ff=c["moe_intermediate_size"],
+                num_experts_per_tok=c["num_experts_per_tok"],
+                num_shared_experts=c["n_shared_experts"],
+                first_k_dense=c["first_k_dense_replace"],
+                routed_scaling_factor=c["routed_scaling_factor"])
+
+
+def deepseek_v3_mapping(cfg) -> dict[str, tuple[str, object]]:
+    """``transformers``' DeepseekV3 name (Moonlight's checkpoint, without
+    the ``model.`` prefix) → (the port's parameter, its part): the token
+    embedding, every layer and the final norm.  ``lm_head`` has none: GDR's
+    CID head takes its place."""
+    m = {"embed_tokens.weight": ("shared.weight", None),
+         "norm.weight": ("stack.final_norm.scale", None)}
+    for i in range(cfg.num_layers):
+        hf, my = f"layers.{i}", f"stack.blocks.{i}"
+        m.update({
+            f"{hf}.input_layernorm.weight": (f"{my}.ln1.scale", None),
+            f"{hf}.post_attention_layernorm.weight": (f"{my}.ln2.scale", None),
+            f"{hf}.self_attn.q_proj.weight": (f"{my}.attn.q_proj.weight",
+                                              None),
+            f"{hf}.self_attn.kv_a_proj_with_mqa.weight":
+                (f"{my}.attn.kv_a.weight", None),
+            f"{hf}.self_attn.kv_a_layernorm.weight":
+                (f"{my}.attn.kv_norm.scale", None),
+            f"{hf}.self_attn.kv_b_proj.weight": (f"{my}.attn.kv_b.weight",
+                                                 None),
+            f"{hf}.self_attn.o_proj.weight": (f"{my}.attn.o.weight", None)})
+        if i < cfg.first_k_dense:
+            m.update({f"{hf}.mlp.gate_proj.weight": (f"{my}.ff.wi.weight",
+                                                     ("half", 0)),
+                      f"{hf}.mlp.up_proj.weight": (f"{my}.ff.wi.weight",
+                                                   ("half", 1)),
+                      f"{hf}.mlp.down_proj.weight": (f"{my}.ff.wo.weight",
+                                                     None)})
+            continue
+        m.update({
+            f"{hf}.mlp.gate.weight": (f"{my}.ff.router", None),
+            f"{hf}.mlp.gate.e_score_correction_bias": (f"{my}.ff.score_bias",
+                                                       None),
+            f"{hf}.mlp.shared_experts.gate_proj.weight":
+                (f"{my}.ff.shared_wi", ("half", 0)),
+            f"{hf}.mlp.shared_experts.up_proj.weight":
+                (f"{my}.ff.shared_wi", ("half", 1)),
+            f"{hf}.mlp.shared_experts.down_proj.weight":
+                (f"{my}.ff.shared_wo", None)})
+        for j in range(cfg.num_experts):
+            e = f"{hf}.mlp.experts.{j}"
+            m.update({
+                f"{e}.gate_proj.weight": (f"{my}.ff.wi", ("expert", j, 0)),
+                f"{e}.up_proj.weight": (f"{my}.ff.wi", ("expert", j, 1)),
+                f"{e}.down_proj.weight": (f"{my}.ff.wo", ("expert", j))})
+    return m
+
+
+def load_deepseek_v3(model: nn.Module, state_dict: Mapping) -> nn.Module:
+    """Copy a ``transformers`` DeepseekV3 state dict (a
+    ``DeepseekV3ForCausalLM`` checkpoint's ``model.*`` names, or a
+    ``DeepseekV3Model``'s bare ones) into a decoder-only
+    ``GenerativeRetriever``; GDR's own heads are left as they are.
+    Returns ``model``."""
+    sd = {k[len("model."):] if k.startswith("model.") else k: v
+          for k, v in state_dict.items()}
+    _copy_into(model, [(src, dst, block, None) for src, (dst, block)
+                       in deepseek_v3_mapping(model.cfg).items()], sd)
+    return model

@@ -1,5 +1,10 @@
 """The GDR generative retriever in PyTorch: T5 + positional decode head +
-PAWA, mirroring the serving parts of ``gdr_tpu/models/gdr.py``.
+PAWA, mirroring the serving parts of ``gdr_tpu/models/gdr.py``.  With
+``ModelConfig.backbone`` "deepseek_v3" the T5 encoder-decoder is replaced
+by a decoder-only stack (``models/deepseek.py``): ``prefill`` runs the
+query through it, the CID steps continue the same sequence, and the heads
+and the search are the same; it serves only (the teacher-forced paths and
+training are T5's).
 
 - ``encode`` / ``query_embedding`` / ``project_query``: the T5 encoder and
   the dense-stage query rep (first-position encoder state, projected into
@@ -44,6 +49,7 @@ import torch
 from torch import nn
 
 from gdr_tpu_torch.config import ModelConfig
+from gdr_tpu_torch.models.deepseek import DeepseekStack
 from gdr_tpu_torch.models.pawa import FullPawaAdaptor, PawaAdaptor
 from gdr_tpu_torch.models.t5 import Decoder, Encoder, _dense
 from gdr_tpu_torch.parallel.autograd import (copy_to_mp, embedding,
@@ -71,17 +77,21 @@ class GenerativeRetriever(nn.Module):
         self.shared = nn.Embedding(c.vocab_size, c.d_model)
         experts = lambda step: ((c.num_experts, c.expert_capacity, step)
                                 if c.num_experts else None)
-        self.encoder = Encoder(
-            c.num_layers, c.d_model, c.num_heads, c.d_kv, c.d_ff,
-            c.layer_norm_epsilon, c.relative_attention_num_buckets,
-            c.relative_attention_max_distance, c.dropout_rate, c.remat,
-            experts(c.encoder_sparse_step))
+        if c.decoder_only:
+            self.stack = DeepseekStack(c)
+        else:
+            self.encoder = Encoder(
+                c.num_layers, c.d_model, c.num_heads, c.d_kv, c.d_ff,
+                c.layer_norm_epsilon, c.relative_attention_num_buckets,
+                c.relative_attention_max_distance, c.dropout_rate, c.remat,
+                experts(c.encoder_sparse_step))
         self.decode_embed = nn.Embedding(c.decode_vocab_size, c.d_model)
-        self.decoder = Decoder(
-            c.num_decoder_layers, c.d_model, c.num_heads, c.d_kv, c.d_ff,
-            c.layer_norm_epsilon, c.relative_attention_num_buckets,
-            c.relative_attention_max_distance, c.dropout_rate, c.remat,
-            experts(c.decoder_sparse_step))
+        if not c.decoder_only:
+            self.decoder = Decoder(
+                c.num_decoder_layers, c.d_model, c.num_heads, c.d_kv, c.d_ff,
+                c.layer_norm_epsilon, c.relative_attention_num_buckets,
+                c.relative_attention_max_distance, c.dropout_rate, c.remat,
+                experts(c.decoder_sparse_step))
         if not c.tie_decode_embedding:
             self.lm_head = nn.Parameter(torch.zeros(c.d_model,
                                                     c.decode_vocab_size))
@@ -146,11 +156,28 @@ class GenerativeRetriever(nn.Module):
     # ---------------------------------------------------------- main paths
 
     def encode(self, input_ids: torch.Tensor, attn_mask: torch.Tensor):
-        return self.encoder(embedding(self, self.shared, input_ids),
-                            attn_mask)
+        return self.prefill(input_ids, attn_mask)[0]
 
-    def query_embedding(self, enc: torch.Tensor) -> torch.Tensor:
-        return self.project_query(enc[:, 0])
+    def prefill(self, input_ids: torch.Tensor, attn_mask: torch.Tensor):
+        """(encoder states [B, S, d], the decode's per-query prefix caches:
+        None for T5).  The decoder-only stack's states are its final-normed
+        states over the query, and its caches the query's keys and
+        values."""
+        x = embedding(self, self.shared, input_ids)
+        if self.cfg.decoder_only:
+            return self.stack.prefill(x, attn_mask)
+        return self.encoder(x, attn_mask), None
+
+    def query_embedding(self, enc: torch.Tensor,
+                        attn_mask: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+        """The dense-stage query rep: T5's first encoder position; the
+        decoder-only stack's last real token (``attn_mask`` needed)."""
+        if not self.cfg.decoder_only:
+            return self.project_query(enc[:, 0])
+        last = (attn_mask.long().sum(1) - 1).clamp_min(0)
+        return self.project_query(
+            enc[torch.arange(enc.shape[0], device=enc.device), last])
 
     def project_query(self, q: torch.Tensor) -> torch.Tensor:
         if self.cfg.encoder_d_model != self.cfg.d_model:
@@ -319,11 +346,16 @@ class GenerativeRetriever(nn.Module):
     # --------------------------------------------------- incremental decode
 
     def init_cache(self, enc: torch.Tensor, max_len: int,
-                   num_beams: int = 1) -> dict[str, torch.Tensor]:
+                   num_beams: int = 1, prefix: dict | None = None
+                   ) -> dict[str, torch.Tensor]:
         """``enc``: un-expanded [B, S, d]; self/PAWA caches get B·K rows,
-        cross-attention K/V stay per query (``cross_*`` keys)."""
+        cross-attention K/V stay per query (``cross_*`` keys).  ``prefix``:
+        :meth:`prefill`'s caches (the decoder-only stack's)."""
         b = enc.shape[0]
-        cache = self.decoder.init_cache(b, max_len, enc, num_beams)
+        if self.cfg.decoder_only:
+            cache = self.stack.init_cache(prefix, max_len, num_beams)
+        else:
+            cache = self.decoder.init_cache(b, max_len, enc, num_beams)
         if self.cfg.adaptor_decode:
             cache.update(self.pawa.init_cache(b * num_beams, max_len))
         return cache
@@ -346,8 +378,13 @@ class GenerativeRetriever(nn.Module):
         c = self.cfg
         kary = c.kary
         x = self.decode_embed(token)[:, None]
-        hidden, cache = self.decoder.decode_step(x, cache, enc_mask, pos,
-                                                 num_beams)
+        if c.decoder_only:
+            hidden, cache = self.stack.decode_step(x[:, 0], cache, pos,
+                                                   num_beams)
+            hidden = hidden[:, None]
+        else:
+            hidden, cache = self.decoder.decode_step(x, cache, enc_mask, pos,
+                                                     num_beams)
         # × d^-0.5 in the model dtype, as the reference's weak-typed scalar
         s = hidden[:, 0] * hidden.new_full((), c.d_model ** -0.5)
         first = pos * kary + 2

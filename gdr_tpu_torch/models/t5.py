@@ -390,7 +390,7 @@ class RoutedFeedForward(nn.Module):
                 "sparse experts serve only: the router's z-loss and "
                 "load-balancing loss of training are not ported")
         b, l, d = x.shape
-        with span("gdr.moe", f"rows={b * l}"):
+        with span("gdr.moe", f"rows={b * l} k=1"):
             out = expert_sublayer(x.reshape(b * l, d), norm.scale, self.router,
                                   self.wi, self.wo, capacity=self.capacity,
                                   seq_len=l, counts=counts, eps=norm.eps)

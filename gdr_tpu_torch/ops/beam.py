@@ -354,14 +354,16 @@ def beam_search(step_fn: StepFn, cache: dict, batch: int, num_beams: int,
 
 
 def _decode_cache(model, enc: torch.Tensor, max_len: int, rows_per_query: int,
-                  u_table: torch.Tensor | Callable | None) -> dict:
-    """The decode caches at ``rows_per_query`` rows per query, with the
+                  u_table: torch.Tensor | Callable | None,
+                  prefix: dict | None = None) -> dict:
+    """The decode caches at ``rows_per_query`` rows per query (over the
+    prefill's per-query ``prefix`` caches, if any), with the
     efficient PAWA head's U table as the beam-invariant ``cross_ucand``
     entry: ``u_table``, or what it returns when it is a function (a
     caller's cached lookup), built here when that is None.  The slow PAWA
     head has no U table."""
     with span("gdr.decode.init"):
-        cache = model.init_cache(enc, max_len, rows_per_query)
+        cache = model.init_cache(enc, max_len, rows_per_query, prefix)
         c = model.cfg
         if c.adaptor_decode and c.adaptor_efficient:
             if callable(u_table):
@@ -373,10 +375,11 @@ def _decode_cache(model, enc: torch.Tensor, max_len: int, rows_per_query: int,
 
 
 def _encode(model, input_ids: torch.Tensor, attn_mask: torch.Tensor):
-    """(encoder states, query embedding) of the queries."""
-    with span("gdr.encode"):
-        enc = model.encode(input_ids, attn_mask)
-        return enc, model.query_embedding(enc)
+    """(encoder states, query embedding, the prefill's per-query caches)
+    of the queries; the span's args give the prefill's rows."""
+    with span("gdr.encode", f"rows={input_ids.numel()}"):
+        enc, prefix = model.prefill(input_ids, attn_mask)
+        return enc, model.query_embedding(enc, attn_mask), prefix
 
 
 def _decode(model, input_ids, attn_mask, children, eos_allowed,
@@ -387,9 +390,9 @@ def _decode(model, input_ids, attn_mask, children, eos_allowed,
     encodes first; it returns (the last state, the query embedding, the
     encoder states)."""
     batch = input_ids.shape[0]
-    enc, query_emb = _encode(model, input_ids, attn_mask)
+    enc, query_emb, prefix = _encode(model, input_ids, attn_mask)
     cache = _decode_cache(model, enc, max_len, 1 if progressive else num_beams,
-                          u_table)
+                          u_table, prefix)
 
     def step_fn(cur_tok, cache, pos, width):
         return model.decode_step_candidates(cur_tok, cache, attn_mask, pos,

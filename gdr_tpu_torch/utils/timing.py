@@ -9,8 +9,9 @@ no-op context, at the cost of one check.  The serving path's spans are
 ``gdr.retrieve`` and, inside it, ``gdr.encode``, ``gdr.decode.init``,
 ``gdr.decode.step`` (holding ``gdr.decode.forward`` and
 ``gdr.beam.select``), ``gdr.decode.sync``, ``gdr.decode.finalize``,
-``gdr.query`` and ``gdr.rerank``, and ``gdr.moe`` (args: rows) around
-each routed-expert layer of a Switch model (``models/t5.py``);
+``gdr.query`` and ``gdr.rerank``, and ``gdr.moe`` (args: rows and the
+experts a row, k) around each routed-expert layer (``models/t5.py``,
+``models/deepseek.py``); ``gdr.encode``'s args give the prefill's rows;
 ``PhaseTimer`` phases open ``gdr.eval.<phase>``.  Where the decode replays CUDA graphs
 (``ops/decode_graphs.py``), each replayed piece is a ``gdr.decode.replay``
 range (args: the piece's first position) in place of the ranges its

@@ -352,7 +352,7 @@ def test_a_cpu_retrieve_engages_no_graph():
 
 WRAPPERS = {"self_attn_sublayer", "cross_attn_sublayer", "ffn_sublayer",
             "packed_scores", "packed_scores_int8", "rerank_scores",
-            "expert_sublayer"}
+            "expert_sublayer", "topk_expert_sublayer", "mla_attention"}
 
 
 def _counting_decode(ids, mask):

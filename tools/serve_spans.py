@@ -2,8 +2,9 @@
 """One traced run of a serving cell of the benchmark, read through the
 program's spans (``gdrbench/spans.py``): device time, host time and idle
 gaps by ``gdr.`` span, the host syncs, CUDA graph pieces replayed and
-captured and eager decodes (the counter registry) and the f32 GEMM's
-launches by kernel name in the trace (and its device time) per retrieve, the share of the device time
+captured and eager decodes (the counter registry) and the launches by
+kernel name in the trace per retrieve of the f32 GEMM, the routed experts
+and the MLA decode (and their device time), the share of the device time
 inside ``gdr.retrieve`` that encode, decoder forward, beam selection and
 re-rank cover, or where the decode replays CUDA graphs the device and
 host time of ``gdr.decode.replay`` (the stage spans inside the graphs are
@@ -43,6 +44,12 @@ RETRIEVE = ("gdr.retrieve", "gdr.encode", "gdr.decode.init",
 REPLAY = "gdr.decode.replay"
 # the f32 GEMM's kernels: the small-row kernel and the warp-specialised ring
 GEMM_F32 = ("gdr::gemm_f32_ring_rows", "gdr::gemm_f32_ring_ws")
+# the routed experts' kernels (Switch's top-1, DeepSeek-V3's top-k) and
+# the MLA decode kernel
+EXPERTS = ("gdr::moe_router", "gdr::moe_group", "gdr::moe_up",
+           "gdr::moe_down", "gdr::moe_topk_group", "gdr::moe_swiglu_up",
+           "gdr::moe_topk_down", "gdr::moe_combine")
+MLA = ("gdr::mla_decode",)
 STAGES = {"encode_device_ms": "gdr.encode",
           "decoder_device_ms": "gdr.decode.forward",
           "beam_device_ms": "gdr.beam.select",
@@ -179,7 +186,7 @@ def main(argv=None) -> int:
                             "eager_decodes")},
                **{f"{n[5:]}_per_retrieve": sum(
                    trace.short_name(o) == n for o, _, _ in tr.ops) / k
-                  for n in GEMM_F32})
+                  for n in GEMM_F32 + EXPERTS + MLA})
     out = {
         "workload": args.workload, "seed": args.seed,
         "device": result["device"], "correct": result["correct"],
@@ -192,6 +199,8 @@ def main(argv=None) -> int:
         / k,
         "gemm_f32_ms": 1e3 * tr.device_time(lambda n: "gemm_f32_ring" in n)
         / k,
+        "experts_ms": 1e3 * tr.device_time(lambda n: "gdr::moe_" in n) / k,
+        "mla_ms": 1e3 * tr.device_time(lambda n: "gdr::mla_decode" in n) / k,
         "launches": {n: c / k for n, c in record["counts"].items() if c},
         "window_s": tr.window_s, "busy_s": tr.busy_s,
         "kernels_per_retrieve": tr.kernels / k,
