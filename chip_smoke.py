@@ -653,24 +653,105 @@ ML_KERNELS = {"topk_expert_sublayer": (
     "moe_combine"), "mla_attention": ("mla_decode",)}
 
 
-def _launches_by_name(fn, names) -> dict:
-    """The launches of ``gdr::<name>`` kernels while ``fn`` runs, from a
-    torch.profiler trace."""
+# the top-k products alone, timed at forced rows an expert: 60 experts of
+# 64 hit with n rows each (10·n rows at top-6)
+ML_FORCED = (1, 4, 8, 16)
+ML_PRODUCTS = ("moe_swiglu_up", "moe_topk_down")
+
+
+def forced_rows(loads, k: int, experts: int) -> list[list[int]]:
+    """Rows of ``k`` distinct experts each (ascending) in which expert i
+    takes ``loads[i]`` rows: as many rows as the loads need (at least the
+    largest load), the slots left over spread over the experts past
+    ``len(loads)``, one or two rows each; the largest remaining loads go
+    first, row by row."""
+    rows = max(max(loads), -(-sum(loads) // k))
+    left = dict(enumerate(loads))
+    extra, spare = rows * k - sum(loads), experts - len(loads)
+    if extra > 2 * spare or max(loads) > rows or k > experts:
+        raise ValueError(f"loads {loads} at top-{k} of {experts} experts")
+    for i in range(extra):
+        e = len(loads) + i % spare
+        left[e] = left.get(e, 0) + 1
+    out = []
+    for _ in range(rows):
+        pick = sorted(left, key=lambda e: (-left[e], e))[:k]
+        for e in pick:
+            left[e] -= 1
+            if not left[e]:
+                del left[e]
+        out.append(sorted(pick))
+    return out
+
+
+def forced_inputs(rows, d: int, experts: int, gen, device):
+    """x [R, d] and a router [E, d] under which row r's top-k experts
+    (sigmoid of the logit plus a bias of ~1e-2) are ``rows[r]``: router row
+    e the unit vector of coordinate e (d ≥ E), x noise of 0.3 plus 4 at the
+    row's experts' coordinates and −4 at the other experts', so that the
+    chosen experts' sigmoids lie near 1 and the others' near 0 (d 768-2,048:
+    logits ~±5)."""
+    import torch
+    x = 0.3 * torch.randn(len(rows), d, generator=gen, device=device)
+    x[:, :experts] -= 4.0
+    for r, es in enumerate(rows):
+        x[r, es] += 8.0
+    router = torch.zeros(experts, d, device=device)
+    router[torch.arange(experts), torch.arange(experts)] = 1.0
+    return x, router
+
+
+def _kernel_ms(fn, names, n: int = 10) -> dict:
+    """Device ms a launch of each ``gdr::<name>`` kernel over ``n`` calls of
+    ``fn`` (after one), from a torch.profiler trace."""
+    fn()
+    got = _kernels_by_name(fn, names, n)
+    return {name: us / 1e3 / max(count, 1) for name, (count, us) in got.items()}
+
+
+def _products(kern, st) -> dict:
+    """The two top-k products' device ms a call (``_kernel_ms``), each
+    against its bytes (the hit experts' wi, then wo, at 3.35 TB/s), and the
+    rows a chunk (``moe_assignments / moe_chunks`` of the call's counters
+    ``st``)."""
+    ms = _kernel_ms(kern, ML_PRODUCTS)
+    nbytes = {"moe_swiglu_up": st["moe_experts_hit"] * 2 * ML_F * ML_D * 4,
+              "moe_topk_down": st["moe_experts_hit"] * ML_D * ML_F * 4}
+    chunks = st.get("moe_chunks")      # a checkout before the counter: None
+    out = {"rows_a_chunk": st["moe_assignments"] / chunks if chunks else None}
+    for name in ML_PRODUCTS:
+        bound = nbytes[name] / H100_BYTES * 1e3
+        out[name] = dict(ms=ms[name], bound_ms=bound,
+                         bytes_share=bound / ms[name] if ms[name] else None)
+    return out
+
+
+def _kernels_by_name(fn, names, calls: int = 1) -> dict:
+    """(launches, device µs) of each ``gdr::<name>`` kernel while ``fn``
+    runs ``calls`` times, from a torch.profiler trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0)
+    out = dict.fromkeys(names, (0, 0.0))
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
-            for name in out:
+            for name, (count, us) in out.items():
                 if f"gdr::{name}(" in e.key or f"gdr::{name}<" in e.key:
-                    out[name] += e.count
+                    out[name] = (count + e.count,
+                                 us + e.self_device_time_total)
     return out
+
+
+def _launches_by_name(fn, names) -> dict:
+    """The launches of ``gdr::<name>`` kernels while ``fn`` runs."""
+    return {name: count
+            for name, (count, _) in _kernels_by_name(fn, names).items()}
 
 
 def moonlight_vs_plain(rn) -> dict:
@@ -722,13 +803,14 @@ def moonlight_vs_plain(rn) -> dict:
             ms=_time_ms(kern), plain_ms=fmean(_timed(plain, 1, 3)),
             bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
             experts_hit=st["moe_experts_hit"], max_load=st["moe_max_load"],
-            max_abs_err=err, launches=launches)
+            max_abs_err=err, launches=launches, **_products(kern, st))
         out["topk_expert_sublayer"]["err"] = max(
             out["topk_expert_sublayer"]["err"], err)
         log(f"  topk_expert_sublayer float32 R={r:4d}: {row['experts_hit']} "
             f"experts hit (most {row['max_load']}), max|d| {err:.3g}; kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms (wall), "
             f"bound {bound:.4f} ms ({by}); launches {launches}")
+        _log_products(row)
         w = r if r != 40 else 1                    # the prefill: no MLA call
         if r == 40:
             continue
@@ -759,6 +841,8 @@ def moonlight_vs_plain(rn) -> dict:
             f"{err:.3g}; kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); "
             f"launches {launches}")
+    out["topk_expert_sublayer"]["forced"] = _forced_products(
+        rn, scale, bias, wi, wo)
     for name, st in out.items():
         rows = st["by_rows"]
         st["per_retrieve"] = {key: sum(ML_WEIGHT[r] * rows[r][key]
@@ -770,6 +854,56 @@ def moonlight_vs_plain(rn) -> dict:
             f"{st['per_retrieve']['ms']:.4f} ms, plain "
             f"{st['per_retrieve']['plain_ms']:.4f} ms, bound "
             f"{st['per_retrieve']['bound_ms']:.4f} ms")
+    KE.reset_stats()
+    return out
+
+
+def _log_products(row) -> None:
+    log(f"    rows a chunk {row['rows_a_chunk']}; " + "; ".join(
+        f"{n[4:]} {row[n]['ms']:.4f} ms, {100 * row[n]['bytes_share']:.1f}% "
+        f"of its bytes' rate" for n in ML_PRODUCTS))
+
+
+def _forced_products(rn, scale, bias, wi, wo) -> dict:
+    """The top-k sublayer at ``ML_FORCED`` rows an expert (60 experts hit,
+    ``forced_rows``): against the plain version held to the same experts,
+    then its two products timed (``_products``)."""
+    import torch
+
+    from gdr_tpu_torch.kernels import experts as KE
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for n in ML_FORCED:
+        rows = forced_rows([n] * 60, ML_K, ML_E)
+        x, router = forced_inputs(rows, ML_D, ML_E, g, "cuda")
+        kw = dict(k=ML_K, scale=2.446, eps=1e-5)
+        route = torch.empty(len(rows), ML_K, dtype=torch.int32, device="cuda")
+        z = torch.empty(len(rows), ML_E, device="cuda")
+        kern = lambda: KE.topk_expert_sublayer(       # noqa: E731
+            x, x, scale, router, bias, wi, wo, **kw)
+        got = KE.topk_expert_sublayer(x, x, scale, router, bias, wi, wo,
+                                      route=route, logits=z, **kw)
+        if route.tolist() != rows:
+            r = next(i for i, es in enumerate(route.tolist()) if es != rows[i])
+            raise Failed(f"topk_expert_sublayer forced {n} rows an expert: "
+                         f"row {r} took {route[r].tolist()}, not {rows[r]}; "
+                         f"its logits {z[r].tolist()}")
+        lift = bias[None].repeat(len(rows), 1).scatter_add_(
+            1, route.long(), torch.full(route.shape, 10.0, device="cuda"))
+        err = (got - KE.topk_expert_sublayer_plain(
+            x, x, scale, router, lift, wi, wo, **kw)).abs().max().item()
+        if not err < 2e-5:
+            raise Failed(f"topk_expert_sublayer forced {n} rows an expert: "
+                         f"max |d| {err:.3g}")
+        KE.reset_stats()
+        kern()
+        st = dict(zip(KE.STATS, KE.stats_tensor(x.device).tolist()))
+        row = out[n] = dict(rows=len(rows), ms=_time_ms(kern),
+                            max_abs_err=err, **_products(kern, st))
+        log(f"  topk_expert_sublayer float32 {n:2d} rows an expert "
+            f"(R={len(rows)}): max|d| {err:.3g}; kernel {row['ms']:.4f} ms")
+        _log_products(row)
     KE.reset_stats()
     return out
 
@@ -5103,7 +5237,8 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
             bound_ms=st["bound_ms"], bound_by=st["bound_by"],
             library_ms=None, library="the plain version (plain_ms)",
             flops=st["flops"], bytes=st["bytes"], rows=100, dtype="float32",
-            by_rows=st["by_rows"], per_retrieve=st["per_retrieve"]))
+            by_rows=st["by_rows"], per_retrieve=st["per_retrieve"],
+            forced=st.get("forced")))
     return rows
 
 

@@ -436,27 +436,60 @@ extern "C" int gdr_moe_sublayer(const void* x, const void* scale, const void* ro
 // - moe_router (as above): h to `hbuf`, the logits.
 // - moe_topk_group (one block): each row's K experts and weights (a warp a
 //   row), the assignments a = r·K + j grouped by expert and cut into
-//   chunks, the stats (with moe_assignments += R·K), the chosen experts to
-//   `route` when asked.
-// - moe_swiglu_up: a persistent grid, one block of 16 warps an SM, over
-//   (chunk, 64 columns of F); the item stages the chunk's 16 rows whole
-//   in shared memory, then each half-warp reads 2 columns' gate row c and
-//   up row F + c once, one after another, and writes silu(g)·u at the
-//   assignment's grouped place.
-// - moe_topk_down: the same over (chunk, 128 columns of D), a half-warp's
-//   step 2 rows of Wo[e]; it writes w_a · (hid · Woᵀ) to `ybuf` at the
+//   chunks, the stats (with moe_assignments += R·K, moe_chunks += the
+//   chunks), the chosen experts to `route` when asked.
+// - moe_swiglu_up / moe_topk_down: a persistent grid, one block of 16 warps
+//   an SM, over work items (chunk, tile of weight rows), dealt to the
+//   blocks in contiguous runs.  Up: an expert's gate row c and up row
+//   F + c make hid's column c, silu(g)·u at the assignment's grouped place;
+//   down: Wo[e]'s rows make ybuf's columns, w_a · (hid · Woᵀ) at the
 //   assignment.
 // - moe_combine: x' = base + Σ_j ybuf[r·K + j], j in order.
-// Each assignment's sums run in a fixed order whatever its place, so a
-// call gives the same bits every time.
+//
+// The products' inner loop: a column register tile over broadcast
+// activations, whose on-chip work follows the chunk's real rows.
+// - A block stages its chunk's rows in shared memory once for a run of
+//   items of that chunk, at a height H of 4, 8, 12 or 16 rows, the least that
+//   holds the chunk (moe_topk_group's chunk_rows, read on the device; the
+//   rows past it zero), and runs the loop instantiated at that height.
+// - A warp takes 16 weight rows: 4 groups of 8 lanes, a group's lanes
+//   striding K in float4s, each lane holding the float4s of 4 weight rows
+//   (up: gate rows c, c + 1 and up rows F + c, F + c + 1) at its k.  The 4
+//   groups read the same activation float4 at each step, a broadcast, and
+//   each feeds 4 weight rows: a lane's 64 bytes of weights a step cost H
+//   shared float4s (16·H bytes, a quarter of them distinct) and 16·H FMAs,
+//   so the shared-memory bytes and FMAs a weight byte scale with H.  Two
+//   steps' loads go out together: 64 KB of weights in flight an SM.  (Loading
+//   the next step's weights while a step is summed read 71-76% of the
+//   bytes' rate at 31-100 rows, against 80-85% without.)
+// - The sums go over the group's 8 lanes (a reduce-scatter: a lane keeps
+//   one weight row and H / 2 rows); an item of 16 / S warps' weight rows
+//   cuts K in S slices, one a warp, and the slices' sums are added in
+//   order through shared memory (two buffers, a named barrier a column
+//   group).  S (1, 2, 4, 8 or 16) is chosen on the device from the call's
+//   chunk count, so that the busiest block streams the fewest bytes, an
+//   item's drain counted too: the 1-row step's 6 chunks still spread over
+//   every SM.
+// Each output's sum runs in a fixed order (a lane's steps, the 8-lane
+// tree, the slices in order) whatever its place, so a call gives the same
+// bits every time and a replay the eager call's.
 
 namespace gdr {
 
-constexpr int kTopRows = 16;        // assignments a chunk stages
+constexpr int kTopRows = 16;        // assignments a chunk holds
 constexpr int kTopWarps = 16;       // a block's warps, one block an SM
-constexpr int kTopSteps = 4;        // column steps a warp takes an item
+constexpr int kTopLaneK = 8;        // lanes of a group, striding K
+constexpr int kTopTile = 4;         // weight rows a lane holds
+constexpr int kTopWarpRows = 4 * kTopTile;   // a warp's weight rows
+constexpr int kTopUnroll = 2;       // k steps whose loads go out together
+constexpr int kTopStage = 8;        // float4s a thread stages at once
 constexpr int kTopMaxK = 16;
-constexpr int kTopMaxSmem = 232448; // the staged rows: kTopRows x K floats
+constexpr int kTopMaxSmem = 232448;
+constexpr int kTopMetaBytes = 2 * kTopRows * 4;   // down: a row's assignment, weight
+// the slices' partial sums: a float a lane and row of H / 2, two buffers
+constexpr int kTopPartials = kTopWarps * 32 * (kTopRows / 2);
+constexpr int kTopSplitBytes = 2 * kTopPartials * 4;
+constexpr long long kTopItemBytes = 65536;   // an item's drain, in weight bytes
 
 __host__ __device__ inline int topk_max_chunks(int A, int E) { return A / kTopRows + E + 1; }
 
@@ -547,6 +580,7 @@ moe_topk_group(const float* __restrict__ logits, const float* __restrict__ bias,
     stats[2] += hits;
     stats[3] += most;
     stats[5] += A;
+    stats[6] += chunks;
   }
   __syncthreads();
   for (int a = threadIdx.x; a < A; a += blockDim.x) {
@@ -555,112 +589,238 @@ moe_topk_group(const float* __restrict__ logits, const float* __restrict__ bias,
   }
 }
 
-// The chunk's kTopRows rows of `a` [*, K] at the item's start, whole, in
-// shared memory (128 KB at K = 2,048): the row for grouped place p is
-// order[p] / topk (up: hbuf's token rows) or p itself (down: hid's places).
-// Then each half-warp streams the weight rows of its columns, kTopSteps / 2
-// pairs one after another, a lane reading every 16th float4 of the rows
-// with the loop unrolled 4 deep: 8 16-byte loads in flight a lane, 64 KB an
-// SM.  (A whole warp a row pair, a lane every 32nd float4, read 43% of the
-// bound, its down product at ~37% of the bytes' rate: a step's stream was
-// 11 float4s a lane at K 1,408; loading the next 4 while the last are
-// summed was slower still, 39%.)
-//   up (kUp):  W = wi [E, 2N, K]; a half-warp's step is column c's gate row
-//              c and up row N + c; out = hid [A, N] at the place:
-//              silu(g) · u.
-//   down:      W = wo [E, N, K]; a half-warp's step is columns c and c + 1;
-//              out = ybuf [A, N] at the assignment: wgt · (hid · Wᵀ).
+// One stage of group_reduce_scatter: the lanes whose bit s is set keep
+// v[n … 2n − 1], the others v[0 … n − 1], each adding the partner's copy.
+template <int N, int n>
+__device__ __forceinline__ void group_stage(float (&v)[N], int s) {
+  const bool up = (threadIdx.x & 31) & s;
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    const float lo = v[j], hi = v[j + n];
+    v[j] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, s);
+  }
+}
+
+// v[0..N-1] summed over the 8 lanes of a group (lane bits 0-2), lane l of
+// the group left with the sums of v[l·N/8 … (l+1)·N/8 − 1] in v[0 … N/8 − 1]
+// (7N/8 shuffles; every stage's bounds known to the compiler, so that v
+// stays in registers).
+template <int N>
+__device__ __forceinline__ void group_reduce_scatter(float (&v)[N]) {
+  group_stage<N, N / 2>(v, 4);
+  group_stage<N, N / 4>(v, 2);
+  group_stage<N, N / 8>(v, 1);
+}
+
+// acc + w · a: four FMAs, x, y, z, w in order
+__device__ __forceinline__ float fma4(float acc, const float4& w, const float4& a) {
+  return fmaf(w.w, a.w, fmaf(w.z, a.z, fmaf(w.y, a.y, fmaf(w.x, a.x, acc))));
+}
+
+// the warps of one column group meet (barrier `id`, `threads` threads)
+__device__ __forceinline__ void group_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The warps an item's weight rows span (16 / S): of 16, 8, 4, 2, 1 (down to
+// 16 / max_split), the one whose busiest block streams the fewest bytes,
+// an item's drain counted as kTopItemBytes; a tie to the larger item.
+// `warp_cols`: output columns a warp makes; `row_bytes`: a weight row's.
+__device__ inline int topk_item_warps(int chunks, int N, int warp_cols, int row_bytes,
+                                      int max_split, int& tiles) {
+  long long best = -1;
+  int pick = kTopWarps;
+  for (int cw = kTopWarps; cw * max_split >= kTopWarps; cw >>= 1) {
+    const int t = (N + cw * warp_cols - 1) / (cw * warp_cols);
+    const long long busiest = ((long long)chunks * t + gridDim.x - 1) / gridDim.x;
+    const long long cost =
+        busiest * ((long long)cw * kTopWarpRows * row_bytes + kTopItemBytes);
+    if (best < 0 || cost < best) {
+      best = cost;
+      pick = cw;
+      tiles = t;
+    }
+  }
+  return pick;
+}
+
+// One work item at height H: this warp's 16 weight rows of `w` (the
+// expert's) over its slice of K against the chunk's H rows in `as`, the
+// sums reduced over each group's 8 lanes, then over the slices through
+// `red`, then written by the first slice's warp.  c0: the warp's first
+// output column; cw: the warps across an item's columns.
+template <bool kUp, int H>
+__device__ __forceinline__ void topk_item(const float4* __restrict__ as, float* red,
+                                          const float* __restrict__ w,
+                                          float* __restrict__ out, const int* s_asg,
+                                          const float* s_wgt, int first, int nr, int c0,
+                                          int N, int k4, int cw) {
+  constexpr int kHalf = H / 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kl = lane & (kTopLaneK - 1), grp = lane / kTopLaneK;
+  const int split = kTopWarps / cw, kw = warp / cw;
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  const float4* wr[kTopTile];
+  if (kUp) {    // gate rows c, c + 1, up rows N + c, N + c + 1
+    const int c = c0 + 2 * grp;
+    wr[0] = w4 + (size_t)c * k4;
+    wr[2] = w4 + (size_t)(N + c) * k4;
+    wr[1] = wr[0] + k4;
+    wr[3] = wr[2] + k4;
+  } else {      // rows c0 + 4·grp … + 3
+    wr[0] = w4 + (size_t)(c0 + kTopTile * grp) * k4;
+#pragma unroll
+    for (int c = 1; c < kTopTile; ++c) wr[c] = wr[c - 1] + k4;
+  }
+  float acc[kTopTile * H];              // [weight row][chunk row]
+#pragma unroll
+  for (int i = 0; i < kTopTile * H; ++i) acc[i] = 0.f;
+  const int steps = (k4 + kTopLaneK - 1) / kTopLaneK;
+  const int s_lo = kw * steps / split, s_hi = (kw + 1) * steps / split;
+  if (c0 < N) {
+    for (int s = s_lo; s < s_hi; s += kTopUnroll) {
+      float4 wv[kTopUnroll][kTopTile];
+#pragma unroll
+      for (int u = 0; u < kTopUnroll; ++u) {
+        const int j = (s + u) * kTopLaneK + kl;
+        const bool ok = s + u < s_hi && j < k4;
+#pragma unroll
+        for (int c = 0; c < kTopTile; ++c)
+          wv[u][c] = ok ? wr[c][j] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kTopUnroll; ++u) {
+        const int j = (s + u) * kTopLaneK + kl;
+        if (s + u < s_hi && j < k4) {
+#pragma unroll
+          for (int r = 0; r < H; ++r) {
+            const float4 av = as[r * k4 + j];
+#pragma unroll
+            for (int c = 0; c < kTopTile; ++c)
+              acc[c * H + r] = fma4(acc[c * H + r], wv[u][c], av);
+          }
+        }
+      }
+    }
+  }
+  group_reduce_scatter(acc);   // weight row kl / 2, chunk rows rb … rb + H/2 − 1
+  if (split > 1) {
+    const int col = warp % cw;
+    if (kw > 0)
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) red[(warp * kHalf + i) * 32 + lane] = acc[i];
+    group_barrier(1 + col, split * 32);
+    if (kw == 0)
+      for (int p = 1; p < split; ++p)
+#pragma unroll
+        for (int i = 0; i < kHalf; ++i) acc[i] += red[((p * cw + col) * kHalf + i) * 32 + lane];
+  }
+  const int rb = (kl & 1) * kHalf;
+  if (kUp) {    // lanes 0-3 of a group hold gate sums, lanes 4-7 the up sums
+    float u[kHalf];
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) u[i] = __shfl_down_sync(0xffffffffu, acc[i], 4);
+    const int col = c0 + 2 * grp + (kl >> 1);
+    if (kw == 0 && c0 < N && kl < 4)
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i)
+        if (rb + i < nr)
+          out[(size_t)(first + rb + i) * N + col] = acc[i] / (1.f + expf(-acc[i])) * u[i];
+  } else {
+    const int col = c0 + kTopTile * grp + (kl >> 1);
+    if (kw == 0 && c0 < N)
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i)
+        if (rb + i < nr) out[(size_t)s_asg[rb + i] * N + col] = s_wgt[rb + i] * acc[i];
+  }
+}
+
+// The chunks' products, a in [*, K], W [E, (kUp ? 2N : N), K]:
+//   up (kUp):  a = hbuf, the row for grouped place p order[p] / topk; out =
+//              hid [A, N] at the place: silu(g) · u.
+//   down:      a = hid, the row for place p p itself; out = ybuf [A, N] at
+//              the assignment: wgt · (hid · Wᵀ).
+// max_split: 16 where the slices' partial sums fit beside the staged rows,
+// else 1.
 template <bool kUp>
 __device__ __forceinline__ void topk_product(const float* __restrict__ a,
                                              const float* __restrict__ w, int* meta_ptr,
                                              const float* __restrict__ wgt,
                                              float* __restrict__ out, int R, int N, int K,
-                                             int E, int topk) {
-  extern __shared__ float4 as[];        // [kTopRows][K / 4]
-  // each half-warp takes its own pair of weight rows a step, its 16 lanes
-  // striding K: up, a column's gate and up rows; down, two columns' rows
-  constexpr int kHalfCols = kUp ? 1 : 2;
-  constexpr int kSteps = kTopSteps / 2;
-  constexpr int kItemCols = kTopWarps * kSteps * 2 * kHalfCols;
-  const TopMeta m(meta_ptr, E, R * topk);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int half = lane >> 4, hl = lane & 15;
+                                             int E, int topk, int max_split) {
+  // [16 assignments][16 weights], the rows [kTopRows][K / 4], the partials
+  extern __shared__ float4 smem[];
+  int* s_asg = reinterpret_cast<int*>(smem);
+  float* s_wgt = reinterpret_cast<float*>(smem) + kTopRows;
+  float4* as = smem + kTopMetaBytes / 16;
   const int k4 = K / 4;
-  const int tiles = (N + kItemCols - 1) / kItemCols;
-  const int items = *m.n_chunks * tiles;
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+  float* red = reinterpret_cast<float*>(as + kTopRows * k4);
+  constexpr int kWarpCols = kUp ? kTopWarpRows / 2 : kTopWarpRows;
+  const TopMeta m(meta_ptr, E, R * topk);
+  int tiles = 1;
+  const int cw = topk_item_warps(*m.n_chunks, N, kWarpCols, K * 4, max_split, tiles);
+  const long long items = (long long)*m.n_chunks * tiles;
+  const int lo = (int)(items * blockIdx.x / gridDim.x);
+  const int hi = (int)(items * (blockIdx.x + 1) / gridDim.x);
+  const int warp = threadIdx.x >> 5;
+  int staged = -1, h = kTopRows, buf = 0;
+  for (int item = lo; item < hi; ++item, buf ^= 1) {
     const int chunk = item / tiles;
     const int first = m.chunk_place[chunk], nr = m.chunk_rows[chunk];
-    const int e = m.chunk_expert[chunk];
-    __syncthreads();                    // the last item's readers are done
-    for (int i = threadIdx.x; i < kTopRows * k4; i += blockDim.x) {
-      const int rr = i / k4, j = i % k4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (rr < nr) {
-        const int place = first + rr;
-        const size_t row = kUp ? m.order[place] / topk : place;
-        v = reinterpret_cast<const float4*>(a + row * (size_t)K)[j];
-      }
-      as[i] = v;
-    }
-    __syncthreads();
-    // the two rows this lane's sums end in (2·hl mod 16 and the next) and,
-    // down, their assignments and weights, read once an item
-    const int r0 = (2 * hl) & (kTopRows - 1);
-    int a0 = 0, a1 = 0;
-    float wa0 = 0.f, wa1 = 0.f;
-    if (!kUp) {
-      if (r0 < nr) wa0 = wgt[a0 = m.order[first + r0]];
-      if (r0 + 1 < nr) wa1 = wgt[a1 = m.order[first + r0 + 1]];
-    }
-    for (int st = 0; st < kSteps; ++st) {
-      const int c = (item % tiles) * kItemCols + (warp * kSteps + st) * 2 * kHalfCols;
-      if (c >= N) break;
-      const int cp = c + kHalfCols * half;
-      const float4* w0 = reinterpret_cast<const float4*>(
-          w + ((size_t)e * (kUp ? 2 * N : N) + cp) * K);
-      const float4* w1 = w0 + (size_t)(kUp ? N : 1) * k4;
-      float acc[32];
+    if (chunk != staged) {              // every warp is done with the last rows
+      __syncthreads();
+      h = nr <= 4 ? 4 : nr <= 8 ? 8 : nr <= 12 ? 12 : kTopRows;
+      // a thread's loads of kTopStage float4s go out before its stores
+      const int threads = blockDim.x;
+      for (int i0 = threadIdx.x; i0 < h * k4; i0 += kTopStage * threads) {
+        float4 v[kTopStage];
 #pragma unroll
-      for (int j = 0; j < 32; ++j) acc[j] = 0.f;
-#pragma unroll 4
-      for (int j = hl; j < k4; j += 16) {
-        const float4 g = w0[j], u = w1[j];
-#pragma unroll
-        for (int r = 0; r < kTopRows; ++r) {
-          const float4 av = as[r * k4 + j];
-          acc[r] += dot4(g, av);
-          acc[kTopRows + r] += dot4(u, av);
+        for (int u = 0; u < kTopStage; ++u) {
+          const int i = i0 + u * threads, rr = i / k4, j = i - rr * k4;
+          v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (i < h * k4 && rr < nr) {
+            const int place = first + rr;
+            const size_t row = kUp ? m.order[place] / topk : place;
+            v[u] = reinterpret_cast<const float4*>(a + row * (size_t)K)[j];
+          }
         }
+#pragma unroll
+        for (int u = 0; u < kTopStage; ++u)
+          if (i0 + u * threads < h * k4) as[i0 + u * threads] = v[u];
       }
-      half_reduce_scatter32(acc);       // (gate | up or column, rows r0, r0 + 1)
-      if (kUp) {
-        const float u0 = __shfl_down_sync(0xffffffffu, acc[0], 8);
-        const float u1 = __shfl_down_sync(0xffffffffu, acc[1], 8);
-        if (hl < 8 && r0 < nr)
-          out[(size_t)(first + r0) * N + cp] = acc[0] / (1.f + expf(-acc[0])) * u0;
-        if (hl < 8 && r0 + 1 < nr)
-          out[(size_t)(first + r0 + 1) * N + cp] = acc[1] / (1.f + expf(-acc[1])) * u1;
-      } else {
-        const int col = cp + (hl >> 3);
-        if (r0 < nr) out[(size_t)a0 * N + col] = wa0 * acc[0];
-        if (r0 + 1 < nr) out[(size_t)a1 * N + col] = wa1 * acc[1];
+      if (!kUp && threadIdx.x < kTopRows) {
+        const int rr = threadIdx.x;
+        s_asg[rr] = rr < nr ? m.order[first + rr] : 0;
+        s_wgt[rr] = rr < nr ? wgt[s_asg[rr]] : 0.f;
       }
+      staged = chunk;
+      __syncthreads();
     }
+    const float* we = w + (size_t)m.chunk_expert[chunk] * (kUp ? 2 * N : N) * K;
+    const int c0 = ((item % tiles) * cw + warp % cw) * kWarpCols;
+    float* rb = red + buf * kTopPartials;
+    if (h == 4)
+      topk_item<kUp, 4>(as, rb, we, out, s_asg, s_wgt, first, nr, c0, N, k4, cw);
+    else if (h == 8)
+      topk_item<kUp, 8>(as, rb, we, out, s_asg, s_wgt, first, nr, c0, N, k4, cw);
+    else if (h == 12)
+      topk_item<kUp, 12>(as, rb, we, out, s_asg, s_wgt, first, nr, c0, N, k4, cw);
+    else
+      topk_item<kUp, kTopRows>(as, rb, we, out, s_asg, s_wgt, first, nr, c0, N, k4, cw);
   }
 }
 
 __global__ void __launch_bounds__(kTopWarps * 32, 1)
 moe_swiglu_up(const float* __restrict__ hbuf, const float* __restrict__ wi, int* meta,
-              float* __restrict__ hid, int R, int F, int D, int E, int K) {
-  topk_product<true>(hbuf, wi, meta, nullptr, hid, R, F, D, E, K);
+              float* __restrict__ hid, int R, int F, int D, int E, int K, int max_split) {
+  topk_product<true>(hbuf, wi, meta, nullptr, hid, R, F, D, E, K, max_split);
 }
 
 __global__ void __launch_bounds__(kTopWarps * 32, 1)
 moe_topk_down(const float* __restrict__ hid, const float* __restrict__ wo, int* meta,
               const float* __restrict__ wgt, float* __restrict__ ybuf, int R, int D, int F,
-              int E, int K) {
-  topk_product<false>(hid, wo, meta, wgt, ybuf, R, D, F, E, K);
+              int E, int K, int max_split) {
+  topk_product<false>(hid, wo, meta, wgt, ybuf, R, D, F, E, K, max_split);
 }
 
 __global__ void moe_combine(const float* __restrict__ base, const float* __restrict__ ybuf,
@@ -684,7 +844,7 @@ __global__ void moe_combine(const float* __restrict__ base, const float* __restr
 
 // One top-k expert sublayer (five launches on `stream`).  x, base, out [R,
 // D]; scale [D]; router [E, D]; bias [E]; wi [E, 2F, D]; wo [E, D, F];
-// stats [6] int64, added to; route [R, K] int32 or null; scratch: logits
+// stats [7] int64, added to; route [R, K] int32 or null; scratch: logits
 // [R, E], hbuf [R, D], hid [R·K, F], ybuf [R·K, D], wgt [R·K] f32 and meta
 // [1 + 3 (R·K / 16 + E + 1) + 2 R·K] int32.
 extern "C" int gdr_moe_topk_sublayer(const void* x, const void* base, const void* scale,
@@ -694,7 +854,8 @@ extern "C" int gdr_moe_topk_sublayer(const void* x, const void* base, const void
                                      void* route, int R, int D, int F, int E, int K,
                                      float route_scale, float eps, int sms, void* stream) {
   using namespace gdr;
-  if (R <= 0 || D % 16 || D > kMaxD || F % 32 || (size_t)kTopRows * F * 4 > kTopMaxSmem ||
+  if (R <= 0 || D % 16 || D > kMaxD || F % 32 ||
+      kTopMetaBytes + (size_t)kTopRows * F * 4 > kTopMaxSmem ||
       E <= 0 || E > kMaxExperts || K <= 0 || K > kTopMaxK || K > E || sms <= 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -719,20 +880,28 @@ extern "C" int gdr_moe_topk_sublayer(const void* x, const void* base, const void
       return err;
     opted = true;
   }
+  // the staged rows, and the slices' partial sums where they fit beside them
+  // (else items of 16 warps, one slice); the grid as many blocks as there
+  // can be items of one warp's columns
   const int chunks = topk_max_chunks(R * K, E);
-  const size_t up_smem = (size_t)kTopRows * D * sizeof(float);
-  const size_t down_smem = (size_t)kTopRows * F * sizeof(float);
-  const int up_cols = kTopWarps * kTopSteps, down_cols = kTopWarps * kTopSteps * 2;
+  const size_t up_rows = kTopMetaBytes + (size_t)kTopRows * D * sizeof(float);
+  const size_t down_rows = kTopMetaBytes + (size_t)kTopRows * F * sizeof(float);
+  const int up_split = up_rows + kTopSplitBytes <= kTopMaxSmem ? kTopWarps : 1;
+  const int down_split = down_rows + kTopSplitBytes <= kTopMaxSmem ? kTopWarps : 1;
+  const size_t up_smem = up_rows + (up_split > 1 ? kTopSplitBytes : 0);
+  const size_t down_smem = down_rows + (down_split > 1 ? kTopSplitBytes : 0);
+  const int up_cols = kTopWarpRows / 2, down_cols = kTopWarpRows;
   moe_swiglu_up<<<persistent_grid(moe_swiglu_up, up_per_sm, kTopWarps * 32, up_smem, sms,
                                   chunks * ((F + up_cols - 1) / up_cols)),
                   kTopWarps * 32, up_smem, s>>>(hb, static_cast<const float*>(wi), mt,
-                                                static_cast<float*>(hid), R, F, D, E, K);
+                                                static_cast<float*>(hid), R, F, D, E, K,
+                                                up_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   moe_topk_down<<<persistent_grid(moe_topk_down, down_per_sm, kTopWarps * 32, down_smem, sms,
                                   chunks * ((D + down_cols - 1) / down_cols)),
                   kTopWarps * 32, down_smem, s>>>(
       static_cast<const float*>(hid), static_cast<const float*>(wo), mt,
-      static_cast<const float*>(wgt), static_cast<float*>(ybuf), R, D, F, E, K);
+      static_cast<const float*>(wgt), static_cast<float*>(ybuf), R, D, F, E, K, down_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t n4 = (size_t)R * (D / 4);
   moe_combine<<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(

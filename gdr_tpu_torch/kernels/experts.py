@@ -44,7 +44,9 @@ memory.  Nothing is read back to the host, so a call captures as it runs.
 The wrappers count the calls that launched the kernels (``WRAPPERS``, in
 ``utils/timing.py``'s registry).  The routing counters (``STATS``: calls,
 rows, experts hit, the most rows on one expert, the dropped tokens and
-the assignments of rows to experts, rows × k, each summed over calls) live
+the assignments of rows to experts, rows × k, and the top-k path's chunks
+of at most 16 assignments of one expert, Σ⌈load / 16⌉, so that
+assignments / chunks is the rows a chunk holds; each summed over calls) live
 on the device and are added to by the kernels themselves (by the plain
 versions on the CPU), so graph replays count too;
 ``kernels.launch_counts(experts=True)`` reads them with one sync per device
@@ -64,7 +66,8 @@ from gdr_tpu_torch.utils.timing import count, declare
 
 WRAPPERS = declare("expert_sublayer", "topk_expert_sublayer")
 STATS = ("moe_calls", "moe_rows", "moe_experts_hit", "moe_max_load",
-         "moe_dropped", "moe_assignments")
+         "moe_dropped", "moe_assignments", "moe_chunks")
+TOP_CHUNK = 16          # assignments of one expert a top-k work chunk holds
 _STATS: dict[torch.device, torch.Tensor] = {}
 _SMS: dict[torch.device, int] = {}
 
@@ -85,7 +88,7 @@ MAX_EXPERTS = 1024      # the grouping's one block keeps a count an expert
 
 
 def stats_tensor(device: torch.device) -> torch.Tensor:
-    """The routing counters [5] int64 of ``device``, made (zero) at the
+    """The routing counters [7] int64 of ``device``, made (zero) at the
     first use, which may not be under graph capture."""
     t = _STATS.get(device)
     if t is None:
@@ -140,7 +143,7 @@ def expert_sublayer_plain(x, ln_scale, router, wi, wo, *, capacity: int,
     load = torch.bincount(e[keep], minlength=n_exp)
     stats_tensor(x.device).add_(torch.tensor(
         [1, r, len(hit), int(load.max()) if r else 0, int((~keep).sum()),
-         r],
+         r, 0],
         dtype=torch.int64, device=x.device))
     return x + pi[:, None].to(x.dtype) * y
 
@@ -263,7 +266,8 @@ def topk_expert_sublayer_plain(x, base, ln_scale, router, bias, wi, wo, *,
         out = out + w[:, j:j + 1] * y[:, j]
     load = torch.bincount(sel.reshape(-1), minlength=n_exp)
     stats_tensor(x.device).add_(torch.tensor(
-        [1, r, len(hit), int(load.max()) if r else 0, 0, r * k],
+        [1, r, len(hit), int(load.max()) if r else 0, 0, r * k,
+         int(((load + TOP_CHUNK - 1) // TOP_CHUNK).sum())],
         dtype=torch.int64, device=x.device))
     return out.to(x.dtype)
 

@@ -12,6 +12,10 @@ Every test needs a CUDA device (``cuda`` marker; they skip without one).
   kernel's own logits (logits within ``LOGIT_TOL``), the counters, and
   the output within ``OUT_TOL`` of the plain products on cuBLAS with
   TF32 off; a second call gives the same bits, and so does a replay.
+- The top-k products at forced loads (1-33 rows an expert: each height of
+  the products' inner loop and its edges, experts of several chunks), at
+  Moonlight's and Switch top-2's widths: the output, repeats, a replay and
+  the ``moe_chunks`` counter.
 - MLA at 16 heads, nope 128, rope 64, v 128, 40 prefix positions with
   pads, 1 / 31 / 100 beams of one or two queries, positions 0-3: the
   output and the written cache rows within ``MLA_TOL``.
@@ -47,6 +51,7 @@ from gdr_tpu_torch.utils import timing
 from gdrbench.reference import model as M
 from gdrbench.reference import moonlight as ref_ds
 from gdrbench.weights_moonlight import draw_into
+from chip_smoke import forced_inputs, forced_rows
 
 LOGIT_TOL = 2e-5          # router logits ~N(0, 0.8): f32 sums of 2,048 terms
 OUT_TOL = 2e-5            # outputs ~1: f32 sums of 1,408-3,072 terms
@@ -137,6 +142,59 @@ def _forcing(bias, z, sel):
     out = bias.clone().expand(z.shape[0], -1).clone()
     out.scatter_add_(1, sel, torch.full(sel.shape, 10.0, device=z.device))
     return out
+
+
+FORCED_LOADS = [1, 3, 4, 5, 8, 9, 16, 17, 33]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(64, 2048, 1408, 6), (128, 768, 3072, 2)],
+                         ids=["moonlight", "switch-top2"])
+def test_topk_products_at_forced_loads(dev, widths):
+    """Experts 0-8 given 1, 3, 4, 5, 8, 9, 16, 17 and 33 rows (each height
+    of the products and its edges, experts of 2 and 3 chunks), the other
+    slots on further experts, 1-2 rows each (``chip_smoke.forced_rows``):
+    the output within ``OUT_TOL`` of the plain version held to the same
+    experts, the same bits again and from a graph replay, and
+    ``moe_chunks`` = Σ⌈load / 16⌉."""
+    e, d, f, k = widths
+    _, bias, wi, wo = _experts(e, d, f, 7)
+    rows = forced_rows(FORCED_LOADS, k, e)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x, router = forced_inputs(rows, d, e, g, "cuda")
+    base = x + 0.1 * torch.randn(x.shape, generator=g, device="cuda")
+    scale = 1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")
+    route = torch.empty((len(rows), k), dtype=torch.int32, device="cuda")
+    kw = dict(k=k, scale=2.446, eps=1e-5)
+    kernels.reset_launch_counts()
+    out = experts.topk_expert_sublayer(x, base, scale, router, bias, wi, wo,
+                                       route=route, **kw)
+    card = kernels.launch_counts(experts=True)
+    assert route.tolist() == rows
+    load = torch.bincount(route.long().flatten(), minlength=e)
+    assert load[:len(FORCED_LOADS)].tolist() == FORCED_LOADS
+    assert card["moe_chunks"] == int(((load + 15) // 16).sum())
+    assert card["moe_assignments"] == len(rows) * k
+    with torch.no_grad():
+        ref = experts.topk_expert_sublayer_plain(
+            x, base, scale, router, _forcing(bias, x, route.long()), wi,
+            wo, **kw)
+    assert float((out - ref).abs().max()) < OUT_TOL
+    again = experts.topk_expert_sublayer(x, base, scale, router, bias, wi, wo,
+                                         **kw)
+    assert torch.equal(again, out)
+    graph = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        graph.capture_begin()
+        got = experts.topk_expert_sublayer(x, base, scale, router, bias, wi,
+                                           wo, **kw)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
 
 
 @pytest.mark.cuda

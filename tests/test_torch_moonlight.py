@@ -12,12 +12,15 @@ rope 8, 8 experts top-3, 1 shared, 1 dense + 2 expert layers.
 - the reference's route following takes a planted near tie and refuses a
   set outside the gap;
 - the published preset's parameter count; T5 and Switch models build as
-  before; training is refused.
+  before; training is refused;
+- the routing counter ``moe_chunks`` (Σ⌈load / 16⌉, the top-k path's
+  work chunks): its count, its place among the counters, and a capture.
 
 The file imports neither JAX nor the JAX package."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 
@@ -31,12 +34,15 @@ from gdr_tpu_torch.eval.evaluator import Evaluator
 from gdr_tpu_torch.kernels import experts, mla
 from gdr_tpu_torch.models import convert
 from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
+from gdr_tpu_torch.ops import decode_graphs
 from gdr_tpu_torch.ops.trie import build_trie
+from gdr_tpu_torch.utils import timing
 from gdrbench import compare
 from gdrbench.reference import model as M
 from gdrbench.reference import moonlight as ref_ds
 from gdrbench.reference import serve as ref_serve
 from gdrbench.traffic.world import bench_cid_map, unit_store
+from chip_smoke import forced_inputs, forced_rows
 
 TOL = 1e-5      # f32 in another summation order, through three layers
 TINY = dict(backbone="deepseek_v3", vocab_size=128, d_model=64, num_layers=3,
@@ -344,3 +350,118 @@ def test_route_record_of_the_program():
         assert torch.equal(route.long(), sel)
         ff.record = None
     assert np.unique(route.numpy()).size > 1
+
+
+# ------------------------------------------------------- the chunk counter
+
+def _chunks(route: torch.Tensor, n_exp: int) -> int:
+    load = torch.bincount(route.long().flatten(), minlength=n_exp)
+    return int(((load + experts.TOP_CHUNK - 1) // experts.TOP_CHUNK).sum())
+
+
+@pytest.mark.parametrize("case", ["forced", "routed"])
+def test_the_plain_path_counts_its_chunks(case):
+    """``moe_chunks`` adds Σ⌈load / 16⌉ a call: loads forced to 1, 3, 4,
+    5, 8, 9, 16, 17 and 33 rows (1 to 3 chunks an expert; 33 rows of 16
+    experts top-3), or a tiny model's routing of 40 rows; the Switch path
+    adds 0."""
+    g = torch.Generator().manual_seed(4)
+    n_exp, d, dff, k = (16, 64, 32, 3) if case == "forced" else (8, 64, 32, 3)
+    if case == "forced":
+        rows = forced_rows([1, 3, 4, 5, 8, 9, 16, 17, 33], k, n_exp)
+        x, router = forced_inputs(rows, d, n_exp, g, "cpu")
+    else:
+        x = torch.randn(40, d, generator=g)
+        router = 0.3 * torch.randn(n_exp, d, generator=g)
+    bias = 0.01 * torch.randn(n_exp, generator=g)
+    wi = 0.05 * torch.randn(n_exp, 2 * dff, d, generator=g)
+    wo = 0.05 * torch.randn(n_exp, d, dff, generator=g)
+    route = torch.empty((x.shape[0], k), dtype=torch.int32)
+    kernels.reset_launch_counts()
+    experts.topk_expert_sublayer(x, x, torch.ones(d), router, bias, wi, wo,
+                                 k=k, scale=2.446, route=route)
+    stats = kernels.launch_counts(experts=True)
+    if case == "forced":
+        assert route.tolist() == rows and _chunks(route, n_exp) == 12 + 3
+    assert stats["moe_chunks"] == _chunks(route, n_exp)
+    assert stats["moe_assignments"] == x.shape[0] * k
+    experts.expert_sublayer(x, torch.ones(d), router, wi[:, :dff], wo,
+                            capacity=4, seq_len=x.shape[0])
+    assert kernels.launch_counts(experts=True)["moe_chunks"] \
+        == _chunks(route, n_exp)
+    kernels.reset_launch_counts()
+
+
+def test_the_chunk_counter_is_a_routing_counter():
+    """``launch_counts(experts=True)`` carries ``moe_chunks`` beside the
+    other ``moe_`` counters, the default view does not, and a reset zeroes
+    it with them."""
+    kernels.reset_launch_counts()
+    assert "moe_chunks" in experts.STATS
+    assert "moe_chunks" in kernels.launch_counts(experts=True)
+    assert "moe_chunks" not in kernels.launch_counts()
+    experts.stats_tensor(torch.device("cpu")).add_(2)
+    assert kernels.launch_counts(experts=True)["moe_chunks"] == 2
+    kernels.reset_launch_counts()
+    assert not any(kernels.launch_counts(experts=True).values())
+
+
+class _StandIn:
+    """A CUDA graph whose capture runs the code and whose replay does
+    nothing."""
+
+    def capture_begin(self, pool=None):
+        pass
+
+    def capture_end(self):
+        pass
+
+    def replay(self):
+        pass
+
+
+class _Stream:
+    def wait_stream(self, other):
+        pass
+
+
+def test_a_capture_keeps_the_chunk_counter_with_the_others(monkeypatch):
+    """A decode chain captured on the stand-in graph (the capture runs the
+    plain expert layer once, as an eager call would count; a replay runs
+    nothing): every ``moe_`` counter, ``moe_chunks`` with them, reads one
+    call's worth after the capture and after each replay, while the
+    registry puts its host counters back and adds the pieces' launches at
+    each replay."""
+    for name, value in [("CUDAGraph", _StandIn),
+                        ("graph_pool_handle", lambda: None),
+                        ("current_stream", lambda device=None: _Stream()),
+                        ("stream", lambda s: contextlib.nullcontext())]:
+        monkeypatch.setattr(torch.cuda, name, value)
+    model = _model()
+    ff, ln = model.stack.blocks[1].ff, model.stack.blocks[1].ln2
+    x = torch.randn(12, TINY["d_model"], generator=torch.Generator()
+                    .manual_seed(6))
+    route = torch.empty((12, 3), dtype=torch.int32)
+
+    def layer(ids, mask):
+        with torch.no_grad():
+            experts.topk_expert_sublayer(
+                x, x, ln.scale, ff.router, ff.score_bias, ff.wi, ff.wo, k=3,
+                scale=2.446, route=route)
+        timing.count("topk_expert_sublayer")
+        yield torch.tensor(True), None
+        return None, ids, mask
+
+    kernels.reset_launch_counts()
+    ids, mask = torch.ones(1, 3), torch.ones(1, 3)
+    chain = decode_graphs._Chain(layer, ids, mask, 2, _Stream())
+    once = {k: v for k, v in kernels.launch_counts(experts=True).items()
+            if k.startswith("moe_")}
+    assert once["moe_calls"] == 1 and once["moe_chunks"] == _chunks(route, 8)
+    assert timing.counts()["topk_expert_sublayer"] == 0
+    for i in (1, 2):
+        chain.replay(ids, mask)
+        counts = kernels.launch_counts(experts=True)
+        assert {k: counts[k] for k in once} == once
+        assert counts["topk_expert_sublayer"] == i
+    kernels.reset_launch_counts()

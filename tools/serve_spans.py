@@ -4,7 +4,8 @@ program's spans (``gdrbench/spans.py``): device time, host time and idle
 gaps by ``gdr.`` span, the host syncs, CUDA graph pieces replayed and
 captured and eager decodes (the counter registry) and the launches by
 kernel name in the trace per retrieve of the f32 GEMM, the routed experts
-and the MLA decode (and their device time), the share of the device time
+and the MLA decode (and their device time; the top-k experts' mean rows a
+work chunk beside them), the share of the device time
 inside ``gdr.retrieve`` that encode, decoder forward, beam selection and
 re-rank cover, or where the decode replays CUDA graphs the device and
 host time of ``gdr.decode.replay`` (the stage spans inside the graphs are
@@ -142,6 +143,15 @@ def _traced(record: dict, repeats: int, device):
     return traced
 
 
+def rows_a_chunk(result: dict):
+    """The top-k experts' mean rows a work chunk over the traced stretch,
+    ``moe_assignments / moe_chunks`` of the result's ``info.routing_traced``
+    (of at most 16; None where the cell runs no top-k layer)."""
+    routing = result.get("info", {}).get("routing_traced", {})
+    chunks = routing.get("moe_chunks")
+    return routing["moe_assignments"] / chunks if chunks else None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -200,6 +210,7 @@ def main(argv=None) -> int:
         "gemm_f32_ms": 1e3 * tr.device_time(lambda n: "gemm_f32_ring" in n)
         / k,
         "experts_ms": 1e3 * tr.device_time(lambda n: "gdr::moe_" in n) / k,
+        "expert_rows_a_chunk": rows_a_chunk(result),
         "mla_ms": 1e3 * tr.device_time(lambda n: "gdr::mla_decode" in n) / k,
         "launches": {n: c / k for n, c in record["counts"].items() if c},
         "window_s": tr.window_s, "busy_s": tr.busy_s,
