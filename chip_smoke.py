@@ -63,7 +63,17 @@ the last line):
    them and their bounds, their launches counted by kernel name in a
    profiler trace, and summed over one layer's calls a retrieve; and the
    f32 GEMM at the stack's eight shapes and those row counts (the
-   chooser's plan, the fastest small-row plan, the bound);
+   chooser's plan, the fastest small-row plan, the bound).  Then Kimi
+   Linear's KDA kernels (``kda_prefill``, ``kda_decode``: 32 heads of 128,
+   4 taps) at serve-b1-kimi-linear's calls (the prefill of one query of 40
+   positions, 14 real; the decode steps at 1 row from the prefix state, 31
+   and 100 rows from a step's random sources, 100 from the last 100):
+   held to their plain versions within 3e-5 in the output and, of a
+   decode step, the new state and window it writes (its buffers filled
+   with NaN first), their device counters of one call checked (the
+   distinct source rows, the real tokens), timed beside them and their
+   bounds (``costs_kimi_linear.py``: each source row read once), their
+   launches counted by name;
 3. whole path, small — a small f32 model retrieves on the CPU (plain
    versions) and on the card (kernels) from the same seeded weights, on
    the four store layouts (plain, packed, plain int8, packed int8): valid
@@ -86,6 +96,14 @@ the last line):
    same checks, the smallest k-th / (k+1)-th selection-score gap of the
    CPU's routing printed beside them, and the card's launches of one
    retrieve (``mla_attention`` at every layer a step,
+   ``topk_expert_sublayer`` at every expert layer for the prefill and a
+   step); then Kimi-Linear-48B-A3B at its published widths (d 2,304, KDA
+   32 heads of 128, NoPE MLA, card 0's 32 of 256 experts top-8, 1 shared)
+   cut to one period, KDA with the dense FFN, two KDA and one MLA layer,
+   in the same way: the routing and KDA's device counters (source rows,
+   prefill tokens) equal on the CPU and the card, and the card's launches
+   of one retrieve counted after a reset (``kda_prefill`` a KDA layer,
+   ``kda_decode`` a KDA layer a step, ``mla_attention`` a step,
    ``topk_expert_sublayer`` at every expert layer for the prefill and a
    step);
 4. whole path, full width — ``Evaluator.retrieve`` with t5-base in bf16
@@ -248,7 +266,9 @@ the last line):
    and of one); the expert rows give their launches on
    phase 4's dense main path (0) and in phase 3's small Switch or
    Moonlight retrieve, and their phase-2 numbers at 100 rows, by row count
-   and per retrieve.
+   and per retrieve; the KDA rows (``kda_prefill``, ``kda_decode``) their
+   launches on phase 4's path (0) and in phase 3's small Kimi Linear
+   retrieve, and their phase-2 numbers by call.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and gdr_tpu_torch only (its phases 6 to 10 also run the
@@ -261,6 +281,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -651,6 +672,104 @@ ML_WEIGHT = {40: 1, 1: 1, 31: 1, 100: 2}
 ML_KERNELS = {"topk_expert_sublayer": (
     "moe_router", "moe_topk_group", "moe_swiglu_up", "moe_topk_down",
     "moe_combine"), "mla_attention": ("mla_decode",)}
+
+
+# Kimi Linear's KDA calls at serve-b1-kimi-linear's: (rows, step, input
+# rows); step None is the prefill of one query of 40 positions (14 real);
+# the beam steps read random source rows of their inputs
+KL = dict(kda_layers=list(range(1, 21)), kda_num_heads=32, kda_head_dim=128,
+          kda_conv_size=4, d_model=2304, kary=30)
+KL_CALLS = ((40, None, 1), (1, 0, 1), (31, 1, 1), (100, 2, 31),
+            (100, 3, 100))
+KL_REAL = 14
+KDA_TOL = 3e-5
+
+
+def kda_vs_plain(rn) -> dict:
+    """``kda_prefill`` and ``kda_decode`` on the card against their plain
+    versions at the cell's calls (``KL_CALLS``): the output, and of the
+    decode the new state and window written to their buffers, each within
+    ``KDA_TOL``; timed (the kernel replayed in a graph, the plain version
+    on the card) beside their bounds (``costs_kimi_linear``: each distinct
+    source row read once, the prefill's real tokens), with the device
+    counters of one call and the launches by kernel name."""
+    import torch
+
+    from gdrbench import costs_kimi_linear as CK
+    from gdr_tpu_torch import kernels
+    from gdr_tpu_torch.kernels import kda as KK
+
+    h, k = KL["kda_num_heads"], KL["kda_head_dim"]
+    w = (rn(h * k, k, std=0.02), rn(h * k, k, std=0.02),
+         rn(3 * h * k, 4, std=0.3), 1 + rn(h, std=0.3),
+         rn(h * k, std=0.5) - 4.0, 1 + rn(k, std=0.1))
+    out = {"by_call": {}, "err": 0.0}
+    for rows, pos, n_in in KL_CALLS:
+        qkv, fgb = rn(rows, 3 * h * k), rn(rows, 2 * k + h)
+        if pos is None:
+            lens = torch.tensor([KL_REAL], dtype=torch.int32, device="cuda")
+            kern = lambda: KK.kda_prefill(                 # noqa: E731
+                qkv, fgb, *w, lens, batch=1, heads=h, eps=1e-5)
+            plain = lambda: KK.kda_prefill_plain(          # noqa: E731
+                qkv, fgb, *w, lens, batch=1, heads=h, eps=1e-5)
+            flops, nbytes = CK.kda_prefill_cost(KL, 1, KL_REAL)
+            name, key, sources = "kda_prefill", "prefill", None
+        else:
+            s_in = rn(n_in, h, k, k, std=0.1)
+            c_in = rn(n_in, 3, 3 * h * k)
+            src = (None if pos == 0 else torch.randint(
+                0, n_in, (rows,), device="cuda", dtype=torch.int32))
+            sources = n_in if src is None else int(src.unique().numel())
+            s_out, c_out = torch.empty(rows, h, k, k, device="cuda"), \
+                torch.empty(rows, 3, 3 * h * k, device="cuda")
+            s_want, c_want = torch.empty_like(s_out), torch.empty_like(c_out)
+            kern = lambda: (KK.kda_decode(                 # noqa: E731
+                qkv, fgb, *w, s_in, c_in, src, s_out, c_out, heads=h,
+                eps=1e-5), s_out, c_out)
+            plain = lambda: (KK.kda_decode_plain(          # noqa: E731
+                qkv, fgb, *w, s_in, c_in, src, s_want, c_want, heads=h,
+                eps=1e-5), s_want, c_want)
+            flops, nbytes = CK.kda_decode_cost(KL, rows, sources)
+            name, key = "kda_decode", f"R={rows} step {pos}"
+        if pos is not None:     # a row the kernel leaves unwritten fails
+            s_out.fill_(float("nan"))
+            c_out.fill_(float("nan"))
+        kernels.reset_launch_counts()
+        got = kern()
+        counted = {n: v for n, v in kernels.launch_counts(experts=True).items()
+                   if n in KK.STATS}
+        want = plain()
+        err = max(float(torch.nan_to_num((a - b).abs().max(), nan=math.inf))
+                  for a, b in zip(got, want))
+        if not err < KDA_TOL:
+            raise Failed(f"{name} {key}: max |d| {err:.3g} over the output"
+                         f"{'' if pos is None else ', state and window'}")
+        if counted != ({"kda_source_rows": 0, "kda_prefill_tokens": KL_REAL}
+                       if pos is None else
+                       {"kda_source_rows": sources, "kda_prefill_tokens": 0}):
+            raise Failed(f"{name} {key}: device counters {counted}")
+        bound, by = _bound_ms(flops, nbytes, H100_F32_FLOPS)
+        row = out["by_call"][key] = dict(
+            ms=_time_ms(kern), plain_ms=_time_ms(plain, n=5), bound_ms=bound,
+            bound_by=by, flops=flops, bytes=nbytes, max_abs_err=err,
+            sources=sources, launches=_launches_by_name(kern, (name,)))
+        row["share_of_bound"] = bound / row["ms"]
+        out["err"] = max(out["err"], err)
+        read = (f"{KL_REAL} real tokens" if pos is None
+                else f"{sources} source rows")
+        log(f"  {name:12s} float32  {key:14s}: max|d| {err:.3g}; kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}, {100 * row['share_of_bound']:.1f}%; "
+            f"{read}); launches {row['launches']}")
+    layers = len(KL["kda_layers"])
+    out["per_retrieve"] = {
+        key: layers * sum(r[key] for r in out["by_call"].values())
+        for key in ("ms", "plain_ms", "bound_ms")}
+    log(f"  KDA at these calls x {layers} layers: kernels "
+        f"{out['per_retrieve']['ms']:.3f} ms, plain "
+        f"{out['per_retrieve']['plain_ms']:.3f} ms, bound "
+        f"{out['per_retrieve']['bound_ms']:.3f} ms")
+    return out
 
 
 # the top-k products alone, timed at forced rows an expert: 60 experts of
@@ -1329,6 +1448,7 @@ def phase_kernels(dev, trie) -> dict:
     stats["expert_sublayer"] = experts_vs_plain(rn)
     stats.update(moonlight_vs_plain(rn))
     stats["gemm_f32_moonlight"] = moonlight_gemms(rn)
+    stats["kda"] = kda_vs_plain(rn)
     return stats
 
 
@@ -1494,8 +1614,15 @@ def phase_small(dev) -> dict:
     ml_cfg = dataclasses.replace(
         ModelConfig().scaled("moonlight-16b-a3b"), num_layers=3,
         kary=cfg.kary, max_output_length=cfg.max_output_length)
-    return {**out, **small_moonlight(dev, ml_cfg, trie, len(store), ids,
-                                     mask, ev_cfg)}
+    out.update(small_moonlight(dev, ml_cfg, trie, len(store), ids, mask,
+                               ev_cfg))
+    kl_cfg = dataclasses.replace(
+        ModelConfig().scaled("kimi-linear-48b-a3b"), num_layers=4,
+        kda_layers=(1, 2, 3), full_attn_layers=(4,), kary=cfg.kary,
+        max_output_length=cfg.max_output_length)
+    out.update(small_kimi_linear(dev, kl_cfg, trie, len(store), ids, mask,
+                                 ev_cfg))
+    return out
 
 
 def small_switch(dev, sw_cfg, trie, store, ids, mask, ev_cfg) -> dict:
@@ -1572,18 +1699,60 @@ def _routing_gap(model) -> float:
 def small_moonlight(dev, ml_cfg, trie, n_docs, ids, mask, ev_cfg) -> dict:
     """A decoder-only DeepSeek-V3 generator (``ml_cfg``: phase 3's run
     with Moonlight-16B-A3B's widths at 1 dense + 2 expert layers) with the
-    benchmark's weight scales (``gdrbench/weights_moonlight.py``, drawn on
-    the CPU and copied to the card) over phase 3's trie and a unit store of
-    ``n_docs`` rows of its query width, on the packed layout, on the CPU and twice on the
-    card, the second replaying the decode's CUDA graphs.  The CPU's run
-    records its routing, whose smallest k-th / (k+1)-th selection-score gap
-    is printed: a gap within the card's rounding (~1e-6) may route a token
-    otherwise there.  Returns the card's launches of one retrieve
+    benchmark's weight scales (``gdrbench/weights_moonlight.py``) through
+    :func:`_small_generator`.  Returns the card's launches of one retrieve
     (``moonlight_launches``)."""
+    from gdrbench.weights_moonlight import draw_into
+
+    moe_layers = ml_cfg.num_layers - ml_cfg.first_k_dense
+    want = lambda steps: {                                 # noqa: E731
+        "mla_attention": ml_cfg.num_layers * steps,
+        "topk_expert_sublayer": moe_layers * (steps + 1), "packed_scores": 1}
+    return {"moonlight_launches": _small_generator(
+        dev, "moonlight", ml_cfg, draw_into, want, trie, n_docs, ids, mask,
+        ev_cfg)}
+
+
+def small_kimi_linear(dev, kl_cfg, trie, n_docs, ids, mask, ev_cfg) -> dict:
+    """Kimi Linear's hybrid generator (``kl_cfg``: phase 3's run with
+    Kimi-Linear-48B-A3B's widths at one period of its layers: KDA with the
+    dense FFN, two KDA and one NoPE MLA layer with card 0's 32 of 256
+    experts) with the benchmark's weight scales
+    (``gdrbench/weights_kimi_linear.py``) through :func:`_small_generator`:
+    the launches of ``kda_prefill``, ``kda_decode``, ``mla_attention`` and
+    ``topk_expert_sublayer`` counted on the main path, eager and replayed,
+    and the KDA device counters equal to the CPU's.  Returns the card's
+    launches of one retrieve (``kimi_linear_launches``)."""
+    from gdrbench.weights_kimi_linear import draw_into
+
+    kda_layers = len(kl_cfg.kda_layers)
+    moe_layers = kl_cfg.num_layers - kl_cfg.first_k_dense
+    want = lambda steps: {                                 # noqa: E731
+        "kda_prefill": kda_layers, "kda_decode": kda_layers * steps,
+        "mla_attention": (kl_cfg.num_layers - kda_layers) * steps,
+        "topk_expert_sublayer": moe_layers * (steps + 1), "packed_scores": 1}
+    return {"kimi_linear_launches": _small_generator(
+        dev, "kimi linear", kl_cfg, draw_into, want, trie, n_docs, ids, mask,
+        ev_cfg)}
+
+
+def _small_generator(dev, tag, cfg, draw_into, want, trie, n_docs, ids, mask,
+                     ev_cfg) -> dict:
+    """A decoder-only generator at published widths and few layers
+    (``cfg``), its weights drawn by ``draw_into`` on the CPU and copied to
+    the card, over phase 3's trie and a unit store of ``n_docs`` rows of
+    its query width, on the packed layout, on the CPU and twice on the
+    card, the second replaying the decode's CUDA graphs.  Each card run
+    starts from zeroed counters and must launch ``want`` and count the
+    CPU's device counters (routing, KDA's source rows and prefill tokens);
+    ``want`` gives the launches of a retrieve of so many decode steps.
+    The CPU's run records its routing, whose smallest k-th / (k+1)-th
+    selection-score gap is printed: a gap within the card's rounding
+    (~1e-6) may route a token otherwise there.  Returns the card's
+    launches of one retrieve."""
     import numpy as np
     import torch
 
-    from gdrbench.weights_moonlight import draw_into
     from gdr_tpu_torch import kernels
     from gdr_tpu_torch.eval.evaluator import Evaluator
     from gdr_tpu_torch.models.deepseek import MoE
@@ -1591,19 +1760,19 @@ def small_moonlight(dev, ml_cfg, trie, n_docs, ids, mask, ev_cfg) -> dict:
     from gdr_tpu_torch.utils import timing
 
     t = time.perf_counter()
-    cpu_m = GenerativeRetriever(ml_cfg).eval()
+    cpu_m = GenerativeRetriever(cfg).eval()
     draw_into(cpu_m, 11)
     with dev:
-        gpu_m = GenerativeRetriever(ml_cfg).eval()
+        gpu_m = GenerativeRetriever(cfg).eval()
     gpu_m.load_state_dict(cpu_m.state_dict())
     store = np.random.default_rng(1).normal(
-        size=(n_docs, ml_cfg.encoder_d_model))
+        size=(n_docs, cfg.encoder_d_model))
     store = (store / np.linalg.norm(store, axis=1, keepdims=True)
              ).astype(np.float32)
     ev_c = Evaluator(cpu_m, trie, store, ev_cfg, packed=True)
     ev_g = Evaluator(gpu_m, trie, store, ev_cfg, packed=True)
-    log(f"  moonlight widths, {ml_cfg.num_layers} layers: weights on the "
-        f"cpu and the card in {time.perf_counter() - t:.1f} s")
+    log(f"  {tag} widths, {cfg.num_layers} layers: weights on the cpu and "
+        f"the card in {time.perf_counter() - t:.1f} s")
     moes = [ff for ff in cpu_m.modules() if isinstance(ff, MoE)]
     for ff in moes:
         ff.record = []
@@ -1611,53 +1780,50 @@ def small_moonlight(dev, ml_cfg, trie, n_docs, ids, mask, ev_cfg) -> dict:
     t = time.perf_counter()
     res_c, rr_c = ev_c.retrieve(ids, mask)
     cpu_s = time.perf_counter() - t
-    routing_c = kernels.launch_counts(experts=True)
+    device_c = {k: v for k, v in kernels.launch_counts(experts=True).items()
+                if k.startswith(("moe_", "kda_source", "kda_prefill_"))}
     gap = _routing_gap(cpu_m)
     for ff in moes:
         ff.record = None
-    steps = ev_g._max_len
-    moe_layers = ml_cfg.num_layers - ml_cfg.first_k_dense
-    want = {"mla_attention": ml_cfg.num_layers * steps,
-            "topk_expert_sublayer": moe_layers * (steps + 1),
-            "packed_scores": 1}
+    want = want(ev_g._max_len)
     syncs = None
     for turn in ("eager", "replayed"):    # the second replays the graphs
         kernels.reset_launch_counts()
         res_g, rr_g = ev_g.retrieve(ids, mask)
         torch.cuda.synchronize()
         got = {**timing.counts(), **kernels.launch_counts(experts=True)}
-        routing = {k: v for k, v in got.items() if k.startswith("moe_")}
-        if routing != {k: routing_c[k] for k in routing}:
-            raise Failed(f"small moonlight {turn}: routing counters "
-                         f"{routing} on the card, {routing_c} on the cpu "
-                         f"(smallest selection-score gap on the cpu "
-                         f"{gap:.3g})")
-        n_valid, n_found, err = _same_retrieve(f"moonlight {turn}", res_c,
-                                               rr_c, res_g, rr_g)
+        device = {k: got[k] for k in device_c}
+        if device != device_c:
+            raise Failed(f"small {tag} {turn}: device counters {device} on "
+                         f"the card, {device_c} on the cpu (smallest "
+                         f"selection-score gap on the cpu {gap:.3g})")
+        n_valid, n_found, err = _same_retrieve(f"{tag} {turn}", res_c, rr_c,
+                                               res_g, rr_g)
         replays = 3 if turn == "replayed" else 0
         syncs = got["host_syncs"] if syncs is None else syncs
         if (got["graph_replays"], got["eager_decodes"], got["host_syncs"]) \
                 != (replays, 1 - replays // 3, syncs):
-            raise Failed(f"small moonlight {turn}: {got['graph_replays']} "
-                         f"graph replays, {got['eager_decodes']} eager "
-                         f"decodes, {got['host_syncs']} host syncs (want "
-                         f"{replays}, {1 - replays // 3}, {syncs})")
+            raise Failed(f"small {tag} {turn}: {got['graph_replays']} graph "
+                         f"replays, {got['eager_decodes']} eager decodes, "
+                         f"{got['host_syncs']} host syncs (want {replays}, "
+                         f"{1 - replays // 3}, {syncs})")
         launches = {k: v for k, v in got.items()
                     if k in kernels.launch_counts() and v}
         if launches != want:
-            raise Failed(f"small moonlight {turn}: launches {launches}, "
-                         f"want {want}")
-        log(f"  f32 moonlight widths ({ml_cfg.num_layers} layers, 64 "
-            f"experts top-6) packed {turn}: {n_valid} valid beams, "
-            f"{n_found} valid docs equal on cpu and gpu; max |d| fused score "
-            f"{err:.3g} (tol 1e-4); routing {routing}; smallest "
-            f"selection-score gap on the cpu {gap:.3g}; launches "
-            f"{launches}; cpu retrieve {cpu_s:.1f} s")
+            raise Failed(f"small {tag} {turn}: launches {launches}, want "
+                         f"{want}")
+        log(f"  f32 {tag} widths ({cfg.num_layers} layers, "
+            f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok}) "
+            f"packed {turn}: {n_valid} valid beams, {n_found} valid docs "
+            f"equal on cpu and gpu; max |d| fused score {err:.3g} (tol "
+            f"1e-4); device counters {device}; smallest selection-score gap "
+            f"on the cpu {gap:.3g}; launches {launches}; cpu retrieve "
+            f"{cpu_s:.1f} s")
     launches = {k: v for k, v in got.items() if k in kernels.launch_counts()}
     kernels.reset_launch_counts()
     del ev_g, gpu_m
     torch.cuda.empty_cache()
-    return {"moonlight_launches": launches}
+    return launches
 
 
 # ------------------------------------------------------------ phase 4
@@ -5239,6 +5405,21 @@ def kernel_rows(stats: dict, full: dict, index: dict, train: dict,
             flops=st["flops"], bytes=st["bytes"], rows=100, dtype="float32",
             by_rows=st["by_rows"], per_retrieve=st["per_retrieve"],
             forced=st.get("forced")))
+    st = stats["kda"]
+    for name in ("kda_prefill", "kda_decode"):
+        calls = {key: r for key, r in st["by_call"].items()
+                 if (key == "prefill") == (name == "kda_prefill")}
+        top = list(calls.values())[-1]     # the prefill; a 100-row step
+        rows.append(dict(
+            name=name, route="cuda", source="gdr_tpu_torch/csrc/kda.cu",
+            replaces=None, launches=full["launches"].get(name, 0),
+            launches_kimi_linear_small=small["kimi_linear_launches"][name],
+            max_abs_err=max(r["max_abs_err"] for r in calls.values()),
+            ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=None,
+            library="the plain version (plain_ms)", flops=top["flops"],
+            bytes=top["bytes"], rows=40 if name == "kda_prefill" else 100,
+            dtype="float32", by_call=calls))
     return rows
 
 

@@ -128,7 +128,7 @@ import sys
 def _add_common_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model-size", default="base",
                    choices=["base", "large", "small", "tiny", "switch-base",
-                            "moonlight-16b-a3b"])
+                            "moonlight-16b-a3b", "kimi-linear-48b-a3b"])
     p.add_argument("--kary", type=int, default=30)
     p.add_argument("--max-output-length", type=int, default=10)
     p.add_argument("--no-adaptor", action="store_true",

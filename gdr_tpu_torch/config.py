@@ -84,7 +84,7 @@ class ModelConfig:
     # experts of width ``moe_d_ff``, ``num_experts_per_tok`` a token by
     # sigmoid scores plus a selection-only bias, and ``num_shared_experts``
     # always taken; ``num_decoder_layers`` and ``d_kv`` are T5's only
-    backbone: str = "t5"             # "t5" | "deepseek_v3"
+    backbone: str = "t5"             # "t5" | "deepseek_v3" | "kimi_linear"
     kv_lora_rank: int = 512
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
@@ -95,10 +95,42 @@ class ModelConfig:
     num_shared_experts: int = 0
     first_k_dense: int = 1
     routed_scaling_factor: float = 1.0
+    # --- the chip's share of an expert-parallel deployment: the router
+    # scores all ``num_experts`` experts and picks the top k over them, and
+    # this chip holds and computes experts ``expert_offset`` …
+    # ``expert_offset + experts_held − 1`` (0 held: all of them)
+    experts_held: int = 0
+    expert_offset: int = 0
+
+    # --- "kimi_linear" (Kimi Linear's hybrid stack, ``models/
+    # kimi_linear.py``): the 1-based layers of ``kda_layers`` are gated
+    # delta-rule (KDA) layers of ``kda_num_heads`` heads of ``kda_head_dim``
+    # with a causal depthwise convolution of ``kda_conv_size`` taps, those
+    # of ``full_attn_layers`` MLA layers; ``mla_use_nope``: MLA without
+    # rotary embeddings (its rope columns unrotated)
+    kda_layers: tuple = ()
+    full_attn_layers: tuple = ()
+    kda_num_heads: int = 32
+    kda_head_dim: int = 128
+    kda_conv_size: int = 4
+    mla_use_nope: bool = False
+
+    def __post_init__(self):
+        for name in ("kda_layers", "full_attn_layers"):  # JSON gives lists
+            object.__setattr__(self, name, tuple(getattr(self, name)))
 
     @property
     def decoder_only(self) -> bool:
-        return self.backbone == "deepseek_v3"
+        return self.backbone in ("deepseek_v3", "kimi_linear")
+
+    @property
+    def n_held(self) -> int:
+        """The routed experts this chip holds."""
+        return self.experts_held or self.num_experts
+
+    def is_kda(self, i: int) -> bool:
+        """Whether the 0-based layer ``i`` is a KDA layer."""
+        return self.backbone == "kimi_linear" and i + 1 in self.kda_layers
 
     def refuse_experts(self, what: str) -> None:
         """Raise where ``what`` is asked of a model with experts, which the
@@ -148,6 +180,34 @@ class ModelConfig:
                 num_experts=64, moe_d_ff=1408, num_experts_per_tok=6,
                 num_shared_experts=2, first_k_dense=1,
                 routed_scaling_factor=2.446),
+            # moonshotai/Kimi-Linear-48B-A3B-Instruct: 27 layers at 3 KDA :
+            # 1 NoPE MLA, the first FFN a dense SwiGLU, then 256 routed
+            # experts top-8 and 1 shared; held here: card 0's 32 of 8
+            "kimi-linear-48b-a3b": dict(
+                backbone="kimi_linear", vocab_size=163840, d_model=2304,
+                num_layers=27, num_heads=32, d_ff=9216, kv_lora_rank=512,
+                qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+                rope_theta=10000.0, layer_norm_epsilon=1e-5,
+                mla_use_nope=True, num_experts=256, experts_held=32,
+                expert_offset=0, moe_d_ff=1024, num_experts_per_tok=8,
+                num_shared_experts=1, first_k_dense=1,
+                routed_scaling_factor=2.446,
+                kda_layers=tuple(i for i in range(1, 27) if i % 4),
+                full_attn_layers=(4, 8, 12, 16, 20, 24, 27),
+                kda_num_heads=32, kda_head_dim=128, kda_conv_size=4),
+            # one period of it for the CPU tests: a KDA layer with the dense
+            # FFN, two KDA and one MLA layer with 16 experts top-4, 8 held
+            "kimi-linear-tiny": dict(
+                backbone="kimi_linear", vocab_size=128, d_model=64,
+                num_layers=4, num_heads=2, d_ff=96, kv_lora_rank=32,
+                qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+                rope_theta=10000.0, layer_norm_epsilon=1e-5,
+                mla_use_nope=True, num_experts=16, experts_held=8,
+                expert_offset=0, moe_d_ff=32, num_experts_per_tok=4,
+                num_shared_experts=1, first_k_dense=1,
+                routed_scaling_factor=2.446, kda_layers=(1, 2, 3),
+                full_attn_layers=(4,), kda_num_heads=2, kda_head_dim=16,
+                kda_conv_size=4),
         }
         return dataclasses.replace(self, **presets[preset])
 

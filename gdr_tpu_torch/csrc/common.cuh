@@ -125,6 +125,28 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// v[0..31] summed over the warp, lane l left with the sum of v[l]: at each
+// stage a lane keeps the half of its values that its bit selects and adds
+// the partner's copy of that half (31 shuffles in all).
+__device__ __forceinline__ float warp_reduce_scatter32(float (&v)[32]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1) {
+    const bool up = lane & s;
+#pragma unroll
+    for (int j = 0; j < s; ++j) {
+      const float send = up ? v[j] : v[j + s];
+      const float keep = up ? v[j + s] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, s);
+    }
+  }
+  return v[0];
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
 // The f32 dot of a store row of `chunks` 16-byte chunks with the query
 // staged by stage_query<T>, read by a group of LANES lanes (the whole warp,
 // or an aligned half of it); `lane` is the lane's index in its group, and

@@ -50,25 +50,8 @@ constexpr int kDownWarps = 4;         // moe_down: 16 columns of d a work item
 constexpr int kChunkK = 1024;         // K elements of a staged row
 constexpr int kGroupThreads = 1024;
 constexpr int kMaxExperts = 1024;
-constexpr int kMaxD = 2048;           // the router's 8 staged rows in 64 KB
-
-// v[0..31] summed over the warp, lane l left with the sum of v[l]: at each
-// stage a lane keeps the half of its values that its bit selects and adds
-// the partner's copy of that half (31 shuffles in all).
-__device__ __forceinline__ float warp_reduce_scatter32(float (&v)[32]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int s = 16; s >= 1; s >>= 1) {
-    const bool up = lane & s;
-#pragma unroll
-    for (int j = 0; j < s; ++j) {
-      const float send = up ? v[j] : v[j + s];
-      const float keep = up ? v[j + s] : v[j];
-      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, s);
-    }
-  }
-  return v[0];
-}
+constexpr int kMaxD = 3584;           // the router's 8 staged rows in 112 KB, the
+                                      // top-k up product's 16 in 224 KB
 
 // v[0..31] summed over the 16 lanes of a half-warp, lane l of the half left
 // with the sums of v[2 (l % 16)] and v[2 (l % 16) + 1] in v[0] and v[1] (30
@@ -85,10 +68,6 @@ __device__ __forceinline__ void half_reduce_scatter32(float (&v)[32]) {
       v[j] = keep + __shfl_xor_sync(0xffffffffu, send, s);
     }
   }
-}
-
-__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
 // The most row chunks a call can have: the kept rows of each hit expert in
@@ -234,6 +213,7 @@ moe_group(const float* __restrict__ logits, const float* __restrict__ x,
     stats[3] += most;
     stats[4] += dropped;
     stats[5] += R;
+    stats[7] += R;
   }
   __syncthreads();
   for (int r = threadIdx.x; r < R; r += blockDim.x)
@@ -371,7 +351,7 @@ static cudaError_t launch_router(const float* x, const float* scale, const float
 
 // One expert sublayer (four launches on `stream`).  x, out [R, D]; scale
 // [D]; router [E, D]; wi [E, F, D]; wo [E, D, F]; counts [R / seq_len, E]
-// int32 or null; stats [5] int64, added to; scratch: logits [R, E], hbuf
+// int32 or null; stats [8] int64, added to; scratch: logits [R, E], hbuf
 // [R, D], hid [R, F], prob [R] f32 and meta [1 + 3 (R / 8 + E + 1) + 3R]
 // int32.
 extern "C" int gdr_moe_sublayer(const void* x, const void* scale, const void* router,
@@ -425,6 +405,12 @@ extern "C" int gdr_moe_sublayer(const void* x, const void* scale, const void* ro
 // where base is x plus the shared experts' output (the caller's GEMMs) and
 // an expert's wi [2F, D] holds its gate rows, then its up rows.  No capacity.
 //
+// The chip's share of an expert-parallel layer: the router scores all E
+// experts and each row's K are chosen, and weighted, over all of them, but
+// the card holds experts [offset, offset + held) only (wi, wo [held, ...]),
+// and the sum runs over the chosen experts it holds; what the others would
+// add is another card's.  held = E, offset 0 is the whole layer.
+//
 // What bounds it: the hit experts' weights, 3·D·F f32 each (34.6 MB at
 // Moonlight's D 2,048, F 1,408).  A beam step's 100 rows make 600
 // assignments over 64 experts, ~9.4 an expert, so nearly every expert is
@@ -435,16 +421,18 @@ extern "C" int gdr_moe_sublayer(const void* x, const void* scale, const void* ro
 // Five launches, each a `gdr::moe_` kernel:
 // - moe_router (as above): h to `hbuf`, the logits.
 // - moe_topk_group (one block): each row's K experts and weights (a warp a
-//   row), the assignments a = r·K + j grouped by expert and cut into
-//   chunks, the stats (with moe_assignments += R·K, moe_chunks += the
-//   chunks), the chosen experts to `route` when asked.
+//   row), the assignments a = r·K + j to held experts grouped by expert and
+//   cut into chunks, the stats (with moe_assignments += R·K, moe_held +=
+//   those to held experts, moe_chunks += the chunks), the chosen experts to
+//   `route` when asked.
 // - moe_swiglu_up / moe_topk_down: a persistent grid, one block of 16 warps
 //   an SM, over work items (chunk, tile of weight rows), dealt to the
 //   blocks in contiguous runs.  Up: an expert's gate row c and up row
 //   F + c make hid's column c, silu(g)·u at the assignment's grouped place;
 //   down: Wo[e]'s rows make ybuf's columns, w_a · (hid · Woᵀ) at the
 //   assignment.
-// - moe_combine: x' = base + Σ_j ybuf[r·K + j], j in order.
+// - moe_combine: x' = base + Σ_j ybuf[r·K + j], j in order, over the held
+//   experts' assignments.
 //
 // The products' inner loop: a column register tile over broadcast
 // activations, whose on-chip work follows the chunk's real rows.
@@ -499,7 +487,7 @@ struct TopMeta {
   int* chunk_place;   // [C]
   int* chunk_rows;    // [C]: 1 to kTopRows
   int* order;         // [A]: the assignment at each grouped place
-  int* expert;        // [A]: each assignment's expert
+  int* expert;        // [A]: each assignment's held expert (−1: not held)
   __device__ __host__ TopMeta(int* m, int E, int A)
       : n_chunks(m), chunk_expert(m + 1), chunk_place(m + 1 + topk_max_chunks(A, E)),
         chunk_rows(m + 1 + 2 * topk_max_chunks(A, E)),
@@ -509,13 +497,13 @@ struct TopMeta {
 __global__ void __launch_bounds__(kGroupThreads)
 moe_topk_group(const float* __restrict__ logits, const float* __restrict__ bias,
                float* __restrict__ wgt, int* __restrict__ route, int* meta_ptr,
-               long long* stats, int R, int E, int K, float scale) {
+               long long* stats, int R, int E, int K, float scale, int held, int offset) {
   __shared__ int load[kMaxExperts], fill[kMaxExperts], start[kMaxExperts];
   const int A = R * K;
-  const TopMeta m(meta_ptr, E, A);
+  const TopMeta m(meta_ptr, held, A);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  for (int e = threadIdx.x; e < E; e += blockDim.x) load[e] = fill[e] = 0;
+  for (int e = threadIdx.x; e < held; e += blockDim.x) load[e] = fill[e] = 0;
   for (int r = warp; r < R; r += warps) {
     const float* z = logits + (size_t)r * E;
     unsigned taken = 0;                 // bit i: expert lane + 32 i chosen
@@ -551,19 +539,20 @@ moe_topk_group(const float* __restrict__ logits, const float* __restrict__ bias,
       }
       const float inv = 1.f / (sum + 1e-20f);
       for (int j = 0; j < K; ++j) {
-        const int a = r * K + j;
-        m.expert[a] = sel[j];
+        const int a = r * K + j, e = sel[j] - offset;
+        m.expert[a] = e >= 0 && e < held ? e : -1;
         wgt[a] = sig[j] * inv * scale;
         if (route) route[a] = sel[j];
       }
     }
   }
   __syncthreads();
-  for (int a = threadIdx.x; a < A; a += blockDim.x) atomicAdd(&load[m.expert[a]], 1);
+  for (int a = threadIdx.x; a < A; a += blockDim.x)
+    if (m.expert[a] >= 0) atomicAdd(&load[m.expert[a]], 1);
   __syncthreads();
   if (threadIdx.x == 0) {
     int at = 0, hits = 0, most = 0, chunks = 0;
-    for (int e = 0; e < E; ++e) {
+    for (int e = 0; e < held; ++e) {
       start[e] = at;
       hits += load[e] > 0;
       most = max(most, load[e]);
@@ -581,11 +570,12 @@ moe_topk_group(const float* __restrict__ logits, const float* __restrict__ bias,
     stats[3] += most;
     stats[5] += A;
     stats[6] += chunks;
+    stats[7] += at;
   }
   __syncthreads();
   for (int a = threadIdx.x; a < A; a += blockDim.x) {
     const int e = m.expert[a];
-    m.order[start[e] + atomicAdd(&fill[e], 1)] = a;
+    if (e >= 0) m.order[start[e] + atomicAdd(&fill[e], 1)] = a;
   }
 }
 
@@ -824,13 +814,15 @@ moe_topk_down(const float* __restrict__ hid, const float* __restrict__ wo, int* 
 }
 
 __global__ void moe_combine(const float* __restrict__ base, const float* __restrict__ ybuf,
-                            float* __restrict__ out, int R, int D, int K) {
+                            const int* __restrict__ expert, float* __restrict__ out, int R,
+                            int D, int K) {
   const int d4 = D / 4;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)R * d4) return;
   const size_t r = i / d4, c = i % d4;
   float4 acc = reinterpret_cast<const float4*>(base)[i];
   for (int j = 0; j < K; ++j) {
+    if (expert[r * K + j] < 0) continue;          // another card's expert
     const float4 y = reinterpret_cast<const float4*>(ybuf + (r * K + j) * D)[c];
     acc.x += y.x;
     acc.y += y.y;
@@ -843,20 +835,23 @@ __global__ void moe_combine(const float* __restrict__ base, const float* __restr
 }  // namespace gdr
 
 // One top-k expert sublayer (five launches on `stream`).  x, base, out [R,
-// D]; scale [D]; router [E, D]; bias [E]; wi [E, 2F, D]; wo [E, D, F];
-// stats [7] int64, added to; route [R, K] int32 or null; scratch: logits
-// [R, E], hbuf [R, D], hid [R·K, F], ybuf [R·K, D], wgt [R·K] f32 and meta
-// [1 + 3 (R·K / 16 + E + 1) + 2 R·K] int32.
+// D]; scale [D]; router [E, D]; bias [E]; wi [held, 2F, D]; wo [held, D,
+// F], experts offset … offset + held − 1 of the E; stats [8] int64, added
+// to; route [R, K] int32 or null; scratch: logits [R, E], hbuf [R, D], hid
+// [R·K, F], ybuf [R·K, D], wgt [R·K] f32 and meta [1 + 3 (R·K / 16 + held
+// + 1) + 2 R·K] int32.
 extern "C" int gdr_moe_topk_sublayer(const void* x, const void* base, const void* scale,
                                      const void* router, const void* bias, const void* wi,
                                      const void* wo, void* out, void* stats, void* logits,
                                      void* hbuf, void* hid, void* ybuf, void* wgt, void* meta,
                                      void* route, int R, int D, int F, int E, int K,
-                                     float route_scale, float eps, int sms, void* stream) {
+                                     int held, int offset, float route_scale, float eps,
+                                     int sms, void* stream) {
   using namespace gdr;
   if (R <= 0 || D % 16 || D > kMaxD || F % 32 ||
       kTopMetaBytes + (size_t)kTopRows * F * 4 > kTopMaxSmem ||
-      E <= 0 || E > kMaxExperts || K <= 0 || K > kTopMaxK || K > E || sms <= 0)
+      E <= 0 || E > kMaxExperts || K <= 0 || K > kTopMaxK || K > E || sms <= 0 ||
+      held <= 0 || offset < 0 || offset + held > E)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* hb = static_cast<float*>(hbuf);
@@ -868,7 +863,7 @@ extern "C" int gdr_moe_topk_sublayer(const void* x, const void* base, const void
   if (err != cudaSuccess) return err;
   moe_topk_group<<<1, kGroupThreads, 0, s>>>(
       lg, static_cast<const float*>(bias), static_cast<float*>(wgt), static_cast<int*>(route),
-      mt, static_cast<long long*>(stats), R, E, K, route_scale);
+      mt, static_cast<long long*>(stats), R, E, K, route_scale, held, offset);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   static int up_per_sm = 0, down_per_sm = 0;
   static bool opted = false;
@@ -883,7 +878,7 @@ extern "C" int gdr_moe_topk_sublayer(const void* x, const void* base, const void
   // the staged rows, and the slices' partial sums where they fit beside them
   // (else items of 16 warps, one slice); the grid as many blocks as there
   // can be items of one warp's columns
-  const int chunks = topk_max_chunks(R * K, E);
+  const int chunks = topk_max_chunks(R * K, held);
   const size_t up_rows = kTopMetaBytes + (size_t)kTopRows * D * sizeof(float);
   const size_t down_rows = kTopMetaBytes + (size_t)kTopRows * F * sizeof(float);
   const int up_split = up_rows + kTopSplitBytes <= kTopMaxSmem ? kTopWarps : 1;
@@ -894,18 +889,19 @@ extern "C" int gdr_moe_topk_sublayer(const void* x, const void* base, const void
   moe_swiglu_up<<<persistent_grid(moe_swiglu_up, up_per_sm, kTopWarps * 32, up_smem, sms,
                                   chunks * ((F + up_cols - 1) / up_cols)),
                   kTopWarps * 32, up_smem, s>>>(hb, static_cast<const float*>(wi), mt,
-                                                static_cast<float*>(hid), R, F, D, E, K,
+                                                static_cast<float*>(hid), R, F, D, held, K,
                                                 up_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   moe_topk_down<<<persistent_grid(moe_topk_down, down_per_sm, kTopWarps * 32, down_smem, sms,
                                   chunks * ((D + down_cols - 1) / down_cols)),
                   kTopWarps * 32, down_smem, s>>>(
       static_cast<const float*>(hid), static_cast<const float*>(wo), mt,
-      static_cast<const float*>(wgt), static_cast<float*>(ybuf), R, D, F, E, K, down_split);
+      static_cast<const float*>(wgt), static_cast<float*>(ybuf), R, D, F, held, K,
+      down_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t n4 = (size_t)R * (D / 4);
   moe_combine<<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
       static_cast<const float*>(base), static_cast<const float*>(ybuf),
-      static_cast<float*>(out), R, D, K);
+      TopMeta(mt, held, R * K).expert, static_cast<float*>(out), R, D, K);
   return cudaGetLastError();
 }

@@ -11,7 +11,8 @@
 //
 // RoPE is transformers' de-interleaved form: pair i = (x[2i], x[2i+1])
 // goes to (a cos f − b sin f, b cos f + a sin f) at columns i and i + 32,
-// f = position · inv_freq[i].
+// f = position · inv_freq[i].  Without rotation (`rotate` 0, NoPE MLA as
+// Kimi Linear's) q_pe and k_pe are taken as they are.
 //
 // What bounds it: bytes, and few of them.  At GDR's ≤ 50 positions a step
 // reads the prefix keys and values once per (query, head) (40 × 320 f32,
@@ -52,7 +53,7 @@ mla_decode(const float* __restrict__ q, const float* __restrict__ kva,
            const float* __restrict__ pv, const float* __restrict__ bias,
            const int* __restrict__ lens, float* __restrict__ ck, float* __restrict__ cv,
            const float* __restrict__ inv_freq, float* __restrict__ out, int W, int H,
-           int S, int pos, int rank, float scale) {
+           int S, int pos, int rank, float scale, int rotate) {
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);         // [S][kMlaKPad]
   float* vs = ks + (size_t)S * kMlaKPad;                // [S][kMlaV]
@@ -80,20 +81,25 @@ mla_decode(const float* __restrict__ q, const float* __restrict__ kva,
   {   // this step's q (rotated) to shared memory; its key and value to the caches
     const float* qr = q + (size_t)r * H * kMlaK + (size_t)h * kMlaK;
     reinterpret_cast<float4*>(qs)[lane] = reinterpret_cast<const float4*>(qr)[lane];
-    const float f = p_at * inv_freq[lane];
-    float sn, cs;
-    sincosf(f, &sn, &cs);
     const float2 qp = reinterpret_cast<const float2*>(qr + kMlaNope)[lane];
-    qs[kMlaNope + lane] = qp.x * cs - qp.y * sn;
-    qs[kMlaNope + 32 + lane] = qp.y * cs + qp.x * sn;
     const float2 kp =
         reinterpret_cast<const float2*>(kva + (size_t)r * (rank + kMlaRope) + rank)[lane];
     const float* kv = kvb + (size_t)r * H * (kMlaNope + kMlaV) + (size_t)h * (kMlaNope + kMlaV);
     float* ckr = ck + (((size_t)pos * R + r) * H + h) * kMlaK;
     float* cvr = cv + (((size_t)pos * R + r) * H + h) * kMlaV;
     reinterpret_cast<float4*>(ckr)[lane] = reinterpret_cast<const float4*>(kv)[lane];
-    ckr[kMlaNope + lane] = kp.x * cs - kp.y * sn;
-    ckr[kMlaNope + 32 + lane] = kp.y * cs + kp.x * sn;
+    if (rotate) {
+      const float f = p_at * inv_freq[lane];
+      float sn, cs;
+      sincosf(f, &sn, &cs);
+      qs[kMlaNope + lane] = qp.x * cs - qp.y * sn;
+      qs[kMlaNope + 32 + lane] = qp.y * cs + qp.x * sn;
+      ckr[kMlaNope + lane] = kp.x * cs - kp.y * sn;
+      ckr[kMlaNope + 32 + lane] = kp.y * cs + kp.x * sn;
+    } else {
+      reinterpret_cast<float2*>(qs + kMlaNope)[lane] = qp;
+      reinterpret_cast<float2*>(ckr + kMlaNope)[lane] = kp;
+    }
     reinterpret_cast<float4*>(cvr)[lane] = reinterpret_cast<const float4*>(kv + kMlaNope)[lane];
   }
   __syncwarp();
@@ -163,12 +169,13 @@ mla_decode(const float* __restrict__ q, const float* __restrict__ kva,
 // One MLA decode step (one launch on `stream`).  q [R, H·192], kva [R,
 // rank + 64], kvb [R, H·256], pk [B, H, S, 192], pv [B, H, S, 128], bias
 // [B, S] f32, lens [B] int32, ck [L, R, H, 192] and cv [L, R, H, 128]
-// (written at pos), inv_freq [32], out [R, H·128]; R = B·W.
+// (written at pos), inv_freq [32] (unread when `rotate` is 0), out [R,
+// H·128]; R = B·W.
 extern "C" int gdr_mla_decode(const void* q, const void* kva, const void* kvb,
                               const void* pk, const void* pv, const void* bias,
                               const void* lens, void* ck, void* cv, const void* inv_freq,
                               void* out, int B, int W, int H, int S, int L, int pos,
-                              int rank, float scale, void* stream) {
+                              int rank, float scale, int rotate, void* stream) {
   using namespace gdr;
   if (B <= 0 || W <= 0 || H <= 0 || S <= 0 || S > kMlaMaxS || L > kMlaMaxL || pos < 0 ||
       pos >= L || rank % 4)
@@ -187,6 +194,6 @@ extern "C" int gdr_mla_decode(const void* q, const void* kva, const void* kvb,
       static_cast<const float*>(pv), static_cast<const float*>(bias),
       static_cast<const int*>(lens), static_cast<float*>(ck), static_cast<float*>(cv),
       static_cast<const float*>(inv_freq), static_cast<float*>(out), W, H, S, pos, rank,
-      scale);
+      scale, rotate);
   return cudaGetLastError();
 }

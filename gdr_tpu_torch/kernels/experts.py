@@ -28,7 +28,11 @@ weights w_j = s_j / (Σ s + 1e-20) · ``scale``; and x' = ``base`` + Σ_j w_j
 · W_o[e_j](silu(W_g[e_j] h) ⊙ W_u[e_j] h), the sum in that order, where
 ``base`` is x plus the shared experts' output, which the caller computes
 (``models/deepseek.py``).  An expert's ``wi`` [2·d_ff, d] holds its gate
-rows, then its up rows.
+rows, then its up rows.  **The chip's share**: ``wi`` / ``wo`` may hold
+only experts ``offset`` … ``offset + held − 1`` of the router's E (an
+expert-parallel deployment's card); the selection and the weights are
+over all E as before, and the sum runs over the chosen experts held here,
+what the others add being another card's.
 
 **The device decides.**  A CPU tensor runs the plain version, a CUDA
 tensor launches the ``gdr::moe_`` kernels of ``csrc/experts.cu`` or
@@ -46,7 +50,8 @@ The wrappers count the calls that launched the kernels (``WRAPPERS``, in
 rows, experts hit, the most rows on one expert, the dropped tokens and
 the assignments of rows to experts, rows × k, and the top-k path's chunks
 of at most 16 assignments of one expert, Σ⌈load / 16⌉, so that
-assignments / chunks is the rows a chunk holds; each summed over calls) live
+assignments / chunks is the rows a chunk holds, and the assignments that
+fell to held experts, ``moe_held``; each summed over calls) live
 on the device and are added to by the kernels themselves (by the plain
 versions on the CPU), so graph replays count too;
 ``kernels.launch_counts(experts=True)`` reads them with one sync per device
@@ -66,7 +71,7 @@ from gdr_tpu_torch.utils.timing import count, declare
 
 WRAPPERS = declare("expert_sublayer", "topk_expert_sublayer")
 STATS = ("moe_calls", "moe_rows", "moe_experts_hit", "moe_max_load",
-         "moe_dropped", "moe_assignments", "moe_chunks")
+         "moe_dropped", "moe_assignments", "moe_chunks", "moe_held")
 TOP_CHUNK = 16          # assignments of one expert a top-k work chunk holds
 _STATS: dict[torch.device, torch.Tensor] = {}
 _SMS: dict[torch.device, int] = {}
@@ -77,18 +82,19 @@ _SIGS = {
     # meta, rows, d, d_ff, experts, seq_len, capacity, eps, sms, stream
     "gdr_moe_sublayer": [_P] * 13 + [_I] * 6 + [_F, _I, _P],
     # x, base, scale, router, bias, wi, wo, out, stats, logits, hbuf, hid,
-    # ybuf, wgt, meta, route, rows, d, d_ff, experts, k, route_scale, eps,
-    # sms, stream
-    "gdr_moe_topk_sublayer": [_P] * 16 + [_I] * 5 + [_F, _F, _I, _P],
+    # ybuf, wgt, meta, route, rows, d, d_ff, experts, k, held, offset,
+    # route_scale, eps, sms, stream
+    "gdr_moe_topk_sublayer": [_P] * 16 + [_I] * 7 + [_F, _F, _I, _P],
 }
-MAX_D = 2048            # the router kernel's 8 staged rows in 64 KB
+MAX_D = 3584            # the router kernel's 8 staged rows in 112 KB, the
+                        # top-k up product's 16 in 224 KB
 MAX_K = 16              # experts a row of the top-k sublayer
 MAX_DFF_TOPK = 3616     # the top-k down product's 16 staged rows in 227 KB
 MAX_EXPERTS = 1024      # the grouping's one block keeps a count an expert
 
 
 def stats_tensor(device: torch.device) -> torch.Tensor:
-    """The routing counters [7] int64 of ``device``, made (zero) at the
+    """The routing counters [8] int64 of ``device``, made (zero) at the
     first use, which may not be under graph capture."""
     t = _STATS.get(device)
     if t is None:
@@ -143,7 +149,7 @@ def expert_sublayer_plain(x, ln_scale, router, wi, wo, *, capacity: int,
     load = torch.bincount(e[keep], minlength=n_exp)
     stats_tensor(x.device).add_(torch.tensor(
         [1, r, len(hit), int(load.max()) if r else 0, int((~keep).sum()),
-         r, 0],
+         r, 0, r],
         dtype=torch.int64, device=x.device))
     return x + pi[:, None].to(x.dtype) * y
 
@@ -244,9 +250,9 @@ def topk_select(z: torch.Tensor, bias: torch.Tensor, k: int, scale: float
 
 def topk_expert_sublayer_plain(x, base, ln_scale, router, bias, wi, wo, *,
                                k: int, scale: float, eps: float = 1e-6,
-                               route=None, logits=None):
+                               route=None, logits=None, offset: int = 0):
     r, d = x.shape
-    n_exp, dff = wi.shape[0], wi.shape[1] // 2
+    held, dff = wi.shape[0], wi.shape[1] // 2
     h = _rms(x, ln_scale, eps)
     z = _mm(h, router)                                    # f32 [R, E]
     sel, w = topk_select(z, bias, k, scale)
@@ -254,40 +260,45 @@ def topk_expert_sublayer_plain(x, base, ln_scale, router, bias, wi, wo, *,
         logits.copy_(z)
     if route is not None:
         route.copy_(sel.to(route.dtype))
+    local = sel - offset
+    mine = (local >= 0) & (local < held)
     y = torch.zeros((r, k, d), dtype=torch.float32, device=x.device)
-    hit = torch.unique(sel).tolist()
+    hit = torch.unique(local[mine]).tolist()
     for e in hit:
-        rows, slot = (sel == e).nonzero(as_tuple=True)
+        rows, slot = (local == e).nonzero(as_tuple=True)
         gu = _mm(h[rows], wi[e])
         hid = F.silu(gu[:, :dff]) * gu[:, dff:]
         y[rows, slot] = _mm(hid, wo[e])
     out = base.float()
     for j in range(k):
-        out = out + w[:, j:j + 1] * y[:, j]
-    load = torch.bincount(sel.reshape(-1), minlength=n_exp)
+        out = torch.where(mine[:, j:j + 1], out + w[:, j:j + 1] * y[:, j], out)
+    load = torch.bincount(local[mine], minlength=held)
     stats_tensor(x.device).add_(torch.tensor(
         [1, r, len(hit), int(load.max()) if r else 0, 0, r * k,
-         int(((load + TOP_CHUNK - 1) // TOP_CHUNK).sum())],
+         int(((load + TOP_CHUNK - 1) // TOP_CHUNK).sum()), int(mine.sum())],
         dtype=torch.int64, device=x.device))
     return out.to(x.dtype)
 
 
 def topk_expert_sublayer(x, base, ln_scale, router, bias, wi, wo, *, k: int,
                          scale: float, eps: float = 1e-6, route=None,
-                         logits=None):
-    """x, base: [R, d]; ln_scale: [d]; router: [E, d]; bias: [E]; wi: [E,
-    2·d_ff, d] (gate rows, then up rows); wo: [E, d, d_ff].  Returns base +
-    the routed experts' weighted sum (see the module's docstring).
-    ``route``: an int32 [R, k] tensor the chosen experts are written to;
-    ``logits``: an f32 [R, E] tensor the router's logits are written to."""
+                         logits=None, offset: int = 0):
+    """x, base: [R, d]; ln_scale: [d]; router: [E, d]; bias: [E]; wi:
+    [held, 2·d_ff, d] (gate rows, then up rows); wo: [held, d, d_ff], the
+    experts ``offset`` … ``offset + held − 1`` of the E (all of them by
+    default).  Returns base + the held routed experts' weighted sum (see
+    the module's docstring).  ``route``: an int32 [R, k] tensor the chosen
+    experts are written to; ``logits``: an f32 [R, E] tensor the router's
+    logits are written to."""
     r, d = x.shape
-    n_exp, dff2 = wi.shape[0], wi.shape[1]
+    n_exp = router.shape[0]
+    held, dff2 = wi.shape[0], wi.shape[1]
     dff = dff2 // 2
     for name, t, shape in (("base", base, (r, d)),
                            ("router", router, (n_exp, d)),
                            ("bias", bias, (n_exp,)),
-                           ("wi", wi, (n_exp, 2 * dff, d)),
-                           ("wo", wo, (n_exp, d, dff)),
+                           ("wi", wi, (held, 2 * dff, d)),
+                           ("wo", wo, (held, d, dff)),
                            ("route", route, (r, k)),
                            ("logits", logits, (r, n_exp))):
         if t is not None and tuple(t.shape) != shape:
@@ -296,10 +307,13 @@ def topk_expert_sublayer(x, base, ln_scale, router, bias, wi, wo, *, k: int,
     if not 0 < k <= min(n_exp, MAX_K):
         raise ValueError(f"topk_expert_sublayer: k {k} of {n_exp} experts "
                          f"(at most {MAX_K})")
+    if not (held > 0 and offset >= 0 and offset + held <= n_exp):
+        raise ValueError(f"topk_expert_sublayer: experts {offset} + {held} "
+                         f"held of {n_exp}")
     if x.device.type == "cpu":
         return topk_expert_sublayer_plain(
             x, base, ln_scale, router, bias, wi, wo, k=k, scale=scale,
-            eps=eps, route=route, logits=logits)
+            eps=eps, route=route, logits=logits, offset=offset)
     if x.dtype != torch.float32:
         raise TypeError(f"topk_expert_sublayer: the CUDA experts serve "
                         f"float32 models only, not {x.dtype}")
@@ -332,7 +346,7 @@ def topk_expert_sublayer(x, base, ln_scale, router, bias, wi, wo, *, k: int,
     hid = torch.empty((a, dff), dtype=torch.float32, device=dev)
     ybuf = torch.empty((a, d), dtype=torch.float32, device=dev)
     wgt = torch.empty((a,), dtype=torch.float32, device=dev)
-    meta = torch.empty((1 + 3 * (a // 16 + n_exp + 1) + 2 * a,),
+    meta = torch.empty((1 + 3 * (a // 16 + held + 1) + 2 * a,),
                        dtype=torch.int32, device=dev)
     lib = _lib()
     build.check(lib, lib.gdr_moe_topk_sublayer(
@@ -341,7 +355,8 @@ def topk_expert_sublayer(x, base, ln_scale, router, bias, wi, wo, *, k: int,
         stats.data_ptr(), logits.data_ptr(), hbuf.data_ptr(), hid.data_ptr(),
         ybuf.data_ptr(), wgt.data_ptr(), meta.data_ptr(),
         None if route is None else route.data_ptr(), r, d, dff, n_exp, k,
-        scale, eps, _sms(dev), torch.cuda.current_stream(dev).cuda_stream),
+        held, offset, scale, eps, _sms(dev),
+        torch.cuda.current_stream(dev).cuda_stream),
         "topk_expert_sublayer")
     count("topk_expert_sublayer")
     return out

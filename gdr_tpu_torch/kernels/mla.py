@@ -18,7 +18,8 @@ projections of R = B·W rows (W beams a query):
 rotates q_pe and k_pe at position ``lens[b] + pos`` (``lens``: the query's
 tokens; RoPE with ``transformers``' de-interleaved rope dimensions:
 pair i = (x[2i], x[2i+1]) goes to (a·cos − b·sin, b·cos + a·sin) at
-columns i and i + rope/2), writes the row's key and value at ``pos`` of
+columns i and i + rope/2; with ``rotate`` False, NoPE MLA as Kimi
+Linear's, they are taken as they are), writes the row's key and value at ``pos`` of
 the caches in place, and returns softmax(scale·q·kᵀ + bias)·v [R, H·v]
 over the query's S prefix positions (``bias`` [B, S]: 0, or −1e9 at pads)
 and the row's positions ≤ ``pos``, under one softmax.
@@ -55,8 +56,8 @@ MAX_STEPS = 32          # a row's own cached steps (kMlaMaxL in the source)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
     # q, kva, kvb, pk, pv, bias, lens, ck, cv, inv_freq, out, batch, beams,
-    # heads, S, L, pos, rank, scale, stream
-    "gdr_mla_decode": [_P] * 11 + [_I] * 7 + [_F, _P],
+    # heads, S, L, pos, rank, scale, rotate, stream
+    "gdr_mla_decode": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
 }
 
 
@@ -78,7 +79,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor
 
 
 def mla_attention_plain(q, kva, kvb, pk, pv, bias, lens, ck, cv, pos: int,
-                        inv_freq, num_beams: int, *, scale: float):
+                        inv_freq, num_beams: int, *, scale: float,
+                        rotate: bool = True):
     r = q.shape[0]
     b, h, s, dk = pk.shape
     dv = pv.shape[-1]
@@ -87,10 +89,12 @@ def mla_attention_plain(q, kva, kvb, pk, pv, bias, lens, ck, cv, pos: int,
     rank = kva.shape[1] - rp
     positions = (lens.long() + pos).repeat_interleave(num_beams)   # [R]
     qh = q.view(r, h, dk)
-    q_pe = rope(qh[..., nope:], positions[:, None], inv_freq)
+    q_pe, k_pe = qh[..., nope:], kva[:, rank:]
+    if rotate:
+        q_pe = rope(q_pe, positions[:, None], inv_freq)
+        k_pe = rope(k_pe, positions, inv_freq)
     qf = torch.cat([qh[..., :nope], q_pe], dim=-1).float()
     kv = kvb.view(r, h, nope + dv)
-    k_pe = rope(kva[:, rank:], positions, inv_freq)
     ck[pos] = torch.cat([kv[..., :nope], k_pe[:, None].expand(r, h, rp)],
                         dim=-1).to(ck.dtype)
     cv[pos] = kv[..., nope:].to(cv.dtype)
@@ -110,7 +114,8 @@ def _lib():
 
 
 def mla_attention(q, kva, kvb, pk, pv, bias, lens, ck, cv, pos: int,
-                  inv_freq, num_beams: int, *, scale: float):
+                  inv_freq, num_beams: int, *, scale: float,
+                  rotate: bool = True):
     """One decode step's latent attention (see the module's docstring);
     ``ck`` / ``cv`` are written at ``pos`` in place.  Returns [R, H·v]."""
     r = q.shape[0]
@@ -132,7 +137,8 @@ def mla_attention(q, kva, kvb, pk, pv, bias, lens, ck, cv, pos: int,
                          f"{num_beams} beams, pos {pos} of {lmax}")
     if q.device.type == "cpu":
         return mla_attention_plain(q, kva, kvb, pk, pv, bias, lens, ck, cv,
-                                   pos, inv_freq, num_beams, scale=scale)
+                                   pos, inv_freq, num_beams, scale=scale,
+                                   rotate=rotate)
     if q.device.type != "cuda":
         raise ValueError(f"mla_attention: tensors on {q.device}, expected "
                          f"cpu or cuda")
@@ -158,7 +164,7 @@ def mla_attention(q, kva, kvb, pk, pv, bias, lens, ck, cv, pos: int,
         q.data_ptr(), kva.data_ptr(), kvb.data_ptr(), pk.data_ptr(),
         pv.data_ptr(), bias.data_ptr(), lens.data_ptr(), ck.data_ptr(),
         cv.data_ptr(), inv_freq.data_ptr(), out.data_ptr(), b, num_beams, h,
-        s, lmax, pos, rank, scale,
+        s, lmax, pos, rank, scale, int(rotate),
         torch.cuda.current_stream(q.device).cuda_stream), "mla_attention")
     count("mla_attention")
     return out

@@ -12,7 +12,13 @@ Each layer is pre-norm: x += MLA(RMSNorm(x)); x += FFN(RMSNorm(x)).
 - **FFN**: the first ``first_k_dense`` layers a SwiGLU W_o(silu(W_g h) ⊙
   W_u h) of width ``d_ff``; the others :class:`MoE`: the shared experts (one
   SwiGLU of width ``moe_d_ff · num_shared_experts``) plus the top-k routed
-  SwiGLU experts (``kernels/experts.py::topk_expert_sublayer``).
+  SwiGLU experts (``kernels/experts.py::topk_expert_sublayer``), of which
+  the model may hold a chip's share (``ModelConfig.experts_held``).
+
+A layer's attention module runs its own part of the prefill, the decode
+caches and a decode step (:meth:`MLAttention.prefill`, ``init_cache``,
+``decode``), so that a stack whose layers differ in kind
+(``models/kimi_linear.py``) shares the loop.
 
 GDR's glue.  The query's real tokens run through the stack causally at
 positions 0 … n−1 (:meth:`DeepseekStack.prefill`; pads are masked and
@@ -50,10 +56,11 @@ class MLAttention(nn.Module):
     """Latent attention's weights in ``nn.Linear`` layout [out, in]."""
 
     def __init__(self, d: int, heads: int, rank: int, nope: int, rp: int,
-                 vdim: int):
+                 vdim: int, rotate: bool = True):
         super().__init__()
         self.heads, self.rank, self.nope, self.rp, self.vdim = \
             heads, rank, nope, rp, vdim
+        self.rotate = rotate          # False: NoPE (q_pe, k_pe unrotated)
         self.q_proj = nn.Linear(d, heads * (nope + rp), bias=False)
         self.kv_a = nn.Linear(d, rank + rp, bias=False)
         self.kv_norm = RMSNorm(rank, KV_NORM_EPS)
@@ -73,6 +80,58 @@ class MLAttention(nn.Module):
         kvb = gemm(kva[:, :self.rank].contiguous(), self.kv_b.weight, "round",
                    scale=self.kv_norm.scale, eps=self.kv_norm.eps)
         return q, kva, kvb
+
+    def prefill(self, i: int, ln: RMSNorm, xs, geo: dict, inv_freq,
+                cache: dict):
+        """xs [B·S, d] + this layer's attention over the query, causal;
+        its keys and values to ``cache`` (``cross_mla_k_<i>`` [B, H, S,
+        nope+rope], ``cross_mla_v_<i>`` [B, H, S, v])."""
+        b, s, pos = geo["batch"], geo["seq"], geo["pos"]
+        h, nope, rp = self.heads, self.nope, self.rp
+        q, kva, kvb = self.project(xs, ln)
+        q = q.view(b, s, h, nope + rp)
+        k_pe = kva[:, self.rank:].view(b, s, rp)
+        if self.rotate:
+            q = torch.cat([q[..., :nope],
+                           rope(q[..., nope:], pos[None, :, None], inv_freq)],
+                          dim=-1)
+            k_pe = rope(k_pe, pos[None], inv_freq)
+        kv = kvb.view(b, s, h, nope + self.vdim)
+        k = torch.cat([kv[..., :nope],
+                       k_pe[:, :, None].expand(b, s, h, rp)], dim=-1)
+        k = k.transpose(1, 2).contiguous()                    # [B,H,S,dk]
+        v = kv[..., nope:].transpose(1, 2).contiguous()       # [B,H,S,v]
+        scores = (q.transpose(1, 2).float() @ k.float().transpose(-1, -2)
+                  ) * self.scale
+        scores = torch.where(geo["allow"], scores,
+                             torch.full_like(scores, NEG_INF))
+        ctx = (torch.softmax(scores, dim=-1) @ v.float()).to(xs.dtype)
+        ctx = ctx.transpose(1, 2).reshape(b * s, h * self.vdim).contiguous()
+        cache[f"cross_mla_k_{i}"] = k
+        cache[f"cross_mla_v_{i}"] = v
+        return gemm(ctx, self.o.weight, "residual", resid=xs)
+
+    def init_cache(self, i: int, cache: dict, max_len: int, rows: int):
+        """Each beam row's key and value buffers ``tm_mla_k_<i>`` [L,
+        rows, H, nope+rope] and ``tm_mla_v_<i>`` [L, rows, H, v] (zero)."""
+        k, v = cache[f"cross_mla_k_{i}"], cache[f"cross_mla_v_{i}"]
+        cache[f"tm_mla_k_{i}"] = k.new_zeros((max_len, rows, self.heads,
+                                              k.shape[-1]))
+        cache[f"tm_mla_v_{i}"] = v.new_zeros((max_len, rows, self.heads,
+                                              v.shape[-1]))
+
+    def decode(self, i: int, ln: RMSNorm, x, cache: dict, pos: int,
+               num_beams: int, inv_freq):
+        """x [B·W, d] + this layer's attention of the step at ``pos``
+        (``kernels/mla.py``), its key and value written in place."""
+        q, kva, kvb = self.project(x, ln)
+        ctx = mla_attention(
+            q, kva, kvb, cache[f"cross_mla_k_{i}"],
+            cache[f"cross_mla_v_{i}"], cache["cross_mla_bias"],
+            cache["cross_mla_len"], cache[f"tm_mla_k_{i}"],
+            cache[f"tm_mla_v_{i}"], pos, inv_freq, num_beams,
+            scale=self.scale, rotate=self.rotate)
+        return gemm(ctx, self.o.weight, "residual", resid=x)
 
 
 class SwiGLU(nn.Module):
@@ -98,20 +157,22 @@ def swiglu(x, ln: RMSNorm, wi, wo):
 
 class MoE(nn.Module):
     """Routed experts with shared experts: ``router`` [E, d], ``score_bias``
-    [E] (selection only), ``wi`` [E, 2·d_ff, d], ``wo`` [E, d, d_ff],
+    [E] (selection only), ``wi`` [held, 2·d_ff, d], ``wo`` [held, d, d_ff]
+    (experts ``offset`` … ``offset + held − 1``; all E by default),
     ``shared_wi`` [2·d_s, d], ``shared_wo`` [d, d_s].  ``record``: a list
     that each call appends its chosen experts [R, k] int32 and router
     logits [R, E] f32 to (None: nothing recorded), for a comparison that
     follows the program's routing."""
 
     def __init__(self, d: int, dff: int, n_exp: int, k: int, n_shared: int,
-                 scale: float):
+                 scale: float, held: int = 0, offset: int = 0):
         super().__init__()
-        self.k, self.route_scale = k, scale
+        self.k, self.route_scale, self.offset = k, scale, offset
+        held = held or n_exp
         self.router = nn.Parameter(torch.zeros(n_exp, d))
         self.score_bias = nn.Parameter(torch.zeros(n_exp))
-        self.wi = nn.Parameter(torch.zeros(n_exp, 2 * dff, d))
-        self.wo = nn.Parameter(torch.zeros(n_exp, d, dff))
+        self.wi = nn.Parameter(torch.zeros(held, 2 * dff, d))
+        self.wo = nn.Parameter(torch.zeros(held, d, dff))
         self.shared_wi = nn.Parameter(torch.zeros(2 * dff * n_shared, d))
         self.shared_wo = nn.Parameter(torch.zeros(d, dff * n_shared))
         self.record: list | None = None
@@ -134,21 +195,24 @@ class MoE(nn.Module):
             return topk_expert_sublayer(
                 x, base, ln.scale, self.router, self.score_bias, self.wi,
                 self.wo, k=self.k, scale=self.route_scale, eps=ln.eps,
-                route=route, logits=logits)
+                route=route, logits=logits, offset=self.offset)
 
 
 class Block(nn.Module):
-    def __init__(self, c, dense: bool):
+    """A pre-norm layer: ``attn`` (latent attention unless given) and a
+    dense or routed FFN."""
+
+    def __init__(self, c, dense: bool, attn: nn.Module | None = None):
         super().__init__()
         self.ln1 = RMSNorm(c.d_model, c.layer_norm_epsilon)
-        self.attn = MLAttention(c.d_model, c.num_heads, c.kv_lora_rank,
-                                c.qk_nope_head_dim, c.qk_rope_head_dim,
-                                c.v_head_dim)
+        self.attn = attn if attn is not None else MLAttention(
+            c.d_model, c.num_heads, c.kv_lora_rank, c.qk_nope_head_dim,
+            c.qk_rope_head_dim, c.v_head_dim, not c.mla_use_nope)
         self.ln2 = RMSNorm(c.d_model, c.layer_norm_epsilon)
         self.ff = (SwiGLU(c.d_model, c.d_ff) if dense else
                    MoE(c.d_model, c.moe_d_ff, c.num_experts,
                        c.num_experts_per_tok, c.num_shared_experts,
-                       c.routed_scaling_factor))
+                       c.routed_scaling_factor, c.n_held, c.expert_offset))
 
 
 class DeepseekStack(nn.Module):
@@ -157,18 +221,23 @@ class DeepseekStack(nn.Module):
 
     def __init__(self, c):
         super().__init__()
-        self.blocks = nn.ModuleList([Block(c, i < c.first_k_dense)
-                                     for i in range(c.num_layers)])
+        self.blocks = nn.ModuleList([
+            Block(c, i < c.first_k_dense, self.attention(c, i))
+            for i in range(c.num_layers)])
         self.final_norm = RMSNorm(c.d_model, c.layer_norm_epsilon)
         self.register_buffer("inv_freq", rope_inv_freq(c.qk_rope_head_dim,
                                                        c.rope_theta),
                              persistent=False)
 
+    @staticmethod
+    def attention(c, i: int) -> nn.Module | None:
+        """Layer ``i``'s attention module; None: :class:`MLAttention`."""
+        return None
+
     def prefill(self, x: torch.Tensor, mask: torch.Tensor):
         """x: the query's embedded tokens [B, S, d]; mask [B, S] (1 = token,
         pads after the tokens).  Returns (final-normed states [B, S, d],
-        the prefix caches: per layer ``cross_mla_k_<i>`` [B, H, S,
-        nope+rope] and ``cross_mla_v_<i>`` [B, H, S, v], and
+        the prefix caches: each layer's (:meth:`MLAttention.prefill`), and
         ``cross_mla_bias`` [B, S] f32 (−1e9 at pads), ``cross_mla_len``
         [B] int32)."""
         b, s, d = x.shape
@@ -177,51 +246,23 @@ class DeepseekStack(nn.Module):
         bias = torch.where(keep, 0.0, NEG_INF).to(torch.float32)
         pos = torch.arange(s, device=x.device)
         causal = pos[None, :] <= pos[:, None]                     # [S, S]
-        allow = causal[None, None] & keep[:, None, None, :]
+        geo = dict(batch=b, seq=s, pos=pos, lens=lens,
+                   allow=causal[None, None] & keep[:, None, None, :])
         cache = {"cross_mla_bias": bias, "cross_mla_len": lens}
         xs = x.reshape(b * s, d)
         for i, blk in enumerate(self.blocks):
-            a = blk.attn
-            h, nope, rp = a.heads, a.nope, a.rp
-            q, kva, kvb = a.project(xs, blk.ln1)
-            q = q.view(b, s, h, nope + rp)
-            q = torch.cat([q[..., :nope],
-                           rope(q[..., nope:], pos[None, :, None],
-                                self.inv_freq)], dim=-1)
-            kv = kvb.view(b, s, h, nope + a.vdim)
-            k_pe = rope(kva[:, a.rank:].view(b, s, rp), pos[None],
-                        self.inv_freq)
-            k = torch.cat([kv[..., :nope],
-                           k_pe[:, :, None].expand(b, s, h, rp)], dim=-1)
-            k = k.transpose(1, 2).contiguous()                    # [B,H,S,dk]
-            v = kv[..., nope:].transpose(1, 2).contiguous()       # [B,H,S,v]
-            scores = (q.transpose(1, 2).float() @ k.float().transpose(-1, -2)
-                      ) * a.scale
-            scores = torch.where(allow, scores, torch.full_like(scores,
-                                                                NEG_INF))
-            ctx = (torch.softmax(scores, dim=-1) @ v.float()).to(x.dtype)
-            ctx = ctx.transpose(1, 2).reshape(b * s, h * a.vdim).contiguous()
-            xs = gemm(ctx, a.o.weight, "residual", resid=xs)
+            xs = blk.attn.prefill(i, blk.ln1, xs, geo, self.inv_freq, cache)
             xs = blk.ff.residual(xs, blk.ln2)
-            cache[f"cross_mla_k_{i}"] = k
-            cache[f"cross_mla_v_{i}"] = v
         return self.final_norm(xs).view(b, s, d), cache
 
     def init_cache(self, prefix: dict, max_len: int, num_beams: int
                    ) -> dict[str, torch.Tensor]:
-        """The prefix caches and, per layer, each beam row's key and value
-        buffers ``tm_mla_k_<i>`` [L, rows, H, nope+rope] and
-        ``tm_mla_v_<i>`` [L, rows, H, v] (zero)."""
+        """The prefix caches and each layer's beam-row caches
+        (:meth:`MLAttention.init_cache`)."""
         cache = dict(prefix)
-        b = prefix["cross_mla_len"].shape[0]
+        rows = prefix["cross_mla_len"].shape[0] * num_beams
         for i, blk in enumerate(self.blocks):
-            k = prefix[f"cross_mla_k_{i}"]
-            v = prefix[f"cross_mla_v_{i}"]
-            h = blk.attn.heads
-            cache[f"tm_mla_k_{i}"] = k.new_zeros(
-                (max_len, b * num_beams, h, k.shape[-1]))
-            cache[f"tm_mla_v_{i}"] = v.new_zeros(
-                (max_len, b * num_beams, h, v.shape[-1]))
+            blk.attn.init_cache(i, cache, max_len, rows)
         return cache
 
     def decode_step(self, x: torch.Tensor, cache: dict, pos: int,
@@ -231,14 +272,7 @@ class DeepseekStack(nn.Module):
         cache with this step's keys and values written in place)."""
         cache = dict(cache)
         for i, blk in enumerate(self.blocks):
-            a = blk.attn
-            q, kva, kvb = a.project(x, blk.ln1)
-            ctx = mla_attention(
-                q, kva, kvb, cache[f"cross_mla_k_{i}"],
-                cache[f"cross_mla_v_{i}"], cache["cross_mla_bias"],
-                cache["cross_mla_len"], cache[f"tm_mla_k_{i}"],
-                cache[f"tm_mla_v_{i}"], pos, self.inv_freq, num_beams,
-                scale=a.scale)
-            x = gemm(ctx, a.o.weight, "residual", resid=x)
+            x = blk.attn.decode(i, blk.ln1, x, cache, pos, num_beams,
+                                self.inv_freq)
             x = blk.ff.residual(x, blk.ln2)
         return self.final_norm(x), cache

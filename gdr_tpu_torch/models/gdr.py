@@ -1,7 +1,8 @@
 """The GDR generative retriever in PyTorch: T5 + positional decode head +
 PAWA, mirroring the serving parts of ``gdr_tpu/models/gdr.py``.  With
-``ModelConfig.backbone`` "deepseek_v3" the T5 encoder-decoder is replaced
-by a decoder-only stack (``models/deepseek.py``): ``prefill`` runs the
+``ModelConfig.backbone`` "deepseek_v3" or "kimi_linear" the T5
+encoder-decoder is replaced by a decoder-only stack (``models/deepseek.py``,
+``models/kimi_linear.py``): ``prefill`` runs the
 query through it, the CID steps continue the same sequence, and the heads
 and the search are the same; it serves only (the teacher-forced paths and
 training are T5's).
@@ -50,6 +51,7 @@ from torch import nn
 
 from gdr_tpu_torch.config import ModelConfig
 from gdr_tpu_torch.models.deepseek import DeepseekStack
+from gdr_tpu_torch.models.kimi_linear import KimiLinearStack
 from gdr_tpu_torch.models.pawa import FullPawaAdaptor, PawaAdaptor
 from gdr_tpu_torch.models.t5 import Decoder, Encoder, _dense
 from gdr_tpu_torch.parallel.autograd import (copy_to_mp, embedding,
@@ -78,7 +80,8 @@ class GenerativeRetriever(nn.Module):
         experts = lambda step: ((c.num_experts, c.expert_capacity, step)
                                 if c.num_experts else None)
         if c.decoder_only:
-            self.stack = DeepseekStack(c)
+            self.stack = (KimiLinearStack if c.backbone == "kimi_linear"
+                          else DeepseekStack)(c)
         else:
             self.encoder = Encoder(
                 c.num_layers, c.d_model, c.num_heads, c.d_kv, c.d_ff,
@@ -414,7 +417,8 @@ def init_weights(model: GenerativeRetriever, generator: torch.Generator
     projections, the experts, rel-bias tables, U, U2 and an untied head
     N(0, 0.02); the query projection, the denoising discriminator and the
     fusion layer N(0, 1/fan_in) (lecun-normal); norm scales 1 and biases
-    0.  The draws come from ``generator`` on its own device; they are not
+    0; a KDA layer's convolution taps N(0, 0.25), A_log and dt_bias N(0,
+    1).  The draws come from ``generator`` on its own device; they are not
     the reference package's draws (use ``convert.py`` for those)."""
     d = model.cfg.d_model
     for name, p in model.named_parameters():
@@ -433,6 +437,10 @@ def init_weights(model: GenerativeRetriever, generator: torch.Generator
             std = d ** -0.5
         elif name == "fusion.weight":
             std = p.shape[1] ** -0.5
+        elif leaf == "conv":
+            std = 0.5
+        elif leaf in ("A_log", "dt_bias"):
+            std = 1.0
         else:
             std = 0.02
         r = torch.randn(p.shape, generator=generator, device=generator.device)

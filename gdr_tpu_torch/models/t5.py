@@ -186,11 +186,13 @@ def relative_position_bucket(relative_position: torch.Tensor,
 @functools.lru_cache(maxsize=256)
 def _buckets(qlen: int, klen: int, q_offset: int, bidirectional: bool,
              num_buckets: int, max_distance: int) -> torch.Tensor:
-    """Bucket ids [qlen, klen], computed once on the host."""
-    context = torch.arange(qlen)[:, None] + q_offset
-    memory = torch.arange(klen)[None, :]
-    return relative_position_bucket(memory - context, bidirectional,
-                                    num_buckets, max_distance).long()
+    """Bucket ids [qlen, klen], computed once on the host (whatever the
+    default device of the caller)."""
+    with torch.device("cpu"):
+        context = torch.arange(qlen)[:, None] + q_offset
+        memory = torch.arange(klen)[None, :]
+        return relative_position_bucket(memory - context, bidirectional,
+                                        num_buckets, max_distance).long()
 
 
 class RelativePositionBias(nn.Module):

@@ -85,15 +85,20 @@ def _pool_hidden(acc, cur_tok: torch.Tensor, pos: int, hidden: torch.Tensor):
 
 def _reorder_cache(cache: dict, src: torch.Tensor) -> dict:
     """Gather cache rows by source beam: ``cross_*`` entries are per query
-    and stay; ``tm_*`` entries are time-major [L, rows, ...] (axis 1)."""
+    and stay; ``tm_*`` entries are time-major [L, rows, ...] (axis 1);
+    ``rec_*`` entries are recurrent states that the model's next step reads
+    at each row's source itself, so they stay and ``src`` goes to the
+    cache as ``rec_src``."""
     out = {}
     for name, x in cache.items():
-        if name.startswith("cross_"):
+        if name.startswith(("cross_", "rec_")):
             out[name] = x
         elif name.startswith("tm_"):
             out[name] = x[:, src]
         else:
             out[name] = x[src]
+    if any(name.startswith("rec_") for name in cache):
+        out["rec_src"] = src.to(torch.int32)
     return out
 
 

@@ -16,6 +16,10 @@ and its host syncs are the eager search's.
   captured in order, so the state one piece leaves is the next piece's
   input at a fixed address; the state at each check is kept for an exit
   there.  Only the query ids and mask are copied in, once a retrieve.
+  A recurrent state (Kimi Linear's KDA layers, the cache's ``rec_``
+  entries) lives in two buffers a layer that the widening steps make in
+  the pool and later steps write in place, alternating, so every piece
+  finds it at a fixed address.
   Python's cyclic garbage collector is off while a chain captures: a
   collection there could free the graphs of a chain its caller dropped,
   and CUDA refuses to destroy a graph while a stream captures, which

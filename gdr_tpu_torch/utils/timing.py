@@ -9,9 +9,11 @@ no-op context, at the cost of one check.  The serving path's spans are
 ``gdr.retrieve`` and, inside it, ``gdr.encode``, ``gdr.decode.init``,
 ``gdr.decode.step`` (holding ``gdr.decode.forward`` and
 ``gdr.beam.select``), ``gdr.decode.sync``, ``gdr.decode.finalize``,
-``gdr.query`` and ``gdr.rerank``, and ``gdr.moe`` (args: rows and the
+``gdr.query`` and ``gdr.rerank``, ``gdr.moe`` (args: rows and the
 experts a row, k) around each routed-expert layer (``models/t5.py``,
-``models/deepseek.py``); ``gdr.encode``'s args give the prefill's rows;
+``models/deepseek.py``), and ``gdr.kda`` (args: rows, and the step's
+position or ``prefill``) around each KDA layer's kernel call
+(``models/kimi_linear.py``); ``gdr.encode``'s args give the prefill's rows;
 ``PhaseTimer`` phases open ``gdr.eval.<phase>``.  Where the decode replays CUDA graphs
 (``ops/decode_graphs.py``), each replayed piece is a ``gdr.decode.replay``
 range (args: the piece's first position) in place of the ranges its
@@ -21,7 +23,9 @@ The counter registry holds every host counter by name: the kernel
 wrappers' launches (each kernel module declares its own, :func:`declare`),
 ``host_syncs`` (the retrieve path's reads of a device value), the decode's
 CUDA graph pieces captured and replayed (``graph_captures``,
-``graph_replays``) and its eager CUDA decodes (``eager_decodes``).  Every
+``graph_replays``), its eager CUDA decodes (``eager_decodes``) and the
+beam rows whose KDA state a decode call read and wrote
+(``kda_state_rows``, ``kernels/kda.py``).  Every
 increment goes through :func:`count` and :func:`counts` reads them all; a
 graph capture puts back (:func:`restore`) what it read before.  The routed
 experts' routing counters live on the device (``kernels/experts.py``).

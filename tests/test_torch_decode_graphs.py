@@ -33,7 +33,7 @@ import pytest
 import torch
 
 from gdr_tpu_torch import kernels
-from gdr_tpu_torch.kernels import experts
+from gdr_tpu_torch.kernels import experts, kda
 from gdr_tpu_torch.config import EvalConfig, ModelConfig
 from gdr_tpu_torch.eval.evaluator import Evaluator
 from gdr_tpu_torch.models.gdr import GenerativeRetriever, init_weights
@@ -352,7 +352,8 @@ def test_a_cpu_retrieve_engages_no_graph():
 
 WRAPPERS = {"self_attn_sublayer", "cross_attn_sublayer", "ffn_sublayer",
             "packed_scores", "packed_scores_int8", "rerank_scores",
-            "expert_sublayer", "topk_expert_sublayer", "mla_attention"}
+            "expert_sublayer", "topk_expert_sublayer", "mla_attention",
+            "kda_prefill", "kda_decode"}
 
 
 def _counting_decode(ids, mask):
@@ -371,11 +372,12 @@ def test_the_counter_registry(monkeypatch, case):
     if case == "views":
         # the default view holds exactly the wrappers (the serve drivers'
         # set-up compares that dict exactly); experts=True adds the device
-        # routing counters; timing.counts() every host counter
+        # counters (routing, KDA's); timing.counts() every host counter
         assert set(kernels.launch_counts()) == WRAPPERS
         assert set(kernels.launch_counts(experts=True)) \
-            == WRAPPERS | set(experts.STATS)
-        assert set(_counts()) == WRAPPERS | GRAPH_KEYS | {"host_syncs"}
+            == WRAPPERS | set(experts.STATS) | set(kda.STATS)
+        assert set(_counts()) == WRAPPERS | GRAPH_KEYS | {"host_syncs",
+                                                          "kda_state_rows"}
         assert not any(_counts().values())
         timing.count("ffn_sublayer", 2)
         timing.count("graph_replays")
@@ -388,6 +390,7 @@ def test_the_counter_registry(monkeypatch, case):
     for name in WRAPPERS | GRAPH_KEYS | {"host_syncs"}:
         timing.count(name, 3)
     experts.stats_tensor(torch.device("cpu")).add_(1)
+    kda.stats_tensor(torch.device("cpu")).add_(1)
     kernels.reset_launch_counts()
     assert not any(_counts().values())
     assert not any(kernels.launch_counts(experts=True).values())

@@ -206,7 +206,7 @@ def test_routing_counters_of_a_hand_set_routing():
                                   capacity=2, seq_len=6, counts=counts)
     assert _stats() == dict(moe_calls=1, moe_rows=6, moe_experts_hit=3,
                             moe_max_load=2, moe_dropped=2, moe_assignments=6,
-                            moe_chunks=0)
+                            moe_chunks=0, moe_held=6)
     assert counts.tolist() == [[4, 1, 1, 0]]
     assert torch.equal(out[[2, 5]], x[[2, 5]])          # dropped: x alone
     assert not torch.equal(out[[0, 1, 3, 4]], x[[0, 1, 3, 4]])

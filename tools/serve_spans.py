@@ -3,9 +3,10 @@
 program's spans (``gdrbench/spans.py``): device time, host time and idle
 gaps by ``gdr.`` span, the host syncs, CUDA graph pieces replayed and
 captured and eager decodes (the counter registry) and the launches by
-kernel name in the trace per retrieve of the f32 GEMM, the routed experts
-and the MLA decode (and their device time; the top-k experts' mean rows a
-work chunk beside them), the share of the device time
+kernel name in the trace per retrieve of the f32 GEMM, the routed experts,
+the MLA decode and the KDA kernels (and their device time; the top-k
+experts' mean rows a work chunk and the share of assignments that fell
+to held experts beside them, and the KDA state rows a retrieve), the share of the device time
 inside ``gdr.retrieve`` that encode, decoder forward, beam selection and
 re-rank cover, or where the decode replays CUDA graphs the device and
 host time of ``gdr.decode.replay`` (the stage spans inside the graphs are
@@ -51,6 +52,7 @@ EXPERTS = ("gdr::moe_router", "gdr::moe_group", "gdr::moe_up",
            "gdr::moe_down", "gdr::moe_topk_group", "gdr::moe_swiglu_up",
            "gdr::moe_topk_down", "gdr::moe_combine")
 MLA = ("gdr::mla_decode",)
+KDA = ("gdr::kda_prefill", "gdr::kda_decode")
 STAGES = {"encode_device_ms": "gdr.encode",
           "decoder_device_ms": "gdr.decode.forward",
           "beam_device_ms": "gdr.beam.select",
@@ -145,11 +147,24 @@ def _traced(record: dict, repeats: int, device):
 
 def rows_a_chunk(result: dict):
     """The top-k experts' mean rows a work chunk over the traced stretch,
-    ``moe_assignments / moe_chunks`` of the result's ``info.routing_traced``
-    (of at most 16; None where the cell runs no top-k layer)."""
+    ``moe_held / moe_chunks`` of the result's ``info.routing_traced`` (only
+    the held experts' assignments are chunked; ``moe_assignments`` where the
+    checkout counts no ``moe_held``, which holds every expert; of at most
+    16; None where the cell runs no top-k layer)."""
     routing = result.get("info", {}).get("routing_traced", {})
     chunks = routing.get("moe_chunks")
-    return routing["moe_assignments"] / chunks if chunks else None
+    rows = routing.get("moe_held", routing.get("moe_assignments"))
+    return rows / chunks if chunks else None
+
+
+def held_share(result: dict):
+    """The share of the traced stretch's top-k assignments that fell to
+    the experts this card holds (None where the cell routes none, or the
+    checkout counts no ``moe_held``)."""
+    routing = result.get("info", {}).get("routing_traced", {})
+    if not routing.get("moe_assignments") or "moe_held" not in routing:
+        return None
+    return routing["moe_held"] / routing["moe_assignments"]
 
 
 def main(argv=None) -> int:
@@ -196,7 +211,7 @@ def main(argv=None) -> int:
                             "eager_decodes")},
                **{f"{n[5:]}_per_retrieve": sum(
                    trace.short_name(o) == n for o, _, _ in tr.ops) / k
-                  for n in GEMM_F32 + EXPERTS + MLA})
+                  for n in GEMM_F32 + EXPERTS + MLA + KDA})
     out = {
         "workload": args.workload, "seed": args.seed,
         "device": result["device"], "correct": result["correct"],
@@ -212,6 +227,11 @@ def main(argv=None) -> int:
         "experts_ms": 1e3 * tr.device_time(lambda n: "gdr::moe_" in n) / k,
         "expert_rows_a_chunk": rows_a_chunk(result),
         "mla_ms": 1e3 * tr.device_time(lambda n: "gdr::mla_decode" in n) / k,
+        "kda_ms": 1e3 * tr.device_time(lambda n: "gdr::kda_" in n) / k,
+        "kda_per_retrieve": sum(trace.short_name(o) in KDA
+                                for o, _, _ in tr.ops) / k,
+        "kda_state_rows_per_retrieve": counts.get("kda_state_rows", 0) / k,
+        "expert_held_share": held_share(result),
         "launches": {n: c / k for n, c in record["counts"].items() if c},
         "window_s": tr.window_s, "busy_s": tr.busy_s,
         "kernels_per_retrieve": tr.kernels / k,
